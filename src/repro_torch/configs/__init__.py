@@ -1,0 +1,69 @@
+"""Architecture registry of the port: the reference's ``get_config`` and
+``smoke_config`` over the configs the port serves and tests."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs import llama4_scout_17b_16e, switch_base, tinyllama_1_1b
+from repro_torch.configs.base import (
+    CompressionConfig,
+    LayerSpec,
+    ModelConfig,
+    MoEConfig,
+)
+
+ARCHS: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (tinyllama_1_1b, llama4_scout_17b_16e, switch_base)
+}
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    cfg = ARCHS[name]
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Shrink a config to a CPU-runnable size, keeping its structure (layer
+    pattern, MoE grouping); the reference's ``smoke_config``."""
+    kw = dict(
+        num_layers=len(cfg.layer_pattern),
+        d_model=128,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=32,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=512,
+        attn_chunk_q=64,
+        attn_chunk_kv=64,
+        sliding_window=96 if cfg.sliding_window else None,
+    )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe,
+            num_experts=8,
+            num_groups=min(cfg.moe.num_groups, 4),
+            top_k=min(cfg.moe.top_k, 2),
+            d_ff_expert=128,
+            capacity_factor=2.0,
+        )
+    if cfg.compression is not None and cfg.compression.rank > 0:
+        kw["compression"] = dataclasses.replace(
+            cfg.compression, rank=min(cfg.compression.rank, 128 // 2)
+        )
+    return cfg.replace(**kw)
+
+
+__all__ = [
+    "ARCHS",
+    "CompressionConfig",
+    "LayerSpec",
+    "ModelConfig",
+    "MoEConfig",
+    "get_config",
+    "smoke_config",
+]

@@ -1,0 +1,149 @@
+"""Configuration dataclasses of the PyTorch port.
+
+A copy of the reference package's ``repro/configs/base.py``, cut to what the
+port runs: a model is ``block_repeat`` copies of ``layer_pattern`` (a tuple
+of :class:`LayerSpec`), and the port's transformer loops over the stacked
+block parameters.  Field names and defaults are the reference's, so a
+config built here compares equal field by field with its reference twin
+(``tests/test_torch_configs.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-Experts + HL-GGN (group gate, eq. 5-7) configuration.
+
+    ``num_groups`` is K: experts split into K groups, each with its own
+    softmax gate, and a K-way global gate over groups."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_groups: int = 1
+    # 0 = soft (eq. 7 product, top-k over all experts); g > 0 = only experts
+    # in the top-g groups are eligible
+    group_top_k: int = 0
+    shared_experts: int = 0  # always-on experts (llama4-style)
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 1.0
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    local_selection_cap: float = 0.4
+
+    def __post_init__(self):
+        if self.num_experts % self.num_groups != 0:
+            raise ValueError(
+                f"num_experts={self.num_experts} not divisible by "
+                f"num_groups={self.num_groups}"
+            )
+
+    @property
+    def experts_per_group(self) -> int:
+        return self.num_experts // self.num_groups
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One layer of the repeating block pattern."""
+
+    kind: str = "attn"  # "attn" | "ssm"
+    moe: bool = False
+    cross_attn: bool = False
+
+
+@dataclass(frozen=True)
+class CompressionConfig:
+    """PO-ECC low-rank compression (eq. 8) of cross-boundary traffic."""
+
+    rank: int = 0  # 0 = disabled
+    boundaries: Tuple[str, ...] = ("pipeline",)
+    recon_weight: float = 1.0
+    task_weight: float = 1.0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    layer_pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[Any] = None  # the SSM layers are not ported yet
+    compression: Optional[CompressionConfig] = None
+
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, ...]] = None
+
+    encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq_len: int = 0
+    vision_patches: int = 0
+
+    norm_eps: float = 1e-6
+    act: str = "silu"  # silu | gelu | relu
+    ffn_gated: bool = True
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+
+    dtype: str = "bfloat16"  # activation dtype
+    param_dtype: str = "float32"
+
+    attn_chunk_q: int = 512
+    attn_chunk_kv: int = 512
+    moe_impl: str = "auto"  # the port runs "sorted" (auto) and "naive"
+
+    optimizer: str = "adamw"
+    grad_accum: int = 1
+    seq_parallel: bool = False
+    mesh_policy: str = "tp"
+    serve_mesh_policy: str = "tp"
+
+    def __post_init__(self):
+        if self.num_layers % len(self.layer_pattern) != 0:
+            raise ValueError(
+                f"{self.name}: num_layers={self.num_layers} not a multiple of "
+                f"pattern length {len(self.layer_pattern)}"
+            )
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
+        if any(s.moe for s in self.layer_pattern) and self.moe is None:
+            raise ValueError(f"{self.name}: pattern has MoE layers but moe=None")
+
+    @property
+    def padded_vocab_size(self) -> int:
+        """Vocab rounded up to a multiple of 512; the tail columns are masked
+        to -1e30 in ``lm_logits``."""
+        pad = 512
+        return -(-self.vocab_size // pad) * pad
+
+    @property
+    def block_repeat(self) -> int:
+        return self.num_layers // len(self.layer_pattern)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def torch_param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,126 @@
+"""Group-gated Mixture-of-Experts layer, single shard (port of the
+reference's ``core/moe.py``: the ``sorted`` and ``naive`` paths of
+``apply_moe``).
+
+``sorted`` sorts the token-to-expert assignments by expert, runs the expert
+FFN as one grouped product over the sorted rows (``kernels.expert_mlp``,
+the CUDA kernel on the card), and scatters the rows back; ``naive`` runs
+every expert on every token and is the oracle.  Both share the HL-GGN gate.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import gating
+from repro_torch.kernels.expert_mlp import grouped_mlp
+from repro_torch.models.layers import ACTIVATIONS, apply_mlp, init_mlp, truncated_normal_init
+
+
+def init_moe(generator: torch.Generator, cfg, lead: Tuple[int, ...] = ()) -> Dict:
+    m = cfg.moe
+    dtype = cfg.torch_param_dtype
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    p = {
+        "gate": gating.init_group_gate(generator, d, m, lead),
+        "wi": truncated_normal_init(generator, (E, d, f), dtype, 1.0, lead),
+        "wo": truncated_normal_init(generator, (E, f, d), dtype, 1.0, lead),
+    }
+    if cfg.ffn_gated:
+        p["wg"] = truncated_normal_init(generator, (E, d, f), dtype, 1.0, lead)
+    if m.shared_experts:
+        p["shared"] = init_mlp(generator, d, m.shared_experts * f, dtype,
+                               gated=cfg.ffn_gated, lead=lead)
+    return p
+
+
+def _grouped_mlp(xs: torch.Tensor, group_sizes: torch.Tensor, wi: torch.Tensor,
+                 wg: Optional[torch.Tensor], wo: torch.Tensor, act: str) -> torch.Tensor:
+    """Expert FFN over rows sorted by expert (the reference's
+    ``ragged_dot`` trio), weights cast to the rows' type."""
+    dt = xs.dtype
+    return grouped_mlp(
+        xs, group_sizes, wi.to(dt), None if wg is None else wg.to(dt), wo.to(dt), act
+    )
+
+
+def _sorted_expert_ffn(x_rows: torch.Tensor, eid: torch.Tensor, num_experts: int,
+                       params: Dict, act: str) -> torch.Tensor:
+    """Sort rows by expert, grouped FFN, unsort.  Returns [n, d].  Group
+    sizes are counted on the device, so no host sync is needed."""
+    order = torch.argsort(eid, stable=True)
+    gs = torch.zeros(num_experts, dtype=torch.int32, device=eid.device).scatter_add_(
+        0, eid, torch.ones_like(eid, dtype=torch.int32)
+    )
+    y_sorted = _grouped_mlp(
+        x_rows[order], gs, params["wi"], params.get("wg"), params["wo"], act
+    )
+    return torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
+
+
+def moe_naive(params: Dict, x: torch.Tensor, cfg, expert_mask=None, *, aux: bool = True):
+    """Oracle: every expert evaluates every token; combine by gate weight."""
+    m = cfg.moe
+    T = x.shape[0]
+    out = gating.gate(params["gate"], x, m, expert_mask, aux=aux)
+    cw = torch.zeros((T, m.num_experts), dtype=torch.float32, device=x.device)
+    cw.scatter_(1, out.topk_idx, out.topk_weight.float())
+    a = ACTIVATIONS[cfg.act]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(m.num_experts):
+        h = x @ params["wi"][e].to(x.dtype)
+        if "wg" in params:
+            h = a(h) * (x @ params["wg"][e].to(x.dtype))
+        else:
+            h = a(h)
+        y = y + cw[:, e : e + 1] * (h @ params["wo"][e].to(x.dtype)).float()
+    return y.to(x.dtype), out.aux
+
+
+def moe_sorted(params: Dict, x: torch.Tensor, cfg, expert_mask=None, *, aux: bool = True):
+    """Single-shard dropless path: gate, sort by expert, grouped FFN, and
+    combine by gate weight."""
+    if "codec" in params:
+        raise NotImplementedError(
+            "the eq. 8 dispatch codec (params['codec']) is not ported yet"
+        )
+    m = cfg.moe
+    T, d = x.shape
+    k = m.top_k
+    out = gating.gate(params["gate"], x, m, expert_mask, aux=aux)
+    rows = x if k == 1 else x.repeat_interleave(k, dim=0)
+    y_rows = _sorted_expert_ffn(rows, out.topk_idx.reshape(-1), m.num_experts, params, cfg.act)
+    w = out.topk_weight.reshape(-1, 1).to(y_rows.dtype)
+    if k == 1:
+        y = y_rows * w
+    else:
+        tok = torch.arange(T * k, device=x.device) // k
+        y = torch.zeros((T, d), dtype=y_rows.dtype, device=x.device).index_add_(
+            0, tok, y_rows * w
+        )
+    return y.to(x.dtype), out.aux
+
+
+def apply_moe(params: Dict, x: torch.Tensor, cfg, *, expert_mask=None,
+              train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MoE FFN over ``x [B, S, d]`` (or ``[T, d]``), single shard.
+
+    ``train=False`` (serving) skips the router losses and statistics: the
+    reference computes them and lets XLA drop them when the serving step
+    discards them, but eager PyTorch would run every one of those ops."""
+    impl = "sorted" if cfg.moe_impl == "auto" else cfg.moe_impl
+    if "resident" in params:
+        raise NotImplementedError("the pooled end-tier expert path is not ported yet")
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if impl == "sorted":
+        y, aux = moe_sorted(params, x2, cfg, expert_mask, aux=train)
+    elif impl == "naive":
+        y, aux = moe_naive(params, x2, cfg, expert_mask, aux=train)
+    else:
+        raise NotImplementedError(f"moe impl {impl!r} is not ported (single shard only)")
+    if cfg.moe.shared_experts and "shared" in params:
+        y = y + apply_mlp(params["shared"], x2, cfg.act)
+    return y.reshape(shape), aux

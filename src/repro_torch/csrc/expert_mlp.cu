@@ -1,0 +1,248 @@
+// Grouped expert FFN for Hopper (sm_90a).
+//
+// Replaces repro/kernels/expert_mlp/kernel.py::expert_mlp_pallas (_body,
+// _kernel, _kernel_nogate) in the role the port gives it: the grouped GEMM
+// of core/moe.py::_grouped_mlp over rows sorted by expert,
+//     y[rows of e] = act(xs @ wi[e]) [* (xs @ wg[e])] @ wo[e],
+// with group_sizes [E] giving each expert's run of rows (empty runs allowed;
+// rows past sum(group_sizes) come back 0, as ragged_dot leaves them).
+//
+// What bounds it on the H100: bytes, at serving shapes.  Top-1 decode over
+// 8 slots puts about one row on each expert, so the work is a matrix-vector
+// product per expert: every weight element (2 bytes in bf16) is read for
+// ~2 flops a row, far under the ~295 flops a byte where the tensor cores
+// would bind.  The kernel's job is therefore to read each routed expert's
+// weights once, with coalesced loads spread over many SMs, and never to
+// read an unrouted expert's weights at all.
+//
+// Design: one block per (hidden tile of 64 columns, expert, tile of 8
+// rows).  A block loads its rows of xs (f32 in shared memory), computes the
+// hidden tile h = act(x @ wi[:, tile]) [* (x @ wg[:, tile])] in f32 -- 256
+// threads, four k-slices of 64 coalesced columns -- keeps h in shared
+// memory, and multiplies it by the matching 64 rows of wo.  The hidden
+// activation never reaches HBM, which is what expert_mlp_pallas keeps out of
+// it too.  On the TPU the ff tiles were a sequential grid axis accumulating
+// into one VMEM block; here they run in parallel on different SMs, so each
+// writes its partial y into a small f32 scratch [n_tiles, n, d] and a second
+// pass sums the partials in a fixed order (deterministic, no atomics) and
+// rounds once to the output type.  Blocks whose expert has no rows in their
+// row tile exit at once, so unrouted experts cost nothing.
+//
+// Later: wgmma tiles with TMA-fed shared memory for prefill-sized groups,
+// and 16-byte vector loads of the weight rows.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRows = 8;     // rows of xs per block
+constexpr int kTile = 64;    // hidden columns per block
+constexpr int kSlices = 4;   // k-slices of the first product
+constexpr int kThreads = kTile * kSlices;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// 0 = silu, 1 = gelu (tanh form, as jax.nn.gelu), 2 = relu
+template <int ACT>
+__device__ __forceinline__ float act(float x) {
+  if (ACT == 0) return x / (1.f + expf(-x));
+  if (ACT == 1) {
+    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+    return 0.5f * x * (1.f + tanhf(u));
+  }
+  return fmaxf(x, 0.f);
+}
+
+template <typename T, int ACT, bool GATED>
+__global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
+    const T* __restrict__ xs,           // [n, d] sorted by expert
+    const int* __restrict__ group_sizes,  // [E]
+    const T* __restrict__ wi,           // [E, d, f]
+    const T* __restrict__ wg,           // [E, d, f] (GATED only)
+    const T* __restrict__ wo,           // [E, f, d]
+    float* __restrict__ partial,        // [n_tiles, n, d]
+    int n, int d, int f) {
+  const int tile = blockIdx.x, e = blockIdx.y, rt = blockIdx.z;
+  const int tid = threadIdx.x;
+  __shared__ int s_start, s_count;
+  if (tid == 0) {
+    int off = 0;
+    for (int i = 0; i < e; ++i) off += group_sizes[i];
+    s_start = off;
+    s_count = group_sizes[e];
+  }
+  __syncthreads();
+  const int r0 = s_start + rt * kRows;
+  // rows past n (group sizes summing beyond the row count) are never read
+  const int nr = min(min(kRows, s_count - rt * kRows), n - r0);
+  if (nr <= 0) return;  // the same for every thread of the block
+  const int f0 = tile * kTile;
+  const int nf = min(kTile, f - f0);
+
+  extern __shared__ float smem[];
+  float* x_s = smem;                                   // [kRows, d]
+  float* part = x_s + kRows * d;                       // [kSlices, kRows, kTile]
+  float* gpart = part + kSlices * kRows * kTile;       // same, GATED only
+  float* h_s = gpart + (GATED ? kSlices * kRows * kTile : 0);  // [kRows, kTile]
+
+  for (int i = tid; i < kRows * d; i += kThreads) {
+    const int r = i / d, k = i - r * d;
+    x_s[i] = r < nr ? to_f(xs[(size_t)(r0 + r) * d + k]) : 0.f;
+  }
+  __syncthreads();
+
+  // h tile, first product: thread (slice, col) sums k over its slice
+  const int col = tid % kTile, slice = tid / kTile;
+  float acc_i[kRows], acc_g[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc_i[r] = acc_g[r] = 0.f;
+  if (col < nf) {
+    const int span = (d + kSlices - 1) / kSlices;
+    const int k0 = slice * span, k1 = min(d, k0 + span);
+    const T* wi_c = wi + (size_t)e * d * f + f0 + col;
+    const T* wg_c = GATED ? wg + (size_t)e * d * f + f0 + col : nullptr;
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      const float w = to_f(wi_c[(size_t)k * f]);
+      const float wgv = GATED ? to_f(wg_c[(size_t)k * f]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float xv = x_s[r * d + k];
+        acc_i[r] = fmaf(xv, w, acc_i[r]);
+        if (GATED) acc_g[r] = fmaf(xv, wgv, acc_g[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    part[(slice * kRows + r) * kTile + col] = acc_i[r];
+    if (GATED) gpart[(slice * kRows + r) * kTile + col] = acc_g[r];
+  }
+  __syncthreads();
+
+  for (int i = tid; i < kRows * kTile; i += kThreads) {
+    float hi = 0.f, hg = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSlices; ++s) {
+      hi += part[s * kRows * kTile + i];
+      if (GATED) hg += gpart[s * kRows * kTile + i];
+    }
+    float h = act<ACT>(hi);
+    if (GATED) h *= hg;
+    h_s[i] = h;
+  }
+  __syncthreads();
+
+  // partial y = h tile @ wo[e, f0:f0+nf, :]
+  const T* wo_t = wo + ((size_t)e * f + f0) * d;
+  for (int c = tid; c < d; c += kThreads) {
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < nf; ++j) {
+      const float w = to_f(wo_t[(size_t)j * d + c]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h_s[r * kTile + j], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < nr) partial[((size_t)tile * n + r0 + r) * d + c] = acc[r];
+  }
+}
+
+// y[row] = sum over tiles of partial[tile, row], in tile order; rows past
+// sum(group_sizes) are 0.
+template <typename T>
+__global__ void reduce_tiles_kernel(const float* __restrict__ partial,
+                                    const int* __restrict__ group_sizes,
+                                    T* __restrict__ y, int n, int d,
+                                    int n_tiles, int E) {
+  const int row = blockIdx.x;
+  __shared__ int s_total;
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int i = 0; i < E; ++i) t += group_sizes[i];
+    s_total = t;
+  }
+  __syncthreads();
+  const bool live = row < s_total;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float s = 0.f;
+    if (live)
+      for (int t = 0; t < n_tiles; ++t) s += partial[((size_t)t * n + row) * d + c];
+    y[(size_t)row * d + c] = from_f<T>(s);
+  }
+}
+
+template <typename T, int ACT, bool GATED>
+cudaError_t launch_ffn(const void* xs, const int* gs, const void* wi,
+                       const void* wg, const void* wo, float* partial, int n,
+                       int d, int f, int E, cudaStream_t stream) {
+  const int n_tiles = (f + kTile - 1) / kTile;
+  const int row_tiles = (n + kRows - 1) / kRows;  // bound: all rows on one expert
+  const size_t smem = sizeof(float) * ((size_t)kRows * d +
+                                       (GATED ? 2 : 1) * kSlices * kRows * kTile +
+                                       kRows * kTile);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        expert_ffn_kernel<T, ACT, GATED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  expert_ffn_kernel<T, ACT, GATED>
+      <<<dim3(n_tiles, E, row_tiles), kThreads, smem, stream>>>(
+          static_cast<const T*>(xs), gs, static_cast<const T*>(wi),
+          static_cast<const T*>(wg), static_cast<const T*>(wo), partial, n, d, f);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* xs, const void* group_sizes, const void* wi,
+                   const void* wg, const void* wo, void* partial, void* y,
+                   int n, int d, int f, int E, int act, cudaStream_t stream) {
+  const int* gs = static_cast<const int*>(group_sizes);
+  float* part = static_cast<float*>(partial);
+  cudaError_t err;
+  const bool gated = wg != nullptr;
+#define EXPERT_FFN_CASE(A)                                                   \
+  if (act == A)                                                              \
+    err = gated ? launch_ffn<T, A, true>(xs, gs, wi, wg, wo, part, n, d, f, E, stream) \
+                : launch_ffn<T, A, false>(xs, gs, wi, wg, wo, part, n, d, f, E, stream);
+  EXPERT_FFN_CASE(0)
+  else EXPERT_FFN_CASE(1)
+  else EXPERT_FFN_CASE(2)
+  else return cudaErrorInvalidValue;
+#undef EXPERT_FFN_CASE
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (f + kTile - 1) / kTile;
+  reduce_tiles_kernel<T><<<n, 256, 0, stream>>>(part, gs, static_cast<T*>(y),
+                                                n, d, n_tiles, E);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// act: 0 = silu, 1 = gelu (tanh), 2 = relu.  wg may be null (no gate).
+// dtype: 0 = float32, 1 = bfloat16.  partial is f32 [ceil(f/64), n, d].
+// Returns the launches' cudaError_t (0 = launched).
+extern "C" int expert_mlp_launch(const void* xs, const void* group_sizes,
+                                 const void* wi, const void* wg,
+                                 const void* wo, void* partial, void* y, int n,
+                                 int d, int f, int E, int act, int dtype,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(xs, group_sizes, wi, wg, wo, partial, y,
+                                      n, d, f, E, act, s);
+  return (int)launch<float>(xs, group_sizes, wi, wg, wo, partial, y, n, d, f,
+                            E, act, s);
+}

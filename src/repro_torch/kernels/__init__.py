@@ -1,0 +1,14 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version.
+
+  paged_attention — fused paged decode / chunk attention (CUDA C++,
+                    ``csrc/paged_attention.cu``)
+  group_gate      — fused HL-GGN group gate, eq. 5-7 (Triton)
+  expert_mlp      — grouped expert FFN over expert-sorted rows (CUDA C++,
+                    ``csrc/expert_mlp.cu``)
+
+Each wrapper runs the plain version for CPU tensors and launches its kernel
+for CUDA tensors (or raises); it counts its launches in ``<wrapper>.launches``.
+Nothing is imported from ``triton`` or built with ``nvcc`` until a kernel is
+first launched (``kernels.build``).
+"""

@@ -1,0 +1,3 @@
+from repro_torch.kernels.expert_mlp.ops import grouped_mlp, grouped_mlp_plain
+
+__all__ = ["grouped_mlp", "grouped_mlp_plain"]

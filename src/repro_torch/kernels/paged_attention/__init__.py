@@ -1,0 +1,6 @@
+from repro_torch.kernels.paged_attention.ops import (
+    paged_attention,
+    paged_attention_plain,
+)
+
+__all__ = ["paged_attention", "paged_attention_plain"]

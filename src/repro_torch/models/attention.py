@@ -1,0 +1,106 @@
+"""Attention for the paged serving path: GQA projections, RoPE, and
+attention straight off the KV page pool (port of the reference's
+``models/attention.py``, the parts the paged engine runs)."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models.layers import rms_norm, truncated_normal_init
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
+    """positions [B, S] -> angles [B, S, head_dim // 2] (f32)."""
+    half = head_dim // 2
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    )
+    return positions[..., None].float() * freqs
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [B, S, n, head_dim]; angles [B, S, head_dim // 2]."""
+    dtype = x.dtype
+    x1, x2 = x.float().chunk(2, dim=-1)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cat((x1 * cos - x2 * sin, x1 * sin + x2 * cos), dim=-1).to(dtype)
+
+
+def paged_chunk_attention(
+    q: torch.Tensor,  # [B, C, H, hd]
+    pool_k: torch.Tensor,  # [P+1, ps, KV, hd] (row P = garbage)
+    pool_v: torch.Tensor,
+    table: torch.Tensor,  # [B, pps] int32
+    q_positions: torch.Tensor,  # [B, C] int32
+    lengths: torch.Tensor,  # [B] int32 ring anchor (last written position)
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """C queries per slot against the slot's mapped pages: page lookup,
+    ring-position masking and online softmax in one sweep, with no dense
+    ring view (``kernels.paged_attention``)."""
+    return paged_attention(
+        q, pool_k, pool_v, table, q_positions, lengths, window=window
+    )
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    table: torch.Tensor,
+    lengths: torch.Tensor,  # [B] position of the just-written token
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token decode: the C = 1 case of :func:`paged_chunk_attention`
+    (the query sits at ``lengths``, which is also the ring anchor)."""
+    return paged_chunk_attention(
+        q, pool_k, pool_v, table, lengths[:, None], lengths, window=window
+    )
+
+
+def init_attention(generator: torch.Generator, cfg, dtype: torch.dtype,
+                   lead: Tuple[int, ...] = ()) -> Dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": truncated_normal_init(generator, (d, H * hd), dtype, 1.0, lead).reshape(*lead, d, H, hd),
+        "wk": truncated_normal_init(generator, (d, KV * hd), dtype, 1.0, lead).reshape(*lead, d, KV, hd),
+        "wv": truncated_normal_init(generator, (d, KV * hd), dtype, 1.0, lead).reshape(*lead, d, KV, hd),
+        "wo": truncated_normal_init(generator, (H * hd, d), dtype, 1.0, lead).reshape(*lead, H, hd, d),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(lead + (hd,), dtype=dtype, device=generator.device)
+        p["k_norm"] = torch.zeros(lead + (hd,), dtype=dtype, device=generator.device)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] @ w [d, n, hd] -> [B, S, n, hd]."""
+    d, n, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(d, n * hd)).view(*x.shape[:-1], n, hd)
+
+
+def project_qkv(params: Dict, x: torch.Tensor, cfg, angles: Optional[torch.Tensor]):
+    """x [B, S, d] -> q [B, S, H, hd], k, v [B, S, KV, hd] (rope and qk-norm
+    applied)."""
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    return q, k, v
+
+
+def output_proj(params: Dict, o: torch.Tensor) -> torch.Tensor:
+    """o [B, S, H, hd] @ wo [H, hd, d] -> [B, S, d]."""
+    H, hd, d = params["wo"].shape
+    return o.reshape(*o.shape[:-2], H * hd) @ params["wo"].to(o.dtype).reshape(H * hd, d)

@@ -1,0 +1,237 @@
+"""Paged KV cache: the host page allocator and the device-side paged writes
+(port of the reference's ``models/kvcache.py``, paged part).
+
+A tier owns one shared :class:`PagePool` of ``num_pages`` fixed-size pages;
+storage leaves are ``[R, P+1, page_size, KV, hd]`` (the last row is the
+*garbage page* that absorbs writes routed away from unmapped or inactive
+slots), and each slot has a page table ``[pages_per_slot]``.  Position
+``p`` lives at table entry ``(p // page_size) % pages_per_slot``, offset
+``p % page_size``, so a slot's pages are a ring buffer of capacity
+``pages_per_slot * page_size`` and :func:`ring_key_positions` applies.
+
+The writes update the pools in place (the reference's ``.at[].set`` returns
+a new array; here the old one would be garbage at once, so the port saves
+the copy) and also return them, to keep the reference's call shapes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DEFAULT_DEVICE
+
+
+def attn_cache_len(cfg, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def ring_key_positions(lengths: torch.Tensor, W: int) -> torch.Tensor:
+    """Position held by each ring slot after the token at ``lengths`` has
+    been written.  lengths [B] -> [B, W]."""
+    s = torch.arange(W, device=lengths.device)[None, :]
+    ln = lengths.long()[:, None]
+    return ln - torch.remainder(ln - s, W)
+
+
+def pattern_is_pageable(cfg) -> bool:
+    """Paged caches cover self-attention KV only: every layer must be a
+    non-cross attention layer."""
+    return all(
+        spec.kind == "attn" and not spec.cross_attn for spec in cfg.layer_pattern
+    )
+
+
+def page_geometry(cfg, max_len: int, page_size: int,
+                  chunk_headroom: int = 0) -> Tuple[int, int]:
+    """(pages_per_slot, ring_capacity_tokens).  With a sliding window that
+    can wrap, the ring keeps ``chunk_headroom - 1`` extra tokens so a
+    prefill chunk's own writes never evict keys still inside an earlier
+    query's window."""
+    W = attn_cache_len(cfg, max_len)
+    if W < max_len and chunk_headroom > 1:
+        W += chunk_headroom - 1
+    pps = -(-W // page_size)
+    return pps, pps * page_size
+
+
+def pages_needed(n_tokens: int, page_size: int, pages_per_slot: int) -> int:
+    """Distinct table entries positions ``[0, n_tokens)`` touch."""
+    return min(pages_per_slot, -(-n_tokens // page_size))
+
+
+class PagePool:
+    """Host-side page allocator for one tier's shared KV page pool.
+
+    Admission *reserves* a slot's worst-case page count up front (decode
+    can never run out of pages mid-stream), then maps pages lazily as
+    prefill chunks and decode steps first touch each ring entry; ``free``
+    returns a finished slot's pages.  Tables hold ``-1`` for unmapped
+    entries."""
+
+    def __init__(self, num_pages: int, page_size: int, pages_per_slot: int,
+                 n_slots: int = 0):
+        if num_pages < 1:
+            raise ValueError(f"num_pages={num_pages}")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.pages_per_slot = pages_per_slot
+        self.table = np.full((n_slots, pages_per_slot), -1, np.int32)
+        # LIFO free list, seeded so pops hand out low indices first
+        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._reserved = np.zeros((n_slots,), np.int64)
+        self._mapped = np.zeros((n_slots,), np.int64)
+        self.peak_in_use = 0
+
+    @property
+    def garbage_page(self) -> int:
+        return self.num_pages
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    @property
+    def pages_reserved(self) -> int:
+        """Pages promised to admitted slots but not yet mapped."""
+        return int(self._reserved.sum() - self._mapped.sum())
+
+    @property
+    def pages_available(self) -> int:
+        return len(self._free) - self.pages_reserved
+
+    @property
+    def utilization(self) -> float:
+        return self.pages_in_use / self.num_pages
+
+    def can_reserve(self, n_pages: int) -> bool:
+        return self.pages_available >= n_pages
+
+    def reserve(self, slot: int, n_pages: int):
+        if self._reserved[slot]:
+            raise ValueError(f"slot {slot} already holds a reservation")
+        if n_pages > self.pages_per_slot:
+            raise ValueError(
+                f"reservation {n_pages} exceeds pages_per_slot={self.pages_per_slot}"
+            )
+        if not self.can_reserve(n_pages):
+            raise ValueError(
+                f"pool exhausted: want {n_pages}, available {self.pages_available}"
+            )
+        self._reserved[slot] = n_pages
+
+    def _map_entry(self, slot: int, entry: int):
+        if self.table[slot, entry] >= 0:
+            return  # ring reuse: the entry keeps its page across wraps
+        if self._mapped[slot] >= self._reserved[slot]:
+            raise ValueError(
+                f"slot {slot}: mapping beyond its reservation "
+                f"({self._reserved[slot]} pages)"
+            )
+        self.table[slot, entry] = self._free.pop()
+        self._mapped[slot] += 1
+        self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
+
+    def map_range(self, slot: int, start_pos: int, end_pos: int):
+        """Map every ring entry positions ``[start_pos, end_pos)`` touch."""
+        if end_pos <= start_pos:
+            return
+        for pi in range(start_pos // self.page_size,
+                        (end_pos - 1) // self.page_size + 1):
+            self._map_entry(slot, pi % self.pages_per_slot)
+
+    def append(self, slot: int, pos: int):
+        """Ensure the entry for position ``pos`` is mapped (decode write)."""
+        self._map_entry(slot, (pos // self.page_size) % self.pages_per_slot)
+
+    def free(self, slot: int):
+        if not self._reserved[slot]:
+            raise ValueError(f"double free of slot {slot}")
+        for e in range(self.pages_per_slot):
+            if self.table[slot, e] >= 0:
+                self._free.append(int(self.table[slot, e]))
+                self.table[slot, e] = -1
+        self._reserved[slot] = 0
+        self._mapped[slot] = 0
+
+    def device_rows(self, slots, active=None, device=DEFAULT_DEVICE) -> torch.Tensor:
+        """Device page table for ``slots``: unmapped entries, and every entry
+        of a slot not ``active``, routed to the garbage page, so reads stay
+        in bounds and writes for inactive slots never touch a live page."""
+        rows = self.table[np.asarray(slots)]
+        rows = np.where(rows < 0, self.garbage_page, rows)
+        if active is not None:
+            rows = np.where(np.asarray(active)[:, None], rows, self.garbage_page)
+        return torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(device)
+
+
+def init_paged_blocks(cfg, n_blocks: int, num_pages: int, page_size: int,
+                      dtype: torch.dtype, device=DEFAULT_DEVICE) -> Dict:
+    """Paged KV storage for ``n_blocks`` stacked block repeats of an
+    attention-only pattern: per position, ``k``/``v`` leaves shaped
+    ``[n_blocks, num_pages + 1, page_size, KV, hd]`` (last row = garbage)."""
+    if not pattern_is_pageable(cfg):
+        raise ValueError(f"{cfg.name}: paged storage needs an attention-only pattern")
+    shape = (n_blocks, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        f"pos{i}": {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+        for i in range(len(cfg.layer_pattern))
+    }
+
+
+def paged_block_bytes(blocks: Dict) -> int:
+    """Bytes one physical page occupies across all of a tier's leaves."""
+    total = 0
+    for entry in blocks.values():
+        for leaf in entry.values():
+            if leaf.dim() >= 2 and leaf.shape[0] > 0:
+                total += leaf[:, 0].numel() * leaf.element_size()
+    return total
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """pool [P+1, ps, KV, hd], table [B, pps] -> dense ring view
+    [B, pps*ps, KV, hd].  Test oracle only: the serving path attends straight
+    off the pool."""
+    B, pps = table.shape
+    buf = pool[table.long()]
+    return buf.reshape(B, pps * pool.shape[1], *pool.shape[2:])
+
+
+def paged_ring_write(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
+                     table: torch.Tensor, lengths: torch.Tensor, page_size: int):
+    """Write one new token's k/v ([B, 1, KV, hd]) at ring position
+    ``lengths`` through the page table, in place."""
+    pps = table.shape[1]
+    ln = lengths.long()
+    entry = torch.remainder(ln // page_size, pps)
+    phys = table.long().gather(1, entry[:, None])[:, 0]
+    off = torch.remainder(ln, page_size)
+    pool_k[phys, off] = k[:, 0].to(pool_k.dtype)
+    pool_v[phys, off] = v[:, 0].to(pool_v.dtype)
+    return pool_k, pool_v
+
+
+def paged_write_tokens(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
+                       table: torch.Tensor, positions: torch.Tensor,
+                       valid: torch.Tensor, page_size: int):
+    """Write a chunk of tokens ([B, C, KV, hd]) at ``positions`` [B, C]
+    through the page table, in place; rows where ``valid`` is False (prompt
+    padding) go to the garbage page."""
+    pps = table.shape[1]
+    garbage = pool_k.shape[0] - 1
+    pos = positions.long()
+    entry = torch.remainder(pos // page_size, pps)
+    phys = table.long().gather(1, entry)
+    phys = torch.where(valid, phys, garbage)
+    off = torch.remainder(pos, page_size)
+    pool_k[phys, off] = k.to(pool_k.dtype)
+    pool_v[phys, off] = v.to(pool_v.dtype)
+    return pool_k, pool_v

@@ -1,0 +1,86 @@
+"""Model facade for paged serving (port of the reference's
+``models/model.py``: ``init``, ``decode_step_paged``, ``prefill_chunk_step``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterator, Tuple
+
+import torch
+
+from repro_torch import DEFAULT_DEVICE
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device = torch.device(DEFAULT_DEVICE)
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", torch.device(self.device))
+
+    def init(self, generator: torch.Generator) -> Dict:
+        """Random params (the reference's shapes and init scales) drawn from
+        ``generator``, placed on the model's device."""
+        return to_device(transformer.init_params(self.cfg, generator), self.device)
+
+    def _angles(self, positions: torch.Tensor) -> torch.Tensor:
+        return attn.rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+
+    def decode_step_paged(
+        self, params, tokens: torch.Tensor, page_blocks: Dict,
+        page_table: torch.Tensor, lengths: torch.Tensor, *,
+        page_size: int, expert_mask=None,
+    ) -> Tuple[torch.Tensor, Dict]:
+        """tokens [B, 1] against the paged KV cache -> (logits [B, V], page
+        blocks, written in place).  ``lengths`` [B] int32 is each slot's
+        position of the new token (the engine owns slot offsets)."""
+        cfg = self.cfg
+        angles = self._angles(lengths[:, None])
+        x = transformer.embed_inputs(params, cfg, tokens)
+        x, page_blocks, _ = transformer.apply_stack_decode(
+            params, x, cfg, angles, page_blocks, lengths, expert_mask,
+            page_table=page_table, page_size=page_size,
+        )
+        return transformer.lm_logits(params, cfg, x)[:, 0], page_blocks
+
+    def prefill_chunk_step(
+        self, params, tokens: torch.Tensor, page_blocks: Dict,
+        page_table: torch.Tensor, start: torch.Tensor, n_valid: torch.Tensor, *,
+        page_size: int, expert_mask=None,
+    ) -> Tuple[torch.Tensor, Dict]:
+        """One fixed-size prompt chunk (tokens [B, C], rows past ``n_valid``
+        are padding) written at positions ``start + i`` -> (logits of the
+        last valid row [B, V], page blocks)."""
+        cfg = self.cfg
+        B, C = tokens.shape
+        positions = start[:, None] + torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
+        angles = self._angles(positions)
+        x = transformer.embed_inputs(params, cfg, tokens)
+        x, page_blocks = transformer.apply_stack_prefill_chunk(
+            params, x, cfg, angles, page_blocks, page_table, positions, n_valid,
+            page_size, expert_mask=expert_mask,
+        )
+        last = (n_valid.long() - 1).clamp_min(0)
+        x_last = x[torch.arange(B, device=x.device), last][:, None]
+        return transformer.lm_logits(params, cfg, x_last)[:, 0], page_blocks
+
+
+def to_device(tree: Dict, device) -> Dict:
+    """A nested dict of tensors (params, page blocks) moved to ``device``."""
+    return {
+        k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+        for k, v in tree.items()
+    }
+
+
+def leaves(tree: Dict) -> Iterator[torch.Tensor]:
+    """The tensors of a nested dict, depth first."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from leaves(v)
+        else:
+            yield v

@@ -1,0 +1,208 @@
+"""Transformer stack for paged serving (port of the reference's
+``models/transformer.py``: init, embedding and head, and the paged decode
+and chunked-prefill stacks of attention-only patterns).
+
+Params keep the reference's layout: ``blocks["pos{i}"]`` leaves are stacked
+over the ``block_repeat`` axis, and a Python loop over blocks takes the
+place of ``lax.scan``.  The paged KV pools are updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core.moe import apply_moe, init_moe
+from repro_torch.models import attention as attn
+from repro_torch.models import kvcache
+from repro_torch.models.layers import (
+    apply_mlp,
+    init_embedding,
+    init_mlp,
+    init_norm,
+    rms_norm,
+    truncated_normal_init,
+)
+
+NEG_INF = -1e30
+# weights every use site casts to the activation type (``.astype(x.dtype)``
+# in the reference); norms and the gate stay in f32
+COMPUTE_CAST = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "embed", "lm_head"})
+
+
+def _has_ffn(spec, cfg) -> bool:
+    return bool(spec.moe and cfg.moe) or cfg.d_ff > 0
+
+
+def init_layer(generator: torch.Generator, cfg, spec, R: int) -> Dict:
+    """One pattern position's params, stacked over ``R`` block repeats."""
+    dtype, dev, lead = cfg.torch_param_dtype, generator.device, (R,)
+    if spec.kind != "attn" or spec.cross_attn:
+        raise NotImplementedError(f"layer kind {spec} is not ported yet")
+    p: Dict[str, Any] = {
+        "norm1": init_norm(cfg.d_model, dtype, dev, lead),
+        "attn": attn.init_attention(generator, cfg, dtype, lead),
+    }
+    if _has_ffn(spec, cfg):
+        p["norm2"] = init_norm(cfg.d_model, dtype, dev, lead)
+        if spec.moe:
+            p["moe"] = init_moe(generator, cfg, lead)
+        else:
+            p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, cfg.ffn_gated, lead)
+    return p
+
+
+def init_params(cfg, generator: torch.Generator) -> Dict:
+    """Random params with the reference's shapes and init scales, made from
+    ``generator`` on its device."""
+    dtype = cfg.torch_param_dtype
+    params: Dict[str, Any] = {
+        "embed": init_embedding(generator, cfg.padded_vocab_size, cfg.d_model, dtype),
+        "final_norm": init_norm(cfg.d_model, dtype, generator.device),
+        "blocks": {
+            f"pos{i}": init_layer(generator, cfg, spec, cfg.block_repeat)
+            for i, spec in enumerate(cfg.layer_pattern)
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = truncated_normal_init(
+            generator, (cfg.d_model, cfg.padded_vocab_size), dtype, 1.0
+        )
+    return params
+
+
+def compute_params(params: Dict, cfg) -> Dict:
+    """Params with every weight the forward casts to the activation type
+    (``COMPUTE_CAST``) stored in that type once, at load.  Each use casts to
+    the same type, so the values the forward sees are identical (parity
+    holds) and the per-step casts become no-ops."""
+    dt = cfg.torch_dtype
+
+    def walk(tree):
+        return {
+            k: walk(v) if isinstance(v, dict)
+            else (v.to(dt) if k in COMPUTE_CAST else v)
+            for k, v in tree.items()
+        }
+
+    return walk(params)
+
+
+def block_params(tree: Dict, r: int) -> Dict:
+    """Block ``r``'s slice of stacked params (views, no copy)."""
+    return {k: block_params(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+
+
+def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask):
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if spec.moe:
+        y, aux = apply_moe(p["moe"], h, cfg, expert_mask=expert_mask, train=False)
+        return x + y, aux
+    return x + apply_mlp(p["ffn"], h, cfg.act), {}
+
+
+def apply_layer_decode(
+    p: Dict,
+    x: torch.Tensor,  # [B, 1, d]
+    spec,
+    cfg,
+    angles: torch.Tensor,  # [B, 1, hd/2]
+    cache_entry: Dict,  # {"k", "v"} page pools [P+1, ps, KV, hd]
+    lengths: torch.Tensor,  # [B] int32
+    expert_mask=None,
+    page_table: Optional[torch.Tensor] = None,  # [B, pps] int32
+    page_size: int = 0,
+):
+    """Single-token decode layer against the paged KV cache.  Returns
+    (x, cache_entry, aux); the pools are written in place."""
+    if page_table is None:
+        raise NotImplementedError("only the paged KV layout is ported")
+    aux: Dict[str, torch.Tensor] = {}
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    q, k, v = attn.project_qkv(p["attn"], h, cfg, angles)
+    kc, vc = kvcache.paged_ring_write(
+        cache_entry["k"], cache_entry["v"], k, v, page_table, lengths, page_size
+    )
+    o = attn.paged_decode_attention(
+        q, kc, vc, page_table, lengths, window=cfg.sliding_window
+    )
+    x = x + attn.output_proj(p["attn"], o)
+    if _has_ffn(spec, cfg):
+        x, aux = _ffn(p, x, spec, cfg, expert_mask)
+    return x, cache_entry, aux
+
+
+def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
+                       cache_blocks: Dict, lengths: torch.Tensor, expert_mask=None,
+                       *, page_table: torch.Tensor, page_size: int):
+    """Loop the block pattern over one decode token.  Returns
+    (x, cache_blocks, aux summed over blocks)."""
+    aux_acc: Dict[str, torch.Tensor] = {}
+    for r in range(cfg.block_repeat):
+        bp = block_params(params["blocks"], r)
+        for i, spec in enumerate(cfg.layer_pattern):
+            ce = {n: leaf[r] for n, leaf in cache_blocks[f"pos{i}"].items()}
+            x, _, aux = apply_layer_decode(
+                bp[f"pos{i}"], x, spec, cfg, angles, ce, lengths,
+                expert_mask=expert_mask, page_table=page_table, page_size=page_size,
+            )
+            for k, v in aux.items():
+                aux_acc[k] = aux_acc.get(k, 0.0) + v
+    return x, cache_blocks, aux_acc
+
+
+def apply_stack_prefill_chunk(
+    params: Dict,
+    x: torch.Tensor,  # [B, C, d] one fixed-size prompt chunk
+    cfg,
+    angles: torch.Tensor,  # [B, C, hd/2]
+    page_blocks: Dict,
+    page_table: torch.Tensor,  # [B, pps]
+    positions: torch.Tensor,  # [B, C] absolute position of every chunk row
+    n_valid: torch.Tensor,  # [B] rows < n_valid are real, the rest padding
+    page_size: int,
+    expert_mask=None,
+):
+    """Chunked prefill: each layer writes the chunk's k/v through the page
+    table (padding rows to the garbage page), then attends the chunk's
+    queries against the slot's mapped pages.  Returns (x, page_blocks)."""
+    C = x.shape[1]
+    valid = torch.arange(C, device=x.device)[None, :] < n_valid[:, None]
+    last_pos = (positions[:, 0] + n_valid - 1).to(torch.int32)
+    positions = positions.to(torch.int32)
+    for r in range(cfg.block_repeat):
+        bp = block_params(params["blocks"], r)
+        for i, spec in enumerate(cfg.layer_pattern):
+            p = bp[f"pos{i}"]
+            ce = {n: leaf[r] for n, leaf in page_blocks[f"pos{i}"].items()}
+            h = rms_norm(x, p["norm1"], cfg.norm_eps)
+            q, k, v = attn.project_qkv(p["attn"], h, cfg, angles)
+            kc, vc = kvcache.paged_write_tokens(
+                ce["k"], ce["v"], k, v, page_table, positions, valid, page_size
+            )
+            o = attn.paged_chunk_attention(
+                q, kc, vc, page_table, positions, last_pos, window=cfg.sliding_window
+            )
+            x = x + attn.output_proj(p["attn"], o)
+            if _has_ffn(spec, cfg):
+                x, _ = _ffn(p, x, spec, cfg, expert_mask)
+    return x, page_blocks
+
+
+def embed_inputs(params: Dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Gather then cast: the same values as the reference's cast-then-gather,
+    without converting the whole table."""
+    return params["embed"][tokens.long()].to(cfg.torch_dtype)
+
+
+def lm_logits(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head.to(x.dtype)
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    if cfg.padded_vocab_size != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits

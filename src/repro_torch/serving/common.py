@@ -1,0 +1,230 @@
+"""Serving infrastructure shared by the port's engines: requests, slot
+bookkeeping, and a shape-signature counter (port of the reference's
+``serving/common.py``, the parts the paged ``ServingEngine`` uses).
+
+``SlotEngineBase`` is a slot machine: a fixed decode batch of ``max_batch``
+slots; finished requests free their slot and waiting requests are prefilled
+into it.  Subclasses provide the prefill and decode compute.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclass
+class Request:
+    request_id: int
+    prompt: np.ndarray  # [S] int32
+    max_new_tokens: int = 16
+    eos_id: int = -1  # -1 = never
+    # SLO class: lower ``priority`` admits first (0 = interactive)
+    priority: int = 1
+    # filled by the engine
+    generated: List[int] = field(default_factory=list)
+    submit_time: float = 0.0
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+    seq: int = -1  # submission order stamp (ties within a priority class)
+
+    @property
+    def done(self) -> bool:
+        return self.finish_time is not None
+
+
+def _signature(tree) -> Tuple:
+    """(shape, dtype) of every tensor in a nested args structure."""
+    if isinstance(tree, torch.Tensor):
+        return ((tuple(tree.shape), str(tree.dtype)),)
+    if isinstance(tree, dict):
+        return tuple(s for k in sorted(tree) for s in _signature(tree[k]))
+    if isinstance(tree, (tuple, list)):
+        return tuple(s for t in tree for s in _signature(t))
+    return ((type(tree).__name__,),)
+
+
+class ShapeSignatures:
+    """Records the distinct argument shape/dtype signatures a stage function
+    is called with, in place of the reference's ``TraceCounter``: eager
+    PyTorch compiles no trace, but each signature is what a captured CUDA
+    graph would have to be keyed on, so the engine's bound (one per chunk
+    shape, never one per prompt length) stays testable.  ``sig_from`` skips
+    leading arguments whose shapes cannot change (the params)."""
+
+    def __init__(self, fn: Callable, log: set, sig_from: int = 1):
+        self._fn = fn
+        self._log = log
+        self._sig_from = sig_from
+
+    def __call__(self, *args):
+        self._log.add(_signature(args[self._sig_from:]))
+        return self._fn(*args)
+
+
+class SlotEngineBase:
+    """Slot lifecycle shared by the serving engines.
+
+    Subclasses implement ``_prefill_into_slot(slot, req) -> (token,
+    payload)``, ``_install_slot(slot, payload)`` (called only when the
+    request continues past prefill) and ``step``; ``_release_slot`` runs
+    whenever a request leaves its slot so paged engines can free its
+    pages.  The base provides submit-time checks, admission in stable
+    ``(priority, seq)`` order, token harvesting and the run loop."""
+
+    def __init__(self, max_batch: int, clock: Optional[Callable[[], float]] = None,
+                 max_len: Optional[int] = None, admission: str = "priority"):
+        if admission not in ("priority", "fifo"):
+            raise ValueError(f"admission={admission!r}")
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.clock = clock or time.monotonic
+        self.admission = admission
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.waiting: List[Request] = []
+        self.finished: List[Request] = []
+        self._next_token = np.zeros((max_batch, 1), np.int32)
+        self._active = np.zeros((max_batch,), bool)
+        self._submit_seq = 0
+        # busy ticks tolerated with no progress before ``run`` raises
+        self.stall_limit = 256
+
+    def validate(self, req: Request):
+        """Reject at submit time a request that could never be served: an
+        empty prompt, no tokens to generate, more positions than
+        ``max_len`` (the KV ring would wrap), or more KV pages than the
+        whole pool holds (it would block the queue forever)."""
+        if len(req.prompt) == 0:
+            raise ValueError(f"request {req.request_id}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.request_id}: max_new_tokens={req.max_new_tokens} "
+                "(prefill always emits one token)"
+            )
+        if self.max_len is not None:
+            need = len(req.prompt) + req.max_new_tokens
+            if need > self.max_len:
+                raise ValueError(
+                    f"request {req.request_id}: prompt ({len(req.prompt)}) + "
+                    f"max_new_tokens ({req.max_new_tokens}) = {need} exceeds "
+                    f"max_len={self.max_len}; the KV ring buffer would wrap"
+                )
+        cap = self._page_capacity()
+        if cap is not None:
+            pages = self._pages_for(req)
+            if pages > cap:
+                raise ValueError(
+                    f"request {req.request_id}: needs {pages} KV pages but the "
+                    f"page pool holds only {cap}; it could never be admitted "
+                    "and would block the queue forever"
+                )
+
+    def _page_capacity(self) -> Optional[int]:
+        return None
+
+    def _pages_for(self, req: Request) -> int:
+        raise NotImplementedError
+
+    def submit(self, req: Request):
+        self.validate(req)
+        req.submit_time = self.clock()
+        req.seq = self._submit_seq
+        self._submit_seq += 1
+        self.waiting.append(req)
+
+    def _admittable(self, slot: int, req: Request) -> bool:
+        return True
+
+    def busy(self) -> bool:
+        return bool(self.waiting) or bool(self._active.any())
+
+    def _admission_order(self) -> List[Request]:
+        """``"priority"``: stable sort on (priority, submission seq);
+        ``"fifo"``: submission order.  Either way the head of the order
+        blocks the rest, so a page-blocked head is never starved."""
+        if self.admission == "priority":
+            return sorted(self.waiting, key=lambda r: (r.priority, r.seq))
+        return list(self.waiting)
+
+    def _admit(self):
+        """Prefill waiting requests into free slots.  A request that
+        finishes at its prefill token leaves the slot free, so the same slot
+        is offered to the next waiter at once."""
+        for slot in range(self.max_batch):
+            while self.slots[slot] is None:
+                queue = self._admission_order()
+                if not queue or not self._admittable(slot, queue[0]):
+                    break
+                req = queue[0]
+                self.waiting.remove(req)
+                tok, payload = self._prefill_into_slot(slot, req)
+                req.generated.append(tok)
+                if req.first_token_time is None:
+                    req.first_token_time = self.clock()
+                if tok == req.eos_id or len(req.generated) >= req.max_new_tokens:
+                    req.finish_time = self.clock()
+                    self.finished.append(req)
+                    self._release_slot(slot)
+                    continue
+                self._install_slot(slot, payload)
+                self.slots[slot] = req
+                self._next_token[slot, 0] = tok
+                self._active[slot] = True
+
+    def _prefill_into_slot(self, slot: int, req: Request):
+        raise NotImplementedError
+
+    def _install_slot(self, slot: int, payload):
+        raise NotImplementedError
+
+    def _release_slot(self, slot: int):
+        """Hook: a request left this slot."""
+
+    def _harvest(self, next_ids: np.ndarray) -> int:
+        """Record one decoded token per active slot; retire finished ones."""
+        n_emitted = 0
+        for slot in range(self.max_batch):
+            req = self.slots[slot]
+            if req is None:
+                continue
+            tok = int(next_ids[slot])
+            req.generated.append(tok)
+            n_emitted += 1
+            self._next_token[slot, 0] = tok
+            if tok == req.eos_id or len(req.generated) >= req.max_new_tokens:
+                req.finish_time = self.clock()
+                self.finished.append(req)
+                self.slots[slot] = None
+                self._active[slot] = False
+                self._release_slot(slot)
+        return n_emitted
+
+    def step(self) -> int:
+        raise NotImplementedError
+
+    def _progress_sig(self) -> tuple:
+        gen = sum(len(r.generated) for r in self.slots if r is not None)
+        return (len(self.finished), len(self.waiting), int(self._active.sum()), gen)
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        """Run until every submitted request finishes.  ``stall_limit``
+        consecutive busy ticks without progress raise (livelock) instead of
+        spinning to ``max_steps``."""
+        last, stalled = None, 0
+        for _ in range(max_steps):
+            if not self.busy():
+                break
+            self.step()
+            sig = self._progress_sig()
+            stalled = stalled + 1 if sig == last else 0
+            last = sig
+            if stalled >= self.stall_limit:
+                raise RuntimeError(
+                    f"livelock: {stalled} busy ticks without progress "
+                    f"(waiting={len(self.waiting)} finished={len(self.finished)})"
+                )
+        return self.finished

@@ -1,0 +1,117 @@
+"""The port's kernels on the card: each against its plain version, the
+wrappers' input checks, and the serving engine on the card against the
+same engine on the CPU.  Marked ``cuda``; skipped where no CUDA device is
+visible.  Run on a machine with the card (``--noconftest``: the suite's
+conftest imports JAX, which the port does not need):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_plain
+from repro_torch.kernels.group_gate import group_gate, group_gate_plain
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.models.model import Model, to_device
+from repro_torch.serving import Request, ServingEngine
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build and run only on the card)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _attention_case(gen, dtype, C=3, B=3, H=4, KV=2, hd=32, ps=4, pps=4):
+    P = B * pps
+    table = torch.arange(P, dtype=torch.int32, device="cuda").view(B, pps)
+    table[0, 2:] = P  # slot 0: two mapped pages, the rest garbage
+    lengths = torch.tensor([5, 14, 23], dtype=torch.int32, device="cuda")  # slot 2 wraps
+    q_pos = (lengths[:, None] - C + 1 + torch.arange(C, device="cuda")[None]).int()
+    q = torch.randn(B, C, H, hd, generator=gen, device="cuda").to(dtype)
+    pk = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dtype)
+    pv = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dtype)
+    return q, pk, pv, table, q_pos, lengths
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window", [None, 6])
+def test_paged_attention_kernel(gen, dtype, tol, window):
+    args = _attention_case(gen, dtype)
+    before = paged_attention.launches
+    got = paged_attention(*args, window=window)
+    want = paged_attention_plain(*args, window=window)
+    assert paged_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    q, pk, pv, table, q_pos, lengths = args
+    dead = paged_attention(q, pk, pv, torch.full_like(table, pk.shape[0] - 1), q_pos, lengths)
+    assert bool((dead == 0).all())
+
+
+@pytest.mark.parametrize("mask", [None, [1, 0, 0, 0, 1, 1, 0, 1]])
+@pytest.mark.parametrize("T", [5, 40])
+def test_group_gate_kernel(gen, mask, T):
+    K, d, Mk = 4, 96, 2
+    w_local = torch.randn(K, d, Mk, generator=gen, device="cuda")
+    b_local = torch.randn(K, Mk, generator=gen, device="cuda")
+    w_global = torch.randn(d, K, generator=gen, device="cuda")
+    b_global = torch.randn(K, generator=gen, device="cuda")
+    x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
+    m = None if mask is None else torch.tensor(mask, dtype=torch.bool, device="cuda")
+    got = group_gate(x, w_local, b_local, w_global, b_global, m)
+    want = group_gate_plain(x, w_local, b_local, w_global, b_global, m)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="one \\[E\\]"):
+        group_gate(x, w_local, b_local, w_global, b_global,
+                   torch.ones(T, K * Mk, dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_grouped_mlp_kernel(gen, gated, dtype, tol):
+    E, d, f = 4, 96, 200  # f not a multiple of the 64-column hidden tile
+    sizes = torch.tensor([3, 0, 9, 1], dtype=torch.int32, device="cuda")
+    xs = torch.randn(int(sizes.sum()) + 2, d, generator=gen, device="cuda").to(dtype)
+    wi = (torch.randn(E, d, f, generator=gen, device="cuda") / d ** 0.5).to(dtype)
+    wg = (torch.randn(E, d, f, generator=gen, device="cuda") / d ** 0.5).to(dtype) if gated else None
+    wo = (torch.randn(E, f, d, generator=gen, device="cuda") / f ** 0.5).to(dtype)
+    act = "silu" if gated else "gelu"
+    got = grouped_mlp(xs, sizes, wi, wg, wo, act)
+    want = grouped_mlp_plain(xs, sizes, wi, wg, wo, act)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale)
+    assert bool((got[-2:] == 0).all())
+    with pytest.raises(ValueError, match="dtype"):
+        grouped_mlp(xs, sizes, wi.float() if dtype == torch.bfloat16 else wi.bfloat16(),
+                    wg, wo, act)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_mlp(xs.t().contiguous().t(), sizes, wi, wg, wo, act)
+
+
+@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])
+def test_engine_on_card_matches_cpu(gen, name):
+    """Greedy tokens of the f32 smoke model: kernels on the card, plain
+    versions on the CPU, the same weights."""
+    cfg = smoke_config(get_config(name)).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        eng = ServingEngine(model, to_device(params, dev), max_batch=4, max_len=64,
+                            prefill_chunk=8)
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, 500, size=int(rng.integers(4, 30))).astype(np.int32),
+                        max_new_tokens=6) for i in range(9)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert eng.pool.pages_in_use == 0
+        tokens[dev] = [r.generated for r in reqs]
+    assert tokens["cuda"] == tokens["cpu"]
