@@ -16,7 +16,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.group_gate import group_gate
+from repro_torch.kernels.group_gate import gate_logits, group_gate
 from repro_torch.models.layers import truncated_normal_init
 
 
@@ -38,16 +38,6 @@ def init_group_gate(generator: torch.Generator, d_model: int, moe_cfg,
         "w_global": truncated_normal_init(generator, (d_model, K), torch.float32, 1.0, lead),
         "b_global": torch.zeros(lead + (K,), dtype=torch.float32, device=dev),
     }
-
-
-def group_gate_logits(params: Dict, x: torch.Tensor):
-    """x [T, d] -> (local [T, K, M_k], global [T, K]) in f32."""
-    xf = x.float()
-    local = torch.einsum("td,kdm->tkm", xf, params["w_local"].float()) + params[
-        "b_local"
-    ].float()[None]
-    glob = xf @ params["w_global"].float() + params["b_global"].float()
-    return local, glob
 
 
 def group_gate_probs(
@@ -73,7 +63,9 @@ def group_gate_probs(
     out_aux: Dict[str, torch.Tensor] = {}
     if aux:
         # z-losses regularize the router logit scale on the pre-mask logits
-        local, glob = group_gate_logits(params, x)
+        local, glob = gate_logits(
+            x, params["w_local"], params["b_local"], params["w_global"], params["b_global"]
+        )
         out_aux["router_z"] = (
             torch.logsumexp(glob, dim=-1).square().mean()
             + torch.logsumexp(local, dim=-1).square().mean()

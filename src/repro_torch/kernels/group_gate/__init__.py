@@ -1,3 +1,3 @@
-from repro_torch.kernels.group_gate.ops import group_gate, group_gate_plain
+from repro_torch.kernels.group_gate.ops import gate_logits, group_gate, group_gate_plain
 
-__all__ = ["group_gate", "group_gate_plain"]
+__all__ = ["gate_logits", "group_gate", "group_gate_plain"]

@@ -36,6 +36,20 @@ BLOCK_TOKENS = 16
 BLOCK_K = 32
 
 
+def gate_logits(
+    x: torch.Tensor,  # [T, d]
+    w_local: torch.Tensor,  # [K, d, Mk]
+    b_local: torch.Tensor,  # [K, Mk]
+    w_global: torch.Tensor,  # [d, K]
+    b_global: torch.Tensor,  # [K]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-mask logits in f32: (local [T, K, Mk], global [T, K])."""
+    xf = x.float()
+    local = torch.einsum("td,kdm->tkm", xf, w_local.float()) + b_local.float()[None]
+    glob = xf @ w_global.float() + b_global.float()
+    return local, glob
+
+
 def group_gate_plain(
     x: torch.Tensor,  # [T, d]
     w_local: torch.Tensor,  # [K, d, Mk]
@@ -46,9 +60,7 @@ def group_gate_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     K, d, Mk = w_local.shape
     T = x.shape[0]
-    xf = x.float()
-    local = torch.einsum("td,kdm->tkm", xf, w_local.float()) + b_local.float()[None]
-    glob = xf @ w_global.float() + b_global.float()
+    local, glob = gate_logits(x, w_local, b_local, w_global, b_global)
     if expert_mask is not None:
         em = (expert_mask.reshape(-1, K, Mk) if expert_mask.dim() == 2
               else expert_mask.reshape(1, K, Mk))
