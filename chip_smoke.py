@@ -23,11 +23,23 @@ Phases, in order; any failure exits non-zero before the result lines:
    page pool must be empty again.  Step times, tokens/s and peak memory.
 4. The first prefill chunk and one decode step of a short prompt on the card
    against the same model on the CPU (plain versions, same bf16 weights).
+5. The one-shot two-tier ``EndCloudPipeline`` on the same full-width
+   switch-base weights: a jetson-orin end tier and an a100 cloud tier (the
+   planner's modeled profiles), an eq. 8 codec of rank 384, tokens [4, 256]
+   from a seeded generator.  The plan must be the reference planner's
+   (split 1 of 6, codec on, 3 of 8 experts on the end tier); the counters,
+   zeroed just before one ``run_batch``, must read 12 flash-attention, 1
+   encode, 1 decode, 6 gate, 6 expert-FFN and 0 paged-attention launches;
+   the boundary payload is 4*256*384 bf16 values.  Median per-tier times
+   over 10 warm runs, tokens/s and peak memory; the logits against the same
+   pipeline on the CPU (plain versions, same weights and codec).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``.  A ``torch.profiler``
-table of one decode step goes to ``chiprun_out/decode_profile.txt`` and the
-compiler's register / spill report to ``chiprun_out/nvcc_build.log``.
+power limit, and ``{"ok": true, "device": {...}}``.  ``torch.profiler``
+tables of one decode step and of one ``run_batch`` go to
+``chiprun_out/decode_profile.txt`` and ``chiprun_out/pipeline_profile.txt``,
+and the compiler's register / spill report to
+``chiprun_out/nvcc_build.log``.
 """
 
 from __future__ import annotations
@@ -252,6 +264,130 @@ def run_expert_mlp(torch, timer):
     return rec["decode n=8"]
 
 
+def run_flash_attention(torch, timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import block_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rec = {}
+    cases = [
+        # the pipeline's shape: B=4, S=256, 12 heads of 64, causal
+        ("pipeline B=4 S=256 H=12", 4, 256, 12, 12, None),
+        # ragged S, GQA G=4 and a 64-key window (tail tile, window tile skip)
+        ("ragged S=200 H=8 KV=2 window=64", 2, 200, 8, 2, 64),
+    ]
+    for name, B, S, H, KV, window in cases:
+        hd = 64
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
+        kw = dict(causal=True, window=window)
+        out = flash_attention_fwd(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        # the same tiles and rounding points, f32 sums in another order: one
+        # bf16 ulp of each element, and four at the median |output| (atol)
+        atol = 2 ** -6 * ref.float().abs().median().item()
+        err = check_close(f"flash_attention {name}", out, ref, rtol=2 ** -7, atol=atol)
+
+        pos = torch.arange(S, device="cuda")
+        vis = block_mask(pos, pos, True, window)  # [S, S]
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+        b_ms, b_by = bound(nbytes, 4 * hd * B * H * int(vis.sum()), "bf16")
+        # yardstick: SDPA on [B, H, S, hd] copies, KV heads repeated for GQA
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+        if window is None:
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        else:
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis))
+        ms = timer(lambda: flash_attention_fwd(q, k, v, **kw))
+        plain_ms = timer(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
+        log(f"  flash_attention {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa)={lib_ms:.4f}")
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms)
+    main = rec[cases[0][0]]
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+    return main
+
+
+def run_lowrank(torch, timer):
+    from repro_torch.core.compression import init_lowrank_1d
+    from repro_torch.kernels.lowrank import (
+        lowrank_decode,
+        lowrank_encode,
+        lowrank_project_plain,
+        lowrank_roundtrip,
+        lowrank_roundtrip_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    d, r = 768, 384
+    codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, r, device="cuda")
+    rec = {}
+
+    # encode and decode at the boundary's shape, bf16 operands (the consumer
+    # casts the codec to the activation type)
+    T = 1024
+    x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
+    enc, dec = codec["enc"].bfloat16(), codec["dec"].bfloat16()
+    z = lowrank_encode(x, enc)
+    for name, fn, a, w in (("lowrank_encode", lowrank_encode, x, enc),
+                           ("lowrank_decode", lowrank_decode, z, dec)):
+        out = fn(a, w)
+        ref = lowrank_project_plain(a, w)
+        # f32 sums in another order, rounded once to bf16: one ulp (rtol),
+        # and four ulps of the median |output| for elements near zero
+        atol = 2 ** -6 * ref.float().abs().median().item()
+        err = check_close(f"{name} T={T} d={d} r={r}", out, ref, rtol=2 ** -7, atol=atol)
+        nt, k = a.shape
+        n = w.shape[1]
+        b_ms, b_by = bound((nt * k + k * n + nt * n) * 2, 2 * nt * k * n, "bf16")
+        ms = timer(lambda: fn(a, w))
+        plain_ms = timer(lambda: lowrank_project_plain(a, w))
+        lib_ms = timer(lambda: torch.matmul(a, w))
+        log(f"  {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+            f"({b_by}) library_ms(matmul)={lib_ms:.4f}")
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms)
+
+    # the fused roundtrip at a ragged T, in f32 and in bf16, error sum included
+    T = 1000
+    x32 = torch.randn(T, d, generator=gen, device="cuda")
+    for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        xx, e, dd = x32.to(dt), codec["enc"].to(dt), codec["dec"].to(dt)
+        x_hat, err_sum = lowrank_roundtrip(xx, e, dd)
+        ref_hat, ref_err = lowrank_roundtrip_plain(xx, e, dd)
+        if dt == torch.float32:  # f32 sums in another order
+            err = check_close(f"lowrank_roundtrip {kind} x_hat", x_hat, ref_hat, rtol=1e-5,
+                              atol=1e-5 * ref_hat.abs().max().item())
+        else:  # one bf16 ulp, as above
+            err = check_close(f"lowrank_roundtrip {kind} x_hat", x_hat, ref_hat, rtol=2 ** -7,
+                              atol=2 ** -6 * ref_hat.float().abs().median().item())
+        # a sum of T*d f32 squares in another (fixed) order
+        check_close(f"lowrank_roundtrip {kind} error sum", err_sum, ref_err, rtol=1e-5, atol=0)
+        again_hat, again_err = lowrank_roundtrip(xx, e, dd)
+        if not (torch.equal(again_hat, x_hat) and torch.equal(again_err, err_sum)):
+            raise AssertionError("lowrank_roundtrip: two runs on the same inputs differ")
+        if dt == torch.float32:
+            rec["roundtrip_err"] = err
+            continue
+        nbytes = 2 * xx.numel() * 2 + 2 * d * r * 2 + 4
+        b_ms, b_by = bound(nbytes, 2 * 2 * T * d * r + 3 * T * d, "bf16")
+        ms = timer(lambda: lowrank_roundtrip(xx, e, dd))
+        plain_ms = timer(lambda: lowrank_roundtrip_plain(xx, e, dd))
+        log(f"  lowrank_roundtrip {kind} T={T}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null (no single call returns "
+            f"X^ and the error sum)")
+        rec["lowrank_roundtrip"] = dict(
+            max_abs_err=max(err, rec.pop("roundtrip_err")), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Phase 3-4: serve full-width switch-base, and hold it against the CPU
 # ---------------------------------------------------------------------------
@@ -402,6 +538,134 @@ def reference_check(torch, eng):
         log("  note: first generated token differs between card and CPU")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the one-shot two-tier pipeline, and hold it against the CPU
+# ---------------------------------------------------------------------------
+
+
+def routed_run(torch, pipe, tokens):
+    """``run_batch`` with the experts each MoE layer chose for each token
+    recorded: (logits, metrics, routes [MoE layers, tokens, top_k])."""
+    from repro_torch.core import gating
+
+    gate, seen = gating.gate, []
+
+    def recording(*args, **kw):
+        out = gate(*args, **kw)
+        seen.append(out.topk_idx.cpu())
+        return out
+
+    gating.gate = recording
+    try:
+        logits, metrics = pipe.run_batch(tokens)
+    finally:
+        gating.gate = gate
+    return logits, metrics, torch.stack(seen)
+
+
+def pipeline(torch, eng, counters):
+    from repro_torch.core.hardware import PROFILES
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.serving import EndCloudPipeline
+
+    cfg = eng.model.cfg
+    prof = dict(end_profile=PROFILES["jetson-orin"], cloud_profile=PROFILES["a100"])
+    pipe = EndCloudPipeline(eng.model, eng.params, compression_rank=384, **prof)
+    n_end = int(pipe.end_mask.sum())
+    log(f"plan (modeled profiles jetson-orin end, a100 cloud): split {pipe.split} of "
+        f"{cfg.block_repeat}, codec {'on' if pipe.tiers.compress else 'off'}, "
+        f"{n_end} of {cfg.moe.num_experts} experts on the end tier")
+    if (pipe.split, pipe.tiers.compress, n_end) != (1, True, 3):
+        raise AssertionError("the plan differs from the reference planner's "
+                             "(split 1, codec on, 3 end experts)")
+    B, S = 4, 256
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(0))
+    tok = tokens.cuda()
+    pipe.run_batch(tok)  # warm-up: the gate's Triton compile at this shape
+
+    for c in counters:
+        c.launches = 0
+    logits, m = pipe.run_batch(tok)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"pipeline launches per run_batch: {launches}; metrics {m}")
+    want = {"flash_attention_fwd": 12, "lowrank_encode": 1, "lowrank_decode": 1,
+            "group_gate": 6, "grouped_mlp": 6, "paged_attention": 0,
+            "lowrank_roundtrip": 0}
+    if launches != want:
+        raise AssertionError(f"pipeline launches {launches}, want {want}")
+    if m["boundary_bytes"] != B * S * 384 * 2 or not (m["split"] == 1 and m["compressed"]):
+        raise AssertionError(f"pipeline metrics {m}")
+    if logits.shape != (B, S, cfg.padded_vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("pipeline logits are not finite or have the wrong shape")
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = [pipe.run_batch(tok)[1] for _ in range(10)]
+    peak = torch.cuda.max_memory_allocated()
+    t_end = sorted(r["t_end_s"] for r in runs)[5]
+    t_cloud = sorted(r["t_cloud_s"] for r in runs)[5]
+    log(f"pipeline run_batch [{B}, {S}]: median t_end {t_end * 1e3:.3f} ms, median t_cloud "
+        f"{t_cloud * 1e3:.3f} ms over 10 warm runs (host clock, device synchronized); "
+        f"t_comm {m['t_comm_s'] * 1e3:.3f} ms modeled at the end profile's link rate")
+    log(f"pipeline tokens/s: {B * S / (t_end + t_cloud):.1f} ({B * S} tokens over "
+        f"t_end + t_cloud); peak device memory {peak / 2**20:.1f} MiB")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_run:
+        t0 = time.perf_counter()
+        pipe.run_batch(tok)
+        wall = time.perf_counter() - t0
+    avgs = prof_run.key_averages()
+    # kernel rows only: an operator row's device time repeats its kernels'
+    dev_us = sum(e.self_device_time_total for e in avgs if e.device_type != DeviceType.CPU)
+    (OUT_DIR / "pipeline_profile.txt").write_text(
+        avgs.table(sort_by="cuda_time_total", row_limit=40))
+    log(f"pipeline profile (1 run_batch): device time {dev_us / 1e3:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall, written to chiprun_out/pipeline_profile.txt")
+
+    # Card vs CPU (plain versions), same weights and codec, on the same
+    # [4, 256] tokens.  With these random weights the expert outputs (~200)
+    # dwarf the rest of the residual stream, so one token whose top-1 route
+    # flips between the two sides (bf16 noise moves a near-tied gate logit)
+    # gets unrelated logits from there on.  So the whole batch is held to
+    # the thresholds in f32, where the noise is too small to flip a route,
+    # and in bf16 (the measured path) every token that both sides routed
+    # alike at every MoE layer is.
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        cfg_d = cfg.replace(dtype=dtype)
+        card = EndCloudPipeline(Model(cfg_d, device="cuda"), eng.params,
+                                codec_params=pipe.codec, **prof)
+        host = EndCloudPipeline(Model(cfg_d, device="cpu"), to_device(eng.params, "cpu"),
+                                codec_params=to_device(pipe.codec, "cpu"), **prof)
+        lg, mg, rg = routed_run(torch, card, tok)
+        lc, mc, rc = routed_run(torch, host, tokens)
+        if (mc["boundary_bytes"], mc["split"]) != (mg["boundary_bytes"], mg["split"]):
+            raise AssertionError(f"card metrics {mg} and CPU metrics {mc} disagree")
+        alike = (rg == rc).all(dim=-1).all(dim=0).view(B, S)  # every layer, every k
+        V = cfg.vocab_size  # the padded tail is -1e30 on both sides
+        g, c = lg[..., :V].float().cpu(), lc[..., :V].float()
+        cos = torch.nn.functional.cosine_similarity(g, c, dim=-1)  # [B, S]
+        rel_all = ((g - c).abs().max() / c.abs().max()).item()
+        rel = ((g - c)[alike].abs().max() / c[alike].abs().max()).item()
+        share = alike.float().mean().item()
+        agree = (g.argmax(-1) == c.argmax(-1)).float().mean().item()
+        log(f"  pipeline logits {dtype}: tokens routed alike {share:.4f}; over them "
+            f"max|diff|/max|cpu|={rel:.3e} cos={cos[alike].min().item():.6f}; over all "
+            f"max|diff|/max|cpu|={rel_all:.3e} cos={cos.min().item():.6f} argmax "
+            f"agreement={agree:.4f} finite={bool(torch.isfinite(g).all())}")
+        # f32 must route every token alike; in bf16 a fault in a kernel would
+        # scramble the routes of most tokens, flips of near ties only a few
+        floor = 1.0 if dtype == "float32" else 0.75
+        if not (share >= floor and rel <= 0.1 and cos[alike].min().item() >= 0.99
+                and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"pipeline ({dtype}): the card disagrees with the CPU reference")
+    log(f"  (card vs CPU checks took {time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -411,7 +675,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.expert_mlp import grouped_mlp
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.group_gate import group_gate
+    from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode, lowrank_roundtrip
     from repro_torch.kernels.paged_attention import paged_attention
 
     smi = nvidia_smi()
@@ -437,13 +703,22 @@ def main() -> int:
         "paged_attention": run_paged_attention(torch, timer),
         "group_gate": run_group_gate(torch, timer),
         "expert_mlp": run_expert_mlp(torch, timer),
+        "flash_attention": run_flash_attention(torch, timer),
+        **run_lowrank(torch, timer),
     }
     log(f"kernel checks took {time.perf_counter() - t0:.2f} s")
 
-    counters = [paged_attention, group_gate, grouped_mlp]
-    launches, eng = serve(torch, counters)
+    serve_launches, eng = serve(torch, [paged_attention, group_gate, grouped_mlp])
     log("end-to-end against the CPU reference:")
     reference_check(torch, eng)
+    log("one-shot end-cloud pipeline:")
+    pipe_launches = pipeline(torch, eng, [
+        flash_attention_fwd, lowrank_encode, lowrank_decode, lowrank_roundtrip,
+        group_gate, grouped_mlp, paged_attention])
+    # each kernel reports the launches of the path it was ported for: the
+    # serving run for the first three, the pipeline run for the codec and
+    # flash attention (the roundtrip has no consumer on either path)
+    launches = {**pipe_launches, **serve_launches}
 
     meta = {
         "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -452,6 +727,15 @@ def main() -> int:
                        "src/repro/kernels/group_gate/kernel.py:85", "group_gate"),
         "expert_mlp": ("cuda", "src/repro_torch/csrc/expert_mlp.cu",
                        "src/repro/kernels/expert_mlp/kernel.py:108", "grouped_mlp"),
+        "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:122",
+                            "flash_attention_fwd"),
+        "lowrank_encode": ("cuda", "src/repro_torch/csrc/lowrank.cu",
+                           "src/repro/kernels/lowrank/kernel.py:59", "lowrank_encode"),
+        "lowrank_decode": ("cuda", "src/repro_torch/csrc/lowrank.cu",
+                           "src/repro/kernels/lowrank/kernel.py:77", "lowrank_decode"),
+        "lowrank_roundtrip": ("cuda", "src/repro_torch/csrc/lowrank.cu",
+                              "src/repro/kernels/lowrank/kernel.py:96", "lowrank_roundtrip"),
     }
     kernels = []
     for name, (route, source, replaces, counter) in meta.items():

@@ -137,6 +137,78 @@ class ModelConfig:
     def block_repeat(self) -> int:
         return self.num_layers // len(self.layer_pattern)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        d, hd = self.d_model, self.head_dim
+        n = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += d * self.vocab_size  # lm head
+        n += d  # final norm
+
+        def attn_params() -> int:
+            q = d * self.num_heads * hd
+            kv = 2 * d * self.num_kv_heads * hd
+            o = self.num_heads * hd * d
+            qk = 2 * hd if self.qk_norm else 0
+            return q + kv + o + qk
+
+        n_mats = 3 if self.ffn_gated else 2
+
+        def dense_ffn() -> int:
+            return n_mats * d * self.d_ff
+
+        def moe_ffn() -> int:
+            m = self.moe
+            e = m.num_experts * n_mats * d * m.d_ff_expert
+            e += m.shared_experts * n_mats * d * m.d_ff_expert
+            # group gate: K group gates (M_k x d each) + global gate (K x d)
+            e += m.num_experts * d + m.num_groups * d
+            return e
+
+        def ssm_params() -> int:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            # in_proj -> [z, x, B, C, dt], conv, A, D, norm, out_proj
+            zxbcdt = d * (2 * d_in + 2 * s.n_groups * s.d_state + nheads)
+            conv = (d_in + 2 * s.n_groups * s.d_state) * s.d_conv
+            return zxbcdt + conv + 2 * nheads + d_in + d_in * d
+
+        per_pattern = 0
+        for spec in self.layer_pattern:
+            per_pattern += 2 * d  # two norms
+            if spec.kind == "attn":
+                per_pattern += attn_params()
+                if spec.cross_attn:
+                    per_pattern += attn_params() + d
+            else:
+                per_pattern += ssm_params()
+            if spec.kind != "ssm":  # ssm blocks subsume the FFN (d_ff=0 models)
+                per_pattern += moe_ffn() if spec.moe else (dense_ffn() if self.d_ff else 0)
+            elif spec.moe:
+                per_pattern += moe_ffn()
+            elif self.d_ff:
+                per_pattern += dense_ffn()
+        n += per_pattern * self.block_repeat
+        if self.encoder_decoder:
+            n += self.encoder_layers * (2 * d + attn_params() + dense_ffn())
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive_frac = 1.0 - (m.top_k + m.shared_experts) / (
+            m.num_experts + m.shared_experts
+        )
+        n_mats = 3 if self.ffn_gated else 2
+        expert_params = m.num_experts * n_mats * self.d_model * m.d_ff_expert
+        n_moe_layers = sum(1 for s in self.layer_pattern if s.moe) * self.block_repeat
+        return self.param_count() - int(
+            n_moe_layers * expert_params * inactive_frac
+        )
+
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)

@@ -1,0 +1,76 @@
+"""PO-ECC low-rank compression (paper eq. 8), 1-D token-tensor form: the
+port of the reference's ``core/compression.py`` parts the one-shot
+end-cloud pipeline uses.
+
+Token tensors ``[..., d]`` cross a communication boundary as
+``Z = X E`` (``E`` in R^{d x r}) and are restored as ``X̂ = Z D``, cutting
+the bytes on the wire by r/d.  The products run in ``kernels.lowrank`` (the
+CUDA kernel on the card) with the reference consumer's casting: the codec
+is cast to the activation type before the product.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode, lowrank_roundtrip
+
+
+def init_lowrank_1d(generator: torch.Generator, d: int, r: int,
+                    dtype: torch.dtype = torch.float32, device=None) -> Dict:
+    """Orthonormal codec ``{"enc": Q [d, r], "dec": Q^T [r, d]}`` from the QR
+    of a standard normal draw, so the identity is recoverable at r = d.
+
+    The draw and the QR run on the CPU (``generator`` must be a CPU
+    generator) and the result moves to ``device``.  The reference draws from
+    ``jax.random.PRNGKey(7)``; no torch generator reproduces those numbers,
+    so a codec that must equal the reference's is carried across with
+    ``bridge.params_from_numpy`` and passed in as ``codec_params``."""
+    e = torch.linalg.qr(torch.randn(d, r, generator=generator, dtype=torch.float32))[0]
+    # QR returns Q column-major; the kernels take row-major operands
+    return {"enc": e.contiguous().to(device=device, dtype=dtype),
+            "dec": e.T.contiguous().to(device=device, dtype=dtype)}
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+def encode_1d(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """``x [..., d] -> z [..., r]``."""
+    z = lowrank_encode(_rows(x), params["enc"].to(x.dtype))
+    return z.reshape(*x.shape[:-1], z.shape[-1])
+
+
+def decode_1d(params: Dict, z: torch.Tensor) -> torch.Tensor:
+    """``z [..., r] -> x̂ [..., d]``."""
+    x = lowrank_decode(_rows(z), params["dec"].to(z.dtype))
+    return x.reshape(*z.shape[:-1], x.shape[-1])
+
+
+def roundtrip_1d(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """``decode_1d(encode_1d(x))`` in one fused pass (``lowrank_roundtrip``).
+    Z stays in f32 between the two products, where the reference's
+    composition rounds it to x's type: equal in f32, within bf16 rounding in
+    bf16."""
+    dt = x.dtype
+    x_hat, _ = lowrank_roundtrip(_rows(x), params["enc"].to(dt), params["dec"].to(dt))
+    return x_hat.reshape(x.shape)
+
+
+def recon_loss(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """||X - X_hat||_2^2 (mean over elements, f32)."""
+    return (x.float() - x_hat.float()).square().mean()
+
+
+def compression_ratio(d: int, r: int, in_bits: int = 16, codec: str = "lowrank"):
+    """Bytes-on-wire ratio used by the route-aware scheduler's comm model."""
+    if codec == "lowrank":
+        return r / d
+    if codec == "int8":
+        return 8 / in_bits
+    if codec == "none":
+        return 1.0
+    raise ValueError(codec)

@@ -1,0 +1,95 @@
+"""Route-aware pipeline split (paper eq. 9-11), the port's own copy of the
+split search in the reference's ``core/pipeline.py``.
+
+The objective (eq. 9) weighs compute time against communication; in its
+pipeline reading the model's blocks are cut at one split point, blocks
+``[0, split)`` run on the end tier and the rest on the cloud, and the
+boundary activation may be compressed (eq. 8).  The estimates come from
+the capability model (``core.hardware``): they are modeled times that
+steer the search, not measurements.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+from repro_torch.core.hardware import Capability
+
+
+@dataclass(frozen=True)
+class PipelinePlan:
+    """Where each layer runs and what crosses the boundary."""
+
+    split_layer: int  # layers [0, split) on end/stage-0, rest on cloud
+    compress_boundary: bool
+    est_end_time_s: float
+    est_cloud_time_s: float
+    est_comm_time_s: float
+
+    @property
+    def est_step_time_s(self) -> float:
+        # Steady-state pipelined throughput is bounded by the slowest stage.
+        return max(self.est_end_time_s, self.est_cloud_time_s, self.est_comm_time_s)
+
+    @property
+    def est_latency_s(self) -> float:
+        return self.est_end_time_s + self.est_comm_time_s + self.est_cloud_time_s
+
+
+def plan_pipeline_split(
+    layer_gflops: Sequence[float],
+    boundary_bytes: float,
+    end_cap: Capability,
+    cloud_cap: Capability,
+    *,
+    compression_ratio: float = 1.0,
+    alpha: float = 0.5,
+    end_servers: int = 1,
+    cloud_servers: int = 1,
+    edge_boundary: bool = False,
+    pin_split: Optional[int] = None,
+    pin_compress: Optional[bool] = None,
+) -> PipelinePlan:
+    """Pick the layer split (and whether to compress the boundary) that
+    minimizes the eq. 9 objective in its pipeline reading: weighted sum of
+    bottleneck stage time (throughput) and boundary comm (latency).
+
+    With ``end_servers`` / ``cloud_servers`` the throughput bottleneck
+    compares per-fleet stage rates while latency uses per-request times.
+    ``edge_boundary=True`` models executors whose edge splits still ship an
+    activation (the embedding stays on the end and the LM head on the
+    cloud, so d_model bytes cross the wire even at split 0 or n,
+    uncompressed: the codec applies only to interior splits).
+    ``pin_split`` / ``pin_compress`` restrict the search to one split /
+    compress choice, so the estimates come from the same formulas as the
+    free search.
+    """
+    n = len(layer_gflops)
+    if pin_split is not None and not 0 <= pin_split <= n:
+        raise ValueError(f"pin_split={pin_split} outside [0, {n}]")
+    best: Optional[PipelinePlan] = None
+    best_score = None
+    splits = range(0, n + 1) if pin_split is None else (pin_split,)
+    compress_opts = (False, True) if pin_compress is None else (pin_compress,)
+    for compress in compress_opts:
+        for split in splits:
+            interior = 0 < split < n
+            ratio = compression_ratio if (compress and interior) else 1.0
+            ct = boundary_bytes * ratio * 8.0 / max(end_cap.net_gbps * 1e9, 1e-9)
+            end_t = sum(layer_gflops[:split]) / max(end_cap.gflop_budget * 1e3, 1e-9)
+            cloud_t = sum(layer_gflops[split:]) / max(
+                cloud_cap.gflop_budget * 1e3, 1e-9
+            )
+            comm = ct if (interior or edge_boundary) else 0.0
+            plan = PipelinePlan(split, compress and interior, end_t, cloud_t, comm)
+            bottleneck = max(
+                end_t / max(end_servers, 1),
+                cloud_t / max(cloud_servers, 1),
+                comm,
+            )
+            score = alpha * bottleneck + (1 - alpha) * (comm + 0.01 * plan.est_latency_s)
+            if best is None or score < best_score:
+                best, best_score = plan, score
+    assert best is not None
+    return best

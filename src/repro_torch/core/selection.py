@@ -1,11 +1,84 @@
-"""Expert-mask validation at the engine boundary (the port's own copy of the
-reference's ``core/selection.py::validate_expert_mask``)."""
+"""Hardware-aware local expert selection (paper eq. 4) and expert-mask
+validation at the engine boundary (the port's own copy of the reference's
+``core/selection.py``: ``local_expert_mask``, ``end_mask_for`` and
+``validate_expert_mask``).
+
+    E_local = { e_i | f(V_expert_i, T_capability) <= eps }
+
+capped at ``local_selection_cap`` of the expert set.  Experts are admitted
+greedily by whole groups, so the selected set stays aligned with the
+HL-GGN group structure.  Masks are boolean ``[E]`` numpy arrays.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
+
+from repro_torch.core.hardware import (
+    Capability,
+    DeviceProfile,
+    DeviceState,
+    ExpertComplexity,
+    capability,
+    complexity_match,
+    expert_complexity,
+)
+
+
+def local_expert_mask(
+    v: ExpertComplexity,
+    cap: Capability,
+    num_experts: int,
+    num_groups: int,
+    *,
+    eps: float = 1.0,
+    selection_cap: float = 0.4,
+    group_priority: Optional[Sequence[int]] = None,
+) -> np.ndarray:
+    """Boolean [E] mask of experts admitted for local (end-side) evaluation.
+
+    ``group_priority``: group indices in decreasing preference; defaults to
+    natural order."""
+    E, K = num_experts, num_groups
+    Mk = E // K
+    max_local = int(np.floor(selection_cap * E))
+    mask = np.zeros((E,), bool)
+    order = list(group_priority) if group_priority is not None else list(range(K))
+    n_resident = 0
+    for g in order:
+        for j in range(Mk):
+            if n_resident >= max_local:
+                return mask
+            if complexity_match(v, cap, n_resident) <= eps:
+                mask[g * Mk + j] = True
+                n_resident += 1
+            else:
+                return mask
+    return mask
+
+
+def end_mask_for(
+    profile: DeviceProfile,
+    state: DeviceState,
+    d_model: int,
+    d_ff_expert: int,
+    num_experts: int,
+    num_groups: int,
+    *,
+    gated: bool = True,
+    eps: float = 1.0,
+    selection_cap: float = 0.4,
+    group_priority: Optional[Sequence[int]] = None,
+) -> np.ndarray:
+    """Profile + state -> expert mask (the full eq. 2-4 path)."""
+    cap = capability(profile, state)
+    v = expert_complexity(d_model, d_ff_expert, gated)
+    return local_expert_mask(
+        v, cap, num_experts, num_groups, eps=eps, selection_cap=selection_cap,
+        group_priority=group_priority,
+    )
 
 
 def validate_expert_mask(mask, num_experts: Optional[int] = None, *,

@@ -6,6 +6,11 @@ version.
   group_gate      — fused HL-GGN group gate, eq. 5-7 (Triton)
   expert_mlp      — grouped expert FFN over expert-sorted rows (CUDA C++,
                     ``csrc/expert_mlp.cu``)
+  lowrank         — eq. 8 low-rank codec: encode, decode and the fused
+                    roundtrip with its error sum (CUDA C++,
+                    ``csrc/lowrank.cu``)
+  flash_attention — full-sequence causal GQA attention forward with
+                    sliding window (CUDA C++, ``csrc/flash_attention.cu``)
 
 Each wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); it counts its launches in ``<wrapper>.launches``.

@@ -1,0 +1,6 @@
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_fwd,
+    flash_attention_plain,
+)
+
+__all__ = ["flash_attention_fwd", "flash_attention_plain"]

@@ -1,0 +1,147 @@
+"""Low-rank boundary codec (eq. 8, 1-D form): the CUDA kernel's wrappers
+and their plain PyTorch versions.
+
+``lowrank_encode`` computes ``Z = X·E``, ``lowrank_decode`` ``X̂ = Z·D``,
+and ``lowrank_roundtrip`` both in one pass plus ``Σ(X − X̂)²``, with f32
+accumulation and outputs in X's type (the reference's
+``kernels/lowrank/ref.py``).  Both operands of a product share one type:
+the consumer (``core.compression``) casts the codec to the activation type
+first, as the reference's ``encode_1d`` / ``decode_1d`` do.  A CPU tensor
+goes to the plain version; a CUDA tensor launches ``csrc/lowrank.cu`` or
+raises.  Any number of rows T is taken (the kernel masks the tail).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROWS = 8  # token rows per block (kRows in csrc/lowrank.cu)
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("lowrank")
+    lib.lowrank_project_launch.restype = ctypes.c_int
+    lib.lowrank_project_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.lowrank_roundtrip_launch.restype = ctypes.c_int
+    lib.lowrank_roundtrip_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    return lib
+
+
+def lowrank_project_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [T, k] @ w [k, n]`` in f32, rounded to x's type once (encode with
+    ``w = E``, decode with ``w = D``)."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def lowrank_roundtrip_plain(
+    x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(X̂ in x's type, Σ(X − X̂)² in f32): Z stays in f32 and the error is
+    taken from the unrounded f32 X̂."""
+    xf = x.float()
+    x_hat = (xf @ enc.float()) @ dec.float()
+    return x_hat.to(x.dtype), (xf - x_hat).square().sum()
+
+
+def _check(what: str, x: torch.Tensor, *ws: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    for t in (x, *ws):
+        if t.device != x.device:
+            raise ValueError(f"{what}: operands on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: an operand is not contiguous")
+        if t.dim() != 2:
+            raise ValueError(f"{what}: operands must be 2-D, got {tuple(t.shape)}")
+    if x.dtype not in _DTYPES or any(w.dtype != x.dtype for w in ws):
+        raise ValueError(
+            f"{what}: operands must share one dtype of float32/bfloat16, got "
+            + " ".join(str(t.dtype) for t in (x, *ws))
+        )
+
+
+def _project(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The shared body of encode and decode; counts launches on ``fn``."""
+    if x.device.type == "cpu":
+        return lowrank_project_plain(x, w)
+    what = fn.__name__
+    _check(what, x, w)
+    nt, k = x.shape
+    if w.shape[0] != k:
+        raise ValueError(f"{what}: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if 4 * ROWS * k > SMEM_LIMIT:
+        raise ValueError(f"{what}: inner width {k} exceeds the kernel's shared memory")
+    n = w.shape[1]
+    y = torch.empty((nt, n), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:  # an empty grid is no launch
+        return y
+    err = _lib().lowrank_project_launch(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), nt, k, n, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check_launch(err, what)
+    fn.launches += 1
+    return y
+
+
+def lowrank_encode(x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """``Z [T, r] = X [T, d] · E [d, r]``; the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors."""
+    return _project(lowrank_encode, x, enc)
+
+
+def lowrank_decode(z: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
+    """``X̂ [T, d] = Z [T, r] · D [r, d]``; the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors."""
+    return _project(lowrank_decode, z, dec)
+
+
+def lowrank_roundtrip(
+    x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused eq. 8 path: (X̂ in x's type, Σ(X − X̂)² as an f32 scalar); the
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors (the
+    error sum is deterministic: per-block partials summed in fixed order)."""
+    if x.device.type == "cpu":
+        return lowrank_roundtrip_plain(x, enc, dec)
+    _check("lowrank_roundtrip", x, enc, dec)
+    nt, d = x.shape
+    r = enc.shape[1]
+    if enc.shape[0] != d or dec.shape != (r, d):
+        raise ValueError(
+            f"lowrank_roundtrip: shapes x={tuple(x.shape)} enc={tuple(enc.shape)} "
+            f"dec={tuple(dec.shape)} do not agree"
+        )
+    if 4 * ROWS * (d + r) > SMEM_LIMIT:
+        raise ValueError(f"lowrank_roundtrip: d + r = {d + r} exceeds the kernel's shared memory")
+    x_hat = torch.empty_like(x)
+    err_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return x_hat, err_sum
+    partial = torch.empty(-(-nt // ROWS), dtype=torch.float32, device=x.device)
+    err = _lib().lowrank_roundtrip_launch(
+        x.data_ptr(), enc.data_ptr(), dec.data_ptr(), x_hat.data_ptr(),
+        partial.data_ptr(), err_sum.data_ptr(), nt, d, r, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check_launch(err, "lowrank_roundtrip")
+    lowrank_roundtrip.launches += 1
+    return x_hat, err_sum
+
+
+lowrank_encode.launches = 0
+lowrank_decode.launches = 0
+lowrank_roundtrip.launches = 0

@@ -1,6 +1,7 @@
-"""Attention for the paged serving path: GQA projections, RoPE, and
+"""Attention: GQA projections, RoPE, full-sequence flash attention, and
 attention straight off the KV page pool (port of the reference's
-``models/attention.py``, the parts the paged engine runs)."""
+``models/attention.py``: the parts the paged engine and the one-shot
+end-cloud pipeline run, and the O(S²) oracle)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import NEG_INF
+from repro_torch.kernels.flash_attention.ops import block_mask as _block_mask
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.layers import rms_norm, truncated_normal_init
 
@@ -28,6 +32,39 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     return torch.cat((x1 * cos - x2 * sin, x1 * sin + x2 * cos), dim=-1).to(dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, hd]
+    k: torch.Tensor,  # [B, Skv, KV, hd]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Full-sequence (prefill-style) GQA attention in the models' layout:
+    online softmax over kv tiles with causal / window tile skipping
+    (``kernels.flash_attention``, the CUDA kernel on the card).  Query row i
+    sits at position ``q_offset + i``; keys at 0..Skv-1."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """O(S²)-memory oracle used by tests: one f32 softmax over every key."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / (hd ** 0.5)
+    qr = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqgnd,bkgd->bqgnk", qr.float(), k.float()) * scale
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = _block_mask(qpos, kpos, causal, window)
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqgnk,bkgd->bqgnd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def paged_chunk_attention(

@@ -1,6 +1,7 @@
-"""Transformer stack for paged serving (port of the reference's
-``models/transformer.py``: init, embedding and head, and the paged decode
-and chunked-prefill stacks of attention-only patterns).
+"""Transformer stack (port of the reference's ``models/transformer.py``:
+init, embedding and head, the full-sequence layer of the one-shot end-cloud
+pipeline, and the paged decode and chunked-prefill stacks of attention-only
+patterns).
 
 Params keep the reference's layout: ``blocks["pos{i}"]`` leaves are stacked
 over the ``block_repeat`` axis, and a Python loop over blocks takes the
@@ -94,12 +95,50 @@ def block_params(tree: Dict, r: int) -> Dict:
     return {k: block_params(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
 
 
-def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask):
+def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, train: bool = False):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.moe:
-        y, aux = apply_moe(p["moe"], h, cfg, expert_mask=expert_mask, train=False)
+        y, aux = apply_moe(p["moe"], h, cfg, expert_mask=expert_mask, train=train)
         return x + y, aux
     return x + apply_mlp(p["ffn"], h, cfg.act), {}
+
+
+def _self_attention_full(p: Dict, h: torch.Tensor, cfg, angles, causal: bool):
+    q, k, v = attn.project_qkv(p, h, cfg, angles)
+    o = attn.flash_attention(
+        q, k, v, causal=causal, window=cfg.sliding_window if causal else None
+    )
+    return attn.output_proj(p, o)
+
+
+def apply_layer_full(
+    p: Dict,
+    x: torch.Tensor,  # [B, S, d]
+    spec,
+    cfg,
+    angles: torch.Tensor,  # [B, S, hd/2]
+    *,
+    causal: bool = True,
+    expert_mask=None,
+    train: bool = True,
+    collect_cache: bool = False,
+):
+    """Full-sequence layer (prefill-style) of an attention pattern.
+    Returns (x, aux, cache_entry) as the reference; cache_entry is empty.
+
+    The reference's other branches are not ported: SSM and cross-attention
+    layers and ``collect_cache`` raise; the sequence-parallel attention
+    needs a device mesh, which the port (one device) does not have."""
+    if spec.kind != "attn" or spec.cross_attn:
+        raise NotImplementedError(f"layer kind {spec} is not ported yet")
+    if collect_cache:
+        raise NotImplementedError("collect_cache (dense KV rings) is not ported yet")
+    aux: Dict[str, torch.Tensor] = {}
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + _self_attention_full(p["attn"], h, cfg, angles, causal)
+    if _has_ffn(spec, cfg):
+        x, aux = _ffn(p, x, spec, cfg, expert_mask, train)
+    return x, aux, {}
 
 
 def apply_layer_decode(

@@ -1,6 +1,6 @@
 """The port's kernels on the card: each against its plain version, the
-wrappers' input checks, and the serving engine on the card against the
-same engine on the CPU.  Marked ``cuda``; skipped where no CUDA device is
+wrappers' input checks, and the serving engine and the one-shot end-cloud
+pipeline on the card against the same on the CPU.  Marked ``cuda``; skipped where no CUDA device is
 visible.  Run on a machine with the card (``--noconftest``: the suite's
 conftest imports JAX, which the port does not need):
 
@@ -12,11 +12,20 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.hardware import PROFILES
 from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_plain
+from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.group_gate import group_gate, group_gate_plain
+from repro_torch.kernels.lowrank import (
+    lowrank_decode,
+    lowrank_encode,
+    lowrank_project_plain,
+    lowrank_roundtrip,
+    lowrank_roundtrip_plain,
+)
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 from repro_torch.models.model import Model, to_device
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import EndCloudPipeline, Request, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +124,79 @@ def test_engine_on_card_matches_cpu(gen, name):
         assert eng.pool.pages_in_use == 0
         tokens[dev] = [r.generated for r in reqs]
     assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,q_offset", [
+    (2, 64, 64, 4, 4, 32, True, None, 0),
+    (2, 200, 200, 8, 2, 64, True, 64, 0),  # ragged S, GQA, window tile skip
+    (1, 100, 100, 4, 1, 128, False, None, 0),
+    (2, 70, 70, 4, 2, 64, False, 20, 0),
+    (1, 40, 150, 4, 2, 32, True, 30, 110),  # queries at the end of the keys
+    (1, 8, 16, 2, 2, 32, True, 4, 16),  # rows with no visible key -> 0
+])
+def test_flash_attention_kernel(gen, dtype, B, Sq, Skv, H, KV, hd, causal, window, q_offset):
+    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    assert flash_attention_fwd.launches == before + 1
+    # same tiles, sums in another order; bf16: p and the output round once
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention_fwd(q, k.float() if dtype == torch.bfloat16 else k.bfloat16(), v, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,r", [(1024, 768, 384), (37, 96, 24), (1, 64, 64)])
+def test_lowrank_kernels(gen, dtype, T, d, r):
+    x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+    q = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0]
+    enc, dec = q.to(dtype).contiguous(), q.T.to(dtype).contiguous()
+    # f32 sums in another order; bf16 outputs round once (one ulp)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2 ** -7)
+    counts = (lowrank_encode.launches, lowrank_decode.launches, lowrank_roundtrip.launches)
+    z = lowrank_encode(x, enc)
+    torch.testing.assert_close(z.float(), lowrank_project_plain(x, enc).float(), **tol)
+    xh = lowrank_decode(z, dec)
+    torch.testing.assert_close(xh.float(), lowrank_project_plain(z, dec).float(), **tol)
+    xr, err = lowrank_roundtrip(x, enc, dec)
+    xr_p, err_p = lowrank_roundtrip_plain(x, enc, dec)
+    torch.testing.assert_close(xr.float(), xr_p.float(), **tol)
+    torch.testing.assert_close(err, err_p, rtol=1e-4, atol=1e-6)
+    assert (lowrank_encode.launches, lowrank_decode.launches, lowrank_roundtrip.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    again, err2 = lowrank_roundtrip(x, enc, dec)
+    assert torch.equal(again, xr) and torch.equal(err2, err)  # deterministic, no atomics
+    with pytest.raises(ValueError, match="dtype"):
+        lowrank_encode(x, enc.float() if dtype == torch.bfloat16 else enc.bfloat16())
+
+
+@pytest.mark.parametrize("rank", [0, 32])
+def test_pipeline_on_card_matches_cpu(gen, rank):
+    """The f32 smoke pipeline (jetson-orin end, a100 cloud): kernels on the
+    card, plain versions on the CPU, the same weights and codec."""
+    cfg = smoke_config(get_config("llama4-scout-17b-16e")).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.arange(2 * 48, dtype=torch.int32).view(2, 48) % 500
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pipe = EndCloudPipeline(Model(cfg, device=dev), to_device(params, dev),
+                                end_profile=PROFILES["jetson-orin"],
+                                cloud_profile=PROFILES["a100"], compression_rank=rank)
+        before = flash_attention_fwd.launches
+        logits, m = pipe.run_batch(tokens)
+        if dev == "cuda":
+            assert flash_attention_fwd.launches == before + cfg.num_layers
+        out[dev] = (logits.float().cpu(), m)
+    (lc, mc), (lg, mg) = out["cpu"], out["cuda"]
+    for key in ("split", "compressed", "boundary_bytes", "t_comm_s"):
+        assert mg[key] == mc[key], key
+    assert mg["compressed"] == (rank > 0)
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,128 @@
+"""The port's full-sequence flash attention against the reference's: the
+consumer ``models/attention.py::flash_attention`` (the jnp scan the
+one-shot pipeline runs), the O(S²) oracle ``reference_attention``, and the
+Pallas kernel ``flash_attention_fwd`` in interpret mode where the shapes
+divide its blocks.  Causal and not, GQA (G > 1), sliding windows, ragged S,
+a query offset, bf16 and f32; numpy inputs made from a seed.  On the CPU
+the port runs its plain version (an online softmax over the kernel's
+64-key tiles); the CUDA kernel is held against it on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+Tolerances:
+- f32: sums in another order and another kv blocking, rtol = atol = 2e-5.
+- bf16: p is rounded to bf16 before p·V relative to each side's running
+  maximum, which differs with the kv blocking, and the output is rounded
+  to bf16: held at rtol 2^-6 and atol 2^-6 (outputs are means of standard
+  normal values, |o| < 4).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_fwd as jflash_pallas
+from repro.models import attention as jattn
+from repro_torch.models import attention as tattn
+
+# one intra-op thread per test worker: the suite runs several workers on a
+# few shared cores, where a many-thread pool stalls on every tiny op
+torch.set_num_threads(1)
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2 ** -6, atol=2 ** -6)}
+
+
+def _qkv(B, Sq, Skv, H, KV, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, hd)).astype(np.float32))
+
+
+def _port(arrs, tdt, **kw):
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrs)
+    out = tattn.flash_attention(q, k, v, **kw)
+    assert out.dtype == tdt and out.shape == q.shape
+    return out.float().numpy()
+
+
+def _np(a):
+    return np.asarray(a, np.float32)
+
+
+CASES = [
+    # (H, KV, S, causal, window)
+    (4, 4, 64, True, None),
+    (4, 2, 128, True, None),  # GQA, G = 2, two 64-key tiles
+    (8, 2, 128, True, 48),  # sliding window < S
+    (4, 1, 100, True, None),  # ragged S, G = 4
+    (4, 2, 200, True, 64),  # ragged S with a window (the chip check's case)
+    (4, 2, 96, False, None),  # not causal
+    (4, 4, 77, False, 16),  # not causal, window, ragged
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("H,KV,S,causal,window", CASES)
+def test_against_consumer_and_oracle(H, KV, S, causal, window, dtype):
+    jdt, tdt = DTYPES[dtype]
+    arrs = _qkv(2, S, S, H, KV, 32)
+    got = _port(arrs, tdt, causal=causal, window=window)
+    qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in arrs)
+    want = jattn.flash_attention(qj, kj, vj, causal=causal, window=window,
+                                 q_chunk=64, kv_chunk=64)
+    np.testing.assert_allclose(got, _np(want), **TOL[dtype])
+    oracle = jattn.reference_attention(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(got, _np(oracle), **TOL[dtype])
+    # the port's own oracle equals the reference's
+    mine = tattn.reference_attention(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                                     causal=causal, window=window)
+    np.testing.assert_allclose(mine.float().numpy(), _np(oracle), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("H,KV,S,causal,window", [c for c in CASES if c[2] % 64 == 0])
+def test_against_pallas_kernel(H, KV, S, causal, window, dtype):
+    """Where S divides the Pallas kernel's 64-row blocks (it asserts so)."""
+    jdt, tdt = DTYPES[dtype]
+    arrs = _qkv(2, S, S, H, KV, 32, seed=1)
+    got = _port(arrs, tdt, causal=causal, window=window)
+    want = jflash_pallas(*(jnp.asarray(a).astype(jdt) for a in arrs), causal=causal,
+                         window=window, block_q=64, block_kv=64, interpret=True)
+    np.testing.assert_allclose(got, _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_query_offset(dtype):
+    """Sq < Skv with the queries at the end (q_offset = Skv - Sq): every row
+    sees a key, so port and consumer agree row for row."""
+    jdt, tdt = DTYPES[dtype]
+    arrs = _qkv(2, 40, 150, 4, 2, 32, seed=2)
+    for window in (None, 50):
+        got = _port(arrs, tdt, causal=True, window=window, q_offset=110)
+        qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in arrs)
+        want = jattn.flash_attention(qj, kj, vj, causal=True, window=window,
+                                     q_chunk=40, kv_chunk=50, q_offset=110)
+        np.testing.assert_allclose(got, _np(want), **TOL[dtype])
+        oracle = jattn.reference_attention(qj, kj, vj, causal=True, window=window,
+                                           q_offset=110)
+        np.testing.assert_allclose(got, _np(oracle), **TOL[dtype])
+
+
+def test_rows_without_a_visible_key():
+    """A known difference from the consumer (ROADMAP queue C): a query row
+    with no visible key at all (here its window lies past every key) comes
+    back as exact 0 from the port, as from the paged-attention kernels;
+    the reference consumer scores every masked key as -1e30 and so returns
+    the mean of V over all keys.  Rows that see a key agree."""
+    arrs = _qkv(1, 8, 16, 2, 2, 32, seed=4)
+    got = _port(arrs, torch.float32, causal=True, window=4, q_offset=16)
+    qj, kj, vj = (jnp.asarray(a) for a in arrs)
+    want = _np(jattn.flash_attention(qj, kj, vj, causal=True, window=4, q_offset=16))
+    blind = np.arange(8) + 16 - 4 >= 15  # rows whose window starts past key 15
+    assert blind.any() and not blind.all()
+    assert (got[:, blind] == 0).all()
+    np.testing.assert_allclose(want[:, blind], np.broadcast_to(
+        arrs[2].mean(axis=1, keepdims=True), want[:, blind].shape), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[:, ~blind], want[:, ~blind], rtol=2e-5, atol=2e-5)
