@@ -95,10 +95,10 @@ def block_params(tree: Dict, r: int) -> Dict:
     return {k: block_params(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
 
 
-def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, train: bool = False):
+def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.moe:
-        y, aux = apply_moe(p["moe"], h, cfg, expert_mask=expert_mask, train=train)
+        y, aux = apply_moe(p["moe"], h, cfg, expert_mask=expert_mask, train=False)
         return x + y, aux
     return x + apply_mlp(p["ffn"], h, cfg.act), {}
 
@@ -120,11 +120,11 @@ def apply_layer_full(
     *,
     causal: bool = True,
     expert_mask=None,
-    train: bool = True,
     collect_cache: bool = False,
 ):
-    """Full-sequence layer (prefill-style) of an attention pattern.
-    Returns (x, aux, cache_entry) as the reference; cache_entry is empty.
+    """Full-sequence layer (prefill-style) of an attention pattern, for
+    serving: the reference's ``train=False`` (no router losses; training is
+    not ported).  Returns (x, aux, cache_entry); cache_entry is empty.
 
     The reference's other branches are not ported: SSM and cross-attention
     layers and ``collect_cache`` raise; the sequence-parallel attention
@@ -137,7 +137,7 @@ def apply_layer_full(
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     x = x + _self_attention_full(p["attn"], h, cfg, angles, causal)
     if _has_ffn(spec, cfg):
-        x, aux = _ffn(p, x, spec, cfg, expert_mask, train)
+        x, aux = _ffn(p, x, spec, cfg, expert_mask)
     return x, aux, {}
 
 

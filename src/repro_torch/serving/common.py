@@ -40,24 +40,17 @@ class Request:
 
 @dataclass
 class LinkStats:
-    """Meter for the end<->cloud link: bytes on the wire in each direction
-    plus modeled wire seconds (bytes over the planner's link rate: a model
-    of the link, not a measurement)."""
+    """Meter for the end->cloud link: bytes on the wire plus modeled wire
+    seconds (bytes over the planner's link rate: a model of the link, not a
+    measurement).  The reference's downlink and peer meters come with the
+    stream engine that records them."""
 
     bytes_up: int = 0
-    bytes_down: int = 0
-    bytes_peer: int = 0
     transfers: int = 0
     seconds_up: float = 0.0
-    seconds_peer: float = 0.0
 
     def transfer_time(self, nbytes: int, gbps: float) -> float:
         return nbytes * 8.0 / max(gbps * 1e9, 1e-9)
-
-    def record_peer(self, nbytes: int, seconds: float) -> None:
-        """Meter an end<->end transfer whose wire time was modeled elsewhere."""
-        self.bytes_peer += nbytes
-        self.seconds_peer += seconds
 
     def record_up(self, nbytes: int, gbps: float) -> float:
         """Meter an end->cloud transfer; returns its modeled wire time."""
@@ -66,15 +59,6 @@ class LinkStats:
         self.transfers += 1
         self.seconds_up += t
         return t
-
-    def record_down(self, nbytes: int) -> None:
-        """Meter a cloud->end transfer (bytes only)."""
-        self.bytes_down += nbytes
-
-    @property
-    def measured_gbps(self) -> float:
-        """Average realized uplink rate over everything metered so far."""
-        return self.bytes_up * 8.0 / max(self.seconds_up * 1e9, 1e-12)
 
 
 def _signature(tree) -> Tuple:

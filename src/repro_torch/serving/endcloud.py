@@ -290,7 +290,7 @@ class EndCloudPipeline:
             for i, spec in enumerate(cfg.layer_pattern):
                 x, _, _ = transformer.apply_layer_full(
                     bp[f"pos{i}"], x, spec, cfg, angles, causal=True,
-                    expert_mask=expert_mask, train=False,
+                    expert_mask=expert_mask,
                 )
         return x
 
