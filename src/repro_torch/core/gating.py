@@ -14,7 +14,6 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.group_gate import gate_logits, group_gate
 from repro_torch.models.layers import truncated_normal_init
@@ -85,37 +84,50 @@ def select_topk(probs: torch.Tensor, top_k: int,
     return idx, w
 
 
+def routing_stats(topk_idx: torch.Tensor, num_experts: int,
+                  num_groups: int) -> Dict[str, torch.Tensor]:
+    """Measured routing statistics over every row the gate saw:
+    ``expert_frac [E]``, the fraction of assignments routed to each expert,
+    and ``group_frac [K]``, its sum per group.  Counted on the device (no
+    host sync)."""
+    idx = topk_idx.reshape(-1)
+    counts = torch.zeros(num_experts, dtype=torch.float32, device=idx.device)
+    counts.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float32, device=idx.device))
+    f = counts / idx.numel()
+    return {"expert_frac": f, "group_frac": f.reshape(num_groups, -1).sum(-1)}
+
+
 def load_balance_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
                       num_experts: int, num_groups: int) -> Dict[str, torch.Tensor]:
     """Switch/GShard auxiliary loss at expert and group granularity:
     ``L = E * sum_e f_e P_e`` (1 at perfect balance)."""
     E, K = num_experts, num_groups
-    assign = F.one_hot(topk_idx.reshape(-1), E).float()
-    f = assign.mean(0)
+    st = routing_stats(topk_idx, E, K)
     P = probs.float().mean(0)
-    fg = f.reshape(K, E // K).sum(-1)
     Pg = P.reshape(K, E // K).sum(-1)
     return {
-        "lb_expert": E * torch.sum(f * P),
-        "lb_group": K * torch.sum(fg * Pg),
-        "expert_frac": f,
-        "group_frac": fg,
+        "lb_expert": E * torch.sum(st["expert_frac"] * P),
+        "lb_group": K * torch.sum(st["group_frac"] * Pg),
+        **st,
     }
 
 
 def gate(params: Dict, x: torch.Tensor, moe_cfg,
          expert_mask: Optional[torch.Tensor] = None, *, aux: bool = True) -> GateOutput:
-    """Full HL-GGN gate: probabilities, top-k selection and (with ``aux``)
-    the auxiliary losses and routing statistics."""
+    """Full HL-GGN gate: probabilities, top-k selection and the measured
+    routing statistics ``expert_frac`` / ``group_frac`` (the serving
+    engines EMA them to order the eq. 4 admit and the expert pool's
+    residency); ``aux`` adds the auxiliary losses."""
     probs, p_group, aux_d = group_gate_probs(params, x, moe_cfg, expert_mask, aux=aux)
     topk_idx, topk_w = select_topk(probs, moe_cfg.top_k)
+    E, K = moe_cfg.num_experts, moe_cfg.num_groups
     if aux:
-        lb = load_balance_loss(probs, topk_idx, moe_cfg.num_experts, moe_cfg.num_groups)
-        aux_d.update({k: v for k, v in lb.items() if k.startswith("lb_")})
-        aux_d["expert_frac"] = lb["expert_frac"]
-        aux_d["group_frac"] = lb["group_frac"]
+        lb = load_balance_loss(probs, topk_idx, E, K)
+        aux_d.update(lb)
         aux_d["aux_loss"] = (
             moe_cfg.router_aux_weight * (lb["lb_expert"] + lb["lb_group"])
             + moe_cfg.router_z_weight * aux_d["router_z"]
         )
+    else:
+        aux_d.update(routing_stats(topk_idx, E, K))
     return GateOutput(probs, topk_idx, topk_w, p_group, aux_d)

@@ -1,11 +1,14 @@
 """Group-gated Mixture-of-Experts layer, single shard (port of the
-reference's ``core/moe.py``: the ``sorted`` and ``naive`` paths of
-``apply_moe``).
+reference's ``core/moe.py``: the ``sorted``, ``naive`` and pooled
+``resident`` paths of ``apply_moe``).
 
 ``sorted`` sorts the token-to-expert assignments by expert, runs the expert
 FFN as one grouped product over the sorted rows (``kernels.expert_mlp``,
 the CUDA kernel on the card), and scatters the rows back; ``naive`` runs
-every expert on every token and is the oracle.  Both share the HL-GGN gate.
+every expert on every token and is the oracle; ``resident`` is the end
+tier's pooled path, the same product over rows sorted by resident slot,
+each slot reading its slab of the expert pool's store.  All three share
+the HL-GGN gate.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import gating
-from repro_torch.kernels.expert_mlp import grouped_mlp
+from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_resident
 from repro_torch.models.layers import ACTIVATIONS, apply_mlp, init_mlp, truncated_normal_init
 
 
@@ -51,11 +54,9 @@ def _sorted_expert_ffn(x_rows: torch.Tensor, eid: torch.Tensor, num_experts: int
     """Sort rows by expert, grouped FFN, unsort.  Returns [n, d].  Group
     sizes are counted on the device, so no host sync is needed."""
     order = torch.argsort(eid, stable=True)
-    gs = torch.zeros(num_experts, dtype=torch.int32, device=eid.device).scatter_add_(
-        0, eid, torch.ones_like(eid, dtype=torch.int32)
-    )
     y_sorted = _grouped_mlp(
-        x_rows[order], gs, params["wi"], params.get("wg"), params["wo"], act
+        x_rows[order], _group_sizes(eid, num_experts), params["wi"], params.get("wg"),
+        params["wo"], act,
     )
     return torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
 
@@ -87,35 +88,87 @@ def moe_sorted(params: Dict, x: torch.Tensor, cfg, expert_mask=None, *, aux: boo
             "the eq. 8 dispatch codec (params['codec']) is not ported yet"
         )
     m = cfg.moe
-    T, d = x.shape
     k = m.top_k
     out = gating.gate(params["gate"], x, m, expert_mask, aux=aux)
     rows = x if k == 1 else x.repeat_interleave(k, dim=0)
     y_rows = _sorted_expert_ffn(rows, out.topk_idx.reshape(-1), m.num_experts, params, cfg.act)
     w = out.topk_weight.reshape(-1, 1).to(y_rows.dtype)
+    return _combine(y_rows, w, k).to(x.dtype), out.aux
+
+
+def _combine(y_rows: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """Sum each token's ``k`` weighted assignment rows ([T*k, d] -> [T, d])."""
     if k == 1:
-        y = y_rows * w
-    else:
-        tok = torch.arange(T * k, device=x.device) // k
-        y = torch.zeros((T, d), dtype=y_rows.dtype, device=x.device).index_add_(
-            0, tok, y_rows * w
+        return y_rows * w
+    tok = torch.arange(y_rows.shape[0], device=y_rows.device) // k
+    return torch.zeros((y_rows.shape[0] // k, y_rows.shape[1]), dtype=y_rows.dtype,
+                       device=y_rows.device).index_add_(0, tok, y_rows * w)
+
+
+def _group_sizes(ids: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Rows per group, counted on the device (no host sync)."""
+    return torch.zeros(n_groups, dtype=torch.int32, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int32)
+    )
+
+
+def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None):
+    """Pooled end-tier path: sorted dispatch over the *resident* sub-table.
+
+    ``params["resident"]`` is the expert pool's device view
+    (``core.expertpool``): ``store`` (slab storage ``[N + 1, ...]`` per
+    weight matrix, last row the zero garbage slab), ``ids [S + 1]`` (the
+    layer's resident slot -> slab row) and ``slot [E]`` (expert id ->
+    resident slot, non-residents on the garbage slot ``S``).  The effective
+    routing mask is ``expert_mask AND slot < S``, so non-resident experts
+    are routed away as eq. 4-masked experts are on the dense path, and only
+    resident slabs are read (``kernels.expert_mlp.grouped_mlp_resident``).
+    For a resident superset of the routed experts this equals
+    ``moe_sorted`` under the same mask."""
+    if "codec" in params:
+        raise NotImplementedError(
+            "the eq. 8 dispatch codec (params['codec']) is not ported yet"
         )
-    return y.to(x.dtype), out.aux
+    m = cfg.moe
+    k = m.top_k
+    res = params["resident"]
+    ids, slot_of = res["ids"], res["slot"]
+    S = ids.shape[0] - 1
+    resident_ok = slot_of < S
+    eff_mask = resident_ok if expert_mask is None else expert_mask & resident_ok
+    out = gating.gate(params["gate"], x, m, eff_mask, aux=False)
+    slots = slot_of.long()[out.topk_idx.reshape(-1)]  # [T*k], S for non-residents
+    rows = x if k == 1 else x.repeat_interleave(k, dim=0)
+    order = torch.argsort(slots, stable=True)
+    store = res["store"]
+    y_sorted = grouped_mlp_resident(
+        rows[order], _group_sizes(slots, S + 1), store["wi"], store.get("wg"),
+        store["wo"], ids, cfg.act,
+    )
+    y_rows = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
+    w = out.topk_weight.reshape(-1, 1).to(y_rows.dtype)
+    # rows on the garbage slot come back 0; their combine weight is zeroed
+    # too, so a renormalized tie can never leak garbage-slot output
+    w = torch.where((slots < S)[:, None], w, 0.0)
+    return _combine(y_rows, w, k).to(x.dtype), out.aux
 
 
 def apply_moe(params: Dict, x: torch.Tensor, cfg, *, expert_mask=None,
               train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """MoE FFN over ``x [B, S, d]`` (or ``[T, d]``), single shard.
+    """MoE FFN over ``x [B, S, d]`` (or ``[T, d]``), single shard.  With
+    ``params["resident"]`` (the pooled end tier) the dispatch runs over the
+    resident slabs (:func:`moe_resident`).
 
-    ``train=False`` (serving) skips the router losses and statistics: the
-    reference computes them and lets XLA drop them when the serving step
-    discards them, but eager PyTorch would run every one of those ops."""
+    ``train=False`` (serving) keeps the measured routing statistics and
+    skips the router losses: the reference computes them and lets XLA drop
+    them when the serving step discards them, but eager PyTorch would run
+    every one of those ops."""
     impl = "sorted" if cfg.moe_impl == "auto" else cfg.moe_impl
-    if "resident" in params:
-        raise NotImplementedError("the pooled end-tier expert path is not ported yet")
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if impl == "sorted":
+    if "resident" in params:
+        y, aux = moe_resident(params, x2, cfg, expert_mask)
+    elif impl == "sorted":
         y, aux = moe_sorted(params, x2, cfg, expert_mask, aux=train)
     elif impl == "naive":
         y, aux = moe_naive(params, x2, cfg, expert_mask, aux=train)

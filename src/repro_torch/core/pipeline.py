@@ -6,13 +6,15 @@ pipeline reading the model's blocks are cut at one split point, blocks
 ``[0, split)`` run on the end tier and the rest on the cloud, and the
 boundary activation may be compressed (eq. 8).  The estimates come from
 the capability model (``core.hardware``): they are modeled times that
-steer the search, not measurements.
+steer the search, not measurements.  Replanning re-runs the search
+against measured link conditions (``BandwidthEstimator``,
+``replan_pipeline``) with hysteresis (``should_replan``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Sequence
+from dataclasses import dataclass, replace
+from typing import Optional, Sequence, Tuple
 
 from repro_torch.core.hardware import Capability
 
@@ -93,3 +95,80 @@ def plan_pipeline_split(
                 best, best_score = plan, score
     assert best is not None
     return best
+
+
+# ---------------------------------------------------------------------------
+# Replanning (dynamic load and network, paper figs. 7-8)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BandwidthEstimator:
+    """EWMA estimate of the effective end<->cloud link rate, fed direct
+    rate observations (``observe_rate``) or declared rates (``set_rate``);
+    consumers replan when the estimate drifts from the rate the current
+    plan was computed against."""
+
+    nominal_gbps: float
+    ewma: float = 0.3  # weight of the newest sample
+    _estimate: Optional[float] = None
+
+    def observe_rate(self, gbps: float) -> float:
+        if self._estimate is None:
+            self._estimate = gbps
+        else:
+            self._estimate = (1 - self.ewma) * self._estimate + self.ewma * gbps
+        return self.gbps
+
+    def set_rate(self, gbps: float) -> float:
+        """Hard assignment, bypassing the EWMA: a *declared* link event (a
+        blackout beginning or ending) is a fact, not a noisy sample."""
+        self._estimate = gbps
+        return self.gbps
+
+    @property
+    def gbps(self) -> float:
+        return self._estimate if self._estimate is not None else self.nominal_gbps
+
+
+def should_replan(current: PipelinePlan, proposed: PipelinePlan, *,
+                  rel_threshold: float = 0.15) -> bool:
+    """True when the proposed steady-state step time beats the current one
+    by more than ``rel_threshold`` (the hysteresis that keeps a noisy
+    estimate near a split tie from thrashing the pipeline)."""
+    cur = max(current.est_step_time_s, 1e-12)
+    return (cur - proposed.est_step_time_s) / cur > rel_threshold
+
+
+def replan_pipeline(
+    current: PipelinePlan,
+    layer_gflops: Sequence[float],
+    boundary_bytes: float,
+    end_cap: Capability,
+    cloud_cap: Capability,
+    *,
+    measured_gbps: Optional[float] = None,
+    compression_ratio: float = 1.0,
+    alpha: float = 0.5,
+    rel_threshold: float = 0.15,
+    edge_boundary: bool = False,
+) -> Tuple[PipelinePlan, bool]:
+    """Re-run the split search against measured conditions.  The incumbent
+    is re-evaluated first under the same conditions (split and compress
+    pinned), so stale estimates never bias the comparison.  Returns
+    ``(plan, changed)``: adopt ``plan`` when ``changed``; otherwise ``plan``
+    is the incumbent's split and compress choice with refreshed estimates.
+    ``measured_gbps`` overrides the capability's nominal uplink."""
+    if measured_gbps is not None:
+        end_cap = replace(end_cap, net_gbps=measured_gbps)
+    kwargs = dict(compression_ratio=compression_ratio, alpha=alpha,
+                  edge_boundary=edge_boundary)
+    refreshed = plan_pipeline_split(
+        layer_gflops, boundary_bytes, end_cap, cloud_cap,
+        pin_split=current.split_layer, pin_compress=current.compress_boundary,
+        **kwargs,
+    )
+    proposed = plan_pipeline_split(layer_gflops, boundary_bytes, end_cap, cloud_cap, **kwargs)
+    if should_replan(refreshed, proposed, rel_threshold=rel_threshold):
+        return proposed, True
+    return refreshed, False

@@ -1,7 +1,7 @@
 """Hardware-aware local expert selection (paper eq. 4) and expert-mask
 validation at the engine boundary (the port's own copy of the reference's
-``core/selection.py``: ``local_expert_mask``, ``end_mask_for`` and
-``validate_expert_mask``).
+``core/selection.py``: ``local_expert_mask``, ``end_mask_for``,
+``group_priority_from_freq`` and ``validate_expert_mask``).
 
     E_local = { e_i | f(V_expert_i, T_capability) <= eps }
 
@@ -79,6 +79,23 @@ def end_mask_for(
         v, cap, num_experts, num_groups, eps=eps, selection_cap=selection_cap,
         group_priority=group_priority,
     )
+
+
+def group_priority_from_freq(group_freq: Optional[np.ndarray],
+                             num_groups: int) -> Sequence[int]:
+    """Group order for the eq. 4 greedy admit from *measured* stage-1
+    routing frequencies (the serving engine's EMA of the gate's
+    ``group_frac``): most-routed group first, stable natural order on ties,
+    and exactly natural order before anything has been measured.  (The
+    reference's ``group_cost`` term comes from the fleet expert registry,
+    which is not ported.)"""
+    if group_freq is None:
+        return list(range(num_groups))
+    f = np.asarray(group_freq, np.float64)
+    if f.shape != (num_groups,) or not np.isfinite(f).all():
+        return list(range(num_groups))
+    score = f / s if (s := float(f.sum())) > 0 else f
+    return [int(g) for g in np.argsort(-score, kind="stable")]
 
 
 def validate_expert_mask(mask, num_experts: Optional[int] = None, *,

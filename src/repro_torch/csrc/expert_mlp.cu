@@ -1,38 +1,55 @@
 // Grouped expert FFN for Hopper (sm_90a).
 //
-// Replaces repro/kernels/expert_mlp/kernel.py::expert_mlp_pallas (_body,
-// _kernel, _kernel_nogate) in the role the port gives it: the grouped GEMM
-// of core/moe.py::_grouped_mlp over rows sorted by expert,
-//     y[rows of e] = act(xs @ wi[e]) [* (xs @ wg[e])] @ wo[e],
-// with group_sizes [E] giving each expert's run of rows (empty runs allowed;
-// rows past sum(group_sizes) come back 0, as ragged_dot leaves them).
+// Replaces two TPU kernels of repro/kernels/expert_mlp/kernel.py, in the
+// role the port gives them:
+//   * expert_mlp_pallas (_body, _kernel, _kernel_nogate): the grouped GEMM
+//     of core/moe.py::_grouped_mlp over rows sorted by expert,
+//         y[rows of e] = act(xs @ wi[e]) [* (xs @ wg[e])] @ wo[e];
+//   * expert_mlp_resident_pallas (_kernel_resident[_nogate]): the same
+//     product over rows sorted by resident slot, where slot s reads the slab
+//     row ids[s] of the end tier's expert store -- the gather
+//     store[ids] and the ragged product of core/moe.py::moe_resident in one
+//     kernel, with the store read in place.
+// group_sizes gives each group's run of rows (empty runs allowed; rows past
+// sum(group_sizes) come back 0, as ragged_dot leaves them).
+//
+// Weights may be stored in a wider type than the rows (the slab store keeps
+// the params' f32): each weight is rounded to the rows' type as it is read,
+// which is ragged_dot(xs, w.astype(xs.dtype)) without a rounded copy of the
+// store.  One group (zero_group, the resident path's garbage slot) reads no
+// weights and writes zero rows: its slab is all zeros and act(0) = 0.
 //
 // What bounds it on the H100: bytes, at serving shapes.  Top-1 decode over
 // 8 slots puts about one row on each expert, so the work is a matrix-vector
-// product per expert: every weight element (2 bytes in bf16) is read for
-// ~2 flops a row, far under the ~295 flops a byte where the tensor cores
-// would bind.  The kernel's job is therefore to read each routed expert's
-// weights once, with coalesced loads spread over many SMs, and never to
-// read an unrouted expert's weights at all.
+// product per expert: every weight element (2 bytes in bf16, 4 in the f32
+// slab store) is read for ~2 flops a row, far under the ~295 flops a byte
+// where the tensor cores would bind.  The kernel's job is therefore to read
+// each routed group's weights once, with coalesced loads spread over many
+// SMs, and never to read an unrouted group's weights at all.
 //
-// Design: one block per (hidden tile of 64 columns, expert, tile of 8
-// rows).  A block loads its rows of xs (f32 in shared memory), computes the
-// hidden tile h = act(x @ wi[:, tile]) [* (x @ wg[:, tile])] in f32 -- 256
-// threads, four k-slices of 64 coalesced columns -- keeps h in shared
-// memory, and multiplies it by the matching 64 rows of wo.  The hidden
-// activation never reaches HBM, which is what expert_mlp_pallas keeps out of
-// it too.  On the TPU the ff tiles were a sequential grid axis accumulating
-// into one VMEM block; here they run in parallel on different SMs, so each
-// writes its partial y into a small f32 scratch [n_tiles, n, d] and a second
-// pass sums the partials in a fixed order (deterministic, no atomics) and
-// rounds once to the output type.  Blocks whose expert has no rows in their
-// row tile exit at once, so unrouted experts cost nothing.
+// Design: one block per (hidden tile of 64 columns, group, tile of 8 rows).
+// A block loads its rows of xs (f32 in shared memory), computes the hidden
+// tile h = act(x @ wi[:, tile]) [* (x @ wg[:, tile])] in f32 -- 256 threads,
+// four k-slices of 64 coalesced columns -- keeps h in shared memory, and
+// multiplies it by the matching 64 rows of wo.  The hidden activation never
+// reaches HBM, which is what expert_mlp_pallas keeps out of it too.  On the
+// TPU the ff tiles were a sequential grid axis accumulating into one VMEM
+// block; here they run in parallel on different SMs, so each writes its
+// partial y into a small f32 scratch [n_tiles, n, d] and a second pass sums
+// the partials in a fixed order (deterministic, no atomics) and rounds once
+// to the output type.  Blocks whose group has no rows in their row tile
+// exit at once, so unrouted experts cost nothing.  A row's arithmetic does
+// not depend on which rows share its tile or on the slab it is read
+// through, so the resident and the dense path give the same bits for a row
+// routed to the same expert.
 //
 // Later: wgmma tiles with TMA-fed shared memory for prefill-sized groups,
 // and 16-byte vector loads of the weight rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,6 +67,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
+// weight of storage type W as the rows' type T sees it, in f32
+template <typename T, typename W>
+__device__ __forceinline__ float wload(const W* p) {
+  if constexpr (std::is_same<T, W>::value) return to_f(*p);
+  else return to_f(from_f<T>(to_f(*p)));
+}
+
 // 0 = silu, 1 = gelu (tanh form, as jax.nn.gelu), 2 = relu
 template <int ACT>
 __device__ __forceinline__ float act(float x) {
@@ -61,15 +85,16 @@ __device__ __forceinline__ float act(float x) {
   return fmaxf(x, 0.f);
 }
 
-template <typename T, int ACT, bool GATED>
+template <typename T, typename W, int ACT, bool GATED>
 __global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
-    const T* __restrict__ xs,           // [n, d] sorted by expert
-    const int* __restrict__ group_sizes,  // [E]
-    const T* __restrict__ wi,           // [E, d, f]
-    const T* __restrict__ wg,           // [E, d, f] (GATED only)
-    const T* __restrict__ wo,           // [E, f, d]
+    const T* __restrict__ xs,           // [n, d] sorted by group
+    const int* __restrict__ group_sizes,  // [G]
+    const int* __restrict__ ids,        // [G] slab row of each group, or null
+    const W* __restrict__ wi,           // [slabs, d, f]
+    const W* __restrict__ wg,           // [slabs, d, f] (GATED only)
+    const W* __restrict__ wo,           // [slabs, f, d]
     float* __restrict__ partial,        // [n_tiles, n, d]
-    int n, int d, int f) {
+    int n, int d, int f, int zero_group) {
   const int tile = blockIdx.x, e = blockIdx.y, rt = blockIdx.z;
   const int tid = threadIdx.x;
   __shared__ int s_start, s_count;
@@ -84,6 +109,12 @@ __global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
   // rows past n (group sizes summing beyond the row count) are never read
   const int nr = min(min(kRows, s_count - rt * kRows), n - r0);
   if (nr <= 0) return;  // the same for every thread of the block
+  if (e == zero_group) {  // all-zero slab: zero rows, no weight read
+    for (int i = tid; i < nr * d; i += kThreads)
+      partial[((size_t)tile * n + r0) * d + i] = 0.f;
+    return;
+  }
+  const size_t slab = ids != nullptr ? (size_t)ids[e] : (size_t)e;
   const int f0 = tile * kTile;
   const int nf = min(kTile, f - f0);
 
@@ -107,12 +138,12 @@ __global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
   if (col < nf) {
     const int span = (d + kSlices - 1) / kSlices;
     const int k0 = slice * span, k1 = min(d, k0 + span);
-    const T* wi_c = wi + (size_t)e * d * f + f0 + col;
-    const T* wg_c = GATED ? wg + (size_t)e * d * f + f0 + col : nullptr;
+    const W* wi_c = wi + slab * d * f + f0 + col;
+    const W* wg_c = GATED ? wg + slab * d * f + f0 + col : nullptr;
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) {
-      const float w = to_f(wi_c[(size_t)k * f]);
-      const float wgv = GATED ? to_f(wg_c[(size_t)k * f]) : 0.f;
+      const float w = wload<T>(wi_c + (size_t)k * f);
+      const float wgv = GATED ? wload<T>(wg_c + (size_t)k * f) : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float xv = x_s[r * d + k];
@@ -142,14 +173,14 @@ __global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
   __syncthreads();
 
   // partial y = h tile @ wo[e, f0:f0+nf, :]
-  const T* wo_t = wo + ((size_t)e * f + f0) * d;
+  const W* wo_t = wo + (slab * f + f0) * d;
   for (int c = tid; c < d; c += kThreads) {
     float acc[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
 #pragma unroll 4
     for (int j = 0; j < nf; ++j) {
-      const float w = to_f(wo_t[(size_t)j * d + c]);
+      const float w = wload<T>(wo_t + (size_t)j * d + c);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h_s[r * kTile + j], w, acc[r]);
     }
@@ -183,40 +214,46 @@ __global__ void reduce_tiles_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename T, int ACT, bool GATED>
-cudaError_t launch_ffn(const void* xs, const int* gs, const void* wi,
-                       const void* wg, const void* wo, float* partial, int n,
-                       int d, int f, int E, cudaStream_t stream) {
+template <typename T, typename W, int ACT, bool GATED>
+cudaError_t launch_ffn(const void* xs, const int* gs, const int* ids,
+                       const void* wi, const void* wg, const void* wo,
+                       float* partial, int n, int d, int f, int G,
+                       int zero_group, cudaStream_t stream) {
   const int n_tiles = (f + kTile - 1) / kTile;
-  const int row_tiles = (n + kRows - 1) / kRows;  // bound: all rows on one expert
+  const int row_tiles = (n + kRows - 1) / kRows;  // bound: all rows in one group
   const size_t smem = sizeof(float) * ((size_t)kRows * d +
                                        (GATED ? 2 : 1) * kSlices * kRows * kTile +
                                        kRows * kTile);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        expert_ffn_kernel<T, ACT, GATED>,
+        expert_ffn_kernel<T, W, ACT, GATED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  expert_ffn_kernel<T, ACT, GATED>
-      <<<dim3(n_tiles, E, row_tiles), kThreads, smem, stream>>>(
-          static_cast<const T*>(xs), gs, static_cast<const T*>(wi),
-          static_cast<const T*>(wg), static_cast<const T*>(wo), partial, n, d, f);
+  expert_ffn_kernel<T, W, ACT, GATED>
+      <<<dim3(n_tiles, G, row_tiles), kThreads, smem, stream>>>(
+          static_cast<const T*>(xs), gs, ids, static_cast<const W*>(wi),
+          static_cast<const W*>(wg), static_cast<const W*>(wo), partial, n, d,
+          f, zero_group);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* xs, const void* group_sizes, const void* wi,
-                   const void* wg, const void* wo, void* partial, void* y,
-                   int n, int d, int f, int E, int act, cudaStream_t stream) {
+template <typename T, typename W>
+cudaError_t launch(const void* xs, const void* group_sizes, const void* ids,
+                   const void* wi, const void* wg, const void* wo,
+                   void* partial, void* y, int n, int d, int f, int G, int act,
+                   int zero_group, cudaStream_t stream) {
   const int* gs = static_cast<const int*>(group_sizes);
+  const int* id = static_cast<const int*>(ids);
   float* part = static_cast<float*>(partial);
   cudaError_t err;
   const bool gated = wg != nullptr;
-#define EXPERT_FFN_CASE(A)                                                   \
-  if (act == A)                                                              \
-    err = gated ? launch_ffn<T, A, true>(xs, gs, wi, wg, wo, part, n, d, f, E, stream) \
-                : launch_ffn<T, A, false>(xs, gs, wi, wg, wo, part, n, d, f, E, stream);
+#define EXPERT_FFN_CASE(A)                                                    \
+  if (act == A)                                                               \
+    err = gated ? launch_ffn<T, W, A, true>(xs, gs, id, wi, wg, wo, part, n, d, \
+                                            f, G, zero_group, stream)          \
+                : launch_ffn<T, W, A, false>(xs, gs, id, wi, wg, wo, part, n,  \
+                                             d, f, G, zero_group, stream);
   EXPERT_FFN_CASE(0)
   else EXPERT_FFN_CASE(1)
   else EXPERT_FFN_CASE(2)
@@ -225,24 +262,35 @@ cudaError_t launch(const void* xs, const void* group_sizes, const void* wi,
   if (err != cudaSuccess) return err;
   const int n_tiles = (f + kTile - 1) / kTile;
   reduce_tiles_kernel<T><<<n, 256, 0, stream>>>(part, gs, static_cast<T*>(y),
-                                                n, d, n_tiles, E);
+                                                n, d, n_tiles, G);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // act: 0 = silu, 1 = gelu (tanh), 2 = relu.  wg may be null (no gate).
-// dtype: 0 = float32, 1 = bfloat16.  partial is f32 [ceil(f/64), n, d].
-// Returns the launches' cudaError_t (0 = launched).
+// dtype (rows and y) and wdtype (weights): 0 = float32, 1 = bfloat16; the
+// pairs taken are (0, 0), (1, 1) and (1, 0).  ids [G] (null = identity)
+// names the slab row group g reads; group zero_group (-1 = none) reads no
+// weights and comes back 0.  partial is f32 [ceil(f/64), n, d].  Returns
+// the launches' cudaError_t (0 = launched).
 extern "C" int expert_mlp_launch(const void* xs, const void* group_sizes,
-                                 const void* wi, const void* wg,
-                                 const void* wo, void* partial, void* y, int n,
-                                 int d, int f, int E, int act, int dtype,
+                                 const void* ids, const void* wi,
+                                 const void* wg, const void* wo, void* partial,
+                                 void* y, int n, int d, int f, int G, int act,
+                                 int dtype, int wdtype, int zero_group,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(xs, group_sizes, wi, wg, wo, partial, y,
-                                      n, d, f, E, act, s);
-  return (int)launch<float>(xs, group_sizes, wi, wg, wo, partial, y, n, d, f,
-                            E, act, s);
+  if (dtype == 1 && wdtype == 1)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        xs, group_sizes, ids, wi, wg, wo, partial, y, n, d, f, G, act,
+        zero_group, s);
+  if (dtype == 1 && wdtype == 0)
+    return (int)launch<__nv_bfloat16, float>(xs, group_sizes, ids, wi, wg, wo,
+                                             partial, y, n, d, f, G, act,
+                                             zero_group, s);
+  if (dtype == 0 && wdtype == 0)
+    return (int)launch<float, float>(xs, group_sizes, ids, wi, wg, wo, partial,
+                                     y, n, d, f, G, act, zero_group, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,3 +1,13 @@
-from repro_torch.kernels.expert_mlp.ops import grouped_mlp, grouped_mlp_plain
+from repro_torch.kernels.expert_mlp.ops import (
+    grouped_mlp,
+    grouped_mlp_plain,
+    grouped_mlp_resident,
+    grouped_mlp_resident_plain,
+)
 
-__all__ = ["grouped_mlp", "grouped_mlp_plain"]
+__all__ = [
+    "grouped_mlp",
+    "grouped_mlp_plain",
+    "grouped_mlp_resident",
+    "grouped_mlp_resident_plain",
+]

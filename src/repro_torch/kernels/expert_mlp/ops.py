@@ -1,12 +1,19 @@
-"""Grouped expert FFN: the CUDA kernel's wrapper and its plain PyTorch
-version.
+"""Grouped expert FFN: the CUDA kernel's wrappers and their plain PyTorch
+versions.
 
 ``grouped_mlp`` computes the reference's ``core/moe.py::_grouped_mlp``:
 rows ``xs [n, d]`` sorted by expert, ``group_sizes [E]`` rows each, and
-``act(xs @ wi[e]) [* (xs @ wg[e])] @ wo[e]`` per run.  A CPU tensor goes to
-:func:`grouped_mlp_plain` (a loop over the runs, rounding the hidden
-activation to the input type as ``jax.lax.ragged_dot`` does); a CUDA tensor
-launches ``csrc/expert_mlp.cu`` (hidden tile kept in f32 on chip) or raises.
+``act(xs @ wi[e]) [* (xs @ wg[e])] @ wo[e]`` per run.
+``grouped_mlp_resident`` computes the expert product of
+``core/moe.py::moe_resident``: rows sorted by resident slot, slot ``s``
+reading slab row ``ids[s]`` of the end tier's slab store (kept in the
+params' type), each weight rounded to the rows' type; the last slot is the
+garbage slot, whose all-zero slab gives zero rows.
+
+A CPU tensor goes to the plain version (a loop over the runs, rounding the
+hidden activation to the input type as ``jax.lax.ragged_dot`` does); a
+CUDA tensor launches ``csrc/expert_mlp.cu`` (hidden tile kept in f32 on
+chip) or raises.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ HIDDEN_TILE = 64  # hidden columns per block (kTile in csrc/expert_mlp.cu)
 def _launcher():
     fn = build.load("expert_mlp").expert_mlp_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return fn
 
 
@@ -70,33 +77,52 @@ def grouped_mlp(
         return grouped_mlp_plain(xs, group_sizes, wi, wg, wo, act)
     if xs.device.type != "cuda":
         raise ValueError(f"grouped_mlp: unsupported device {xs.device}")
-    n, d = xs.shape
-    E, d_w, f = wi.shape
     weights = dict(wi=wi, wo=wo) if wg is None else dict(wi=wi, wg=wg, wo=wo)
-    for name, t in dict(xs=xs, group_sizes=group_sizes, **weights).items():
-        if t.device != xs.device:
-            raise ValueError(f"grouped_mlp: {name} on {t.device}, xs on {xs.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"grouped_mlp: {name} is not contiguous")
+    _check("grouped_mlp", xs, group_sizes, weights, act, wi.shape[0])
     if xs.dtype not in _DTYPES or any(t.dtype != xs.dtype for t in weights.values()):
         raise ValueError(
             "grouped_mlp: xs and the weights must share one dtype of "
             f"float32/bfloat16, got xs={xs.dtype} "
             + " ".join(f"{k}={t.dtype}" for k, t in weights.items())
         )
-    if group_sizes.dtype != torch.int32 or group_sizes.shape != (E,):
+    _check_shapes("grouped_mlp", xs, wi, wg, wo)
+    y = _launch(xs, group_sizes, None, wi, wg, wo, act, zero_group=-1)
+    if xs.shape[0]:
+        grouped_mlp.launches += 1
+    return y
+
+
+def _check(what: str, xs, group_sizes, tensors, act, G: int):
+    for name, t in dict(xs=xs, group_sizes=group_sizes, **tensors).items():
+        if t.device != xs.device:
+            raise ValueError(f"{what}: {name} on {t.device}, xs on {xs.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+    if group_sizes.dtype != torch.int32 or group_sizes.shape != (G,):
         raise ValueError(
-            f"grouped_mlp: group_sizes must be int32 [{E}], got "
+            f"{what}: group_sizes must be int32 [{G}], got "
             f"{group_sizes.dtype} {tuple(group_sizes.shape)}"
         )
-    if (d_w != d or wo.shape != (E, f, d)
+    if act not in _ACTS:
+        raise ValueError(f"{what}: unknown activation {act!r}")
+
+
+def _check_shapes(what: str, xs, wi, wg, wo):
+    n, d = xs.shape
+    N, d_w, f = wi.shape
+    if (d_w != d or wo.shape != (N, f, d)
             or (wg is not None and wg.shape != wi.shape)):
         raise ValueError(
-            f"grouped_mlp: shapes xs={tuple(xs.shape)} wi={tuple(wi.shape)} "
+            f"{what}: shapes xs={tuple(xs.shape)} wi={tuple(wi.shape)} "
             f"wo={tuple(wo.shape)} do not agree"
         )
-    if act not in _ACTS:
-        raise ValueError(f"grouped_mlp: unknown activation {act!r}")
+
+
+def _launch(xs, group_sizes, ids, wi, wg, wo, act, *, zero_group: int):
+    """Launch ``csrc/expert_mlp.cu`` on checked operands; no launch for
+    zero rows (an empty grid)."""
+    n, d = xs.shape
+    f = wi.shape[2]
     y = torch.empty_like(xs)
     if n == 0:
         return y
@@ -104,14 +130,81 @@ def grouped_mlp(
         (-(-f // HIDDEN_TILE), n, d), dtype=torch.float32, device=xs.device
     )
     err = _launcher()(
-        xs.data_ptr(), group_sizes.data_ptr(), wi.data_ptr(),
+        xs.data_ptr(), group_sizes.data_ptr(),
+        None if ids is None else ids.data_ptr(), wi.data_ptr(),
         None if wg is None else wg.data_ptr(), wo.data_ptr(),
-        partial.data_ptr(), y.data_ptr(), n, d, f, E, _ACTS[act],
-        _DTYPES[xs.dtype], torch.cuda.current_stream(xs.device).cuda_stream,
+        partial.data_ptr(), y.data_ptr(), n, d, f, group_sizes.shape[0],
+        _ACTS[act], _DTYPES[xs.dtype], _DTYPES[wi.dtype], zero_group,
+        torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    build.check_launch(err, "grouped_mlp")
-    grouped_mlp.launches += 1
+    build.check_launch(err, "expert_mlp")
     return y
 
 
 grouped_mlp.launches = 0
+
+
+def grouped_mlp_resident_plain(
+    xs: torch.Tensor,  # [n, d] sorted by resident slot
+    group_sizes: torch.Tensor,  # [S+1] int32 (slot S = the garbage slot)
+    store_wi: torch.Tensor,  # [N+1, d, f] slab store (row N = zero garbage slab)
+    store_wg: Optional[torch.Tensor],
+    store_wo: torch.Tensor,  # [N+1, f, d]
+    ids: torch.Tensor,  # [S+1] int32 slab row of each slot
+    act: str,
+) -> torch.Tensor:
+    """Gather the slots' slabs, cast them to the rows' type, and run the
+    grouped product over the slot-sorted rows."""
+    idx = ids.long()
+    gather = lambda w: None if w is None else w[idx].to(xs.dtype)  # noqa: E731
+    return grouped_mlp_plain(
+        xs, group_sizes, gather(store_wi), gather(store_wg), gather(store_wo), act
+    )
+
+
+def grouped_mlp_resident(
+    xs: torch.Tensor,
+    group_sizes: torch.Tensor,
+    store_wi: torch.Tensor,
+    store_wg: Optional[torch.Tensor],
+    store_wo: torch.Tensor,
+    ids: torch.Tensor,
+    act: str,
+) -> torch.Tensor:
+    """Expert FFN over rows sorted by resident slot, each slot reading its
+    slab of the store in place (no gathered copy); plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors.  Rows of the last slot (the
+    garbage slot) come back 0 without a weight read, as from the zero
+    garbage slab."""
+    if xs.device.type == "cpu":
+        return grouped_mlp_resident_plain(
+            xs, group_sizes, store_wi, store_wg, store_wo, ids, act
+        )
+    if xs.device.type != "cuda":
+        raise ValueError(f"grouped_mlp_resident: unsupported device {xs.device}")
+    store = dict(store_wi=store_wi, store_wo=store_wo)
+    if store_wg is not None:
+        store["store_wg"] = store_wg
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(
+            f"grouped_mlp_resident: ids must be int32 [S+1], got {ids.dtype} {tuple(ids.shape)}"
+        )
+    G = ids.shape[0]
+    _check("grouped_mlp_resident", xs, group_sizes, dict(ids=ids, **store), act, G)
+    wdt = store_wi.dtype
+    if (xs.dtype not in _DTYPES or wdt not in (torch.float32, xs.dtype)
+            or any(t.dtype != wdt for t in store.values())):
+        raise ValueError(
+            "grouped_mlp_resident: rows float32/bfloat16 and one store dtype, "
+            "float32 or the rows' own, got xs="
+            f"{xs.dtype} " + " ".join(f"{k}={t.dtype}" for k, t in store.items())
+        )
+    _check_shapes("grouped_mlp_resident", xs, store_wi, store_wg, store_wo)
+    y = _launch(xs, group_sizes, ids, store_wi, store_wg, store_wo, act,
+                zero_group=G - 1)
+    if xs.shape[0]:
+        grouped_mlp_resident.launches += 1
+    return y
+
+
+grouped_mlp_resident.launches = 0

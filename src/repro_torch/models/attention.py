@@ -46,8 +46,35 @@ def flash_attention(
     """Full-sequence (prefill-style) GQA attention in the models' layout:
     online softmax over kv tiles with causal / window tile skipping
     (``kernels.flash_attention``, the CUDA kernel on the card).  Query row i
-    sits at position ``q_offset + i``; keys at 0..Skv-1."""
-    return flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    sits at position ``q_offset + i``; keys at 0..Skv-1.
+
+    A row that sees no key gets the mean of V over every key, as in the
+    reference consumer (every key masked to -1e30 leaves a uniform
+    softmax); the kernel returns 0 there, so those rows, which follow from
+    the positions alone, are filled here."""
+    out = flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    B, Sq, H, _ = q.shape
+    for lo, hi in _rows_without_a_key(Sq, k.shape[1], causal, window, q_offset):
+        mean_v = v.float().mean(dim=1).repeat_interleave(H // k.shape[2], dim=1)
+        out[:, lo:hi] = mean_v.to(out.dtype)[:, None]
+    return out
+
+
+def _rows_without_a_key(Sq: int, Skv: int, causal: bool, window: Optional[int],
+                        q_offset: int):
+    """Query-row ranges ``[lo, hi)`` that see no key: row i sits at
+    ``p = q_offset + i`` and sees key j in [0, Skv) iff ``(not causal or
+    p >= j)`` and ``(window is None or p - j < window)``."""
+    if Skv == 0:
+        return [(0, Sq)] if Sq else []
+    ranges = []
+    if causal and q_offset < 0:  # p < 0 sees no key
+        ranges.append((0, min(Sq, -q_offset)))
+    if window is not None:  # p - (Skv - 1) >= window: the window lies past every key
+        lo = max(0, Skv - 1 + window - q_offset)
+        if lo < Sq:
+            ranges.append((lo, Sq))
+    return [(lo, hi) for lo, hi in ranges if lo < hi]
 
 
 def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):

@@ -1,5 +1,6 @@
-"""Paged KV cache: the host page allocator and the device-side paged writes
-(port of the reference's ``models/kvcache.py``, paged part).
+"""Paged KV cache: the host page allocator, the device-side paged writes,
+and the page moves of a tier re-split (port of the reference's
+``models/kvcache.py``, paged part).
 
 A tier owns one shared :class:`PagePool` of ``num_pages`` fixed-size pages;
 storage leaves are ``[R, P+1, page_size, KV, hd]`` (the last row is the
@@ -148,6 +149,10 @@ class PagePool:
         """Ensure the entry for position ``pos`` is mapped (decode write)."""
         self._map_entry(slot, (pos // self.page_size) % self.pages_per_slot)
 
+    def reserved_pages(self, slot: int) -> int:
+        """Pages this slot's reservation holds (0 = no reservation)."""
+        return int(self._reserved[slot])
+
     def free(self, slot: int):
         if not self._reserved[slot]:
             raise ValueError(f"double free of slot {slot}")
@@ -167,6 +172,27 @@ class PagePool:
         if active is not None:
             rows = np.where(np.asarray(active)[:, None], rows, self.garbage_page)
         return torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(device)
+
+    def defrag(self) -> np.ndarray:
+        """Compact mapped pages to the lowest physical indices.  Returns the
+        storage-row permutation ``perm`` (length ``num_pages + 1``, garbage
+        row fixed) such that the device update is ``leaf[:, perm]``; tables
+        and the free list are updated in place."""
+        perm = np.empty((self.num_pages + 1,), np.int64)
+        nxt = 0
+        for s in range(self.table.shape[0]):
+            for e in range(self.pages_per_slot):
+                old = self.table[s, e]
+                if old >= 0:
+                    perm[nxt] = old
+                    self.table[s, e] = nxt
+                    nxt += 1
+        perm[nxt : self.num_pages] = sorted(
+            set(range(self.num_pages)) - set(perm[:nxt].tolist())
+        )
+        perm[self.num_pages] = self.num_pages  # garbage stays put
+        self._free = list(range(self.num_pages - 1, nxt - 1, -1))
+        return perm
 
 
 def init_paged_blocks(cfg, n_blocks: int, num_pages: int, page_size: int,
@@ -194,6 +220,15 @@ def paged_block_bytes(blocks: Dict) -> int:
             if leaf.dim() >= 2 and leaf.shape[0] > 0:
                 total += leaf[:, 0].numel() * leaf.element_size()
     return total
+
+
+def dense_page_bytes(cfg, n_blocks: int, page_size: int) -> int:
+    """Bytes one physical page would occupy at the activation type across
+    every pattern position of ``n_blocks`` blocks: the dense counterpart of
+    :func:`paged_block_bytes`."""
+    itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return (2 * len(cfg.layer_pattern) * n_blocks * page_size
+            * cfg.num_kv_heads * cfg.head_dim * itemsize)
 
 
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -235,3 +270,56 @@ def paged_write_tokens(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
     pool_k[phys, off] = k.to(pool_k.dtype)
     pool_v[phys, off] = v.to(pool_v.dtype)
     return pool_k, pool_v
+
+
+# -- tier re-splits over pages ----------------------------------------------
+
+
+def page_perm(src_tables: np.ndarray, dst_tables: np.ndarray,
+              src_pages: int, dst_pages: int) -> np.ndarray:
+    """Physical-row permutation carrying one engine's pages from a source
+    pool's index space to a destination pool's (a replan moving blocks
+    between tiers: the two pools map the same (slot, entry) set, since
+    allocation is lockstep, but may use different physical rows).  Returns
+    ``perm`` with ``len == dst_pages + 1`` such that ``src_leaf[:, perm]``
+    places every mapped page at its destination row; unmapped destination
+    rows read dead data."""
+    perm = np.zeros((dst_pages + 1,), np.int64)
+    perm[dst_pages] = src_pages  # garbage -> garbage
+    for src_row, dst_row in zip(np.asarray(src_tables), np.asarray(dst_tables)):
+        if not np.array_equal(src_row >= 0, dst_row >= 0):
+            raise ValueError(
+                f"tier pools out of lockstep ({src_row.tolist()} vs {dst_row.tolist()})"
+            )
+        for e in range(len(src_row)):
+            if dst_row[e] >= 0:
+                perm[dst_row[e]] = src_row[e]
+    return perm
+
+
+def resplit_paged_blocks(end_blocks: Dict, cloud_blocks: Dict, old_split: int,
+                         new_split: int, end_to_cloud: np.ndarray,
+                         cloud_to_end: np.ndarray) -> Tuple[Dict, Dict]:
+    """Move block repeats between the tiers' paged storages at a replan
+    safe point: the moved leaves' page rows are permuted from the source
+    pool's index space into the destination pool's, on the device."""
+    if new_split == old_split:
+        return end_blocks, cloud_blocks
+    end_new: Dict = {}
+    cloud_new: Dict = {}
+    for pos, e_entry in end_blocks.items():
+        end_new[pos], cloud_new[pos] = {}, {}
+        for name, e_leaf in e_entry.items():
+            c_leaf = cloud_blocks[pos][name]
+            if new_split < old_split:  # end -> cloud
+                perm = torch.from_numpy(end_to_cloud).to(e_leaf.device)
+                moved = e_leaf[new_split:][:, perm]
+                end_new[pos][name] = e_leaf[:new_split]
+                cloud_new[pos][name] = torch.cat([moved, c_leaf], dim=0)
+            else:  # cloud -> end
+                n = new_split - old_split
+                perm = torch.from_numpy(cloud_to_end).to(c_leaf.device)
+                moved = c_leaf[:n][:, perm]
+                end_new[pos][name] = torch.cat([e_leaf, moved], dim=0)
+                cloud_new[pos][name] = c_leaf[n:]
+    return end_new, cloud_new

@@ -95,10 +95,15 @@ def block_params(tree: Dict, r: int) -> Dict:
     return {k: block_params(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
 
 
-def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask):
+def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.moe:
-        y, aux = apply_moe(p["moe"], h, cfg, expert_mask=expert_mask, train=False)
+        mp = p["moe"]
+        if expert_resident is not None:
+            # pooled end tier: the stripped moe params get this layer's
+            # resident tables and the shared slab store (core.expertpool)
+            mp = {**mp, "resident": expert_resident}
+        y, aux = apply_moe(mp, h, cfg, expert_mask=expert_mask, train=False)
         return x + y, aux
     return x + apply_mlp(p["ffn"], h, cfg.act), {}
 
@@ -152,6 +157,7 @@ def apply_layer_decode(
     expert_mask=None,
     page_table: Optional[torch.Tensor] = None,  # [B, pps] int32
     page_size: int = 0,
+    expert_resident: Optional[Dict] = None,  # this layer's resident tables
 ):
     """Single-token decode layer against the paged KV cache.  Returns
     (x, cache_entry, aux); the pools are written in place."""
@@ -168,26 +174,48 @@ def apply_layer_decode(
     )
     x = x + attn.output_proj(p["attn"], o)
     if _has_ffn(spec, cfg):
-        x, aux = _ffn(p, x, spec, cfg, expert_mask)
+        x, aux = _ffn(p, x, spec, cfg, expert_mask, expert_resident)
     return x, cache_entry, aux
+
+
+def _n_blocks(blocks: Dict) -> int:
+    """Block repeats a tier's stacked params hold (a tier of a split holds
+    a leading slice of them)."""
+    for v in blocks.values():
+        return _n_blocks(v) if isinstance(v, dict) else v.shape[0]
+    return 0
+
+
+def _resident(expert_resident: Optional[Dict], i: int, spec, r: int) -> Optional[Dict]:
+    """Block ``r``'s resident view for MoE position ``i``: row ``r`` of
+    ``tables[f"pos{i}"]`` beside the shared slab store."""
+    if expert_resident is None or not spec.moe:
+        return None
+    tab = expert_resident["tables"][f"pos{i}"]
+    return {"ids": tab["ids"][r], "slot": tab["slot"][r], "store": expert_resident["store"]}
 
 
 def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
                        cache_blocks: Dict, lengths: torch.Tensor, expert_mask=None,
-                       *, page_table: torch.Tensor, page_size: int):
-    """Loop the block pattern over one decode token.  Returns
-    (x, cache_blocks, aux summed over blocks)."""
+                       *, page_table: torch.Tensor, page_size: int,
+                       expert_resident: Optional[Dict] = None):
+    """Loop the block pattern over one decode token, over the blocks the
+    params hold (a tier may hold a slice).  ``expert_resident`` (pooled end
+    tier) is ``{"store": {...}, "tables": {"pos{i}": {"ids": [R, S+1],
+    "slot": [R, E]}}}`` from ``core.expertpool``.  Returns (x,
+    cache_blocks, aux summed over blocks: the routing statistics)."""
     aux_acc: Dict[str, torch.Tensor] = {}
-    for r in range(cfg.block_repeat):
+    for r in range(_n_blocks(params["blocks"])):
         bp = block_params(params["blocks"], r)
         for i, spec in enumerate(cfg.layer_pattern):
             ce = {n: leaf[r] for n, leaf in cache_blocks[f"pos{i}"].items()}
             x, _, aux = apply_layer_decode(
                 bp[f"pos{i}"], x, spec, cfg, angles, ce, lengths,
                 expert_mask=expert_mask, page_table=page_table, page_size=page_size,
+                expert_resident=_resident(expert_resident, i, spec, r),
             )
             for k, v in aux.items():
-                aux_acc[k] = aux_acc.get(k, 0.0) + v
+                aux_acc[k] = aux_acc[k] + v if k in aux_acc else v
     return x, cache_blocks, aux_acc
 
 
@@ -202,15 +230,18 @@ def apply_stack_prefill_chunk(
     n_valid: torch.Tensor,  # [B] rows < n_valid are real, the rest padding
     page_size: int,
     expert_mask=None,
+    expert_resident: Optional[Dict] = None,
 ):
     """Chunked prefill: each layer writes the chunk's k/v through the page
     table (padding rows to the garbage page), then attends the chunk's
-    queries against the slot's mapped pages.  Returns (x, page_blocks)."""
+    queries against the slot's mapped pages; over the blocks the params
+    hold, with ``expert_resident`` as in :func:`apply_stack_decode`.
+    Returns (x, page_blocks)."""
     C = x.shape[1]
     valid = torch.arange(C, device=x.device)[None, :] < n_valid[:, None]
     last_pos = (positions[:, 0] + n_valid - 1).to(torch.int32)
     positions = positions.to(torch.int32)
-    for r in range(cfg.block_repeat):
+    for r in range(_n_blocks(params["blocks"])):
         bp = block_params(params["blocks"], r)
         for i, spec in enumerate(cfg.layer_pattern):
             p = bp[f"pos{i}"]
@@ -225,7 +256,8 @@ def apply_stack_prefill_chunk(
             )
             x = x + attn.output_proj(p["attn"], o)
             if _has_ffn(spec, cfg):
-                x, _ = _ffn(p, x, spec, cfg, expert_mask)
+                x, _ = _ffn(p, x, spec, cfg, expert_mask,
+                            _resident(expert_resident, i, spec, r))
     return x, page_blocks
 
 

@@ -1,7 +1,8 @@
 """Serving infrastructure shared by the port's engines: requests, slot
-bookkeeping, a shape-signature counter, and the end<->cloud link meter
-(port of the reference's ``serving/common.py``, the parts the paged
-``ServingEngine`` and the one-shot ``EndCloudPipeline`` use).
+bookkeeping, a shape-signature counter, the end<->cloud link meter and the
+pipeline's resource-occupancy clock (port of the reference's
+``serving/common.py``, the parts the paged ``ServingEngine``, the one-shot
+``EndCloudPipeline`` and the streaming ``EndCloudServingEngine`` use).
 
 ``SlotEngineBase`` is a slot machine: a fixed decode batch of ``max_batch``
 slots; finished requests free their slot and waiting requests are prefilled
@@ -10,12 +11,19 @@ into it.  Subclasses provide the prefill and decode compute.
 
 from __future__ import annotations
 
+import bisect
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+def element_bytes(dtype: torch.dtype) -> int:
+    """Bytes per element of ``dtype``: the one place byte metering
+    resolves element widths."""
+    return torch.empty((), dtype=dtype).element_size()
 
 
 @dataclass
@@ -40,12 +48,13 @@ class Request:
 
 @dataclass
 class LinkStats:
-    """Meter for the end->cloud link: bytes on the wire plus modeled wire
-    seconds (bytes over the planner's link rate: a model of the link, not a
-    measurement).  The reference's downlink and peer meters come with the
-    stream engine that records them."""
+    """Meter for the end<->cloud link: bytes on the wire in each direction
+    plus modeled uplink seconds (bytes over the planner's link rate: a
+    model of the link, not a measurement).  The reference's peer meter
+    comes with the fleet engine that records it."""
 
     bytes_up: int = 0
+    bytes_down: int = 0
     transfers: int = 0
     seconds_up: float = 0.0
 
@@ -59,6 +68,58 @@ class LinkStats:
         self.transfers += 1
         self.seconds_up += t
         return t
+
+    def record_down(self, nbytes: int) -> None:
+        """Meter a cloud->end transfer (token-id feedback: bytes only)."""
+        self.bytes_down += nbytes
+
+
+class StageTimeline:
+    """Resource-occupancy clock of the decode pipeline: a stage starts at
+    max(input ready, resource free), each resource books jobs into busy
+    intervals and a job starts in the earliest gap at or after its ready
+    time.  The streaming engine feeds it stage times (measured or modeled)
+    and modeled link times; each booking's end is when its stage's output
+    is ready, and ``busy_s`` sums each resource's booked seconds.  (The
+    reference's multi-server resources serve the fleet engine, which is not
+    ported.)"""
+
+    def __init__(self, resources: Sequence[str] = ("end", "link", "cloud")):
+        self._intervals: Dict[str, List[Tuple[float, float]]] = {r: [] for r in resources}
+        self.busy_s: Dict[str, float] = {r: 0.0 for r in resources}
+
+    @staticmethod
+    def _earliest_start(intervals: List[Tuple[float, float]], ready_s: float,
+                        service_s: float) -> float:
+        start = ready_s
+        for s, e in intervals:
+            if start + service_s <= s:
+                break  # fits in the gap before this interval
+            if e > start:
+                start = e
+        return start
+
+    def occupy(self, resource: str, ready_s: float, service_s: float) -> float:
+        """Book ``service_s`` on ``resource`` no earlier than ``ready_s``;
+        returns the job's end time."""
+        ivals = self._intervals[resource]
+        start = self._earliest_start(ivals, ready_s, service_s)
+        end = start + service_s
+        if service_s > 0:
+            j = bisect.bisect_left(ivals, (start, end))
+            # coalesce with touching neighbours, so the lists stay short
+            s, e = start, end
+            if j < len(ivals) and ivals[j][0] <= e:
+                e = max(e, ivals[j][1])
+                del ivals[j]
+            if j > 0 and ivals[j - 1][1] >= s:
+                s = ivals[j - 1][0]
+                e = max(e, ivals[j - 1][1])
+                del ivals[j - 1]
+                j -= 1
+            ivals.insert(j, (s, e))
+        self.busy_s[resource] += service_s
+        return end
 
 
 def _signature(tree) -> Tuple:
@@ -78,15 +139,18 @@ class ShapeSignatures:
     PyTorch compiles no trace, but each signature is what a captured CUDA
     graph would have to be keyed on, so the engine's bound (one per chunk
     shape, never one per prompt length) stays testable.  ``sig_from`` skips
-    leading arguments whose shapes cannot change (the params)."""
+    leading arguments whose shapes cannot change (the params);
+    ``generation`` tags a rebuild of the stage functions, which the
+    reference's rebuilt ``jit`` traces anew even for shapes it has seen."""
 
-    def __init__(self, fn: Callable, log: set, sig_from: int = 1):
+    def __init__(self, fn: Callable, log: set, generation: int = 0, sig_from: int = 1):
         self._fn = fn
         self._log = log
+        self._gen = generation
         self._sig_from = sig_from
 
     def __call__(self, *args):
-        self._log.add(_signature(args[self._sig_from:]))
+        self._log.add((self._gen, _signature(args[self._sig_from:])))
         return self._fn(*args)
 
 
@@ -208,10 +272,12 @@ class SlotEngineBase:
     def _release_slot(self, slot: int):
         """Hook: a request left this slot."""
 
-    def _harvest(self, next_ids: np.ndarray) -> int:
-        """Record one decoded token per active slot; retire finished ones."""
+    def _harvest(self, next_ids: np.ndarray, slot_range=None) -> int:
+        """Record one decoded token per active slot of ``slot_range`` (all
+        slots by default); retire finished ones.  ``next_ids`` is indexed by
+        absolute slot id."""
         n_emitted = 0
-        for slot in range(self.max_batch):
+        for slot in slot_range if slot_range is not None else range(self.max_batch):
             req = self.slots[slot]
             if req is None:
                 continue

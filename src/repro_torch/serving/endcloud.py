@@ -30,7 +30,7 @@ from repro_torch.core.hardware import Capability, DeviceProfile, DeviceState, ca
 from repro_torch.core.pipeline import PipelinePlan, plan_pipeline_split
 from repro_torch.core.selection import end_mask_for, validate_expert_mask
 from repro_torch.models import attention as attn
-from repro_torch.models import transformer
+from repro_torch.models import kvcache, transformer
 from repro_torch.models.model import Model
 from repro_torch.serving.common import LinkStats
 
@@ -40,8 +40,10 @@ __all__ = [
     "TierPlan",
     "block_gflops",
     "end_mask_from_state",
+    "init_tier_pages",
     "plan_tiers",
     "split_block_params",
+    "strip_expert_weights",
 ]
 
 CODEC_SEED = 7  # the reference draws its codec from jax.random.PRNGKey(7)
@@ -85,6 +87,34 @@ def split_block_params(params: Dict, split: int) -> Tuple[Dict, Dict]:
     end = {"embed": params["embed"], "blocks": cut(params["blocks"], slice(None, split))}
     cloud = {k: v for k, v in params.items() if k != "blocks"}
     cloud["blocks"] = cut(params["blocks"], slice(split, None))
+    return end, cloud
+
+
+def strip_expert_weights(tier_params: Dict, cfg) -> Dict:
+    """Pooled end tier: drop the dense per-expert weight stacks
+    (``wi``/``wg``/``wo``, ``[n_blocks, E, ...]``) from a tier's block
+    params; the resident experts live in the slab store
+    (``core.expertpool``) instead.  Gate and shared-expert params stay."""
+    blocks = {}
+    for i, spec in enumerate(cfg.layer_pattern):
+        layer = tier_params["blocks"][f"pos{i}"]
+        if spec.moe and "moe" in layer:
+            layer = {**layer, "moe": {k: v for k, v in layer["moe"].items()
+                                      if k not in ("wi", "wg", "wo")}}
+        blocks[f"pos{i}"] = layer
+    return {**tier_params, "blocks": blocks}
+
+
+def init_tier_pages(cfg, split: int, end_pages: int, cloud_pages: int,
+                    page_size: int, dtype: torch.dtype, device) -> Tuple[Dict, Dict]:
+    """Paged KV storage for the two tiers of a block split: the end pool
+    backs blocks ``[0, split)``, the cloud pool ``[split, R)``; a replan
+    moves block rows between them (``kvcache.resplit_paged_blocks``).
+    (The reference's int8 pools, ``quantized=True``, are not ported.)"""
+    end = kvcache.init_paged_blocks(cfg, split, end_pages, page_size, dtype, device)
+    cloud = kvcache.init_paged_blocks(
+        cfg, cfg.block_repeat - split, cloud_pages, page_size, dtype, device
+    )
     return end, cloud
 
 

@@ -1,6 +1,7 @@
 """The port's kernels on the card: each against its plain version, the
-wrappers' input checks, and the serving engine and the one-shot end-cloud
-pipeline on the card against the same on the CPU.  Marked ``cuda``; skipped where no CUDA device is
+wrappers' input checks, and the serving engine, the one-shot end-cloud
+pipeline and the streaming end-cloud engine on the card against the same
+on the CPU.  Marked ``cuda``; skipped where no CUDA device is
 visible.  Run on a machine with the card (``--noconftest``: the suite's
 conftest imports JAX, which the port does not need):
 
@@ -13,7 +14,12 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.hardware import PROFILES
-from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_plain
+from repro_torch.kernels.expert_mlp import (
+    grouped_mlp,
+    grouped_mlp_plain,
+    grouped_mlp_resident,
+    grouped_mlp_resident_plain,
+)
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.group_gate import group_gate, group_gate_plain
 from repro_torch.kernels.lowrank import (
@@ -25,7 +31,7 @@ from repro_torch.kernels.lowrank import (
 )
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
 from repro_torch.models.model import Model, to_device
-from repro_torch.serving import EndCloudPipeline, Request, ServingEngine
+from repro_torch.serving import EndCloudPipeline, EndCloudServingEngine, Request, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +108,74 @@ def test_grouped_mlp_kernel(gen, gated, dtype, tol):
                     wg, wo, act)
     with pytest.raises(ValueError, match="contiguous"):
         grouped_mlp(xs.t().contiguous().t(), sizes, wi, wg, wo, act)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype,store_dtype,tol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.float32, 3e-2),
+    (torch.bfloat16, torch.bfloat16, 3e-2),
+])
+def test_grouped_mlp_resident_kernel(gen, gated, dtype, store_dtype, tol):
+    """Permuted slab ids, an empty slot, rows on the garbage slot (exact 0),
+    and the same bits as ``grouped_mlp`` over the gathered slabs (a row's
+    arithmetic does not depend on the slab it is read through)."""
+    N, d, f = 6, 96, 200
+    store = {k: (torch.randn(N + 1, *shape, generator=gen, device="cuda") / shape[0] ** 0.5)
+             .to(store_dtype) for k, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d)))}
+    for w in store.values():
+        w[N] = 0  # the garbage slab
+    wg = store["wg"] if gated else None
+    ids = torch.tensor([4, 1, 2, N], dtype=torch.int32, device="cuda")  # slot 3 = garbage
+    sizes = torch.tensor([3, 0, 9, 2], dtype=torch.int32, device="cuda")
+    xs = torch.randn(int(sizes.sum()), d, generator=gen, device="cuda").to(dtype)
+    act = "silu" if gated else "gelu"
+    before = grouped_mlp_resident.launches
+    got = grouped_mlp_resident(xs, sizes, store["wi"], wg, store["wo"], ids, act)
+    assert grouped_mlp_resident.launches == before + 1
+    want = grouped_mlp_resident_plain(xs, sizes, store["wi"], wg, store["wo"], ids, act)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale)
+    assert bool((got[-2:] == 0).all())
+    idx = ids.long()
+    dense = grouped_mlp(xs, sizes, store["wi"][idx].to(dtype),
+                        None if wg is None else wg[idx].to(dtype), store["wo"][idx].to(dtype), act)
+    assert torch.equal(got[:-2], dense[:-2])
+    with pytest.raises(ValueError, match="int32"):
+        grouped_mlp_resident(xs, sizes, store["wi"], wg, store["wo"], ids.long(), act)
+    with pytest.raises(ValueError, match="dtype"):  # a store narrower than the rows
+        grouped_mlp_resident(xs.float(), sizes, store["wi"].bfloat16(), None,
+                             store["wo"].bfloat16(), ids, act)
+
+
+@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])
+def test_stream_engine_on_card_matches_cpu(gen, name):
+    """Greedy tokens of the streaming engine on the f32 smoke model at the
+    middle split with the codec on: the pooled end tier launches the
+    resident kernel on the card and gives the CPU's tokens (both draw the
+    same default codec: a CPU generator and a QR on the CPU)."""
+    cfg = smoke_config(get_config(name)).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 500, size=int(rng.integers(4, 40))).astype(np.int32)
+               for _ in range(5)]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        eng = EndCloudServingEngine(
+            Model(cfg, device=dev), to_device(params, dev), end_profile=PROFILES["a100"],
+            cloud_profile=PROFILES["a100"], max_batch=4, max_len=64, force_split=1,
+            compression_rank=cfg.d_model // 2, timing="modeled", prefill_chunk=8,
+        )
+        before = grouped_mlp_resident.launches
+        reqs = [Request(i, p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        tokens[dev] = [r.generated for r in reqs]
+        assert eng.end_pool.pages_in_use == eng.cloud_pool.pages_in_use == 0
+        if dev == "cuda":
+            assert grouped_mlp_resident.launches > before
+    assert tokens["cuda"] == tokens["cpu"]
 
 
 @pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])

@@ -258,7 +258,7 @@ def test_pipeline_matches_reference(pipelines):
 
 def _link_fields(link):
     """The meter's fields that the port's ``LinkStats`` has (the
-    reference's downlink and peer meters are not ported)."""
+    reference's peer meter is not ported)."""
     return {f.name: getattr(link, f.name) for f in dataclasses.fields(LinkStats)}
 
 
@@ -268,8 +268,10 @@ def test_link_stats_equal_the_reference():
     got, want = LinkStats(), JLinkStats()
     for nbytes, gbps in ((4096, 0.1), (1 << 20, 0.3), (7, 50.0)):
         assert got.record_up(nbytes, gbps) == want.record_up(nbytes, gbps)
+        got.record_down(nbytes // 7)
+        want.record_down(nbytes // 7)
     assert _link_fields(got) == _link_fields(want)
-    assert set(_link_fields(got)) == {"bytes_up", "transfers", "seconds_up"}
+    assert set(_link_fields(got)) == {"bytes_up", "bytes_down", "transfers", "seconds_up"}
 
 
 def test_pipeline_default_codec_and_refusals():

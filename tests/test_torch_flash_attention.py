@@ -110,19 +110,19 @@ def test_query_offset(dtype):
         np.testing.assert_allclose(got, _np(oracle), **TOL[dtype])
 
 
-def test_rows_without_a_visible_key():
-    """A known difference from the consumer (ROADMAP queue C): a query row
-    with no visible key at all (here its window lies past every key) comes
-    back as exact 0 from the port, as from the paged-attention kernels;
-    the reference consumer scores every masked key as -1e30 and so returns
-    the mean of V over all keys.  Rows that see a key agree."""
-    arrs = _qkv(1, 8, 16, 2, 2, 32, seed=4)
-    got = _port(arrs, torch.float32, causal=True, window=4, q_offset=16)
-    qj, kj, vj = (jnp.asarray(a) for a in arrs)
-    want = _np(jattn.flash_attention(qj, kj, vj, causal=True, window=4, q_offset=16))
-    blind = np.arange(8) + 16 - 4 >= 15  # rows whose window starts past key 15
-    assert blind.any() and not blind.all()
-    assert (got[:, blind] == 0).all()
-    np.testing.assert_allclose(want[:, blind], np.broadcast_to(
-        arrs[2].mean(axis=1, keepdims=True), want[:, blind].shape), rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(got[:, ~blind], want[:, ~blind], rtol=2e-5, atol=2e-5)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rows_without_a_visible_key(dtype):
+    """Query rows that see no key at all (a window past every key, or a
+    negative offset under causality) get the mean of V over every key, as
+    the reference consumer gives them (every key scored -1e30 leaves a
+    uniform softmax); rows that see a key agree as everywhere else."""
+    jdt, tdt = DTYPES[dtype]
+    arrs = _qkv(1, 8, 16, 4, 2, 32, seed=4)
+    qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in arrs)
+    for window, q_offset, blind in ((4, 16, np.arange(8) + 16 - 4 >= 15),
+                                    (None, -3, np.arange(8) - 3 < 0)):
+        assert blind.any() and not blind.all()
+        got = _port(arrs, tdt, causal=True, window=window, q_offset=q_offset)
+        want = _np(jattn.flash_attention(qj, kj, vj, causal=True, window=window,
+                                         q_offset=q_offset))
+        np.testing.assert_allclose(got, want, **TOL[dtype])

@@ -119,7 +119,12 @@ def test_gate_matches_reference(mask):
         np.testing.assert_allclose(out.aux[k].item(), float(jout.aux[k]), rtol=1e-5)
     for k in ("expert_frac", "group_frac"):
         np.testing.assert_allclose(out.aux[k].numpy(), np.asarray(jout.aux[k]), rtol=1e-6)
-    assert tg.gate(tparams, torch.from_numpy(x), cfg, aux=False).aux == {}
+    # without the losses the gate still measures the routing statistics
+    stats = tg.gate(tparams, torch.from_numpy(x), cfg,
+                    None if m is None else torch.from_numpy(m), aux=False).aux
+    assert set(stats) == {"expert_frac", "group_frac"}
+    for k in stats:
+        np.testing.assert_allclose(stats[k].numpy(), np.asarray(jout.aux[k]), rtol=1e-6)
 
 
 def test_group_top_k_is_not_ported():

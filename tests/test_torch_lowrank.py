@@ -149,14 +149,11 @@ def test_compression_consumers_match_reference(dtype):
     np.testing.assert_allclose(float(tcomp.recon_loss(xt, xh_t)),
                                float(jcomp.recon_loss(xj, xh_j)), rtol=1e-5)
 
-    # the fused roundtrip keeps Z in f32 where the reference composition
-    # rounds it to x's type: equal in f32, within bf16 rounding of |Z| in bf16
-    rt_t = tcomp.roundtrip_1d(tp, xt).float().numpy()
-    rt_j = np.asarray(jcomp.roundtrip_1d(jp, xj), np.float32)
-    if dtype == "float32":
-        np.testing.assert_allclose(rt_t, rt_j, rtol=1e-5, atol=1e-5)
-    else:
-        np.testing.assert_allclose(rt_t, rt_j, rtol=0, atol=2 ** -6 * np.abs(rt_j).max())
+    # the roundtrip composes the two products as the reference does (Z
+    # rounded to x's type between them)
+    rt_t = tcomp.roundtrip_1d(tp, xt)
+    assert rt_t.dtype == tdt
+    _close(rt_t.float(), jcomp.roundtrip_1d(jp, xj), dtype)
 
 
 def test_roundtrip_error_sum_is_the_recon_loss():

@@ -86,10 +86,13 @@ def test_apply_moe_with_shared_expert(impl):
     p, tp = _params(jcfg, seed=2)
     assert "shared" in tp
     x = np.random.default_rng(2).standard_normal((2, 5, cfg.d_model)).astype(np.float32)
-    want, _ = jmoe.apply_moe(p, jnp.asarray(x), jcfg, None, train=False)
+    want, jaux = jmoe.apply_moe(p, jnp.asarray(x), jcfg, None, train=False)
     got, aux = tmoe.apply_moe(tp, torch.from_numpy(x), cfg, train=False)
-    assert got.shape == x.shape and aux == {}
+    # serving keeps the routing statistics and drops the losses
+    assert got.shape == x.shape and set(aux) == {"expert_frac", "group_frac"}
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for k in aux:
+        np.testing.assert_allclose(aux[k].numpy(), np.asarray(jaux[k]), rtol=1e-6)
 
 
 def test_codec_and_unported_paths_raise():

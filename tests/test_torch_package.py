@@ -42,7 +42,8 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_the_reference():
     mods = _modules()
-    assert "repro_torch.serving.engine" in mods and "repro_torch.bridge" in mods
+    assert {"repro_torch.serving.engine", "repro_torch.serving.stream",
+            "repro_torch.core.expertpool", "repro_torch.bridge"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
