@@ -11,7 +11,7 @@ it, as in the reference.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -97,6 +97,27 @@ def routing_stats(topk_idx: torch.Tensor, num_experts: int,
     return {"expert_frac": f, "group_frac": f.reshape(num_groups, -1).sum(-1)}
 
 
+def summed_routing_stats(layer_idx: List[torch.Tensor], num_experts: int,
+                         num_groups: int, device: torch.device) -> torch.Tensor:
+    """:func:`routing_stats` of each layer's ``topk_idx``, summed over the
+    layers in order (as the reference sums its per-layer aux), packed as
+    one ``[E + K]`` vector (``expert_frac`` then ``group_frac``) so a
+    consumer moves it to the host in one copy.  Zeros for no layers."""
+    E, K = num_experts, num_groups
+    acc = None
+    if layer_idx:
+        idx = torch.stack([i.reshape(-1) for i in layer_idx])  # [L, n]
+        L, n = idx.shape
+        flat = (idx + E * torch.arange(L, device=device)[:, None]).reshape(-1)
+        counts = torch.zeros(L * E, dtype=torch.float32, device=device)
+        counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32, device=device))
+        f = (counts / n).reshape(L, E)
+        per_layer = torch.cat([f, f.reshape(L, K, E // K).sum(-1)], dim=1)
+        for row in per_layer:
+            acc = row if acc is None else acc + row
+    return acc if acc is not None else torch.zeros(E + K, device=device)
+
+
 def load_balance_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
                       num_experts: int, num_groups: int) -> Dict[str, torch.Tensor]:
     """Switch/GShard auxiliary loss at expert and group granularity:
@@ -114,10 +135,11 @@ def load_balance_loss(probs: torch.Tensor, topk_idx: torch.Tensor,
 
 def gate(params: Dict, x: torch.Tensor, moe_cfg,
          expert_mask: Optional[torch.Tensor] = None, *, aux: bool = True) -> GateOutput:
-    """Full HL-GGN gate: probabilities, top-k selection and the measured
-    routing statistics ``expert_frac`` / ``group_frac`` (the serving
-    engines EMA them to order the eq. 4 admit and the expert pool's
-    residency); ``aux`` adds the auxiliary losses."""
+    """Full HL-GGN gate: probabilities, top-k selection and, with ``aux``,
+    the auxiliary losses and routing statistics.  Without it (serving) the
+    aux holds only ``topk_idx``, at no cost: the one consumer of the
+    routing statistics (the streaming engine's end stage) counts them from
+    it with :func:`summed_routing_stats`."""
     probs, p_group, aux_d = group_gate_probs(params, x, moe_cfg, expert_mask, aux=aux)
     topk_idx, topk_w = select_topk(probs, moe_cfg.top_k)
     E, K = moe_cfg.num_experts, moe_cfg.num_groups
@@ -129,5 +151,5 @@ def gate(params: Dict, x: torch.Tensor, moe_cfg,
             + moe_cfg.router_z_weight * aux_d["router_z"]
         )
     else:
-        aux_d.update(routing_stats(topk_idx, E, K))
+        aux_d["topk_idx"] = topk_idx
     return GateOutput(probs, topk_idx, topk_w, p_group, aux_d)

@@ -159,10 +159,10 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg, *, expert_mask=None,
     ``params["resident"]`` (the pooled end tier) the dispatch runs over the
     resident slabs (:func:`moe_resident`).
 
-    ``train=False`` (serving) keeps the measured routing statistics and
-    skips the router losses: the reference computes them and lets XLA drop
-    them when the serving step discards them, but eager PyTorch would run
-    every one of those ops."""
+    ``train=False`` (serving) skips the router losses and routing
+    statistics and returns the gate's ``topk_idx`` in their place: the
+    reference computes them and lets XLA drop them when the serving step
+    discards them, but eager PyTorch would run every one of those ops."""
     impl = "sorted" if cfg.moe_impl == "auto" else cfg.moe_impl
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])

@@ -10,7 +10,7 @@ place of ``lax.scan``.  The paged KV pools are updated in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -203,8 +203,9 @@ def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
     params hold (a tier may hold a slice).  ``expert_resident`` (pooled end
     tier) is ``{"store": {...}, "tables": {"pos{i}": {"ids": [R, S+1],
     "slot": [R, E]}}}`` from ``core.expertpool``.  Returns (x,
-    cache_blocks, aux summed over blocks: the routing statistics)."""
-    aux_acc: Dict[str, torch.Tensor] = {}
+    cache_blocks, the aux of every MoE layer in order: each holds the
+    gate's ``topk_idx``)."""
+    layer_aux: List[Dict[str, torch.Tensor]] = []
     for r in range(_n_blocks(params["blocks"])):
         bp = block_params(params["blocks"], r)
         for i, spec in enumerate(cfg.layer_pattern):
@@ -214,9 +215,9 @@ def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
                 expert_mask=expert_mask, page_table=page_table, page_size=page_size,
                 expert_resident=_resident(expert_resident, i, spec, r),
             )
-            for k, v in aux.items():
-                aux_acc[k] = aux_acc[k] + v if k in aux_acc else v
-    return x, cache_blocks, aux_acc
+            if aux:
+                layer_aux.append(aux)
+    return x, cache_blocks, layer_aux
 
 
 def apply_stack_prefill_chunk(

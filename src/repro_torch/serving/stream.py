@@ -33,8 +33,8 @@ tier.  Both tiers run in this process on one device.
   the split search against measured conditions; a changed plan or mask is
   applied at the next safe point (every boundary drained) by re-splitting
   the params and moving the affected blocks' pages between the tier pools
-  on the device.  A declared link rate below ``blackout_gbps`` pins the
-  plan to split 0 until the link recovers.
+  on the device.  A declared link rate below 5% of the nominal uplink pins
+  the plan to split 0 until the link recovers.
 
 Stage times: ``timing="measured"`` takes each stage's host-clock time with
 the device synchronized after it (``torch.cuda.synchronize``, where the
@@ -50,19 +50,22 @@ streams (``quantize_kv/experts/boundary``), fleet sharing (``cloud_pool``,
 ``health`` monitor and transfer-fault injection, and ``evacuate``.  The
 reference's options of those slices that only tune them (``cloud_share``
 and ``set_cloud_share``, ``link_rtt_s``, ``expert_slabs``) come with them.
+The reference's tuning options that no caller sets (``end_state``,
+``alpha``, ``selection_eps``, ``replan_threshold``, ``clock``,
+``kv_pages``, ``blackout_gbps``) are fixed at the reference's defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import compression as comp
-from repro_torch.core import expertpool
+from repro_torch.core import expertpool, gating
 from repro_torch.core.hardware import DeviceProfile, DeviceState, capability
 from repro_torch.core.pipeline import (
     BandwidthEstimator,
@@ -96,6 +99,8 @@ __all__ = ["EndCloudServingEngine"]
 
 _KEEP = object()  # sentinel: "no pending mask change"
 _RESOURCES = ("end", "link", "cloud")
+# a declared link rate below this share of the nominal uplink is a blackout
+_BLACKOUT_FRAC = 0.05
 
 
 def _masks_equal(a, b) -> bool:
@@ -133,22 +138,16 @@ class EndCloudServingEngine(SlotEngineBase):
         *,
         end_profile: DeviceProfile,
         cloud_profile: DeviceProfile,
-        end_state: Optional[DeviceState] = None,
         codec_params: Optional[Dict] = None,  # 1-D low-rank codec {"enc","dec"}
         compression_rank: int = 0,
-        alpha: float = 0.5,
-        selection_eps: float = 1.0,
         max_batch: int = 8,
         max_len: int = 512,
         n_groups: int = 2,
         force_split: Optional[int] = None,
-        replan_threshold: float = 0.15,
-        clock: Optional[Callable[[], float]] = None,
         timeline=None,
         resources: Tuple[str, str, str] = _RESOURCES,
         timing: str = "measured",
         page_size: int = 16,
-        kv_pages: Optional[int] = None,
         prefill_chunk: int = 16,
         cloud_pool=None,
         expert_pool: Optional[bool] = None,  # None = on for MoE models
@@ -162,7 +161,6 @@ class EndCloudServingEngine(SlotEngineBase):
         quantize_experts: bool = False,
         quantize_boundary: bool = False,
         health=None,
-        blackout_gbps: Optional[float] = None,  # None = 5% of nominal uplink
         spec_k: int = 1,
     ):
         cfg = model.cfg
@@ -191,7 +189,7 @@ class EndCloudServingEngine(SlotEngineBase):
         self.n_groups = max(1, min(n_groups, max_batch))
         self._group_size = -(-max_batch // self.n_groups)
         padded_batch = self._group_size * self.n_groups
-        super().__init__(padded_batch, clock, max_len=max_len, admission=admission)
+        super().__init__(padded_batch, max_len=max_len, admission=admission)
         self.request_capacity = max_batch
         self.preemption = preemption and admission == "priority"
         self.model = model
@@ -204,9 +202,7 @@ class EndCloudServingEngine(SlotEngineBase):
         self._cparams = transformer.compute_params(params, cfg)
         self.end_profile = end_profile
         self.cloud_profile = cloud_profile
-        self.end_state = end_state or DeviceState()
-        self.selection_eps = selection_eps
-        self.replan_threshold = replan_threshold
+        self.end_state = DeviceState()
 
         self._moe_pos = [i for i, spec in enumerate(cfg.layer_pattern) if spec.moe]
         self._expert_pooled = bool(
@@ -228,8 +224,6 @@ class EndCloudServingEngine(SlotEngineBase):
             end_mask=mask,
             codec_params=codec_params,
             compression_rank=compression_rank,
-            alpha=alpha,
-            selection_eps=selection_eps,
             force_split=force_split,
         )
         self._end_mask_np = None if mask is None else np.asarray(mask, bool)
@@ -239,10 +233,7 @@ class EndCloudServingEngine(SlotEngineBase):
         self.bw = BandwidthEstimator(self.tiers.end_cap.net_gbps)
         # below this declared rate the link is blacked out and the engine
         # degrades to a cloud-only plan at the next safe point
-        self.blackout_gbps = (
-            blackout_gbps if blackout_gbps is not None
-            else 0.05 * self.tiers.end_cap.net_gbps
-        )
+        self.blackout_gbps = _BLACKOUT_FRAC * self.tiers.end_cap.net_gbps
         self.link_degraded = False
         self._blackout_since = 0.0
         self.link_blackout_s = 0.0  # closed windows; see blackout_seconds()
@@ -266,7 +257,7 @@ class EndCloudServingEngine(SlotEngineBase):
                 "(a chunk must fit the slot's page list)"
             )
         self.prefill_chunk = prefill_chunk
-        n_pages = kv_pages or padded_batch * self.pages_per_slot
+        n_pages = padded_batch * self.pages_per_slot
         self.end_pool = PagePool(n_pages, page_size, self.pages_per_slot, n_slots=padded_batch)
         self.cloud_pool = PagePool(n_pages, page_size, self.pages_per_slot, n_slots=padded_batch)
         self._end_pages, self._cloud_pages = init_tier_pages(
@@ -347,8 +338,7 @@ class EndCloudServingEngine(SlotEngineBase):
             else group_priority_from_freq(self._group_freq, self.cfg.moe.num_groups)
         )
         return end_mask_from_state(
-            self.cfg, self.end_profile, end_state,
-            selection_eps=self.selection_eps, group_priority=group_priority,
+            self.cfg, self.end_profile, end_state, group_priority=group_priority,
         )
 
     # -- paged expert weights (slab pool; see core.expertpool) ---------------
@@ -464,13 +454,14 @@ class EndCloudServingEngine(SlotEngineBase):
             n += 1
         self._write_slabs(writes)
 
-    def _observe_route_stats(self, stats: Dict[str, torch.Tensor]):
-        """EMA of the gate's measured routing statistics (summed over the
-        end tier's MoE layers): they order the eq. 4 group admit and the
-        pool's prefetch and eviction priorities."""
+    def _observe_route_stats(self, stats: torch.Tensor):
+        """EMA of the gate's measured routing statistics (``expert_frac``
+        then ``group_frac``, summed over the end tier's MoE layers, in one
+        host copy): they order the eq. 4 group admit and the pool's
+        prefetch and eviction priorities."""
         n_layers = max(len(self._active_lids()), 1)
-        ef = stats["expert_frac"].double().cpu().numpy() / n_layers
-        gf = stats["group_frac"].double().cpu().numpy() / n_layers
+        v = stats.double().cpu().numpy() / n_layers
+        ef, gf = v[: self.cfg.moe.num_experts], v[self.cfg.moe.num_experts :]
         if not (np.isfinite(ef).all() and np.isfinite(gf).all()):
             return
         d = self._freq_decay
@@ -498,22 +489,20 @@ class EndCloudServingEngine(SlotEngineBase):
         def chunk_positions(start, C):
             return start[:, None] + torch.arange(C, dtype=torch.int32, device=start.device)[None]
 
-        def route_stats(aux, device):
-            # an end tier without blocks (split 0) routes nothing: zeros
-            if "expert_frac" in aux:
-                return {k: aux[k] for k in ("expert_frac", "group_frac")}
-            return {"expert_frac": torch.zeros(m.num_experts, device=device),
-                    "group_frac": torch.zeros(m.num_groups, device=device)}
-
         def end_step(end_params, tokens, pages, table, lengths, emask=end_mask, eres=None):
             x = transformer.embed_inputs(end_params, cfg, tokens)
-            x, pages, aux = transformer.apply_stack_decode(
+            x, pages, layer_aux = transformer.apply_stack_decode(
                 end_params, x, cfg, angles(lengths[:, None]), pages, lengths,
                 expert_mask=emask, page_table=table, page_size=ps, expert_resident=eres,
             )
             z = comp.encode_1d(codec, x) if compress else x
             if self._route_stats_enabled:
-                return z, pages, route_stats(aux, x.device)
+                # expert_frac ++ group_frac summed over the end tier's MoE
+                # layers; an end tier without blocks (split 0) gives zeros
+                stats = gating.summed_routing_stats(
+                    [a["topk_idx"] for a in layer_aux], m.num_experts, m.num_groups, x.device
+                )
+                return z, pages, stats
             return z, pages
 
         def cloud_step(cloud_params, z, pages, table, lengths):
@@ -981,7 +970,6 @@ class EndCloudServingEngine(SlotEngineBase):
             measured_gbps=self.bw.gbps,
             compression_ratio=self.tiers.compression_ratio,
             alpha=self.tiers.alpha,
-            rel_threshold=self.replan_threshold,
             edge_boundary=True,
         )
         moved = (plan.split_layer != self.plan.split_layer

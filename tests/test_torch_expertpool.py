@@ -33,6 +33,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import expertpool as tep
 from repro_torch.core import hardware as thw
+from repro_torch.core import gating as tg
 from repro_torch.core import moe as tmoe
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core import selection as tsel
@@ -210,9 +211,10 @@ def test_moe_resident_matches_reference(name, resident, mask):
     y, aux = tmoe.moe_resident(tres, torch.from_numpy(x), cfg,
                                None if m is None else torch.from_numpy(m))
     np.testing.assert_allclose(y.numpy(), _np(y_ref), rtol=1e-4, atol=1e-4)
+    stats = tg.routing_stats(aux["topk_idx"], E, cfg.moe.num_groups)
     for k in ("expert_frac", "group_frac"):
-        np.testing.assert_allclose(aux[k].numpy(), _np(jaux[k]), rtol=1e-6)
-    assert aux["expert_frac"].numpy()[~np.isin(np.arange(E), resident)].sum() == 0
+        np.testing.assert_allclose(stats[k].numpy(), _np(jaux[k]), rtol=1e-6)
+    assert stats["expert_frac"].numpy()[~np.isin(np.arange(E), resident)].sum() == 0
     if m is not None and set(mask) <= set(resident):
         # a resident superset of the routed experts: moe_sorted's result
         y_sorted, _ = jmoe.moe_sorted(p, jnp.asarray(x), jcfg, jnp.asarray(m))

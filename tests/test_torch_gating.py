@@ -119,12 +119,23 @@ def test_gate_matches_reference(mask):
         np.testing.assert_allclose(out.aux[k].item(), float(jout.aux[k]), rtol=1e-5)
     for k in ("expert_frac", "group_frac"):
         np.testing.assert_allclose(out.aux[k].numpy(), np.asarray(jout.aux[k]), rtol=1e-6)
-    # without the losses the gate still measures the routing statistics
-    stats = tg.gate(tparams, torch.from_numpy(x), cfg,
-                    None if m is None else torch.from_numpy(m), aux=False).aux
-    assert set(stats) == {"expert_frac", "group_frac"}
-    for k in stats:
+    # without the losses the gate returns the routed ids, from which a
+    # consumer counts the same routing statistics (summed over layers)
+    saux = tg.gate(tparams, torch.from_numpy(x), cfg,
+                   None if m is None else torch.from_numpy(m), aux=False).aux
+    assert set(saux) == {"topk_idx"}
+    np.testing.assert_array_equal(saux["topk_idx"].numpy(), np.asarray(jout.topk_idx))
+    stats = tg.routing_stats(saux["topk_idx"], cfg.num_experts, cfg.num_groups)
+    for k in ("expert_frac", "group_frac"):
         np.testing.assert_allclose(stats[k].numpy(), np.asarray(jout.aux[k]), rtol=1e-6)
+    want = np.concatenate([np.asarray(jout.aux["expert_frac"]),
+                           np.asarray(jout.aux["group_frac"])])
+    for n_layers in (1, 3):
+        got = tg.summed_routing_stats([saux["topk_idx"]] * n_layers, cfg.num_experts,
+                                      cfg.num_groups, torch.device("cpu"))
+        np.testing.assert_allclose(got.numpy(), n_layers * want, rtol=1e-6)
+    none = tg.summed_routing_stats([], cfg.num_experts, cfg.num_groups, torch.device("cpu"))
+    assert none.shape == want.shape and not none.any()
 
 
 def test_group_top_k_is_not_ported():

@@ -15,6 +15,7 @@ from repro.configs import smoke_config as jsmoke
 from repro.core import moe as jmoe
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core import gating as tg
 from repro_torch.core import moe as tmoe
 
 # one intra-op thread per test worker: the suite runs several workers on a
@@ -88,11 +89,13 @@ def test_apply_moe_with_shared_expert(impl):
     x = np.random.default_rng(2).standard_normal((2, 5, cfg.d_model)).astype(np.float32)
     want, jaux = jmoe.apply_moe(p, jnp.asarray(x), jcfg, None, train=False)
     got, aux = tmoe.apply_moe(tp, torch.from_numpy(x), cfg, train=False)
-    # serving keeps the routing statistics and drops the losses
-    assert got.shape == x.shape and set(aux) == {"expert_frac", "group_frac"}
+    # serving drops the losses and returns the routed ids, which count the
+    # reference's routing statistics
+    assert got.shape == x.shape and set(aux) == {"topk_idx"}
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    for k in aux:
-        np.testing.assert_allclose(aux[k].numpy(), np.asarray(jaux[k]), rtol=1e-6)
+    stats = tg.routing_stats(aux["topk_idx"], cfg.moe.num_experts, cfg.moe.num_groups)
+    for k in stats:
+        np.testing.assert_allclose(stats[k].numpy(), np.asarray(jaux[k]), rtol=1e-6)
 
 
 def test_codec_and_unported_paths_raise():
