@@ -52,18 +52,35 @@ Phases, in order; any failure exits non-zero before the result lines:
    split from 1 to 0 at a safe point: pooled against dense-mask end tiers
    in bf16 on the card (equal tokens), and a shortened run in f32 on the
    card against the same on the CPU (equal tokens).
+7. The streaming engine with its three int8 byte streams on (``quantize_kv``,
+   ``quantize_experts``, ``quantize_boundary``).  The row quantizer, the
+   dequantizer, paged attention over int8 pools and the resident expert FFN
+   over an int8 slab store against their plain versions at the engine's
+   shapes (the quantizer's codes and scales and the dequantizer's values
+   bit for bit).  Then phase 6's pool run with the flags on (same end
+   memory): 16 requests finish, the pools drain, the counters are the
+   reference's quantized engine's (``QUANT_POOL_COUNTERS``, read by
+   ``tools/ref_stream_counters.py``), every kernel launched as the schedule
+   implies, and the boundary bytes, KV and slab capacity ratios reported
+   beside phase 6's; the share of phase 6's bf16 tokens it reproduces
+   (reported, not held to a bound); a profiled tick.  Then the shortened
+   f32 replan run, card against CPU: with each int8 stream alone the tokens
+   are equal; with all three, the tokens are equal or the first top-1 route
+   that differs is a near tie (``f32_all_streams_card_vs_cpu``).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``torch.profiler``
 tables of one decode step and of one ``run_batch`` go to
 ``chiprun_out/decode_profile.txt`` and ``chiprun_out/pipeline_profile.txt``,
-one of a streaming-engine tick to ``chiprun_out/stream_profile.txt``,
-and the compiler's register / spill report to
+one of a streaming-engine tick to ``chiprun_out/stream_profile.txt`` (and
+with the int8 streams to ``chiprun_out/stream_quant_profile.txt``), and the
+compiler's register / spill report to
 ``chiprun_out/nvcc_build.log``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -463,6 +480,191 @@ def run_lowrank(torch, timer):
     return rec
 
 
+def run_quant(torch, timer):
+    """The row quantizer at the int8 streams' shapes: KV tokens (4 and 32
+    rows of 768, bf16, f16 scales), the boundary (4 and 32 rows of 384), and
+    the columns of one expert slab's wi [768, 3072] and wo [3072, 768] (f32,
+    f32 scales).  Codes and scales equal the plain version's bit for bit (the
+    tokens downstream depend on them), an all-zero row and a row so small
+    that its f16 scale underflows to 0 included.  Then the dequantizer on the
+    boundary's codes, bit for bit.  No single PyTorch call computes either
+    function (the scale of each line, rounded to its type, then the codes;
+    ``torch.quantize_per_channel`` takes the scales as given), so
+    ``library_ms`` is null."""
+    from repro_torch.kernels.quant import (
+        dequantize_rows,
+        dequantize_rows_plain,
+        quantize_rows,
+        quantize_rows_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    cases = [  # (name, shape, input type, scale type, axis)
+        ("kv decode 4x768", (4, 768), bf16, f16, -1),
+        ("kv chunk 32x768", (32, 768), bf16, f16, -1),
+        ("boundary decode 4x384", (4, 384), bf16, f16, -1),
+        ("boundary chunk 32x384", (32, 384), bf16, f16, -1),
+        ("slab wi 768x3072 columns", (1, 768, 3072), f32, f32, -2),
+        ("slab wo 3072x768 columns", (1, 3072, 768), f32, f32, -2),
+    ]
+    rec, codes = {}, {}
+    for name, shape, dt, sdt, axis in cases:
+        scale = 0.02 if axis == -2 else 3.0
+        x = (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dt)
+        if axis == -1:
+            x[0] = 0
+            x[1] = (torch.randn(shape[1], generator=gen, device="cuda") * 1e-7).to(dt)
+        kw = dict(scale_dtype=sdt, axis=axis)
+        q, sc = quantize_rows(x, **kw)
+        rq, rsc = quantize_rows_plain(x, **kw)
+        same = torch.equal(q, rq) and torch.equal(sc, rsc)
+        under = int((sc == 0).sum())
+        log(f"  quantize_rows {name}: codes and scales equal the plain version's: {same} "
+            f"({under} scales underflowed to 0)")
+        if not same:
+            raise AssertionError(f"quantize_rows {name}: codes or scales differ")
+        if axis == -1 and under != 2:  # the floor 1e-8 is 0 in f16
+            raise AssertionError(f"quantize_rows {name}: the zero and tiny rows' f16 "
+                                 "scales are not 0")
+        codes[name] = (q, sc)
+        n = x.numel()
+        b_ms, b_by = bound(n * x.element_size() + n + sc.numel() * sc.element_size(),
+                           3 * n, "f32")
+        ms = timer(lambda: quantize_rows(x, **kw))
+        plain_ms = timer(lambda: quantize_rows_plain(x, **kw))
+        log(f"  quantize_rows {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null")
+        rec[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    out = {"quantize_rows": rec["kv decode 4x768"]}
+    for name in ("boundary decode 4x384", "boundary chunk 32x384"):
+        q, sc = codes[name]
+        y = dequantize_rows(q, sc, dtype=bf16)
+        same = torch.equal(y, dequantize_rows_plain(q, sc, dtype=bf16))
+        log(f"  dequantize_rows {name}: equal to the plain version: {same}")
+        if not same:
+            raise AssertionError(f"dequantize_rows {name}: values differ")
+        n = q.numel()
+        b_ms, b_by = bound(n + sc.numel() * 2 + n * 2, n, "f32")
+        ms = timer(lambda: dequantize_rows(q, sc, dtype=bf16))
+        plain_ms = timer(lambda: dequantize_rows_plain(q, sc, dtype=bf16))
+        log(f"  dequantize_rows {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null")
+        out.setdefault("dequantize_rows", dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                               bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return out
+
+
+def run_paged_attention_quant(torch, timer):
+    """Paged attention over int8 pools (codes and f16 scales per token from
+    the quantizer) at the decode (C = 1) and chunk (C = 32) shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention_plain, paged_attention_quant
+    from repro_torch.models.kvcache import (
+        dequantize_kv_pool,
+        paged_gather,
+        quantize_kv_tokens,
+        ring_key_positions,
+    )
+
+    rec = {}
+    for C in (1, 32):
+        q, pool_k, pool_v, table, q_pos, lengths = paged_attention_inputs(torch, C, seed=10 + C)
+        kq, ks = quantize_kv_tokens(pool_k)
+        vq, vs = quantize_kv_tokens(pool_v)
+        args = (q, kq, vq, ks, vs, table, q_pos, lengths)
+        out = paged_attention_quant(*args)
+        ref = paged_attention_plain(q, kq, vq, table, q_pos, lengths, k_scale=ks, v_scale=vs)
+        # both sides dequantize exactly, keep p in f32 and round once to bf16,
+        # summing in another order: as the dense kernel's check
+        atol = 2 ** -6 * ref.float().abs().median().item()
+        err = check_close(f"paged_attention_quant C={C}", out, ref, rtol=2 ** -7, atol=atol)
+
+        B, _, H, hd = q.shape
+        ps, pps = kq.shape[1], table.shape[1]
+        kp = ring_key_positions(lengths, ps * pps)
+        vis = (kp[:, None, :] <= q_pos[:, :, None].long()) & (kp[:, None, :] >= 0)
+        live = vis.view(B, C, pps, ps).any(dim=(1, 3)) & (table != kq.shape[0] - 1)
+        page_bytes = 2 * ps * H * hd + 2 * ps * 2  # int8 K and V of a page, f16 scales
+        nbytes = (2 * q.numel() * 2 + int(live.sum()) * page_bytes
+                  + (table.numel() + q_pos.numel() + lengths.numel()) * 4)
+        b_ms, b_by = bound(nbytes, 4 * hd * H * int(vis.sum()), "bf16")
+        # yardstick: SDPA over the dequantized, pre-gathered dense ring
+        kd = paged_gather(dequantize_kv_pool(kq, ks, torch.bfloat16), table).transpose(1, 2)
+        vd = paged_gather(dequantize_kv_pool(vq, vs, torch.bfloat16), table).transpose(1, 2)
+        qd, mask = q.transpose(1, 2), vis[:, None]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
+        ms = timer(lambda: paged_attention_quant(*args))
+        plain_ms = timer(lambda: paged_attention_plain(
+            q, kq, vq, table, q_pos, lengths, k_scale=ks, v_scale=vs), iters=5)
+        log(f"  paged_attention_quant C={C}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa)={lib_ms:.4f} "
+            f"live_pages={int(live.sum())}")
+        rec[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib_ms)
+    rec[1]["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+    return rec[1]
+
+
+def run_expert_mlp_resident_quant(torch, timer):
+    """The end tier's resident expert FFN over the int8 slab store of
+    full-width switch-base (the f32 store of phase 6's check, quantized per
+    output column), bf16 rows at the decode (n = 4) and chunk (n = 32)
+    shapes; garbage-slot rows exactly 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.expertpool import quantize_slab
+    from repro_torch.core.moe import init_moe
+    from repro_torch.kernels.expert_mlp import (
+        grouped_mlp_resident_quant,
+        grouped_mlp_resident_quant_plain,
+    )
+
+    cfg = get_config("switch-base")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = init_moe(gen, cfg)
+    N = 18
+    store = {}
+    for k in ("wi", "wo"):
+        w = torch.cat([p[k], p[k].flip(0), p[k][:2], torch.zeros_like(p[k][:1])])
+        store[k], store[f"{k}_scale"] = quantize_slab(w)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    scales = dict(wi_scale=store["wi_scale"], wg_scale=None, wo_scale=store["wo_scale"])
+    rec = {}
+    cases = [  # (name, slot sizes, slab ids; the last slot is the garbage slot)
+        ("decode n=4", [2, 0, 1, 1], [7, 2, 13, N]),
+        ("prefill n=32", [14, 9, 5, 4], [11, 0, 5, N]),
+    ]
+    for name, sizes, ids in cases:
+        n = sum(sizes)
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        idt = torch.tensor(ids, dtype=torch.int32, device="cuda")
+        xs = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+        args = (xs, gs, store["wi"], None, store["wo"], idt, cfg.act)
+        y = grouped_mlp_resident_quant(*args, **scales)
+        ref = grouped_mlp_resident_quant_plain(*args, **scales)
+        # the kernel keeps the hidden activation in f32 where the plain
+        # version (as ragged_dot) rounds it to bf16: a few bf16 ulps of |y|
+        tol = 2e-2 * ref.float().abs().max().item()
+        err = check_close(f"expert_mlp_resident_quant {name}", y, ref, rtol=0, atol=tol)
+        if not bool((y[n - sizes[-1]:] == 0).all()):
+            raise AssertionError(f"expert_mlp_resident_quant {name}: garbage-slot rows are not 0")
+        routed = sum(1 for s in sizes[:-1] if s)
+        nbytes = (2 * n * d * 2 + routed * (2 * d * f + (f + d) * 4)
+                  + 2 * len(sizes) * 4)
+        b_ms, b_by = bound(nbytes, 2 * 2 * (n - sizes[-1]) * d * f, "bf16")
+        ms = timer(lambda: grouped_mlp_resident_quant(*args, **scales))
+        plain_ms = timer(lambda: grouped_mlp_resident_quant_plain(*args, **scales))
+        log(f"  expert_mlp_resident_quant {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null routed_slots={routed}")
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    main = rec["decode n=4"]
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+    return main
+
+
 # ---------------------------------------------------------------------------
 # Phase 3-4: serve full-width switch-base, and hold it against the CPU
 # ---------------------------------------------------------------------------
@@ -851,9 +1053,19 @@ def pipeline_vs_cpu(torch, eng, codec, prof, B: int, S: int):
 # the reference engine's counters in the pool run (same scenario, on the CPU)
 POOL_COUNTERS = {"n_expert_evictions": 2, "n_expert_prefetches": 2,
                  "expert_bytes_down": 37748736, "n_stage_steps": 140,
-                 "n_prefill_chunks": 74, "bytes_up": 1986816}
+                 "n_prefill_chunks": 74, "bytes_up": 1986816, "kv_capacity_ratio": 1.0,
+                 "expert_slab_bytes": 18874368, "expert_capacity_ratio": 1.0}
 # and in the replan run (jetson-orin end planning split 1, then 10 Gbps)
 REPLAN_COUNTERS = {"n_expert_evictions": 3, "n_stage_steps": 37, "n_prefill_chunks": 40}
+QUANT = dict(quantize_kv=True, quantize_experts=True, quantize_boundary=True)
+# the reference's quantized engine in the pool run (tools/ref_stream_counters.py,
+# full width; its unquantized run reproduces POOL_COUNTERS): the end memory of
+# phase 6 holds ~4x as many int8 slabs, so the shrink evicts nothing
+QUANT_POOL_COUNTERS = {"n_expert_evictions": 0, "n_expert_prefetches": 0,
+                       "expert_bytes_down": 0, "n_stage_steps": 140, "n_prefill_chunks": 74,
+                       "bytes_up": 998582, "kv_capacity_ratio": 1.9948051948051948,
+                       "expert_slab_bytes": 4733952,
+                       "expert_capacity_ratio": 3.9870214146658016}
 
 
 def stream_requests(vocab, n, seed, new, hi=200, base=0):
@@ -880,9 +1092,11 @@ def stream_engine(model, params, end, **kw):
         max_len=256, **kw)
 
 
-def stream_pool_run(torch, model, params, counters):
+def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters=POOL_COUNTERS,
+                    tag="pool run", profile_name="stream_profile.txt"):
     """The expert pool through a memory shrink and regrow, stage times
-    measured; returns the launch counts of the run."""
+    measured, with the int8 streams of ``flags``; returns the launch counts
+    of the run, the requests' tokens and the engine's metrics."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -898,21 +1112,22 @@ def stream_pool_run(torch, model, params, counters):
     end = DeviceProfile("jetson-orin-slabs", peak_gflops=jet.peak_gflops,
                         mem_gb=2 * 1 * 3 * slab / 1e9, mem_bw_gbs=jet.mem_bw_gbs,
                         net_gbps=jet.net_gbps)
+    gc.collect()  # earlier engines hold reference cycles (stage functions)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    eng = stream_engine(model, params, end, force_split=1, timing="measured")
+    eng = stream_engine(model, params, end, force_split=1, timing="measured", **(flags or {}))
     torch.cuda.synchronize()
-    log(f"stream engine built in {time.perf_counter() - t0:.2f} s: split {eng.split}, "
+    log(f"{tag}: engine built in {time.perf_counter() - t0:.2f} s: split {eng.split}, "
         f"codec {'on' if eng.tiers.compress else 'off'}, {int(eng.tiers.end_mask.sum())} "
-        f"target experts, {eng.expert_pool.num_slabs} slabs of {slab} bytes, "
-        f"{eng.expert_pool.slabs_in_use} resident")
+        f"target experts, {eng.expert_pool.num_slabs} slabs of {eng._slab_bytes} bytes, "
+        f"{eng.expert_pool.slabs_in_use} resident, int8 streams {sorted(flags or {})}")
     reqs = stream_requests(cfg.vocab_size, 8, 0, 32)
     for r in reqs:
         eng.submit(r)
     tick_s, decode_only, prof_tick = [], [], None
-    tick = 0
+    tick = prefetch_ticks = 0
     t_run = time.perf_counter()
     while eng.busy() or tick < 12:
         if tick == 6:
@@ -923,7 +1138,7 @@ def stream_pool_run(torch, model, params, counters):
             for r in more:
                 eng.submit(r)
             reqs += more
-        chunks, steps = eng.n_prefill_chunks, eng.n_stage_steps
+        chunks, steps, fetched = eng.n_prefill_chunks, eng.n_stage_steps, eng.n_expert_prefetches
         all_decoding = not eng._jobs and not eng.waiting and int(eng._active.sum()) == 8
         if prof_tick is None and tick > 12 and all_decoding:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -939,6 +1154,7 @@ def stream_pool_run(torch, model, params, counters):
             tick_s.append(time.perf_counter() - t)
             if eng.n_prefill_chunks == chunks and eng.n_stage_steps > steps:
                 decode_only.append(tick_s[-1])
+        prefetch_ticks += eng.n_expert_prefetches > fetched
         tick += 1
         if tick > 2000:
             raise AssertionError("the stream engine did not drain in 2000 ticks")
@@ -951,28 +1167,41 @@ def stream_pool_run(torch, model, params, counters):
            "n_expert_prefetches": eng.n_expert_prefetches,
            "expert_bytes_down": eng.expert_bytes_down, "n_stage_steps": eng.n_stage_steps,
            "n_prefill_chunks": eng.n_prefill_chunks, "bytes_up": eng.link.bytes_up}
-    log(f"pool run: {tick} ticks, counters {got}, replan events {eng.replan_events}, "
+    for k in ("kv_capacity_ratio", "expert_slab_bytes", "expert_capacity_ratio"):
+        got[k] = m[k]
+    log(f"{tag}: {tick} ticks, counters {got}, replan events {eng.replan_events}, "
         f"expert hit rate {m['expert_hit_rate']}, launches {launches}")
     bad = [r.request_id for r in reqs if not r.done or len(r.generated) != 32]
     if len(reqs) != 16 or bad:
-        raise AssertionError(f"pool run: requests {bad} did not finish with 32 tokens")
+        raise AssertionError(f"{tag}: requests {bad} did not finish with 32 tokens")
     if eng.end_pool.pages_in_use or eng.cloud_pool.pages_in_use:
-        raise AssertionError("pool run: KV pages still mapped after the run")
-    if got != POOL_COUNTERS or eng.replan_events or m["expert_hit_rate"] != 1.0:
-        raise AssertionError(f"pool run: counters {got}, want the reference's {POOL_COUNTERS}")
+        raise AssertionError(f"{tag}: KV pages still mapped after the run")
+    if got != want_counters or eng.replan_events or m["expert_hit_rate"] != 1.0:
+        raise AssertionError(f"{tag}: counters {got}, want the reference's {want_counters}")
     # every stage call (decode steps, prefill chunks, and one warmup of each
-    # per build of the stage functions) runs each tier's layers once
+    # per build of the stage functions) runs each tier's layers once; with
+    # int8 KV pools each layer quantizes its k and v, with an int8 boundary
+    # each end call quantizes and each cloud call dequantizes it, and with an
+    # int8 slab store each batch of slab writes (the initial fill, each tick
+    # that prefetched) quantizes every weight matrix
     calls = eng.n_stage_steps + eng.n_prefill_chunks + 2 * eng._build_gen
     n_layers = cfg.block_repeat * len(cfg.layer_pattern)
     end_moe = eng.split * len(eng._moe_pos)
-    want = {"grouped_mlp_resident": calls * end_moe,
+    kvq, exq, bq = eng.quantize_kv, eng.quantize_experts, eng.quantize_boundary
+    mats = len(eng._moe_pos) * (3 if cfg.ffn_gated else 2)
+    want = {"grouped_mlp_resident": 0 if exq else calls * end_moe,
+            "grouped_mlp_resident_quant": calls * end_moe if exq else 0,
             "grouped_mlp": calls * (cfg.block_repeat * len(eng._moe_pos) - end_moe),
             "group_gate": calls * cfg.block_repeat * len(eng._moe_pos),
             "lowrank_encode": calls, "lowrank_decode": calls,
-            "paged_attention": calls * n_layers, "flash_attention_fwd": 0,
-            "lowrank_roundtrip": 0}
+            "paged_attention": 0 if kvq else calls * n_layers,
+            "paged_attention_quant": calls * n_layers if kvq else 0,
+            "quantize_rows": (2 * calls * n_layers * kvq + calls * bq
+                              + (1 + prefetch_ticks) * mats * exq),
+            "dequantize_rows": calls * bq,
+            "flash_attention_fwd": 0, "lowrank_roundtrip": 0}
     if launches != want:
-        raise AssertionError(f"pool run launches {launches}, want {want}")
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
 
     dec = sorted(decode_only)
     n_tok = sum(len(r.generated) for r in reqs)
@@ -982,50 +1211,76 @@ def stream_pool_run(torch, model, params, counters):
         f"t_cloud {m['mean_t_cloud_s'] * 1e3:.3f} ms; t_comm {m['mean_t_comm_s'] * 1e3:.3f} "
         f"ms modeled; pipelined_step_s {m['pipelined_step_s'] * 1e3:.3f} ms, serial_step_s "
         f"{m['serial_step_s'] * 1e3:.3f} ms")
-    log(f"stream tokens/s: {n_tok / run_s:.1f} ({n_tok} tokens in {run_s:.3f} s, 16 requests); "
+    log(f"{tag} tokens/s: {n_tok / run_s:.1f} ({n_tok} tokens in {run_s:.3f} s, 16 requests); "
         f"peak device memory {peak / 2**20:.1f} MiB")
     ptick, avgs, wall = prof_tick
-    dev_us = sum(e.self_device_time_total for e in avgs if e.device_type != DeviceType.CPU)
-    res = [e for e in avgs if e.device_type != DeviceType.CPU
-           and "expert_ffn_kernel<__nv_bfloat16, float" in e.key]
-    res_us = sum(e.self_device_time_total for e in res) / max(sum(e.count for e in res), 1)
-    (OUT_DIR / "stream_profile.txt").write_text(
-        avgs.table(sort_by="cuda_time_total", row_limit=40))
-    log(f"stream profile (tick {ptick}, 8 slots decoding): device time {dev_us / 1e3:.3f} ms "
-        f"of {wall * 1e3:.3f} ms wall ({dev_us / 1e3 / (wall * 1e3):.1%} busy); resident "
-        f"kernel in path {res_us / 1e3:.4f} ms a launch (FFN pass, "
-        f"{sum(e.count for e in res)} launches); written to chiprun_out/stream_profile.txt")
-    return launches
+    dev = [e for e in avgs if e.device_type != DeviceType.CPU]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    (OUT_DIR / profile_name).write_text(avgs.table(sort_by="cuda_time_total", row_limit=40))
+    store = "signed char" if exq else "float"
+    in_path = []
+    for what, key in (("resident FFN pass", f"expert_ffn_kernel<__nv_bfloat16, {store}"),
+                      ("paged attention", "paged_attention_kernel"),
+                      ("quantize", "quantize_rows_kernel"),
+                      ("dequantize", "dequantize_rows_kernel")):
+        rows = [e for e in dev if key in e.key]
+        n = sum(e.count for e in rows)
+        if n:
+            us = sum(e.self_device_time_total for e in rows) / n
+            in_path.append(f"{what} {us / 1e3:.4f} ms x {n}")
+    log(f"{tag} profile (tick {ptick}, 8 slots decoding): device time {dev_us / 1e3:.3f} ms "
+        f"of {wall * 1e3:.3f} ms wall ({dev_us / 1e3 / (wall * 1e3):.1%} busy); kernels in "
+        f"path, a launch: {'; '.join(in_path)}; written to chiprun_out/{profile_name}")
+    return launches, [r.generated for r in reqs], m
+
+
+def replan_run(m, p, n, new, hi, at, **kw):
+    """``n`` requests on a jetson-orin end whose planned split 1 moves to 0
+    when a 10 Gbps link is declared at tick ``at``; returns (tokens, engine)."""
+    from repro_torch.core.hardware import PROFILES
+
+    eng = stream_engine(m, p, PROFILES["jetson-orin"], timing="measured", **kw)
+    reqs = stream_requests(m.cfg.vocab_size, n, 0, new, hi=hi)
+    for r in reqs:
+        eng.submit(r)
+    tick = 0
+    while eng.busy():
+        if tick == at:
+            eng.observe_bandwidth(10.0, hard=True)
+        eng.step()
+        tick += 1
+    moves = [(ev["old_split"], ev["new_split"]) for ev in eng.replan_events]
+    if moves != [(1, 0)] or not all(r.done and len(r.generated) == new for r in reqs):
+        raise AssertionError(f"replan run ({m.device}, {m.cfg.dtype}, {kw}): events "
+                             f"{eng.replan_events}, not every request finished")
+    if eng.end_pool.pages_in_use or eng.cloud_pool.pages_in_use:
+        raise AssertionError("replan run: KV pages still mapped after the run")
+    return [r.generated for r in reqs], eng
+
+
+def f32_card_vs_cpu(model, params, tag, **kw):
+    """A shortened replan run (4 requests, 8 tokens) in f32 on the card and
+    on the CPU (plain versions, same weights): the tokens must be equal."""
+    from repro_torch.models.model import Model, to_device
+
+    t0 = time.perf_counter()
+    cfg32 = model.cfg.replace(dtype="float32")
+    card, _ = replan_run(Model(cfg32, device="cuda"), params, 4, 8, 64, 3, **kw)
+    t1 = time.perf_counter()
+    host, _ = replan_run(Model(cfg32, device="cpu"), to_device(params, "cpu"), 4, 8, 64, 3,
+                         **kw)
+    same = card == host
+    log(f"{tag} (f32, 4 requests, 8 tokens): card tokens equal the CPU's: {same} "
+        f"(card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s)")
+    if not same:
+        raise AssertionError(f"{tag}: f32 card tokens differ from the CPU's")
 
 
 def stream_replan_runs(torch, model, params):
     """A hard bandwidth change moves the planned split from 1 to 0: pooled
     against dense-mask end tiers in bf16 on the card, and a shortened run in
     f32 on the card against the CPU."""
-    from repro_torch.core.hardware import PROFILES
-    from repro_torch.models.model import Model, to_device
-
-    jet = PROFILES["jetson-orin"]
-
-    def run(m, p, n, new, hi, at, **kw):
-        eng = stream_engine(m, p, jet, timing="measured", **kw)
-        reqs = stream_requests(m.cfg.vocab_size, n, 0, new, hi=hi)
-        for r in reqs:
-            eng.submit(r)
-        tick = 0
-        while eng.busy():
-            if tick == at:
-                eng.observe_bandwidth(10.0, hard=True)
-            eng.step()
-            tick += 1
-        moves = [(ev["old_split"], ev["new_split"]) for ev in eng.replan_events]
-        if moves != [(1, 0)] or not all(r.done and len(r.generated) == new for r in reqs):
-            raise AssertionError(f"replan run ({m.device}, {m.cfg.dtype}, {kw}): events "
-                                 f"{eng.replan_events}, not every request finished")
-        if eng.end_pool.pages_in_use or eng.cloud_pool.pages_in_use:
-            raise AssertionError("replan run: KV pages still mapped after the run")
-        return [r.generated for r in reqs], eng
-
+    run = replan_run
     t0 = time.perf_counter()
     pooled, eng = run(model, params, 8, 16, 200, 6)
     dense, deng = run(model, params, 8, 16, 200, 6, expert_pool=False)
@@ -1038,30 +1293,103 @@ def stream_replan_runs(torch, model, params):
             eng.n_stage_steps, eng.n_prefill_chunks):
         raise AssertionError(f"replan run: counters {got} (want {REPLAN_COUNTERS}), "
                              f"pooled == dense-mask tokens: {same}")
+    f32_card_vs_cpu(model, params, "replan run")
 
-    t0 = time.perf_counter()
+
+def stream_quant(torch, model, params, counters, base):
+    """Phase 7: the pool run with every int8 stream on, held to the
+    reference's quantized engine, beside phase 6's run ``base`` = (tokens,
+    metrics); then the f32 card-vs-CPU replan run with the streams on.
+    Returns the pool run's launch counts."""
+    launches, tokens, m = stream_pool_run(
+        torch, model, params, counters, flags=QUANT, want_counters=QUANT_POOL_COUNTERS,
+        tag="quant pool run", profile_name="stream_quant_profile.txt")
+    base_tokens, mb = base
+    pairs = [(a, b) for ta, tb in zip(tokens, base_tokens) for a, b in zip(ta, tb)]
+    match = sum(a == b for a, b in pairs) / len(pairs)
+    log(f"quant pool run against phase 6's: bytes_up {m['bytes_up']} / {mb['bytes_up']} = "
+        f"{m['bytes_up'] / mb['bytes_up']:.6f} (expected (r+2)/(2r) = 386/768 = "
+        f"{386 / 768:.6f}); kv_capacity_ratio {m['kv_capacity_ratio']:.6f} (phase 6: "
+        f"{mb['kv_capacity_ratio']}); expert_slab_bytes {m['expert_slab_bytes']} against "
+        f"{mb['expert_slab_bytes']} (capacity ratio {m['expert_capacity_ratio']:.6f}); "
+        f"bf16 tokens equal to phase 6's at {match:.4f} of {len(pairs)} positions "
+        f"(reported, no bound)")
+    for flag in QUANT:
+        f32_card_vs_cpu(model, params, f"quant replan run, {flag} alone", **{flag: True})
+    f32_all_streams_card_vs_cpu(torch, model, params)
+    return launches
+
+
+def f32_all_streams_card_vs_cpu(torch, model, params):
+    """The shortened f32 replan run with all three int8 streams, on the card
+    and on the CPU, every MoE layer's gate recorded on both sides.
+
+    Each int8 stream alone gives the CPU's tokens (above).  Together, f32
+    sums taken in another order on the card move a few codes by one step
+    (the quantizers agree bit for bit on equal inputs), and a boundary code
+    one step off moves every value the cloud tier derives from that token by
+    ~1/254 of the row's range: enough to flip a near-tied top-1 route, after
+    which that token's expert output (~200 in magnitude with these random
+    weights) and everything downstream differ.  So: the tokens are equal, or
+    the first route that differs (gate calls paired in order, the schedule
+    being the same on both sides) is a near tie, the CPU's gap between its
+    two most probable experts below ``TIE`` (median gap ~0.1)."""
+    from repro_torch.core import gating
+    from repro_torch.models.model import Model, to_device
+
+    TIE = 1e-2
     cfg32 = model.cfg.replace(dtype="float32")
-    card, _ = run(Model(cfg32, device="cuda"), params, 4, 8, 64, 3)
-    t1 = time.perf_counter()
-    host, _ = run(Model(cfg32, device="cpu"), to_device(params, "cpu"), 4, 8, 64, 3)
-    same = card == host
-    log(f"replan run (f32, 4 requests, 8 tokens): card tokens equal the CPU's: {same} "
-        f"(card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s)")
-    if not same:
-        raise AssertionError("replan run: f32 card tokens differ from the CPU's")
+    rec = {"cuda": [], "cpu": []}
+    gate = gating.gate
+
+    def gate_rec(*args, **kw):
+        out = gate(*args, **kw)
+        top2 = out.probs.float().topk(2, dim=-1).values
+        rec[out.topk_idx.device.type].append(
+            (out.topk_idx.cpu(), (top2[:, 0] - top2[:, 1]).cpu()))
+        return out
+
+    gating.gate = gate_rec
+    try:
+        card, _ = replan_run(Model(cfg32, device="cuda"), params, 4, 8, 64, 3, **QUANT)
+        host, _ = replan_run(Model(cfg32, device="cpu"), to_device(params, "cpu"), 4, 8, 64,
+                             3, **QUANT)
+    finally:
+        gating.gate = gate
+    equal = sum(a == b for ta, tb in zip(card, host) for a, b in zip(ta, tb))
+    if len(rec["cuda"]) != len(rec["cpu"]):
+        raise AssertionError("all int8 streams, f32: the card and the CPU ran different schedules")
+    first = next(((i, ic != ih) for i, ((ic, _), (ih, _)) in enumerate(zip(rec["cuda"], rec["cpu"]))
+                  if bool((ic != ih).any())), None)
+    if first is None:
+        log(f"quant replan run, all streams (f32): tokens equal {equal} of 32, every route "
+            f"equal over {len(rec['cpu'])} gate calls")
+        if equal != 32:
+            raise AssertionError("all int8 streams, f32: card tokens differ with every route equal")
+        return
+    i, flip = first
+    gaps = rec["cpu"][i][1][flip.any(dim=-1)]
+    median = torch.cat([g for _, g in rec["cpu"]]).median().item()
+    log(f"quant replan run, all streams (f32): tokens equal {equal} of 32; first route that "
+        f"differs at gate call {i} of {len(rec['cpu'])} ({int(flip.any(dim=-1).sum())} "
+        f"tokens), CPU top-2 gap there {gaps.max().item():.3e} (tie < {TIE:g}; median gap "
+        f"of all {median:.3e})")
+    if gaps.max().item() >= TIE:
+        raise AssertionError("all int8 streams, f32: the card flipped a route that is no tie")
 
 
 def stream(torch, counters):
     """Phase 6 on a fresh full-width switch-base with its weights as stored
-    (f32) and bf16 activations; returns the pool run's launch counts."""
+    (f32) and bf16 activations; returns the model, its params, the pool
+    run's launch counts and its (tokens, metrics)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
     model = Model(get_config("switch-base"), device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    launches = stream_pool_run(torch, model, params, counters)
+    launches, tokens, m = stream_pool_run(torch, model, params, counters)
     stream_replan_runs(torch, model, params)
-    return launches
+    return model, params, launches, (tokens, m)
 
 
 def main() -> int:
@@ -1072,11 +1400,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
-    from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_resident
+    from repro_torch.kernels.expert_mlp import (
+        grouped_mlp,
+        grouped_mlp_resident,
+        grouped_mlp_resident_quant,
+    )
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.group_gate import group_gate
     from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode, lowrank_roundtrip
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
+    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
 
     smi = nvidia_smi()
     import triton
@@ -1116,16 +1449,32 @@ def main() -> int:
         group_gate, grouped_mlp, paged_attention])
     log("streaming end-cloud engine:")
     t0 = time.perf_counter()
-    stream_launches = stream(torch, [
-        grouped_mlp_resident, grouped_mlp, group_gate, lowrank_encode, lowrank_decode,
-        paged_attention, flash_attention_fwd, lowrank_roundtrip])
+    stream_counters = [
+        grouped_mlp_resident, grouped_mlp_resident_quant, grouped_mlp, group_gate,
+        lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
+        quantize_rows, dequantize_rows, flash_attention_fwd, lowrank_roundtrip]
+    model, params, stream_launches, base = stream(torch, stream_counters)
     log(f"stream phase took {time.perf_counter() - t0:.1f} s")
+    log("int8 byte streams, kernels against their plain versions (card):")
+    t0 = time.perf_counter()
+    recs.update(run_quant(torch, timer))
+    recs["paged_attention_quant"] = run_paged_attention_quant(torch, timer)
+    recs["grouped_mlp_resident_quant"] = run_expert_mlp_resident_quant(torch, timer)
+    log(f"int8 kernel checks took {time.perf_counter() - t0:.2f} s")
+    log("streaming end-cloud engine with the int8 streams:")
+    t0 = time.perf_counter()
+    quant_launches = stream_quant(torch, model, params, stream_counters, base)
+    log(f"int8 stream phase took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention (the roundtrip has no consumer on any path), the
-    # streaming engine's pool run for the resident expert FFN
+    # streaming engine's pool run for the resident expert FFN, and its run
+    # with the int8 streams for their four kernels
     launches = {**pipe_launches, **serve_launches,
-                "grouped_mlp_resident": stream_launches["grouped_mlp_resident"]}
+                "grouped_mlp_resident": stream_launches["grouped_mlp_resident"],
+                **{k: quant_launches[k] for k in (
+                    "quantize_rows", "dequantize_rows", "paged_attention_quant",
+                    "grouped_mlp_resident_quant")}}
 
     meta = {
         "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -1146,6 +1495,16 @@ def main() -> int:
                            "src/repro/kernels/lowrank/kernel.py:77", "lowrank_decode"),
         "lowrank_roundtrip": ("cuda", "src/repro_torch/csrc/lowrank.cu",
                               "src/repro/kernels/lowrank/kernel.py:96", "lowrank_roundtrip"),
+        "quantize_rows": ("cuda", "src/repro_torch/csrc/quant.cu",
+                          "src/repro/kernels/quant/kernel.py:56", "quantize_rows"),
+        "dequantize_rows": ("cuda", "src/repro_torch/csrc/quant.cu",
+                            "src/repro/kernels/quant/kernel.py:83", "dequantize_rows"),
+        "paged_attention_quant": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
+                                  "src/repro/kernels/paged_attention/kernel.py:139",
+                                  "paged_attention_quant"),
+        "grouped_mlp_resident_quant": ("cuda", "src/repro_torch/csrc/expert_mlp.cu",
+                                       "src/repro/kernels/expert_mlp/kernel.py:132",
+                                       "grouped_mlp_resident_quant"),
     }
     kernels = []
     for name, (route, source, replaces, counter) in meta.items():

@@ -1,21 +1,25 @@
-"""PO-ECC low-rank compression (paper eq. 8), 1-D token-tensor form: the
-port of the reference's ``core/compression.py`` parts the one-shot
-end-cloud pipeline uses.
+"""PO-ECC low-rank compression (paper eq. 8), 1-D token-tensor form, and
+the int8 second stage of the boundary payload: the port of the reference's
+``core/compression.py`` parts the end-cloud engines use.
 
 Token tensors ``[..., d]`` cross a communication boundary as
 ``Z = X E`` (``E`` in R^{d x r}) and are restored as ``X̂ = Z D``, cutting
 the bytes on the wire by r/d.  The products run in ``kernels.lowrank`` (the
 CUDA kernel on the card) with the reference consumer's casting: the codec
-is cast to the activation type before the product.
+is cast to the activation type before the product.  The boundary's int8
+stage (``quantize_boundary``) runs in ``kernels.quant``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode
+from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+
+BOUNDARY_SCALE_DTYPE = torch.float16  # f16 keeps a quantized row <= 0.55x of bf16
 
 
 def init_lowrank_1d(generator: torch.Generator, d: int, r: int,
@@ -61,6 +65,19 @@ def roundtrip_1d(params: Dict, x: torch.Tensor) -> torch.Tensor:
 def recon_loss(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
     """||X - X_hat||_2^2 (mean over elements, f32)."""
     return (x.float() - x_hat.float()).square().mean()
+
+
+def quantize_boundary(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Second codec stage of a boundary payload ``[..., r]`` (low-rank
+    encoded, or raw without a codec): int8 codes with one f16 scale per row
+    ``[..., 1]``, rounded to f16 before the divide, so a row costs ``r + 2``
+    bytes on the wire instead of ``2r`` (bf16)."""
+    return quantize_rows(z.contiguous(), scale_dtype=BOUNDARY_SCALE_DTYPE)
+
+
+def dequantize_boundary(q: torch.Tensor, scale: torch.Tensor,
+                        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return dequantize_rows(q, scale, dtype=dtype)
 
 
 def compression_ratio(d: int, r: int, in_bits: int = 16, codec: str = "lowrank"):

@@ -16,8 +16,12 @@ deciding what to prefetch and what to evict.  The serving engine hands
 :func:`device_resident_tables`, so expert compute and HBM traffic scale
 with residents, not ``E``.
 
-Not ported: the int8 slab store (``quantize_slab``, ``quantized=True``)
-and the fleet-wide ``FleetExpertRegistry``.
+A quantized store (``quantized=True``) holds int8 codes with one f32 scale
+per output column (``wi_scale``/``wg_scale [N+1, f]``, ``wo_scale [N+1,
+d]``), quantized on write (``quantize_slab``, ``kernels.quant`` on the card:
+the column mode of the row quantizer, so no transposed copy); its size is
+what the budget, the byte meters and the wire see.  Not ported: the
+fleet-wide ``FleetExpertRegistry``.
 """
 
 from __future__ import annotations
@@ -28,39 +32,49 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.kernels.quant import SCALE_FLOOR, quantize_rows
 
-
-def _no_quantized(quantized: bool):
-    if quantized:
-        raise NotImplementedError(
-            "the int8 slab store (quantize_experts) is not ported yet: it "
-            "comes with the quant slice (ROADMAP queue A item 1)"
-        )
+SLAB_SCALE_DTYPE = torch.float32  # one scale per output column
+SLAB_SCALE_FLOOR = SCALE_FLOOR  # all-zero columns: a finite divide, codes 0
 
 
 def expert_slab_bytes(cfg, *, quantized: bool = False) -> int:
-    """Bytes one expert's ``wi``/``wg``/``wo`` rows occupy for one layer in
-    the params' type (the unit of the pool's budget and byte meters)."""
-    _no_quantized(quantized)
+    """Bytes one expert's ``wi``/``wg``/``wo`` rows occupy for one layer as
+    stored (the unit of the pool's budget, byte meters and wire time): the
+    params' type, or int8 plus one f32 scale per output column."""
     mats = 3 if cfg.ffn_gated else 2
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    if quantized:
+        scales = (2 * f if cfg.ffn_gated else f) + d
+        return mats * d * f + scales * SLAB_SCALE_DTYPE.itemsize
     itemsize = torch.empty((), dtype=cfg.torch_param_dtype).element_size()
-    return mats * cfg.d_model * cfg.moe.d_ff_expert * itemsize
+    return mats * d * f * itemsize
 
 
 def init_slab_store(cfg, num_slabs: int, *, quantized: bool = False,
                     device=DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
-    """Slab storage per weight matrix in the params' type,
-    ``[num_slabs + 1, ...]``, last row the all-zero garbage slab."""
-    _no_quantized(quantized)
-    dtype = cfg.torch_param_dtype
+    """Slab storage per weight matrix, ``[num_slabs + 1, ...]``, last row
+    the all-zero garbage slab: in the params' type, or int8 with ``*_scale``
+    leaves of one f32 scale per output column."""
+    dtype = torch.int8 if quantized else cfg.torch_param_dtype
     d, f = cfg.d_model, cfg.moe.d_ff_expert
-    store = {
-        "wi": torch.zeros((num_slabs + 1, d, f), dtype=dtype, device=device),
-        "wo": torch.zeros((num_slabs + 1, f, d), dtype=dtype, device=device),
-    }
+    shapes = {"wi": (d, f), "wo": (f, d)}
     if cfg.ffn_gated:
-        store["wg"] = torch.zeros((num_slabs + 1, d, f), dtype=dtype, device=device)
+        shapes["wg"] = (d, f)
+    store = {k: torch.zeros((num_slabs + 1, *shp), dtype=dtype, device=device)
+             for k, shp in shapes.items()}
+    if quantized:
+        for k, shp in shapes.items():
+            store[f"{k}_scale"] = torch.zeros((num_slabs + 1, shp[1]),
+                                              dtype=SLAB_SCALE_DTYPE, device=device)
     return store
+
+
+def quantize_slab(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[..., c, n] -> (q int8, scale f32 [..., n])``: symmetric int8 with
+    one scale per output column (over the contraction axis ``c``)."""
+    q, scale = quantize_rows(w.contiguous(), scale_dtype=SLAB_SCALE_DTYPE, axis=-2)
+    return q, scale.squeeze(-2)
 
 
 def write_slabs(
@@ -71,15 +85,21 @@ def write_slabs(
     """Copy expert weights ``(block, expert)`` from the full stacked params
     into physical slab rows, one batched copy per weight matrix, in place
     (the reference returns a new store; the old one would be garbage at
-    once).  Returns the store."""
+    once); a quantized store quantizes on write.  Returns the store."""
     if not assignments:
         return store
     dev = store["wi"].device
     slabs, bs, es = (torch.tensor([a[i] for a in assignments], device=dev)
                      for i in range(3))
     for k in ("wi", "wg", "wo"):
-        if k in store:
-            src = full_moe_params[k].to(dev)[bs, es]
+        if k not in store:
+            continue
+        src = full_moe_params[k].to(dev)[bs, es]
+        if f"{k}_scale" in store:
+            q, scale = quantize_slab(src)
+            store[k].index_copy_(0, slabs, q)
+            store[f"{k}_scale"].index_copy_(0, slabs, scale)
+        else:
             store[k].index_copy_(0, slabs, src.to(store[k].dtype))
     return store
 

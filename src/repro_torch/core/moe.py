@@ -18,7 +18,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import gating
-from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_resident
+from repro_torch.kernels.expert_mlp import (
+    grouped_mlp,
+    grouped_mlp_resident,
+    grouped_mlp_resident_quant,
+)
 from repro_torch.models.layers import ACTIVATIONS, apply_mlp, init_mlp, truncated_normal_init
 
 
@@ -122,7 +126,9 @@ def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None):
     resident slot, non-residents on the garbage slot ``S``).  The effective
     routing mask is ``expert_mask AND slot < S``, so non-resident experts
     are routed away as eq. 4-masked experts are on the dense path, and only
-    resident slabs are read (``kernels.expert_mlp.grouped_mlp_resident``).
+    resident slabs are read (``kernels.expert_mlp.grouped_mlp_resident``;
+    ``grouped_mlp_resident_quant`` for an int8 store with ``*_scale``
+    leaves).
     For a resident superset of the routed experts this equals
     ``moe_sorted`` under the same mask."""
     if "codec" in params:
@@ -141,10 +147,14 @@ def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None):
     rows = x if k == 1 else x.repeat_interleave(k, dim=0)
     order = torch.argsort(slots, stable=True)
     store = res["store"]
-    y_sorted = grouped_mlp_resident(
-        rows[order], _group_sizes(slots, S + 1), store["wi"], store.get("wg"),
-        store["wo"], ids, cfg.act,
-    )
+    args = (rows[order], _group_sizes(slots, S + 1), store["wi"], store.get("wg"),
+            store["wo"], ids, cfg.act)
+    if "wi_scale" in store:  # int8 slabs, dequantized as they are read
+        y_sorted = grouped_mlp_resident_quant(
+            *args, wi_scale=store["wi_scale"], wg_scale=store.get("wg_scale"),
+            wo_scale=store["wo_scale"])
+    else:
+        y_sorted = grouped_mlp_resident(*args)
     y_rows = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
     w = out.topk_weight.reshape(-1, 1).to(y_rows.dtype)
     # rows on the garbage slot come back 0; their combine weight is zeroed

@@ -1,6 +1,6 @@
 // Grouped expert FFN for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of repro/kernels/expert_mlp/kernel.py, in the
+// Replaces the TPU kernels of repro/kernels/expert_mlp/kernel.py, in the
 // role the port gives them:
 //   * expert_mlp_pallas (_body, _kernel, _kernel_nogate): the grouped GEMM
 //     of core/moe.py::_grouped_mlp over rows sorted by expert,
@@ -9,7 +9,15 @@
 //     product over rows sorted by resident slot, where slot s reads the slab
 //     row ids[s] of the end tier's expert store -- the gather
 //     store[ids] and the ragged product of core/moe.py::moe_resident in one
-//     kernel, with the store read in place.
+//     kernel, with the store read in place;
+//   * its int8-store bodies (_kernel_resident_quant[_nogate]): the slabs
+//     hold int8 codes with one f32 scale per output column (wi_scale,
+//     wg_scale [N+1, f], wo_scale [N+1, d]), and each weight is read as
+//     T(f32(code) * scale[ids[s], col]) -- the dequantize-then-cast that
+//     core/moe.py::moe_resident runs before its grouped product.  (The
+//     Pallas body folds the scale in after the dot, which rounds otherwise;
+//     the port follows the consumer the engine runs.)  An int8 slab is a
+//     quarter of the f32 slab's bytes, plus its scales.
 // group_sizes gives each group's run of rows (empty runs allowed; rows past
 // sum(group_sizes) come back 0, as ragged_dot leaves them).
 //
@@ -67,10 +75,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// weight of storage type W as the rows' type T sees it, in f32
+__device__ __forceinline__ float to_f(signed char x) { return (float)x; }
+
+// weight of storage type W as the rows' type T sees it, in f32; s is the
+// weight's column scale (int8 codes only)
 template <typename T, typename W>
-__device__ __forceinline__ float wload(const W* p) {
-  if constexpr (std::is_same<T, W>::value) return to_f(*p);
+__device__ __forceinline__ float wload(const W* p, float s) {
+  if constexpr (std::is_same<W, signed char>::value) return to_f(from_f<T>(to_f(*p) * s));
+  else if constexpr (std::is_same<T, W>::value) return to_f(*p);
   else return to_f(from_f<T>(to_f(*p)));
 }
 
@@ -93,8 +105,12 @@ __global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
     const W* __restrict__ wi,           // [slabs, d, f]
     const W* __restrict__ wg,           // [slabs, d, f] (GATED only)
     const W* __restrict__ wo,           // [slabs, f, d]
+    const float* __restrict__ wis,      // [slabs, f] (int8 W only)
+    const float* __restrict__ wgs,      // [slabs, f] (int8 W, GATED only)
+    const float* __restrict__ wos,      // [slabs, d] (int8 W only)
     float* __restrict__ partial,        // [n_tiles, n, d]
     int n, int d, int f, int zero_group) {
+  constexpr bool kQuant = std::is_same<W, signed char>::value;
   const int tile = blockIdx.x, e = blockIdx.y, rt = blockIdx.z;
   const int tid = threadIdx.x;
   __shared__ int s_start, s_count;
@@ -140,10 +156,12 @@ __global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
     const int k0 = slice * span, k1 = min(d, k0 + span);
     const W* wi_c = wi + slab * d * f + f0 + col;
     const W* wg_c = GATED ? wg + slab * d * f + f0 + col : nullptr;
+    const float si = kQuant ? wis[slab * f + f0 + col] : 1.f;
+    const float sg = kQuant && GATED ? wgs[slab * f + f0 + col] : 1.f;
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) {
-      const float w = wload<T>(wi_c + (size_t)k * f);
-      const float wgv = GATED ? wload<T>(wg_c + (size_t)k * f) : 0.f;
+      const float w = wload<T>(wi_c + (size_t)k * f, si);
+      const float wgv = GATED ? wload<T>(wg_c + (size_t)k * f, sg) : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float xv = x_s[r * d + k];
@@ -178,9 +196,10 @@ __global__ void __launch_bounds__(kThreads) expert_ffn_kernel(
     float acc[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    const float so = kQuant ? wos[slab * d + c] : 1.f;
 #pragma unroll 4
     for (int j = 0; j < nf; ++j) {
-      const float w = wload<T>(wo_t + (size_t)j * d + c);
+      const float w = wload<T>(wo_t + (size_t)j * d + c, so);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h_s[r * kTile + j], w, acc[r]);
     }
@@ -217,8 +236,9 @@ __global__ void reduce_tiles_kernel(const float* __restrict__ partial,
 template <typename T, typename W, int ACT, bool GATED>
 cudaError_t launch_ffn(const void* xs, const int* gs, const int* ids,
                        const void* wi, const void* wg, const void* wo,
-                       float* partial, int n, int d, int f, int G,
-                       int zero_group, cudaStream_t stream) {
+                       const float* const* scales, float* partial, int n,
+                       int d, int f, int G, int zero_group,
+                       cudaStream_t stream) {
   const int n_tiles = (f + kTile - 1) / kTile;
   const int row_tiles = (n + kRows - 1) / kRows;  // bound: all rows in one group
   const size_t smem = sizeof(float) * ((size_t)kRows * d +
@@ -233,16 +253,17 @@ cudaError_t launch_ffn(const void* xs, const int* gs, const int* ids,
   expert_ffn_kernel<T, W, ACT, GATED>
       <<<dim3(n_tiles, G, row_tiles), kThreads, smem, stream>>>(
           static_cast<const T*>(xs), gs, ids, static_cast<const W*>(wi),
-          static_cast<const W*>(wg), static_cast<const W*>(wo), partial, n, d,
-          f, zero_group);
+          static_cast<const W*>(wg), static_cast<const W*>(wo), scales[0],
+          scales[1], scales[2], partial, n, d, f, zero_group);
   return cudaGetLastError();
 }
 
 template <typename T, typename W>
 cudaError_t launch(const void* xs, const void* group_sizes, const void* ids,
                    const void* wi, const void* wg, const void* wo,
-                   void* partial, void* y, int n, int d, int f, int G, int act,
-                   int zero_group, cudaStream_t stream) {
+                   const float* const* scales, void* partial, void* y, int n,
+                   int d, int f, int G, int act, int zero_group,
+                   cudaStream_t stream) {
   const int* gs = static_cast<const int*>(group_sizes);
   const int* id = static_cast<const int*>(ids);
   float* part = static_cast<float*>(partial);
@@ -250,10 +271,12 @@ cudaError_t launch(const void* xs, const void* group_sizes, const void* ids,
   const bool gated = wg != nullptr;
 #define EXPERT_FFN_CASE(A)                                                    \
   if (act == A)                                                               \
-    err = gated ? launch_ffn<T, W, A, true>(xs, gs, id, wi, wg, wo, part, n, d, \
-                                            f, G, zero_group, stream)          \
-                : launch_ffn<T, W, A, false>(xs, gs, id, wi, wg, wo, part, n,  \
-                                             d, f, G, zero_group, stream);
+    err = gated ? launch_ffn<T, W, A, true>(xs, gs, id, wi, wg, wo, scales,    \
+                                            part, n, d, f, G, zero_group,      \
+                                            stream)                            \
+                : launch_ffn<T, W, A, false>(xs, gs, id, wi, wg, wo, scales,   \
+                                             part, n, d, f, G, zero_group,     \
+                                             stream);
   EXPERT_FFN_CASE(0)
   else EXPERT_FFN_CASE(1)
   else EXPERT_FFN_CASE(2)
@@ -269,28 +292,33 @@ cudaError_t launch(const void* xs, const void* group_sizes, const void* ids,
 }  // namespace
 
 // act: 0 = silu, 1 = gelu (tanh), 2 = relu.  wg may be null (no gate).
-// dtype (rows and y) and wdtype (weights): 0 = float32, 1 = bfloat16; the
-// pairs taken are (0, 0), (1, 1) and (1, 0).  ids [G] (null = identity)
+// dtype (rows and y): 0 = float32, 1 = bfloat16; wdtype (weights): 0 =
+// float32, 1 = bfloat16, 2 = int8 codes with f32 column scales wis, wgs
+// [slabs, f] and wos [slabs, d] (null otherwise); the pairs taken are
+// (0, 0), (1, 1), (1, 0), (0, 2) and (1, 2).  ids [G] (null = identity)
 // names the slab row group g reads; group zero_group (-1 = none) reads no
 // weights and comes back 0.  partial is f32 [ceil(f/64), n, d].  Returns
 // the launches' cudaError_t (0 = launched).
 extern "C" int expert_mlp_launch(const void* xs, const void* group_sizes,
                                  const void* ids, const void* wi,
-                                 const void* wg, const void* wo, void* partial,
-                                 void* y, int n, int d, int f, int G, int act,
-                                 int dtype, int wdtype, int zero_group,
-                                 void* stream) {
+                                 const void* wg, const void* wo,
+                                 const void* wis, const void* wgs,
+                                 const void* wos, void* partial, void* y, int n,
+                                 int d, int f, int G, int act, int dtype,
+                                 int wdtype, int zero_group, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && wdtype == 1)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
-        xs, group_sizes, ids, wi, wg, wo, partial, y, n, d, f, G, act,
-        zero_group, s);
-  if (dtype == 1 && wdtype == 0)
-    return (int)launch<__nv_bfloat16, float>(xs, group_sizes, ids, wi, wg, wo,
-                                             partial, y, n, d, f, G, act,
-                                             zero_group, s);
-  if (dtype == 0 && wdtype == 0)
-    return (int)launch<float, float>(xs, group_sizes, ids, wi, wg, wo, partial,
-                                     y, n, d, f, G, act, zero_group, s);
+  const float* scales[3] = {static_cast<const float*>(wis),
+                            static_cast<const float*>(wgs),
+                            static_cast<const float*>(wos)};
+#define EXPERT_MLP_CASE(DT, WDT, T, W)                                        \
+  if (dtype == DT && wdtype == WDT)                                           \
+    return (int)launch<T, W>(xs, group_sizes, ids, wi, wg, wo, scales,        \
+                             partial, y, n, d, f, G, act, zero_group, s);
+  EXPERT_MLP_CASE(1, 1, __nv_bfloat16, __nv_bfloat16)
+  EXPERT_MLP_CASE(1, 0, __nv_bfloat16, float)
+  EXPERT_MLP_CASE(0, 0, float, float)
+  EXPERT_MLP_CASE(1, 2, __nv_bfloat16, signed char)
+  EXPERT_MLP_CASE(0, 2, float, signed char)
+#undef EXPERT_MLP_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Fused paged decode / chunk attention for Hopper (sm_90a).
 //
-// Replaces repro/kernels/paged_attention/kernel.py::paged_attention_pallas
-// (_pa_body, _pa_kernel: the dense-dtype pool variant).  C >= 1 queries of
+// Replaces repro/kernels/paged_attention/kernel.py::paged_attention_pallas,
+// both of its bodies: _pa_kernel (pools in the activation type) and
+// _pa_kernel_quant (int8 pools with one f16 scale per token).  C >= 1 queries of
 // one slot attend straight off the KV page pool through the slot's page
 // table: ring slot s = j*ps + i holds position kp = ln - ((ln - s) mod W)
 // with W = pps*ps, and a key is visible iff 0 <= kp <= qpos (and
@@ -27,12 +28,25 @@
 // and p is rounded to the pool's type before the p @ V product, exactly as
 // the reference, so the kernel reproduces its numerics on every row.
 //
+// int8 pools (k_scale / v_scale non-null, [P+1, ps] f16, one scale per
+// token shared across kv heads and head dim): each element of a fetched page
+// is dequantized as it is loaded into shared memory, f32(code) *
+// f32(scale[phys, i]), riding the same table lookup; no dense copy of the
+// pool exists.  As in the reference's quantized consumer
+// (kernels/paged_attention/ref.py), q enters the score product in f32 and p
+// stays f32 in the p @ V product; the output is in q's type.  An int8 page
+// is a quarter (vs f32) or half (vs bf16) of the bytes, plus 2*ps bytes of
+// scales.
+//
 // Later: splitting the page sweep of one (slot, head) across several blocks
 // and merging their partial (m, l, acc) states (the flash-decoding layout)
 // fills the card at decode; the skip rule carries over unchanged.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -41,6 +55,7 @@ constexpr int kThreads = 128;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(signed char x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -59,17 +74,22 @@ __device__ __forceinline__ bool visible(int kp, int qp, int window) {
   return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
 }
 
-template <typename T>
+// T: the queries' and the output's type; P: the pools' (T, or int8 codes
+// with their per-token scales)
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q,          // [B, C, H, hd]
-    const T* __restrict__ pool_k,     // [P+1, ps, KV, hd]
-    const T* __restrict__ pool_v,     // [P+1, ps, KV, hd]
+    const P* __restrict__ pool_k,     // [P+1, ps, KV, hd]
+    const P* __restrict__ pool_v,     // [P+1, ps, KV, hd]
+    const __half* __restrict__ k_scale,  // [P+1, ps] (int8 pools only)
+    const __half* __restrict__ v_scale,
     const int* __restrict__ table,    // [B, pps]
     const int* __restrict__ qpos,     // [B, C]
     const int* __restrict__ lengths,  // [B] ring anchor (last written position)
     T* __restrict__ out,              // [B, C, H, hd]
     int C, int H, int KV, int hd, int ps, int pps, int garbage, int window,
     float scale) {
+  constexpr bool kQuant = std::is_same<P, signed char>::value;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = H / KV;
@@ -117,8 +137,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     for (int e = tid; e < ps * hd; e += kThreads) {
       const int i = e / hd, d = e - i * hd;
       const size_t off = page + ((size_t)i * KV + h) * hd + d;
-      k_s[i * kst + d] = to_f(pool_k[off]);
-      v_s[e] = to_f(pool_v[off]);
+      if constexpr (kQuant) {
+        const size_t si = (size_t)phys * ps + i;
+        k_s[i * kst + d] = to_f(pool_k[off]) * __half2float(k_scale[si]);
+        v_s[e] = to_f(pool_v[off]) * __half2float(v_scale[si]);
+      } else {
+        k_s[i * kst + d] = to_f(pool_k[off]);
+        v_s[e] = to_f(pool_v[off]);
+      }
     }
     __syncthreads();
 
@@ -144,7 +170,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       for (int i = 0; i < ps; ++i) {
         const float p = expf(sr[i] - m_new);
         sum += p;
-        sr[i] = to_f(from_f<T>(p));  // p enters p @ V in the pool's type
+        // p enters p @ V in the pool's type (f32 for a dequantized pool)
+        sr[i] = kQuant ? p : to_f(from_f<T>(p));
       }
       l_s[r] = l_s[r] * corr + sum;
       m_s[r] = m_new;
@@ -171,8 +198,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
+                   const void* k_scale, const void* v_scale,
                    const void* table, const void* qpos, const void* lengths,
                    void* out, int B, int C, int H, int KV, int hd, int ps,
                    int pps, int garbage, int window, float scale,
@@ -183,13 +211,14 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                       sizeof(int) * C;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attention_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  paged_attention_kernel<T><<<dim3(KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool_k),
-      static_cast<const T*>(pool_v), static_cast<const int*>(table),
+  paged_attention_kernel<T, P><<<dim3(KV, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(pool_k),
+      static_cast<const P*>(pool_v), static_cast<const __half*>(k_scale),
+      static_cast<const __half*>(v_scale), static_cast<const int*>(table),
       static_cast<const int*>(qpos), static_cast<const int*>(lengths),
       static_cast<T*>(out), C, H, KV, hd, ps, pps, garbage, window, scale);
   return cudaGetLastError();
@@ -197,18 +226,24 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.
-// Returns the launch's cudaError_t (0 = launched).
+// dtype (q, out): 0 = float32, 1 = bfloat16.  quant: 0 = pools in q's
+// type (k_scale, v_scale unused), 1 = int8 pools with f16 scales [P+1, ps].
+// window <= 0 means no sliding window.  Returns the launch's cudaError_t
+// (0 = launched).
 extern "C" int paged_attention_launch(
-    const void* q, const void* pool_k, const void* pool_v, const void* table,
-    const void* qpos, const void* lengths, void* out, int B, int C, int H,
-    int KV, int hd, int ps, int pps, int garbage, int window, float scale,
-    int dtype, void* stream) {
+    const void* q, const void* pool_k, const void* pool_v, const void* k_scale,
+    const void* v_scale, const void* table, const void* qpos,
+    const void* lengths, void* out, int B, int C, int H, int KV, int hd, int ps,
+    int pps, int garbage, int window, float scale, int dtype, int quant,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, pool_k, pool_v, table, qpos, lengths,
-                                      out, B, C, H, KV, hd, ps, pps, garbage,
-                                      window, scale, s);
-  return (int)launch<float>(q, pool_k, pool_v, table, qpos, lengths, out, B, C,
-                            H, KV, hd, ps, pps, garbage, window, scale, s);
+#define PA_LAUNCH(T, P)                                                       \
+  return (int)launch<T, P>(q, pool_k, pool_v, k_scale, v_scale, table, qpos,  \
+                           lengths, out, B, C, H, KV, hd, ps, pps, garbage,   \
+                           window, scale, s)
+  if (dtype == 1 && quant) PA_LAUNCH(__nv_bfloat16, signed char);
+  if (dtype == 1) PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (quant) PA_LAUNCH(float, signed char);
+  PA_LAUNCH(float, float);
+#undef PA_LAUNCH
 }

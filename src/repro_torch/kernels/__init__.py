@@ -11,6 +11,13 @@ version.
                     ``csrc/lowrank.cu``)
   flash_attention — full-sequence causal GQA attention forward with
                     sliding window (CUDA C++, ``csrc/flash_attention.cu``)
+  quant           — symmetric int8 quantize / dequantize of rows or columns
+                    with the scale rounded to its storage type (CUDA C++,
+                    ``csrc/quant.cu``)
+
+The paged attention and the resident expert FFN each have an int8 variant
+(``paged_attention_quant``, ``grouped_mlp_resident_quant``) that reads int8
+codes with their scales and dequantizes in registers.
 
 Each wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors (or raises); it counts its launches in ``<wrapper>.launches``.

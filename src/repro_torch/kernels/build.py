@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("paged_attention", "expert_mlp", "lowrank", "flash_attention")
+SOURCES = ("paged_attention", "expert_mlp", "lowrank", "flash_attention", "quant")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

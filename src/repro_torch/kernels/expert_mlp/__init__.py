@@ -3,6 +3,8 @@ from repro_torch.kernels.expert_mlp.ops import (
     grouped_mlp_plain,
     grouped_mlp_resident,
     grouped_mlp_resident_plain,
+    grouped_mlp_resident_quant,
+    grouped_mlp_resident_quant_plain,
 )
 
 __all__ = [
@@ -10,4 +12,6 @@ __all__ = [
     "grouped_mlp_plain",
     "grouped_mlp_resident",
     "grouped_mlp_resident_plain",
+    "grouped_mlp_resident_quant",
+    "grouped_mlp_resident_quant_plain",
 ]

@@ -9,6 +9,9 @@ rows ``xs [n, d]`` sorted by expert, ``group_sizes [E]`` rows each, and
 reading slab row ``ids[s]`` of the end tier's slab store (kept in the
 params' type), each weight rounded to the rows' type; the last slot is the
 garbage slot, whose all-zero slab gives zero rows.
+``grouped_mlp_resident_quant`` is the same over an int8 store with one f32
+scale per output column, each weight read as ``f32(code) * scale`` rounded
+to the rows' type (``core/moe.py::moe_resident``'s int8 branch).
 
 A CPU tensor goes to the plain version (a loop over the runs, rounding the
 hidden activation to the input type as ``jax.lax.ragged_dot`` does); a
@@ -28,6 +31,7 @@ from repro_torch.kernels import build
 from repro_torch.models.layers import ACTIVATIONS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8 = 2  # the weight type code of an int8 store
 _ACTS = {"silu": 0, "gelu": 1, "relu": 2}
 HIDDEN_TILE = 64  # hidden columns per block (kTile in csrc/expert_mlp.cu)
 
@@ -36,7 +40,7 @@ HIDDEN_TILE = 64  # hidden columns per block (kTile in csrc/expert_mlp.cu)
 def _launcher():
     fn = build.load("expert_mlp").expert_mlp_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return fn
 
 
@@ -118,9 +122,10 @@ def _check_shapes(what: str, xs, wi, wg, wo):
         )
 
 
-def _launch(xs, group_sizes, ids, wi, wg, wo, act, *, zero_group: int):
-    """Launch ``csrc/expert_mlp.cu`` on checked operands; no launch for
-    zero rows (an empty grid)."""
+def _launch(xs, group_sizes, ids, wi, wg, wo, act, *, zero_group: int, scales=None):
+    """Launch ``csrc/expert_mlp.cu`` on checked operands (``scales``: the
+    int8 store's ``(wi, wg, wo)`` column scales); no launch for zero rows
+    (an empty grid)."""
     n, d = xs.shape
     f = wi.shape[2]
     y = torch.empty_like(xs)
@@ -133,8 +138,9 @@ def _launch(xs, group_sizes, ids, wi, wg, wo, act, *, zero_group: int):
         xs.data_ptr(), group_sizes.data_ptr(),
         None if ids is None else ids.data_ptr(), wi.data_ptr(),
         None if wg is None else wg.data_ptr(), wo.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (scales or (None,) * 3)),
         partial.data_ptr(), y.data_ptr(), n, d, f, group_sizes.shape[0],
-        _ACTS[act], _DTYPES[xs.dtype], _DTYPES[wi.dtype], zero_group,
+        _ACTS[act], _DTYPES[xs.dtype], _INT8 if scales else _DTYPES[wi.dtype], zero_group,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     build.check_launch(err, "expert_mlp")
@@ -162,6 +168,49 @@ def grouped_mlp_resident_plain(
     )
 
 
+def _resident(what, xs, group_sizes, store_wi, store_wg, store_wo, ids, act, scales=None):
+    """Check and launch the resident kernel on CUDA tensors: a store in
+    float32 or the rows' type, or (``scales``: the ``wi``/``wg``/``wo``
+    column scales) int8 codes with float32 scales."""
+    if xs.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {xs.device}")
+    store = dict(store_wi=store_wi, store_wo=store_wo)
+    if store_wg is not None:
+        store["store_wg"] = store_wg
+    named = {}
+    if scales is not None:
+        named = dict(wi_scale=scales[0], wo_scale=scales[2])
+        if store_wg is not None:
+            if scales[1] is None:
+                raise ValueError(f"{what}: a gated int8 store needs wg_scale")
+            named["wg_scale"] = scales[1]
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(f"{what}: ids must be int32 [S+1], got {ids.dtype} {tuple(ids.shape)}")
+    G = ids.shape[0]
+    _check(what, xs, group_sizes, dict(ids=ids, **store, **named), act, G)
+    wdt = store_wi.dtype
+    if scales is None:
+        ok = wdt in (torch.float32, xs.dtype) and all(t.dtype == wdt for t in store.values())
+        want = "one store dtype, float32 or the rows' own"
+    else:
+        ok = (all(t.dtype == torch.int8 for t in store.values())
+              and all(t.dtype == torch.float32 for t in named.values()))
+        want = "an int8 store and float32 scales"
+    if xs.dtype not in _DTYPES or not ok:
+        raise ValueError(
+            f"{what}: rows float32/bfloat16 and {want}, got xs={xs.dtype} "
+            + " ".join(f"{k}={t.dtype}" for k, t in {**store, **named}.items())
+        )
+    _check_shapes(what, xs, store_wi, store_wg, store_wo)
+    N1, d, f = store_wi.shape
+    shapes = dict(wi_scale=(N1, f), wg_scale=(N1, f), wo_scale=(N1, d))
+    if any(tuple(t.shape) != shapes[k] for k, t in named.items()):
+        raise ValueError(f"{what}: scales " + " ".join(
+            f"{k}={tuple(t.shape)}" for k, t in named.items()) + f", want {shapes}")
+    return _launch(xs, group_sizes, ids, store_wi, store_wg, store_wo, act,
+                   zero_group=G - 1, scales=scales)
+
+
 def grouped_mlp_resident(
     xs: torch.Tensor,
     group_sizes: torch.Tensor,
@@ -180,31 +229,66 @@ def grouped_mlp_resident(
         return grouped_mlp_resident_plain(
             xs, group_sizes, store_wi, store_wg, store_wo, ids, act
         )
-    if xs.device.type != "cuda":
-        raise ValueError(f"grouped_mlp_resident: unsupported device {xs.device}")
-    store = dict(store_wi=store_wi, store_wo=store_wo)
-    if store_wg is not None:
-        store["store_wg"] = store_wg
-    if ids.dtype != torch.int32 or ids.dim() != 1:
-        raise ValueError(
-            f"grouped_mlp_resident: ids must be int32 [S+1], got {ids.dtype} {tuple(ids.shape)}"
-        )
-    G = ids.shape[0]
-    _check("grouped_mlp_resident", xs, group_sizes, dict(ids=ids, **store), act, G)
-    wdt = store_wi.dtype
-    if (xs.dtype not in _DTYPES or wdt not in (torch.float32, xs.dtype)
-            or any(t.dtype != wdt for t in store.values())):
-        raise ValueError(
-            "grouped_mlp_resident: rows float32/bfloat16 and one store dtype, "
-            "float32 or the rows' own, got xs="
-            f"{xs.dtype} " + " ".join(f"{k}={t.dtype}" for k, t in store.items())
-        )
-    _check_shapes("grouped_mlp_resident", xs, store_wi, store_wg, store_wo)
-    y = _launch(xs, group_sizes, ids, store_wi, store_wg, store_wo, act,
-                zero_group=G - 1)
+    y = _resident("grouped_mlp_resident", xs, group_sizes, store_wi, store_wg, store_wo,
+                  ids, act)
     if xs.shape[0]:
         grouped_mlp_resident.launches += 1
     return y
 
 
 grouped_mlp_resident.launches = 0
+
+
+def grouped_mlp_resident_quant_plain(
+    xs: torch.Tensor,  # [n, d] sorted by resident slot
+    group_sizes: torch.Tensor,  # [S+1] int32
+    store_wi: torch.Tensor,  # [N+1, d, f] int8
+    store_wg: Optional[torch.Tensor],
+    store_wo: torch.Tensor,  # [N+1, f, d] int8
+    ids: torch.Tensor,  # [S+1] int32
+    act: str,
+    *,
+    wi_scale: torch.Tensor,  # [N+1, f] f32 per output column
+    wg_scale: Optional[torch.Tensor],
+    wo_scale: torch.Tensor,  # [N+1, d]
+) -> torch.Tensor:
+    """Gather the slots' int8 slabs, dequantize them in f32 with their
+    column scales, cast to the rows' type, and run the grouped product."""
+    idx = ids.long()
+
+    def deq(w, s):
+        return None if w is None else (w[idx].float() * s[idx][:, None, :]).to(xs.dtype)
+
+    return grouped_mlp_plain(xs, group_sizes, deq(store_wi, wi_scale),
+                             deq(store_wg, wg_scale), deq(store_wo, wo_scale), act)
+
+
+def grouped_mlp_resident_quant(
+    xs: torch.Tensor,
+    group_sizes: torch.Tensor,
+    store_wi: torch.Tensor,
+    store_wg: Optional[torch.Tensor],
+    store_wo: torch.Tensor,
+    ids: torch.Tensor,
+    act: str,
+    *,
+    wi_scale: torch.Tensor,
+    wg_scale: Optional[torch.Tensor],
+    wo_scale: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`grouped_mlp_resident` over an int8 slab store with f32 scales
+    per output column (the reference's ``_kernel_resident_quant``); plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if xs.device.type == "cpu":
+        return grouped_mlp_resident_quant_plain(
+            xs, group_sizes, store_wi, store_wg, store_wo, ids, act,
+            wi_scale=wi_scale, wg_scale=wg_scale, wo_scale=wo_scale,
+        )
+    y = _resident("grouped_mlp_resident_quant", xs, group_sizes, store_wi, store_wg,
+                  store_wo, ids, act, scales=(wi_scale, wg_scale, wo_scale))
+    if xs.shape[0]:
+        grouped_mlp_resident_quant.launches += 1
+    return y
+
+
+grouped_mlp_resident_quant.launches = 0

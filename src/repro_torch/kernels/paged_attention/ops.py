@@ -3,9 +3,11 @@ PyTorch version.
 
 ``paged_attention`` takes the models' layouts as they are: queries
 ``[B, C, H, hd]`` and page pools ``[P+1, ps, KV, hd]`` (row P = garbage
-page).  A CPU tensor goes to :func:`paged_attention_plain`, a port of the
-reference's ``kernels/paged_attention/ref.py::paged_attention_ref``; a CUDA
-tensor launches ``csrc/paged_attention.cu`` or raises.
+page).  ``paged_attention_quant`` takes int8 pools with their per-token f16
+scales ``[P+1, ps]`` and dequantizes each fetched page in registers.  A CPU
+tensor goes to :func:`paged_attention_plain`, a port of the reference's
+``kernels/paged_attention/ref.py::paged_attention_ref`` (scales included); a
+CUDA tensor launches ``csrc/paged_attention.cu`` or raises.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _launcher():
     fn = build.load("paged_attention").paged_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
     ]
     return fn
 
@@ -41,11 +43,14 @@ def paged_attention_plain(
     lengths: torch.Tensor,  # [B] int32 ring anchor
     *,
     window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [P+1, ps] f16 (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Online softmax over the slot's page table, one page per step, with
     the reference's page-skip rule: a garbage-routed entry or a page with
     no visible (query, key) pair leaves the state untouched, and rows with
-    no visible key come back as exact 0."""
+    no visible key come back as exact 0.  With ``k_scale``/``v_scale`` the
+    pools hold int8 codes and each fetched page is dequantized to f32."""
     B, C, H, hd = q.shape
     ps, KV = pool_k.shape[1], pool_k.shape[2]
     pps = table.shape[1]
@@ -65,6 +70,9 @@ def paged_attention_plain(
         phys = tab[:, e]
         k_page = pool_k[phys]  # [B, ps, KV, hd]
         v_page = pool_v[phys]
+        if k_scale is not None:
+            k_page = k_page.float() * k_scale[phys].float()[:, :, None, None]
+            v_page = v_page.float() * v_scale[phys].float()[:, :, None, None]
         kp = ln - torch.remainder(ln - (e * ps + offs), W)  # [B, ps]
         valid = kp[:, None, :] <= qpos[:, :, None]  # [B, C, ps]
         if window is not None:
@@ -90,6 +98,54 @@ def paged_attention_plain(
     return out.reshape(B, C, H, hd).to(q.dtype)
 
 
+def _check(what, q, pool_k, pool_v, table, q_positions, lengths, window, **scales):
+    B, C, H, hd = q.shape
+    P1, ps, KV, hd_k = pool_k.shape
+    pps = table.shape[1]
+    tensors = dict(q=q, pool_k=pool_k, pool_v=pool_v, table=table,
+                   q_positions=q_positions, lengths=lengths, **scales)
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+    for name in ("table", "q_positions", "lengths"):
+        if tensors[name].dtype != torch.int32:
+            raise ValueError(f"{what}: {name} must be int32")
+    if (hd_k != hd or H % KV or pool_v.shape != pool_k.shape
+            or table.shape != (B, pps) or q_positions.shape != (B, C)
+            or lengths.shape != (B,)
+            or any(t.shape != (P1, ps) for t in scales.values())):
+        raise ValueError(
+            f"{what}: shapes q={tuple(q.shape)} pool={tuple(pool_k.shape)} "
+            f"table={tuple(table.shape)} q_positions={tuple(q_positions.shape)} "
+            f"lengths={tuple(lengths.shape)} "
+            + " ".join(f"{k}={tuple(t.shape)}" for k, t in scales.items())
+            + " do not agree"
+        )
+    if window is not None and window <= 0:
+        raise ValueError(f"{what}: window={window}")
+
+
+def _launch(q, pool_k, pool_v, k_scale, v_scale, table, q_positions, lengths, window):
+    B, C, H, hd = q.shape
+    P1, ps, KV, _ = pool_k.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:  # an empty grid is no launch
+        return out
+    err = _launcher()(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(), table.data_ptr(),
+        q_positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        B, C, H, KV, hd, ps, table.shape[1], P1 - 1, -1 if window is None else window,
+        1.0 / (hd ** 0.5), _DTYPES[q.dtype], int(k_scale is not None),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check_launch(err, "paged_attention")
+    return out
+
+
 def paged_attention(
     q: torch.Tensor,
     pool_k: torch.Tensor,
@@ -100,55 +156,65 @@ def paged_attention(
     *,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Attention of ``q`` against the mapped pages of ``pool_k``/``pool_v``;
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    """Attention of ``q`` against the mapped pages of ``pool_k``/``pool_v``
+    (in q's type); the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, pool_k, pool_v, table, q_positions, lengths, window=window
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    B, C, H, hd = q.shape
-    P1, ps, KV, hd_k = pool_k.shape
-    pps = table.shape[1]
-    tensors = dict(q=q, pool_k=pool_k, pool_v=pool_v, table=table,
-                   q_positions=q_positions, lengths=lengths)
-    for name, t in tensors.items():
-        if t.device != q.device:
-            raise ValueError(f"paged_attention: {name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"paged_attention: {name} is not contiguous")
+    _check("paged_attention", q, pool_k, pool_v, table, q_positions, lengths, window)
     if q.dtype not in _DTYPES or pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
         raise ValueError(
             f"paged_attention: dtypes q={q.dtype} k={pool_k.dtype} "
             f"v={pool_v.dtype}; want one of float32/bfloat16 for all three"
         )
-    for name in ("table", "q_positions", "lengths"):
-        if tensors[name].dtype != torch.int32:
-            raise ValueError(f"paged_attention: {name} must be int32")
-    if (hd_k != hd or H % KV or pool_v.shape != pool_k.shape
-            or table.shape != (B, pps) or q_positions.shape != (B, C)
-            or lengths.shape != (B,)):
-        raise ValueError(
-            f"paged_attention: shapes q={tuple(q.shape)} pool={tuple(pool_k.shape)} "
-            f"table={tuple(table.shape)} q_positions={tuple(q_positions.shape)} "
-            f"lengths={tuple(lengths.shape)} do not agree"
-        )
-    if window is not None and window <= 0:
-        raise ValueError(f"paged_attention: window={window}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:  # an empty grid is no launch
-        return out
-    err = _launcher()(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(),
-        q_positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, C, H, KV, hd, ps, pps, P1 - 1, -1 if window is None else window,
-        1.0 / (hd ** 0.5), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check_launch(err, "paged_attention")
-    paged_attention.launches += 1
+    out = _launch(q, pool_k, pool_v, None, None, table, q_positions, lengths, window)
+    if out.numel():
+        paged_attention.launches += 1
     return out
 
 
 paged_attention.launches = 0
+
+
+def paged_attention_quant(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,  # [P+1, ps, KV, hd] int8
+    pool_v: torch.Tensor,
+    k_scale: torch.Tensor,  # [P+1, ps] f16
+    v_scale: torch.Tensor,
+    table: torch.Tensor,
+    q_positions: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`paged_attention` over int8 pools with one f16 scale per token
+    (the reference's ``_pa_kernel_quant``): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(
+            q, pool_k, pool_v, table, q_positions, lengths, window=window,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_quant: unsupported device {q.device}")
+    _check("paged_attention_quant", q, pool_k, pool_v, table, q_positions, lengths,
+           window, k_scale=k_scale, v_scale=v_scale)
+    if (q.dtype not in _DTYPES or pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8
+            or k_scale.dtype != torch.float16 or v_scale.dtype != torch.float16):
+        raise ValueError(
+            f"paged_attention_quant: dtypes q={q.dtype} k={pool_k.dtype} "
+            f"v={pool_v.dtype} k_scale={k_scale.dtype} v_scale={v_scale.dtype}; want "
+            "q float32/bfloat16, int8 pools, float16 scales"
+        )
+    out = _launch(q, pool_k, pool_v, k_scale, v_scale, table, q_positions, lengths, window)
+    if out.numel():
+        paged_attention_quant.launches += 1
+    return out
+
+
+paged_attention_quant.launches = 0

@@ -1,0 +1,15 @@
+from repro_torch.kernels.quant.ops import (
+    SCALE_FLOOR,
+    dequantize_rows,
+    dequantize_rows_plain,
+    quantize_rows,
+    quantize_rows_plain,
+)
+
+__all__ = [
+    "SCALE_FLOOR",
+    "dequantize_rows",
+    "dequantize_rows_plain",
+    "quantize_rows",
+    "quantize_rows_plain",
+]

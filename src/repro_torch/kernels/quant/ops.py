@@ -1,0 +1,129 @@
+"""Symmetric int8 quantization of lines: the CUDA kernel's wrappers and
+their plain PyTorch versions.
+
+``quantize_rows`` computes the reference's ``kernels/quant/ref.py::
+quantize_rows_ref`` in its int8 mode, and with it the jnp quantizers of the
+reference's consumers (KV tokens, the boundary payload, expert slabs): per
+line ``s = max(amax / 127, 1e-8)`` rounded to ``scale_dtype`` *before* the
+divide, ``q = clip(round(x / s), -127, 127)``.  With an f16 scale the floor
+underflows to 0 for lines whose amax is below ~3.8e-6; then ``x / 0`` clips
+to +-127 and ``0 / 0`` is code 0, as the reference's convert gives.
+``dequantize_rows`` is ``q * s`` in f32, cast to the output type.  (The
+reference's fp8 mode has no kernel and no consumer and is not ported.)
+
+The line is the last axis (``axis=-1``, one scale per row) or the one
+before it (``axis=-2``, one scale per column: the slab store's scale per
+output column); the scale keeps the reduced axis with size 1.  A CPU tensor
+goes to the plain version; a CUDA tensor launches ``csrc/quant.cu`` or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+SCALE_FLOOR = 1e-8  # all-zero lines: the divide stays finite, the codes 0
+_XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SDTYPES = {torch.float32: 0, torch.float16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("quant")
+    lib.quantize_launch.restype = ctypes.c_int
+    lib.quantize_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    lib.dequantize_launch.restype = ctypes.c_int
+    lib.dequantize_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def quantize_rows_plain(x: torch.Tensor, *, scale_dtype: torch.dtype = torch.float32,
+                        axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, one ulp off the IEEE quotient the reference takes
+    scale = torch.clamp_min(amax / amax.new_tensor(127.0), SCALE_FLOOR).to(scale_dtype)
+    q = torch.round(xf / scale.float()).clamp(-127, 127)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), scale
+
+
+def quantize_rows(x: torch.Tensor, *, scale_dtype: torch.dtype = torch.float32,
+                  axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q int8 like x, scale scale_dtype)`` over the lines of ``axis``
+    (-1 or -2); the plain version for CPU tensors, the kernel for CUDA."""
+    if axis not in (-1, -2) or x.dim() < -axis:
+        raise ValueError(f"quantize_rows: axis={axis} of a {x.dim()}-d tensor")
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x, scale_dtype=scale_dtype, axis=axis)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_rows: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("quantize_rows: x is not contiguous")
+    if x.dtype not in _XDTYPES or scale_dtype not in _SDTYPES:
+        raise ValueError(f"quantize_rows: x {x.dtype} (want float32/bfloat16), "
+                         f"scale {scale_dtype} (want float32/float16)")
+    sshape = list(x.shape)
+    sshape[axis] = 1
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty(sshape, dtype=scale_dtype, device=x.device)
+    if x.numel() == 0:  # an empty grid is no launch
+        return q, scale
+    n = x.shape[axis]
+    inner = 1 if axis == -1 else x.shape[-1]
+    err = _lib().quantize_launch(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), x.numel() // (n * inner), n,
+        inner, _XDTYPES[x.dtype], _SDTYPES[scale_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check_launch(err, "quantize_rows")
+    quantize_rows.launches += 1
+    return q, scale
+
+
+quantize_rows.launches = 0
+
+
+def dequantize_rows_plain(q: torch.Tensor, scale: torch.Tensor, *,
+                          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale.float()).to(dtype)
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, *,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``q [..., n] int8`` times its row scale ``[..., 1]``, in ``dtype``;
+    the plain version for CPU tensors, the kernel for CUDA tensors."""
+    if q.device.type == "cpu":
+        return dequantize_rows_plain(q, scale, dtype=dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"dequantize_rows: unsupported device {q.device}")
+    if scale.device != q.device or not (q.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("dequantize_rows: q and scale must be contiguous on one device")
+    if (q.dtype != torch.int8 or scale.dtype not in _SDTYPES or dtype not in _XDTYPES
+            or q.dim() < 1 or tuple(scale.shape) != (*q.shape[:-1], 1)):
+        raise ValueError(
+            f"dequantize_rows: q {q.dtype} {tuple(q.shape)} (want int8), scale "
+            f"{scale.dtype} {tuple(scale.shape)} (want float32/float16 [..., 1]), "
+            f"out {dtype} (want float32/bfloat16)")
+    y = torch.empty(q.shape, dtype=dtype, device=q.device)
+    if q.numel() == 0:
+        return y
+    err = _lib().dequantize_launch(
+        q.data_ptr(), scale.data_ptr(), y.data_ptr(), q.numel(), q.shape[-1],
+        _XDTYPES[dtype], _SDTYPES[scale.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check_launch(err, "dequantize_rows")
+    dequantize_rows.launches += 1
+    return y
+
+
+dequantize_rows.launches = 0

@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ops import NEG_INF
 from repro_torch.kernels.flash_attention.ops import block_mask as _block_mask
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
 from repro_torch.models.layers import rms_norm, truncated_normal_init
 
 
@@ -103,10 +103,18 @@ def paged_chunk_attention(
     lengths: torch.Tensor,  # [B] int32 ring anchor (last written position)
     *,
     window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [P+1, ps] f16 (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """C queries per slot against the slot's mapped pages: page lookup,
     ring-position masking and online softmax in one sweep, with no dense
-    ring view (``kernels.paged_attention``)."""
+    ring view (``kernels.paged_attention``).  With ``k_scale``/``v_scale``
+    the pools hold int8 codes, dequantized page by page in registers."""
+    if k_scale is not None:
+        return paged_attention_quant(
+            q, pool_k, pool_v, k_scale, v_scale, table, q_positions, lengths,
+            window=window,
+        )
     return paged_attention(
         q, pool_k, pool_v, table, q_positions, lengths, window=window
     )
@@ -120,11 +128,14 @@ def paged_decode_attention(
     lengths: torch.Tensor,  # [B] position of the just-written token
     *,
     window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token decode: the C = 1 case of :func:`paged_chunk_attention`
     (the query sits at ``lengths``, which is also the ring anchor)."""
     return paged_chunk_attention(
-        q, pool_k, pool_v, table, lengths[:, None], lengths, window=window
+        q, pool_k, pool_v, table, lengths[:, None], lengths, window=window,
+        k_scale=k_scale, v_scale=v_scale,
     )
 
 

@@ -10,6 +10,12 @@ slots), and each slot has a page table ``[pages_per_slot]``.  Position
 ``p % page_size``, so a slot's pages are a ring buffer of capacity
 ``pages_per_slot * page_size`` and :func:`ring_key_positions` applies.
 
+Quantized pools (``init_paged_blocks(..., quantized=True)``) store int8
+codes in the ``k``/``v`` leaves and one f16 scale per written token in
+``k_scale``/``v_scale`` leaves ``[R, P+1, page_size]``, written by the
+``*_quant`` writers (``kernels.quant`` on the card); every page move walks
+all leaves, so the scales travel with their pages.
+
 The writes update the pools in place (the reference's ``.at[].set`` returns
 a new array; here the old one would be garbage at once, so the port saves
 the copy) and also return them, to keep the reference's call shapes.
@@ -23,6 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.kernels.quant import SCALE_FLOOR, quantize_rows
+
+KV_SCALE_DTYPE = torch.float16  # per-token scale: an int8 page stays <= 0.55x of bf16
+KV_SCALE_FLOOR = SCALE_FLOOR  # all-zero tokens: a finite divide, codes 0
 
 
 def attn_cache_len(cfg, max_len: int) -> int:
@@ -196,20 +206,26 @@ class PagePool:
 
 
 def init_paged_blocks(cfg, n_blocks: int, num_pages: int, page_size: int,
-                      dtype: torch.dtype, device=DEFAULT_DEVICE) -> Dict:
+                      dtype: torch.dtype, device=DEFAULT_DEVICE, *,
+                      quantized: bool = False) -> Dict:
     """Paged KV storage for ``n_blocks`` stacked block repeats of an
     attention-only pattern: per position, ``k``/``v`` leaves shaped
-    ``[n_blocks, num_pages + 1, page_size, KV, hd]`` (last row = garbage)."""
+    ``[n_blocks, num_pages + 1, page_size, KV, hd]`` (last row = garbage).
+    With ``quantized=True`` they hold int8 codes, and ``k_scale``/``v_scale``
+    leaves ``[n_blocks, num_pages + 1, page_size]`` (f16) one scale per
+    token, shared across kv heads and head dim."""
     if not pattern_is_pageable(cfg):
         raise ValueError(f"{cfg.name}: paged storage needs an attention-only pattern")
     shape = (n_blocks, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        f"pos{i}": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        }
-        for i in range(len(cfg.layer_pattern))
-    }
+    dtype = torch.int8 if quantized else dtype
+    blocks = {}
+    for i in range(len(cfg.layer_pattern)):
+        entry = {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}
+        if quantized:
+            for n in ("k_scale", "v_scale"):
+                entry[n] = torch.zeros(shape[:3], dtype=KV_SCALE_DTYPE, device=device)
+        blocks[f"pos{i}"] = entry
+    return blocks
 
 
 def paged_block_bytes(blocks: Dict) -> int:
@@ -231,6 +247,22 @@ def dense_page_bytes(cfg, n_blocks: int, page_size: int) -> int:
             * cfg.num_kv_heads * cfg.head_dim * itemsize)
 
 
+def quantize_kv_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[..., KV, hd] -> (q int8 same shape, scale f16 [...])``: one scale
+    per token over its contiguous ``KV * hd`` values, rounded to f16 before
+    the divide (``kernels.quant.quantize_rows``)."""
+    lead = x.shape[:-2]
+    q, scale = quantize_rows(x.reshape(*lead, -1).contiguous(), scale_dtype=KV_SCALE_DTYPE)
+    return q.view(x.shape), scale.view(lead)
+
+
+def dequantize_kv_pool(pool: torch.Tensor, scale: torch.Tensor,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``pool [..., ps, KV, hd] int8 + scale [..., ps] -> dense pool``: a
+    test oracle (the attention consumers dequantize page by page)."""
+    return (pool.float() * scale.float()[..., None, None]).to(dtype)
+
+
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """pool [P+1, ps, KV, hd], table [B, pps] -> dense ring view
     [B, pps*ps, KV, hd].  Test oracle only: the serving path attends straight
@@ -240,18 +272,42 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return buf.reshape(B, pps * pool.shape[1], *pool.shape[2:])
 
 
+def _token_slots(table: torch.Tensor, positions: torch.Tensor, page_size: int):
+    """(physical page, offset) of each position, ``[B]`` or ``[B, C]``,
+    through the page table."""
+    pos = positions.long()
+    entry = torch.remainder(pos // page_size, table.shape[1])
+    if pos.dim() == 1:
+        return table.long().gather(1, entry[:, None])[:, 0], torch.remainder(pos, page_size)
+    return table.long().gather(1, entry), torch.remainder(pos, page_size)
+
+
+def _chunk_slots(pool: torch.Tensor, table, positions, valid, page_size: int):
+    """:func:`_token_slots` of a chunk, rows not ``valid`` (prompt padding)
+    routed to the garbage page (the pool's last row)."""
+    phys, off = _token_slots(table, positions, page_size)
+    return torch.where(valid, phys, pool.shape[0] - 1), off
+
+
 def paged_ring_write(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
                      table: torch.Tensor, lengths: torch.Tensor, page_size: int):
     """Write one new token's k/v ([B, 1, KV, hd]) at ring position
     ``lengths`` through the page table, in place."""
-    pps = table.shape[1]
-    ln = lengths.long()
-    entry = torch.remainder(ln // page_size, pps)
-    phys = table.long().gather(1, entry[:, None])[:, 0]
-    off = torch.remainder(ln, page_size)
+    phys, off = _token_slots(table, lengths, page_size)
     pool_k[phys, off] = k[:, 0].to(pool_k.dtype)
     pool_v[phys, off] = v[:, 0].to(pool_v.dtype)
     return pool_k, pool_v
+
+
+def paged_ring_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v,
+                           table: torch.Tensor, lengths: torch.Tensor, page_size: int):
+    """Quantize-on-write :func:`paged_ring_write`: the token's k/v as int8
+    codes and their f16 scales, written through the page table in place."""
+    phys, off = _token_slots(table, lengths, page_size)
+    (qk, sk), (qv, sv) = quantize_kv_tokens(k[:, 0]), quantize_kv_tokens(v[:, 0])
+    pool_k[phys, off], pool_v[phys, off] = qk, qv
+    pool_ks[phys, off], pool_vs[phys, off] = sk, sv
+    return pool_k, pool_v, pool_ks, pool_vs
 
 
 def paged_write_tokens(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
@@ -260,16 +316,22 @@ def paged_write_tokens(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
     """Write a chunk of tokens ([B, C, KV, hd]) at ``positions`` [B, C]
     through the page table, in place; rows where ``valid`` is False (prompt
     padding) go to the garbage page."""
-    pps = table.shape[1]
-    garbage = pool_k.shape[0] - 1
-    pos = positions.long()
-    entry = torch.remainder(pos // page_size, pps)
-    phys = table.long().gather(1, entry)
-    phys = torch.where(valid, phys, garbage)
-    off = torch.remainder(pos, page_size)
+    phys, off = _chunk_slots(pool_k, table, positions, valid, page_size)
     pool_k[phys, off] = k.to(pool_k.dtype)
     pool_v[phys, off] = v.to(pool_v.dtype)
     return pool_k, pool_v
+
+
+def paged_write_tokens_quant(pool_k, pool_v, pool_ks, pool_vs, k, v,
+                             table: torch.Tensor, positions: torch.Tensor,
+                             valid: torch.Tensor, page_size: int):
+    """Quantize-on-write :func:`paged_write_tokens` (chunked prefill):
+    int8 codes and f16 scales, padding rows to the garbage page."""
+    phys, off = _chunk_slots(pool_k, table, positions, valid, page_size)
+    (qk, sk), (qv, sv) = quantize_kv_tokens(k), quantize_kv_tokens(v)
+    pool_k[phys, off], pool_v[phys, off] = qk, qv
+    pool_ks[phys, off], pool_vs[phys, off] = sk, sv
+    return pool_k, pool_v, pool_ks, pool_vs
 
 
 # -- tier re-splits over pages ----------------------------------------------

@@ -146,13 +146,38 @@ def apply_layer_full(
     return x, aux, {}
 
 
+def _write_kv(entry: Dict, k, v, table, positions, page_size: int, valid=None):
+    """Write k/v into one layer's pages in place (one decode token at
+    ``positions [B]``, or a chunk at ``positions [B, C]`` with its ``valid``
+    rows); an int8 pool (``k_scale`` present) quantizes on write."""
+    pools = (entry["k"], entry["v"])
+    if "k_scale" in entry:
+        pools += (entry["k_scale"], entry["v_scale"])
+        if valid is None:
+            kvcache.paged_ring_write_quant(*pools, k, v, table, positions, page_size)
+        else:
+            kvcache.paged_write_tokens_quant(*pools, k, v, table, positions, valid,
+                                             page_size)
+    elif valid is None:
+        kvcache.paged_ring_write(*pools, k, v, table, positions, page_size)
+    else:
+        kvcache.paged_write_tokens(*pools, k, v, table, positions, valid, page_size)
+
+
+def _scales(entry: Dict) -> Dict:
+    """The int8 pool's scale operands of the attention call ({} if dense)."""
+    if "k_scale" not in entry:
+        return {}
+    return {"k_scale": entry["k_scale"], "v_scale": entry["v_scale"]}
+
+
 def apply_layer_decode(
     p: Dict,
     x: torch.Tensor,  # [B, 1, d]
     spec,
     cfg,
     angles: torch.Tensor,  # [B, 1, hd/2]
-    cache_entry: Dict,  # {"k", "v"} page pools [P+1, ps, KV, hd]
+    cache_entry: Dict,  # {"k", "v"} page pools [P+1, ps, KV, hd] (+ int8 scales)
     lengths: torch.Tensor,  # [B] int32
     expert_mask=None,
     page_table: Optional[torch.Tensor] = None,  # [B, pps] int32
@@ -166,11 +191,10 @@ def apply_layer_decode(
     aux: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     q, k, v = attn.project_qkv(p["attn"], h, cfg, angles)
-    kc, vc = kvcache.paged_ring_write(
-        cache_entry["k"], cache_entry["v"], k, v, page_table, lengths, page_size
-    )
+    _write_kv(cache_entry, k, v, page_table, lengths, page_size)
     o = attn.paged_decode_attention(
-        q, kc, vc, page_table, lengths, window=cfg.sliding_window
+        q, cache_entry["k"], cache_entry["v"], page_table, lengths,
+        window=cfg.sliding_window, **_scales(cache_entry),
     )
     x = x + attn.output_proj(p["attn"], o)
     if _has_ffn(spec, cfg):
@@ -249,11 +273,10 @@ def apply_stack_prefill_chunk(
             ce = {n: leaf[r] for n, leaf in page_blocks[f"pos{i}"].items()}
             h = rms_norm(x, p["norm1"], cfg.norm_eps)
             q, k, v = attn.project_qkv(p["attn"], h, cfg, angles)
-            kc, vc = kvcache.paged_write_tokens(
-                ce["k"], ce["v"], k, v, page_table, positions, valid, page_size
-            )
+            _write_kv(ce, k, v, page_table, positions, page_size, valid)
             o = attn.paged_chunk_attention(
-                q, kc, vc, page_table, positions, last_pos, window=cfg.sliding_window
+                q, ce["k"], ce["v"], page_table, positions, last_pos,
+                window=cfg.sliding_window, **_scales(ce),
             )
             x = x + attn.output_proj(p["attn"], o)
             if _has_ffn(spec, cfg):

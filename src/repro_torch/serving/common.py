@@ -26,6 +26,13 @@ def element_bytes(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+def payload_nbytes(z) -> int:
+    """Bytes of a boundary payload: one tensor, or a tuple of tensors (the
+    quantized boundary ships ``(codes, scales)``, and both cross the wire)."""
+    parts = z if isinstance(z, (tuple, list)) else (z,)
+    return sum(p.numel() * p.element_size() for p in parts)
+
+
 @dataclass
 class Request:
     request_id: int

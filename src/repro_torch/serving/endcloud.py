@@ -106,14 +106,17 @@ def strip_expert_weights(tier_params: Dict, cfg) -> Dict:
 
 
 def init_tier_pages(cfg, split: int, end_pages: int, cloud_pages: int,
-                    page_size: int, dtype: torch.dtype, device) -> Tuple[Dict, Dict]:
+                    page_size: int, dtype: torch.dtype, device, *,
+                    quantized: bool = False) -> Tuple[Dict, Dict]:
     """Paged KV storage for the two tiers of a block split: the end pool
     backs blocks ``[0, split)``, the cloud pool ``[split, R)``; a replan
-    moves block rows between them (``kvcache.resplit_paged_blocks``).
-    (The reference's int8 pools, ``quantized=True``, are not ported.)"""
-    end = kvcache.init_paged_blocks(cfg, split, end_pages, page_size, dtype, device)
+    moves block rows between them (``kvcache.resplit_paged_blocks``), int8
+    codes and their scales alike (``quantized=True``)."""
+    end = kvcache.init_paged_blocks(cfg, split, end_pages, page_size, dtype, device,
+                                    quantized=quantized)
     cloud = kvcache.init_paged_blocks(
-        cfg, cfg.block_repeat - split, cloud_pages, page_size, dtype, device
+        cfg, cfg.block_repeat - split, cloud_pages, page_size, dtype, device,
+        quantized=quantized,
     )
     return end, cloud
 

@@ -29,6 +29,14 @@ tier.  Both tiers run in this process on one device.
   ``core.moe.moe_resident`` (the ``grouped_mlp_resident`` kernel on the
   card).  Slab prefetches are booked on the link resource of the timeline
   and the swapped tables apply only at safe points.
+* **Int8 byte streams.**  ``quantize_kv`` stores both tiers' KV pages as
+  int8 codes with one f16 scale per token, ``quantize_experts`` the end
+  tier's slab store as int8 with one f32 scale per output column,
+  ``quantize_boundary`` ships the boundary payload (after the eq. 8 codec)
+  as int8 rows with one f16 scale each (``kernels.quant`` and the int8
+  variants of the paged attention and resident FFN kernels on the card).
+  Each flag works alone; wire costs, capacities and meters price the
+  stored sizes, while the planner keeps the unquantized boundary.
 * **Replanning.**  ``observe_bandwidth`` and ``update_device_state`` re-run
   the split search against measured conditions; a changed plan or mask is
   applied at the next safe point (every boundary drained) by re-splitting
@@ -44,10 +52,10 @@ tick moves every drained group's token ids, and every finished prefill's
 first token, to the host in one copy.
 
 Not ported yet (each raises ``NotImplementedError``): speculative decode
-(``spec_k > 1``), a preemption that would spill a running slot, the int8
-streams (``quantize_kv/experts/boundary``), fleet sharing (``cloud_pool``,
-``expert_registry``, a shared ``timeline`` or ``resources``), the
-``health`` monitor and transfer-fault injection, and ``evacuate``.  The
+(``spec_k > 1``), a preemption that would spill a running slot, fleet
+sharing (``cloud_pool``, ``expert_registry``, a shared ``timeline`` or
+``resources``), the ``health`` monitor and transfer-fault injection, and
+``evacuate``.  The
 reference's options of those slices that only tune them (``cloud_share``
 and ``set_cloud_share``, ``link_rtt_s``, ``expert_slabs``) come with them.
 The reference's tuning options that no caller sets (``end_state``,
@@ -85,6 +93,7 @@ from repro_torch.serving.common import (
     SlotEngineBase,
     StageTimeline,
     element_bytes,
+    payload_nbytes,
 )
 from repro_torch.serving.endcloud import (
     TierPlan,
@@ -107,6 +116,12 @@ def _masks_equal(a, b) -> bool:
     if a is None or b is None:
         return a is b
     return bool(np.array_equal(a, b))
+
+
+def _row(z, *idx):
+    """Index every tensor of a boundary payload (one tensor, or the
+    quantized ``(codes, scales)``) alike."""
+    return tuple(p[idx] for p in z) if isinstance(z, tuple) else z[idx]
 
 
 def _unported(what: str, where: str):
@@ -157,9 +172,9 @@ class EndCloudServingEngine(SlotEngineBase):
         expert_registry=None,
         admission: str = "priority",  # "priority" | "fifo" (see SlotEngineBase)
         preemption: bool = True,
-        quantize_kv: bool = False,
-        quantize_experts: bool = False,
-        quantize_boundary: bool = False,
+        quantize_kv: bool = False,  # int8 KV pages + f16 per-token scales
+        quantize_experts: bool = False,  # int8 slab store + f32 column scales
+        quantize_boundary: bool = False,  # int8 boundary rows + f16 row scales
         health=None,
         spec_k: int = 1,
     ):
@@ -168,9 +183,6 @@ class EndCloudServingEngine(SlotEngineBase):
             _unported("speculative decode (spec_k > 1)", "ROADMAP queue A, speculative decode")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
-        if quantize_kv or quantize_experts or quantize_boundary:
-            _unported("the int8 streams (quantize_kv/experts/boundary)",
-                      "ROADMAP queue A, the quant slice")
         if (cloud_pool is not None or expert_registry is not None
                 or timeline is not None or tuple(resources) != _RESOURCES):
             _unported("fleet sharing (cloud_pool, expert_registry, a shared "
@@ -192,6 +204,9 @@ class EndCloudServingEngine(SlotEngineBase):
         super().__init__(padded_batch, max_len=max_len, admission=admission)
         self.request_capacity = max_batch
         self.preemption = preemption and admission == "priority"
+        self.quantize_kv = bool(quantize_kv)
+        self.quantize_experts = bool(quantize_experts)
+        self.quantize_boundary = bool(quantize_boundary)
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -261,7 +276,8 @@ class EndCloudServingEngine(SlotEngineBase):
         self.end_pool = PagePool(n_pages, page_size, self.pages_per_slot, n_slots=padded_batch)
         self.cloud_pool = PagePool(n_pages, page_size, self.pages_per_slot, n_slots=padded_batch)
         self._end_pages, self._cloud_pages = init_tier_pages(
-            cfg, self.split, n_pages, n_pages, page_size, cfg.torch_dtype, self.device
+            cfg, self.split, n_pages, n_pages, page_size, cfg.torch_dtype, self.device,
+            quantized=self.quantize_kv,
         )
         self._slot_len = np.zeros((padded_batch,), np.int64)
         self._jobs: Dict[int, _PrefillJob] = {}  # slot -> in-flight prefill
@@ -270,7 +286,8 @@ class EndCloudServingEngine(SlotEngineBase):
         gsz = self._group_size
         self._group_slices = [(g * gsz, (g + 1) * gsz) for g in range(self.n_groups)]
         self._phase = ["ready"] * self.n_groups  # "ready" | "boundary"
-        self._boundary: List[Optional[torch.Tensor]] = [None] * self.n_groups
+        # a boundary payload: one tensor, or (codes, scales) when quantized
+        self._boundary: List = [None] * self.n_groups
         self._boundary_ready_s = [0.0] * self.n_groups  # modeled arrival time
         self._group_ready_s = [0.0] * self.n_groups  # modeled token-ready time
         # decode-only mirror of the occupancy clock for the pipelined-vs-
@@ -287,11 +304,16 @@ class EndCloudServingEngine(SlotEngineBase):
             s_cap = expert_resident_slots or max(1, int(np.floor(m.local_selection_cap * E)))
             self._s_cap = min(s_cap, E)
             n_layers = len(self._moe_pos) * cfg.block_repeat
-            self._slab_bytes = expertpool.expert_slab_bytes(cfg)
+            # budgets, wire time and meters price the stored slab; the dense
+            # size stays as the metrics' baseline
+            self._slab_bytes = expertpool.expert_slab_bytes(
+                cfg, quantized=self.quantize_experts)
+            self._slab_bytes_dense = expertpool.expert_slab_bytes(cfg)
             self._expert_mem_frac = expert_mem_frac
             n_slabs = n_layers * self._s_cap
             self.expert_pool = expertpool.ExpertSlabPool(n_slabs, n_layers, E, self._s_cap)
-            self._slab_store = expertpool.init_slab_store(cfg, n_slabs, device=self.device)
+            self._slab_store = expertpool.init_slab_store(
+                cfg, n_slabs, quantized=self.quantize_experts, device=self.device)
             self._expert_prefetch_per_tick = max(1, expert_prefetch_per_tick)
             self._prefetch_queue: List[Tuple[int, int]] = []
             self._expert_ready_s = 0.0  # link-resource cursor for transfers
@@ -482,6 +504,14 @@ class EndCloudServingEngine(SlotEngineBase):
         act = cfg.torch_dtype
         ps = self.page_size
         m = cfg.moe
+        qb = self.quantize_boundary
+
+        def wire_encode(z):
+            """The boundary's second codec stage: int8 rows and f16 scales."""
+            return comp.quantize_boundary(z) if qb else z
+
+        def wire_decode(z):
+            return comp.dequantize_boundary(*z, dtype=act) if qb else z
 
         def angles(positions):
             return attn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
@@ -495,7 +525,7 @@ class EndCloudServingEngine(SlotEngineBase):
                 end_params, x, cfg, angles(lengths[:, None]), pages, lengths,
                 expert_mask=emask, page_table=table, page_size=ps, expert_resident=eres,
             )
-            z = comp.encode_1d(codec, x) if compress else x
+            z = wire_encode(comp.encode_1d(codec, x) if compress else x)
             if self._route_stats_enabled:
                 # expert_frac ++ group_frac summed over the end tier's MoE
                 # layers; an end tier without blocks (split 0) gives zeros
@@ -506,6 +536,7 @@ class EndCloudServingEngine(SlotEngineBase):
             return z, pages
 
         def cloud_step(cloud_params, z, pages, table, lengths):
+            z = wire_decode(z)
             x = (comp.decode_1d(codec, z) if compress else z).to(act)
             x, pages, _ = transformer.apply_stack_decode(
                 cloud_params, x, cfg, angles(lengths[:, None]), pages, lengths,
@@ -523,9 +554,10 @@ class EndCloudServingEngine(SlotEngineBase):
                 end_params, x, cfg, angles(positions), pages, table, positions,
                 n_valid, ps, expert_mask=emask, expert_resident=eres,
             )
-            return (comp.encode_1d(codec, x) if compress else x), pages
+            return wire_encode(comp.encode_1d(codec, x) if compress else x), pages
 
         def cloud_prefill_chunk(cloud_params, z, pages, table, start, n_valid):
+            z = wire_decode(z)
             B, C = z.shape[:2]
             positions = chunk_positions(start, C)
             x = (comp.decode_1d(codec, z) if compress else z).to(act)
@@ -679,7 +711,7 @@ class EndCloudServingEngine(SlotEngineBase):
         )
         te = self._stage_seconds("end", v, te)
         # meter only the valid rows: padding never crosses the wire
-        t_comm = self._link_transfer(z[0, 0].numel() * z.element_size() * v)
+        t_comm = self._link_transfer(payload_nbytes(_row(z, 0, 0)) * v)
         (ids, self._cloud_pages), tc = self._measure(
             self._cloud_prefill_chunk, self.cloud_params, z, self._cloud_pages,
             self.cloud_pool.device_rows([slot], device=self.device), start, valid,
@@ -800,7 +832,7 @@ class EndCloudServingEngine(SlotEngineBase):
         # meter only active slots' boundary rows: inactive and padding
         # slots' activations never cross the wire
         n_active = int(active.sum())
-        t_comm = self._link_transfer(z[0].numel() * z.element_size() * n_active)
+        t_comm = self._link_transfer(payload_nbytes(_row(z, 0)) * n_active)
         if self._expert_pooled:
             self.expert_routed_tokens += n_active
 
@@ -1091,15 +1123,15 @@ class EndCloudServingEngine(SlotEngineBase):
 
     def expert_metrics(self) -> Dict[str, float]:
         """Paged expert-weight accounting: residency, hit rate, transfer
-        traffic, and the per-step expert bytes of the resident path beside
-        the dense ``[E, d, f]`` sweep.  The fleet's peer traffic and the int8
-        store are not ported: their entries read as the reference's do
-        without them."""
+        traffic, and the per-step expert bytes of the resident path (at the
+        stored slab size) beside the dense ``[E, d, f]`` sweep (at the
+        params' type, whatever the store holds).  The fleet's peer traffic
+        is not ported: its entries read as the reference's do without it."""
         if not self._expert_pooled:
             return {}
         pool = self.expert_pool
         active = self._active_lids()
-        sb = self._slab_bytes
+        sb, sbd = self._slab_bytes, self._slab_bytes_dense
         n_res_active = sum(pool.resident_count(lid) for lid in active)
         return {
             "expert_resident_slabs": pool.slabs_in_use,
@@ -1110,11 +1142,11 @@ class EndCloudServingEngine(SlotEngineBase):
             "expert_bytes_up": 0,
             "expert_bytes_resident": pool.slabs_in_use * sb,
             "expert_bytes_step_resident": n_res_active * sb,
-            "expert_bytes_step_dense": len(active) * self.cfg.moe.num_experts * sb,
+            "expert_bytes_step_dense": len(active) * self.cfg.moe.num_experts * sbd,
             "expert_slab_bytes": sb,
-            "expert_slab_bytes_dense": sb,
-            "expert_capacity_ratio": 1.0,
-            "expert_quantized": 0.0,
+            "expert_slab_bytes_dense": sbd,
+            "expert_capacity_ratio": sbd / sb,
+            "expert_quantized": float(self.quantize_experts),
             "expert_prefetches": self.n_expert_prefetches,
             "expert_peer_fetches": 0,
             "expert_evictions": self.n_expert_evictions,
@@ -1139,7 +1171,7 @@ class EndCloudServingEngine(SlotEngineBase):
             "kv_page_bytes": end_pb + cloud_pb,
             "kv_page_bytes_dense": dense_pb,
             "kv_capacity_ratio": dense_pb / (end_pb + cloud_pb),
-            "kv_quantized": 0.0,
+            "kv_quantized": float(self.quantize_kv),
         }
 
     def metrics(self) -> Dict[str, float]:
@@ -1153,7 +1185,7 @@ class EndCloudServingEngine(SlotEngineBase):
         return {
             "split": self.split,
             "compressed": self.tiers.compress,
-            "boundary_quantized": 0.0,
+            "boundary_quantized": float(self.quantize_boundary),
             "n_groups": self.n_groups,
             "bytes_up": self.link.bytes_up,
             "transfers": self.link.transfers,

@@ -1,7 +1,7 @@
 """The port's kernels on the card: each against its plain version, the
 wrappers' input checks, and the serving engine, the one-shot end-cloud
-pipeline and the streaming end-cloud engine on the card against the same
-on the CPU.  Marked ``cuda``; skipped where no CUDA device is
+pipeline and the streaming end-cloud engine (with and without its int8
+streams) on the card against the same on the CPU.  Marked ``cuda``; skipped where no CUDA device is
 visible.  Run on a machine with the card (``--noconftest``: the suite's
 conftest imports JAX, which the port does not need):
 
@@ -13,12 +13,15 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.expertpool import quantize_slab
 from repro_torch.core.hardware import PROFILES
 from repro_torch.kernels.expert_mlp import (
     grouped_mlp,
     grouped_mlp_plain,
     grouped_mlp_resident,
     grouped_mlp_resident_plain,
+    grouped_mlp_resident_quant,
+    grouped_mlp_resident_quant_plain,
 )
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.group_gate import group_gate, group_gate_plain
@@ -29,7 +32,18 @@ from repro_torch.kernels.lowrank import (
     lowrank_roundtrip,
     lowrank_roundtrip_plain,
 )
-from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.kernels.paged_attention import (
+    paged_attention,
+    paged_attention_plain,
+    paged_attention_quant,
+)
+from repro_torch.kernels.quant import (
+    dequantize_rows,
+    dequantize_rows_plain,
+    quantize_rows,
+    quantize_rows_plain,
+)
+from repro_torch.models.kvcache import quantize_kv_tokens
 from repro_torch.models.model import Model, to_device
 from repro_torch.serving import EndCloudPipeline, EndCloudServingEngine, Request, ServingEngine
 
@@ -67,6 +81,84 @@ def test_paged_attention_kernel(gen, dtype, tol, window):
     q, pk, pv, table, q_pos, lengths = args
     dead = paged_attention(q, pk, pv, torch.full_like(table, pk.shape[0] - 1), q_pos, lengths)
     assert bool((dead == 0).all())
+
+
+@pytest.mark.parametrize("axis", [-1, -2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.float16])
+def test_quantize_rows_kernel(gen, axis, dtype, scale_dtype):
+    """Codes and scales bit-equal to the plain version's (an all-zero line,
+    a line whose f16 scale underflows to 0, ragged widths); the dequantizer
+    bit-equal too."""
+    x = (torch.randn(3, 37, 45, generator=gen, device="cuda") * 3).to(dtype)
+    line = (slice(None), 0) if axis == -1 else (slice(None), slice(None), 0)
+    x[0][line[1:]] = 0
+    x[1][line[1:]] = (x[1][line[1:]].float() * 1e-7).to(dtype)
+    before = quantize_rows.launches
+    q, s = quantize_rows(x, scale_dtype=scale_dtype, axis=axis)
+    assert quantize_rows.launches == before + 1
+    rq, rs = quantize_rows_plain(x, scale_dtype=scale_dtype, axis=axis)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    if scale_dtype == torch.float16:
+        assert float(s[1][line[1:]].float().max()) == 0.0
+    if axis == -1:
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequantize_rows(q, s, dtype=out),
+                               dequantize_rows_plain(q, s, dtype=out))
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_rows(x.transpose(0, 1), scale_dtype=scale_dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window", [None, 6])
+def test_paged_attention_quant_kernel(gen, dtype, tol, window):
+    q, pk, pv, table, q_pos, lengths = _attention_case(gen, dtype)
+    kq, ks = quantize_kv_tokens(pk)
+    vq, vs = quantize_kv_tokens(pv)
+    args = (q, kq, vq, ks, vs, table, q_pos, lengths)
+    before = paged_attention_quant.launches, paged_attention.launches
+    got = paged_attention_quant(*args, window=window)
+    assert (paged_attention_quant.launches, paged_attention.launches) == (
+        before[0] + 1, before[1])
+    want = paged_attention_plain(q, kq, vq, table, q_pos, lengths, window=window,
+                                 k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    dead = paged_attention_quant(q, kq, vq, ks, vs, torch.full_like(table, kq.shape[0] - 1),
+                                 q_pos, lengths)
+    assert bool((dead == 0).all())
+    with pytest.raises(ValueError, match="dtypes"):
+        paged_attention_quant(q, pk, pv, ks, vs, table, q_pos, lengths)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_grouped_mlp_resident_quant_kernel(gen, gated, dtype, tol):
+    """An int8 store with f32 column scales: within the tolerance of the
+    plain version, garbage-slot rows exactly 0."""
+    N, d, f = 6, 96, 200
+    store = {}
+    for k, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d))):
+        w = torch.randn(N + 1, *shape, generator=gen, device="cuda") / shape[0] ** 0.5
+        w[N] = 0  # the garbage slab
+        store[k], store[f"{k}_scale"] = quantize_slab(w)
+    wg = store["wg"] if gated else None
+    scales = dict(wi_scale=store["wi_scale"], wo_scale=store["wo_scale"],
+                  wg_scale=store["wg_scale"] if gated else None)
+    ids = torch.tensor([4, 1, 2, N], dtype=torch.int32, device="cuda")
+    sizes = torch.tensor([3, 0, 9, 2], dtype=torch.int32, device="cuda")
+    xs = torch.randn(int(sizes.sum()), d, generator=gen, device="cuda").to(dtype)
+    act = "silu" if gated else "gelu"
+    before = grouped_mlp_resident_quant.launches
+    got = grouped_mlp_resident_quant(xs, sizes, store["wi"], wg, store["wo"], ids, act, **scales)
+    assert grouped_mlp_resident_quant.launches == before + 1
+    want = grouped_mlp_resident_quant_plain(xs, sizes, store["wi"], wg, store["wo"], ids, act,
+                                            **scales)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale)
+    assert bool((got[-2:] == 0).all())
+    with pytest.raises(ValueError, match="int8"):
+        grouped_mlp_resident_quant(xs, sizes, store["wi"].float(), wg, store["wo"], ids, act,
+                                   **scales)
 
 
 @pytest.mark.parametrize("mask", [None, [1, 0, 0, 0, 1, 1, 0, 1]])
@@ -175,6 +267,39 @@ def test_stream_engine_on_card_matches_cpu(gen, name):
         assert eng.end_pool.pages_in_use == eng.cloud_pool.pages_in_use == 0
         if dev == "cuda":
             assert grouped_mlp_resident.launches > before
+    assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "llama4-scout-17b-16e"])
+def test_stream_engine_int8_streams_on_card_match_cpu(gen, name):
+    """The streaming engine with all three int8 streams on, f32 smoke model,
+    middle split, codec on: the int8 kernels launch on the card and give the
+    CPU's tokens."""
+    cfg = smoke_config(get_config(name)).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 500, size=int(rng.integers(4, 40))).astype(np.int32)
+               for _ in range(5)]
+    counters = (quantize_rows, dequantize_rows, paged_attention_quant)
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        eng = EndCloudServingEngine(
+            Model(cfg, device=dev), to_device(params, dev), end_profile=PROFILES["a100"],
+            cloud_profile=PROFILES["a100"], max_batch=4, max_len=64, force_split=2,
+            compression_rank=cfg.d_model // 2, timing="modeled", prefill_chunk=8,
+            quantize_kv=True, quantize_experts=True, quantize_boundary=True,
+        )
+        before = [c.launches for c in counters] + [grouped_mlp_resident_quant.launches]
+        reqs = [Request(i, p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        tokens[dev] = [r.generated for r in reqs]
+        assert eng.end_pool.pages_in_use == eng.cloud_pool.pages_in_use == 0
+        after = [c.launches for c in counters] + [grouped_mlp_resident_quant.launches]
+        if dev == "cuda":
+            assert all(a > b for a, b in zip(after[:3], before[:3]))
+            assert (after[3] > before[3]) == (cfg.moe is not None)
     assert tokens["cuda"] == tokens["cpu"]
 
 

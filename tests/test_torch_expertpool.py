@@ -72,10 +72,15 @@ def test_slab_bytes_and_store_match_reference(name):
     for k in jstore:
         assert tuple(tstore[k].shape) == jstore[k].shape and not tstore[k].any()
         assert tstore[k].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="int8"):
-        tep.init_slab_store(cfg, 5, quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tep.expert_slab_bytes(cfg, quantized=True)
+    # the int8 store: codes plus one f32 scale per output column
+    assert tep.expert_slab_bytes(cfg, quantized=True) == jep.expert_slab_bytes(
+        jcfg, quantized=True)
+    jstore = jep.init_slab_store(jcfg, 5, quantized=True)
+    tstore = tep.init_slab_store(cfg, 5, quantized=True, device="cpu")
+    assert set(tstore) == set(jstore)
+    for k in jstore:
+        assert tuple(tstore[k].shape) == jstore[k].shape and not tstore[k].any()
+        assert str(tstore[k].dtype).removeprefix("torch.") == str(jstore[k].dtype)
 
 
 @pytest.mark.parametrize("name", NAMES)
