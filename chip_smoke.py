@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    it: the kernel's time (L2 flushed before every launch), the plain
    version's, the least time the card could take for the same work
    (``bound_ms``), and one PyTorch library call of the same function where
-   one exists (``library_ms``, a yardstick the port never calls).
+   one exists (``library_ms``, a yardstick the port never calls).  Flash
+   attention also at head dims 32 and 128 and with query rows that see no
+   key; the codec also at the streaming engine's 4 and 32 rows, each shape
+   launched twice for equal bits.
 3. Full-width switch-base (12 layers, d_model 768, 8 experts) with random
    weights from a seeded generator, serving 8 requests (prompts of 16-200
    tokens, 32 new tokens each) through ``ServingEngine`` on the card.  The
@@ -69,7 +72,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    that differs is a near tie (``f32_all_streams_card_vs_cpu``).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``.  ``torch.profiler``
+power limit, and ``{"ok": true, "device": {...}}``.  The profiled
+``run_batch`` and stream ticks log the mean time in path of flash
+attention and the codec's kernels.  ``torch.profiler``
 tables of one decode step and of one ``run_batch`` go to
 ``chiprun_out/decode_profile.txt`` and ``chiprun_out/pipeline_profile.txt``,
 one of a streaming-engine tick to ``chiprun_out/stream_profile.txt`` (and
@@ -401,6 +406,39 @@ def run_flash_attention(torch, timer):
             f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa)={lib_ms:.4f}")
         rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms)
+    # head dims 32 and 128 at the pipeline's batch and length, and query
+    # rows that see no key (a window past every key; a negative offset
+    # under causality), which the kernel and its plain version leave at 0
+    for name, B, Sq, Skv, H, KV, hd, window, q_offset in (
+            ("hd=32 B=4 S=256 H=12", 4, 256, 256, 12, 12, 32, None, 0),
+            ("hd=128 B=4 S=256 H=12", 4, 256, 256, 12, 12, 128, None, 0),
+            ("rows without a key: window past the keys", 1, 64, 128, 4, 2, 64, 32, 100),
+            ("rows without a key: negative offset", 1, 64, 64, 4, 2, 64, None, -3)):
+        q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").bfloat16()
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        out = flash_attention_fwd(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        atol = 2 ** -6 * ref.float().abs().median().item()  # as above
+        err = check_close(f"flash_attention {name}", out, ref, rtol=2 ** -7, atol=atol)
+        rec[name] = dict(max_abs_err=err)
+        vis = block_mask(q_offset + torch.arange(Sq, device="cuda"),
+                         torch.arange(Skv, device="cuda"), True, window)
+        blind = ~vis.any(dim=1)
+        if name.startswith("rows without"):
+            if not (blind.any() and bool((out[:, blind] == 0).all())
+                    and bool((ref[:, blind] == 0).all())):
+                raise AssertionError(f"flash_attention {name}: rows without a key are not 0")
+            continue
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
+                           4 * hd * B * H * int(vis.sum()), "bf16")
+        ms = timer(lambda: flash_attention_fwd(q, k, v, **kw))
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        log(f"  flash_attention {name}: ms={ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"library_ms(sdpa)={lib_ms:.4f}")
     main = rec[cases[0][0]]
     main["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
     return main
@@ -421,30 +459,36 @@ def run_lowrank(torch, timer):
     codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, r, device="cuda")
     rec = {}
 
-    # encode and decode at the boundary's shape, bf16 operands (the consumer
-    # casts the codec to the activation type)
-    T = 1024
-    x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
+    # encode and decode at the one-shot pipeline's boundary (T = 1024), bf16
+    # operands (the consumer casts the codec to the activation type),
+    # and at the streaming engine's decode group step (4 rows) and prefill
+    # chunk (32 rows), where encode splits K over more blocks; each shape
+    # launched twice must give the same bits (no atomics)
     enc, dec = codec["enc"].bfloat16(), codec["dec"].bfloat16()
-    z = lowrank_encode(x, enc)
-    for name, fn, a, w in (("lowrank_encode", lowrank_encode, x, enc),
-                           ("lowrank_decode", lowrank_decode, z, dec)):
-        out = fn(a, w)
-        ref = lowrank_project_plain(a, w)
-        # f32 sums in another order, rounded once to bf16: one ulp (rtol),
-        # and four ulps of the median |output| for elements near zero
-        atol = 2 ** -6 * ref.float().abs().median().item()
-        err = check_close(f"{name} T={T} d={d} r={r}", out, ref, rtol=2 ** -7, atol=atol)
-        nt, k = a.shape
-        n = w.shape[1]
-        b_ms, b_by = bound((nt * k + k * n + nt * n) * 2, 2 * nt * k * n, "bf16")
-        ms = timer(lambda: fn(a, w))
-        plain_ms = timer(lambda: lowrank_project_plain(a, w))
-        lib_ms = timer(lambda: torch.matmul(a, w))
-        log(f"  {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
-            f"({b_by}) library_ms(matmul)={lib_ms:.4f}")
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms)
+    for T in (1024, 4, 32):
+        x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
+        z = lowrank_encode(x, enc)
+        for name, fn, a, w in (("lowrank_encode", lowrank_encode, x, enc),
+                               ("lowrank_decode", lowrank_decode, z, dec)):
+            out = fn(a, w)
+            ref = lowrank_project_plain(a, w)
+            # f32 sums in another order, rounded once to bf16: one ulp (rtol),
+            # and four ulps of the median |output| for elements near zero
+            atol = 2 ** -6 * ref.float().abs().median().item()
+            err = check_close(f"{name} T={T} d={d} r={r}", out, ref, rtol=2 ** -7, atol=atol)
+            if not torch.equal(fn(a, w), out):
+                raise AssertionError(f"{name} T={T}: two launches on the same inputs differ")
+            nt, k = a.shape
+            n = w.shape[1]
+            b_ms, b_by = bound((nt * k + k * n + nt * n) * 2, 2 * nt * k * n, "bf16")
+            ms = timer(lambda: fn(a, w))
+            plain_ms = timer(lambda: lowrank_project_plain(a, w))
+            lib_ms = timer(lambda: torch.matmul(a, w))
+            log(f"  {name} T={T}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+                f"({b_by}) library_ms(matmul)={lib_ms:.4f} deterministic")
+            if T == 1024:  # the one-shot pipeline's boundary: the kernels line
+                rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms)
 
     # the fused roundtrip at a ragged T, in f32 and in bf16, error sum included
     T = 1000
@@ -857,6 +901,26 @@ def traced_run(torch, pipe, tokens, feed=None):
     return logits, metrics, {k: torch.stack(v) for k, v in rec.items()}
 
 
+# the bf16 codec's two kernels: the projection, and the fixed-order sum of
+# its K splits where the rows are few and K is long
+CODEC_KERNELS = (("codec projection", "project_wgmma_kernel"),
+                 ("codec split sum", "sum_splits_kernel"))
+
+
+def kernels_in_path(dev, names) -> str:
+    """``what ms x n`` (mean device time a launch, launches) for each
+    ``(what, kernel-name substring)`` of ``names`` that ran in a profile's
+    kernel rows ``dev``."""
+    out = []
+    for what, key in names:
+        rows = [e for e in dev if key in e.key]
+        n = sum(e.count for e in rows)
+        if n:
+            out.append(f"{what} {sum(e.self_device_time_total for e in rows) / n / 1e3:.4f} "
+                       f"ms x {n}")
+    return "; ".join(out)
+
+
 def logit_gap(torch, g, c, V):
     """(max|g-c| / max|c|, per-token cosine [B, S]) over the real vocabulary
     (the padded tail is -1e30 on both sides)."""
@@ -918,11 +982,15 @@ def pipeline(torch, eng, counters):
         wall = time.perf_counter() - t0
     avgs = prof_run.key_averages()
     # kernel rows only: an operator row's device time repeats its kernels'
-    dev_us = sum(e.self_device_time_total for e in avgs if e.device_type != DeviceType.CPU)
+    dev = [e for e in avgs if e.device_type != DeviceType.CPU]
+    dev_us = sum(e.self_device_time_total for e in dev)
     (OUT_DIR / "pipeline_profile.txt").write_text(
         avgs.table(sort_by="cuda_time_total", row_limit=40))
+    in_path = kernels_in_path(dev, (("flash attention", "flash_fwd_mma_kernel"),
+                                    *CODEC_KERNELS))
     log(f"pipeline profile (1 run_batch): device time {dev_us / 1e3:.3f} ms of "
-        f"{wall * 1e3:.3f} ms wall, written to chiprun_out/pipeline_profile.txt")
+        f"{wall * 1e3:.3f} ms wall; kernels in path, a launch: {in_path}; written to "
+        f"chiprun_out/pipeline_profile.txt")
 
     pipeline_vs_cpu(torch, eng, pipe.codec, prof, B, S)
     return launches
@@ -1218,19 +1286,15 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
     dev_us = sum(e.self_device_time_total for e in dev)
     (OUT_DIR / profile_name).write_text(avgs.table(sort_by="cuda_time_total", row_limit=40))
     store = "signed char" if exq else "float"
-    in_path = []
-    for what, key in (("resident FFN pass", f"expert_ffn_kernel<__nv_bfloat16, {store}"),
-                      ("paged attention", "paged_attention_kernel"),
-                      ("quantize", "quantize_rows_kernel"),
-                      ("dequantize", "dequantize_rows_kernel")):
-        rows = [e for e in dev if key in e.key]
-        n = sum(e.count for e in rows)
-        if n:
-            us = sum(e.self_device_time_total for e in rows) / n
-            in_path.append(f"{what} {us / 1e3:.4f} ms x {n}")
+    in_path = kernels_in_path(dev, (
+        ("resident FFN pass", f"expert_ffn_kernel<__nv_bfloat16, {store}"),
+        ("paged attention", "paged_attention_kernel"),
+        ("quantize", "quantize_rows_kernel"),
+        ("dequantize", "dequantize_rows_kernel"),
+        *CODEC_KERNELS))
     log(f"{tag} profile (tick {ptick}, 8 slots decoding): device time {dev_us / 1e3:.3f} ms "
         f"of {wall * 1e3:.3f} ms wall ({dev_us / 1e3 / (wall * 1e3):.1%} busy); kernels in "
-        f"path, a launch: {'; '.join(in_path)}; written to chiprun_out/{profile_name}")
+        f"path, a launch: {in_path}; written to chiprun_out/{profile_name}")
     return launches, [r.generated for r in reqs], m
 
 

@@ -9,34 +9,52 @@
 // operands of a product share one type, as the consumer casts E and D to
 // the activation type before the product).
 //
-// What bounds it on the H100: at the boundary's shapes (T = 1024 tokens,
-// d = 768, r = 384, bf16) a product moves ~3 MB and does ~0.6 GFLOP, about
-// 200 flops a byte -- under the ~295 where the bf16 tensor cores would bind,
-// so the floor is bytes (~0.9 us).  This first kernel computes on the CUDA
-// cores in f32 (the f32 form must stay exact: no TF32), and at T = 1024 its
-// 128 blocks of 4 warps leave the latency of the weight loads exposed, far
-// from even the f32 FMA rate (times in PERF.md).  Splitting the output
-// columns over more blocks, staging W tiles in shared memory, and bf16
-// tensor-core tiles for the bf16 form are the next steps.
+// What bounds it on the H100.  Encode and decode move X, W and Y once:
+// at the one-shot pipeline's boundary (T = 1024 tokens, d = 768, r = 384,
+// bf16) ~2.9 MB against ~0.6 GFLOP, ~200 flops a byte, under the ~295 at
+// which the bf16 tensor cores bind, so the floor is bytes (0.88 us).  At
+// the streaming engine's decode group step (T = 4) and prefill chunk
+// (T = 32) the work is one pass over W (590 KB, ~0.18 us): the floor is
+// W's bytes, and what costs is latency and how many SMs share that pass.
 //
-// Design: one block per tile of kRows = 8 token rows; any T (the tail tile
-// is masked, where the Pallas version asserted T % block == 0).  The block
-// stages its rows in shared memory in f32, transposed ([k][kRows]) so a
-// thread reads the 8 row values of one k as two float4 broadcasts, and its
-// 128 threads each accumulate kCols = 4 output columns (strided by 128, so
-// the weight loads and the output stores are coalesced) for all 8 rows.
-// One body, rows_times_w, serves all three entries.  The fused roundtrip
-// keeps Z in shared memory in f32 (never rounded, never written to HBM),
-// writes X^ once, and writes one f32 partial of sum (X - X^)^2 per block
-// (from the unrounded f32 X^, as the reference); a second one-block pass
-// sums the partials in a fixed order, so the error is deterministic and
-// needs no atomics.
+// Design of the projection (encode, decode).  A grid of 64 x 64 output
+// tiles; where the tiles alone fill too few SMs and K is long (encode at
+// T = 4 or 32: 6 tiles, 12 K steps), K is split too, and each split writes
+// f32 partials that a second pass adds in split order: no atomics, so two
+// runs give the same bits.  The plan lives in
+// kernels/lowrank/ops.py::project_plan.  bf16 runs on the tensor cores by
+// wgmma, one warpgroup a tile, fed by a 4-stage ring of TMA copies (one
+// instruction a tile, where cp.async spends a 16-byte request of every
+// thread) that complete on mbarriers and land in the 128-byte swizzle
+// wgmma reads; TMA zero-fills rows past T and the edges of k and n, so X
+// is never copied to pad it.  One wgmma group stays in flight across each
+// step's barrier.  wgmma and not mma.sync: fed the same way, mma.sync
+// from ldmatrix left the products, not the copies, bounding the kernel on
+// this card (PERF.md).  k or n not a multiple of 8, or an operand
+// not 16-byte aligned, takes scalar loads into the same layout.  f32 stays
+// exact: CUDA-core FMAs (no TF32) on the same grid and split.
+//
+// The roundtrip is not redesigned: one block per kRows = 8 token rows
+// stages its rows in shared memory in f32, transposed ([k][kRows]), and
+// its 128 threads each accumulate kCols = 4 output columns (strided by
+// 128, so the weight loads and the output stores are coalesced) for all
+// 8 rows (rows_times_w).  It keeps Z in shared memory in f32 (never
+// rounded, never written to HBM), writes X^ once, and writes one f32
+// partial of sum (X - X^)^2 per block (from the unrounded f32 X^, as the
+// reference); a second one-block pass sums the partials in a fixed order,
+// so the error is deterministic and needs no atomics.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
+// the roundtrip's blocks
 constexpr int kRows = 8;                 // token rows per block
 constexpr int kThreads = 128;
 constexpr int kCols = 4;                 // output columns per thread per pass
@@ -93,29 +111,216 @@ __device__ __forceinline__ void rows_times_w(const float* a_s, int k,
   }
 }
 
-// y[T, n] = x[T, k] . w[k, n]: encode (w = E) and decode (w = D).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) project_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-    int nt, int k, int n) {
-  extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);  // [k][kRows]
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, nt - r0);
-  load_rows(x, r0, nr, k, a_s);
+// ---------------------------------------------------------------------------
+// The projection y[T, n] = x[T, k] . w[k, n] (encode: w = E; decode: w = D).
+// Grid (n tiles, T tiles, K splits) of 64 x 64 output tiles; split z takes
+// K steps [z * steps, (z + 1) * steps) of kBK.  With one split a block
+// writes its tile of y in x's type; with more it writes f32 partials
+// part[z][T][n], which sum_splits_kernel adds in split order.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 64;            // output rows per block
+constexpr int kBN = 64;            // output columns per block
+constexpr int kBK = 64;            // K per step
+constexpr int kPThreads = 128;     // f32: 8 x 16 threads over the tile
+constexpr int kMmaThreads = 128;   // bf16: one warpgroup
+constexpr int kStages = 4;         // bf16 ring depth
+static_assert(kStages >= 3, "a slot is refilled a barrier before it is read");
+constexpr int kTile = 64 * 64;     // bf16 values of an X or W tile in the ring
+constexpr int kLdT = kBM + 4;      // f32 smem row (float4 reads stay aligned)
+static_assert(kBM == 64 && kBN == 64 && kBK == 64, "tile rows are 64 values wide");
+// the ring (+ slack to align it to 1024 B, as TMA's 128-byte swizzle wants)
+constexpr size_t kMmaSmem = sizeof(bf16) * kStages * 2 * kTile + 1024;
+
+// Index of value (row, col) in a ring tile: rows of 64 values (128 B) whose
+// 16-byte chunks are XOR-swizzled by row % 8, the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
+// Stage K step [kk0, kk0 + kBK) of the block without TMA (k or n not a
+// multiple of 8, or an operand not 16-byte aligned): synchronous scalar
+// loads, zeros past the edges, into the same swizzled layout, fenced for
+// wgmma's reads.
+__device__ __forceinline__ void stage_scalar(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ w, bf16* xs,
+                                             bf16* ws, int r0, int c0, int kk0,
+                                             int nt, int k, int n) {
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int e = threadIdx.x; e < kTile; e += kMmaThreads) {
+    const int row = e >> 6, col = e & 63;
+    const int gr = r0 + row, gk = kk0 + col;
+    xs[swz(row, col)] = gr < nt && gk < k ? x[(size_t)gr * k + gk] : zero;
+    const int wk = kk0 + row, gc = c0 + col;
+    ws[swz(row, col)] = wk < k && gc < n ? w[(size_t)wk * n + gc] : zero;
+  }
+  tc::fence_proxy_async();
+}
+
+// bf16: one warpgroup per 64 x 64 tile; each K step is four wgmma of
+// 64 x 64 x 16 reading X (K-major) and W (a row-major [k][n] tile, so
+// MN-major) straight from the ring slot in TMA's 128-byte swizzle.  kTma:
+// thread 0 fills each slot with two TMA copies (X rows x K, W K x columns;
+// the hardware zero-fills past T, k and n) that complete on the slot's
+// mbarrier; otherwise all threads stage it with scalar loads.
+template <bool kTma>
+__global__ void __launch_bounds__(kMmaThreads) project_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+    const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ y,
+    float* __restrict__ part, int nt, int k, int n, int steps) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                     ~uintptr_t(1023));  // [kStages][kTile]
+  bf16* ws = xs + kStages * kTile;                        // [kStages][kTile]
+  __shared__ uint64_t full[kStages];
+  const int c0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
+  const int s0 = blockIdx.z * steps;
+  const int ns = max(0, min(steps, (k + kBK - 1) / kBK - s0));
+
+  if (kTma && threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) tc::mbar_init(&full[i], 1);
+    tc::fence_mbar_init();
+  }
   __syncthreads();
-  for (int c0 = 0; c0 < n; c0 += kPass) {
-    float acc[kRows][kCols];
-    rows_times_w(a_s, k, w, n, c0, acc);
+  const CUtensorMap *mx = &tmx, *mw = &tmw;  // in parameter space, where TMA reads them
+  auto stage = [&](int i) {  // K step i of the block into slot i % kStages
+    const int sl = i % kStages, kk0 = (s0 + i) * kBK;
+    if constexpr (kTma) {
+      if (threadIdx.x == 0) {
+        tc::mbar_expect_tx(&full[sl], 2 * kTile * sizeof(bf16));
+        tc::tma_load_2d(xs + sl * kTile, mx, &full[sl], kk0, r0);
+        tc::tma_load_2d(ws + sl * kTile, mw, &full[sl], c0, kk0);
+      }
+    } else {
+      stage_scalar(x, w, xs + sl * kTile, ws + sl * kTile, r0, c0, kk0, nt, k, n);
+    }
+  };
+
+  float d[32];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r >= nr) break;
+  for (int j = 0; j < 32; ++j) d[j] = 0.f;
+  for (int i = 0; i < kStages - 1 && i < ns; ++i) stage(i);
+  for (int i = 0; i < ns; ++i) {
+    const int sl = i % kStages;
+    if constexpr (kTma) tc::mbar_wait(&full[sl], (i / kStages) & 1);  // step i has landed
+    const uint64_t da = tc::wgmma_desc_sw128(xs + sl * kTile);
+    const uint64_t db = tc::wgmma_desc_sw128(ws + sl * kTile);
+    tc::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = c0 + threadIdx.x + j * kThreads;
-        if (c < n) y[(size_t)(r0 + r) * n + c] = from_f<T>(acc[r][j]);
+    for (int kk = 0; kk < kBK / 16; ++kk)  // 16 K: 32 B along an X row, 16 rows of W
+      tc::wgmma_m64n64k16_bf16(d, da + (32 >> 4) * kk, db + (2048 >> 4) * kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // step i - 1's products are done (step i's run on)
+    __syncthreads();      // in every warp: its slot is free
+    if (i + kStages - 1 < ns) stage(i + kStages - 1);
+  }
+  tc::wgmma_wait<0>();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + g + 8 * h;
+    if (row >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + j * 8 + 2 * t;
+      if (col >= n) continue;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (kTma) {  // n is a multiple of 8: col + 1 < n, and the pair is aligned
+        if (part)
+          *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * nt + row) * n + col) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * n + col) =
+              __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (part) {
+          float* p = part + ((size_t)blockIdx.z * nt + row) * n + col;
+          p[0] = v0;
+          if (col + 1 < n) p[1] = v1;
+        } else {
+          bf16* q = y + (size_t)row * n + col;
+          q[0] = __float2bfloat16(v0);
+          if (col + 1 < n) q[1] = __float2bfloat16(v1);
+        }
       }
     }
+  }
+}
+
+// f32, exact (CUDA-core FMAs, no TF32), on the same grid: X^T and W tiles
+// in shared memory, thread (ty, tx) of 8 x 16 accumulates rows 8ty..8ty+7
+// at columns tx + 16j.
+__global__ void __launch_bounds__(kPThreads) project_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
+    float* __restrict__ part, int nt, int k, int n, int steps) {
+  __shared__ __align__(16) float xs[kBK * kLdT];  // X^T [kBK][kLdT]
+  __shared__ __align__(16) float ws[kBK * kBN];   // [kBK][kBN]
+  const int c0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
+  const int s0 = blockIdx.z * steps;
+  const int ns = max(0, min(steps, (k + kBK - 1) / kBK - s0));
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+
+  for (int i = 0; i < ns; ++i) {
+    const int kk0 = (s0 + i) * kBK;
+    for (int e = threadIdx.x; e < kBM * kBK; e += kPThreads) {
+      const int row = e >> 6, kk = e & 63;
+      const int gr = r0 + row, gk = kk0 + kk;
+      xs[kk * kLdT + row] = gr < nt && gk < k ? x[(size_t)gr * k + gk] : 0.f;
+    }
+    for (int e = threadIdx.x; e < kBK * kBN; e += kPThreads) {
+      const int kk = e >> 6, c = e & 63;
+      const int gk = kk0 + kk, gc = c0 + c;
+      ws[kk * kBN + c] = gk < k && gc < n ? w[(size_t)gk * n + gc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(xs + kk * kLdT + ty * 8);
+      const float4 a1 = *reinterpret_cast<const float4*>(xs + kk * kLdT + ty * 8 + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ws[kk * kBN + tx + 16 * j];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = r0 + ty * 8 + r;
+    if (row >= nt) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col >= n) continue;
+      if (part) part[((size_t)blockIdx.z * nt + row) * n + col] = acc[r][j];
+      else y[(size_t)row * n + col] = acc[r][j];
+    }
+  }
+}
+
+// y[i] = part[0][i] + part[1][i] + ... in split order (deterministic).
+template <typename T>
+__global__ void sum_splits_kernel(const float* __restrict__ part, T* __restrict__ y,
+                                  int splits, long long m) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = part[i];
+    for (int z = 1; z < splits; ++z) s += part[z * m + i];
+    y[i] = from_f<T>(s);
   }
 }
 
@@ -198,15 +403,69 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T>
-cudaError_t project(const void* x, const void* w, void* y, int nt, int k,
-                    int n, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kRows * k;
-  cudaError_t err = allow_smem(project_kernel<T>, smem);
+cudaError_t launch_tiles(const float* x, const float* w, float* y, float* part,
+                         int nt, int k, int n, dim3 grid, int steps,
+                         cudaStream_t stream) {
+  project_f32_kernel<<<grid, kPThreads, 0, stream>>>(x, w, y, part, nt, k, n, steps);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major bf16 [rows, cols] array as 64 x 64 boxes, 128-byte swizzled,
+// zeros past its edges.
+bool tile_map(CUtensorMap* map, const bf16* base, int rows, int cols) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, 64}, unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_tiles(const bf16* x, const bf16* w, bf16* y, float* part,
+                         int nt, int k, int n, dim3 grid, int steps,
+                         cudaStream_t stream) {
+  // TMA wants 16-byte aligned bases and row strides
+  const bool tma = k % 8 == 0 && n % 8 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
+  CUtensorMap tmx{}, tmw{};
+  if (tma && !(tile_map(&tmx, x, nt, k) && tile_map(&tmw, w, k, n))) return cudaErrorInvalidValue;
+  auto kernel = tma ? project_wgmma_kernel<true> : project_wgmma_kernel<false>;
+  cudaError_t err = allow_smem(kernel, kMmaSmem);
   if (err != cudaSuccess) return err;
-  project_kernel<T><<<(nt + kRows - 1) / kRows, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      nt, k, n);
+  kernel<<<grid, kMmaThreads, kMmaSmem, stream>>>(tmx, tmw, x, w, y, part, nt, k, n, steps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t project(const void* x, const void* w, void* y, float* part, int nt,
+                    int k, int n, int splits, int steps, cudaStream_t stream) {
+  const dim3 grid((n + kBN - 1) / kBN, (nt + kBM - 1) / kBM, splits);
+  T* yt = static_cast<T*>(y);
+  cudaError_t err = launch_tiles(static_cast<const T*>(x), static_cast<const T*>(w), yt,
+                                 splits > 1 ? part : nullptr, nt, k, n, grid, steps, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long m = (long long)nt * n;
+  const int blocks = m > 4096LL * 256 ? 4096 : (int)((m + 255) / 256);
+  sum_splits_kernel<T><<<blocks, 256, 0, stream>>>(part, yt, splits, m);
   return cudaGetLastError();
 }
 
@@ -229,14 +488,18 @@ cudaError_t roundtrip(const void* x, const void* enc, const void* dec,
 
 }  // namespace
 
-// y[nt, n] = x[nt, k] . w[k, n].  dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaError_t (0 = launched).
+// y[nt, n] = x[nt, k] . w[k, n] on 64 x 64 output tiles, each of `splits`
+// K splits taking `steps` K steps of 64; with splits > 1, part is f32
+// scratch [splits, nt, n] (else unused).  dtype: 0 = float32, 1 =
+// bfloat16.  Returns the first failed launch's cudaError_t (0 = launched).
 extern "C" int lowrank_project_launch(const void* x, const void* w, void* y,
-                                      int nt, int k, int n, int dtype,
+                                      void* part, int nt, int k, int n,
+                                      int splits, int steps, int dtype,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)project<__nv_bfloat16>(x, w, y, nt, k, n, s);
-  return (int)project<float>(x, w, y, nt, k, n, s);
+  float* p = static_cast<float*>(part);
+  if (dtype == 1) return (int)project<bf16>(x, w, y, p, nt, k, n, splits, steps, s);
+  return (int)project<float>(x, w, y, p, nt, k, n, splits, steps, s);
 }
 
 // xhat = (x . enc) . dec, err = sum (x - xhat)^2 in f32.  partial is f32

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (pointers, ints and the
 stream as arguments, ``cudaGetLastError()`` as the return value), so it
 compiles in seconds with ``nvcc`` alone, without PyTorch's headers.  The
 shared library lands in ``build/kernels/`` at the repository root, named by
-a digest of its source and flags: a changed source never loads a stale
-library, and concurrent processes racing on one build each write a private
-temporary file and rename it into place.
+a digest of its source, the shared headers (``csrc/*.cuh``) and the flags:
+a changed source never loads a stale library, and concurrent processes
+racing on one build each write a private temporary file and rename it into
+place.
 
 Nothing here runs at import time; the first launch of a kernel builds it.
 :func:`build` compiles several sources at once, one ``nvcc`` process each.
@@ -42,6 +43,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -4,6 +4,7 @@ from repro_torch.kernels.lowrank.ops import (
     lowrank_project_plain,
     lowrank_roundtrip,
     lowrank_roundtrip_plain,
+    project_plan,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "lowrank_project_plain",
     "lowrank_roundtrip",
     "lowrank_roundtrip_plain",
+    "project_plan",
 ]

@@ -333,6 +333,10 @@ def test_engine_on_card_matches_cpu(gen, name):
     (2, 70, 70, 4, 2, 64, False, 20, 0),
     (1, 40, 150, 4, 2, 32, True, 30, 110),  # queries at the end of the keys
     (1, 8, 16, 2, 2, 32, True, 4, 16),  # rows with no visible key -> 0
+    (2, 256, 256, 4, 4, 128, True, None, 0),  # hd 128 over four causal q tiles
+    (2, 130, 130, 4, 2, 32, True, None, 0),  # hd 32, ragged tail tiles
+    (1, 64, 300, 8, 2, 64, True, None, 236),  # Skv > Sq, queries at the end of the keys
+    (2, 190, 190, 8, 2, 64, True, 40, 0),  # GQA G = 4 with a window
 ])
 def test_flash_attention_kernel(gen, dtype, B, Sq, Skv, H, KV, hd, causal, window, q_offset):
     q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
@@ -353,7 +357,68 @@ def test_flash_attention_kernel(gen, dtype, B, Sq, Skv, H, KV, hd, causal, windo
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,d,r", [(1024, 768, 384), (37, 96, 24), (1, 64, 64)])
+def test_flash_rows_without_a_visible_key(gen, dtype):
+    """The card counterpart of ``test_torch_flash_attention.py``'s: the kernel
+    leaves a row that sees no key at 0, and the consumer fills it with the
+    mean of V, as on the CPU; every other row agrees with the CPU's."""
+    from repro_torch.models.attention import flash_attention
+
+    q = torch.randn(1, 8, 4, 32, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(1, 16, 2, 32, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, 16, 2, 32, generator=gen, device="cuda").to(dtype)
+    for window, q_offset, blind in ((4, 16, torch.arange(8) + 16 - 4 >= 15),
+                                    (None, -3, torch.arange(8) - 3 < 0)):
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        raw = flash_attention_fwd(q, k, v, **kw)
+        assert bool((raw[:, blind] == 0).all())
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [4, 32, 1000])
+def test_lowrank_project_split_k(gen, dtype, T):
+    """Encode and decode at the streaming engine's widths (d = 768, r =
+    384): encode at 4 and 32 rows splits K over more blocks, the rest do
+    not; each against its plain version, and two launches give the same
+    bits."""
+    d, r = 768, 384
+    x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+    q = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0]
+    enc, dec = q.to(dtype).contiguous(), q.T.to(dtype).contiguous()
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2 ** -7)
+    counts = (lowrank_encode.launches, lowrank_decode.launches)
+    z = lowrank_encode(x, enc)
+    xh = lowrank_decode(z, dec)
+    assert (lowrank_encode.launches, lowrank_decode.launches) == (counts[0] + 1, counts[1] + 1)
+    torch.testing.assert_close(z.float(), lowrank_project_plain(x, enc).float(), **tol)
+    torch.testing.assert_close(xh.float(), lowrank_project_plain(z, dec).float(), **tol)
+    assert torch.equal(lowrank_encode(x, enc), z) and torch.equal(lowrank_decode(z, dec), xh)
+
+
+def test_bf16_kernels_take_unaligned_operands(gen):
+    """Operands that start 2 bytes past a 16-byte boundary (contiguous views
+    into a larger buffer) take the bf16 kernels' scalar loads, not cp.async."""
+
+    def unaligned(*shape):
+        buf = torch.randn(1 + int(np.prod(shape)), generator=gen, device="cuda").bfloat16()
+        t = buf[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 == 2
+        return t
+
+    q, k, v = unaligned(2, 100, 4, 64), unaligned(2, 100, 2, 64), unaligned(2, 100, 2, 64)
+    want = flash_attention_plain(q, k, v, causal=True, window=None)
+    torch.testing.assert_close(flash_attention_fwd(q, k, v).float(), want.float(),
+                               rtol=2 ** -7, atol=2 ** -7)
+    x, w = unaligned(40, 96), unaligned(96, 48)
+    torch.testing.assert_close(lowrank_encode(x, w).float(),
+                               lowrank_project_plain(x, w).float(), rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,r", [(1024, 768, 384), (37, 96, 24), (1, 64, 64), (37, 90, 22)])
 def test_lowrank_kernels(gen, dtype, T, d, r):
     x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
     q = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0]

@@ -36,7 +36,9 @@ from repro_torch.kernels.lowrank import (
     lowrank_decode,
     lowrank_encode,
     lowrank_roundtrip,
+    project_plan,
 )
+from repro_torch.kernels.lowrank.ops import SPLIT_MIN_STEPS, TILE
 
 # one intra-op thread per test worker: the suite runs several workers on a
 # few shared cores, where a many-thread pool stalls on every tiny op
@@ -165,6 +167,40 @@ def test_roundtrip_error_sum_is_the_recon_loss():
     x_hat, err = lowrank_roundtrip(x, tp["enc"], tp["dec"])
     np.testing.assert_allclose(float(err) / x.numel(), float(tcomp.recon_loss(x, x_hat)),
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,k,n,want", [
+    (4, 768, 384, (12, 1)),  # the stream engine's decode group step, encode: 6 tiles
+    (4, 384, 768, (1, 6)),  # ... decode: 12 tiles, but only 6 K steps
+    (32, 768, 384, (12, 1)),  # its 32-token prefill chunk
+    (1024, 768, 384, (1, 12)),  # the one-shot pipeline: 96 tiles fill the card
+    (1024, 384, 768, (1, 6)),
+    (37, 96, 24, (1, 2)),
+    (1, 64, 64, (1, 1)),
+    (1, 576, 64, (9, 1)),  # one tile, 9 K steps
+    (128, 2048, 1024, (4, 8)),  # 32 tiles: 4 splits of 8 K steps
+])
+def test_project_plan(T, k, n, want):
+    """The codec's tile plan on the H100's 132 SMs: K is split only where
+    the output tiles fill under half the SMs and K runs past
+    ``SPLIT_MIN_STEPS`` steps; every K step lies in exactly one split and
+    none is empty; and summing the splits' f32 partials in split order (as
+    the kernel's second pass does) is the product."""
+    sms = 132
+    splits, steps = project_plan(T, k, n, sms)
+    assert (splits, steps) == want
+    tiles = -(-T // TILE) * -(-n // TILE)
+    ksteps = -(-k // TILE)
+    assert (splits - 1) * steps < ksteps <= splits * steps
+    assert splits == 1 or (2 * tiles < sms and ksteps > SPLIT_MIN_STEPS
+                            and tiles * splits <= sms)
+    g = torch.Generator().manual_seed(T)
+    x, w = torch.randn(T, k, generator=g), torch.randn(k, n, generator=g)
+    y = torch.zeros(T, n)
+    for z in range(splits):
+        ks = slice(z * steps * TILE, (z + 1) * steps * TILE)
+        y += x[:, ks] @ w[ks]
+    torch.testing.assert_close(y, x @ w, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("d,r", [(64, 16), (32, 32)])
