@@ -462,8 +462,7 @@ def run_lowrank(torch, timer):
     # encode and decode at the one-shot pipeline's boundary (T = 1024), bf16
     # operands (the consumer casts the codec to the activation type),
     # and at the streaming engine's decode group step (4 rows) and prefill
-    # chunk (32 rows), where encode splits K over more blocks; each shape
-    # launched twice must give the same bits (no atomics)
+    # chunk (32 rows); each shape launched twice must give the same bits
     enc, dec = codec["enc"].bfloat16(), codec["dec"].bfloat16()
     for T in (1024, 4, 32):
         x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
@@ -901,10 +900,8 @@ def traced_run(torch, pipe, tokens, feed=None):
     return logits, metrics, {k: torch.stack(v) for k, v in rec.items()}
 
 
-# the bf16 codec's two kernels: the projection, and the fixed-order sum of
-# its K splits where the rows are few and K is long
-CODEC_KERNELS = (("codec projection", "project_wgmma_kernel"),
-                 ("codec split sum", "sum_splits_kernel"))
+# the bf16 codec's kernel (encode and decode)
+CODEC_KERNELS = (("codec projection", "project_wgmma_kernel"),)
 
 
 def kernels_in_path(dev, names) -> str:

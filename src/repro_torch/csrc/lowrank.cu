@@ -18,21 +18,22 @@
 // W's bytes, and what costs is latency and how many SMs share that pass.
 //
 // Design of the projection (encode, decode).  A grid of 64 x 64 output
-// tiles; where the tiles alone fill too few SMs and K is long (encode at
-// T = 4 or 32: 6 tiles, 12 K steps), K is split too, and each split writes
-// f32 partials that a second pass adds in split order: no atomics, so two
-// runs give the same bits.  The plan lives in
-// kernels/lowrank/ops.py::project_plan.  bf16 runs on the tensor cores by
-// wgmma, one warpgroup a tile, fed by a 4-stage ring of TMA copies (one
-// instruction a tile, where cp.async spends a 16-byte request of every
-// thread) that complete on mbarriers and land in the 128-byte swizzle
-// wgmma reads; TMA zero-fills rows past T and the edges of k and n, so X
-// is never copied to pad it.  One wgmma group stays in flight across each
-// step's barrier.  wgmma and not mma.sync: fed the same way, mma.sync
-// from ldmatrix left the products, not the copies, bounding the kernel on
-// this card (PERF.md).  k or n not a multiple of 8, or an operand
-// not 16-byte aligned, takes scalar loads into the same layout.  f32 stays
-// exact: CUDA-core FMAs (no TF32) on the same grid and split.
+// tiles, each block walking all of K: 96 blocks at T = 1024, and at T = 4
+// or 32 the output columns alone, 6 blocks for encode and 12 for decode,
+// share the pass over W.  K is not split: on the H100 a split whose f32
+// partials a second launch adds saved under 0.5 us a call in isolation and
+// nothing in a streaming tick (PERF.md, tools/codec_probe.py).  bf16 runs
+// on the tensor cores by wgmma, one warpgroup a tile, fed by a 4-stage
+// ring of TMA copies (one instruction a tile, where cp.async spends a
+// 16-byte request of every thread) that complete on mbarriers and land in
+// the 128-byte swizzle wgmma reads; TMA zero-fills rows past T and the
+// edges of k and n, so X is never copied to pad it.  One wgmma group stays
+// in flight across each step's barrier.  wgmma and not mma.sync: the
+// mma.sync form from ldmatrix over a cp.async ring (tools/codec_mma_sync.cu)
+// took 1.6-2.3x the device time at these shapes (PERF.md).  k or n not a
+// multiple of 8, or an operand not 16-byte aligned, takes scalar loads
+// into the same layout.  f32 stays exact: CUDA-core FMAs (no TF32) on the
+// same grid.
 //
 // The roundtrip is not redesigned: one block per kRows = 8 token rows
 // stages its rows in shared memory in f32, transposed ([k][kRows]), and
@@ -113,10 +114,8 @@ __device__ __forceinline__ void rows_times_w(const float* a_s, int k,
 
 // ---------------------------------------------------------------------------
 // The projection y[T, n] = x[T, k] . w[k, n] (encode: w = E; decode: w = D).
-// Grid (n tiles, T tiles, K splits) of 64 x 64 output tiles; split z takes
-// K steps [z * steps, (z + 1) * steps) of kBK.  With one split a block
-// writes its tile of y in x's type; with more it writes f32 partials
-// part[z][T][n], which sum_splits_kernel adds in split order.
+// Grid (n tiles, T tiles) of 64 x 64 output tiles; a block walks K in steps
+// of kBK and writes its tile of y in x's type.
 
 using bf16 = __nv_bfloat16;
 
@@ -169,15 +168,14 @@ template <bool kTma>
 __global__ void __launch_bounds__(kMmaThreads) project_wgmma_kernel(
     const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
     const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ y,
-    float* __restrict__ part, int nt, int k, int n, int steps) {
+    int nt, int k, int n) {
   extern __shared__ unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                      ~uintptr_t(1023));  // [kStages][kTile]
   bf16* ws = xs + kStages * kTile;                        // [kStages][kTile]
   __shared__ uint64_t full[kStages];
   const int c0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
-  const int s0 = blockIdx.z * steps;
-  const int ns = max(0, min(steps, (k + kBK - 1) / kBK - s0));
+  const int ns = (k + kBK - 1) / kBK;
 
   if (kTma && threadIdx.x == 0) {
 #pragma unroll
@@ -187,7 +185,7 @@ __global__ void __launch_bounds__(kMmaThreads) project_wgmma_kernel(
   __syncthreads();
   const CUtensorMap *mx = &tmx, *mw = &tmw;  // in parameter space, where TMA reads them
   auto stage = [&](int i) {  // K step i of the block into slot i % kStages
-    const int sl = i % kStages, kk0 = (s0 + i) * kBK;
+    const int sl = i % kStages, kk0 = i * kBK;
     if constexpr (kTma) {
       if (threadIdx.x == 0) {
         tc::mbar_expect_tx(&full[sl], 2 * kTile * sizeof(bf16));
@@ -203,6 +201,8 @@ __global__ void __launch_bounds__(kMmaThreads) project_wgmma_kernel(
 #pragma unroll
   for (int j = 0; j < 32; ++j) d[j] = 0.f;
   for (int i = 0; i < kStages - 1 && i < ns; ++i) stage(i);
+  // scalar loads: every warp's wgmma reads the slots the other warps wrote
+  if constexpr (!kTma) __syncthreads();
   for (int i = 0; i < ns; ++i) {
     const int sl = i % kStages;
     if constexpr (kTma) tc::mbar_wait(&full[sl], (i / kStages) & 1);  // step i has landed
@@ -231,22 +231,12 @@ __global__ void __launch_bounds__(kMmaThreads) project_wgmma_kernel(
       if (col >= n) continue;
       const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
       if (kTma) {  // n is a multiple of 8: col + 1 < n, and the pair is aligned
-        if (part)
-          *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * nt + row) * n + col) =
-              make_float2(v0, v1);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * n + col) =
-              __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * n + col) =
+            __floats2bfloat162_rn(v0, v1);
       } else {
-        if (part) {
-          float* p = part + ((size_t)blockIdx.z * nt + row) * n + col;
-          p[0] = v0;
-          if (col + 1 < n) p[1] = v1;
-        } else {
-          bf16* q = y + (size_t)row * n + col;
-          q[0] = __float2bfloat16(v0);
-          if (col + 1 < n) q[1] = __float2bfloat16(v1);
-        }
+        bf16* q = y + (size_t)row * n + col;
+        q[0] = __float2bfloat16(v0);
+        if (col + 1 < n) q[1] = __float2bfloat16(v1);
       }
     }
   }
@@ -257,12 +247,11 @@ __global__ void __launch_bounds__(kMmaThreads) project_wgmma_kernel(
 // at columns tx + 16j.
 __global__ void __launch_bounds__(kPThreads) project_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
-    float* __restrict__ part, int nt, int k, int n, int steps) {
+    int nt, int k, int n) {
   __shared__ __align__(16) float xs[kBK * kLdT];  // X^T [kBK][kLdT]
   __shared__ __align__(16) float ws[kBK * kBN];   // [kBK][kBN]
   const int c0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
-  const int s0 = blockIdx.z * steps;
-  const int ns = max(0, min(steps, (k + kBK - 1) / kBK - s0));
+  const int ns = (k + kBK - 1) / kBK;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float acc[8][4];
 #pragma unroll
@@ -271,7 +260,7 @@ __global__ void __launch_bounds__(kPThreads) project_f32_kernel(
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
 
   for (int i = 0; i < ns; ++i) {
-    const int kk0 = (s0 + i) * kBK;
+    const int kk0 = i * kBK;
     for (int e = threadIdx.x; e < kBM * kBK; e += kPThreads) {
       const int row = e >> 6, kk = e & 63;
       const int gr = r0 + row, gk = kk0 + kk;
@@ -305,22 +294,8 @@ __global__ void __launch_bounds__(kPThreads) project_f32_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = c0 + tx + 16 * j;
-      if (col >= n) continue;
-      if (part) part[((size_t)blockIdx.z * nt + row) * n + col] = acc[r][j];
-      else y[(size_t)row * n + col] = acc[r][j];
+      if (col < n) y[(size_t)row * n + col] = acc[r][j];
     }
-  }
-}
-
-// y[i] = part[0][i] + part[1][i] + ... in split order (deterministic).
-template <typename T>
-__global__ void sum_splits_kernel(const float* __restrict__ part, T* __restrict__ y,
-                                  int splits, long long m) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = part[i];
-    for (int z = 1; z < splits; ++z) s += part[z * m + i];
-    y[i] = from_f<T>(s);
   }
 }
 
@@ -403,10 +378,9 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-cudaError_t launch_tiles(const float* x, const float* w, float* y, float* part,
-                         int nt, int k, int n, dim3 grid, int steps,
-                         cudaStream_t stream) {
-  project_f32_kernel<<<grid, kPThreads, 0, stream>>>(x, w, y, part, nt, k, n, steps);
+cudaError_t launch_tiles(const float* x, const float* w, float* y, int nt, int k, int n,
+                         dim3 grid, cudaStream_t stream) {
+  project_f32_kernel<<<grid, kPThreads, 0, stream>>>(x, w, y, nt, k, n);
   return cudaGetLastError();
 }
 
@@ -440,9 +414,8 @@ bool tile_map(CUtensorMap* map, const bf16* base, int rows, int cols) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-cudaError_t launch_tiles(const bf16* x, const bf16* w, bf16* y, float* part,
-                         int nt, int k, int n, dim3 grid, int steps,
-                         cudaStream_t stream) {
+cudaError_t launch_tiles(const bf16* x, const bf16* w, bf16* y, int nt, int k, int n,
+                         dim3 grid, cudaStream_t stream) {
   // TMA wants 16-byte aligned bases and row strides
   const bool tma = k % 8 == 0 && n % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
@@ -451,22 +424,16 @@ cudaError_t launch_tiles(const bf16* x, const bf16* w, bf16* y, float* part,
   auto kernel = tma ? project_wgmma_kernel<true> : project_wgmma_kernel<false>;
   cudaError_t err = allow_smem(kernel, kMmaSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kMmaThreads, kMmaSmem, stream>>>(tmx, tmw, x, w, y, part, nt, k, n, steps);
+  kernel<<<grid, kMmaThreads, kMmaSmem, stream>>>(tmx, tmw, x, w, y, nt, k, n);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t project(const void* x, const void* w, void* y, float* part, int nt,
-                    int k, int n, int splits, int steps, cudaStream_t stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (nt + kBM - 1) / kBM, splits);
-  T* yt = static_cast<T*>(y);
-  cudaError_t err = launch_tiles(static_cast<const T*>(x), static_cast<const T*>(w), yt,
-                                 splits > 1 ? part : nullptr, nt, k, n, grid, steps, stream);
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long m = (long long)nt * n;
-  const int blocks = m > 4096LL * 256 ? 4096 : (int)((m + 255) / 256);
-  sum_splits_kernel<T><<<blocks, 256, 0, stream>>>(part, yt, splits, m);
-  return cudaGetLastError();
+cudaError_t project(const void* x, const void* w, void* y, int nt, int k, int n,
+                    cudaStream_t stream) {
+  const dim3 grid((n + kBN - 1) / kBN, (nt + kBM - 1) / kBM);
+  return launch_tiles(static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+                      nt, k, n, grid, stream);
 }
 
 template <typename T>
@@ -488,18 +455,13 @@ cudaError_t roundtrip(const void* x, const void* enc, const void* dec,
 
 }  // namespace
 
-// y[nt, n] = x[nt, k] . w[k, n] on 64 x 64 output tiles, each of `splits`
-// K splits taking `steps` K steps of 64; with splits > 1, part is f32
-// scratch [splits, nt, n] (else unused).  dtype: 0 = float32, 1 =
-// bfloat16.  Returns the first failed launch's cudaError_t (0 = launched).
-extern "C" int lowrank_project_launch(const void* x, const void* w, void* y,
-                                      void* part, int nt, int k, int n,
-                                      int splits, int steps, int dtype,
-                                      void* stream) {
+// y[nt, n] = x[nt, k] . w[k, n] on 64 x 64 output tiles.  dtype: 0 =
+// float32, 1 = bfloat16.  Returns the launch's cudaError_t (0 = launched).
+extern "C" int lowrank_project_launch(const void* x, const void* w, void* y, int nt,
+                                      int k, int n, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  if (dtype == 1) return (int)project<bf16>(x, w, y, p, nt, k, n, splits, steps, s);
-  return (int)project<float>(x, w, y, p, nt, k, n, splits, steps, s);
+  if (dtype == 1) return (int)project<bf16>(x, w, y, nt, k, n, s);
+  return (int)project<float>(x, w, y, nt, k, n, s);
 }
 
 // xhat = (x . enc) . dec, err = sum (x - xhat)^2 in f32.  partial is f32

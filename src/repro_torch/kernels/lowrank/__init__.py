@@ -4,7 +4,6 @@ from repro_torch.kernels.lowrank.ops import (
     lowrank_project_plain,
     lowrank_roundtrip,
     lowrank_roundtrip_plain,
-    project_plan,
 )
 
 __all__ = [
@@ -13,5 +12,4 @@ __all__ = [
     "lowrank_project_plain",
     "lowrank_roundtrip",
     "lowrank_roundtrip_plain",
-    "project_plan",
 ]

@@ -10,11 +10,8 @@ first, as the reference's ``encode_1d`` / ``decode_1d`` do.  A CPU tensor
 goes to the plain version; a CUDA tensor launches ``csrc/lowrank.cu`` or
 raises.  Any number of rows T is taken (the kernel masks the tail).
 
-Encode and decode share one kernel on 64 x 64 output tiles;
-:func:`project_plan` splits K over more blocks where the tiles alone leave
-the card's SMs idle and K is long (encode at the streaming engine's 4- and
-32-row steps), and the partials are summed in a fixed order, so two
-launches give the same bits.
+Encode and decode share one kernel on 64 x 64 output tiles, each block
+walking all of K in a fixed order, so two launches give the same bits.
 """
 
 from __future__ import annotations
@@ -30,11 +27,6 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROWS = 8  # token rows per roundtrip block (kRows in csrc/lowrank.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
-TILE = 64  # output rows, output columns and K of a projection step (kBM, kBN, kBK)
-# a K split costs a second launch that sums the partials: on the H100 it
-# pays for itself only where a block would walk more than this many K steps
-# (4 rows: encode's 12 steps split, decode's 6 do not; PERF.md)
-SPLIT_MIN_STEPS = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,33 +34,13 @@ def _lib():
     lib = build.load("lowrank")
     lib.lowrank_project_launch.restype = ctypes.c_int
     lib.lowrank_project_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.lowrank_roundtrip_launch.restype = ctypes.c_int
     lib.lowrank_roundtrip_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     return lib
-
-
-def project_plan(nt: int, k: int, n: int, sms: int) -> Tuple[int, int]:
-    """(splits, steps): the projection's grid is ceil(n/64) x ceil(nt/64)
-    output tiles times ``splits`` K splits of ``steps`` K steps of 64 each.
-    Where the tiles alone fill under half of the ``sms`` SMs and a block
-    would walk more than ``SPLIT_MIN_STEPS`` K steps, K is split so that
-    tiles x splits comes near ``sms``; no split is empty.  A function of
-    the shape and the card alone, so equal shapes give equal bits."""
-    tiles = -(-nt // TILE) * -(-n // TILE)
-    ksteps = max(1, -(-k // TILE))
-    if 2 * tiles >= sms or ksteps <= SPLIT_MIN_STEPS:
-        return 1, ksteps
-    steps = -(-ksteps // min(ksteps, max(1, sms // tiles)))
-    return -(-ksteps // steps), steps
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lowrank_project_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -117,12 +89,8 @@ def _project(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((nt, n), dtype=x.dtype, device=x.device)
     if y.numel() == 0:  # an empty grid is no launch
         return y
-    splits, steps = project_plan(nt, k, n, _sm_count(x.device.index))
-    part = (torch.empty((splits, nt, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
     err = _lib().lowrank_project_launch(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), None if part is None else part.data_ptr(),
-        nt, k, n, splits, steps, _DTYPES[x.dtype],
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), nt, k, n, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check_launch(err, what)

@@ -379,11 +379,11 @@ def test_flash_rows_without_a_visible_key(gen, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [4, 32, 1000])
-def test_lowrank_project_split_k(gen, dtype, T):
+def test_lowrank_project_stream_widths(gen, dtype, T):
     """Encode and decode at the streaming engine's widths (d = 768, r =
-    384): encode at 4 and 32 rows splits K over more blocks, the rest do
-    not; each against its plain version, and two launches give the same
-    bits."""
+    384) and row counts (its decode group step, its prefill chunk, and a
+    ragged 1000): each against its plain version, and two launches give the
+    same bits."""
     d, r = 768, 384
     x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
     q = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0]
@@ -415,6 +415,29 @@ def test_bf16_kernels_take_unaligned_operands(gen):
     x, w = unaligned(40, 96), unaligned(96, 48)
     torch.testing.assert_close(lowrank_encode(x, w).float(),
                                lowrank_project_plain(x, w).float(), rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("odd", ["width", "alignment"])
+def test_bf16_projection_scalar_path_is_deterministic(gen, odd):
+    """The bf16 projection's scalar loads (k not a multiple of 8, or an
+    operand not 16-byte aligned) fill the ring with plain stores that other
+    warps' wgmma read: a hundred launches give the bits of the first, which
+    agree with the plain version.  Several K steps, so every ring slot is
+    filled and refilled."""
+    if odd == "width":
+        x = torch.randn(200, 770, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(770, 90, generator=gen, device="cuda").bfloat16()
+    else:
+        buf = torch.randn(1 + 200 * 768, generator=gen, device="cuda").bfloat16()
+        x = buf[1:].view(200, 768)
+        assert x.data_ptr() % 16 == 2
+        w = torch.randn(768, 384, generator=gen, device="cuda").bfloat16()
+    first = lowrank_encode(x, w)
+    ref = lowrank_project_plain(x, w).float()
+    torch.testing.assert_close(first.float(), ref, rtol=2 ** -7,
+                               atol=2 ** -6 * ref.abs().median().item())
+    for _ in range(100):
+        assert torch.equal(lowrank_encode(x, w), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

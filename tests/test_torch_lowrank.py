@@ -36,9 +36,7 @@ from repro_torch.kernels.lowrank import (
     lowrank_decode,
     lowrank_encode,
     lowrank_roundtrip,
-    project_plan,
 )
-from repro_torch.kernels.lowrank.ops import SPLIT_MIN_STEPS, TILE
 
 # one intra-op thread per test worker: the suite runs several workers on a
 # few shared cores, where a many-thread pool stalls on every tiny op
@@ -98,17 +96,25 @@ def test_plain_against_ref_and_pallas(T, d, r, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("T", [1, 37, 1000])
-def test_ragged_token_counts(T, dtype):
+@pytest.mark.parametrize("T,d,r", [
+    *(pytest.param(T, 96, 24, id=str(T)) for T in (1, 4, 32, 37, 1000)),
+    # full-width switch-base's boundary (rank 384) at the rows the engines
+    # give it: the streaming engine's decode group step and prefill chunk,
+    # and the one-shot pipeline's [4, 256] batch
+    (4, 768, 384), (32, 768, 384), (1024, 768, 384),
+])
+def test_ragged_token_counts(T, d, r, dtype):
     """Any T: the Pallas kernels assert T % block == 0, the port does not;
     held against ``ref.py``, which takes any T."""
     jdt, tdt = DTYPES[dtype]
-    d, r = 96, 24
     enc, dec = _codec(d, r, seed=2)
     x = _x(T, d, seed=3)
     xj, ej, dj = (jnp.asarray(a).astype(jdt) for a in (x, enc, dec))
     xt, et, dt_ = (_t(a, tdt) for a in (x, enc, dec))
-    _close(lowrank_encode(xt, et).float(), encode_ref(xj, ej), dtype)
+    z = lowrank_encode(xt, et)
+    _close(z.float(), encode_ref(xj, ej), dtype)
+    zj = jnp.asarray(z.float().numpy()).astype(jdt)
+    _close(lowrank_decode(z, dt_).float(), decode_ref(zj, dj), dtype)
     xh_t, err_t = lowrank_roundtrip(xt, et, dt_)
     xh_j, err_j = roundtrip_ref(xj, ej, dj)
     _close(xh_t.float(), xh_j, dtype)
@@ -167,40 +173,6 @@ def test_roundtrip_error_sum_is_the_recon_loss():
     x_hat, err = lowrank_roundtrip(x, tp["enc"], tp["dec"])
     np.testing.assert_allclose(float(err) / x.numel(), float(tcomp.recon_loss(x, x_hat)),
                                rtol=1e-5)
-
-
-@pytest.mark.parametrize("T,k,n,want", [
-    (4, 768, 384, (12, 1)),  # the stream engine's decode group step, encode: 6 tiles
-    (4, 384, 768, (1, 6)),  # ... decode: 12 tiles, but only 6 K steps
-    (32, 768, 384, (12, 1)),  # its 32-token prefill chunk
-    (1024, 768, 384, (1, 12)),  # the one-shot pipeline: 96 tiles fill the card
-    (1024, 384, 768, (1, 6)),
-    (37, 96, 24, (1, 2)),
-    (1, 64, 64, (1, 1)),
-    (1, 576, 64, (9, 1)),  # one tile, 9 K steps
-    (128, 2048, 1024, (4, 8)),  # 32 tiles: 4 splits of 8 K steps
-])
-def test_project_plan(T, k, n, want):
-    """The codec's tile plan on the H100's 132 SMs: K is split only where
-    the output tiles fill under half the SMs and K runs past
-    ``SPLIT_MIN_STEPS`` steps; every K step lies in exactly one split and
-    none is empty; and summing the splits' f32 partials in split order (as
-    the kernel's second pass does) is the product."""
-    sms = 132
-    splits, steps = project_plan(T, k, n, sms)
-    assert (splits, steps) == want
-    tiles = -(-T // TILE) * -(-n // TILE)
-    ksteps = -(-k // TILE)
-    assert (splits - 1) * steps < ksteps <= splits * steps
-    assert splits == 1 or (2 * tiles < sms and ksteps > SPLIT_MIN_STEPS
-                            and tiles * splits <= sms)
-    g = torch.Generator().manual_seed(T)
-    x, w = torch.randn(T, k, generator=g), torch.randn(k, n, generator=g)
-    y = torch.zeros(T, n)
-    for z in range(splits):
-        ks = slice(z * steps * TILE, (z + 1) * steps * TILE)
-        y += x[:, ks] @ w[ks]
-    torch.testing.assert_close(y, x @ w, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("d,r", [(64, 16), (32, 32)])
