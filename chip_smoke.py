@@ -14,16 +14,30 @@ Phases, in order; any failure exits non-zero before the result lines:
    it: the kernel's time (L2 flushed before every launch), the plain
    version's, the least time the card could take for the same work
    (``bound_ms``), and one PyTorch library call of the same function where
-   one exists (``library_ms``, a yardstick the port never calls).  Flash
-   attention also at head dims 32 and 128 and with query rows that see no
-   key; the codec also at the streaming engine's 4 and 32 rows, each shape
-   launched twice for equal bits.
+   one exists (``library_ms``, a yardstick the port never calls).  The
+   profiler's device time a call of the kernel's own launches and of its
+   yardstick is queued here and read at the end, after phase 7, so that
+   its sessions and flushes run after the timed windows of phases 3-7
+   (``Timer.later``).  Flash attention also at head dims 32
+   and 128 and with query rows that see no key; the codec also at the
+   streaming engine's 4 and 32 rows; paged attention (dense and int8
+   pools) also at the streaming engine's 4-slot group over 32-page rings at
+   C = 1 and 16 (``PA_CASES``, SDPA beside it); the expert FFN also at the
+   streaming cloud tier's n = 4 and the pipeline's n = 1024 (an uneven
+   top-1 split over the 8 experts; bf16 and f32), PyTorch's per-expert
+   products and ``torch._grouped_mm`` beside it (``ffn_yardsticks``), and
+   at llama4-scout's width (d_model 5120) on both of its paths
+   (``WIDE_FFN_CASES``).  The codec, paged
+   attention and the expert FFNs are launched twice at each shape for
+   equal bits.
 3. Full-width switch-base (12 layers, d_model 768, 8 experts) with random
    weights from a seeded generator, serving 8 requests (prompts of 16-200
    tokens, 32 new tokens each) through ``ServingEngine`` on the card.  The
    kernels' launch counters are zeroed just before and read just after;
    every kernel must have launched, every request must finish and the KV
-   page pool must be empty again.  Step times, tokens/s and peak memory.
+   page pool must be empty again.  Step times, tokens/s and peak memory;
+   then 8 more requests of the same prompt lengths, and a profiled decode
+   step with their 8 slots decoding.
 4. The first prefill chunk and one decode step of a short prompt on the card
    against the same model on the CPU (plain versions, same bf16 weights).
 5. The one-shot two-tier ``EndCloudPipeline`` on the same full-width
@@ -73,8 +87,10 @@ Phases, in order; any failure exits non-zero before the result lines:
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  The profiled
-``run_batch`` and stream ticks log the mean time in path of flash
-attention and the codec's kernels.  ``torch.profiler``
+decode step, ``run_batch`` and stream ticks log the mean time in path, a
+wrapper call, of paged attention (its sweep and merge), the expert FFNs
+(streaming kernel and reduction, or the two tensor-core GEMMs), the gate,
+flash attention and the codec (``kernels_in_path``).  ``torch.profiler``
 tables of one decode step and of one ``run_batch`` go to
 ``chiprun_out/decode_profile.txt`` and ``chiprun_out/pipeline_profile.txt``,
 one of a streaming-engine tick to ``chiprun_out/stream_profile.txt`` (and
@@ -85,6 +101,7 @@ compiler's register / spill report to
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import subprocess
@@ -112,11 +129,32 @@ def nvidia_smi() -> str:
 class Timer:
     """Mean device time of a callable over ``iters`` launches, each after an
     L2 flush (the serving step reaches every layer's weights and pages cold:
-    the weights alone are 660 MB against a 50 MB L2)."""
+    the weights alone are 660 MB against a 50 MB L2).  ``__call__`` reads a
+    CUDA event pair around each call, which also times the wrapper's Python;
+    :meth:`device_us` reads the profiler's device time of the call's own
+    kernels.  Phase 2 queues its profiler readings with :meth:`later`;
+    :meth:`read_later` takes them after the timed serving, pipeline and
+    stream runs, so that their profiler sessions, yardstick calls and
+    flushes run after those windows, not before them."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        self.queued = []
+
+    def later(self, label: str, fn, yardsticks=None):
+        """Queue the device time a call of ``fn`` (and the line that
+        ``yardsticks()`` returns, the yardsticks' device times) under
+        ``label``."""
+        self.queued.append((label, fn, yardsticks))
+
+    def read_later(self):
+        """Log every queued reading, in the order queued, and drop them."""
+        for label, fn, yardsticks in self.queued:
+            dev_us, keys = self.device_us(fn)
+            yard = f", {yardsticks()}" if yardsticks is not None else ""
+            log(f"  {label}: kernel {dev_us:.3f} [{short_names(keys)}]{yard}")
+        self.queued.clear()
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -133,6 +171,41 @@ class Timer:
             pairs.append((e0, e1))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+    def device_us(self, fn, iters: int = 20):
+        """(mean device time in us of every kernel one call of ``fn``
+        launches, each call after an L2 flush; {kernel name: its mean us}),
+        read by ``torch.profiler`` over the flushes and calls, the flush's
+        own fill kernel left out; nan where it recorded no other kernel."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush_buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: e.self_device_time_total / iters for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and "FillFunctor" not in e.key
+               and "Memset" not in e.key}
+        if not per:
+            return float("nan"), {}
+        return sum(per.values()), per
+
+
+def short_name(key: str) -> str:
+    """A kernel's name without its namespace, template and argument lists."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0][:48]
+
+
+def short_names(per: dict) -> str:
+    """``{kernel name: mean us}`` (``Timer.device_us``) for a log line."""
+    return ",".join(sorted(f"{short_name(k)} {us:.3f}" for k, us in per.items()))
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -160,12 +233,26 @@ def check_close(name, out, ref, rtol: float, atol: float) -> float:
 # ---------------------------------------------------------------------------
 
 
-def paged_attention_inputs(torch, C: int, seed: int):
-    """B=8 slots, 12 kv heads of 64, 16-token pages, a 16-page ring (256
-    tokens); ragged lengths, a 1-token slot and one slot past a ring wrap."""
+# (name, B, pps, C, ring anchors): the serving engine's decode step and
+# prefill chunk (8 slots, 16-page rings; a 1-token slot and one slot past a
+# ring wrap), and the streaming engine's micro-batch group of 4 slots with
+# its default 512-token ring (32 pages), decode and a 16-token chunk
+PA_CASES = (
+    ("B=8 pps=16 C=1", 8, 16, 1, (0, 15, 16, 47, 100, 199, 231, 300)),
+    ("B=8 pps=16 C=32", 8, 16, 32, (0, 15, 16, 47, 100, 199, 231, 300)),
+    ("B=4 pps=32 C=1", 4, 32, 1, (37, 118, 199, 231)),
+    ("B=4 pps=32 C=16", 4, 32, 16, (37, 118, 199, 231)),
+)
+
+
+def paged_attention_inputs(torch, C: int, seed: int, B: int = 8, pps: int = 16,
+                           lengths=PA_CASES[0][4]):
+    """B slots, 12 kv heads of 64, 16-token pages, a pps-page ring; slot b
+    holds positions up to ``lengths[b]`` (its ring anchor), unmapped table
+    entries are garbage, and the C query rows end at the anchor."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, hd, ps, pps = 8, 12, 64, 16, 16
-    lengths = torch.tensor([0, 15, 16, 47, 100, 199, 231, 300], dtype=torch.int32)
+    H, hd, ps = 12, 64, 16
+    lengths = torch.tensor(lengths, dtype=torch.int32)
     P = B * pps
     perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed)).view(B, pps)
     table = torch.full((B, pps), P, dtype=torch.int32)
@@ -181,50 +268,90 @@ def paged_attention_inputs(torch, C: int, seed: int):
     return q, pool_k, pool_v, table.cuda(), q_pos.cuda(), lengths.cuda()
 
 
-def run_paged_attention(torch, timer):
+def run_paged_attention(torch, timer, quant: bool = False):
+    """Paged attention (``quant``: over int8 pools, codes and f16 scales per
+    token from the quantizer) against its plain version at ``PA_CASES``:
+    within tolerance, the same bits from a second launch, the bound, and
+    beside the kernel's time SDPA's on the pre-gathered (and dequantized)
+    dense ring, each as an event pair and as the profiler's device time a
+    call.  Returns the first case's record, with the largest error."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
-    from repro_torch.models.kvcache import paged_gather, ring_key_positions
+    from repro_torch.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_plain,
+        paged_attention_quant,
+    )
+    from repro_torch.models.kvcache import (
+        dequantize_kv_pool,
+        paged_gather,
+        quantize_kv_tokens,
+        ring_key_positions,
+    )
 
+    what = "paged_attention_quant" if quant else "paged_attention"
     rec = {}
-    for C in (1, 32):
-        args = paged_attention_inputs(torch, C, seed=C)
-        q, pool_k, pool_v, table, q_pos, lengths = args
-        out = paged_attention(*args)
-        ref = paged_attention_plain(*args)
-        # Both sides accumulate in f32 and round once to bf16, in another
-        # order: one to two bf16 ulps of each element (rtol 2^-7), and four
-        # ulps at the median |output| (atol) for elements near zero.
+    for i, (name, B, pps, C, anchors) in enumerate(PA_CASES):
+        seed = (10 if quant else 0) + C + (100 if i >= 2 else 0)
+        q, pool_k, pool_v, table, q_pos, lengths = paged_attention_inputs(
+            torch, C, seed, B=B, pps=pps, lengths=anchors)
+        H, hd = q.shape[2], q.shape[3]
+        ps = pool_k.shape[1]
+        if quant:
+            kq, ks = quantize_kv_tokens(pool_k)
+            vq, vs = quantize_kv_tokens(pool_v)
+            args = (q, kq, vq, ks, vs, table, q_pos, lengths)
+            fn = paged_attention_quant
+            plain_args = (q, kq, vq, table, q_pos, lengths)
+            plain_kw = dict(k_scale=ks, v_scale=vs)
+            ring_k = dequantize_kv_pool(kq, ks, torch.bfloat16)
+            ring_v = dequantize_kv_pool(vq, vs, torch.bfloat16)
+            page_bytes = 2 * ps * H * hd + 2 * ps * 2  # int8 K and V, f16 scales
+        else:
+            args = (q, pool_k, pool_v, table, q_pos, lengths)
+            fn = paged_attention
+            plain_args, plain_kw = args, {}
+            ring_k, ring_v = pool_k, pool_v
+            page_bytes = 2 * ps * H * hd * 2  # K and V of one page, bf16
+        out = fn(*args)
+        ref = paged_attention_plain(*plain_args, **plain_kw)
+        # Both sides accumulate in f32 (int8 pools: dequantized exactly, p
+        # kept in f32) and round once to bf16, in another order: one to two
+        # bf16 ulps of each element (rtol 2^-7), and four ulps at the median
+        # |output| (atol) for elements near zero.
         atol = 2 ** -6 * ref.float().abs().median().item()
-        err = check_close(f"paged_attention C={C}", out, ref, rtol=2 ** -7, atol=atol)
+        err = check_close(f"{what} {name}", out, ref, rtol=2 ** -7, atol=atol)
+        if not torch.equal(fn(*args), out):
+            raise AssertionError(f"{what} {name}: two launches on the same inputs differ")
 
-        B, _, H, hd = q.shape
-        ps, pps = pool_k.shape[1], table.shape[1]
         W = ps * pps
         kp = ring_key_positions(lengths, W)  # [B, W]
         vis = (kp[:, None, :] <= q_pos[:, :, None].long()) & (kp[:, None, :] >= 0)
-        live = vis.view(B, C, pps, ps).any(dim=(1, 3)) & (table != pool_k.shape[0] - 1)
-        page_bytes = 2 * ps * H * hd * 2  # K and V of one page, bf16
+        mapped = table != pool_k.shape[0] - 1
+        live = vis.view(B, C, pps, ps).any(dim=(1, 3)) & mapped
         nbytes = (2 * q.numel() * 2 + int(live.sum()) * page_bytes
                   + (table.numel() + q_pos.numel() + lengths.numel()) * 4)
-        flops = 4 * hd * H * int(vis.sum())
-        b_ms, b_by = bound(nbytes, flops, "bf16")
-
+        b_ms, b_by = bound(nbytes, 4 * hd * H * int(vis.sum()), "bf16")
         # yardstick: SDPA over the pre-gathered dense ring with a boolean mask
-        kd = paged_gather(pool_k, table).transpose(1, 2)  # [B, H, W, hd]
-        vd = paged_gather(pool_v, table).transpose(1, 2)
-        qd = q.transpose(1, 2)
-        mask = vis[:, None]  # [B, 1, C, W]
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
-        ms = timer(lambda: paged_attention(*args))
-        plain_ms = timer(lambda: paged_attention_plain(*args), iters=5)
-        log(f"  paged_attention C={C}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa)={lib_ms:.4f} "
-            f"live_pages={int(live.sum())}")
-        rec[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=lib_ms)
-    return rec[1]
+        kd = paged_gather(ring_k, table).transpose(1, 2)  # [B, H, W, hd]
+        vd = paged_gather(ring_v, table).transpose(1, 2)
+        qd, mask = q.transpose(1, 2), vis[:, None]  # mask [B, 1, C, W]
+
+        sdpa = functools.partial(F.scaled_dot_product_attention, qd, kd, vd, attn_mask=mask)
+        call = functools.partial(fn, *args)
+        lib_ms = timer(sdpa)
+        ms = timer(call)
+        plain_ms = timer(lambda: paged_attention_plain(*plain_args, **plain_kw), iters=5)
+        timer.later(f"{what} {name}", call,
+                    lambda sdpa=sdpa: f"sdpa {timer.device_us(sdpa)[0]:.3f}")
+        log(f"  {what} {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+            f"({b_by}) library_ms(sdpa)={lib_ms:.4f}; rows C*G={C}, table entries "
+            f"{B * pps}, mapped {int(mapped.sum())}, live {int(live.sum())}; deterministic")
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms)
+    main = dict(rec[PA_CASES[0][0]])
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+    return main
 
 
 def run_group_gate(torch, timer):
@@ -264,71 +391,187 @@ def run_group_gate(torch, timer):
     return rec[8]
 
 
-def run_expert_mlp(torch, timer):
+def ffn_yardsticks(torch, timer, xs, sizes, wi, wg, wo, act) -> str:
+    """Device time a call (profiler, L2 flushed) of the expert FFN written
+    with PyTorch's own products, each more than one call and never called by
+    the port: a ``torch.matmul`` per product of every routed expert (group
+    sizes known on the host) with the activation between, and, where this
+    PyTorch has it, two ``torch._grouped_mm`` calls with the activation
+    between (weights in the rows' type)."""
+    from repro_torch.models.layers import ACTIVATIONS
+
+    a = ACTIVATIONS[act]
+    runs, start = [], 0
+    for e, c in enumerate(sizes):
+        if c:
+            runs.append((e, start, start + c))
+        start += c
+
+    def matmuls():
+        outs = []
+        for e, r0, r1 in runs:
+            x = xs[r0:r1]
+            h = a(x @ wi[e]) * (x @ wg[e]) if wg is not None else a(x @ wi[e])
+            outs.append(h @ wo[e])
+        return outs
+
+    mm_us, _ = timer.device_us(matmuls)
+    out = f"per-expert matmuls ({len(runs)} experts, {len(runs) * (3 if wg is not None else 2)} " \
+          f"products) {mm_us:.3f}"
+    gmm = getattr(torch, "_grouped_mm", None)
+    if gmm is None or xs.dtype != torch.bfloat16:
+        return out + ", torch._grouped_mm not available"
+    offs = torch.tensor(sizes, dtype=torch.int32, device=xs.device).cumsum(0).int()
+
+    def grouped():
+        h = a(gmm(xs, wi, offs=offs))
+        if wg is not None:
+            h = h * gmm(xs, wg, offs=offs)
+        return gmm(h, wo, offs=offs)
+
+    try:
+        grouped()
+    except (RuntimeError, TypeError, ValueError) as exc:  # a yardstick only
+        return out + f", torch._grouped_mm refused these operands ({str(exc)[:80]})"
+    gmm_us, _ = timer.device_us(grouped)
+    return out + f", torch._grouped_mm x{3 if wg is not None else 2} {gmm_us:.3f}"
+
+
+# (name, group sizes over switch-base's 8 experts, activation, gated, rows'
+# type): the serving decode (n = 8), a prefill chunk (n = 32), the
+# streaming engine's cloud tier (n = 4), the one-shot pipeline's [4, 256]
+# batch (an uneven top-1 split), and that batch in f32 as the card-vs-CPU
+# pipeline check runs it; gated SiLU checked, not timed
+FFN_CASES = (
+    ("decode n=8", (3, 0, 2, 0, 1, 1, 0, 1), "gelu", False, "bf16"),
+    ("prefill n=32", (12, 0, 9, 3, 0, 5, 1, 2), "gelu", False, "bf16"),
+    ("gated silu n=8", (0, 2, 2, 0, 0, 3, 1, 0), "silu", True, "bf16"),
+    ("stream cloud n=4", (1, 0, 1, 0, 0, 1, 0, 1), "gelu", False, "bf16"),
+    ("run_batch n=1024", (201, 87, 160, 45, 133, 178, 96, 124), "gelu", False, "bf16"),
+    ("f32 rows n=1024", (201, 87, 160, 45, 133, 178, 96, 124), "gelu", False, "f32"),
+)
+# llama4-scout's expert at full width (d_model 5120, d_ff 8192, gated SiLU),
+# 4 experts: the streaming path (n = 8) and the tensor cores (n = 72)
+WIDE_FFN_CASES = (("llama4-scout n=8", (3, 0, 4, 1)), ("llama4-scout n=72", (30, 0, 41, 1)))
+# the end tier's resident FFN over switch-base's slab store (18 slabs and the
+# zero garbage slab): (name, rows' type, slot sizes, slab ids; the last slot
+# is the garbage slot)
+RESIDENT_SLABS = 18
+RESIDENT_CASES = (
+    ("decode n=4", "bf16", (2, 0, 1, 1), (7, 2, 13, RESIDENT_SLABS)),
+    ("prefill n=32", "bf16", (14, 9, 5, 4), (11, 0, 5, RESIDENT_SLABS)),
+    ("f32 rows n=32", "f32", (14, 0, 12, 6), (16, 3, 9, RESIDENT_SLABS)),
+)
+RESIDENT_QUANT_CASES = RESIDENT_CASES[:2]  # bf16 rows, as the int8 engine runs them
+
+
+def switch_base_moe(gen):
+    """Full-width switch-base's expert weights ``{wi, wo}`` (f32, the model's
+    own shapes and init scales) drawn from ``gen``, and its config."""
     from repro_torch.configs import get_config
     from repro_torch.core.moe import init_moe
-    from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_plain
 
     cfg = get_config("switch-base")
+    return init_moe(gen, cfg), cfg
+
+
+def resident_store(torch, p, quant: bool = False):
+    """The slab store of ``RESIDENT_CASES`` from switch-base's experts ``p``:
+    the 8 experts, flipped, the first 2 again and the zero garbage slab; f32,
+    or (``quant``) int8 codes with their column scales ``{k}_scale``."""
+    from repro_torch.core.expertpool import quantize_slab
+
+    store = {}
+    for k in ("wi", "wo"):
+        w = torch.cat([p[k], p[k].flip(0), p[k][:2], torch.zeros_like(p[k][:1])])
+        if quant:
+            store[k], store[f"{k}_scale"] = quantize_slab(w)
+        else:
+            store[k] = w
+    return store
+
+
+def wide_ffn_weights(torch, gen):
+    """Four experts of llama4-scout's full width in bf16 (``wi``, ``wg`` [4,
+    5120, 8192], ``wo`` [4, 8192, 5120]), scaled as its init does."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama4-scout-17b-16e")
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    return {k: (torch.randn(4, *shape, generator=gen, device="cuda") / shape[0] ** 0.5).bfloat16()
+            for k, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d)))}
+
+
+def run_expert_mlp(torch, timer):
+    """The grouped expert FFN at ``FFN_CASES``, and at llama4-scout's width
+    on both paths (``WIDE_FFN_CASES``): within tolerance, the same bits from
+    a second launch, the bound, and (queued) the device time a call beside
+    the yardsticks of ``ffn_yardsticks``."""
+    from repro_torch.kernels.expert_mlp import ffn_plan, grouped_mlp, grouped_mlp_plain
+
     gen = torch.Generator(device="cuda").manual_seed(2)
-    p = init_moe(gen, cfg)  # the model's own shapes and init scales
-    wi, wo = p["wi"].bfloat16(), p["wo"].bfloat16()
-    E, d, f = wi.shape
+    p, cfg = switch_base_moe(gen)
+    E, d, f = p["wi"].shape
+    weights = {"bf16": (p["wi"].bfloat16(), p["wo"].bfloat16()), "f32": (p["wi"], p["wo"])}
+    wg = (torch.randn(E, d, f, generator=gen, device="cuda") / E ** 0.5).bfloat16()
+    wide = wide_ffn_weights(torch, gen)
+    cases = [(name, sizes, act, wg if gated else None, dt, *weights[dt])
+             for name, sizes, act, gated, dt in FFN_CASES]
+    cases += [(name, sizes, "silu", wide["wg"], "bf16", wide["wi"], wide["wo"])
+              for name, sizes in WIDE_FFN_CASES]
     rec = {}
-    cases = [
-        ("decode n=8", [3, 0, 2, 0, 1, 1, 0, 1], "gelu", None),
-        ("prefill n=32", [12, 0, 9, 3, 0, 5, 1, 2], "gelu", None),
-        ("gated silu n=8", [0, 2, 2, 0, 0, 3, 1, 0], "silu",
-         (torch.randn(E, d, f, generator=gen, device="cuda") / E ** 0.5).bfloat16()),
-    ]
-    for name, sizes, act, wg in cases:
-        n = sum(sizes)
+    for name, sizes, act, wg_, dt, wi, wo in cases:
+        n, dtype = sum(sizes), (torch.bfloat16 if dt == "bf16" else torch.float32)
+        d_, f_ = wi.shape[1], wi.shape[2]
         gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-        xs = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
-        args = (xs, gs, wi, wg, wo, act)
+        xs = torch.randn(n, d_, generator=gen, device="cuda").to(dtype)
+        args = (xs, gs, wi, wg_, wo, act)
         y = grouped_mlp(*args)
         ref = grouped_mlp_plain(*args)
-        # the kernel keeps the hidden activation in f32 where the plain
-        # version (as ragged_dot) rounds it to bf16: a few bf16 ulps of |y|
-        tol = 2e-2 * ref.float().abs().max().item()
+        # bf16: the weight-streaming path keeps the hidden activation in f32
+        # where the plain version (as ragged_dot) rounds it to bf16, the
+        # tensor-core path rounds it as the plain version does: within a
+        # few bf16 ulps of |y| either way; f32: sums in another order
+        tol = (2e-2 if dt == "bf16" else 1e-4) * ref.float().abs().max().item()
         err = check_close(f"expert_mlp {name}", y, ref, rtol=0, atol=tol)
-        if name.startswith("gated"):
+        if not torch.equal(grouped_mlp(*args), y):
+            raise AssertionError(f"expert_mlp {name}: two launches on the same inputs differ")
+        if wg_ is not None:
+            log(f"    path={ffn_plan(n, d_, f_, dtype)}; deterministic")
             continue
         routed = sum(1 for s in sizes if s)
-        nbytes = 2 * n * d * 2 + routed * 2 * d * f * 2 + E * 4
-        b_ms, b_by = bound(nbytes, 2 * 2 * n * d * f, "bf16")
-        ms = timer(lambda: grouped_mlp(*args))
+        isz = xs.element_size()
+        nbytes = 2 * n * d * isz + routed * 2 * d * f * wi.element_size() + E * 4
+        b_ms, b_by = bound(nbytes, 2 * 2 * n * d * f, dt)
+        call = functools.partial(grouped_mlp, *args)
+        ms = timer(call)
         plain_ms = timer(lambda: grouped_mlp_plain(*args))
+        timer.later(f"expert_mlp {name}", call, functools.partial(
+            ffn_yardsticks, torch, timer, xs, sizes, wi, None, wo, act))
         log(f"  expert_mlp {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null routed_experts={routed}")
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null routed_experts={routed} "
+            f"path={ffn_plan(n, d, f, dtype)}; deterministic")
         rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
-    return rec["decode n=8"]
+    main = dict(rec["decode n=8"])
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+    return main
 
 
 def run_expert_mlp_resident(torch, timer):
-    """The end tier's resident expert FFN: slot-sorted rows against the f32
-    slab store of full-width switch-base (18 slabs and the zero garbage
-    slab), permuted slab ids, an empty slot, and rows on the garbage slot,
-    which must come back exactly 0."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.moe import init_moe
+    """The end tier's resident expert FFN at ``RESIDENT_CASES``: slot-sorted
+    rows against the f32 slab store of full-width switch-base, permuted slab
+    ids, an empty slot, and rows on the garbage slot, which must come back
+    exactly 0."""
     from repro_torch.kernels.expert_mlp import grouped_mlp_resident, grouped_mlp_resident_plain
 
-    cfg = get_config("switch-base")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    p = init_moe(gen, cfg)  # the model's init scales, f32 as stored
-    N = 18
-    store = {k: torch.cat([p[k], p[k].flip(0), p[k][:2], torch.zeros_like(p[k][:1])])
-             for k in ("wi", "wo")}
+    p, cfg = switch_base_moe(gen)
+    store = resident_store(torch, p)
     d, f = cfg.d_model, cfg.moe.d_ff_expert
     rec = {}
-    cases = [  # (name, rows' type, slot sizes, slab ids; the last slot is the garbage slot)
-        ("decode n=4", torch.bfloat16, [2, 0, 1, 1], [7, 2, 13, N]),
-        ("prefill n=32", torch.bfloat16, [14, 9, 5, 4], [11, 0, 5, N]),
-        ("f32 rows n=32", torch.float32, [14, 0, 12, 6], [16, 3, 9, N]),
-    ]
-    for name, dt, sizes, ids in cases:
+    for name, dt, sizes, ids in RESIDENT_CASES:
+        dt = torch.bfloat16 if dt == "bf16" else torch.float32
         n = sum(sizes)
         gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
         idt = torch.tensor(ids, dtype=torch.int32, device="cuda")
@@ -343,6 +586,8 @@ def run_expert_mlp_resident(torch, timer):
         err = check_close(f"expert_mlp_resident {name}", y, ref, rtol=0, atol=tol)
         if not bool((y[n - sizes[-1]:] == 0).all()):
             raise AssertionError(f"expert_mlp_resident {name}: garbage-slot rows are not 0")
+        if not torch.equal(grouped_mlp_resident(*args), y):
+            raise AssertionError(f"expert_mlp_resident {name}: two launches differ")
         # the slabs of slots with rows, read once in the store's f32, plus
         # the rows in and out; the garbage slot reads nothing
         routed = sum(1 for s in sizes[:-1] if s)
@@ -350,10 +595,18 @@ def run_expert_mlp_resident(torch, timer):
         nbytes = 2 * n * d * isz + routed * 2 * d * f * 4 + 2 * len(sizes) * 4
         b_ms, b_by = bound(nbytes, 2 * 2 * (n - sizes[-1]) * d * f,
                            "bf16" if dt == torch.bfloat16 else "f32")
-        ms = timer(lambda: grouped_mlp_resident(*args))
+        call = functools.partial(grouped_mlp_resident, *args)
+        ms = timer(call)
         plain_ms = timer(lambda: grouped_mlp_resident_plain(*args))
+        # yardstick: the products over the slots' slabs gathered and cast
+        # to the rows' type beforehand (half the bytes of the f32 store)
+        idx = idt.long()
+        timer.later(f"expert_mlp_resident {name}", call, functools.partial(
+            ffn_yardsticks, torch, timer, xs, list(sizes[:-1]) + [0],
+            store["wi"][idx].to(dt), None, store["wo"][idx].to(dt), cfg.act))
         log(f"  expert_mlp_resident {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null routed_slots={routed}")
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null routed_slots={routed}; "
+            f"deterministic")
         rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
     main = rec["decode n=4"]
@@ -599,87 +852,23 @@ def run_quant(torch, timer):
     return out
 
 
-def run_paged_attention_quant(torch, timer):
-    """Paged attention over int8 pools (codes and f16 scales per token from
-    the quantizer) at the decode (C = 1) and chunk (C = 32) shapes."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.paged_attention import paged_attention_plain, paged_attention_quant
-    from repro_torch.models.kvcache import (
-        dequantize_kv_pool,
-        paged_gather,
-        quantize_kv_tokens,
-        ring_key_positions,
-    )
-
-    rec = {}
-    for C in (1, 32):
-        q, pool_k, pool_v, table, q_pos, lengths = paged_attention_inputs(torch, C, seed=10 + C)
-        kq, ks = quantize_kv_tokens(pool_k)
-        vq, vs = quantize_kv_tokens(pool_v)
-        args = (q, kq, vq, ks, vs, table, q_pos, lengths)
-        out = paged_attention_quant(*args)
-        ref = paged_attention_plain(q, kq, vq, table, q_pos, lengths, k_scale=ks, v_scale=vs)
-        # both sides dequantize exactly, keep p in f32 and round once to bf16,
-        # summing in another order: as the dense kernel's check
-        atol = 2 ** -6 * ref.float().abs().median().item()
-        err = check_close(f"paged_attention_quant C={C}", out, ref, rtol=2 ** -7, atol=atol)
-
-        B, _, H, hd = q.shape
-        ps, pps = kq.shape[1], table.shape[1]
-        kp = ring_key_positions(lengths, ps * pps)
-        vis = (kp[:, None, :] <= q_pos[:, :, None].long()) & (kp[:, None, :] >= 0)
-        live = vis.view(B, C, pps, ps).any(dim=(1, 3)) & (table != kq.shape[0] - 1)
-        page_bytes = 2 * ps * H * hd + 2 * ps * 2  # int8 K and V of a page, f16 scales
-        nbytes = (2 * q.numel() * 2 + int(live.sum()) * page_bytes
-                  + (table.numel() + q_pos.numel() + lengths.numel()) * 4)
-        b_ms, b_by = bound(nbytes, 4 * hd * H * int(vis.sum()), "bf16")
-        # yardstick: SDPA over the dequantized, pre-gathered dense ring
-        kd = paged_gather(dequantize_kv_pool(kq, ks, torch.bfloat16), table).transpose(1, 2)
-        vd = paged_gather(dequantize_kv_pool(vq, vs, torch.bfloat16), table).transpose(1, 2)
-        qd, mask = q.transpose(1, 2), vis[:, None]
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask))
-        ms = timer(lambda: paged_attention_quant(*args))
-        plain_ms = timer(lambda: paged_attention_plain(
-            q, kq, vq, table, q_pos, lengths, k_scale=ks, v_scale=vs), iters=5)
-        log(f"  paged_attention_quant C={C}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa)={lib_ms:.4f} "
-            f"live_pages={int(live.sum())}")
-        rec[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=lib_ms)
-    rec[1]["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
-    return rec[1]
-
-
 def run_expert_mlp_resident_quant(torch, timer):
     """The end tier's resident expert FFN over the int8 slab store of
     full-width switch-base (the f32 store of phase 6's check, quantized per
-    output column), bf16 rows at the decode (n = 4) and chunk (n = 32)
-    shapes; garbage-slot rows exactly 0."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.expertpool import quantize_slab
-    from repro_torch.core.moe import init_moe
+    output column), bf16 rows at ``RESIDENT_QUANT_CASES``; garbage-slot rows
+    exactly 0."""
     from repro_torch.kernels.expert_mlp import (
         grouped_mlp_resident_quant,
         grouped_mlp_resident_quant_plain,
     )
 
-    cfg = get_config("switch-base")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    p = init_moe(gen, cfg)
-    N = 18
-    store = {}
-    for k in ("wi", "wo"):
-        w = torch.cat([p[k], p[k].flip(0), p[k][:2], torch.zeros_like(p[k][:1])])
-        store[k], store[f"{k}_scale"] = quantize_slab(w)
+    p, cfg = switch_base_moe(gen)
+    store = resident_store(torch, p, quant=True)
     d, f = cfg.d_model, cfg.moe.d_ff_expert
     scales = dict(wi_scale=store["wi_scale"], wg_scale=None, wo_scale=store["wo_scale"])
     rec = {}
-    cases = [  # (name, slot sizes, slab ids; the last slot is the garbage slot)
-        ("decode n=4", [2, 0, 1, 1], [7, 2, 13, N]),
-        ("prefill n=32", [14, 9, 5, 4], [11, 0, 5, N]),
-    ]
-    for name, sizes, ids in cases:
+    for name, _, sizes, ids in RESIDENT_QUANT_CASES:
         n = sum(sizes)
         gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
         idt = torch.tensor(ids, dtype=torch.int32, device="cuda")
@@ -693,14 +882,19 @@ def run_expert_mlp_resident_quant(torch, timer):
         err = check_close(f"expert_mlp_resident_quant {name}", y, ref, rtol=0, atol=tol)
         if not bool((y[n - sizes[-1]:] == 0).all()):
             raise AssertionError(f"expert_mlp_resident_quant {name}: garbage-slot rows are not 0")
+        if not torch.equal(grouped_mlp_resident_quant(*args, **scales), y):
+            raise AssertionError(f"expert_mlp_resident_quant {name}: two launches differ")
         routed = sum(1 for s in sizes[:-1] if s)
         nbytes = (2 * n * d * 2 + routed * (2 * d * f + (f + d) * 4)
                   + 2 * len(sizes) * 4)
         b_ms, b_by = bound(nbytes, 2 * 2 * (n - sizes[-1]) * d * f, "bf16")
-        ms = timer(lambda: grouped_mlp_resident_quant(*args, **scales))
+        call = functools.partial(grouped_mlp_resident_quant, *args, **scales)
+        ms = timer(call)
         plain_ms = timer(lambda: grouped_mlp_resident_quant_plain(*args, **scales))
+        timer.later(f"expert_mlp_resident_quant {name}", call)
         log(f"  expert_mlp_resident_quant {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null routed_slots={routed}")
+            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null routed_slots={routed}; "
+            f"deterministic")
         rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
     main = rec["decode n=4"]
@@ -798,23 +992,36 @@ def serve(torch, counters):
         f"launches per chunk {per_chunk}")
     eng.pool.free(0)
 
-    # decode-step launches, and a profile of one decode step
+    # decode-step launches, and a profile of one decode step with 8 live
+    # slots (the run's prompt lengths again)
     for c in counters:
         c.launches = 0
-    eng.submit(Request(99, np.arange(20, dtype=np.int32), max_new_tokens=4))
+    for i, n in enumerate(prompt_lens):
+        eng.submit(Request(90 + i, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                           max_new_tokens=8))
     eng.step()  # admission + decode
     for c in counters:
         c.launches = 0
     eng.step()
     log(f"launches per decode step: {({c.__name__: c.launches for c in counters})}")
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
-    table_txt = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (OUT_DIR / "decode_profile.txt").write_text(table_txt)
-    log("decode profile (1 step) written to chiprun_out/decode_profile.txt")
+        wall = time.perf_counter() - t
+    avgs = prof.key_averages()
+    dev = [e for e in avgs if e.device_type != DeviceType.CPU]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    (OUT_DIR / "decode_profile.txt").write_text(
+        avgs.table(sort_by="cuda_time_total", row_limit=40))
+    in_path = kernels_in_path(dev, (*PAGED_KERNELS, *ffn_kernels("expert FFN", "__nv_bfloat16"),
+                                    *GATE_KERNELS))
+    log(f"decode profile (1 step, 8 slots decoding): device time "
+        f"{dev_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall; kernels in path, a launch: "
+        f"{in_path}; written to chiprun_out/decode_profile.txt")
     eng.run()
     return launches, eng
 
@@ -900,21 +1107,39 @@ def traced_run(torch, pipe, tokens, feed=None):
     return logits, metrics, {k: torch.stack(v) for k, v in rec.items()}
 
 
-# the bf16 codec's kernel (encode and decode)
-CODEC_KERNELS = (("codec projection", "project_wgmma_kernel"),)
+# In-path readers: (what, kernel-name substrings of the kernels launched
+# once a wrapper call, substrings of the other kernels of that call).
+CODEC_KERNELS = (("codec projection", ("project_wgmma_kernel",), ()),)
+# paged attention: the CUDA-core or the tensor-core sweep, then (S > 1)
+# the merge of the splits
+PAGED_KERNELS = (("paged attention", ("paged_attention_kernel<", "paged_attention_mma_kernel<"),
+                  ("paged_attention_merge_kernel<",)),)
+GATE_KERNELS = (("group gate", ("gate_kernel",), ()),)
+
+
+def ffn_kernels(what: str, weights: str):
+    """The expert FFN's reader for weights stored as ``weights`` (a CUDA
+    type name): the streaming kernel and its reduction, or the two
+    tensor-core GEMMs (bf16 rows)."""
+    return ((what, (f"expert_ffn_stream_kernel<__nv_bfloat16, {weights},",
+                    f"expert_ffn_gemm1_kernel<{weights},"),
+             (f"expert_ffn_reduce_kernel<__nv_bfloat16, {weights}>",
+              f"expert_ffn_gemm2_kernel<{weights}>")),)
 
 
 def kernels_in_path(dev, names) -> str:
-    """``what ms x n`` (mean device time a launch, launches) for each
-    ``(what, kernel-name substring)`` of ``names`` that ran in a profile's
-    kernel rows ``dev``."""
+    """``what ms x n`` for each ``(what, call keys, other keys)`` of
+    ``names`` that ran in a profile's kernel rows ``dev``: the device time
+    of every kernel matching a key, over the launches of the kernels
+    matching a call key (one a wrapper call), so a call's merge or second
+    GEMM counts with it."""
     out = []
-    for what, key in names:
-        rows = [e for e in dev if key in e.key]
-        n = sum(e.count for e in rows)
+    for what, calls, others in names:
+        n = sum(e.count for e in dev if any(k in e.key for k in calls))
         if n:
-            out.append(f"{what} {sum(e.self_device_time_total for e in rows) / n / 1e3:.4f} "
-                       f"ms x {n}")
+            us = sum(e.self_device_time_total for e in dev
+                     if any(k in e.key for k in calls + others))
+            out.append(f"{what} {us / n / 1e3:.4f} ms x {n}")
     return "; ".join(out)
 
 
@@ -983,8 +1208,9 @@ def pipeline(torch, eng, counters):
     dev_us = sum(e.self_device_time_total for e in dev)
     (OUT_DIR / "pipeline_profile.txt").write_text(
         avgs.table(sort_by="cuda_time_total", row_limit=40))
-    in_path = kernels_in_path(dev, (("flash attention", "flash_fwd_mma_kernel"),
-                                    *CODEC_KERNELS))
+    in_path = kernels_in_path(dev, (("flash attention", ("flash_fwd_mma_kernel",), ()),
+                                    *CODEC_KERNELS, *ffn_kernels("expert FFN", "__nv_bfloat16"),
+                                    *GATE_KERNELS, *PAGED_KERNELS))
     log(f"pipeline profile (1 run_batch): device time {dev_us / 1e3:.3f} ms of "
         f"{wall * 1e3:.3f} ms wall; kernels in path, a launch: {in_path}; written to "
         f"chiprun_out/pipeline_profile.txt")
@@ -1284,10 +1510,11 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
     (OUT_DIR / profile_name).write_text(avgs.table(sort_by="cuda_time_total", row_limit=40))
     store = "signed char" if exq else "float"
     in_path = kernels_in_path(dev, (
-        ("resident FFN pass", f"expert_ffn_kernel<__nv_bfloat16, {store}"),
-        ("paged attention", "paged_attention_kernel"),
-        ("quantize", "quantize_rows_kernel"),
-        ("dequantize", "dequantize_rows_kernel"),
+        *ffn_kernels("resident FFN", store),
+        *ffn_kernels("cloud expert FFN", "__nv_bfloat16"),
+        *PAGED_KERNELS, *GATE_KERNELS,
+        ("quantize", ("quantize_rows_kernel",), ()),
+        ("dequantize", ("dequantize_rows_kernel",), ()),
         *CODEC_KERNELS))
     log(f"{tag} profile (tick {ptick}, 8 slots decoding): device time {dev_us / 1e3:.3f} ms "
         f"of {wall * 1e3:.3f} ms wall ({dev_us / 1e3 / (wall * 1e3):.1%} busy); kernels in "
@@ -1519,13 +1746,18 @@ def main() -> int:
     log("int8 byte streams, kernels against their plain versions (card):")
     t0 = time.perf_counter()
     recs.update(run_quant(torch, timer))
-    recs["paged_attention_quant"] = run_paged_attention_quant(torch, timer)
+    recs["paged_attention_quant"] = run_paged_attention(torch, timer, quant=True)
     recs["grouped_mlp_resident_quant"] = run_expert_mlp_resident_quant(torch, timer)
     log(f"int8 kernel checks took {time.perf_counter() - t0:.2f} s")
     log("streaming end-cloud engine with the int8 streams:")
     t0 = time.perf_counter()
     quant_launches = stream_quant(torch, model, params, stream_counters, base)
     log(f"int8 stream phase took {time.perf_counter() - t0:.1f} s")
+    log("profiler device time a call, us (L2 flushed; phase 2's kernels and yardsticks, "
+        "read after the timed runs):")
+    t0 = time.perf_counter()
+    timer.read_later()
+    log(f"profiler readings took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention (the roundtrip has no consumer on any path), the

@@ -22,7 +22,7 @@
 // or 32 the output columns alone, 6 blocks for encode and 12 for decode,
 // share the pass over W.  K is not split: on the H100 a split whose f32
 // partials a second launch adds saved under 0.5 us a call in isolation and
-// nothing in a streaming tick (PERF.md, tools/codec_probe.py).  bf16 runs
+// nothing in a streaming tick (PERF.md, tools/kernel_probe.py).  bf16 runs
 // on the tensor cores by wgmma, one warpgroup a tile, fed by a 4-stage
 // ring of TMA copies (one instruction a tile, where cp.async spends a
 // 16-byte request of every thread) that complete on mbarriers and land in

@@ -1,4 +1,5 @@
 from repro_torch.kernels.expert_mlp.ops import (
+    ffn_plan,
     grouped_mlp,
     grouped_mlp_plain,
     grouped_mlp_resident,
@@ -8,6 +9,7 @@ from repro_torch.kernels.expert_mlp.ops import (
 )
 
 __all__ = [
+    "ffn_plan",
     "grouped_mlp",
     "grouped_mlp_plain",
     "grouped_mlp_resident",

@@ -15,15 +15,17 @@ to the rows' type (``core/moe.py::moe_resident``'s int8 branch).
 
 A CPU tensor goes to the plain version (a loop over the runs, rounding the
 hidden activation to the input type as ``jax.lax.ragged_dot`` does); a
-CUDA tensor launches ``csrc/expert_mlp.cu`` (hidden tile kept in f32 on
-chip) or raises.
+CUDA tensor launches ``csrc/expert_mlp.cu`` or raises, on the path
+:func:`ffn_plan` picks from the row count: weight streaming (the hidden
+activation kept in f32 on chip) for decode-sized calls and every f32 call,
+a grouped GEMM on the tensor cores for bf16 rows at prefill sizes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,14 +35,33 @@ from repro_torch.models.layers import ACTIVATIONS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2  # the weight type code of an int8 store
 _ACTS = {"silu": 0, "gelu": 1, "relu": 2}
-HIDDEN_TILE = 64  # hidden columns per block (kTile in csrc/expert_mlp.cu)
+HIDDEN_TILE = 32  # hidden columns a tile of the streaming path (kTile)
+MMA_MIN_ROWS = 64  # rows from which bf16 calls take the tensor cores (one row tile)
+SCRATCH_FLOATS = 1 << 22  # the streaming path's partial sums: at most 16 MB
+
+
+def ffn_plan(n: int, d: int, f: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """The kernel's path for ``n`` rows of ``dtype`` and its split count.
+
+    ``("mma", 1)``: bf16 rows, ``n >= MMA_MIN_ROWS`` and d, f multiples of
+    8 -- the grouped GEMM on the tensor cores.  ``("stream", S)`` otherwise
+    (every f32 call: exact on the CUDA cores): weight streaming with the
+    hidden dimension's ``ceil(f / 64)`` tiles split over ``S`` blocks a
+    routed group, one tile each while the ``[S, n, d]`` f32 partials stay
+    under ``SCRATCH_FLOATS``.  The plan depends on the call's shape alone,
+    so a row routed to the same expert gets the same bits through
+    :func:`grouped_mlp` and :func:`grouped_mlp_resident`."""
+    if dtype == torch.bfloat16 and n >= MMA_MIN_ROWS and d % 8 == 0 and f % 8 == 0:
+        return "mma", 1
+    tiles = -(-f // HIDDEN_TILE)
+    return "stream", max(1, min(tiles, SCRATCH_FLOATS // max(1, n * d)))
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("expert_mlp").expert_mlp_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     return fn
 
 
@@ -124,24 +145,28 @@ def _check_shapes(what: str, xs, wi, wg, wo):
 
 def _launch(xs, group_sizes, ids, wi, wg, wo, act, *, zero_group: int, scales=None):
     """Launch ``csrc/expert_mlp.cu`` on checked operands (``scales``: the
-    int8 store's ``(wi, wg, wo)`` column scales); no launch for zero rows
-    (an empty grid)."""
+    int8 store's ``(wi, wg, wo)`` column scales) on the path of
+    :func:`ffn_plan`; no launch for zero rows (an empty grid)."""
     n, d = xs.shape
     f = wi.shape[2]
     y = torch.empty_like(xs)
     if n == 0:
         return y
-    partial = torch.empty(
-        (-(-f // HIDDEN_TILE), n, d), dtype=torch.float32, device=xs.device
-    )
+    path, splits = ffn_plan(n, d, f, xs.dtype)
+    if path == "mma":  # the hidden activation, bf16, written once
+        scratch = torch.empty((n, f), dtype=torch.bfloat16, device=xs.device)
+    else:  # each split's partial y, f32
+        scratch = torch.empty((splits, n, d), dtype=torch.float32, device=xs.device)
+    operands = [xs, wi, wo, scratch] + [t for t in (wg, *(scales or ())) if t is not None]
+    vec = d % 8 == 0 and f % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in operands)
     err = _launcher()(
         xs.data_ptr(), group_sizes.data_ptr(),
         None if ids is None else ids.data_ptr(), wi.data_ptr(),
         None if wg is None else wg.data_ptr(), wo.data_ptr(),
         *(None if t is None else t.data_ptr() for t in (scales or (None,) * 3)),
-        partial.data_ptr(), y.data_ptr(), n, d, f, group_sizes.shape[0],
+        scratch.data_ptr(), y.data_ptr(), n, d, f, group_sizes.shape[0],
         _ACTS[act], _DTYPES[xs.dtype], _INT8 if scales else _DTYPES[wi.dtype], zero_group,
-        torch.cuda.current_stream(xs.device).cuda_stream,
+        int(path == "mma"), splits, int(vec), torch.cuda.current_stream(xs.device).cuda_stream,
     )
     build.check_launch(err, "expert_mlp")
     return y

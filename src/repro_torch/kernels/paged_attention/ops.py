@@ -7,7 +7,10 @@ page).  ``paged_attention_quant`` takes int8 pools with their per-token f16
 scales ``[P+1, ps]`` and dequantizes each fetched page in registers.  A CPU
 tensor goes to :func:`paged_attention_plain`, a port of the reference's
 ``kernels/paged_attention/ref.py::paged_attention_ref`` (scales included); a
-CUDA tensor launches ``csrc/paged_attention.cu`` or raises.
+CUDA tensor launches ``csrc/paged_attention.cu`` or raises.  The kernel
+splits each slot's page sweep over :func:`split_plan` blocks and merges
+their partial softmax states in a second launch; bf16 pools with 16 or more
+query rows a kv head run on the tensor cores (:func:`uses_tensor_cores`).
 """
 
 from __future__ import annotations
@@ -22,15 +25,31 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
+SPLIT_TARGET_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+
+
+def split_plan(B: int, KV: int, pps: int) -> int:
+    """Blocks each (slot, kv head) page sweep is split over: enough for
+    ``B * KV`` sweeps to fill ``SPLIT_TARGET_BLOCKS``, at most one a table
+    entry.  Split ``s`` of ``S`` takes the entries ``s, s + S, ...``.  The
+    lengths live on the device, so the plan cannot count live pages."""
+    return max(1, min(pps, -(-SPLIT_TARGET_BLOCKS // max(1, B * KV))))
+
+
+def uses_tensor_cores(dtype: torch.dtype, quantized: bool, rows: int, ps: int) -> bool:
+    """The kernel's tensor-core body takes bf16 pools with at least 16 query
+    rows a kv head (``rows = C * G``) and pages of a multiple of 16 tokens;
+    f32 and int8 pools, and fewer rows, stay on the CUDA cores."""
+    return dtype == torch.bfloat16 and not quantized and rows >= 16 and ps % 16 == 0
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("paged_attention").paged_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
-    ]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     return fn
 
 
@@ -125,21 +144,38 @@ def _check(what, q, pool_k, pool_v, table, q_positions, lengths, window, **scale
         )
     if window is not None and window <= 0:
         raise ValueError(f"{what}: window={window}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {hd}; the kernel takes {HEAD_DIMS}")
+    for name in ("q", "pool_k", "pool_v"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
-def _launch(q, pool_k, pool_v, k_scale, v_scale, table, q_positions, lengths, window):
+def _launch(q, pool_k, pool_v, k_scale, v_scale, table, q_positions, lengths, window,
+            splits: Optional[int] = None):
+    """Launch ``csrc/paged_attention.cu`` on checked operands; ``splits``
+    overrides :func:`split_plan` (the card tests sweep it)."""
     B, C, H, hd = q.shape
     P1, ps, KV, _ = pool_k.shape
+    pps = table.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:  # an empty grid is no launch
         return out
+    S = split_plan(B, KV, pps) if splits is None else splits
+    if not 1 <= S <= pps:
+        raise ValueError(f"paged_attention: splits={S} outside [1, {pps}]")
+    ws = None
+    if S > 1:  # each block's partial (m, l, acc) in f32
+        ws = torch.empty(B * C * H * S * (hd + 2), dtype=torch.float32, device=q.device)
+    mma = uses_tensor_cores(pool_k.dtype, k_scale is not None, C * (H // KV), ps)
     err = _launcher()(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(), table.data_ptr(),
         q_positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, C, H, KV, hd, ps, table.shape[1], P1 - 1, -1 if window is None else window,
-        1.0 / (hd ** 0.5), _DTYPES[q.dtype], int(k_scale is not None),
+        None if ws is None else ws.data_ptr(),
+        B, C, H, KV, hd, ps, pps, P1 - 1, -1 if window is None else window,
+        1.0 / (hd ** 0.5), _DTYPES[q.dtype], int(k_scale is not None), S, int(mma),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch(err, "paged_attention")

@@ -37,6 +37,7 @@ from repro_torch.kernels.paged_attention import (
     paged_attention_plain,
     paged_attention_quant,
 )
+from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.quant import (
     dequantize_rows,
     dequantize_rows_plain,
@@ -238,6 +239,161 @@ def test_grouped_mlp_resident_kernel(gen, gated, dtype, store_dtype, tol):
     with pytest.raises(ValueError, match="dtype"):  # a store narrower than the rows
         grouped_mlp_resident(xs.float(), sizes, store["wi"].bfloat16(), None,
                              store["wo"].bfloat16(), ids, act)
+
+
+def _split_case(gen, shape, C, kind):
+    """The streaming engine's 4-slot group (12 heads of 64, 16-token pages,
+    a 32-page ring) or a GQA case (8 query heads on 2 kv heads of 32, an
+    8-page ring); mapped pages permuted, the rest of each table garbage,
+    the C rows ending at each slot's anchor."""
+    B, H, KV, hd, pps, lengths = (
+        (4, 12, 12, 64, 32, [37, 118, 199, 231]) if shape == "stream"
+        else (3, 8, 2, 32, 8, [5, 60, 127]))
+    ps, P = 16, B * pps
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(C)).view(B, pps)
+    table = torch.full((B, pps), P, dtype=torch.int32)
+    for b, ln in enumerate(lengths):
+        mapped = min(pps, ln // ps + 1)
+        table[b, :mapped] = perm[b, :mapped].int()
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    q_pos = (ln[:, None] - (C - 1) + torch.arange(C, dtype=torch.int32)[None]).clamp_min(0)
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.randn(B, C, H, hd, generator=gen, device="cuda").to(dt)
+    pk = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dt)
+    pv = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dt)
+    scales = (None, None)
+    if kind == "int8":
+        (pk, ks), (pv, vs) = quantize_kv_tokens(pk), quantize_kv_tokens(pv)
+        scales = (ks, vs)
+    return q, pk, pv, scales, table.cuda(), q_pos.int().cuda(), ln.cuda()
+
+
+@pytest.mark.parametrize("shape", ["stream", "gqa"])
+@pytest.mark.parametrize("C", [1, 16, 32])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2), ("int8", 2e-2)])
+def test_paged_attention_split_counts(gen, shape, C, window, kind, tol):
+    """Every split count from 1 to the table's length, on the CUDA-core
+    body (f32 and int8 pools, bf16 below 16 rows) and the tensor-core body
+    (bf16 pools, C*G >= 16): within the plain version's tolerance, and a
+    second launch gives the same bits."""
+    q, pk, pv, (ks, vs), table, q_pos, lengths = _split_case(gen, shape, C, kind)
+    want = paged_attention_plain(q, pk, pv, table, q_pos, lengths, window=window,
+                                 k_scale=ks, v_scale=vs)
+    for S in range(1, table.shape[1] + 1):
+        got = pa_ops._launch(q, pk, pv, ks, vs, table, q_pos, lengths, window, splits=S)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"splits={S}: {m}")
+        again = pa_ops._launch(q, pk, pv, ks, vs, table, q_pos, lengths, window, splits=S)
+        assert torch.equal(again, got), f"splits={S}: two launches differ"
+
+
+FFN_SIZES = [  # 4 groups; totals 2, 63, 64, 65 and 1024 around the tensor-core rule's 64
+    [0, 0, 0, 0], [0, 1, 62, 0], [0, 64, 0, 0], [1, 64, 0, 0], [63, 0, 1, 1], [0, 65, 0, 0],
+    [1024, 0, 0, 0],
+]
+
+
+@pytest.mark.parametrize("sizes", FFN_SIZES)
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_grouped_mlp_paths(gen, sizes, gated, dtype, tol):
+    """Both paths of ``ffn_plan`` (bf16 at n >= 64 on the tensor cores):
+    within tolerance of the plain version, rows past sum(group_sizes)
+    exactly 0, and a second launch gives the same bits."""
+    E, d, f = 4, 96, 200
+    n = sum(sizes) + 2
+    xs = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    wi = (torch.randn(E, d, f, generator=gen, device="cuda") / d ** 0.5).to(dtype)
+    wg = (torch.randn(E, d, f, generator=gen, device="cuda") / d ** 0.5).to(dtype) if gated else None
+    wo = (torch.randn(E, f, d, generator=gen, device="cuda") / f ** 0.5).to(dtype)
+    act = "silu" if gated else "gelu"
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    got = grouped_mlp(xs, gs, wi, wg, wo, act)
+    want = grouped_mlp_plain(xs, gs, wi, wg, wo, act)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale)
+    assert bool((got[-2:] == 0).all())
+    assert torch.equal(grouped_mlp(xs, gs, wi, wg, wo, act), got)
+
+
+@pytest.mark.parametrize("d", [1032, 1100, 5120])  # 129 and 138 column groups; llama4-scout
+@pytest.mark.parametrize("sizes", [[3, 0, 4, 1], [30, 0, 41, 1]])  # both paths in bf16
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_grouped_mlp_wide_d_model(gen, d, sizes, dtype, tol):
+    """Widths past 1024 (the streaming block's output columns in passes of
+    its 128 threads; d = 1100 takes the scalar loads), gated SiLU with a
+    short hidden width: the grouped wrapper and the resident one over f32
+    and int8 stores within tolerance of their plain versions, garbage-slot
+    rows exactly 0, and the same bits from a second launch."""
+    E, f = 4, 264
+    w = {k: torch.randn(E, *shape, generator=gen, device="cuda") / shape[0] ** 0.5
+         for k, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d)))}
+    for t in w.values():
+        t[E - 1] = 0  # the resident store's garbage slab
+    n = sum(sizes)
+    xs = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    ids = torch.tensor([2, 0, 1, E - 1], dtype=torch.int32, device="cuda")
+    wd = {k: t.to(dtype) for k, t in w.items()}
+    q = {k: quantize_slab(t) for k, t in w.items()}
+    qkw = dict(wi_scale=q["wi"][1], wg_scale=q["wg"][1], wo_scale=q["wo"][1])
+    calls = [
+        (lambda: grouped_mlp(xs, gs, wd["wi"], wd["wg"], wd["wo"], "silu"),
+         grouped_mlp_plain(xs, gs, wd["wi"], wd["wg"], wd["wo"], "silu")),
+        (lambda: grouped_mlp_resident(xs, gs, w["wi"], w["wg"], w["wo"], ids, "silu"),
+         grouped_mlp_resident_plain(xs, gs, w["wi"], w["wg"], w["wo"], ids, "silu")),
+        (lambda: grouped_mlp_resident_quant(xs, gs, q["wi"][0], q["wg"][0], q["wo"][0], ids,
+                                            "silu", **qkw),
+         grouped_mlp_resident_quant_plain(xs, gs, q["wi"][0], q["wg"][0], q["wo"][0], ids,
+                                          "silu", **qkw)),
+    ]
+    for i, (call, want) in enumerate(calls):
+        got = call()
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale,
+                                   msg=lambda m: f"call {i}: {m}")
+        if i:
+            assert bool((got[n - sizes[-1]:] == 0).all())
+        assert torch.equal(call(), got)
+
+
+@pytest.mark.parametrize("sizes", [[2, 0, 1, 1], [0, 62, 1, 0], [1, 64, 0, 0],
+                                   [63, 0, 1, 1], [0, 1023, 0, 1]])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("store", ["f32", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_and_grouped_give_equal_bits(gen, sizes, gated, store, dtype):
+    """A row routed to the same expert gets the same bits through the
+    resident wrapper (f32 store cast on read, int8 store dequantized then
+    cast) and through ``grouped_mlp`` over the slabs gathered and converted
+    beforehand, on both paths; garbage-slot rows exactly 0."""
+    N, d, f = 6, 96, 200
+    w = {k: torch.randn(N + 1, *shape, generator=gen, device="cuda") / shape[0] ** 0.5
+         for k, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d)))}
+    for t in w.values():
+        t[N] = 0  # the garbage slab
+    if not gated:
+        del w["wg"]
+    ids = torch.tensor([4, 1, 2, N], dtype=torch.int32, device="cuda")
+    idx = ids.long()
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    n = sum(sizes)
+    xs = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    act = "silu" if gated else "gelu"
+    if store == "f32":
+        got = grouped_mlp_resident(xs, gs, w["wi"], w.get("wg"), w["wo"], ids, act)
+        dense = {k: t[idx].to(dtype) for k, t in w.items()}
+    else:
+        q = {k: quantize_slab(t) for k, t in w.items()}
+        got = grouped_mlp_resident_quant(
+            xs, gs, q["wi"][0], q["wg"][0] if gated else None, q["wo"][0], ids, act,
+            wi_scale=q["wi"][1], wg_scale=q["wg"][1] if gated else None, wo_scale=q["wo"][1])
+        dense = {k: (c[idx].float() * sc[idx][:, None, :]).to(dtype) for k, (c, sc) in q.items()}
+    want = grouped_mlp(xs, gs, dense["wi"], dense.get("wg"), dense["wo"], act)
+    live = n - sizes[-1]
+    assert torch.equal(got[:live], want[:live])
+    assert bool((got[live:] == 0).all())
 
 
 @pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])

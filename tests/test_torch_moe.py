@@ -120,3 +120,102 @@ def test_init_moe_shapes_and_scales_match_reference():
         assert tuple(got.shape) == want.shape and str(got.dtype).endswith(str(want.dtype))
         if want.std() > 0:  # same truncated-normal scale, another generator
             assert abs(got.float().std().item() / want.std() - 1) < 0.1
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's two paths: the rule that picks one from the call's
+# shape, and the tensor-core path's decomposition emulated on the CPU.
+
+from repro_torch.kernels.expert_mlp import ops as ffn_ops  # noqa: E402
+
+
+@pytest.mark.parametrize("n,dtype,want", [
+    (4, torch.bfloat16, ("stream", 96)),     # the streaming cloud tier
+    (8, torch.bfloat16, ("stream", 96)),     # the serving decode
+    (32, torch.bfloat16, ("stream", 96)),    # a prefill chunk
+    (63, torch.bfloat16, ("stream", 86)),    # partials capped at 16 MB
+    (64, torch.bfloat16, ("mma", 1)),        # one full row tile
+    (65, torch.bfloat16, ("mma", 1)),
+    (1024, torch.bfloat16, ("mma", 1)),      # the one-shot pipeline's batch
+    (8, torch.float32, ("stream", 96)),      # f32: exact, on the CUDA cores
+    (1024, torch.float32, ("stream", 5)),
+])
+def test_ffn_plan(n, dtype, want):
+    """switch-base's d 768, f 3072; the rule reads the call's shape only,
+    so the grouped and the resident wrapper take one path for one n."""
+    assert ffn_ops.ffn_plan(n, 768, 3072, dtype) == want
+    path, splits = want
+    assert path == "mma" or splits * n * 768 <= ffn_ops.SCRATCH_FLOATS or splits == 1
+
+
+def test_ffn_plan_widths():
+    assert ffn_ops.ffn_plan(1024, 96, 200, torch.bfloat16) == ("mma", 1)
+    assert ffn_ops.ffn_plan(1024, 96, 203, torch.bfloat16)[0] == "stream"  # f % 8
+
+
+@pytest.mark.parametrize("n,dtype,want", [
+    (8, torch.bfloat16, ("stream", 102)),  # partials capped at 16 MB
+    (72, torch.bfloat16, ("mma", 1)),
+    (72, torch.float32, ("stream", 11)),
+])
+def test_ffn_plan_at_llama4_scout_width(n, dtype, want):
+    """d_model 5120, d_ff 8192: the rule has no width limit (the streaming
+    kernel takes its output columns in passes past 1024)."""
+    assert ffn_ops.ffn_plan(n, 5120, 8192, dtype) == want
+
+
+def _mma_tiles(sizes, n, zero_group=-1, bm=64):
+    """The tensor-core path's row tiles, as csrc/expert_mlp.cu::find_tile
+    maps the grid's row-tile index: each group's run of rows (clipped to
+    [0, n)) in tiles of ``bm`` from its first row, then the rows past the
+    groups; (group, first row, rows, zero)."""
+    tiles, start = [], 0
+    for g, c in enumerate(sizes):
+        ce = max(0, min(c, n - start))
+        for t in range(-(-ce // bm)):
+            tiles.append((g, start + t * bm, min(bm, ce - t * bm), g == zero_group))
+        start += c
+    total = max(0, min(start, n))
+    for t in range(-(-(n - total) // bm)):
+        tiles.append((None, total + t * bm, min(bm, n - total - t * bm), True))
+    assert len(tiles) <= -(-n // bm) + len(sizes) + 1  # the launch's grid bound
+    return tiles
+
+
+def _two_gemms(xs, sizes, wi, wg, wo, act, bm=64):
+    """The tensor-core path: per row tile, H = act(X Wi) [* X Wg] over all
+    ``bm`` rows from the tile's first row (rows of the next group too,
+    computed but never stored), then Y = H Wo, and only the tile's rows
+    stored; zero tiles store zeros."""
+    from repro_torch.models.layers import ACTIVATIONS
+
+    a = ACTIVATIONS[act]
+    n = xs.shape[0]
+    y = torch.full_like(xs, float("nan"))
+    for g, r0, rows, zero in _mma_tiles(sizes, n, bm=bm):
+        if zero:
+            y[r0:r0 + rows] = 0
+            continue
+        x = xs[r0:r0 + bm]
+        h = a(x @ wi[g]) * (x @ wg[g]) if wg is not None else a(x @ wi[g])
+        y[r0:r0 + rows] = (h @ wo[g])[:rows]
+    return y
+
+
+@pytest.mark.parametrize("name,sizes,bm", [
+    ("switch-base", [0, 1, 63, 64, 65, 0, 2, 1], 64),   # around one row tile
+    ("switch-base", [200, 0, 0, 0, 0, 0, 0, 0], 64),    # every row on one expert
+    ("llama4-scout-17b-16e", [5, 0, 9, 3, 0, 0, 7, 1], 4),  # gated SiLU, short tiles
+])
+def test_two_gemm_decomposition_matches_reference(name, sizes, bm):
+    jcfg, cfg = _cfgs(name)
+    p, tp = _params(jcfg)
+    n = sum(sizes) + 2  # two rows past sum(group_sizes): both come back 0
+    xs = np.random.default_rng(3).standard_normal((n, cfg.d_model)).astype(np.float32)
+    gs = np.asarray(sizes, np.int32)
+    want = jmoe._grouped_mlp(jnp.asarray(xs), jnp.asarray(gs), p["wi"], p.get("wg"),
+                             p["wo"], jcfg.act)
+    got = _two_gemms(torch.from_numpy(xs), sizes, tp["wi"], tp.get("wg"), tp["wo"], cfg.act,
+                     bm=bm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(got.numpy()[-2:], 0.0)

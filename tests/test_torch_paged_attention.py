@@ -159,3 +159,165 @@ def test_decode_attention_is_the_c1_chunk():
         tattn.paged_decode_attention(*args, ln).numpy(),
         tattn.paged_chunk_attention(*args, ln[:, None], ln).numpy(),
     )
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's layout, emulated on the CPU: the split plan, and each
+# slot's page sweep split over blocks (and each block's over its 4 warps),
+# every part an online softmax over its own pages, merged in a fixed order.
+
+from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
+
+
+@pytest.mark.parametrize("B,KV,pps,want", [
+    (8, 12, 16, 3),   # the serving engine's decode: 96 sweeps
+    (4, 12, 32, 6),   # the streaming engine's 4-slot group, 512-token rings
+    (4, 12, 16, 6),   # the same group on 256-token rings
+    (1, 12, 16, 16),  # a prefill chunk: one split a table entry
+    (3, 2, 4, 4),
+    (64, 12, 16, 1),  # enough sweeps to fill the card alone
+])
+def test_split_plan(B, KV, pps, want):
+    S = pa_ops.split_plan(B, KV, pps)
+    assert S == want and 1 <= S <= pps
+    assert S == pps or B * KV * S >= pa_ops.SPLIT_TARGET_BLOCKS
+    assert S == 1 or B * KV * (S - 1) < pa_ops.SPLIT_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("dtype,quantized,rows,ps,want", [
+    (torch.bfloat16, False, 16, 16, True),   # a 16-token prefill chunk
+    (torch.bfloat16, False, 32, 16, True),
+    (torch.bfloat16, False, 8, 16, False),   # decode: the CUDA cores
+    (torch.bfloat16, True, 32, 16, False),   # int8 pools stay exact
+    (torch.float32, False, 32, 16, False),
+    (torch.bfloat16, False, 32, 4, False),   # pages of fewer than 16 tokens
+])
+def test_tensor_core_rule(dtype, quantized, rows, ps, want):
+    assert pa_ops.uses_tensor_cores(dtype, quantized, rows, ps) is want
+
+
+def _merge(states):
+    """Partial (m, l, acc) states merged in list order."""
+    M = torch.stack([m for m, _, _ in states]).amax(dim=0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        f = torch.exp(m - M)
+        L = L + l * f
+        A = A + acc * f[:, None]
+    return M, L, A
+
+
+def _split_merge(q, pool_k, pool_v, table, q_positions, lengths, window, splits, warps=4):
+    """The kernel's algorithm in f32: split s of S takes the table entries
+    s, s + S, ...; warp w of a split the split's entries w, w + 4, ...; each
+    warp an online softmax over its entries with the reference's skip rule
+    (garbage entries and pages with no visible pair of the slot's C rows)
+    and -1e30 masks; the warps' states merged, then the splits' in order,
+    and the l == 0 guard."""
+    q, pool_k, pool_v = (torch.as_tensor(a, dtype=torch.float32) for a in (q, pool_k, pool_v))
+    table, q_positions, lengths = (torch.as_tensor(np.asarray(a), dtype=torch.long)
+                                   for a in (table, q_positions, lengths))
+    B, C, H, hd = q.shape
+    P1, ps, KV, _ = pool_k.shape
+    pps = table.shape[1]
+    G, W = H // KV, pps * ps
+    out = torch.zeros(B, C, H, hd)
+    for b in range(B):
+        ln = int(lengths[b])
+        qp = q_positions[b]
+        for h in range(KV):
+            qs = q[b, :, h * G:(h + 1) * G].reshape(C * G, hd)  # rows r = c*G + g
+            parts = []
+            for s in range(splits):
+                entries = list(range(s, pps, splits))
+                states = []
+                for w in range(warps):
+                    m = torch.full((C * G,), pa_ops.NEG_INF)
+                    l = torch.zeros(C * G)
+                    acc = torch.zeros(C * G, hd)
+                    for j in entries[w::warps]:
+                        phys = int(table[b, j])
+                        kp = ln - torch.remainder(ln - (j * ps + torch.arange(ps)), W)
+                        vis = (kp[None, :] <= qp[:, None]) & (kp[None, :] >= 0)
+                        if window is not None:
+                            vis &= kp[None, :] > qp[:, None] - window
+                        if phys == P1 - 1 or not bool(vis.any()):
+                            continue
+                        sc = qs @ pool_k[phys, :, h].T / hd ** 0.5
+                        sc = torch.where(vis.repeat_interleave(G, dim=0), sc, pa_ops.NEG_INF)
+                        m_new = torch.maximum(m, sc.amax(dim=1))
+                        corr = torch.exp(m - m_new)
+                        p = torch.exp(sc - m_new[:, None])
+                        l = l * corr + p.sum(dim=1)
+                        acc = acc * corr[:, None] + p @ pool_v[phys, :, h]
+                        m = m_new
+                    states.append((m, l, acc))
+                parts.append(_merge(states))
+            _, L, A = _merge(parts)
+            o = A / torch.where(L == 0, torch.ones_like(L), L)[:, None]
+            out[b, :, h * G:(h + 1) * G] = o.reshape(C, G, hd)
+    return out.numpy()
+
+
+def _plain(q, pool_k, pool_v, table, q_positions, lengths, window):
+    t = lambda a, dt=None: torch.as_tensor(np.array(a), dtype=dt)  # noqa: E731
+    return pa_ops.paged_attention_plain(
+        t(q), t(pool_k), t(pool_v), t(table, torch.int32), t(q_positions, torch.int32),
+        t(lengths, torch.int32), window=window).numpy()
+
+
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_split_and_merge_decode(window, splits):
+    """Ragged lengths and a ring wrap (G = 2): at every split count the
+    split sweep gives the plain version's output."""
+    lengths = np.asarray([1, 5, 9, 15])
+    pool_k, pool_v, table = _case(lengths)
+    q = np.random.default_rng(21).standard_normal((4, 1, 4, 32)).astype(np.float32)
+    args = (q, pool_k, pool_v, table, lengths[:, None], lengths, window)
+    np.testing.assert_allclose(_split_merge(*args, splits), _plain(*args), **TOL)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_split_and_merge_chunk_with_rows_that_see_no_key(window, splits):
+    """A 4-row chunk with G = 2 over ragged slots, a row at position -1
+    (no visible key, on pages that are live for the other rows: it takes
+    the reference's p = 1 over their masked keys in both versions), and a
+    slot whose table is all garbage (exact 0)."""
+    C = 4
+    start = np.asarray([0, 2, 6, 12])
+    n_valid = np.asarray([4, 4, 4, 2])
+    last = start + n_valid - 1
+    pool_k, pool_v, table = _case(last, seed=22)
+    table[3] = pool_k.shape[0] - 1
+    q = np.random.default_rng(23).standard_normal((4, C, 4, 32)).astype(np.float32)
+    positions = start[:, None] + np.arange(C)[None, :]
+    positions[1, 0] = -1
+    args = (q, pool_k, pool_v, table, positions, last, window)
+    got = _split_merge(*args, splits)
+    np.testing.assert_allclose(got, _plain(*args), **TOL)
+    np.testing.assert_array_equal(got[3], 0.0)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_split_with_only_dead_pages(window):
+    """One split a table entry: the splits past a short slot's pages see
+    only garbage entries, and with a 5-token window the mapped pages
+    behind it hold no visible key; both contribute m = -1e30, l = 0."""
+    ps, pps = 4, 8
+    lengths = np.asarray([2, 30, 9])
+    B = len(lengths)
+    pool = jkv.PagePool(20, ps, pps, n_slots=B)
+    for b in range(B):
+        pool.reserve(b, jkv.pages_needed(int(lengths[b]) + 1, ps, pps))
+        pool.map_range(b, 0, int(lengths[b]) + 1)
+    table = np.array(pool.device_rows(range(B)))
+    rng = np.random.default_rng(24)
+    pool_k = rng.standard_normal((21, ps, 2, 32)).astype(np.float32)
+    pool_v = rng.standard_normal((21, ps, 2, 32)).astype(np.float32)
+    q = rng.standard_normal((B, 1, 4, 32)).astype(np.float32)
+    args = (q, pool_k, pool_v, table, lengths[:, None], lengths, window)
+    assert pa_ops.split_plan(B, 2, pps) == pps
+    np.testing.assert_allclose(_split_merge(*args, pps), _plain(*args), **TOL)

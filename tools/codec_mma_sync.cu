@@ -1,8 +1,8 @@
 // The codec projection y[T, n] = x[T, k] . w[k, n] in bf16 as mma.sync
 // m16n8k16 tiles from ldmatrix over a 3-stage cp.async ring: the form that
 // src/repro_torch/csrc/lowrank.cu's wgmma kernel was chosen over.  Kept
-// only so that tools/codec_probe.py can time the two side by side; the
-// port never loads it.  Needs k and n multiples of 8 and 16-byte aligned
+// only so that `tools/kernel_probe.py --mma-sync` can time the two side by
+// side; the port never loads it.  Needs k and n multiples of 8 and 16-byte aligned
 // x and w (the probe's shapes); rows past T are zero-filled.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \

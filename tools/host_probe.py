@@ -20,6 +20,14 @@ on one card, one process each:
 
     python tools/host_probe.py [--src DIR] [--tag NAME]
 
+With ``--serve DIR`` it reads the serving engine instead: ``DIR``'s
+``chip_smoke.py`` runs its kernel checks (phase 2) and then its serving
+phase (``serve``: 8 requests, the decode-step median over 30 steps on the
+host clock), with ``repro_torch`` from ``--src``; so the same engine can be
+read after either tree's script, one process a reading:
+
+    python tools/host_probe.py --serve DIR [--src DIR] [--tag NAME]
+
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
 reading (median, and first and third quartiles or 10th percentile).
 """
@@ -52,10 +60,34 @@ def call_host_us(torch, fn, busy: bool, iters: int = 200) -> str:
     return f"{statistics.median(times) * 1e6:.1f} / {times[len(times) // 10] * 1e6:.1f}"
 
 
+def serve(torch, script_dir: Path, tag: str) -> int:
+    """``script_dir``'s ``chip_smoke.py``: its kernel checks, then its
+    serving phase, which logs the decode-step median."""
+    sys.path.insert(1, str(script_dir))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.expert_mlp import grouped_mlp
+    from repro_torch.kernels.group_gate import group_gate
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    print(f"host_probe {tag} serve: script {script_dir}, src "
+          f"{Path(build.__file__).parents[2]}", flush=True)
+    cs.OUT_DIR.mkdir(exist_ok=True)
+    build.build()
+    timer = cs.Timer(torch)
+    for check in (cs.run_paged_attention, cs.run_group_gate, cs.run_expert_mlp,
+                  cs.run_expert_mlp_resident, cs.run_flash_attention, cs.run_lowrank):
+        check(torch, timer)
+    cs.serve(torch, [paged_attention, group_gate, grouped_mlp])
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory to time")
     ap.add_argument("--tag", default="tree", help="a name for this tree in the output")
+    ap.add_argument("--serve", metavar="DIR",
+                    help="read the serving phase of DIR/chip_smoke.py instead")
     args = ap.parse_args()
 
     import torch
@@ -64,6 +96,8 @@ def main() -> int:
         print("host_probe: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
+    if args.serve:
+        return serve(torch, Path(args.serve).resolve(), args.tag)
     from repro_torch.configs import get_config
     from repro_torch.core.hardware import PROFILES
     from repro_torch.kernels.flash_attention import flash_attention_fwd
