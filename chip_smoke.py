@@ -7,8 +7,8 @@ Run from the repository root, with one CUDA card visible:
 
 Phases, in order; any failure exits non-zero before the result lines:
 
-1. The card's name and power limit, torch / CUDA / Triton versions, and the
-   build of the CUDA kernels (one ``nvcc`` per source, all at once).
+1. The card's name and power limit, torch / CUDA versions, and the build of
+   the CUDA kernels (one ``nvcc`` per source, all at once).
 2. Each hand-written kernel against its plain PyTorch version on the card,
    at the serving path's shapes, in bf16, with the tolerance stated beside
    it: the kernel's time (L2 flushed before every launch), the plain
@@ -27,9 +27,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    top-1 split over the 8 experts; bf16 and f32), PyTorch's per-expert
    products and ``torch._grouped_mm`` beside it (``ffn_yardsticks``), and
    at llama4-scout's width (d_model 5120) on both of its paths
-   (``WIDE_FFN_CASES``).  The codec, paged
-   attention and the expert FFNs are launched twice at each shape for
-   equal bits.
+   (``WIDE_FFN_CASES``).  The group gate at ``GATE_ROWS`` (4 to 1024
+   tokens) and at llama4-scout's width (d_model 5120, 16 experts in 4
+   groups), x in bf16 and f32, with no mask, a partial mask and a mask that
+   kills a group, ``torch.matmul`` against its weight columns beside it.
+   The codec, paged attention, the expert FFNs and the gate are launched
+   twice at each shape for equal bits.
 3. Full-width switch-base (12 layers, d_model 768, 8 experts) with random
    weights from a seeded generator, serving 8 requests (prompts of 16-200
    tokens, 32 new tokens each) through ``ServingEngine`` on the card.  The
@@ -71,10 +74,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    card against the same on the CPU (equal tokens).
 7. The streaming engine with its three int8 byte streams on (``quantize_kv``,
    ``quantize_experts``, ``quantize_boundary``).  The row quantizer, the
-   dequantizer, paged attention over int8 pools and the resident expert FFN
-   over an int8 slab store against their plain versions at the engine's
-   shapes (the quantizer's codes and scales and the dequantizer's values
-   bit for bit).  Then phase 6's pool run with the flags on (same end
+   dequantizer, the KV pools' quantize-and-write (``KV_WRITE_CASES``: ring
+   writes past a wrap, chunks with padding rows), paged attention over int8
+   pools and the resident expert FFN over an int8 slab store against their
+   plain versions at the engine's shapes (codes and scales and the
+   dequantizer's values bit for bit; the KV write's outside the garbage
+   row).  Then phase 6's pool run with the flags on (same end
    memory): 16 requests finish, the pools drain, the counters are the
    reference's quantized engine's (``QUANT_POOL_COUNTERS``, read by
    ``tools/ref_stream_counters.py``), every kernel launched as the schedule
@@ -90,7 +95,8 @@ power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
 (streaming kernel and reduction, or the two tensor-core GEMMs), the gate,
-flash attention and the codec (``kernels_in_path``).  ``torch.profiler``
+flash attention, the codec and the int8 streams' KV write and quantizers
+(``kernels_in_path``).  ``torch.profiler``
 tables of one decode step and of one ``run_batch`` go to
 ``chiprun_out/decode_profile.txt`` and ``chiprun_out/pipeline_profile.txt``,
 one of a streaming-engine tick to ``chiprun_out/stream_profile.txt`` (and
@@ -354,41 +360,85 @@ def run_paged_attention(torch, timer, quant: bool = False):
     return main
 
 
+# the gate's rows: serving and stream decode (4, 8), a prefill chunk (256),
+# the one-shot pipeline's [4, 256] batch (1024); llama4-scout's width
+GATE_ROWS = (4, 8, 256, 1024)
+GATE_WIDE_ROWS = (8, 1024)
+
+
+def gate_yardstick(torch, timer, x, p) -> str:
+    """Device time a call of ``torch.matmul`` of ``x`` against the gate's
+    E + K weight columns, concatenated (and cast to x's type) once outside
+    the timed window: an informative floor of the product alone, never
+    called by the port."""
+    K, d, Mk = p["w_local"].shape
+    w = torch.cat([p["w_local"].permute(1, 0, 2).reshape(d, K * Mk), p["w_global"]], dim=1)
+    w = w.to(x.dtype).contiguous()
+    return f"matmul [{d}, {K * Mk + K}] {timer.device_us(lambda: torch.matmul(x, w))[0]:.3f}"
+
+
 def run_group_gate(torch, timer):
+    """The group gate at ``GATE_ROWS`` on switch-base's width and at
+    ``GATE_WIDE_ROWS`` on llama4-scout's (d 5120, 16 experts in 4 groups),
+    x in bf16 and f32, with no mask, a partial mask and a mask that kills a
+    group: within tolerance of the plain version, the same bits from a
+    second launch, one launch counted a call; bf16 rows without a mask
+    timed beside the bound and (queued) ``gate_yardstick``."""
     from repro_torch.configs import get_config
     from repro_torch.core.gating import init_group_gate
     from repro_torch.kernels.group_gate import group_gate, group_gate_plain
 
-    cfg = get_config("switch-base")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    p = init_group_gate(gen, cfg.d_model, cfg.moe)
-    # a nonzero bias makes the bias path count
-    p["b_local"].normal_(generator=gen)
-    p["b_global"].normal_(generator=gen)
-    E, K, d = cfg.moe.num_experts, cfg.moe.num_groups, cfg.d_model
     rec = {}
-    for T in (8, 256):
-        x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
-        for mask in (None, torch.tensor([1, 0, 0, 0, 1, 1, 0, 1], dtype=torch.bool, device="cuda")):
-            args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], mask)
-            probs, pg = group_gate(*args)
-            rprobs, rpg = group_gate_plain(*args)
-            # f32 throughout; the logits (|l| ~ 15) are summed in another order
-            tag = f"T={T} mask={'yes' if mask is not None else 'no'}"
-            err = max(check_close(f"group_gate probs {tag}", probs, rprobs, rtol=0, atol=1e-4),
-                      check_close(f"group_gate p_group {tag}", pg, rpg, rtol=0, atol=1e-4))
-            if mask is None:
-                nbytes = T * d * 2 + d * (E + K) * 4 + (E + K) * 4 + T * (E + K) * 4
-                b_ms, b_by = bound(nbytes, 2 * T * d * (E + K), "f32")
-                ms = timer(lambda: group_gate(*args))
-                plain_ms = timer(lambda: group_gate_plain(*args))
-                log(f"  group_gate T={T}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null")
-                rec[T] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=None)
-            else:
-                rec[T]["max_abs_err"] = max(rec[T]["max_abs_err"], err)
-    return rec[8]
+    for model, rows in (("switch-base", GATE_ROWS), ("llama4-scout-17b-16e", GATE_WIDE_ROWS)):
+        cfg = get_config(model)
+        p = init_group_gate(gen, cfg.d_model, cfg.moe)
+        # a nonzero bias makes the bias path count
+        p["b_local"].normal_(generator=gen)
+        p["b_global"].normal_(generator=gen)
+        E, K, d = cfg.moe.num_experts, cfg.moe.num_groups, cfg.d_model
+        Mk = E // K
+        e = torch.arange(E, device="cuda")
+        masks = {"no mask": None, "partial mask": e % 3 != 1,
+                 "dead group": (e // Mk != 1) & (e % Mk != 0)}  # group 1 all masked
+        for T in rows:
+            x32 = torch.randn(T, d, generator=gen, device="cuda")
+            for dt in (torch.bfloat16, torch.float32):
+                x = x32.to(dt)
+                for mname, mask in masks.items():
+                    args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], mask)
+                    before = group_gate.launches
+                    probs, pg = group_gate(*args)
+                    if group_gate.launches != before + 1:
+                        raise AssertionError("group_gate: a call did not count one launch")
+                    rprobs, rpg = group_gate_plain(*args)
+                    # f32 throughout; the logits (|l| ~ 15) are summed in another order
+                    tag = f"{model} T={T} x {str(dt)[6:]} {mname}"
+                    err = max(check_close(f"group_gate probs {tag}", probs, rprobs, rtol=0,
+                                          atol=1e-4),
+                              check_close(f"group_gate p_group {tag}", pg, rpg, rtol=0,
+                                          atol=1e-4))
+                    again = group_gate(*args)
+                    if not (torch.equal(again[0], probs) and torch.equal(again[1], pg)):
+                        raise AssertionError(f"group_gate {tag}: two launches differ")
+                    key = (model, T)
+                    if dt != torch.bfloat16 or mask is not None:
+                        rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
+                        continue
+                    nbytes = T * d * 2 + d * (E + K) * 4 + (E + K) * 4 + T * (E + K) * 4
+                    b_ms, b_by = bound(nbytes, 2 * T * d * (E + K), "f32")
+                    call = functools.partial(group_gate, *args)
+                    ms = timer(call)
+                    plain_ms = timer(lambda: group_gate_plain(*args))
+                    timer.later(f"group_gate {model} T={T}", call,
+                                functools.partial(gate_yardstick, torch, timer, x, p))
+                    log(f"  group_gate {model} T={T}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                        f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null; deterministic")
+                    rec[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
+    main = dict(rec[("switch-base", 8)])
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+    return main
 
 
 def ffn_yardsticks(torch, timer, xs, sizes, wi, wg, wo, act) -> str:
@@ -852,6 +902,106 @@ def run_quant(torch, timer):
     return out
 
 
+# the int8 KV pools' layer writes at the streaming engine's shapes (12 kv
+# heads of 64, 16-token pages, 16-page rings, 128 pages): (name, B, C,
+# valid rows per slot or None for a ring write, positions of row 0); a
+# decode group with one slot past a ring wrap, prefill chunks with padding
+KV_WRITE_CASES = (
+    ("decode B=4 C=1", 4, 1, None, (37, 118, 199, 300)),
+    ("chunk B=2 C=16", 2, 16, (16, 9), (0, 240)),
+    ("chunk B=1 C=32", 1, 32, (25,), (96,)),
+)
+
+
+def run_kv_write(torch, timer):
+    """The int8 KV pools' quantize-and-write (``paged_write_quant``) against
+    its plain version (the writers' old body: two token quantizations, the
+    slot arithmetic, four scatters) at ``KV_WRITE_CASES``, into pools that
+    are views of a block-stacked leaf holding random codes: codes and scales
+    bit-equal outside the garbage row (padding rows all land there, in
+    either order), also from a second launch, one launch counted a call; an
+    all-zero token and one whose f16 scale underflows to 0 included."""
+    from repro_torch.kernels.quant import paged_write_quant
+    from repro_torch.models.kvcache import paged_write_quant_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    P, ps, KV, hd, pps, R = 128, 16, 12, 64, 16, 6
+    n = KV * hd
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(8)).int()
+    rec = {}
+    for name, B, C, n_valid, starts in KV_WRITE_CASES:
+        leaf = torch.randint(-127, 128, (2, R, P + 1, ps, KV, hd), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        sleaf = torch.rand(2, R, P + 1, ps, generator=gen, device="cuda").half()
+        table = perm[:B * pps].view(B, pps).cuda()
+        k, v = (torch.randn(B, C, KV, hd, generator=gen, device="cuda").bfloat16() * 3
+                for _ in range(2))
+        k[0, 0] = 0
+        v[-1, 0 if n_valid is None else n_valid[-1] - 1] *= 1e-7
+        start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        if n_valid is None:
+            args, valid = (k, v, table, start, ps), None
+        else:
+            pos = (start[:, None] + torch.arange(C, device="cuda")[None]).int()
+            rows = torch.tensor(n_valid, device="cuda")[:, None]
+            valid = torch.arange(C, device="cuda")[None] < rows
+            args = (k, v, table, pos, ps, valid)
+
+        def fresh():
+            """A copy of the leaves, and the pools as views of their block 2."""
+            lc, sc = leaf.clone(), sleaf.clone()
+            return lc, sc, (lc[0, 2], lc[1, 2], sc[0, 2], sc[1, 2])
+
+        want_l, want_s, pools = fresh()
+        paged_write_quant_plain(*pools, *args)
+        runs = []
+        for _ in range(2):
+            lc, sc, pools = fresh()
+            before = paged_write_quant.launches
+            paged_write_quant(*pools, *args)
+            if paged_write_quant.launches != before + 1:
+                raise AssertionError("paged_write_quant: a call did not count one launch")
+            # the garbage row of the written block takes one of several writes
+            lc[:, 2, P], sc[:, 2, P] = want_l[:, 2, P], want_s[:, 2, P]
+            runs.append((lc, sc))
+        same = torch.equal(runs[0][0], want_l) and torch.equal(runs[0][1], want_s)
+        again = torch.equal(runs[1][0], runs[0][0]) and torch.equal(runs[1][1], runs[0][1])
+        # the zero k token (row 0) and the tiny v token (the last valid row)
+        # store f16 scale 0
+        pos2 = start[:, None] if n_valid is None else pos
+        phys = table.long().gather(1, (pos2.long() // ps) % pps)
+        last = 0 if n_valid is None else n_valid[-1] - 1
+        under = (want_s[0, 2][phys[0, 0], pos2[0, 0] % ps].item(),
+                 want_s[1, 2][phys[-1, last], pos2[-1, last] % ps].item())
+        log(f"  paged_write_quant {name}: codes and scales equal the plain version's outside "
+            f"the garbage row: {same}; second launch equal: {again}; the zero and tiny "
+            f"tokens' scales {under}")
+        if not (same and again):
+            raise AssertionError(f"paged_write_quant {name}: codes or scales differ")
+        if under != (0.0, 0.0):
+            raise AssertionError(f"paged_write_quant {name}: the zero and tiny tokens' f16 "
+                                 "scales are not 0")
+        tokens = B * C
+        # k and v read, codes and f16 scales written, each token's position
+        # (and valid flag) read, and the distinct page-table entries that
+        # the valid tokens land on
+        entry = torch.arange(B, device="cuda")[:, None] * pps + (pos2.long() // ps) % pps
+        entries = torch.unique(entry if valid is None else entry[valid]).numel()
+        nbytes = (2 * tokens * n * 2 + 2 * tokens * n + 2 * tokens * 2 + entries * 4
+                  + tokens * 4 + (tokens if valid is not None else 0))
+        b_ms, b_by = bound(nbytes, 3 * 2 * tokens * n, "f32")
+        dst = (leaf[0, 2], leaf[1, 2], sleaf[0, 2], sleaf[1, 2])
+        call = functools.partial(paged_write_quant, *dst, *args)
+        ms = timer(call)
+        plain_ms = timer(lambda: paged_write_quant_plain(*dst, *args))
+        timer.later(f"paged_write_quant {name}", call)
+        log(f"  paged_write_quant {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null")
+        rec[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    return rec[KV_WRITE_CASES[0][0]]
+
+
 def run_expert_mlp_resident_quant(torch, timer):
     """The end tier's resident expert FFN over the int8 slab store of
     full-width switch-base (the f32 store of phase 6's check, quantized per
@@ -1114,7 +1264,7 @@ CODEC_KERNELS = (("codec projection", ("project_wgmma_kernel",), ()),)
 # the merge of the splits
 PAGED_KERNELS = (("paged attention", ("paged_attention_kernel<", "paged_attention_mma_kernel<"),
                   ("paged_attention_merge_kernel<",)),)
-GATE_KERNELS = (("group gate", ("gate_kernel",), ()),)
+GATE_KERNELS = (("group gate", ("group_gate_kernel<",), ()),)
 
 
 def ffn_kernels(what: str, weights: str):
@@ -1167,7 +1317,7 @@ def pipeline(torch, eng, counters):
                              "(split 1, codec on, 3 end experts)")
     B, S = 4, 256
     tok = pipeline_tokens(torch, cfg.vocab_size, B, S, 0).cuda()
-    pipe.run_batch(tok)  # warm-up: the gate's Triton compile at this shape
+    pipe.run_batch(tok)  # warm-up
 
     for c in counters:
         c.launches = 0
@@ -1471,7 +1621,8 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
         raise AssertionError(f"{tag}: counters {got}, want the reference's {want_counters}")
     # every stage call (decode steps, prefill chunks, and one warmup of each
     # per build of the stage functions) runs each tier's layers once; with
-    # int8 KV pools each layer quantizes its k and v, with an int8 boundary
+    # int8 KV pools each layer writes its k and v in one quantize-and-write
+    # launch, with an int8 boundary
     # each end call quantizes and each cloud call dequantizes it, and with an
     # int8 slab store each batch of slab writes (the initial fill, each tick
     # that prefetched) quantizes every weight matrix
@@ -1487,8 +1638,8 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
             "lowrank_encode": calls, "lowrank_decode": calls,
             "paged_attention": 0 if kvq else calls * n_layers,
             "paged_attention_quant": calls * n_layers if kvq else 0,
-            "quantize_rows": (2 * calls * n_layers * kvq + calls * bq
-                              + (1 + prefetch_ticks) * mats * exq),
+            "paged_write_quant": calls * n_layers * kvq,
+            "quantize_rows": calls * bq + (1 + prefetch_ticks) * mats * exq,
             "dequantize_rows": calls * bq,
             "flash_attention_fwd": 0, "lowrank_roundtrip": 0}
     if launches != want:
@@ -1513,6 +1664,7 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
         *ffn_kernels("resident FFN", store),
         *ffn_kernels("cloud expert FFN", "__nv_bfloat16"),
         *PAGED_KERNELS, *GATE_KERNELS,
+        ("KV write", ("paged_write_quant_kernel<",), ()),
         ("quantize", ("quantize_rows_kernel",), ()),
         ("dequantize", ("dequantize_rows_kernel",), ()),
         *CODEC_KERNELS))
@@ -1697,13 +1849,10 @@ def main() -> int:
     from repro_torch.kernels.group_gate import group_gate
     from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode, lowrank_roundtrip
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
-    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+    from repro_torch.kernels.quant import dequantize_rows, paged_write_quant, quantize_rows
 
-    smi = nvidia_smi()
-    import triton
-
-    log(f"card: {smi}")
-    log(f"torch {torch.__version__} CUDA {torch.version.cuda} triton {triton.__version__} "
+    log(f"card: {nvidia_smi()}")
+    log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     libs = build.build()
@@ -1740,12 +1889,14 @@ def main() -> int:
     stream_counters = [
         grouped_mlp_resident, grouped_mlp_resident_quant, grouped_mlp, group_gate,
         lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
-        quantize_rows, dequantize_rows, flash_attention_fwd, lowrank_roundtrip]
+        quantize_rows, dequantize_rows, paged_write_quant, flash_attention_fwd,
+        lowrank_roundtrip]
     model, params, stream_launches, base = stream(torch, stream_counters)
     log(f"stream phase took {time.perf_counter() - t0:.1f} s")
     log("int8 byte streams, kernels against their plain versions (card):")
     t0 = time.perf_counter()
     recs.update(run_quant(torch, timer))
+    recs["paged_write_quant"] = run_kv_write(torch, timer)
     recs["paged_attention_quant"] = run_paged_attention(torch, timer, quant=True)
     recs["grouped_mlp_resident_quant"] = run_expert_mlp_resident_quant(torch, timer)
     log(f"int8 kernel checks took {time.perf_counter() - t0:.2f} s")
@@ -1762,17 +1913,17 @@ def main() -> int:
     # serving run for the first three, the pipeline run for the codec and
     # flash attention (the roundtrip has no consumer on any path), the
     # streaming engine's pool run for the resident expert FFN, and its run
-    # with the int8 streams for their four kernels
+    # with the int8 streams for their five kernels
     launches = {**pipe_launches, **serve_launches,
                 "grouped_mlp_resident": stream_launches["grouped_mlp_resident"],
                 **{k: quant_launches[k] for k in (
-                    "quantize_rows", "dequantize_rows", "paged_attention_quant",
-                    "grouped_mlp_resident_quant")}}
+                    "quantize_rows", "dequantize_rows", "paged_write_quant",
+                    "paged_attention_quant", "grouped_mlp_resident_quant")}}
 
     meta = {
         "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention/kernel.py:196", "paged_attention"),
-        "group_gate": ("triton", "src/repro_torch/kernels/group_gate/ops.py",
+        "group_gate": ("cuda", "src/repro_torch/csrc/group_gate.cu",
                        "src/repro/kernels/group_gate/kernel.py:85", "group_gate"),
         "expert_mlp": ("cuda", "src/repro_torch/csrc/expert_mlp.cu",
                        "src/repro/kernels/expert_mlp/kernel.py:108", "grouped_mlp"),
@@ -1792,6 +1943,8 @@ def main() -> int:
                           "src/repro/kernels/quant/kernel.py:56", "quantize_rows"),
         "dequantize_rows": ("cuda", "src/repro_torch/csrc/quant.cu",
                             "src/repro/kernels/quant/kernel.py:83", "dequantize_rows"),
+        "paged_write_quant": ("cuda", "src/repro_torch/csrc/quant.cu",
+                              "src/repro/kernels/quant/kernel.py:56", "paged_write_quant"),
         "paged_attention_quant": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
                                   "src/repro/kernels/paged_attention/kernel.py:139",
                                   "paged_attention_quant"),

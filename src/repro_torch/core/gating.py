@@ -4,7 +4,7 @@ port of the reference's ``core/gating.py``.
 The M experts are split into K groups; stage 1 is a K-way global gate
 (eq. 6), stage 2 a per-group M_k-way gate (eq. 5), and the selection
 probability is their product (eq. 7).  The probabilities come from
-``kernels.group_gate`` (the Triton kernel on the card); the ``group_top_k``
+``kernels.group_gate`` (``csrc/group_gate.cu`` on the card); the ``group_top_k``
 restriction, top-k selection and the auxiliary losses run in PyTorch after
 it, as in the reference.
 """

@@ -32,6 +32,18 @@
 // reduced axis, so each warp reads 32 neighbouring values of one row with
 // no transposed copy; the slices' maxima meet in shared memory.
 // Dequantize is an elementwise grid-stride loop.
+//
+// The int8 KV pools' layer write (paged_write_quant_kernel) fuses what the
+// serving path did in ten-odd small launches a layer (two row quantizations,
+// the page-slot arithmetic, four scatters): one launch quantizes a layer's
+// k and v for all B x C tokens and writes codes and scales straight into
+// their page slots.  One warp a token line (its k or its v): the physical
+// row table[b, (pos // ps) % pps] (negative entries wrap as a Python index
+// does; rows not valid go to the garbage row, the pool's last), the offset
+// pos % ps; the line's KV * hd values read once with 16-byte loads and kept
+// in registers, the amax from shuffles, the same scale and codes as the row
+// kernel (bit-equal), the codes stored 8 (bf16 input) or 4 (f32) bytes at a
+// time.  Bound by launch latency: a decode group writes 4 tokens.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -130,6 +142,117 @@ __global__ void __launch_bounds__(kDeqThreads) dequantize_rows_kernel(
     y[i] = from_f<T>((float)q[i] * to_f(scale[i / n]));
 }
 
+template <typename T> struct Line;
+template <> struct Line<float> {  // 4 values a 16-byte load, codes 4 bytes a store
+  static constexpr int n = 4;
+  using Codes = unsigned int;
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+template <> struct Line<__nv_bfloat16> {  // 8 values a 16-byte load, codes 8 bytes
+  static constexpr int n = 8;
+  using Codes = uint2;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
+}
+__device__ __forceinline__ int floor_mod(int a, int b) { return a - floor_div(a, b) * b; }
+
+constexpr int kWriteWarps = 4;  // token lines per block
+constexpr int kMaxLoads = 16;   // 16-byte loads a lane keeps: KV * hd <= 512 * Line::n
+
+// lines 2 * tokens: line 2t is token t's k, 2t + 1 its v; token t = b * C + c.
+// NL: 16-byte loads a lane keeps in registers (a power of two, >= n / (32 *
+// Line::n)).
+template <typename T, int NL>
+__global__ void __launch_bounds__(32 * kWriteWarps) paged_write_quant_kernel(
+    const T* __restrict__ k, const T* __restrict__ v, signed char* __restrict__ pool_k,
+    signed char* __restrict__ pool_v, __half* __restrict__ pool_ks,
+    __half* __restrict__ pool_vs, const int* __restrict__ table,
+    const int* __restrict__ positions, const bool* __restrict__ valid, int tokens, int C,
+    int n, int pps, int ps, int rows) {
+  using L = Line<T>;
+  const int lane = threadIdx.x & 31;
+  const int line = blockIdx.x * kWriteWarps + (threadIdx.x >> 5);
+  if (line >= 2 * tokens) return;  // the same for the whole warp
+  const int t = line >> 1, b = t / C;
+  const bool is_v = line & 1;
+  const int pos = positions[t];
+  int phys = table[b * pps + floor_mod(floor_div(pos, ps), pps)];
+  if (phys < 0) phys += rows;
+  if (valid != nullptr && !valid[t]) phys = rows - 1;
+  const size_t slot = (size_t)phys * ps + floor_mod(pos, ps);
+
+  const T* src = (is_v ? v : k) + (size_t)t * n;
+  const int loads = n / L::n;
+  float vals[NL][L::n];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int idx = lane + 32 * j;
+    if (idx < loads) {
+      L::load(src + idx * L::n, vals[j]);
+#pragma unroll
+      for (int i = 0; i < L::n; ++i) amax = fmaxf(amax, fabsf(vals[j][i]));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const __half s = line_scale<__half>(amax);
+  if (lane == 0) (is_v ? pool_vs : pool_ks)[slot] = s;
+  const float sf = __half2float(s);
+  signed char* dst = (is_v ? pool_v : pool_k) + slot * n;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int idx = lane + 32 * j;
+    if (idx < loads) {
+      typename L::Codes packed;
+      signed char* c = reinterpret_cast<signed char*>(&packed);
+#pragma unroll
+      for (int i = 0; i < L::n; ++i) c[i] = quant(vals[j][i], sf);
+      *reinterpret_cast<typename L::Codes*>(dst + idx * L::n) = packed;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t paged_write_quant(const void* k, const void* v, signed char* qk, signed char* qv,
+                              __half* sk, __half* sv, const int* table, const int* positions,
+                              const bool* valid, int B, int C, int n, int pps, int ps, int rows,
+                              cudaStream_t stream) {
+  const int tokens = B * C;
+  const int per_lane = (n / Line<T>::n + 31) / 32;
+  if (n % Line<T>::n || per_lane > kMaxLoads) return cudaErrorInvalidValue;
+  const dim3 grid((2 * tokens + kWriteWarps - 1) / kWriteWarps), block(32 * kWriteWarps);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+#define PWQ(NL)                                                                       \
+  paged_write_quant_kernel<T, NL><<<grid, block, 0, stream>>>(                       \
+      kt, vt, qk, qv, sk, sv, table, positions, valid, tokens, C, n, pps, ps, rows)
+  if (per_lane <= 1) PWQ(1);
+  else if (per_lane <= 2) PWQ(2);
+  else if (per_lane <= 4) PWQ(4);
+  else if (per_lane <= 8) PWQ(8);
+  else PWQ(16);
+#undef PWQ
+  return cudaGetLastError();
+}
+
 template <typename T, typename S>
 cudaError_t quantize(const void* x, void* q, void* scale, int outer, int n,
                      int inner, cudaStream_t stream) {
@@ -192,5 +315,33 @@ extern "C" int dequantize_launch(const void* q, const void* scale, void* y,
     return (int)dequantize<__nv_bfloat16, float>(q, scale, y, t, n, s);
   if (ydtype == 1 && sdtype == 1)
     return (int)dequantize<__nv_bfloat16, __half>(q, scale, y, t, n, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One layer's int8 KV write: k, v [B, C, n] (xdtype 0 = float32, 1 =
+// bfloat16; n = KV * hd, a multiple of 16 / sizeof(x), at most 512 loads'
+// worth) quantized per token into pool_k, pool_v [rows, ps, n] int8 and
+// pool_ks, pool_vs [rows, ps] float16 at table [B, pps] int32, positions
+// [B * C] int32 and valid [B * C] bool (or null: every token valid).
+// Returns the launch's cudaError_t (0 = launched).
+extern "C" int paged_write_quant_launch(const void* k, const void* v, void* pool_k,
+                                        void* pool_v, void* pool_ks, void* pool_vs,
+                                        const void* table, const void* positions,
+                                        const void* valid, int B, int C, int n, int pps,
+                                        int ps, int rows, int xdtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  signed char* qk = static_cast<signed char*>(pool_k);
+  signed char* qv = static_cast<signed char*>(pool_v);
+  __half* sk = static_cast<__half*>(pool_ks);
+  __half* sv = static_cast<__half*>(pool_vs);
+  const int* tb = static_cast<const int*>(table);
+  const int* pos = static_cast<const int*>(positions);
+  const bool* vd = static_cast<const bool*>(valid);
+  if (xdtype == 0)
+    return (int)paged_write_quant<float>(k, v, qk, qv, sk, sv, tb, pos, vd, B, C, n, pps, ps,
+                                         rows, s);
+  if (xdtype == 1)
+    return (int)paged_write_quant<__nv_bfloat16>(k, v, qk, qv, sk, sv, tb, pos, vd, B, C, n,
+                                                 pps, ps, rows, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,39 +1,36 @@
-"""HL-GGN group gate (eq. 5-7): the Triton kernel's wrapper and its plain
+"""HL-GGN group gate (eq. 5-7): the CUDA kernel's wrapper and its plain
 PyTorch version.
 
 Replaces the reference's ``kernels/group_gate/kernel.py::group_gate_pallas``
-(``_gate_kernel``).  Per token: local logits ``x @ w_local + b_local (+
-additive mask)`` go through a softmax within each group (eq. 5); global
-logits ``x @ w_global + b_global``, with groups whose experts are all
-masked set to -1e30, go through a softmax over groups (eq. 6); the product
-gives ``probs [T, E]`` (eq. 7).  Outputs are f32, as the router math is.
+(``_gate_kernel``).  Per token: local logits ``x @ w_local + b_local``,
+masked experts set to -1e30, go through a softmax within each group (eq.
+5); global logits ``x @ w_global + b_global``, with groups whose experts are
+all masked set to -1e30, go through a softmax over groups (eq. 6); the
+product gives ``probs [T, E]`` (eq. 7).  Outputs are f32, as the router
+math is.
 
-What bounds it on the H100: bytes, and a small grid.  The work is a skinny
-product ``[T, d] x [d, E + K]`` (E + K = 12 for switch-base) followed by two
-segmented softmaxes: about 2*(E+K) flops for each 2-byte element of x,
-nowhere near the tensor cores' ridge.  The kernel reads x once and the
-(L2-resident) gate weights once a block, keeps the logits in registers, and
-writes only the probabilities -- the [T, E] logits never reach HBM.  It
-reads ``w_local`` in the parameters' own ``[K, d, Mk]`` layout (column
-``e = k*Mk + m`` sits at ``k*d*Mk + m``), so no relayout runs per call.
-The f32 products are broadcast multiply-and-sum over k-blocks: exact f32
-arithmetic, where ``tl.dot`` on f32 would drop to TF32 by default.
-
-The kernel takes one ``[E]`` mask shared by all tokens; a per-token
-``[T, E]`` mask runs only in the plain version (CPU), and a CUDA call with
-one raises.
+On the card ``csrc/group_gate.cu`` computes it in one launch: d split over
+a block's threads (neighbouring threads on neighbouring elements), a token
+(or a tile of tokens at large T) a block, the parameters read in their own
+layouts (``w_local [K, d, Mk]``, ``w_global
+[d, K]``), the ``[E]`` bool mask read as given; see the source for what
+bounds it.  A per-token ``[T, E]`` mask runs only in the plain version
+(CPU), and a CUDA call with one raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30
-BLOCK_TOKENS = 16
-BLOCK_K = 32
+MAX_EXPERTS, MAX_GROUPS = 16, 8  # the kernel's compile-time bounds on E and K
+_XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def gate_logits(
@@ -73,80 +70,28 @@ def group_gate_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    import triton
-    import triton.language as tl
+def _lib():
+    lib = build.load("group_gate")
+    lib.group_gate_launch.restype = ctypes.c_int
+    lib.group_gate_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    return lib
 
-    @triton.jit
-    def gate_kernel(x_ptr, wl_ptr, bl_ptr, wg_ptr, bg_ptr, mask_ptr,
-                    probs_ptr, pg_ptr, T, d,
-                    E: tl.constexpr, K: tl.constexpr, MK: tl.constexpr,
-                    NE: tl.constexpr, NK: tl.constexpr, BT: tl.constexpr,
-                    BK: tl.constexpr, HAS_MASK: tl.constexpr):
-        rows = tl.program_id(0) * BT + tl.arange(0, BT)
-        row_ok = rows < T
-        cols = tl.arange(0, NE)
-        col_ok = cols < E
-        grp = cols // MK
-        gcols = tl.arange(0, NK)
-        g_ok = gcols < K
-        wl_col = grp * d * MK + cols % MK  # column e of w_local [K, d, MK]
-        acc_l = tl.zeros((BT, NE), tl.float32)
-        acc_g = tl.zeros((BT, NK), tl.float32)
-        for k0 in range(0, d, BK):
-            ks = k0 + tl.arange(0, BK)
-            k_ok = ks < d
-            x = tl.load(x_ptr + rows[:, None] * d + ks[None, :],
-                        mask=row_ok[:, None] & k_ok[None, :], other=0.0).to(tl.float32)
-            wl = tl.load(wl_ptr + ks[:, None] * MK + wl_col[None, :],
-                         mask=k_ok[:, None] & col_ok[None, :], other=0.0)
-            wg = tl.load(wg_ptr + ks[:, None] * K + gcols[None, :],
-                         mask=k_ok[:, None] & g_ok[None, :], other=0.0)
-            acc_l += tl.sum(x[:, :, None] * wl[None, :, :], axis=1)
-            acc_g += tl.sum(x[:, :, None] * wg[None, :, :], axis=1)
 
-        neg_inf = -3.0e38  # below any logit, and exp() of it is 0
-        local = acc_l + tl.load(bl_ptr + cols, mask=col_ok, other=0.0)[None, :]
-        glob = acc_g + tl.load(bg_ptr + gcols, mask=g_ok, other=0.0)[None, :]
-        if HAS_MASK:
-            mask = tl.load(mask_ptr + cols, mask=col_ok, other=0.0)  # additive
-            local += mask[None, :]
-            dead = tl.zeros((NK,), tl.int1)
-            for g in tl.static_range(K):
-                mmax = tl.max(tl.where(grp == g, mask, neg_inf), axis=0)
-                dead = tl.where(gcols == g, mmax <= -5.0e29, dead)  # NEG_INF / 2
-            glob = tl.where(dead[None, :], -1.0e30, glob)  # NEG_INF
-        local = tl.where(col_ok[None, :], local, neg_inf)
-        glob = tl.where(g_ok[None, :], glob, neg_inf)
-
-        # eq. 5: softmax within each group
-        lmax = tl.zeros((BT, NE), tl.float32)
-        for g in tl.static_range(K):
-            in_g = (grp == g)[None, :]
-            lmax = tl.where(in_g, tl.max(tl.where(in_g, local, neg_inf), axis=1)[:, None], lmax)
-        lexp = tl.exp(local - lmax)
-        lsum = tl.full((BT, NE), 1.0, tl.float32)
-        for g in tl.static_range(K):
-            in_g = (grp == g)[None, :]
-            lsum = tl.where(in_g, tl.sum(tl.where(in_g, lexp, 0.0), axis=1)[:, None], lsum)
-        p_local = tl.where(col_ok[None, :], lexp / lsum, 0.0)
-
-        # eq. 6: softmax over groups
-        gmax = tl.max(glob, axis=1)
-        gexp = tl.exp(glob - gmax[:, None])
-        p_group = gexp / tl.sum(gexp, axis=1)[:, None]
-
-        # eq. 7: probs[:, e] = p_group[:, e // MK] * p_local[:, e]
-        pg_col = tl.zeros((BT, NE), tl.float32)
-        for g in tl.static_range(K):
-            pg = tl.sum(tl.where(gcols[None, :] == g, p_group, 0.0), axis=1)
-            pg_col = tl.where((grp == g)[None, :], pg[:, None], pg_col)
-        tl.store(probs_ptr + rows[:, None] * E + cols[None, :], pg_col * p_local,
-                 mask=row_ok[:, None] & col_ok[None, :])
-        tl.store(pg_ptr + rows[:, None] * K + gcols[None, :], p_group,
-                 mask=row_ok[:, None] & g_ok[None, :])
-
-    return gate_kernel
+def launch_plan(T: int, d: int, K: int, Mk: int,
+                w_ptrs=(0, 0)) -> Tuple[int, int, int, int]:
+    """(form, tokens a block, threads a block, deep) of a call.  Form 1 and 2
+    are switch-base's (K, Mk) = (4, 2) and llama4-scout's (4, 4) with vector
+    weight loads (both weight pointers ``w_ptrs`` 16-byte aligned), 0 any
+    other shape one float at a time.  One token a block up to 256 tokens (T
+    blocks side by side), then tiles of a multiple of 4 tokens (about 256
+    blocks); a thread for every element of d, 32 to 512 (256 for tiles);
+    the loop over d unrolled four deep (``deep``) only where a thread takes
+    more than two elements."""
+    form = {(4, 2): 1, (4, 4): 2}.get((K, Mk), 0) if all(p % 16 == 0 for p in w_ptrs) else 0
+    rows = 1 if T <= 256 else 4 * -(-T // 1024)
+    threads = min(512 if rows == 1 else 256, max(32, -(-d // 32) * 32))
+    return form, rows, threads, int(d > 2 * threads)
 
 
 def group_gate(
@@ -158,7 +103,7 @@ def group_gate(
     expert_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused eq. 5-7 -> (probs [T, E], p_group [T, K]), f32; the plain
-    version for CPU tensors, the Triton kernel for CUDA tensors."""
+    version for CPU tensors, ``csrc/group_gate.cu`` for CUDA tensors."""
     if x.device.type == "cpu":
         return group_gate_plain(x, w_local, b_local, w_global, b_global, expert_mask)
     if x.device.type != "cuda":
@@ -172,7 +117,7 @@ def group_gate(
             raise ValueError(f"group_gate: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"group_gate: {name} is not contiguous")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _XDTYPES:
         raise ValueError(f"group_gate: x dtype {x.dtype}")
     for name, t in params.items():
         if t.dtype != torch.float32:
@@ -183,29 +128,32 @@ def group_gate(
             f"group_gate: shapes x={tuple(x.shape)} w_local={tuple(w_local.shape)} "
             f"w_global={tuple(w_global.shape)} do not agree"
         )
-    mask = None
+    if E > MAX_EXPERTS or K > MAX_GROUPS:
+        raise ValueError(f"group_gate: the kernel takes E <= {MAX_EXPERTS} experts in "
+                         f"K <= {MAX_GROUPS} groups, got E={E}, K={K}")
     if expert_mask is not None:
         if expert_mask.shape != (E,):
             raise ValueError(
                 f"group_gate: the kernel takes one [E] = [{E}] expert mask for "
                 f"all tokens, got shape {tuple(expert_mask.shape)}"
             )
-        if expert_mask.device != x.device or expert_mask.dtype != torch.bool:
-            raise ValueError("group_gate: expert_mask must be a bool tensor on x's device")
-        mask = torch.where(expert_mask, 0.0, NEG_INF).float()
+        if (expert_mask.device != x.device or expert_mask.dtype != torch.bool
+                or not expert_mask.is_contiguous()):
+            raise ValueError("group_gate: expert_mask must be a contiguous bool tensor on "
+                             "x's device")
     probs = torch.empty((T, E), dtype=torch.float32, device=x.device)
     p_group = torch.empty((T, K), dtype=torch.float32, device=x.device)
-    if T == 0:
+    if T == 0:  # an empty grid is no launch
         return probs, p_group
-    kernel = _triton_kernel()
-    kernel[(-(-T // BLOCK_TOKENS),)](
-        x, w_local, b_local, w_global, b_global,
-        mask if mask is not None else probs,  # unread without a mask
-        probs, p_group, T, d,
-        E=E, K=K, MK=Mk, NE=max(2, 1 << (E - 1).bit_length()),
-        NK=max(2, 1 << (K - 1).bit_length()), BT=BLOCK_TOKENS, BK=BLOCK_K,
-        HAS_MASK=mask is not None, num_warps=4,
+    form, rows, threads, deep = launch_plan(T, d, K, Mk,
+                                            (w_local.data_ptr(), w_global.data_ptr()))
+    err = _lib().group_gate_launch(
+        x.data_ptr(), w_local.data_ptr(), b_local.data_ptr(), w_global.data_ptr(),
+        b_global.data_ptr(), None if expert_mask is None else expert_mask.data_ptr(),
+        probs.data_ptr(), p_group.data_ptr(), T, d, K, Mk, _XDTYPES[x.dtype], form, rows,
+        threads, deep, torch.cuda.current_stream(x.device).cuda_stream,
     )
+    build.check_launch(err, "group_gate")
     group_gate.launches += 1
     return probs, p_group
 

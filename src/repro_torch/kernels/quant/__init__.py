@@ -2,6 +2,7 @@ from repro_torch.kernels.quant.ops import (
     SCALE_FLOOR,
     dequantize_rows,
     dequantize_rows_plain,
+    paged_write_quant,
     quantize_rows,
     quantize_rows_plain,
 )
@@ -10,6 +11,7 @@ __all__ = [
     "SCALE_FLOOR",
     "dequantize_rows",
     "dequantize_rows_plain",
+    "paged_write_quant",
     "quantize_rows",
     "quantize_rows_plain",
 ]

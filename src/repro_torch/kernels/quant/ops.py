@@ -15,7 +15,10 @@ The line is the last axis (``axis=-1``, one scale per row) or the one
 before it (``axis=-2``, one scale per column: the slab store's scale per
 output column); the scale keeps the reduced axis with size 1.  A CPU tensor
 goes to the plain version; a CUDA tensor launches ``csrc/quant.cu`` or
-raises.
+raises.  ``paged_write_quant`` quantizes a layer's k and v tokens straight
+into the int8 KV pools' page slots in one launch, for CUDA tensors only:
+its plain version is ``models.kvcache.paged_write_quant_plain``, and the
+kvcache writers route between the two.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ def _lib():
     lib.dequantize_launch.restype = ctypes.c_int
     lib.dequantize_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.paged_write_quant_launch.restype = ctypes.c_int
+    lib.paged_write_quant_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
     return lib
 
 
@@ -127,3 +133,79 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, *,
 
 
 dequantize_rows.launches = 0
+
+
+_KV_MAX_LOADS = 16  # 16-byte loads a lane of csrc/quant.cu's KV write keeps
+
+
+def paged_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, table, positions,
+                      page_size: int, valid=None):
+    """The int8 KV pools' layer write in one launch of ``csrc/quant.cu``:
+    each token's k and v ``[B, C, KV, hd]`` quantized (one f16 scale a token
+    over its ``KV * hd`` values) and written at ``positions`` (``[B]`` with
+    C = 1, or ``[B, C]``) through the page table ``[B, pps]``: row
+    ``table[b, (pos // ps) % pps]``, offset ``pos % ps``, tokens not
+    ``valid`` to the garbage row (the pool's last).  Codes and scales are
+    bit-equal to ``models.kvcache.paged_write_quant_plain``'s (outside the
+    garbage row, which takes one of several writes in either), whose
+    writers call this on the card.  CUDA tensors only; the pools may be
+    views of block-stacked leaves if they are contiguous; ``table`` and
+    ``positions`` int32, ``valid`` bool, as the engine holds them (no cast,
+    no host sync).  In place; returns the four pools."""
+    if k.device.type != "cuda":
+        raise ValueError(f"paged_write_quant: unsupported device {k.device}")
+    B, C, KV, hd = k.shape
+    rows, ps, n = pool_k.shape[0], page_size, KV * hd
+    tensors = dict(pool_k=pool_k, pool_v=pool_v, pool_ks=pool_ks, pool_vs=pool_vs, k=k, v=v,
+                   table=table, positions=positions)
+    if valid is not None:
+        tensors["valid"] = valid
+    for name, t in tensors.items():
+        if t.device != k.device:
+            raise ValueError(f"paged_write_quant: {name} on {t.device}, k on {k.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_write_quant: {name} is not contiguous")
+    want_pos = (B,) if positions.dim() == 1 and C == 1 else (B, C)
+    if (k.dtype not in _XDTYPES or v.dtype != k.dtype or pool_k.dtype != torch.int8
+            or pool_v.dtype != torch.int8 or pool_ks.dtype != torch.float16
+            or pool_vs.dtype != torch.float16 or table.dtype != torch.int32
+            or positions.dtype != torch.int32
+            or (valid is not None and valid.dtype != torch.bool)):
+        raise ValueError(
+            f"paged_write_quant: dtypes k/v {k.dtype}/{v.dtype} (want float32 or bfloat16), "
+            f"pools {pool_k.dtype}/{pool_v.dtype} (want int8), scales "
+            f"{pool_ks.dtype}/{pool_vs.dtype} (want float16), table {table.dtype} and "
+            f"positions {positions.dtype} (want int32), valid "
+            f"{None if valid is None else valid.dtype} (want bool)")
+    if (tuple(v.shape) != (B, C, KV, hd) or tuple(pool_k.shape[1:]) != (ps, KV, hd)
+            or pool_v.shape != pool_k.shape or tuple(pool_ks.shape) != (rows, ps)
+            or pool_vs.shape != pool_ks.shape or table.dim() != 2 or table.shape[0] != B
+            or tuple(positions.shape) != want_pos
+            or (valid is not None and tuple(valid.shape) != (B, C))):
+        raise ValueError(
+            f"paged_write_quant: shapes k {tuple(k.shape)} v {tuple(v.shape)} pools "
+            f"{tuple(pool_k.shape)} scales {tuple(pool_ks.shape)} table "
+            f"{tuple(table.shape)} positions {tuple(positions.shape)} (page_size {ps}) "
+            f"do not agree")
+    per_load = 16 // k.element_size()
+    if (n % per_load or -(-n // per_load) > 32 * _KV_MAX_LOADS
+            or k.data_ptr() % 16 or v.data_ptr() % 16
+            or pool_k.data_ptr() % per_load or pool_v.data_ptr() % per_load):
+        raise ValueError(
+            f"paged_write_quant: a token's {n} values must be a multiple of {per_load} and "
+            f"at most {32 * _KV_MAX_LOADS * per_load}, k/v 16-byte aligned, the pools "
+            f"{per_load}-byte aligned")
+    if B * C == 0:  # an empty grid is no launch
+        return pool_k, pool_v, pool_ks, pool_vs
+    err = _lib().paged_write_quant_launch(
+        k.data_ptr(), v.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
+        pool_vs.data_ptr(), table.data_ptr(), positions.data_ptr(),
+        None if valid is None else valid.data_ptr(), B, C, n, table.shape[1], ps, rows,
+        _XDTYPES[k.dtype], torch.cuda.current_stream(k.device).cuda_stream,
+    )
+    build.check_launch(err, "paged_write_quant")
+    paged_write_quant.launches += 1
+    return pool_k, pool_v, pool_ks, pool_vs
+
+
+paged_write_quant.launches = 0

@@ -13,7 +13,9 @@ slots), and each slot has a page table ``[pages_per_slot]``.  Position
 Quantized pools (``init_paged_blocks(..., quantized=True)``) store int8
 codes in the ``k``/``v`` leaves and one f16 scale per written token in
 ``k_scale``/``v_scale`` leaves ``[R, P+1, page_size]``, written by the
-``*_quant`` writers (``kernels.quant`` on the card); every page move walks
+``*_quant`` writers (on the card one launch a layer write of
+``kernels.quant.paged_write_quant``, held to :func:`paged_write_quant_plain`
+here); every page move walks
 all leaves, so the scales travel with their pages.
 
 The writes update the pools in place (the reference's ``.at[].set`` returns
@@ -29,7 +31,12 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
-from repro_torch.kernels.quant import SCALE_FLOOR, quantize_rows
+from repro_torch.kernels.quant import (
+    SCALE_FLOOR,
+    paged_write_quant,
+    quantize_rows,
+    quantize_rows_plain,
+)
 
 KV_SCALE_DTYPE = torch.float16  # per-token scale: an int8 page stays <= 0.55x of bf16
 KV_SCALE_FLOOR = SCALE_FLOOR  # all-zero tokens: a finite divide, codes 0
@@ -247,12 +254,14 @@ def dense_page_bytes(cfg, n_blocks: int, page_size: int) -> int:
             * cfg.num_kv_heads * cfg.head_dim * itemsize)
 
 
-def quantize_kv_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_tokens(x: torch.Tensor, quantize=quantize_rows
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[..., KV, hd] -> (q int8 same shape, scale f16 [...])``: one scale
     per token over its contiguous ``KV * hd`` values, rounded to f16 before
-    the divide (``kernels.quant.quantize_rows``)."""
+    the divide (``kernels.quant.quantize_rows``, or ``quantize`` in its
+    place)."""
     lead = x.shape[:-2]
-    q, scale = quantize_rows(x.reshape(*lead, -1).contiguous(), scale_dtype=KV_SCALE_DTYPE)
+    q, scale = quantize(x.reshape(*lead, -1).contiguous(), scale_dtype=KV_SCALE_DTYPE)
     return q.view(x.shape), scale.view(lead)
 
 
@@ -299,15 +308,30 @@ def paged_ring_write(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
     return pool_k, pool_v
 
 
-def paged_ring_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v,
-                           table: torch.Tensor, lengths: torch.Tensor, page_size: int):
-    """Quantize-on-write :func:`paged_ring_write`: the token's k/v as int8
-    codes and their f16 scales, written through the page table in place."""
-    phys, off = _token_slots(table, lengths, page_size)
-    (qk, sk), (qv, sv) = quantize_kv_tokens(k[:, 0]), quantize_kv_tokens(v[:, 0])
+def paged_write_quant_plain(pool_k, pool_v, pool_ks, pool_vs, k, v, table, positions,
+                            page_size: int, valid=None):
+    """The int8 pools' layer write in plain PyTorch, on any device (the card
+    kernel ``kernels.quant.paged_write_quant`` is held to it): k/v ``[B, C,
+    KV, hd]`` as int8 codes and one f16 scale a token, written in place at
+    ``positions`` (``[B]`` with C = 1, or ``[B, C]``) through the page
+    table; rows not ``valid`` go to the garbage page."""
+    phys, off = (_token_slots(table, positions, page_size) if valid is None
+                 else _chunk_slots(pool_k, table, positions, valid, page_size))
+    if positions.dim() == 1:
+        k, v = k[:, 0], v[:, 0]
+    (qk, sk), (qv, sv) = (quantize_kv_tokens(t, quantize_rows_plain) for t in (k, v))
     pool_k[phys, off], pool_v[phys, off] = qk, qv
     pool_ks[phys, off], pool_vs[phys, off] = sk, sv
     return pool_k, pool_v, pool_ks, pool_vs
+
+
+def paged_ring_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v,
+                           table: torch.Tensor, lengths: torch.Tensor, page_size: int):
+    """Quantize-on-write :func:`paged_ring_write`: the token's k/v as int8
+    codes and their f16 scales, written through the page table in place
+    (the plain version for CPU tensors, one kernel launch otherwise)."""
+    write = paged_write_quant_plain if k.device.type == "cpu" else paged_write_quant
+    return write(pool_k, pool_v, pool_ks, pool_vs, k, v, table, lengths, page_size)
 
 
 def paged_write_tokens(pool_k: torch.Tensor, pool_v: torch.Tensor, k, v,
@@ -326,12 +350,10 @@ def paged_write_tokens_quant(pool_k, pool_v, pool_ks, pool_vs, k, v,
                              table: torch.Tensor, positions: torch.Tensor,
                              valid: torch.Tensor, page_size: int):
     """Quantize-on-write :func:`paged_write_tokens` (chunked prefill):
-    int8 codes and f16 scales, padding rows to the garbage page."""
-    phys, off = _chunk_slots(pool_k, table, positions, valid, page_size)
-    (qk, sk), (qv, sv) = quantize_kv_tokens(k), quantize_kv_tokens(v)
-    pool_k[phys, off], pool_v[phys, off] = qk, qv
-    pool_ks[phys, off], pool_vs[phys, off] = sk, sv
-    return pool_k, pool_v, pool_ks, pool_vs
+    int8 codes and f16 scales, padding rows to the garbage page (the plain
+    version for CPU tensors, one kernel launch otherwise)."""
+    write = paged_write_quant_plain if k.device.type == "cpu" else paged_write_quant
+    return write(pool_k, pool_v, pool_ks, pool_vs, k, v, table, positions, page_size, valid)
 
 
 # -- tier re-splits over pages ----------------------------------------------

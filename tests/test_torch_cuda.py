@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.expertpool import quantize_slab
+from repro_torch.core.gating import init_group_gate
 from repro_torch.core.hardware import PROFILES
 from repro_torch.kernels.expert_mlp import (
     grouped_mlp,
@@ -25,6 +26,7 @@ from repro_torch.kernels.expert_mlp import (
 )
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.group_gate import group_gate, group_gate_plain
+from repro_torch.kernels.group_gate import ops as group_gate_ops
 from repro_torch.kernels.lowrank import (
     lowrank_decode,
     lowrank_encode,
@@ -41,10 +43,12 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.quant import (
     dequantize_rows,
     dequantize_rows_plain,
+    paged_write_quant,
     quantize_rows,
     quantize_rows_plain,
 )
-from repro_torch.models.kvcache import quantize_kv_tokens
+from repro_torch.models import kvcache
+from repro_torch.models.kvcache import paged_write_quant_plain, quantize_kv_tokens
 from repro_torch.models.model import Model, to_device
 from repro_torch.serving import EndCloudPipeline, EndCloudServingEngine, Request, ServingEngine
 
@@ -179,6 +183,178 @@ def test_group_gate_kernel(gen, mask, T):
     with pytest.raises(ValueError, match="one \\[E\\]"):
         group_gate(x, w_local, b_local, w_global, b_global,
                    torch.ones(T, K * Mk, dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.parametrize("mask", ["none", "partial", "dead group"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [4, 8, 256, 1024])
+@pytest.mark.parametrize("model", ["switch-base", "llama4-scout-17b-16e"])
+def test_group_gate_kernel_path_shapes(gen, model, T, dtype, mask):
+    """The path's widths (switch-base d 768, 8 experts in 4 groups;
+    llama4-scout d 5120, 16 in 4) and row counts: within 1e-4 of the plain
+    version (f32 probabilities, the logits summed in another order), the
+    same bits from a second launch, one launch counted a call."""
+    moe = get_config(model).moe
+    d, E, Mk = get_config(model).d_model, moe.num_experts, moe.experts_per_group
+    p = init_group_gate(gen, d, moe)
+    p["b_local"].normal_(generator=gen)
+    p["b_global"].normal_(generator=gen)
+    e = torch.arange(E, device="cuda")
+    m = {"none": None, "partial": e % 3 != 1,
+         "dead group": (e // Mk != 1) & (e % Mk != 0)}[mask]
+    x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+    args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], m)
+    before = group_gate.launches
+    got = group_gate(*args)
+    assert group_gate.launches == before + 1
+    want = group_gate_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+    again = group_gate(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    if mask == "dead group":
+        assert bool((got[1][:, 1] == 0).all()) and bool((got[0][:, Mk:2 * Mk] == 0).all())
+
+
+@pytest.mark.parametrize("K,Mk,d,aligned", [
+    (2, 4, 96, True), (8, 2, 160, True), (1, 3, 2100, True),  # the generic form
+    (4, 2, 96, False),  # switch-base's (K, Mk) off 16-byte alignment: generic too
+    (4, 4, 2100, True),  # llama4-scout's form with a deep loop over d
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_group_gate_kernel_forms(gen, K, Mk, d, aligned, masked):
+    """Every kernel form and loop depth (``launch_plan``) against the plain
+    version at 6 and 300 tokens, the same bits from a second launch."""
+    lead = 0 if aligned else 1  # a one-float leading slice breaks 16-byte alignment
+    w_local = torch.randn(K * d * Mk + lead, generator=gen, device="cuda")[lead:].view(K, d, Mk)
+    w_global = torch.randn(d, K, generator=gen, device="cuda")
+    b_local = torch.randn(K, Mk, generator=gen, device="cuda")
+    b_global = torch.randn(K, generator=gen, device="cuda")
+    form = group_gate_ops.launch_plan(8, d, K, Mk, (w_local.data_ptr(), w_global.data_ptr()))[0]
+    assert (form == 0) == ((K, Mk) not in ((4, 2), (4, 4)) or not aligned)
+    m = (torch.arange(K * Mk, device="cuda") % 3 != 1) if masked else None
+    for T in (6, 300):
+        x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
+        args = (x, w_local, b_local, w_global, b_global, m)
+        got = group_gate(*args)
+        want = group_gate_plain(*args)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+        again = group_gate(*args)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_group_gate_kernel_raises(gen):
+    K, d, Mk, T = 4, 64, 2, 8
+    w_local = torch.randn(K, d, Mk, generator=gen, device="cuda")
+    b_local = torch.randn(K, Mk, generator=gen, device="cuda")
+    w_global = torch.randn(d, K, generator=gen, device="cuda")
+    b_global = torch.randn(K, generator=gen, device="cuda")
+    x = torch.randn(T, d, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        group_gate(torch.randn(d, T, generator=gen, device="cuda").T, w_local, b_local,
+                   w_global, b_global)
+    with pytest.raises(ValueError, match="contiguous"):
+        group_gate(x, w_local.transpose(1, 2).contiguous().transpose(1, 2), b_local,
+                   w_global, b_global)
+    with pytest.raises(ValueError, match="dtype"):
+        group_gate(x.half(), w_local, b_local, w_global, b_global)
+    with pytest.raises(ValueError, match="float32"):
+        group_gate(x, w_local.bfloat16(), b_local, w_global, b_global)
+    with pytest.raises(ValueError, match="one \\[E\\]"):
+        group_gate(x, w_local, b_local, w_global, b_global,
+                   torch.ones(T, K * Mk, dtype=torch.bool, device="cuda"))
+    with pytest.raises(ValueError, match="bool"):
+        group_gate(x, w_local, b_local, w_global, b_global,
+                   torch.ones(K * Mk, dtype=torch.uint8, device="cuda"))
+    wide = torch.randn(4, d, 8, generator=gen, device="cuda")  # E = 32
+    with pytest.raises(ValueError, match="E <= 16"):
+        group_gate(x, wide, torch.zeros(4, 8, device="cuda"), w_global, b_global)
+
+
+def _kv_write_case(gen, kind, dtype, KV, hd, P=40, ps=16, pps=4, R=3):
+    """Block-stacked int8 leaves of random codes and f16 scales and the
+    arguments of one layer write: a ring write of 3 slots (one past a ring
+    wrap, one whose table is partly garbage) or a chunk of C = 16 rows with
+    padding; an all-zero token and one whose f16 scale underflows."""
+    leaves = torch.randint(-127, 128, (2, R, P + 1, ps, KV, hd), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    scales = torch.rand(2, R, P + 1, ps, generator=gen, device="cuda").half()
+    table = torch.tensor([[3, 0, 7, 5], [9, 2, P, P], [1, 4, 6, 8]], dtype=torch.int32,
+                         device="cuda")
+    B = table.shape[0]
+    if kind == "ring":
+        C, valid = 1, None
+        positions = torch.tensor([100, 20, 61], dtype=torch.int32, device="cuda")
+    else:
+        C = 16
+        start = torch.tensor([0, 16, 48], dtype=torch.int32, device="cuda")
+        positions = (start[:, None] + torch.arange(C, device="cuda")[None]).int()
+        valid = (torch.arange(C, device="cuda")[None]
+                 < torch.tensor([16, 9, 5], device="cuda")[:, None])
+    k, v = (torch.randn(B, C, KV, hd, generator=gen, device="cuda").to(dtype) * 3
+            for _ in range(2))
+    k[1, 0] = 0
+    v[2, 0] *= 1e-7
+    args = (table, positions, ps) + (() if valid is None else (valid,))
+    return leaves, scales, k, v, args
+
+
+@pytest.mark.parametrize("KV,hd", [(12, 64), (8, 128), (2, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["ring", "chunk"])
+def test_paged_write_quant_kernel(gen, kind, dtype, KV, hd):
+    """One launch a layer write into views of block-stacked leaves: codes
+    and scales bit-equal to the plain writers' (on the card and on the CPU)
+    outside the written block's garbage row, also from a second launch; the
+    kvcache writers take the same single launch."""
+    leaves, scales, k, v, args = _kv_write_case(gen, kind, dtype, KV, hd)
+    P = leaves.shape[2] - 1
+
+    def run(write, device="cuda"):
+        lc, sc = leaves.clone().to(device), scales.clone().to(device)
+        a = [t.to(device) if isinstance(t, torch.Tensor) else t for t in args]
+        write(lc[0, 1], lc[1, 1], sc[0, 1], sc[1, 1], k.to(device), v.to(device), *a)
+        lc[:, 1, P], sc[:, 1, P] = 0, 0  # the garbage row takes one of several writes
+        return lc.cpu(), sc.cpu()
+
+    before = paged_write_quant.launches
+    got = run(paged_write_quant)
+    assert paged_write_quant.launches == before + 1
+    for want in (run(paged_write_quant_plain), run(paged_write_quant_plain, "cpu"),
+                 run(paged_write_quant)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind == "ring":
+        writer = kvcache.paged_ring_write_quant
+    else:  # valid before page_size, as the reference orders them
+        def writer(*a):
+            return kvcache.paged_write_tokens_quant(*a[:-2], a[-1], a[-2])
+    before = paged_write_quant.launches, quantize_rows.launches
+    via = run(writer)
+    assert (paged_write_quant.launches, quantize_rows.launches) == (before[0] + 1, before[1])
+    assert torch.equal(via[0], got[0]) and torch.equal(via[1], got[1])
+
+
+def test_paged_write_quant_raises(gen):
+    leaves, scales, k, v, (table, positions, ps, valid) = _kv_write_case(
+        gen, "chunk", torch.bfloat16, 12, 64)
+    pools = (leaves[0, 1], leaves[1, 1], scales[0, 1], scales[1, 1])
+    wide = torch.zeros(*leaves.shape[2:-1], 128, dtype=torch.int8, device="cuda")[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_write_quant(wide, *pools[1:], k, v, table, positions, ps, valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_write_quant(*pools, k.transpose(0, 1).contiguous().transpose(0, 1), v, table,
+                          positions, ps, valid)
+    for bad in (dict(positions=positions.long()), dict(table=table.long()),
+                dict(valid=valid.int()), dict(k=k.half(), v=v.half()),
+                dict(pool_ks=pools[2].float())):
+        kw = dict(pool_k=pools[0], pool_v=pools[1], pool_ks=pools[2], pool_vs=pools[3], k=k,
+                  v=v, table=table, positions=positions, page_size=ps, valid=valid)
+        kw.update(bad)
+        with pytest.raises(ValueError, match="dtypes"):
+            paged_write_quant(**kw)
+    with pytest.raises(ValueError, match="shapes"):
+        paged_write_quant(*pools, k, v, table, positions[:, :8].contiguous(), ps, valid)
 
 
 @pytest.mark.parametrize("gated", [False, True])

@@ -22,7 +22,13 @@ on the pre-gathered dense ring; flash attention: ``is_causal``),
 encode and decode at 4, 32 and 1024 rows (``--mma-sync`` also builds and
 times ``tools/codec_mma_sync.cu``, the ``mma.sync`` form the ``wgmma``
 kernel was chosen over); flash attention on the pipeline's [4, 256, 12,
-64]; the group gate at 8 and 256 rows; paged attention over dense and int8
+64]; the group gate at 4, 8, 256 and 1024 rows of switch-base's width (and
+at 8 rows with a partial mask) and at 8 and 1024 rows of llama4-scout's
+(``--gate-generic`` reads each case again with the kernel's generic form
+forced, against the exact form the launch plan picks);
+one int8 KV layer write of the streaming engine (a decode group and a
+prefill chunk, ``kvcache``'s writers, with the device kernels a call
+launches); paged attention over dense and int8
 pools at ``PA_CASES`` and at the streaming engine's 16-page group; the
 expert FFN at ``FFN_CASES`` and ``WIDE_FFN_CASES``, the resident FFN at
 ``RESIDENT_CASES`` (f32 store) and ``RESIDENT_QUANT_CASES`` (int8 store);
@@ -31,7 +37,8 @@ roundtrip at 1000 rows.  ``--src`` names the ``src`` directory whose
 ``repro_torch`` is timed, so that two trees are compared in one run on one
 card (one process a tree):
 
-    python tools/kernel_probe.py [--src DIR] [--tag NAME] [--mma-sync]
+    python tools/kernel_probe.py [--src DIR] [--tag NAME] [--mma-sync] [--gate-generic]
+                                 [--only SECTION ...]
 
 Prints the card's ``nvidia-smi`` name and power limit, then one line per
 reading.  Needs a CUDA device; builds nothing at import.
@@ -69,6 +76,7 @@ from chip_smoke import (  # noqa: E402
 )
 
 CODEC_ROWS = (4, 32, 1024)
+GATE_ROWS = (4, 8, 256, 1024)
 
 
 def host_us(torch, fn, iters=300):
@@ -89,23 +97,61 @@ def _flat(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
+def launches_per_call(torch, fn, iters: int = 10) -> float:
+    """Device kernels (copies and fills included) one call of ``fn``
+    launches, counted by ``torch.profiler`` over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+        if n:
+            break
+    return n / iters
+
+
+def warm_device_us(torch, fn, iters: int = 20) -> float:
+    """Mean device time (us) of the kernels one call of ``fn`` launches,
+    without the L2 flush between calls (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU) / iters
+
+
 class Probe:
     def __init__(self, torch, tag: str):
         self.torch, self.tag = torch, tag
         self.timer = Timer(torch)
 
-    def reading(self, what, fn, plain, yardsticks=()):
-        """One wrapper call ``fn`` against ``plain``, and the device time a
-        call of each ``(name, callable)`` yardstick."""
+    def reading(self, what, fn, plain, yardsticks=(), view=_flat):
+        """One wrapper call ``fn`` against ``plain`` (each output through
+        ``view`` first), the device kernels a call launches, and the device
+        time a call of each ``(name, callable)`` yardstick."""
         torch = self.torch
-        out = _flat(fn())
+        out = [a.clone() for a in view(fn())]
         err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(out, _flat(plain())) if a.numel())
-        same = all(all(torch.equal(a, b) for a, b in zip(_flat(fn()), out)) for _ in range(3))
+                  for a, b in zip(out, view(plain())) if a.numel())
+        same = all(all(torch.equal(a, b) for a, b in zip(view(fn()), out)) for _ in range(3))
         dev, keys = self.timer.device_us(fn)
         host, p10 = host_us(torch, fn)
         print(f"kernel_probe {self.tag} {what}: device_us={dev:.3f} host_us={host:.3f} "
               f"host_p10_us={p10:.3f} max_abs_err={err:.3e} equal_bits={same} "
+              f"launches_per_call={launches_per_call(torch, fn):g} "
               f"kernels=[{short_names(keys)}]", flush=True)
         for name, y in yardsticks:
             line = y() if name is None else f"{name} {self.timer.device_us(y)[0]:.3f}"
@@ -158,7 +204,23 @@ def codec(pr: Probe, mma_sync: bool):
                        functools.partial(lowrank_project_plain, a, w))
 
 
-def flash_and_gate(pr: Probe):
+def generic_gate_form(call):
+    """``call`` with the gate's launch plan forced to its generic form (form
+    0: one float a weight load), the tokens and threads a block unchanged."""
+    from repro_torch.kernels.group_gate import ops
+
+    plan = ops.launch_plan
+
+    def forced():
+        ops.launch_plan = lambda *a, **kw: (0, *plan(*a, **kw)[1:])
+        try:
+            return call()
+        finally:
+            ops.launch_plan = plan
+    return forced
+
+
+def flash_and_gate(pr: Probe, gate_generic: bool = False):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -176,13 +238,66 @@ def flash_and_gate(pr: Probe):
                functools.partial(flash_attention_plain, q, k, v),
                [("sdpa", functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
                                            is_causal=True))])
-    cfg = get_config("switch-base")
-    p = init_group_gate(g, cfg.d_model, cfg.moe)
-    for T in (8, 256):
-        x = torch.randn(T, cfg.d_model, generator=g, device="cuda").bfloat16()
-        args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], None)
-        pr.reading(f"group_gate T={T}", functools.partial(group_gate, *args),
-                   functools.partial(group_gate_plain, *args))
+    for model, rows in (("switch-base", GATE_ROWS), ("llama4-scout-17b-16e", (8, 1024))):
+        cfg = get_config(model)
+        p = init_group_gate(g, cfg.d_model, cfg.moe)
+        mask = torch.arange(cfg.moe.num_experts, device="cuda") % 3 != 1  # a partial mask
+        for T in rows:
+            x = torch.randn(T, cfg.d_model, generator=g, device="cuda").bfloat16()
+            for m in (None, mask) if T == 8 else (None,):
+                args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], m)
+                call = functools.partial(group_gate, *args)
+                what = f"group_gate {model} d={cfg.d_model} T={T}" + (
+                    " masked" if m is not None else "")
+                for form, fn in (("", call), *((" generic form", generic_gate_form(call)),)
+                                 * gate_generic):
+                    pr.reading(what + form, fn, functools.partial(group_gate_plain, *args),
+                               [(None, lambda fn=fn: f"the call without the L2 flush "
+                                                     f"{warm_device_us(torch, fn):.3f}")])
+
+
+def kv_writes(pr: Probe):
+    """One int8 layer write of the streaming engine (``_write_kv`` through
+    ``kvcache.paged_ring_write_quant`` / ``paged_write_tokens_quant``): a
+    decode group (4 slots, one token each, one slot past a ring wrap) and a
+    prefill chunk (1 slot, 32 rows, 7 of them padding), k and v of 12 heads
+    of 64 in bf16 into int8 pools of 128 pages of 16 tokens (a view of a
+    6-block leaf, as the engine holds them), against the same writers on
+    the CPU outside the garbage row."""
+    from repro_torch.models import kvcache
+
+    torch = pr.torch
+    g = torch.Generator(device="cuda").manual_seed(9)
+    P, ps, KV, hd, pps, R = 128, 16, 12, 64, 16, 6
+    leaves = [torch.zeros(R, P + 1, ps, KV, hd, dtype=torch.int8, device="cuda") for _ in "kv"]
+    scales = [torch.zeros(R, P + 1, ps, dtype=torch.float16, device="cuda") for _ in "kv"]
+    pools = (leaves[0][2], leaves[1][2], scales[0][2], scales[1][2])
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(9)).int()
+    for name, B, C, n_valid, lengths in (("decode B=4 C=1", 4, 1, None, (37, 118, 199, 300)),
+                                         ("prefill chunk B=1 C=32", 1, 32, 25, (96,))):
+        table = perm[:B * pps].view(B, pps).cuda()
+        k, v = (torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        if C == 1:
+            args = (k, v, table, lengths, ps)
+            write = kvcache.paged_ring_write_quant
+        else:
+            pos = (lengths[:, None] + torch.arange(C, device="cuda")[None]).int()
+            valid = torch.arange(C, device="cuda")[None] < n_valid
+            args = (k, v, table, pos, valid, ps)
+            write = kvcache.paged_write_tokens_quant
+        cpu_pools = tuple(t.cpu() for t in pools)
+
+        def plain(write=write, args=args, cpu_pools=cpu_pools):
+            return tuple(t.cuda() for t in write(*cpu_pools, *(
+                a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
+
+        call = functools.partial(write, *pools, *args)
+        pr.reading(f"int8 KV layer write {name}", call, plain,
+                   [(None, lambda call=call: f"the call without the L2 flush "
+                                             f"{warm_device_us(torch, call):.3f}")],
+                   view=lambda out: [t[:-1] for t in out])
 
 
 def paged(pr: Probe):
@@ -317,6 +432,10 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory to time")
     ap.add_argument("--tag", default="tree", help="a name for this tree in the output")
     ap.add_argument("--mma-sync", action="store_true", help="also time the codec's mma.sync form")
+    ap.add_argument("--gate-generic", action="store_true",
+                    help="also time each gate case with its generic form forced")
+    ap.add_argument("--only", nargs="+", choices=sorted(SECTIONS),
+                    help="read only these sections (default: all, in order)")
     args = ap.parse_args()
 
     import torch
@@ -327,12 +446,19 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     print(nvidia_smi(), flush=True)
     pr = Probe(torch, args.tag)
-    codec(pr, args.mma_sync)
-    flash_and_gate(pr)
-    paged(pr)
-    expert_ffn(pr)
-    quant_and_roundtrip(pr)
+    for name, section in SECTIONS.items():
+        if args.only is None or name in args.only:
+            section(pr, args)
     return 0
+
+
+# the readings in order: name -> fn(probe, args)
+SECTIONS = {
+    "codec": lambda pr, args: codec(pr, args.mma_sync),
+    "flash_and_gate": lambda pr, args: flash_and_gate(pr, args.gate_generic),
+    **{f.__name__: (lambda f: lambda pr, _: f(pr))(f)
+       for f in (kv_writes, paged, expert_ffn, quant_and_roundtrip)},
+}
 
 
 if __name__ == "__main__":
