@@ -73,8 +73,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    in bf16 on the card (equal tokens), and a shortened run in f32 on the
    card against the same on the CPU (equal tokens).
 7. The streaming engine with its three int8 byte streams on (``quantize_kv``,
-   ``quantize_experts``, ``quantize_boundary``).  The row quantizer, the
-   dequantizer, the KV pools' quantize-and-write (``KV_WRITE_CASES``: ring
+   ``quantize_experts``, ``quantize_boundary``).  The row and column
+   quantizer (slab columns at ``SLAB_OUTER`` slabs), the dequantizer, the
+   int8 boundary folded into the codec (``run_codec_quant``: encode +
+   quantize and dequantize + decode at ``CODEC_QUANT_ROWS`` x
+   ``CODEC_QUANT_RANKS``, bf16 and f32, bit-equal to the composed kernels),
+   the KV pools' quantize-and-write (``KV_WRITE_CASES``: ring
    writes past a wrap, chunks with padding rows), paged attention over int8
    pools and the resident expert FFN over an int8 slab store against their
    plain versions at the engine's shapes (codes and scales and the
@@ -83,7 +87,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    memory): 16 requests finish, the pools drain, the counters are the
    reference's quantized engine's (``QUANT_POOL_COUNTERS``, read by
    ``tools/ref_stream_counters.py``), every kernel launched as the schedule
-   implies, and the boundary bytes, KV and slab capacity ratios reported
+   implies (the boundary through the fused forms: one launch a stage call
+   each side, no standalone dequantize; the quantizer on slab writes only),
+   and the boundary bytes, KV and slab capacity ratios reported
    beside phase 6's; the share of phase 6's bf16 tokens it reproduces
    (reported, not held to a bound); a profiled tick.  Then the shortened
    f32 replan run, card against CPU: with each int8 stream alone the tokens
@@ -95,8 +101,9 @@ power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
 (streaming kernel and reduction, or the two tensor-core GEMMs), the gate,
-flash attention, the codec and the int8 streams' KV write and quantizers
-(``kernels_in_path``).  ``torch.profiler``
+flash attention, the codec (and its fused int8 boundary forms) and the
+int8 streams' KV write and quantizers (``kernels_in_path``), and the int8
+tick's count of copy and cast kernels.  ``torch.profiler``
 tables of one decode step and of one ``run_batch`` go to
 ``chiprun_out/decode_profile.txt`` and ``chiprun_out/pipeline_profile.txt``,
 one of a streaming-engine tick to ``chiprun_out/stream_profile.txt`` (and
@@ -826,18 +833,28 @@ def run_lowrank(torch, timer):
     return rec
 
 
+# the slab store's batches of column quantizations: one slab (a prefetch)
+# and the int8 pool run's initial fill (its 3 target slabs)
+SLAB_OUTER = (1, 3)
+
+
 def run_quant(torch, timer):
-    """The row quantizer at the int8 streams' shapes: KV tokens (4 and 32
-    rows of 768, bf16, f16 scales), the boundary (4 and 32 rows of 384), and
-    the columns of one expert slab's wi [768, 3072] and wo [3072, 768] (f32,
-    f32 scales).  Codes and scales equal the plain version's bit for bit (the
-    tokens downstream depend on them), an all-zero row and a row so small
-    that its f16 scale underflows to 0 included.  Then the dequantizer on the
-    boundary's codes, bit for bit.  No single PyTorch call computes either
-    function (the scale of each line, rounded to its type, then the codes;
+    """The row quantizer at the int8 streams' row shapes: KV tokens (4 and
+    32 rows of 768, bf16, f16 scales) and a raw boundary (4 and 32 rows of
+    384); the column quantizer on one expert slab's wi [768, 3072] and wo
+    [3072, 768] (f32, f32 scales) and on the pool's initial fill of
+    ``SLAB_OUTER`` slabs, its cluster plan logged.  Codes and scales equal
+    the plain version's bit for bit (the tokens downstream depend on them),
+    an all-zero line and a row so small that its f16 scale underflows to 0
+    included.  Then the dequantizer on the boundary's codes and on a ragged
+    width, bit for bit.  No single PyTorch call computes either function
+    (the scale of each line, rounded to its type, then the codes;
     ``torch.quantize_per_channel`` takes the scales as given), so
-    ``library_ms`` is null."""
+    ``library_ms`` is null.  Returns the records of the slab ``wo`` column
+    quantization (what the int8 pool run launches) and of the boundary
+    dequantization."""
     from repro_torch.kernels.quant import (
+        cols_plan,
         dequantize_rows,
         dequantize_rows_plain,
         quantize_rows,
@@ -846,13 +863,15 @@ def run_quant(torch, timer):
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [  # (name, shape, input type, scale type, axis)
         ("kv decode 4x768", (4, 768), bf16, f16, -1),
         ("kv chunk 32x768", (32, 768), bf16, f16, -1),
         ("boundary decode 4x384", (4, 384), bf16, f16, -1),
         ("boundary chunk 32x384", (32, 384), bf16, f16, -1),
-        ("slab wi 768x3072 columns", (1, 768, 3072), f32, f32, -2),
-        ("slab wo 3072x768 columns", (1, 3072, 768), f32, f32, -2),
+        ("boundary ragged 4x100", (4, 100), bf16, f16, -1),
+        *((f"slab {m} {'x'.join(map(str, shape))} columns outer={o}", (o, *shape), f32, f32, -2)
+          for o in SLAB_OUTER for m, shape in (("wi", (768, 3072)), ("wo", (3072, 768)))),
     ]
     rec, codes = {}, {}
     for name, shape, dt, sdt, axis in cases:
@@ -861,14 +880,20 @@ def run_quant(torch, timer):
         if axis == -1:
             x[0] = 0
             x[1] = (torch.randn(shape[1], generator=gen, device="cuda") * 1e-7).to(dt)
+        else:
+            x[0, :, 3] = 0
         kw = dict(scale_dtype=sdt, axis=axis)
         q, sc = quantize_rows(x, **kw)
         rq, rsc = quantize_rows_plain(x, **kw)
         same = torch.equal(q, rq) and torch.equal(sc, rsc)
+        again = quantize_rows(x, **kw)
+        same_again = torch.equal(again[0], q) and torch.equal(again[1], sc)
         under = int((sc == 0).sum())
-        log(f"  quantize_rows {name}: codes and scales equal the plain version's: {same} "
-            f"({under} scales underflowed to 0)")
-        if not same:
+        plan = (f"; cluster, staged = {cols_plan(shape[0], shape[1], shape[2], 4, sms)}"
+                if axis == -2 else "")
+        log(f"  quantize_rows {name}: codes and scales equal the plain version's: {same}, "
+            f"a second launch's: {same_again} ({under} scales underflowed to 0){plan}")
+        if not (same and same_again):
             raise AssertionError(f"quantize_rows {name}: codes or scales differ")
         if axis == -1 and under != 2:  # the floor 1e-8 is 0 in f16
             raise AssertionError(f"quantize_rows {name}: the zero and tiny rows' f16 "
@@ -877,14 +902,16 @@ def run_quant(torch, timer):
         n = x.numel()
         b_ms, b_by = bound(n * x.element_size() + n + sc.numel() * sc.element_size(),
                            3 * n, "f32")
-        ms = timer(lambda: quantize_rows(x, **kw))
+        call = functools.partial(quantize_rows, x, **kw)
+        ms = timer(call)
         plain_ms = timer(lambda: quantize_rows_plain(x, **kw))
+        timer.later(f"quantize_rows {name}", call)
         log(f"  quantize_rows {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null")
         rec[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
-    out = {"quantize_rows": rec["kv decode 4x768"]}
-    for name in ("boundary decode 4x384", "boundary chunk 32x384"):
+    out = {"quantize_rows": rec["slab wo 3072x768 columns outer=1"]}
+    for name in ("boundary decode 4x384", "boundary chunk 32x384", "boundary ragged 4x100"):
         q, sc = codes[name]
         y = dequantize_rows(q, sc, dtype=bf16)
         same = torch.equal(y, dequantize_rows_plain(q, sc, dtype=bf16))
@@ -893,13 +920,129 @@ def run_quant(torch, timer):
             raise AssertionError(f"dequantize_rows {name}: values differ")
         n = q.numel()
         b_ms, b_by = bound(n + sc.numel() * 2 + n * 2, n, "f32")
-        ms = timer(lambda: dequantize_rows(q, sc, dtype=bf16))
+        call = functools.partial(dequantize_rows, q, sc, dtype=bf16)
+        ms = timer(call)
         plain_ms = timer(lambda: dequantize_rows_plain(q, sc, dtype=bf16))
+        timer.later(f"dequantize_rows {name}", call)
         log(f"  dequantize_rows {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null")
         out.setdefault("dequantize_rows", dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                                bound_ms=b_ms, bound_by=b_by, library_ms=None))
     return out
+
+
+# the fused boundary forms: token rows (a decode step of 1 slot and of the
+# stream's 4-slot group, a 32-token chunk, 4 slots of a 32-token chunk,
+# the pipeline's batch) and ranks (the stream's 384; 512, a cluster of 8;
+# 100, the scalar path: k or n not a multiple of 8)
+CODEC_QUANT_ROWS = (1, 4, 32, 128, 1024)
+CODEC_QUANT_RANKS = (384, 512, 100)
+
+
+def run_codec_quant(torch, timer):
+    """The int8 boundary folded into the codec: ``lowrank_encode_quant``
+    and ``lowrank_decode_quant`` at ``CODEC_QUANT_ROWS`` x
+    ``CODEC_QUANT_RANKS`` (d = 768), bf16 and f32, an all-zero row and one
+    whose f16 scale underflows to 0 included: codes, scales and x^
+    bit-equal to the composed kernels (``lowrank_encode`` then
+    ``quantize_rows``, ``dequantize_rows`` then ``lowrank_decode``), a
+    second launch equal; the codes within one step (plus the codec's one
+    ulp) of the plain Z and x^ within the codec's tolerance of the plain
+    composition on the same codes.  Timed at rank 384 in bf16 and 4, 32 and
+    128 rows, beside the plain composition and the composed kernels; the
+    library yardstick is ``torch.matmul`` on the product alone (no single
+    call also quantizes).  Returns the records at the stream's decode
+    group (4 rows)."""
+    from repro_torch.core.compression import init_lowrank_1d
+    from repro_torch.kernels.lowrank import (
+        lowrank_decode,
+        lowrank_decode_quant,
+        lowrank_decode_quant_plain,
+        lowrank_encode,
+        lowrank_encode_quant,
+        lowrank_encode_quant_plain,
+        lowrank_project_plain,
+    )
+    from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    d, f16 = 768, torch.float16
+    rec = {}
+    for r in CODEC_QUANT_RANKS:
+        codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, r, device="cuda")
+        for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            enc, dec = codec["enc"].to(dt), codec["dec"].to(dt)
+            for T in CODEC_QUANT_ROWS:
+                x = torch.randn(T, d, generator=gen, device="cuda") * 3
+                x[0] = 0
+                if T > 1:
+                    x[1] *= 1e-7
+                x = x.to(dt)
+                q, s = lowrank_encode_quant(x, enc)
+                xh = lowrank_decode_quant(q, s, dec)
+                cq, cs = quantize_rows(lowrank_encode(x, enc), scale_dtype=f16)
+                cxh = lowrank_decode(dequantize_rows(q, s, dtype=dt), dec)
+                again = (*lowrank_encode_quant(x, enc), lowrank_decode_quant(q, s, dec))
+                equal = torch.equal(q, cq) and torch.equal(s, cs) and torch.equal(xh, cxh)
+                same = all(torch.equal(a, b) for a, b in zip(again, (q, s, xh)))
+                under = int((s == 0).sum())
+                # the plain composition: Z from f32 sums in another order
+                # (one ulp in bf16: a code may sit one step off), x^ of the
+                # same codes within the codec's tolerance
+                z = lowrank_project_plain(x, enc).float()
+                step = s.float()
+                near = (q.float() * step - z).abs() <= 1.5 * step + 2 ** -7 * z.abs()
+                codes_ok = bool(near[s[:, 0] > 0].all())
+                what = f"codec quant {kind} T={T} r={r}"
+                log(f"  {what}: codes, scales and x^ equal the composed kernels': {equal}; "
+                    f"a second launch's: {same}; codes within a step of the plain Z: "
+                    f"{codes_ok} ({under} scales underflowed to 0)")
+                if not (equal and same and codes_ok) or under != min(T, 2):
+                    raise AssertionError(f"{what}: the fused forms disagree")
+                pq, ps = lowrank_encode_quant_plain(x, enc)
+                enc_err = (q.float() * s.float() - pq.float() * ps.float()).abs().max().item()
+                log(f"  {what} dequantized codes against the plain version's: max_abs_err="
+                    f"{enc_err:.3e} (a step where Z moved an ulp)")
+                ref = lowrank_decode_quant_plain(q, s, dec)
+                if dt == torch.float32:
+                    err = check_close(f"{what} x^", xh, ref, rtol=1e-5,
+                                      atol=1e-5 * ref.abs().max().item())
+                else:
+                    err = check_close(f"{what} x^", xh, ref, rtol=2 ** -7,
+                                      atol=2 ** -6 * ref.float().abs().median().item())
+                if r != 384 or kind != "bf16" or T not in (4, 32, 128):
+                    continue
+                for name, call, plain, composed, lib, nbytes in (
+                        ("lowrank_encode_quant", functools.partial(lowrank_encode_quant, x, enc),
+                         functools.partial(lowrank_encode_quant_plain, x, enc),
+                         lambda x=x, enc=enc: quantize_rows(lowrank_encode(x, enc),
+                                                            scale_dtype=f16),
+                         functools.partial(torch.matmul, x, enc),
+                         T * d * 2 + d * r * 2 + T * r + T * 2),
+                        ("lowrank_decode_quant", functools.partial(lowrank_decode_quant, q, s, dec),
+                         functools.partial(lowrank_decode_quant_plain, q, s, dec),
+                         lambda q=q, s=s, dec=dec, dt=dt: lowrank_decode(
+                             dequantize_rows(q, s, dtype=dt), dec),
+                         functools.partial(torch.matmul, cq.to(dt), dec),
+                         T * r + T * 2 + r * d * 2 + T * d * 2)):
+                    b_ms, b_by = bound(nbytes, 2 * T * d * r, "bf16")
+                    ms = timer(call)
+                    plain_ms = timer(plain)
+                    comp_ms = timer(composed)
+                    lib_ms = timer(lib)
+                    timer.later(f"{name} T={T} r={r}", call, functools.partial(
+                        lambda composed, lib: (
+                            f"the composed kernels {timer.device_us(composed)[0]:.3f}, "
+                            f"torch.matmul (the product alone) {timer.device_us(lib)[0]:.3f}"),
+                        composed, lib))
+                    log(f"  {name} T={T} r={r}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                        f"composed_ms={comp_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
+                        f"library_ms(matmul, the product alone)={lib_ms:.4f}")
+                    if T == 4:
+                        rec[name] = dict(max_abs_err=err if name == "lowrank_decode_quant"
+                                         else enc_err, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return rec
 
 
 # the int8 KV pools' layer writes at the streaming engine's shapes (12 kv
@@ -1260,6 +1403,11 @@ def traced_run(torch, pipe, tokens, feed=None):
 # In-path readers: (what, kernel-name substrings of the kernels launched
 # once a wrapper call, substrings of the other kernels of that call).
 CODEC_KERNELS = (("codec projection", ("project_wgmma_kernel",), ()),)
+# the int8 boundary folded into the codec (bf16 and f32 forms)
+CODEC_QUANT_KERNELS = (("encode + quantize", ("encode_quant_wgmma_kernel",
+                                              "encode_quant_f32_kernel"), ()),
+                       ("dequantize + decode", ("decode_quant_wgmma_kernel",
+                                                "decode_quant_f32_kernel"), ()))
 # paged attention: the CUDA-core or the tensor-core sweep, then (S > 1)
 # the merge of the splits
 PAGED_KERNELS = (("paged attention", ("paged_attention_kernel<", "paged_attention_mma_kernel<"),
@@ -1622,10 +1770,13 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
     # every stage call (decode steps, prefill chunks, and one warmup of each
     # per build of the stage functions) runs each tier's layers once; with
     # int8 KV pools each layer writes its k and v in one quantize-and-write
-    # launch, with an int8 boundary
-    # each end call quantizes and each cloud call dequantizes it, and with an
-    # int8 slab store each batch of slab writes (the initial fill, each tick
-    # that prefetched) quantizes every weight matrix
+    # launch, with an int8 boundary each end call encodes and quantizes it
+    # in one launch and each cloud call dequantizes and decodes it in one
+    # (the rank-384 codec is always on here), and with an int8 slab store
+    # each batch of slab writes (the initial fill, each tick that
+    # prefetched) quantizes every weight matrix
+    if not eng.tiers.compress:
+        raise AssertionError(f"{tag}: the codec is off")
     calls = eng.n_stage_steps + eng.n_prefill_chunks + 2 * eng._build_gen
     n_layers = cfg.block_repeat * len(cfg.layer_pattern)
     end_moe = eng.split * len(eng._moe_pos)
@@ -1635,12 +1786,13 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
             "grouped_mlp_resident_quant": calls * end_moe if exq else 0,
             "grouped_mlp": calls * (cfg.block_repeat * len(eng._moe_pos) - end_moe),
             "group_gate": calls * cfg.block_repeat * len(eng._moe_pos),
-            "lowrank_encode": calls, "lowrank_decode": calls,
+            "lowrank_encode": 0 if bq else calls, "lowrank_decode": 0 if bq else calls,
+            "lowrank_encode_quant": calls * bq, "lowrank_decode_quant": calls * bq,
             "paged_attention": 0 if kvq else calls * n_layers,
             "paged_attention_quant": calls * n_layers if kvq else 0,
             "paged_write_quant": calls * n_layers * kvq,
-            "quantize_rows": calls * bq + (1 + prefetch_ticks) * mats * exq,
-            "dequantize_rows": calls * bq,
+            "quantize_rows": (1 + prefetch_ticks) * mats * exq,
+            "dequantize_rows": 0,
             "flash_attention_fwd": 0, "lowrank_roundtrip": 0}
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, want {want}")
@@ -1665,12 +1817,15 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
         *ffn_kernels("cloud expert FFN", "__nv_bfloat16"),
         *PAGED_KERNELS, *GATE_KERNELS,
         ("KV write", ("paged_write_quant_kernel<",), ()),
-        ("quantize", ("quantize_rows_kernel",), ()),
+        ("quantize", ("quantize_rows_kernel", "quantize_rows_vec_kernel",
+                      "quantize_cols_kernel"), ()),
         ("dequantize", ("dequantize_rows_kernel",), ()),
-        *CODEC_KERNELS))
+        *CODEC_KERNELS, *CODEC_QUANT_KERNELS))
+    casts = sum(e.count for e in dev if "direct_copy_kernel" in e.key)
     log(f"{tag} profile (tick {ptick}, 8 slots decoding): device time {dev_us / 1e3:.3f} ms "
         f"of {wall * 1e3:.3f} ms wall ({dev_us / 1e3 / (wall * 1e3):.1%} busy); kernels in "
-        f"path, a launch: {in_path}; written to chiprun_out/{profile_name}")
+        f"path, a launch: {in_path}; copy and cast kernels (direct_copy): {casts}; written "
+        f"to chiprun_out/{profile_name}")
     return launches, [r.generated for r in reqs], m
 
 
@@ -1847,7 +2002,13 @@ def main() -> int:
     )
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.group_gate import group_gate
-    from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode, lowrank_roundtrip
+    from repro_torch.kernels.lowrank import (
+        lowrank_decode,
+        lowrank_decode_quant,
+        lowrank_encode,
+        lowrank_encode_quant,
+        lowrank_roundtrip,
+    )
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
     from repro_torch.kernels.quant import dequantize_rows, paged_write_quant, quantize_rows
 
@@ -1890,12 +2051,13 @@ def main() -> int:
         grouped_mlp_resident, grouped_mlp_resident_quant, grouped_mlp, group_gate,
         lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
         quantize_rows, dequantize_rows, paged_write_quant, flash_attention_fwd,
-        lowrank_roundtrip]
+        lowrank_roundtrip, lowrank_encode_quant, lowrank_decode_quant]
     model, params, stream_launches, base = stream(torch, stream_counters)
     log(f"stream phase took {time.perf_counter() - t0:.1f} s")
     log("int8 byte streams, kernels against their plain versions (card):")
     t0 = time.perf_counter()
     recs.update(run_quant(torch, timer))
+    recs.update(run_codec_quant(torch, timer))
     recs["paged_write_quant"] = run_kv_write(torch, timer)
     recs["paged_attention_quant"] = run_paged_attention(torch, timer, quant=True)
     recs["grouped_mlp_resident_quant"] = run_expert_mlp_resident_quant(torch, timer)
@@ -1913,12 +2075,14 @@ def main() -> int:
     # serving run for the first three, the pipeline run for the codec and
     # flash attention (the roundtrip has no consumer on any path), the
     # streaming engine's pool run for the resident expert FFN, and its run
-    # with the int8 streams for their five kernels
+    # with the int8 streams for theirs (the standalone dequantizer: 0, the
+    # boundary takes the fused decode; the quantizer: the slab writes)
     launches = {**pipe_launches, **serve_launches,
                 "grouped_mlp_resident": stream_launches["grouped_mlp_resident"],
                 **{k: quant_launches[k] for k in (
                     "quantize_rows", "dequantize_rows", "paged_write_quant",
-                    "paged_attention_quant", "grouped_mlp_resident_quant")}}
+                    "paged_attention_quant", "grouped_mlp_resident_quant",
+                    "lowrank_encode_quant", "lowrank_decode_quant")}}
 
     meta = {
         "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -1943,6 +2107,10 @@ def main() -> int:
                           "src/repro/kernels/quant/kernel.py:56", "quantize_rows"),
         "dequantize_rows": ("cuda", "src/repro_torch/csrc/quant.cu",
                             "src/repro/kernels/quant/kernel.py:83", "dequantize_rows"),
+        "lowrank_encode_quant": ("cuda", "src/repro_torch/csrc/lowrank.cu",
+                                 "src/repro/kernels/quant/kernel.py:56", "lowrank_encode_quant"),
+        "lowrank_decode_quant": ("cuda", "src/repro_torch/csrc/lowrank.cu",
+                                 "src/repro/kernels/quant/kernel.py:83", "lowrank_decode_quant"),
         "paged_write_quant": ("cuda", "src/repro_torch/csrc/quant.cu",
                               "src/repro/kernels/quant/kernel.py:56", "paged_write_quant"),
         "paged_attention_quant": ("cuda", "src/repro_torch/csrc/paged_attention.cu",

@@ -6,8 +6,11 @@ Token tensors ``[..., d]`` cross a communication boundary as
 ``Z = X E`` (``E`` in R^{d x r}) and are restored as ``X̂ = Z D``, cutting
 the bytes on the wire by r/d.  The products run in ``kernels.lowrank`` (the
 CUDA kernel on the card) with the reference consumer's casting: the codec
-is cast to the activation type before the product.  The boundary's int8
-stage (``quantize_boundary``) runs in ``kernels.quant``.
+is cast to the activation type before the product (``compute_codec``
+keeps that copy beside the f32 one, made once).  The boundary's int8
+stage runs with the codec in one launch a side (``encode_quantized_1d``,
+``decode_quantized_1d``, ``kernels.lowrank``'s fused forms), or alone
+(``quantize_boundary``, ``kernels.quant``) where there is no codec.
 """
 
 from __future__ import annotations
@@ -16,10 +19,15 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode
+from repro_torch.kernels.lowrank import (
+    codec_quant_plan,
+    lowrank_decode,
+    lowrank_decode_quant,
+    lowrank_encode,
+    lowrank_encode_quant,
+)
+from repro_torch.kernels.lowrank.ops import BOUNDARY_SCALE_DTYPE  # f16: a row is r + 2 bytes
 from repro_torch.kernels.quant import dequantize_rows, quantize_rows
-
-BOUNDARY_SCALE_DTYPE = torch.float16  # f16 keeps a quantized row <= 0.55x of bf16
 
 
 def init_lowrank_1d(generator: torch.Generator, d: int, r: int,
@@ -38,20 +46,63 @@ def init_lowrank_1d(generator: torch.Generator, d: int, r: int,
             "dec": e.T.contiguous().to(device=device, dtype=dtype)}
 
 
+def compute_codec(params: Dict, dtype: torch.dtype) -> Dict:
+    """The codec with copies of ``enc`` and ``dec`` in the activation type
+    (``enc_act``, ``dec_act``) beside them, cast once (as
+    ``transformer.compute_params`` does for the weights): the products read
+    them with no cast a call, and the values are the same cast's.  Entries
+    that are not tensors pass through uncopied (a planner reads only the
+    rank, ``enc.shape[1]``)."""
+    return {**params, **{f"{k}_act": params[k].to(dtype) for k in ("enc", "dec")
+                         if isinstance(params.get(k), torch.Tensor)}}
+
+
+def _weight(params: Dict, key: str, dtype: torch.dtype) -> torch.Tensor:
+    """``params[key]`` in ``dtype``: the copy ``compute_codec`` made, or a cast."""
+    w = params.get(f"{key}_act")
+    return w if w is not None and w.dtype == dtype else params[key].to(dtype)
+
+
 def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
 def encode_1d(params: Dict, x: torch.Tensor) -> torch.Tensor:
     """``x [..., d] -> z [..., r]``."""
-    z = lowrank_encode(_rows(x), params["enc"].to(x.dtype))
+    z = lowrank_encode(_rows(x), _weight(params, "enc", x.dtype))
     return z.reshape(*x.shape[:-1], z.shape[-1])
 
 
 def decode_1d(params: Dict, z: torch.Tensor) -> torch.Tensor:
     """``z [..., r] -> x̂ [..., d]``."""
-    x = lowrank_decode(_rows(z), params["dec"].to(z.dtype))
+    x = lowrank_decode(_rows(z), _weight(params, "dec", z.dtype))
     return x.reshape(*z.shape[:-1], x.shape[-1])
+
+
+def encode_quantized_1d(params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_boundary(encode_1d(params, x))``: ``x [..., d] -> (q int8
+    [..., r], scale f16 [..., 1])``, in one launch where
+    ``codec_quant_plan`` fuses it, else the two standalone kernels."""
+    enc = _weight(params, "enc", x.dtype)
+    if codec_quant_plan(enc.shape[1]) == "fused":
+        q, scale = lowrank_encode_quant(_rows(x), enc)
+    else:
+        q, scale = quantize_rows(lowrank_encode(_rows(x), enc), scale_dtype=BOUNDARY_SCALE_DTYPE)
+    return q.reshape(*x.shape[:-1], q.shape[-1]), scale.reshape(*x.shape[:-1], 1)
+
+
+def decode_quantized_1d(params: Dict, q: torch.Tensor, scale: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """``decode_1d(params, dequantize_boundary(q, scale, dtype))``: ``(q
+    [..., r], scale [..., 1]) -> x̂ [..., d]`` in ``dtype``, in one launch
+    where ``codec_quant_plan`` fuses it, else the two standalone kernels."""
+    dec = _weight(params, "dec", dtype)
+    qr, sr = _rows(q), scale.reshape(-1, 1)
+    if codec_quant_plan(dec.shape[0]) == "fused":
+        x = lowrank_decode_quant(qr, sr, dec)
+    else:
+        x = lowrank_decode(dequantize_rows(qr, sr, dtype=dtype), dec)
+    return x.reshape(*q.shape[:-1], x.shape[-1])
 
 
 def roundtrip_1d(params: Dict, x: torch.Tensor) -> torch.Tensor:

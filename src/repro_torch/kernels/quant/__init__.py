@@ -1,5 +1,6 @@
 from repro_torch.kernels.quant.ops import (
     SCALE_FLOOR,
+    cols_plan,
     dequantize_rows,
     dequantize_rows_plain,
     paged_write_quant,
@@ -9,6 +10,7 @@ from repro_torch.kernels.quant.ops import (
 
 __all__ = [
     "SCALE_FLOOR",
+    "cols_plan",
     "dequantize_rows",
     "dequantize_rows_plain",
     "paged_write_quant",

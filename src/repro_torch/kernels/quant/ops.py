@@ -13,12 +13,14 @@ reference's fp8 mode has no kernel and no consumer and is not ported.)
 
 The line is the last axis (``axis=-1``, one scale per row) or the one
 before it (``axis=-2``, one scale per column: the slab store's scale per
-output column); the scale keeps the reduced axis with size 1.  A CPU tensor
-goes to the plain version; a CUDA tensor launches ``csrc/quant.cu`` or
-raises.  ``paged_write_quant`` quantizes a layer's k and v tokens straight
-into the int8 KV pools' page slots in one launch, for CUDA tensors only:
-its plain version is ``models.kvcache.paged_write_quant_plain``, and the
-kvcache writers route between the two.
+output column); the scale keeps the reduced axis with size 1.  The column
+form splits the reduced axis over a thread-block cluster (:func:`cols_plan`).
+A CPU tensor goes to the plain version; a CUDA tensor launches
+``csrc/quant.cu`` or raises.  ``paged_write_quant`` quantizes a layer's k
+and v tokens straight into the int8 KV pools' page slots in one launch, for
+CUDA tensors only: its plain version is
+``models.kvcache.paged_write_quant_plain``, and the kvcache writers route
+between the two.
 """
 
 from __future__ import annotations
@@ -34,17 +36,40 @@ from repro_torch.kernels import build
 SCALE_FLOOR = 1e-8  # all-zero lines: the divide stays finite, the codes 0
 _XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SDTYPES = {torch.float32: 0, torch.float16: 1}
+COL_TILE_BYTES = 128  # a column block's tile: 8 threads x 16 bytes of a row
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+STAGE_BYTES = 96 * 1024  # a column block keeps its slice in shared memory up to this
+
+
+def cols_plan(outer: int, n: int, inner: int, itemsize: int, sms: int) -> Tuple[int, bool]:
+    """``(cluster, staged)`` of the column form on ``[outer, n, inner]``
+    (``itemsize``-byte values, a card of ``sms`` SMs): each block takes a
+    128-byte tile of neighbouring columns and ``ceil(n / cluster)`` rows;
+    the cluster (1, 2, 4 or 8 blocks) doubles until the grid holds two
+    blocks an SM or the slice fits in ``STAGE_BYTES``, whichever needs more,
+    and the slice stays in shared memory (``staged``) where it fits."""
+    tiles = -(-inner * itemsize // COL_TILE_BYTES)
+    cluster = 1
+    while cluster < MAX_CLUSTER and (tiles * outer * cluster < 2 * sms
+                                     or -(-n // cluster) * COL_TILE_BYTES > STAGE_BYTES):
+        cluster *= 2
+    return cluster, -(-n // cluster) * COL_TILE_BYTES <= STAGE_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("quant")
     lib.quantize_launch.restype = ctypes.c_int
-    lib.quantize_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+    lib.quantize_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     lib.dequantize_launch.restype = ctypes.c_int
-    lib.dequantize_launch.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.dequantize_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     lib.paged_write_quant_launch.restype = ctypes.c_int
     lib.paged_write_quant_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
@@ -85,9 +110,12 @@ def quantize_rows(x: torch.Tensor, *, scale_dtype: torch.dtype = torch.float32,
         return q, scale
     n = x.shape[axis]
     inner = 1 if axis == -1 else x.shape[-1]
+    outer = x.numel() // (n * inner)
+    cluster, staged = (1, False) if axis == -1 else cols_plan(
+        outer, n, inner, x.element_size(), _sms(x.device.index or 0))
     err = _lib().quantize_launch(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), x.numel() // (n * inner), n,
-        inner, _XDTYPES[x.dtype], _SDTYPES[scale_dtype],
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), outer, n, inner, cluster, int(staged),
+        _XDTYPES[x.dtype], _SDTYPES[scale_dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check_launch(err, "quantize_rows")
@@ -123,7 +151,7 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, *,
     if q.numel() == 0:
         return y
     err = _lib().dequantize_launch(
-        q.data_ptr(), scale.data_ptr(), y.data_ptr(), q.numel(), q.shape[-1],
+        q.data_ptr(), scale.data_ptr(), y.data_ptr(), q.numel() // q.shape[-1], q.shape[-1],
         _XDTYPES[dtype], _SDTYPES[scale.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )

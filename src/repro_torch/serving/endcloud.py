@@ -209,6 +209,8 @@ def plan_tiers(
             torch.Generator().manual_seed(CODEC_SEED), cfg.d_model,
             compression_rank, device=model.device,
         )
+    if codec is not None:  # the products' copy in the activation type, cast once
+        codec = comp.compute_codec(codec, cfg.torch_dtype)
     rank = codec["enc"].shape[1] if codec is not None else 0
 
     # Route-aware split (eq. 9-11 pipeline reading).  The embedding stays on

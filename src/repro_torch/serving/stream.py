@@ -506,12 +506,20 @@ class EndCloudServingEngine(SlotEngineBase):
         m = cfg.moe
         qb = self.quantize_boundary
 
-        def wire_encode(z):
-            """The boundary's second codec stage: int8 rows and f16 scales."""
-            return comp.quantize_boundary(z) if qb else z
+        def wire_encode(x):
+            """The end tier's boundary payload: the codec's Z (eq. 8), then
+            int8 rows and f16 scales, the two in one launch when both are on."""
+            if compress:
+                return comp.encode_quantized_1d(codec, x) if qb else comp.encode_1d(codec, x)
+            return comp.quantize_boundary(x) if qb else x
 
         def wire_decode(z):
-            return comp.dequantize_boundary(*z, dtype=act) if qb else z
+            """The cloud tier's input from a boundary payload, in ``act``."""
+            if compress:
+                x = comp.decode_quantized_1d(codec, *z, act) if qb else comp.decode_1d(codec, z)
+            else:
+                x = comp.dequantize_boundary(*z, dtype=act) if qb else z
+            return x.to(act)
 
         def angles(positions):
             return attn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
@@ -525,7 +533,7 @@ class EndCloudServingEngine(SlotEngineBase):
                 end_params, x, cfg, angles(lengths[:, None]), pages, lengths,
                 expert_mask=emask, page_table=table, page_size=ps, expert_resident=eres,
             )
-            z = wire_encode(comp.encode_1d(codec, x) if compress else x)
+            z = wire_encode(x)
             if self._route_stats_enabled:
                 # expert_frac ++ group_frac summed over the end tier's MoE
                 # layers; an end tier without blocks (split 0) gives zeros
@@ -536,8 +544,7 @@ class EndCloudServingEngine(SlotEngineBase):
             return z, pages
 
         def cloud_step(cloud_params, z, pages, table, lengths):
-            z = wire_decode(z)
-            x = (comp.decode_1d(codec, z) if compress else z).to(act)
+            x = wire_decode(z)
             x, pages, _ = transformer.apply_stack_decode(
                 cloud_params, x, cfg, angles(lengths[:, None]), pages, lengths,
                 expert_mask=None, page_table=table, page_size=ps,
@@ -554,13 +561,12 @@ class EndCloudServingEngine(SlotEngineBase):
                 end_params, x, cfg, angles(positions), pages, table, positions,
                 n_valid, ps, expert_mask=emask, expert_resident=eres,
             )
-            return wire_encode(comp.encode_1d(codec, x) if compress else x), pages
+            return wire_encode(x), pages
 
         def cloud_prefill_chunk(cloud_params, z, pages, table, start, n_valid):
-            z = wire_decode(z)
-            B, C = z.shape[:2]
+            x = wire_decode(z)
+            B, C = x.shape[:2]
             positions = chunk_positions(start, C)
-            x = (comp.decode_1d(codec, z) if compress else z).to(act)
             x, pages = transformer.apply_stack_prefill_chunk(
                 cloud_params, x, cfg, angles(positions), pages, table, positions,
                 n_valid, ps, expert_mask=None,

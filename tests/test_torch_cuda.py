@@ -27,13 +27,18 @@ from repro_torch.kernels.expert_mlp import (
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.group_gate import group_gate, group_gate_plain
 from repro_torch.kernels.group_gate import ops as group_gate_ops
+from repro_torch.core import compression as comp
 from repro_torch.kernels.lowrank import (
     lowrank_decode,
+    lowrank_decode_quant,
+    lowrank_decode_quant_plain,
     lowrank_encode,
+    lowrank_encode_quant,
     lowrank_project_plain,
     lowrank_roundtrip,
     lowrank_roundtrip_plain,
 )
+from repro_torch.kernels.lowrank import ops as lowrank_ops
 from repro_torch.kernels.paged_attention import (
     paged_attention,
     paged_attention_plain,
@@ -41,6 +46,7 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.quant import (
+    cols_plan,
     dequantize_rows,
     dequantize_rows_plain,
     paged_write_quant,
@@ -605,23 +611,26 @@ def test_stream_engine_on_card_matches_cpu(gen, name):
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "llama4-scout-17b-16e"])
 def test_stream_engine_int8_streams_on_card_match_cpu(gen, name):
     """The streaming engine with all three int8 streams on, f32 smoke model,
-    middle split, codec on: the int8 kernels launch on the card and give the
-    CPU's tokens."""
+    middle split, codec on: the int8 kernels launch on the card (the
+    boundary's through the codec's fused forms, so no standalone
+    dequantize) and give the CPU's tokens."""
     cfg = smoke_config(get_config(name)).replace(num_layers=4, dtype="float32")
     params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 500, size=int(rng.integers(4, 40))).astype(np.int32)
                for _ in range(5)]
-    counters = (quantize_rows, dequantize_rows, paged_attention_quant)
+    counters = (quantize_rows, lowrank_encode_quant, lowrank_decode_quant,
+                paged_attention_quant, dequantize_rows)
     tokens = {}
     for dev in ("cpu", "cuda"):
+        # counted from before the engine's build, which writes the first slabs
+        before = [c.launches for c in counters] + [grouped_mlp_resident_quant.launches]
         eng = EndCloudServingEngine(
             Model(cfg, device=dev), to_device(params, dev), end_profile=PROFILES["a100"],
             cloud_profile=PROFILES["a100"], max_batch=4, max_len=64, force_split=2,
             compression_rank=cfg.d_model // 2, timing="modeled", prefill_chunk=8,
             quantize_kv=True, quantize_experts=True, quantize_boundary=True,
         )
-        before = [c.launches for c in counters] + [grouped_mlp_resident_quant.launches]
         reqs = [Request(i, p, max_new_tokens=6) for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
@@ -630,8 +639,10 @@ def test_stream_engine_int8_streams_on_card_match_cpu(gen, name):
         assert eng.end_pool.pages_in_use == eng.cloud_pool.pages_in_use == 0
         after = [c.launches for c in counters] + [grouped_mlp_resident_quant.launches]
         if dev == "cuda":
-            assert all(a > b for a, b in zip(after[:3], before[:3]))
-            assert (after[3] > before[3]) == (cfg.moe is not None)
+            # quantize_rows: the slab writes (an int8 store only with experts)
+            assert (after[0] > before[0]) == (cfg.moe is not None)
+            assert all(a > b for a, b in zip(after[1:4], before[1:4]))
+            assert after[4] == before[4] and (after[5] > before[5]) == (cfg.moe is not None)
     assert tokens["cuda"] == tokens["cpu"]
 
 
@@ -819,3 +830,167 @@ def test_pipeline_on_card_matches_cpu(gen, rank):
         assert mg[key] == mc[key], key
     assert mg["compressed"] == (rank > 0)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+# -- the int8 boundary folded into the codec, and the standalone quantizers ----------
+
+
+def _codec_quant_case(gen, T, d, r, dtype):
+    """Rows of x (an all-zero row and one whose Z is so small that its f16
+    scale underflows to 0 first) and an orthonormal codec in ``dtype``."""
+    x = torch.randn(T, d, generator=gen, device="cuda") * 3
+    x[0] = 0
+    if T > 1:
+        x[1] *= 1e-7
+    q = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0]
+    return x.to(dtype), q.to(dtype).contiguous(), q.T.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r", [384, 512, 100])  # 6 and 8 column tiles; the scalar path
+@pytest.mark.parametrize("T", [1, 4, 32, 128, 1024])
+def test_codec_quant_fused_kernels(gen, T, r, dtype):
+    """The fused boundary forms bit-equal to the composed kernels (codes,
+    scales and x^), each launch counted once, a second launch equal, and
+    within the codec's tolerance of the plain composition."""
+    x, enc, dec = _codec_quant_case(gen, T, 768, r, dtype)
+    before = (lowrank_encode_quant.launches, lowrank_decode_quant.launches)
+    q, s = lowrank_encode_quant(x, enc)
+    xh = lowrank_decode_quant(q, s, dec)
+    assert (lowrank_encode_quant.launches, lowrank_decode_quant.launches) == (
+        before[0] + 1, before[1] + 1)
+    cq, cs = quantize_rows(lowrank_encode(x, enc), scale_dtype=torch.float16)
+    assert torch.equal(q, cq) and torch.equal(s, cs)
+    assert torch.equal(xh, lowrank_decode(dequantize_rows(q, s, dtype=dtype), dec))
+    assert float(s[0]) == 0.0 and (T == 1 or float(s[1]) == 0.0)
+    again = lowrank_encode_quant(x, enc)
+    assert torch.equal(again[0], q) and torch.equal(again[1], s)
+    assert torch.equal(lowrank_decode_quant(q, s, dec), xh)
+    # the plain composition: Z from f32 sums in another order (one ulp in
+    # bf16, so a code may sit one step off), x^ of the same codes
+    z = lowrank_project_plain(x, enc).float()
+    step = s.float()
+    near = (q.float() * step - z).abs() <= 1.5 * step + 2 ** -7 * z.abs()
+    assert bool(near[s[:, 0] > 0].all())  # rows whose f16 scale underflowed hold no values
+    want = lowrank_decode_quant_plain(q, s, dec).float()
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(
+        rtol=2 ** -7, atol=2 ** -6 * want.abs().median().item())
+    torch.testing.assert_close(xh.float(), want, **tol)
+
+
+def _tie_rows(rows, n, dtype):
+    """Rows whose amax is 127 (scale 1): round-half ties, values 2^-20 past
+    them (within the kernels' margin: they divide) and 2^-18 past them
+    (outside it: they code from the reciprocal), each sign."""
+    halves = torch.arange(n, device="cuda") % 254 - 127 + 0.5  # -126.5 .. 126.5
+    nudge = torch.tensor([0.0, 2 ** -20, 2 ** -18, -(2 ** -18)], device="cuda")
+    x = torch.stack([halves * ((1 + nudge[i % 4]) if dtype == torch.float32 else 1.0)
+                     for i in range(rows)])
+    x[:, 0] = 127.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_codec_quant_fused_ties(gen, dtype):
+    """An encode that passes x's first r columns through exactly (E = the
+    first r columns of the identity), so Z holds round-half ties and
+    near-ties: the fused codes equal the composed kernels'."""
+    d, r = 768, 384
+    x = torch.randn(8, d, generator=gen, device="cuda").to(dtype)
+    x[:, :r] = _tie_rows(8, r, dtype)
+    enc = torch.eye(d, device="cuda")[:, :r].contiguous().to(dtype)
+    q, s = lowrank_encode_quant(x, enc)
+    cq, cs = quantize_rows(lowrank_encode(x, enc), scale_dtype=torch.float16)
+    assert torch.equal(s, cs) and bool((s == 1).all())
+    assert torch.equal(q, cq)
+
+
+def test_codec_quant_plan_composes_wide_ranks(gen):
+    """r = 640 spans 10 column tiles: the compression functions compose the
+    standalone kernels, each counted, the fused wrappers refuse it."""
+    x, enc, dec = _codec_quant_case(gen, 8, 768, 640, torch.bfloat16)
+    params = {"enc": enc, "dec": dec}
+    names = (lowrank_encode, quantize_rows, dequantize_rows, lowrank_decode,
+             lowrank_encode_quant, lowrank_decode_quant)
+    before = [f.launches for f in names]
+    q, s = comp.encode_quantized_1d(params, x)
+    xh = comp.decode_quantized_1d(params, q, s, torch.bfloat16)
+    assert [f.launches - b for f, b in zip(names, before)] == [1, 1, 1, 1, 0, 0]
+    cq, cs = quantize_rows(lowrank_encode(x, enc), scale_dtype=torch.float16)
+    assert torch.equal(q, cq) and torch.equal(s, cs)
+    assert torch.equal(xh, lowrank_decode(dequantize_rows(q, s, dtype=torch.bfloat16), dec))
+    with pytest.raises(ValueError, match="column tiles"):
+        lowrank_encode_quant(x, enc)
+    with pytest.raises(ValueError, match="column tiles"):
+        lowrank_decode_quant(q, s, dec)
+
+
+def test_codec_quant_refused_cluster_raises(gen):
+    """The portable cluster sizes co-schedule; 16 blocks a cluster (not
+    allowed without the non-portable attribute) raises."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert lowrank_ops.encode_quant_clusters(dtype, 8) > 0
+        with pytest.raises(RuntimeError, match="co-schedules no cluster"):
+            lowrank_ops.encode_quant_clusters(dtype, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("outer,mat", [*((o, m) for o in (1, 6, 19) for m in ("wi", "wg", "wo")),
+                                       (1, "scout wo")])
+def test_quantize_columns_slab_shapes(gen, outer, mat, dtype):
+    """The column form at the slab store's shapes (switch-base's wi / wo,
+    a gated slab's wg, llama4-scout's wo, whose slices do not fit in shared
+    memory) and batches of slabs: codes and scales bit-equal to the plain
+    version's, an all-zero column included, one launch a call."""
+    shape = {"wi": (768, 3072), "wg": (768, 3072), "wo": (3072, 768), "scout wo": (8192, 5120)}[mat]
+    x = (torch.randn(outer, *shape, generator=gen, device="cuda") * 0.02).to(dtype)
+    x[0, :, 5] = 0
+    x[-1, :, 6:10] = _tie_rows(4, shape[0], dtype).T  # ties and near-ties down the columns
+    before = quantize_rows.launches
+    q, s = quantize_rows(x, axis=-2)
+    assert quantize_rows.launches == before + 1
+    rq, rs = quantize_rows_plain(x, axis=-2)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    cluster, staged = cols_plan(outer, *shape, x.element_size(),
+                                torch.cuda.get_device_properties(0).multi_processor_count)
+    assert 1 <= cluster <= 8 and staged == (mat != "scout wo")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [384, 768, 4096, 8192, 100])
+def test_quantize_rows_widths(gen, n, dtype):
+    """Row lines kept in registers (a whole number of 16-byte loads, at
+    most 16 a lane) and the generic form (longer lines, a bf16 width of
+    100, rows that start off a 16-byte boundary): codes and scales
+    bit-equal to the plain version's, exact round-half ties and values a
+    rounding away from them included (where the kernel divides)."""
+    x = (torch.randn(37, n, generator=gen, device="cuda") * 3).to(dtype)
+    x[0] = 0
+    x[1] *= 1e-7
+    halves = torch.arange(n, device="cuda") % 254 - 127 + 0.5  # -126.5 .. 126.5
+    x[2] = (halves * (1 + (torch.arange(n, device="cuda") % 2) * 2 ** -20)).to(dtype)
+    x[2, 0] = 127.0  # scale 1: every other value an exact tie, the rest just past one
+    step = float(torch.tensor(3 / 127).half())  # an f16 scale that is no power of two
+    x[3] = (halves * step).to(dtype)
+    x[3, 0] = 127 * step
+    for t in (x, x.view(-1)[1:1 + 36 * n].view(36, n)):
+        q, s = quantize_rows(t, scale_dtype=torch.float16)
+        rq, rs = quantize_rows_plain(t, scale_dtype=torch.float16)
+        assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sdt", [torch.float32, torch.float16])
+@pytest.mark.parametrize("rows,n", [(1, 384), (4, 384), (37, 768), (5, 100), (3, 45), (2, 16)])
+def test_dequantize_rows_widths(gen, rows, n, sdt, out):
+    """One warp a row, 16 codes a load where the row allows: bit-equal to
+    the plain version at ragged widths and row counts, and misaligned."""
+    x = torch.randn(rows, n, generator=gen, device="cuda") * 3
+    q, s = quantize_rows(x, scale_dtype=sdt)
+    before = dequantize_rows.launches
+    assert torch.equal(dequantize_rows(q, s, dtype=out), dequantize_rows_plain(q, s, dtype=out))
+    assert dequantize_rows.launches == before + 1
+    buf = torch.empty(rows * n + 1, dtype=torch.int8, device="cuda")
+    qm = buf[1:].view(rows, n)
+    qm.copy_(q)
+    assert torch.equal(dequantize_rows(qm, s, dtype=out), dequantize_rows_plain(q, s, dtype=out))

@@ -32,8 +32,12 @@ launches); paged attention over dense and int8
 pools at ``PA_CASES`` and at the streaming engine's 16-page group; the
 expert FFN at ``FFN_CASES`` and ``WIDE_FFN_CASES``, the resident FFN at
 ``RESIDENT_CASES`` (f32 store) and ``RESIDENT_QUANT_CASES`` (int8 store);
-the row quantizer and dequantizer on KV-token and boundary rows; the codec
-roundtrip at 1000 rows.  ``--src`` names the ``src`` directory whose
+the row quantizer and dequantizer on a raw boundary's rows (no path
+quantizes KV rows with them any more: the KV pools' layer write does); the
+codec roundtrip at 1000 rows; the int8 boundary at the stream's 4, 32 and
+128 rows (rank 384, bf16): encode + quantize and dequantize + decode fused
+(where the tree has them) and composed from the standalone kernels; and the
+slab store's column quantization (wi, wo at 1 and 3 slabs, f32).  ``--src`` names the ``src`` directory whose
 ``repro_torch`` is timed, so that two trees are compared in one run on one
 card (one process a tree):
 
@@ -411,8 +415,7 @@ def quant_and_roundtrip(pr: Probe):
 
     torch = pr.torch
     g = torch.Generator(device="cuda").manual_seed(4)
-    for name, shape, sdt in (("KV tokens 4x768", (4, 768), torch.float16),
-                             ("boundary 4x384", (4, 384), torch.float16)):
+    for name, shape, sdt in (("boundary 4x384", (4, 384), torch.float16),):
         x = torch.randn(*shape, generator=g, device="cuda").bfloat16()
         pr.reading(f"quantize_rows {name}",
                    functools.partial(quantize_rows, x, scale_dtype=sdt),
@@ -425,6 +428,59 @@ def quant_and_roundtrip(pr: Probe):
     x = torch.randn(1000, 768, generator=g, device="cuda").bfloat16()
     pr.reading("lowrank_roundtrip T=1000", functools.partial(lowrank_roundtrip, x, enc, dec),
                functools.partial(lowrank_roundtrip_plain, x, enc, dec))
+
+
+def codec_quant(pr: Probe):
+    """The boundary's int8 stage beside the codec, fused (this tree's
+    ``lowrank_encode_quant`` / ``lowrank_decode_quant``, if it has them)
+    and composed from the standalone kernels (any tree), at the stream's
+    rows; then the slab columns."""
+    from repro_torch.kernels import lowrank as lr
+    from repro_torch.kernels.quant import (
+        dequantize_rows,
+        quantize_rows,
+        quantize_rows_plain,
+    )
+
+    torch = pr.torch
+    g = torch.Generator(device="cuda").manual_seed(5)
+    d, r, f16 = 768, 384, torch.float16
+    q = torch.linalg.qr(torch.randn(d, r, generator=g, device="cuda"))[0]
+    enc, dec = q.bfloat16().contiguous(), q.T.bfloat16().contiguous()
+    fused = hasattr(lr, "lowrank_encode_quant")
+    for T in (4, 32, 128):
+        x = torch.randn(T, d, generator=g, device="cuda").bfloat16()
+        codes, scale = quantize_rows(lr.lowrank_encode(x, enc), scale_dtype=f16)
+
+        def enc_composed(x=x):
+            return quantize_rows(lr.lowrank_encode(x, enc), scale_dtype=f16)
+
+        def dec_composed(codes=codes, scale=scale):
+            return lr.lowrank_decode(dequantize_rows(codes, scale, dtype=torch.bfloat16), dec)
+
+        def enc_plain(x=x):
+            return quantize_rows_plain(lr.lowrank_project_plain(x, enc), scale_dtype=f16)
+
+        def dec_plain(codes=codes, scale=scale):
+            return lr.lowrank_project_plain((codes.float() * scale.float()).bfloat16(), dec)
+
+        pr.reading(f"encode + quantize composed T={T}", enc_composed, enc_plain)
+        pr.reading(f"dequantize + decode composed T={T}", dec_composed, dec_plain)
+        if not fused:
+            continue
+        pr.reading(f"lowrank_encode_quant T={T}",
+                   functools.partial(lr.lowrank_encode_quant, x, enc), enc_plain,
+                   [("torch.matmul (the product alone)", functools.partial(torch.matmul, x, enc))])
+        pr.reading(f"lowrank_decode_quant T={T}",
+                   functools.partial(lr.lowrank_decode_quant, codes, scale, dec), dec_plain,
+                   [("torch.matmul (the product alone)",
+                     functools.partial(torch.matmul, codes.bfloat16(), dec))])
+    for outer in (1, 3):
+        for name, shape in (("wi", (768, 3072)), ("wo", (3072, 768))):
+            w = torch.randn(outer, *shape, generator=g, device="cuda") * 0.02
+            pr.reading(f"quantize_rows slab {name} columns outer={outer}",
+                       functools.partial(quantize_rows, w, axis=-2),
+                       functools.partial(quantize_rows_plain, w, axis=-2))
 
 
 def main() -> int:
@@ -457,7 +513,7 @@ SECTIONS = {
     "codec": lambda pr, args: codec(pr, args.mma_sync),
     "flash_and_gate": lambda pr, args: flash_and_gate(pr, args.gate_generic),
     **{f.__name__: (lambda f: lambda pr, _: f(pr))(f)
-       for f in (kv_writes, paged, expert_ffn, quant_and_roundtrip)},
+       for f in (kv_writes, paged, expert_ffn, quant_and_roundtrip, codec_quant)},
 }
 
 
