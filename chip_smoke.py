@@ -32,7 +32,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    groups), x in bf16 and f32, with no mask, a partial mask and a mask that
    kills a group, ``torch.matmul`` against its weight columns beside it.
    The codec, paged attention, the expert FFNs and the gate are launched
-   twice at each shape for equal bits.
+   twice at each shape for equal bits.  The MoE dispatch codec's fused
+   roundtrip (``run_roundtrip``: X̂ = T(T(X·E)·D) and its error in one
+   launch) at ``ROUNDTRIP_ROWS`` x ``ROUNDTRIP_RANKS``, bf16 and f32, 100
+   relaunches at 4 rows for equal bits, timed at 8, 1000 and 1024 rows
+   beside its plain version and two ``torch.matmul`` calls.
 3. Full-width switch-base (12 layers, d_model 768, 8 experts) with random
    weights from a seeded generator, serving 8 requests (prompts of 16-200
    tokens, 32 new tokens each) through ``ServingEngine`` on the card.  The
@@ -56,6 +60,14 @@ Phases, in order; any failure exits non-zero before the result lines:
    the whole batch; in bf16 every layer fed the CPU's input for it (routes
    equal but for near ties, each layer's output close), and free-running
    batches of four token seeds (see ``pipeline_vs_cpu``).
+   Then the MoE dispatch codec (``DISPATCH_CODEC``, the benchmarks' ec2moe
+   system: rank 384 on the expert dispatch) on a second full-width
+   switch-base: phase 3's traffic through ``ServingEngine`` (the roundtrip
+   launched twice a gate launch, the boundary codec never; a profiled
+   decode step), phase 4's card-vs-CPU check in f32 (in bf16 the codec's
+   extra roundings flip near-tied routes between the two), and one
+   ``run_batch`` of phase 5's pipeline (12 roundtrips at 1024 rows,
+   profiled).
 6. The streaming two-tier ``EndCloudServingEngine`` on full-width switch-base
    with its weights as stored (f32, so the end tier's expert slab store is
    f32) and bf16 activations, the eq. 8 codec at rank 384, 8 slots in two
@@ -71,7 +83,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    Then (``stream_replan_runs``) a hard bandwidth change moves the planned
    split from 1 to 0 at a safe point: pooled against dense-mask end tiers
    in bf16 on the card (equal tokens), and a shortened run in f32 on the
-   card against the same on the CPU (equal tokens).
+   card against the same on the CPU (equal tokens).  Then the pool run and
+   the f32 card-vs-CPU replan run again on a switch-base with the dispatch
+   codec, both tiers carrying it (``dispatch_stream``: the same counters,
+   the roundtrip twice a gate launch on ``moe_resident`` and
+   ``moe_sorted``).
 7. The streaming engine with its three int8 byte streams on (``quantize_kv``,
    ``quantize_experts``, ``quantize_boundary``).  The row and column
    quantizer (slab columns at ``SLAB_OUTER`` slabs), the dequantizer, the
@@ -101,13 +117,15 @@ power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
 (streaming kernel and reduction, or the two tensor-core GEMMs), the gate,
-flash attention, the codec (and its fused int8 boundary forms) and the
+flash attention, the codec (and its fused int8 boundary forms, and the
+dispatch codec's roundtrip) and the
 int8 streams' KV write and quantizers (``kernels_in_path``), and the int8
 tick's count of copy and cast kernels.  ``torch.profiler``
 tables of one decode step and of one ``run_batch`` go to
 ``chiprun_out/decode_profile.txt`` and ``chiprun_out/pipeline_profile.txt``,
 one of a streaming-engine tick to ``chiprun_out/stream_profile.txt`` (and
-with the int8 streams to ``chiprun_out/stream_quant_profile.txt``), and the
+with the int8 streams to ``chiprun_out/stream_quant_profile.txt``; the
+dispatch codec's runs to ``*_dispatch_profile.txt``), and the
 compiler's register / spill report to
 ``chiprun_out/nvcc_build.log``.
 """
@@ -227,14 +245,16 @@ def bound(nbytes: float, flops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, out, ref, rtol: float, atol: float) -> float:
-    """Elementwise ``|out - ref| <= atol + rtol * |ref|``; returns max |out - ref|."""
+def check_close(name, out, ref, rtol: float, atol: float, quiet: bool = False) -> float:
+    """Elementwise ``|out - ref| <= atol + rtol * |ref|``; returns max |out - ref|
+    (``quiet``: logged only if it fails)."""
     out, ref = out.float(), ref.float()
     diff = (out - ref).abs()
     err = diff.max().item()
     ok = bool((diff <= atol + rtol * ref.abs()).all())
-    log(f"  {name}: max_abs_err={err:.3e} rtol={rtol:.3e} atol={atol:.3e} "
-        f"{'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        log(f"  {name}: max_abs_err={err:.3e} rtol={rtol:.3e} atol={atol:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version "
                              f"beyond rtol={rtol} atol={atol} (max |diff| {err})")
@@ -799,7 +819,9 @@ def run_lowrank(torch, timer):
                 rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=lib_ms)
 
-    # the fused roundtrip at a ragged T, in f32 and in bf16, error sum included
+    # the roundtrip's contract form (Z in f32, the error from the unrounded
+    # X^: the roundtrip kernel's f32 form on f32 copies) at a ragged T, in
+    # f32 and in bf16, error sum included (timed in run_roundtrip)
     T = 1000
     x32 = torch.randn(T, d, generator=gen, device="cuda")
     for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -807,29 +829,113 @@ def run_lowrank(torch, timer):
         x_hat, err_sum = lowrank_roundtrip(xx, e, dd)
         ref_hat, ref_err = lowrank_roundtrip_plain(xx, e, dd)
         if dt == torch.float32:  # f32 sums in another order
-            err = check_close(f"lowrank_roundtrip {kind} x_hat", x_hat, ref_hat, rtol=1e-5,
-                              atol=1e-5 * ref_hat.abs().max().item())
+            check_close(f"lowrank_roundtrip {kind} x_hat", x_hat, ref_hat, rtol=1e-5,
+                        atol=1e-5 * ref_hat.abs().max().item())
         else:  # one bf16 ulp, as above
-            err = check_close(f"lowrank_roundtrip {kind} x_hat", x_hat, ref_hat, rtol=2 ** -7,
-                              atol=2 ** -6 * ref_hat.float().abs().median().item())
+            check_close(f"lowrank_roundtrip {kind} x_hat", x_hat, ref_hat, rtol=2 ** -7,
+                        atol=2 ** -6 * ref_hat.float().abs().median().item())
         # a sum of T*d f32 squares in another (fixed) order
         check_close(f"lowrank_roundtrip {kind} error sum", err_sum, ref_err, rtol=1e-5, atol=0)
         again_hat, again_err = lowrank_roundtrip(xx, e, dd)
         if not (torch.equal(again_hat, x_hat) and torch.equal(again_err, err_sum)):
             raise AssertionError("lowrank_roundtrip: two runs on the same inputs differ")
-        if dt == torch.float32:
-            rec["roundtrip_err"] = err
-            continue
-        nbytes = 2 * xx.numel() * 2 + 2 * d * r * 2 + 4
-        b_ms, b_by = bound(nbytes, 2 * 2 * T * d * r + 3 * T * d, "bf16")
-        ms = timer(lambda: lowrank_roundtrip(xx, e, dd))
-        plain_ms = timer(lambda: lowrank_roundtrip_plain(xx, e, dd))
-        log(f"  lowrank_roundtrip {kind} T={T}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms=null (no single call returns "
-            f"X^ and the error sum)")
-        rec["lowrank_roundtrip"] = dict(
-            max_abs_err=max(err, rec.pop("roundtrip_err")), ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rec
+
+
+# the MoE dispatch codec's roundtrip: the rows it carries (one token, the
+# streaming decode group, the serving decode step, a prefill chunk, a
+# ragged batch, the pipeline's [4, 256]) and the ranks (6 and 8 column
+# tiles a cluster; 100 takes the scalar loads)
+ROUNDTRIP_ROWS = (1, 4, 8, 32, 1000, 1024)
+ROUNDTRIP_RANKS = (384, 512, 100)
+
+
+def roundtrip_bound(T: int, d: int, r: int, kind: str):
+    """X read and X̂ written once, E and D read once, the two sums written;
+    two products of 2·T·d·r flops (the error's 3·T·d beside them)."""
+    item = 2 if kind == "bf16" else 4
+    return bound((2 * T * d + 2 * d * r) * item + 8, 4 * T * d * r + 3 * T * d, kind)
+
+
+def run_roundtrip(torch, timer):
+    """The MoE dispatch codec's fused roundtrip (``lowrank_roundtrip_loss``:
+    X̂ = T(T(X·E)·D), Σ(X − X̂)² and its mean, the consumer's roundings) at
+    ``ROUNDTRIP_ROWS`` x ``ROUNDTRIP_RANKS`` (d = 768), bf16 and f32,
+    against its plain version: X̂ within one rounding (f32 1e-5; bf16 2^-7
+    plus 2^-7 max|X̂|); the error sum against the plain sum over the
+    kernel's own X̂ at rtol 1e-5 (the reduction) and against the plain
+    version's at rtol 1e-5 in f32 and 1e-3 in bf16 (a few X̂ values one
+    ulp apart move it); the mean the sum over T·d.  100 launches at T = 4
+    give the same bits.  Timed at rank 384 in bf16 at the serving decode
+    step (8 rows), a ragged 1000 and the pipeline's 1024, beside the plain
+    version and the two-``torch.matmul`` yardstick (``library_ms`` stays
+    null: no single call returns X̂ and the error); the contract form
+    (``lowrank_roundtrip``: Z in f32, its error from the unrounded X̂) at
+    1000 rows beside them.  Returns the record at 8 rows."""
+    from repro_torch.core.compression import init_lowrank_1d
+    from repro_torch.kernels.lowrank import (
+        lowrank_roundtrip,
+        lowrank_roundtrip_loss,
+        lowrank_roundtrip_loss_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d = 768
+    rec, worst = {}, {}
+    for r in ROUNDTRIP_RANKS:
+        codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, r, device="cuda")
+        for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            enc, dec = codec["enc"].to(dt), codec["dec"].to(dt)
+            errs = []
+            for T in ROUNDTRIP_ROWS:
+                x = torch.randn(T, d, generator=gen, device="cuda").to(dt)
+                xh, sq, mean = lowrank_roundtrip_loss(x, enc, dec)
+                ph, psq, _ = lowrank_roundtrip_loss_plain(x, enc, dec)
+                what = f"lowrank_roundtrip_loss {kind} T={T} r={r}"
+                if kind == "f32":
+                    errs.append(check_close(f"{what} x_hat", xh, ph, rtol=1e-5, atol=1e-5,
+                                            quiet=True))
+                else:
+                    errs.append(check_close(f"{what} x_hat", xh, ph, rtol=2 ** -7,
+                                            atol=2 ** -7 * ph.float().abs().max().item(),
+                                            quiet=True))
+                own = (x.float() - xh.float()).square().sum()
+                check_close(f"{what} error sum (its own x_hat)", sq, own, rtol=1e-5, atol=0,
+                            quiet=True)
+                check_close(f"{what} error sum (the plain version's)", sq, psq,
+                            rtol=1e-5 if kind == "f32" else 1e-3, atol=0, quiet=True)
+                check_close(f"{what} mean", mean, sq / (T * d), rtol=1e-6, atol=0, quiet=True)
+                if T == 4:  # the streaming decode group, relaunched
+                    for _ in range(100):
+                        again = lowrank_roundtrip_loss(x, enc, dec)
+                        if not all(torch.equal(a, b) for a, b in zip(again, (xh, sq, mean))):
+                            raise AssertionError(f"{what}: a relaunch differs")
+            worst[(kind, r)] = max(errs)
+            log(f"  lowrank_roundtrip_loss {kind} r={r}: T in {ROUNDTRIP_ROWS} ok, max_abs_err "
+                f"of x_hat {max(errs):.3e}; the error sums and means within their tolerances; "
+                f"100 launches at T=4 equal")
+    enc, dec = (init_lowrank_1d(torch.Generator().manual_seed(7), d, 384, device="cuda")[k]
+                .bfloat16() for k in ("enc", "dec"))
+    for T in (8, 1000, 1024):
+        x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
+        call = functools.partial(lowrank_roundtrip_loss, x, enc, dec)
+        plain = functools.partial(lowrank_roundtrip_loss_plain, x, enc, dec)
+        pair = lambda x=x: torch.matmul(torch.matmul(x, enc), dec)  # noqa: E731
+        b_ms, b_by = roundtrip_bound(T, d, 384, "bf16")
+        ms, plain_ms, pair_ms = timer(call), timer(plain), timer(pair)
+        extra = ""
+        if T == 1000:
+            contract = functools.partial(lowrank_roundtrip, x, enc, dec)
+            extra = f" contract_form_ms(lowrank_roundtrip)={timer(contract):.4f}"
+        log(f"  lowrank_roundtrip_loss bf16 T={T} r=384: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.6f} ({b_by}) matmul_pair_ms={pair_ms:.4f} library_ms=null (no "
+            f"single call returns X^ and the error){extra}")
+        timer.later(f"lowrank_roundtrip_loss T={T} r=384", call, functools.partial(
+            lambda pair: f"torch.matmul pair {timer.device_us(pair)[0]:.3f}", pair))
+        if T == 8:
+            rec["lowrank_roundtrip_loss"] = dict(
+                max_abs_err=worst[("bf16", 384)], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
     return rec
 
 
@@ -1200,14 +1306,17 @@ def run_expert_mlp_resident_quant(torch, timer):
 # ---------------------------------------------------------------------------
 
 
-def serve(torch, counters):
+def serve(torch, counters, cfg=None, profile_name="decode_profile.txt"):
+    """Phase 3 on full-width switch-base (``cfg``: its config with a
+    dispatch codec, for the codec's serving run); returns the run's launch
+    counts and the engine."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model, leaves
     from repro_torch.serving import Request, ServingEngine
 
-    cfg = get_config("switch-base")
+    cfg = cfg or get_config("switch-base")
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -1308,29 +1417,33 @@ def serve(torch, counters):
     avgs = prof.key_averages()
     dev = [e for e in avgs if e.device_type != DeviceType.CPU]
     dev_us = sum(e.self_device_time_total for e in dev)
-    (OUT_DIR / "decode_profile.txt").write_text(
+    (OUT_DIR / profile_name).write_text(
         avgs.table(sort_by="cuda_time_total", row_limit=40))
     in_path = kernels_in_path(dev, (*PAGED_KERNELS, *ffn_kernels("expert FFN", "__nv_bfloat16"),
-                                    *GATE_KERNELS))
+                                    *GATE_KERNELS, *ROUNDTRIP_KERNELS))
     log(f"decode profile (1 step, 8 slots decoding): device time "
         f"{dev_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall; kernels in path, a launch: "
-        f"{in_path}; written to chiprun_out/decode_profile.txt")
+        f"{in_path}; written to chiprun_out/{profile_name}")
     eng.run()
     return launches, eng
 
 
-def reference_check(torch, eng):
+def reference_check(torch, eng, cfg=None, params=None, rel_tol=0.1, cos_tol=0.99):
     """Prefill chunk + one decode step of a 16-token prompt, on the card
-    (kernels) and on the CPU (plain versions), same bf16 weights."""
+    (kernels) and on the CPU (plain versions), same weights: the engine's
+    (bf16 activations through 12 layers, summed in other orders: max|diff|
+    within ``rel_tol`` of max|cpu|, cosine at least ``cos_tol``), or
+    ``cfg`` and ``params`` with tolerances of their own."""
     from repro_torch.models import kvcache
     from repro_torch.models.model import Model, to_device
 
-    cfg = eng.model.cfg
+    cfg = cfg or eng.model.cfg
+    params = eng.params if params is None else params
     prompt = torch.arange(100, 116, dtype=torch.int32)
     chunk = torch.zeros(1, 32, dtype=torch.int32)
     chunk[0, :16] = prompt
     out = {}
-    for dev, params in (("cuda", eng.params), ("cpu", to_device(eng.params, "cpu"))):
+    for dev, params in (("cuda", params), ("cpu", to_device(params, "cpu"))):
         model = Model(cfg, device=dev)
         pool = kvcache.PagePool(4, 16, 4, n_slots=1)
         pool.reserve(0, 4)
@@ -1351,8 +1464,7 @@ def reference_check(torch, eng):
         same = bool((g.argmax(-1) == c.argmax(-1)).all())
         log(f"  {name}: card vs CPU max|diff|/max|cpu|={rel:.3e} cos={cos:.6f} "
             f"argmax equal={same} finite={bool(torch.isfinite(g).all())}")
-        # bf16 activations through 12 layers, summed in other orders
-        if not (torch.isfinite(g).all() and rel <= 0.1 and cos >= 0.99):
+        if not (torch.isfinite(g).all() and rel <= rel_tol and cos >= cos_tol):
             raise AssertionError(f"{name}: the card disagrees with the CPU reference")
     if not torch.equal(out["cuda"][2], out["cpu"][2]):
         log("  note: first generated token differs between card and CPU")
@@ -1413,6 +1525,9 @@ CODEC_QUANT_KERNELS = (("encode + quantize", ("encode_quant_wgmma_kernel",
 PAGED_KERNELS = (("paged attention", ("paged_attention_kernel<", "paged_attention_mma_kernel<"),
                   ("paged_attention_merge_kernel<",)),)
 GATE_KERNELS = (("group gate", ("group_gate_kernel<",), ()),)
+# the MoE dispatch codec's fused roundtrip (bf16 and f32 forms)
+ROUNDTRIP_KERNELS = (("dispatch codec roundtrip", ("roundtrip_wgmma_kernel",
+                                                   "roundtrip_f32_kernel"), ()),)
 
 
 def ffn_kernels(what: str, weights: str):
@@ -1474,7 +1589,7 @@ def pipeline(torch, eng, counters):
     log(f"pipeline launches per run_batch: {launches}; metrics {m}")
     want = {"flash_attention_fwd": 12, "lowrank_encode": 1, "lowrank_decode": 1,
             "group_gate": 6, "grouped_mlp": 6, "paged_attention": 0,
-            "lowrank_roundtrip": 0}
+            "lowrank_roundtrip": 0, "lowrank_roundtrip_loss": 0}
     if launches != want:
         raise AssertionError(f"pipeline launches {launches}, want {want}")
     if m["boundary_bytes"] != B * S * 384 * 2 or not (m["split"] == 1 and m["compressed"]):
@@ -1514,6 +1629,120 @@ def pipeline(torch, eng, counters):
         f"chiprun_out/pipeline_profile.txt")
 
     pipeline_vs_cpu(torch, eng, pipe.codec, prof, B, S)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The MoE dispatch codec (eq. 8 on the expert dispatch) on every path
+# ---------------------------------------------------------------------------
+
+# the benchmarks' ec2moe system (benchmarks/common.py): rank d_model // 2 on
+# the expert dispatch, its reconstruction term weighted 0.05
+DISPATCH_CODEC = dict(rank=384, boundaries=("dispatch",), recon_weight=0.05)
+
+
+def dispatch_config():
+    """Full-width switch-base with the ec2moe dispatch codec."""
+    from repro_torch.configs import CompressionConfig, get_config
+
+    return get_config("switch-base").replace(compression=CompressionConfig(**DISPATCH_CODEC))
+
+
+def dispatch_compressed(cfg) -> bool:
+    c = cfg.compression
+    return c is not None and c.rank > 0 and "dispatch" in c.boundaries
+
+
+def dispatch_serving(torch, counters, silent):
+    """Phase 3's traffic through ``ServingEngine`` on the codec model: the
+    roundtrip launches twice a gate launch (the dispatched rows and the
+    expert outputs of every MoE layer call), the boundary codec's
+    ``silent`` kernels never; then the card-vs-CPU check of phase 4 on it.
+    Returns (the run's launch counts, the engine)."""
+    for c in silent:
+        c.launches = 0
+    launches, eng = serve(torch, counters, cfg=dispatch_config(),
+                          profile_name="decode_dispatch_profile.txt")
+    rt, gate = launches["lowrank_roundtrip_loss"], launches["group_gate"]
+    quiet = {c.__name__: c.launches for c in silent}
+    log(f"dispatch codec serving: {rt} roundtrip launches for {gate} gate launches; {quiet}")
+    if rt == 0 or rt != 2 * gate or any(quiet.values()):
+        raise AssertionError(f"dispatch codec serving: roundtrip {rt}, gate {gate}, {quiet}")
+    # In bf16 the codec's two extra roundings a layer make a near-tied top-1
+    # route flip between card and CPU likely (the kernel agrees with its
+    # plain version on every call, within an ulp), and a flipped route
+    # moves the logits wholesale (pipeline_vs_cpu's finding); so the codec
+    # model is held in f32, where sums in other orders move logits by
+    # ~1e-6 and flip no route: max|diff| within 1e-3 of max|cpu|, cosine
+    # at least 0.9999.
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    log("dispatch codec serving against the CPU reference (f32):")
+    cfg32 = eng.model.cfg.replace(dtype="float32")
+    params32 = Model(cfg32, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    reference_check(torch, None, cfg32, transformer.compute_params(params32, cfg32),
+                    rel_tol=1e-3, cos_tol=0.9999)
+    return launches, eng
+
+
+def dispatch_pipeline(torch, eng, counters):
+    """One ``EndCloudPipeline.run_batch`` on [4, 256] tokens of the codec
+    model (phase 5's profiles and boundary codec): 12 roundtrip launches at
+    n = 1024 rows (6 MoE layers, two each), finite logits, and the
+    roundtrip's device time in path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.hardware import PROFILES
+    from repro_torch.serving import EndCloudPipeline
+
+    cfg = eng.model.cfg
+    pipe = EndCloudPipeline(eng.model, eng.params, compression_rank=384,
+                            end_profile=PROFILES["jetson-orin"], cloud_profile=PROFILES["a100"])
+    B, S = 4, 256
+    tok = pipeline_tokens(torch, cfg.vocab_size, B, S, 0).cuda()
+    pipe.run_batch(tok)  # warm-up
+    for c in counters:
+        c.launches = 0
+    logits, m = pipe.run_batch(tok)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"dispatch codec pipeline (split {pipe.split}, boundary codec "
+        f"{'on' if pipe.tiers.compress else 'off'}): launches per run_batch {launches}")
+    if launches["lowrank_roundtrip_loss"] != 12 or launches["group_gate"] != 6:
+        raise AssertionError(f"dispatch codec pipeline launches {launches}, want 12 "
+                             "roundtrips for 6 gates")
+    if logits.shape != (B, S, cfg.padded_vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("dispatch codec pipeline logits are not finite or misshapen")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_run:
+        t0 = time.perf_counter()
+        pipe.run_batch(tok)
+        wall = time.perf_counter() - t0
+    avgs = prof_run.key_averages()
+    dev = [e for e in avgs if e.device_type != DeviceType.CPU]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    (OUT_DIR / "pipeline_dispatch_profile.txt").write_text(
+        avgs.table(sort_by="cuda_time_total", row_limit=40))
+    in_path = kernels_in_path(dev, (*ROUNDTRIP_KERNELS, *GATE_KERNELS,
+                                    *ffn_kernels("expert FFN", "__nv_bfloat16")))
+    log(f"dispatch codec pipeline profile (1 run_batch): device time {dev_us / 1e3:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall; kernels in path, a launch (n = {B * S} rows): {in_path}; "
+        f"written to chiprun_out/pipeline_dispatch_profile.txt")
+    return launches
+
+
+def dispatch_stream(torch, counters):
+    """Phase 6's pool run on the codec model, both tiers carrying the codec
+    (counters the reference's, the roundtrip twice a gate launch on
+    ``moe_resident`` and ``moe_sorted``), then the f32 replan run on the
+    card against the CPU.  Returns the pool run's launch counts."""
+    from repro_torch.models.model import Model
+
+    model = Model(dispatch_config(), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    launches, _, _ = stream_pool_run(torch, model, params, counters, tag="dispatch pool run",
+                                     profile_name="stream_dispatch_profile.txt")
+    f32_card_vs_cpu(model, params, "dispatch replan run")
     return launches
 
 
@@ -1793,7 +2022,11 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
             "paged_write_quant": calls * n_layers * kvq,
             "quantize_rows": (1 + prefetch_ticks) * mats * exq,
             "dequantize_rows": 0,
-            "flash_attention_fwd": 0, "lowrank_roundtrip": 0}
+            "flash_attention_fwd": 0, "lowrank_roundtrip": 0,
+            # a dispatch codec: one roundtrip each way a MoE layer call, on
+            # the end tier's moe_resident and the cloud tier's moe_sorted
+            "lowrank_roundtrip_loss": 2 * calls * cfg.block_repeat * len(eng._moe_pos)
+            if dispatch_compressed(cfg) else 0}
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, want {want}")
 
@@ -1820,7 +2053,7 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
         ("quantize", ("quantize_rows_kernel", "quantize_rows_vec_kernel",
                       "quantize_cols_kernel"), ()),
         ("dequantize", ("dequantize_rows_kernel",), ()),
-        *CODEC_KERNELS, *CODEC_QUANT_KERNELS))
+        *CODEC_KERNELS, *CODEC_QUANT_KERNELS, *ROUNDTRIP_KERNELS))
     casts = sum(e.count for e in dev if "direct_copy_kernel" in e.key)
     log(f"{tag} profile (tick {ptick}, 8 slots decoding): device time {dev_us / 1e3:.3f} ms "
         f"of {wall * 1e3:.3f} ms wall ({dev_us / 1e3 / (wall * 1e3):.1%} busy); kernels in "
@@ -2008,6 +2241,7 @@ def main() -> int:
         lowrank_encode,
         lowrank_encode_quant,
         lowrank_roundtrip,
+        lowrank_roundtrip_loss,
     )
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
     from repro_torch.kernels.quant import dequantize_rows, paged_write_quant, quantize_rows
@@ -2035,6 +2269,7 @@ def main() -> int:
         "grouped_mlp_resident": run_expert_mlp_resident(torch, timer),
         "flash_attention": run_flash_attention(torch, timer),
         **run_lowrank(torch, timer),
+        **run_roundtrip(torch, timer),
     }
     log(f"kernel checks took {time.perf_counter() - t0:.2f} s")
 
@@ -2042,18 +2277,30 @@ def main() -> int:
     log("end-to-end against the CPU reference:")
     reference_check(torch, eng)
     log("one-shot end-cloud pipeline:")
-    pipe_launches = pipeline(torch, eng, [
-        flash_attention_fwd, lowrank_encode, lowrank_decode, lowrank_roundtrip,
-        group_gate, grouped_mlp, paged_attention])
+    pipe_counters = [flash_attention_fwd, lowrank_encode, lowrank_decode, lowrank_roundtrip,
+                     lowrank_roundtrip_loss, group_gate, grouped_mlp, paged_attention]
+    pipe_launches = pipeline(torch, eng, pipe_counters)
+    log("MoE dispatch codec (full-width switch-base, rank 384 on the expert dispatch):")
+    t0 = time.perf_counter()
+    dispatch_launches, deng = dispatch_serving(
+        torch, [paged_attention, group_gate, grouped_mlp, lowrank_roundtrip_loss],
+        [lowrank_encode, lowrank_decode, lowrank_roundtrip])
+    dispatch_pipeline(torch, deng, pipe_counters)
+    del deng
+    log(f"dispatch codec serving and pipeline took {time.perf_counter() - t0:.1f} s")
     log("streaming end-cloud engine:")
     t0 = time.perf_counter()
     stream_counters = [
         grouped_mlp_resident, grouped_mlp_resident_quant, grouped_mlp, group_gate,
         lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
         quantize_rows, dequantize_rows, paged_write_quant, flash_attention_fwd,
-        lowrank_roundtrip, lowrank_encode_quant, lowrank_decode_quant]
+        lowrank_roundtrip, lowrank_roundtrip_loss, lowrank_encode_quant, lowrank_decode_quant]
     model, params, stream_launches, base = stream(torch, stream_counters)
     log(f"stream phase took {time.perf_counter() - t0:.1f} s")
+    log("streaming end-cloud engine with the MoE dispatch codec:")
+    t0 = time.perf_counter()
+    dispatch_stream(torch, stream_counters)
+    log(f"dispatch codec stream phase took {time.perf_counter() - t0:.1f} s")
     log("int8 byte streams, kernels against their plain versions (card):")
     t0 = time.perf_counter()
     recs.update(run_quant(torch, timer))
@@ -2073,11 +2320,13 @@ def main() -> int:
     log(f"profiler readings took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
-    # flash attention (the roundtrip has no consumer on any path), the
-    # streaming engine's pool run for the resident expert FFN, and its run
-    # with the int8 streams for theirs (the standalone dequantizer: 0, the
-    # boundary takes the fused decode; the quantizer: the slab writes)
+    # flash attention, the serving run with the dispatch codec for its
+    # roundtrip, the streaming engine's pool run for the resident expert
+    # FFN, and its run with the int8 streams for theirs (the standalone
+    # dequantizer: 0, the boundary takes the fused decode; the quantizer:
+    # the slab writes)
     launches = {**pipe_launches, **serve_launches,
+                "lowrank_roundtrip_loss": dispatch_launches["lowrank_roundtrip_loss"],
                 "grouped_mlp_resident": stream_launches["grouped_mlp_resident"],
                 **{k: quant_launches[k] for k in (
                     "quantize_rows", "dequantize_rows", "paged_write_quant",
@@ -2101,8 +2350,9 @@ def main() -> int:
                            "src/repro/kernels/lowrank/kernel.py:59", "lowrank_encode"),
         "lowrank_decode": ("cuda", "src/repro_torch/csrc/lowrank.cu",
                            "src/repro/kernels/lowrank/kernel.py:77", "lowrank_decode"),
-        "lowrank_roundtrip": ("cuda", "src/repro_torch/csrc/lowrank.cu",
-                              "src/repro/kernels/lowrank/kernel.py:96", "lowrank_roundtrip"),
+        "lowrank_roundtrip_loss": ("cuda", "src/repro_torch/csrc/lowrank.cu",
+                                   "src/repro/kernels/lowrank/kernel.py:96",
+                                   "lowrank_roundtrip_loss"),
         "quantize_rows": ("cuda", "src/repro_torch/csrc/quant.cu",
                           "src/repro/kernels/quant/kernel.py:56", "quantize_rows"),
         "dequantize_rows": ("cuda", "src/repro_torch/csrc/quant.cu",

@@ -7,7 +7,9 @@ Token tensors ``[..., d]`` cross a communication boundary as
 the bytes on the wire by r/d.  The products run in ``kernels.lowrank`` (the
 CUDA kernel on the card) with the reference consumer's casting: the codec
 is cast to the activation type before the product (``compute_codec``
-keeps that copy beside the f32 one, made once).  The boundary's int8
+keeps that copy beside the f32 one, made once).  The MoE dispatch codec
+runs both products and its reconstruction loss in one launch
+(``roundtrip_loss_1d``).  The boundary's int8
 stage runs with the codec in one launch a side (``encode_quantized_1d``,
 ``decode_quantized_1d``, ``kernels.lowrank``'s fused forms), or alone
 (``quantize_boundary``, ``kernels.quant``) where there is no codec.
@@ -25,25 +27,32 @@ from repro_torch.kernels.lowrank import (
     lowrank_decode_quant,
     lowrank_encode,
     lowrank_encode_quant,
+    lowrank_roundtrip_loss,
+    roundtrip_plan,
 )
 from repro_torch.kernels.lowrank.ops import BOUNDARY_SCALE_DTYPE  # f16: a row is r + 2 bytes
 from repro_torch.kernels.quant import dequantize_rows, quantize_rows
 
 
 def init_lowrank_1d(generator: torch.Generator, d: int, r: int,
-                    dtype: torch.dtype = torch.float32, device=None) -> Dict:
-    """Orthonormal codec ``{"enc": Q [d, r], "dec": Q^T [r, d]}`` from the QR
-    of a standard normal draw, so the identity is recoverable at r = d.
+                    dtype: torch.dtype = torch.float32, device=None,
+                    lead: Tuple[int, ...] = ()) -> Dict:
+    """Orthonormal codec ``{"enc": Q [*lead, d, r], "dec": Q^T [*lead, r,
+    d]}`` from the QR of a standard normal draw, so the identity is
+    recoverable at r = d; ``lead`` stacks independent codecs (one a block
+    of a layer stack).
 
-    The draw and the QR run on the CPU (``generator`` must be a CPU
-    generator) and the result moves to ``device``.  The reference draws from
-    ``jax.random.PRNGKey(7)``; no torch generator reproduces those numbers,
-    so a codec that must equal the reference's is carried across with
-    ``bridge.params_from_numpy`` and passed in as ``codec_params``."""
-    e = torch.linalg.qr(torch.randn(d, r, generator=generator, dtype=torch.float32))[0]
+    The draw runs on the generator's device, the QR on the CPU, and the
+    result moves to ``device``.  The reference draws from a
+    ``jax.random.PRNGKey``; no torch generator reproduces those numbers, so
+    a codec that must equal the reference's is carried across with
+    ``bridge.params_from_numpy``."""
+    g = torch.randn(*lead, d, r, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    e = torch.linalg.qr(g.cpu())[0]
     # QR returns Q column-major; the kernels take row-major operands
     return {"enc": e.contiguous().to(device=device, dtype=dtype),
-            "dec": e.T.contiguous().to(device=device, dtype=dtype)}
+            "dec": e.transpose(-1, -2).contiguous().to(device=device, dtype=dtype)}
 
 
 def compute_codec(params: Dict, dtype: torch.dtype) -> Dict:
@@ -106,11 +115,23 @@ def decode_quantized_1d(params: Dict, q: torch.Tensor, scale: torch.Tensor,
 
 
 def roundtrip_1d(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """``decode_1d(encode_1d(x))``, composed as the reference composes it:
-    Z is rounded to x's type between the two products.  (The fused
-    ``kernels.lowrank.lowrank_roundtrip`` keeps Z in f32 and also returns
-    the error sum; no consumer of the port needs that yet.)"""
-    return decode_1d(params, encode_1d(params, x))
+    """``decode_1d(encode_1d(x))`` with the reference's roundings (Z
+    rounded to x's type between the two products), through the fused
+    roundtrip of :func:`roundtrip_loss_1d`."""
+    return roundtrip_loss_1d(params, x)[0]
+
+
+def roundtrip_loss_1d(params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x̂, recon_loss(x, x̂))`` with ``x̂ = roundtrip_1d(params, x)``: the
+    MoE dispatch codec's two numbers, in one launch
+    (``kernels.lowrank.lowrank_roundtrip_loss``) where ``roundtrip_plan``
+    fuses the rank, else encode, decode and the loss one after the other."""
+    enc, dec = _weight(params, "enc", x.dtype), _weight(params, "dec", x.dtype)
+    if roundtrip_plan(enc.shape[1]) == "fused":
+        x_hat, _, loss = lowrank_roundtrip_loss(_rows(x), enc, dec)
+        return x_hat.reshape(x.shape), loss
+    x_hat = decode_1d(params, encode_1d(params, x))
+    return x_hat, recon_loss(x, x_hat)
 
 
 def recon_loss(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import compression as comp
 from repro_torch.core import gating
 from repro_torch.kernels.expert_mlp import (
     grouped_mlp,
@@ -40,7 +41,23 @@ def init_moe(generator: torch.Generator, cfg, lead: Tuple[int, ...] = ()) -> Dic
     if m.shared_experts:
         p["shared"] = init_mlp(generator, d, m.shared_experts * f, dtype,
                                gated=cfg.ffn_gated, lead=lead)
+    if _dispatch_compressed(cfg):
+        p["codec"] = comp.init_lowrank_1d(generator, d, cfg.compression.rank,
+                                          device=generator.device, lead=lead)
     return p
+
+
+def _dispatch_compressed(cfg) -> bool:
+    c = cfg.compression
+    return c is not None and c.rank > 0 and "dispatch" in c.boundaries
+
+
+def _codec_aux(aux: Dict, recon: torch.Tensor, cfg) -> None:
+    """``aux["recon_loss"]``: the two hops' reconstruction losses summed;
+    ``recon_weight`` times it joins ``aux["aux_loss"]`` (the reference's
+    joint eq. 8 term)."""
+    aux["recon_loss"] = recon
+    aux["aux_loss"] = aux["aux_loss"] + cfg.compression.recon_weight * recon
 
 
 def _grouped_mlp(xs: torch.Tensor, group_sizes: torch.Tensor, wi: torch.Tensor,
@@ -86,16 +103,27 @@ def moe_naive(params: Dict, x: torch.Tensor, cfg, expert_mask=None, *, aux: bool
 
 def moe_sorted(params: Dict, x: torch.Tensor, cfg, expert_mask=None, *, aux: bool = True):
     """Single-shard dropless path: gate, sort by expert, grouped FFN, and
-    combine by gate weight."""
-    if "codec" in params:
-        raise NotImplementedError(
-            "the eq. 8 dispatch codec (params['codec']) is not ported yet"
-        )
+    combine by gate weight.
+
+    With a dispatch codec (``params["codec"]``) the dispatched rows and the
+    expert outputs each go through the encode -> (wire) -> decode roundtrip
+    the expert-parallel path would apply, so the compression's quality
+    effect shows on one device; with ``aux`` the eq. 8 reconstruction term
+    lands in ``aux["recon_loss"]`` and, weighted, in ``aux["aux_loss"]``.
+    Serving (``aux=False``) runs the same two roundtrips and leaves their
+    losses unread."""
     m = cfg.moe
     k = m.top_k
     out = gating.gate(params["gate"], x, m, expert_mask, aux=aux)
     rows = x if k == 1 else x.repeat_interleave(k, dim=0)
+    codec = params.get("codec")
+    if codec is not None:  # encode, the wire, decode: one launch each way
+        rows, sent_loss = comp.roundtrip_loss_1d(codec, rows)
     y_rows = _sorted_expert_ffn(rows, out.topk_idx.reshape(-1), m.num_experts, params, cfg.act)
+    if codec is not None:
+        y_rows, back_loss = comp.roundtrip_loss_1d(codec, y_rows)
+        if aux:
+            _codec_aux(out.aux, sent_loss + back_loss, cfg)
     w = out.topk_weight.reshape(-1, 1).to(y_rows.dtype)
     return _combine(y_rows, w, k).to(x.dtype), out.aux
 
@@ -116,7 +144,7 @@ def _group_sizes(ids: torch.Tensor, n_groups: int) -> torch.Tensor:
     )
 
 
-def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None):
+def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None, *, aux: bool = False):
     """Pooled end-tier path: sorted dispatch over the *resident* sub-table.
 
     ``params["resident"]`` is the expert pool's device view
@@ -130,11 +158,12 @@ def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None):
     ``grouped_mlp_resident_quant`` for an int8 store with ``*_scale``
     leaves).
     For a resident superset of the routed experts this equals
-    ``moe_sorted`` under the same mask."""
-    if "codec" in params:
-        raise NotImplementedError(
-            "the eq. 8 dispatch codec (params['codec']) is not ported yet"
-        )
+    ``moe_sorted`` under the same mask.  A dispatch codec runs as in
+    :func:`moe_sorted`, on every dispatched row (those routed to the
+    garbage slot too, as the reference does) and on the expert outputs
+    after the unsort.  The end tier serves with ``aux=False`` (the
+    default): the router losses are skipped; ``aux=True`` computes them
+    and the codec's terms as ``moe_sorted`` does."""
     m = cfg.moe
     k = m.top_k
     res = params["resident"]
@@ -142,9 +171,12 @@ def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None):
     S = ids.shape[0] - 1
     resident_ok = slot_of < S
     eff_mask = resident_ok if expert_mask is None else expert_mask & resident_ok
-    out = gating.gate(params["gate"], x, m, eff_mask, aux=False)
+    out = gating.gate(params["gate"], x, m, eff_mask, aux=aux)
     slots = slot_of.long()[out.topk_idx.reshape(-1)]  # [T*k], S for non-residents
     rows = x if k == 1 else x.repeat_interleave(k, dim=0)
+    codec = params.get("codec")
+    if codec is not None:
+        rows, sent_loss = comp.roundtrip_loss_1d(codec, rows)
     order = torch.argsort(slots, stable=True)
     store = res["store"]
     args = (rows[order], _group_sizes(slots, S + 1), store["wi"], store.get("wg"),
@@ -156,6 +188,10 @@ def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None):
     else:
         y_sorted = grouped_mlp_resident(*args)
     y_rows = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
+    if codec is not None:
+        y_rows, back_loss = comp.roundtrip_loss_1d(codec, y_rows)
+        if aux:
+            _codec_aux(out.aux, sent_loss + back_loss, cfg)
     w = out.topk_weight.reshape(-1, 1).to(y_rows.dtype)
     # rows on the garbage slot come back 0; their combine weight is zeroed
     # too, so a renormalized tie can never leak garbage-slot output

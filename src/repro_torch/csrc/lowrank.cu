@@ -4,7 +4,8 @@
 // and roundtrip_pallas (_encode_kernel, _decode_kernel, _roundtrip_kernel):
 //     encode     Z[T, r] = X[T, d] . E[d, r]
 //     decode     X^[T, d] = Z[T, r] . D[r, d]
-//     roundtrip  X -> Z -> X^ in one pass, plus sum (X - X^)^2
+//     roundtrip  X^ = T(T(X . E) . D) in one launch, plus sum (X - X^)^2
+//                and its mean over X's elements (T: X's type)
 // and the int8 boundary folded into the codec (with the rules of
 // repro/kernels/quant/kernel.py::quantize_rows_pallas and
 // dequantize_rows_pallas, quant.cuh):
@@ -65,15 +66,38 @@
 // conversion unit (quant.cuh's codes4), fenced for wgmma: bit-equal to
 // lowrank_decode(dequantize_rows(q, s)).
 //
-// The roundtrip is not redesigned: one block per kRows = 8 token rows
-// stages its rows in shared memory in f32, transposed ([k][kRows]), and
-// its 128 threads each accumulate kCols = 4 output columns (strided by
-// 128, so the weight loads and the output stores are coalesced) for all
-// 8 rows (rows_times_w).  It keeps Z in shared memory in f32 (never
-// rounded, never written to HBM), writes X^ once, and writes one f32
-// partial of sum (X - X^)^2 per block (from the unrounded f32 X^, as the
-// reference); a second one-block pass sums the partials in a fixed order,
-// so the error is deterministic and needs no atomics.
+// The roundtrip (the MoE dispatch codec: encode, decode and the error of
+// eq. 8 in one launch, with the consumer's roundings: Z rounded to X's type
+// between the products, the error over the rounded X^).  At serving decode
+// it carries 8 rows, so one launch is latency: one pass over E and D (1.2
+// MB, 0.36 us of bytes) where the composed pair spends two launches and the
+// one-block-per-8-rows form it replaces spent ~0.45 ms on CUDA cores.  A
+// 64-row tile is one thread-block cluster of its c = ceil(r / 64) <= 8
+// column tiles, times a K split of 2 where the grid is small (`split`:
+// each block reads half as much of E and D, which sets the pace at a few
+// rows, where each SM takes in its tiles at a few tens of GB/s; 12 blocks
+// at rank 384, a non-portable cluster past 8).  Phase 1: block j computes
+// Z's column tile j (over its half of K, the pair then swapping f32
+// partials) with the projection's wgmma walk fed by TMA, and rounds it to
+// bf16 into its copy of the Z row tile (the swizzled layout wgmma's A
+// operand reads); the bulk-copy engine sends that tile to the other blocks,
+// completing on their mbarrier (no cluster-wide barrier between the
+// phases: a block waits only for the tiles it needs; each block initialises
+// its mbarriers before the cluster barrier's first phase and copies only
+// after waiting on it).  Phase 2: each block computes its share of X^'s
+// column tiles over K = r, A being the whole Z row tile in its own shared
+// memory; it stores X^ and sums its rows' squared errors against X
+// (re-read, L2-hot).  One 8-slot ring of TMA copies runs through both
+// phases, so D's first tiles (which do not depend on Z) fly during phase 1
+// and the exchanges.  The error's block sums meet in the cluster's rank 0
+// (distributed shared memory, one cluster barrier) and are summed in rank
+// order; past one row tile the last rank 0 to take a ticket sums the
+// tiles' sums in order, so the bits do not depend on which block finishes
+// last and there is no second launch.  The f32 form runs the same cluster
+// (no split) on CUDA cores (the projection's f32 tiles, exact f32), Z kept
+// in f32 and transposed for its A reads, pushed by plain stores before one
+// cluster barrier.  Rows past T come in as zeros (TMA zero-fill) and add
+// nothing.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -87,63 +111,6 @@
 #include "tensor_core.cuh"
 
 namespace {
-
-// the roundtrip's blocks
-constexpr int kRows = 8;                 // token rows per block
-constexpr int kThreads = 128;
-constexpr int kCols = 4;                 // output columns per thread per pass
-constexpr int kPass = kThreads * kCols;  // output columns per pass
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// a_s[kk * kRows + row] = x[r0 + row, kk] in f32; rows past nr are 0.
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ x, int r0,
-                                          int nr, int k, float* a_s) {
-  for (int i = threadIdx.x; i < kRows * k; i += kThreads) {
-    const int row = i / k, kk = i - row * k;
-    a_s[kk * kRows + row] = row < nr ? to_f(x[(size_t)(r0 + row) * k + kk]) : 0.f;
-  }
-}
-
-// acc[row][j] = sum_kk a_s[kk][row] * w[kk, c0 + threadIdx.x + j * kThreads]
-// (f32 accumulation; columns past n accumulate 0).
-template <typename T>
-__device__ __forceinline__ void rows_times_w(const float* a_s, int k,
-                                             const T* __restrict__ w, int n,
-                                             int c0, float (&acc)[kRows][kCols]) {
-  int col[kCols];
-  bool ok[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    col[j] = c0 + threadIdx.x + j * kThreads;
-    ok[j] = col[j] < n;
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < k; ++kk) {
-    float wv[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) wv[j] = ok[j] ? to_f(w[(size_t)kk * n + col[j]]) : 0.f;
-    const float4 a0 = *reinterpret_cast<const float4*>(a_s + kk * kRows);
-    const float4 a1 = *reinterpret_cast<const float4*>(a_s + kk * kRows + 4);
-    const float a[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(a[r], wv[j], acc[r][j]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The projection y[T, n] = x[T, k] . w[k, n] (encode: w = E; decode: w = D).
@@ -535,18 +502,38 @@ __global__ void __launch_bounds__(kMmaThreads) decode_quant_wgmma_kernel(
   store_tile(d, y, r0, c0, nt, n, kTma);
 }
 
+// How the f32 walk gets its A operand.
+enum F32A {
+  kF32X,       // X's values
+  kF32Codes,   // f32(code) * f32(its row's f16 scale), what dequantize_rows writes in f32
+  kF32Staged,  // already in shared memory, transposed (the roundtrip's Z)
+};
+
 // f32, exact (CUDA-core FMAs, no TF32), on the same grid: X^T and W tiles
 // in shared memory, thread (ty, tx) of 8 x 16 accumulates rows 8ty..8ty+7
-// at columns tx + 16j.  kCodes: X is f32(code) * f32(its row's f16 scale),
-// what dequantize_rows writes in f32.
-template <bool kCodes>
+// at columns tx + 16j.  kF32Staged: X^T is `as` ([k][kLdT], zeros past k),
+// and only W is staged.
+// The f32 walk's tiles, one pair a block whichever forms of it a kernel
+// runs (a kernel's static shared memory stops at 48 KB).
+__device__ __forceinline__ float* f32_xs() {  // X^T [kBK][kLdT]
+  __shared__ __align__(16) float xs[kBK * kLdT];
+  return xs;
+}
+__device__ __forceinline__ float* f32_ws() {  // [kBK][kBN]
+  __shared__ __align__(16) float ws[kBK * kBN];
+  return ws;
+}
+
+template <int kA>
 __device__ __forceinline__ void f32_tile(const float* __restrict__ x,
                                          const signed char* __restrict__ codes,
                                          const __half* __restrict__ scale,
+                                         const float* __restrict__ as,
                                          const float* __restrict__ w, int r0, int c0, int nt,
                                          int k, int n, float (&acc)[8][4]) {
-  __shared__ __align__(16) float xs[kBK * kLdT];  // X^T [kBK][kLdT]
-  __shared__ __align__(16) float ws[kBK * kBN];   // [kBK][kBN]
+  constexpr bool kStaged = kA == kF32Staged;
+  float* xs_own = f32_xs();
+  float* ws = f32_ws();
   const int ns = (k + kBK - 1) / kBK;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -556,14 +543,18 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ x,
 
   for (int i = 0; i < ns; ++i) {
     const int kk0 = i * kBK;
-    for (int e = threadIdx.x; e < kBM * kBK; e += kPThreads) {
-      const int row = e >> 6, kk = e & 63;
-      const int gr = r0 + row, gk = kk0 + kk;
-      float v = 0.f;
-      if (gr < nt && gk < k)
-        v = kCodes ? q8::dequant<float>(codes[(size_t)gr * k + gk], __half2float(scale[gr]))
-                   : x[(size_t)gr * k + gk];
-      xs[kk * kLdT + row] = v;
+    const float* xs = kStaged ? as + (size_t)kk0 * kLdT : xs_own;
+    if constexpr (!kStaged) {
+      for (int e = threadIdx.x; e < kBM * kBK; e += kPThreads) {
+        const int row = e >> 6, kk = e & 63;
+        const int gr = r0 + row, gk = kk0 + kk;
+        float v = 0.f;
+        if (gr < nt && gk < k)
+          v = kA == kF32Codes
+                  ? q8::dequant<float>(codes[(size_t)gr * k + gk], __half2float(scale[gr]))
+                  : x[(size_t)gr * k + gk];
+        xs_own[kk * kLdT + row] = v;
+      }
     }
     for (int e = threadIdx.x; e < kBK * kBN; e += kPThreads) {
       const int kk = e >> 6, c = e & 63;
@@ -608,7 +599,7 @@ __global__ void __launch_bounds__(kPThreads) project_f32_kernel(
     int nt, int k, int n) {
   float acc[8][4];
   const int c0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
-  f32_tile<false>(x, nullptr, nullptr, w, r0, c0, nt, k, n, acc);
+  f32_tile<kF32X>(x, nullptr, nullptr, nullptr, w, r0, c0, nt, k, n, acc);
   store_f32_tile(acc, y, r0, c0, nt, n);
 }
 
@@ -621,7 +612,7 @@ __global__ void __launch_bounds__(kPThreads) encode_quant_f32_kernel(
   q8::cluster_arrive();  // met in cluster_row_amax
   float acc[8][4];
   const int c0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
-  f32_tile<false>(x, nullptr, nullptr, w, r0, c0, nt, k, n, acc);
+  f32_tile<kF32X>(x, nullptr, nullptr, nullptr, w, r0, c0, nt, k, n, acc);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float m[8];
   int row[8];
@@ -657,7 +648,7 @@ __global__ void __launch_bounds__(kPThreads) decode_quant_f32_kernel(
     const float* __restrict__ w, float* __restrict__ y, int nt, int k, int n) {
   float acc[8][4];
   const int c0 = blockIdx.x * kBN, r0 = blockIdx.y * kBM;
-  f32_tile<true>(nullptr, codes, scale, w, r0, c0, nt, k, n, acc);
+  f32_tile<kF32Codes>(nullptr, codes, scale, nullptr, w, r0, c0, nt, k, n, acc);
   store_f32_tile(acc, y, r0, c0, nt, n);
 }
 
@@ -675,62 +666,436 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) roundtrip_kernel(
-    const T* __restrict__ x, const T* __restrict__ enc,
-    const T* __restrict__ dec, T* __restrict__ xhat,
-    float* __restrict__ partial, int nt, int d, int r) {
-  extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);  // [d][kRows]
-  float* z_s = x_s + (size_t)d * kRows;          // [r][kRows], f32
-  __shared__ float red[kThreads / 32];
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, nt - r0);
-  load_rows(x, r0, nr, d, x_s);
-  __syncthreads();
-  for (int c0 = 0; c0 < r; c0 += kPass) {
-    float acc[kRows][kCols];
-    rows_times_w(x_s, d, enc, r, c0, acc);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = c0 + threadIdx.x + j * kThreads;
-      if (c < r) {
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) z_s[c * kRows + row] = acc[row][j];
-      }
-    }
-  }
-  __syncthreads();
-  float sq = 0.f;
-  for (int c0 = 0; c0 < d; c0 += kPass) {
-    float acc[kRows][kCols];
-    rows_times_w(z_s, r, dec, d, c0, acc);
-#pragma unroll
-    for (int row = 0; row < kRows; ++row) {
-      if (row >= nr) break;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = c0 + threadIdx.x + j * kThreads;
-        if (c < d) {
-          xhat[(size_t)(r0 + row) * d + c] = from_f<T>(acc[row][j]);
-          const float diff = x_s[c * kRows + row] - acc[row][j];
-          sq = fmaf(diff, diff, sq);
-        }
-      }
-    }
-  }
-  const float total = block_sum(sq, red);
-  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+// ---------------------------------------------------------------------------
+// The roundtrip X^ = T(T(X . E) . D) and sum (f32(X) - f32(X^))^2 over the
+// rounded X^ (T: X's type).  Grid (c, row tiles), c = ceil(r / 64) column
+// tiles of Z, launched as clusters of c blocks: one cluster a 64-row tile,
+// block j (its cluster rank) owning Z's column tile j in phase 1 and X^'s
+// column tiles [j * per, (j + 1) * per) in phase 2.
+
+// X^'s column tiles of block j: [first, first + count)
+struct Share {
+  int first, count;
+};
+__device__ __forceinline__ Share xhat_share(int d) {
+  const int nd = (d + kBN - 1) / kBN, per = (nd + gridDim.x - 1) / gridDim.x;
+  const int first = blockIdx.x * per;
+  return {first, max(0, min(nd, first + per) - first)};
 }
 
-// err = sum of partial[0..nb) in a fixed order (one block).
-__global__ void __launch_bounds__(kThreads) sum_partials_kernel(
-    const float* __restrict__ partial, int nb, float* __restrict__ err) {
-  __shared__ float red[kThreads / 32];
+// every peer's copy of the bytes [p, p + bytes) of this block's shared
+// memory gets them (16-byte stores into distributed shared memory); the
+// caller has waited for its peers to have started
+__device__ __forceinline__ void push_to_peers(const void* p, int bytes, int threads) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  uint4* src = static_cast<uint4*>(const_cast<void*>(p));
+  for (int o = 1; o < cs; ++o) {
+    uint4* dst = cluster.map_shared_rank(src, (rank + o) % cs);
+    for (int e = threadIdx.x; e < bytes / 16; e += threads) dst[e] = src[e];
+  }
+}
+
+// the cluster barrier's arrive, ordering this thread's earlier writes (an
+// mbarrier's initialisation, a partial pushed to a peer) before the
+// peers' acquire of the same phase
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+constexpr int kRtMaxCluster = 16;  // the roundtrip's c column tiles times its K split
+
+// shared::cluster address of p (this block's shared memory) in block `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(tc::smem_addr(p)),
+               "r"(rank));
+  return a;
+}
+
+// `bytes` of this block's shared memory at src to a peer's (dst), by the
+// bulk-copy engine, completing on the peer's mbarrier (bar)
+__device__ __forceinline__ void bulk_to_peer(const void* src, uint32_t dst, uint32_t bar,
+                                             int bytes) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(tc::smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The error, closing the kernel: the block's sum of its threads' sq (a
+// fixed order) goes into slot `rank` of its cluster's rank 0 (distributed
+// shared memory); after a cluster barrier (every block waits on it, so
+// none exits while a peer may still write into it, or read from it) rank
+// 0 sums the slots in rank order.  One row tile: that is the sum.  More:
+// each rank 0 writes its tile's sum into partial, and the last to take a
+// ticket sums them in order and puts the ticket back to 0 for the next
+// launch on the stream.  err[0] = the sum, err[1] = the sum / count (the
+// mean).
+__device__ __forceinline__ void cluster_error(float sq, float* __restrict__ partial,
+                                              unsigned* __restrict__ ticket,
+                                              float* __restrict__ err, float count) {
+  __shared__ float red[32];
+  __shared__ float slot[kRtMaxCluster];
+  __shared__ bool last;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const float total = block_sum(sq, red);
+  if (threadIdx.x == 0) cluster.map_shared_rank(slot, 0)[rank] = total;
+  cluster_arrive_release();
+  q8::cluster_wait();
+  if (rank != 0) return;
   float s = 0.f;
-  for (int i = threadIdx.x; i < nb; i += kThreads) s += partial[i];
-  const float total = block_sum(s, red);
-  if (threadIdx.x == 0) *err = total;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < cs; ++i) s += slot[i];
+  if (gridDim.y == 1) {
+    if (threadIdx.x == 0) {
+      err[0] = s;
+      err[1] = __fdiv_rn(s, count);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    partial[blockIdx.y] = s;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float v = 0.f;
+  for (unsigned i = threadIdx.x; i < gridDim.y; i += blockDim.x) v += __ldcg(partial + i);
+  const float sum = block_sum(v, red);
+  if (threadIdx.x == 0) {
+    err[0] = sum;
+    err[1] = __fdiv_rn(sum, count);
+    *ticket = 0u;
+  }
+}
+
+// The roundtrip's ring: kRtStages slots, each an X (or D) tile and an E
+// tile, run through both phases: a block's steps [0, n1) are its phase 1
+// K steps (X and E), the rest its phase 2 steps (D; A is the Z row tile),
+// so D's first copies fly during phase 1 and the exchanges (D does not wait
+// for Z).
+constexpr int kRtStages = 8;
+static_assert(kRtStages >= 3, "a slot is refilled a barrier before it is read");
+
+// One K step's wgmma group: d += A . B, A a 64 x 64 K-major tile and B a
+// 64 x 64 [k][n] tile, both in the 128-byte swizzle.
+__device__ __forceinline__ void mma_step(float (&d)[32], const bf16* a, const bf16* b) {
+  const uint64_t da = tc::wgmma_desc_sw128(a), db = tc::wgmma_desc_sw128(b);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    tc::wgmma_m64n64k16_bf16(d, da + (32 >> 4) * kk, db + (2048 >> 4) * kk);
+  tc::wgmma_commit();
+}
+
+// Steps [g0, g0 + n) of a ring of `total` steps (the caller issued
+// load(0 .. kRtStages - 2)): step g waits for its slot (kTma: on
+// full[g % kRtStages]) and issues mma(g, slot); where a load is left to
+// issue, once step g - 1's group is done and every warp is past it, it
+// refills that slot with load(g + kRtStages - 1).  Then the groups are
+// drained.  Without TMA, load stages by plain stores and fences them.
+// (The projection's walk, mma_tile, over a ring that runs on from one call
+// into the next.)
+template <bool kTma, class Load, class Mma>
+__device__ __forceinline__ void ring_steps(int g0, int n, int total, uint64_t* full, Load load,
+                                           Mma mma) {
+  for (int g = g0; g < g0 + n; ++g) {
+    const int sl = g % kRtStages;
+    if constexpr (kTma) tc::mbar_wait(&full[sl], (g / kRtStages) & 1);
+    mma(g, sl);
+    tc::wgmma_wait<1>();  // step g - 1's products are done (step g's run on)
+    if (g + kRtStages - 1 < total) {
+      __syncthreads();  // in every warp: slot (g - 1) % kRtStages is free
+      load(g + kRtStages - 1);
+    }
+  }
+  tc::wgmma_wait<0>();
+}
+
+// the tensor map's descriptor fetched ahead of its first copy
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* m) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m)) : "memory");
+}
+
+
+// X's values at this thread's accumulator places of an output tile (rows
+// r0.., columns c0..), as pairs (n a multiple of 8, 16-byte aligned rows),
+// 0 past T: loaded before the tile's products, so their latency hides
+// under them.
+__device__ __forceinline__ void load_x_pairs(const bf16* __restrict__ x, int r0, int c0, int nt,
+                                             int n, __nv_bfloat162 (&xv)[2][8]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + mma_row(h);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + mma_col(j);
+      xv[h][j] = row < nt && col < n
+                     ? *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)row * n + col)
+                     : __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+}
+
+// X^'s tile (bf16, rounded once) stored, and the sum of its live rows'
+// (f32(x) - f32(x^))^2; pairs: n a multiple of 8 and 16-byte aligned rows,
+// X's values from xv (load_x_pairs), else read here one at a time.
+__device__ __forceinline__ float store_rt_tile(const float (&d)[32],
+                                               const __nv_bfloat162 (&xv)[2][8],
+                                               const bf16* __restrict__ x, bf16* __restrict__ y,
+                                               int r0, int c0, int nt, int n, bool pairs) {
+  float sq = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + mma_row(h);
+    if (row >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + mma_col(j);
+      if (col >= n) continue;
+      const __nv_bfloat162 v = __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      const size_t o = (size_t)row * n + col;
+      float e0, e1 = 0.f;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(y + o) = v;
+        e0 = __bfloat162float(xv[h][j].x) - __bfloat162float(v.x);
+        e1 = __bfloat162float(xv[h][j].y) - __bfloat162float(v.y);
+      } else {
+        y[o] = v.x;
+        e0 = __bfloat162float(x[o]) - __bfloat162float(v.x);
+        if (col + 1 < n) {
+          y[o + 1] = v.y;
+          e1 = __bfloat162float(x[o + 1]) - __bfloat162float(v.y);
+        }
+      }
+      sq = fmaf(e0, e0, sq);
+      sq = fmaf(e1, e1, sq);
+    }
+  }
+  return sq;
+}
+
+// The rows of X a phase 1 copy brings: T padded to 8, at most a tile's 64.
+// The tile's other rows stay as they were in shared memory: each row of Z
+// and X^ depends on its own row of X alone, and rows past T are never
+// stored, so what they hold is never read back; a copy of 8 rows where
+// the tile has 8 live ones moves an eighth of the bytes.
+__host__ __device__ constexpr int x_box_rows(int nt) {
+  return nt >= kBM ? kBM : (nt + 7) / 8 * 8;
+}
+
+// a block's wgmma accumulators (f32), warp by warp: warp w's 32 values a
+// lane at [w][32][32], so the rows below T (warps 16 rows each) lead
+constexpr int kPartial = 32 * kMmaThreads;
+__device__ __forceinline__ int partial_index(int q) {
+  return ((threadIdx.x >> 5) * 32 + q) * 32 + (threadIdx.x & 31);
+}
+
+// bf16: dynamic shared memory (1024-aligned): the ring, the row tile's Z
+// (c tiles) and, with a K split, this block's f32 partial of its Z tile
+// and its partner's.
+size_t roundtrip_wgmma_smem(int c, int split) {
+  return sizeof(bf16) * (2 * kRtStages + c) * kTile +
+         (split > 1 ? 2 * sizeof(float) * kPartial : 0) + 1024;
+}
+
+// kTma: X, E and D by TMA (d and r multiples of 8, 16-byte aligned), else
+// scalar loads into the same layouts.  Grid (c * split, row tiles),
+// clusters of c * split: block b computes Z's column tile j = b % c over
+// K part b / c of `split` (phase 1), then X^'s tiles [first, first +
+// count) of the cluster's share (phase 2).  The exchanges go by the
+// bulk-copy engine and carry the rows below T only (the rows past it stay
+// unwritten in the receiver: each row of Z and X^ depends on its own row
+// alone, and rows past T are never stored): with split 2 the two blocks of
+// a column tile swap their f32 partials (completing on the partner's
+// mbarrier pfull) and each adds the other's, a + b, the same bits in both;
+// then each block rounds its Z tile to bf16 and sends it to the other
+// c - 1 blocks of its K part (completing on their mbarrier zfull; the
+// blocks of the other K part get it from its partner).  Each block
+// initialises its mbarriers, and sets the bytes they expect, before the
+// cluster barrier's first phase, which every block waits on before it
+// copies.  The error's cluster barrier, arrived once a block's own tiles
+// have landed, keeps every block alive until no copy from it can run.
+template <bool kTma>
+__global__ void __launch_bounds__(kMmaThreads) roundtrip_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tme,
+    const __grid_constant__ CUtensorMap tmd, const bf16* __restrict__ x,
+    const bf16* __restrict__ enc, const bf16* __restrict__ dec, bf16* __restrict__ xhat,
+    float* __restrict__ partial, unsigned* __restrict__ ticket, float* __restrict__ err,
+    int nt, int d, int r, int c, float count) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ring = ring_base(smem_raw);         // [kRtStages][X or D tile, E tile]
+  bf16* zs = ring + 2 * kRtStages * kTile;  // [c] Z tiles: the row tile's A operand
+  float* pout = reinterpret_cast<float*>(zs + c * kTile);  // this block's partial (split 2)
+  float* pin = pout + kPartial;                            // its partner's
+  __shared__ uint64_t full[kRtStages], zfull, pfull;
+  const int cs = gridDim.x, split = cs / c, b = blockIdx.x, j = b % c, kp = b / c;
+  const int r0 = blockIdx.y * kBM, live = min(kBM, nt - r0);  // rows below T
+  const int xrows = x_box_rows(nt);                           // of X a copy brings
+  const int zbytes = live * kBK * sizeof(bf16);                // of a Z tile
+  const int pbytes = (live + 15) / 16 * 32 * 32 * sizeof(float);  // of a partial: its warps
+  const int ns1 = (d + kBK - 1) / kBK, per = (ns1 + split - 1) / split, k0 = kp * per;
+  const int n1 = max(0, min(ns1, k0 + per) - k0);  // this block's phase 1 K steps
+  const Share own = xhat_share(d);
+  const int steps = n1 + own.count * c;  // phase 2: c K steps (Z's tiles) an X^ tile
+  if (threadIdx.x == 0) {
+    if constexpr (kTma) {
+      prefetch_tensormap(&tmx);
+      prefetch_tensormap(&tme);
+      prefetch_tensormap(&tmd);
+#pragma unroll
+      for (int i = 0; i < kRtStages; ++i) tc::mbar_init(&full[i], 1);
+    }
+    tc::mbar_init(&zfull, 1);
+    tc::mbar_init(&pfull, 1);
+    tc::fence_mbar_init();
+    tc::mbar_expect_tx(&zfull, (c - 1) * zbytes);         // the K part's other tiles
+    tc::mbar_expect_tx(&pfull, split > 1 ? pbytes : 0);  // the partner's partial
+  }
+  __syncthreads();           // the barriers are initialised before any thread waits on one
+  cluster_arrive_release();  // ... and before any peer copies into this block
+
+  const CUtensorMap *mx = &tmx, *me = &tme, *md = &tmd;
+  auto load = [&](int g) {
+    const int sl = g % kRtStages;
+    bf16* a = ring + sl * 2 * kTile;
+    if (g < n1) {  // phase 1, K step k0 + g: X [r0.., 64(k0 + g)..] into a, E after it
+      const int kk0 = (k0 + g) * kBK;
+      if constexpr (kTma) {
+        if (threadIdx.x == 0) {
+          tc::mbar_expect_tx(&full[sl], (xrows * kBK + kTile) * sizeof(bf16));
+          tc::tma_load_2d(a, mx, &full[sl], kk0, r0);
+          tc::tma_load_2d(a + kTile, me, &full[sl], j * kBN, kk0);
+        }
+      } else {
+        stage_x_scalar(x, a, r0, kk0, nt, d);
+        stage_w_scalar(enc, a + kTile, j * kBN, kk0, d, r);
+      }
+    } else {  // phase 2: D [64 (K step).., 64 (X^ tile)..] into a
+      const int c0 = (own.first + (g - n1) / c) * kBN, kk0 = ((g - n1) % c) * kBK;
+      if constexpr (kTma) {
+        if (threadIdx.x == 0) {
+          tc::mbar_expect_tx(&full[sl], kTile * sizeof(bf16));
+          tc::tma_load_2d(a, md, &full[sl], c0, kk0);
+        }
+      } else {
+        stage_w_scalar(dec, a, c0, kk0, r, d);
+      }
+    }
+    if constexpr (!kTma) tc::fence_proxy_async();
+  };
+  for (int g = 0; g < kRtStages - 1 && g < steps; ++g) load(g);
+  if constexpr (!kTma) __syncthreads();  // plain stores: every warp reads the slots
+
+  // phase 1: this block's part of Z's column tile j
+  float acc[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+  ring_steps<kTma>(0, n1, steps, full, load, [&](int, int sl) {
+    mma_step(acc, ring + sl * 2 * kTile, ring + sl * 2 * kTile + kTile);
+  });
+  if (split > 1) {
+#pragma unroll
+    for (int q = 0; q < 32; ++q) pout[partial_index(q)] = acc[q];
+    tc::fence_proxy_async();  // the partial, for the bulk copy out
+    __syncthreads();
+  }
+  q8::cluster_wait();  // every peer has started and initialised its mbarriers
+  if (split > 1) {
+    if (threadIdx.x == 0) {
+      const int partner = (b + c) % cs;
+      bulk_to_peer(pout, peer_addr(pin, partner), peer_addr(&pfull, partner), pbytes);
+    }
+    tc::mbar_wait(&pfull, 0);
+#pragma unroll
+    for (int q = 0; q < 32; ++q) acc[q] += pin[partial_index(q)];
+  }
+  bf16* zt = zs + j * kTile;  // Z's tile j, rounded to bf16
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      *reinterpret_cast<__nv_bfloat162*>(zt + swz(mma_row(h), mma_col(q))) =
+          __floats2bfloat162_rn(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+  tc::fence_proxy_async();  // the tile, for wgmma here and the bulk copies out
+  __syncthreads();          // the tile is whole before it is copied
+  if (threadIdx.x == 0) {
+    for (int o = 1; o < c; ++o) {
+      const int peer = kp * c + (j + o) % c;
+      bulk_to_peer(zt, peer_addr(zt, peer), peer_addr(&zfull, peer), zbytes);
+    }
+  }
+  tc::mbar_wait(&zfull, 0);  // the other tiles have landed: the whole Z row tile
+
+  // phase 2: X^'s tiles [first, first + count), each over Z's c tiles
+  float sq = 0.f;
+  for (int t = 0; t < own.count; ++t) {
+    const int c0 = (own.first + t) * kBN;
+    __nv_bfloat162 xv[2][8];
+    if constexpr (kTma) load_x_pairs(x, r0, c0, nt, d, xv);
+#pragma unroll
+    for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+    ring_steps<kTma>(n1 + t * c, c, steps, full, load, [&](int g, int sl) {
+      mma_step(acc, zs + ((g - n1) % c) * kTile, ring + sl * 2 * kTile);
+    });
+    sq += store_rt_tile(acc, xv, x, xhat, r0, c0, nt, d, kTma);
+  }
+  // its cluster barrier: every block's tiles have landed, so no copy from
+  // this block runs once it passes
+  cluster_error(sq, partial, ticket, err, count);
+}
+
+// f32, exact, the same cluster on CUDA cores: Z's column tile j stays in
+// f32 and is pushed transposed ([k][kLdT]: the rows of Z^T this block owns)
+// into every block's Z^T (dynamic shared memory).
+size_t roundtrip_f32_smem(int c) { return sizeof(float) * (size_t)c * kBK * kLdT; }
+
+__global__ void __launch_bounds__(kPThreads) roundtrip_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ enc, const float* __restrict__ dec,
+    float* __restrict__ xhat, float* __restrict__ partial, unsigned* __restrict__ ticket,
+    float* __restrict__ err, int nt, int d, int r, float count) {
+  extern __shared__ float4 zs4[];
+  float* zt = reinterpret_cast<float*>(zs4);  // Z^T [c * kBK][kLdT]
+  q8::cluster_arrive();  // met before the first push
+  const int j = blockIdx.x, r0 = blockIdx.y * kBM;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][4];
+  f32_tile<kF32X>(x, nullptr, nullptr, nullptr, enc, r0, j * kBN, nt, d, r, acc);
+  float* mine = zt + (size_t)j * kBK * kLdT;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(tx + 16 * e) * kLdT + ty * 8 + q] = acc[q][e];
+  __syncthreads();     // the tile is whole before it is pushed
+  q8::cluster_wait();  // every peer has started
+  push_to_peers(mine, kBK * kLdT * sizeof(float), kPThreads);
+  cg::this_cluster().sync();
+
+  float sq = 0.f;
+  const Share own = xhat_share(d);
+  for (int t = own.first; t < own.first + own.count; ++t) {
+    const int c0 = t * kBN;
+    f32_tile<kF32Staged>(nullptr, nullptr, nullptr, zt, dec, r0, c0, nt, r, d, acc);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int row = r0 + ty * 8 + q;
+      if (row >= nt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + tx + 16 * e;
+        if (col >= d) continue;
+        const size_t o = (size_t)row * d + col;
+        xhat[o] = acc[q][e];
+        const float diff = x[o] - acc[q][e];
+        sq = fmaf(diff, diff, sq);
+      }
+    }
+  }
+  cluster_error(sq, partial, ticket, err, count);
 }
 
 template <typename K>
@@ -756,14 +1121,16 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A row-major [rows, cols] array as 64 x 64 boxes, zeros past its edges:
+// A row-major [rows, cols] array as boxes of 64 columns by box_rows rows,
+// zeros past its edges:
 // bf16 128-byte swizzled (wgmma's operands), or int8 codes unswizzled.
-bool tile_map(CUtensorMap* map, const void* base, int rows, int cols, bool codes = false) {
+bool tile_map(CUtensorMap* map, const void* base, int rows, int cols, bool codes = false,
+              int box_rows = 64) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * (codes ? 1 : sizeof(bf16))};
-  const cuuint32_t box[2] = {64, 64}, unit[2] = {1, 1};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, unit[2] = {1, 1};
   return encode(map, codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                 const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 codes ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
@@ -866,21 +1233,72 @@ cudaError_t decode_quant(const void* codes, const __half* scale, const void* w, 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t roundtrip(const void* x, const void* enc, const void* dec,
-                      void* xhat, float* partial, float* err_out, int nt,
-                      int d, int r, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kRows * (d + r);
-  cudaError_t err = allow_smem(roundtrip_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const int nb = (nt + kRows - 1) / kRows;
-  roundtrip_kernel<T><<<nb, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(enc),
-      static_cast<const T*>(dec), static_cast<T*>(xhat), partial, nt, d, r);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_partials_kernel<<<1, kThreads, 0, stream>>>(partial, nb, err_out);
-  return cudaGetLastError();
+// The roundtrip's launch: its kernel, block size and dynamic shared memory
+// for dtype (0 = float32, 1 = bfloat16), c column tiles and the K split
+// (bf16 only); tma: the bf16 form's TMA loads.
+struct RoundtripForm {
+  const void* fn;
+  int threads;
+  size_t smem;
+};
+RoundtripForm roundtrip_form(int dtype, int c, int split, bool tma) {
+  if (dtype == 0)
+    return {reinterpret_cast<const void*>(roundtrip_f32_kernel), kPThreads, roundtrip_f32_smem(c)};
+  return {tma ? reinterpret_cast<const void*>(roundtrip_wgmma_kernel<true>)
+              : reinterpret_cast<const void*>(roundtrip_wgmma_kernel<false>),
+          kMmaThreads, roundtrip_wgmma_smem(c, split)};
+}
+
+// the form's attributes: its dynamic shared memory, and clusters past the
+// portable 8 blocks
+cudaError_t roundtrip_attributes(const RoundtripForm& form, int cluster) {
+  cudaError_t e = cudaFuncSetAttribute(form.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)form.smem);
+  if (e == cudaSuccess && cluster > kMaxCluster)
+    e = cudaFuncSetAttribute(form.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+cudaError_t roundtrip(const void* x, const void* enc, const void* dec, void* xhat,
+                      float* partial, unsigned* ticket, float* err, int nt, int d, int r,
+                      int split, int dtype, cudaStream_t stream) {
+  const int c = (r + kBN - 1) / kBN;
+  if (c > kMaxCluster || split < 1 || split > 2 || (dtype == 0 && split != 1) ||
+      c * split > kRtMaxCluster)
+    return cudaErrorInvalidValue;
+  // TMA: 16-byte aligned bases and row strides (X and D rows of d values,
+  // E rows of r); the stores in pairs need X^ aligned as X is
+  const bool tma = dtype == 1 && d % 8 == 0 && r % 8 == 0 && aligned16(x) && aligned16(enc) &&
+                   aligned16(dec) && aligned16(xhat);
+  const RoundtripForm form = roundtrip_form(dtype, c, split, tma);
+  cudaError_t e = roundtrip_attributes(form, c * split);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(c * split, (nt + kBM - 1) / kBM);
+  const float count = (float)((double)nt * d);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(grid, form.threads, form.smem, stream, &attr, c * split);
+  if (dtype == 0)
+    return cudaLaunchKernelEx(&cfg, roundtrip_f32_kernel, static_cast<const float*>(x),
+                              static_cast<const float*>(enc), static_cast<const float*>(dec),
+                              static_cast<float*>(xhat), partial, ticket, err, nt, d, r, count);
+  CUtensorMap tmx{}, tme{}, tmd{};
+  if (tma && !(tile_map(&tmx, x, nt, d, false, x_box_rows(nt)) && tile_map(&tme, enc, d, r) &&
+               tile_map(&tmd, dec, r, d)))
+    return cudaErrorInvalidValue;
+  auto kernel = tma ? roundtrip_wgmma_kernel<true> : roundtrip_wgmma_kernel<false>;
+  return cudaLaunchKernelEx(&cfg, kernel, tmx, tme, tmd, static_cast<const bf16*>(x),
+                            static_cast<const bf16*>(enc), static_cast<const bf16*>(dec),
+                            static_cast<bf16*>(xhat), partial, ticket, err, nt, d, r, c, count);
+}
+
+// e, with the runtime's last-error state cleared when it is an error: a
+// call the library refuses (an attribute, an occupancy query, a launch)
+// must not come back as the error of its next launch, which reads that
+// state (cudaGetLastError).
+cudaError_t consumed(cudaError_t e) {
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
 }
 
 }  // namespace
@@ -891,10 +1309,10 @@ extern "C" int lowrank_project_launch(const void* x, const void* w, void* y, int
                                       int k, int n, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)project(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                        static_cast<bf16*>(y), nt, k, n, s);
-  return (int)project(static_cast<const float*>(x), static_cast<const float*>(w),
-                      static_cast<float*>(y), nt, k, n, s);
+    return (int)consumed(project(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                                 static_cast<bf16*>(y), nt, k, n, s));
+  return (int)consumed(project(static_cast<const float*>(x), static_cast<const float*>(w),
+                               static_cast<float*>(y), nt, k, n, s));
 }
 
 // The boundary's encode and quantize in one launch: q [nt, n] int8 and
@@ -903,8 +1321,9 @@ extern "C" int lowrank_project_launch(const void* x, const void* w, void* y, int
 // dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int lowrank_encode_quant_launch(const void* x, const void* w, void* q, void* scale,
                                            int nt, int k, int n, int dtype, void* stream) {
-  return (int)encode_quant(x, w, static_cast<signed char*>(q), static_cast<__half*>(scale),
-                           nt, k, n, dtype, static_cast<cudaStream_t>(stream));
+  return (int)consumed(encode_quant(x, w, static_cast<signed char*>(q),
+                                    static_cast<__half*>(scale), nt, k, n, dtype,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 // How many clusters of the fused encode (dtype, `cluster` column tiles)
@@ -916,7 +1335,7 @@ extern "C" int lowrank_encode_quant_clusters(int dtype, int cluster) {
   int threads = kPThreads;
   if (dtype == 1) {
     auto kernel = encode_quant_wgmma_kernel<true>;
-    if (allow_smem(kernel, kMmaSmem) != cudaSuccess) return -1;
+    if (consumed(allow_smem(kernel, kMmaSmem)) != cudaSuccess) return -1;
     fn = reinterpret_cast<const void*>(kernel);
     smem = kMmaSmem;
     threads = kMmaThreads;
@@ -925,7 +1344,7 @@ extern "C" int lowrank_encode_quant_clusters(int dtype, int cluster) {
   const cudaLaunchConfig_t cfg = cluster_config(dim3(cluster, 1), threads, smem, nullptr, &attr,
                                                 cluster);
   int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  const cudaError_t err = consumed(cudaOccupancyMaxActiveClusters(&n, fn, &cfg));
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -935,20 +1354,37 @@ extern "C" int lowrank_encode_quant_clusters(int dtype, int cluster) {
 extern "C" int lowrank_decode_quant_launch(const void* q, const void* scale, const void* w,
                                            void* y, int nt, int k, int n, int dtype,
                                            void* stream) {
-  return (int)decode_quant(q, static_cast<const __half*>(scale), w, y, nt, k, n, dtype,
-                           static_cast<cudaStream_t>(stream));
+  return (int)consumed(decode_quant(q, static_cast<const __half*>(scale), w, y, nt, k, n, dtype,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
-// xhat = (x . enc) . dec, err = sum (x - xhat)^2 in f32.  partial is f32
-// [ceil(nt / 8)].  dtype: 0 = float32, 1 = bfloat16.
-extern "C" int lowrank_roundtrip_launch(const void* x, const void* enc,
-                                        const void* dec, void* xhat,
-                                        void* partial, void* err, int nt,
-                                        int d, int r, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partial);
-  float* e = static_cast<float*>(err);
-  if (dtype == 1)
-    return (int)roundtrip<__nv_bfloat16>(x, enc, dec, xhat, p, e, nt, d, r, s);
-  return (int)roundtrip<float>(x, enc, dec, xhat, p, e, nt, d, r, s);
+// The roundtrip with the consumer's roundings in one launch: xhat [nt, d]
+// = T(T(x [nt, d] . enc [d, r]) . dec [r, d]), T = x's type (dtype: 0 =
+// float32, 1 = bfloat16), err[0] = sum (f32(x) - f32(xhat))^2 and err[1] =
+// err[0] / (nt * d); r <= 512 (at most 8 column tiles); split 1 or 2 (bf16:
+// phase 1's K over 2 blocks a column tile, c * split <= 16).  partial is f32
+// [ceil(nt / 64)], ticket a u32 that is 0 (the launch leaves it 0) and used
+// by no concurrent launch.  Returns the launch's cudaError_t.
+extern "C" int lowrank_roundtrip_launch(const void* x, const void* enc, const void* dec,
+                                        void* xhat, void* partial, void* ticket, void* err,
+                                        int nt, int d, int r, int split, int dtype,
+                                        void* stream) {
+  return (int)consumed(roundtrip(x, enc, dec, xhat, static_cast<float*>(partial),
+                                 static_cast<unsigned*>(ticket), static_cast<float*>(err), nt, d,
+                                 r, split, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// How many clusters of c column tiles and K split `split` of the
+// roundtrip in dtype the card runs at once (cudaOccupancyMaxActiveClusters);
+// 0 or a negative cudaError_t if it runs none.
+extern "C" int lowrank_roundtrip_clusters(int dtype, int c, int split) {
+  const RoundtripForm form = roundtrip_form(dtype, c, split, true);
+  cudaError_t err = consumed(roundtrip_attributes(form, c * split));
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(c * split, 1), form.threads, form.smem,
+                                                nullptr, &attr, c * split);
+  int n = 0;
+  err = consumed(cudaOccupancyMaxActiveClusters(&n, form.fn, &cfg));
+  return err == cudaSuccess ? n : -(int)err;
 }

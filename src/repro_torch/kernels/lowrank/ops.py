@@ -2,8 +2,7 @@
 and their plain PyTorch versions.
 
 ``lowrank_encode`` computes ``Z = X·E``, ``lowrank_decode`` ``X̂ = Z·D``,
-and ``lowrank_roundtrip`` both in one pass plus ``Σ(X − X̂)²``, with f32
-accumulation and outputs in X's type (the reference's
+with f32 accumulation and outputs in X's type (the reference's
 ``kernels/lowrank/ref.py``).  Both operands of a product share one type:
 the consumer (``core.compression``) casts the codec to the activation type
 first, as the reference's ``encode_1d`` / ``decode_1d`` do.  A CPU tensor
@@ -12,6 +11,18 @@ raises.  Any number of rows T is taken (the kernel masks the tail).
 
 Encode and decode share one kernel on 64 x 64 output tiles, each block
 walking all of K in a fixed order, so two launches give the same bits.
+
+The roundtrip runs in one launch where :func:`roundtrip_plan` says so
+(rank ``r`` spans at most 8 column tiles: a 64-row tile is one
+thread-block cluster of them).  ``lowrank_roundtrip_loss`` is the MoE
+dispatch codec's form (``core.compression.roundtrip_loss_1d``, on the
+dispatched rows and the expert outputs of every MoE layer): the
+consumer's roundings, Z rounded to X's type between the products, and
+``Σ(X − X̂)²`` and its mean taken over the rounded X̂.
+``lowrank_roundtrip`` keeps the reference kernel's own contract (Z and
+X̂ in f32, the error from the unrounded X̂, X̂ rounded at the end): on
+the card, the same kernel's f32 form on f32 copies of its operands.  The
+error sums are deterministic: per-block partials summed in a fixed order.
 
 The int8 boundary folds into the codec: ``lowrank_encode_quant`` is
 ``quantize_rows(lowrank_encode(x, enc), scale_dtype=float16)`` and
@@ -26,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -34,8 +45,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.quant import dequantize_rows_plain, quantize_rows_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 8  # token rows per roundtrip block (kRows in csrc/lowrank.cu)
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
 TILE = 64  # output columns per block (kBN in csrc/lowrank.cu)
 MAX_CLUSTER = 8  # the portable thread-block cluster size
 BOUNDARY_SCALE_DTYPE = torch.float16  # the fused forms' row scales
@@ -60,9 +69,23 @@ def _lib():
     )
     lib.lowrank_roundtrip_launch.restype = ctypes.c_int
     lib.lowrank_roundtrip_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
+    lib.lowrank_roundtrip_clusters.restype = ctypes.c_int
+    lib.lowrank_roundtrip_clusters.argtypes = [ctypes.c_int] * 3
     return lib
+
+
+def roundtrip_split(nt: int, r: int, dtype: torch.dtype) -> int:
+    """The K split of the roundtrip's launch: 2 (a cluster of 2·ceil(r/64)
+    blocks, each running phase 1 over half of K and phase 2 over half as
+    many X̂ tiles, so each reads half as much of E and D) for bf16 where
+    that cluster is at most 12 blocks and the grid at most 4 row tiles of
+    64 (T <= 256: the serving and streaming steps), else 1 (the f32 form,
+    and large T, whose many clusters already spread E and D over the
+    card)."""
+    c = -(-r // TILE)
+    return 2 if dtype == torch.bfloat16 and 2 * c <= 12 and -(-nt // TILE) <= 4 else 1
 
 
 def lowrank_project_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -79,6 +102,14 @@ def codec_quant_plan(r: int) -> str:
     fused form, and unaligned or ragged widths take its scalar loads, so
     the plan depends on ``r`` alone."""
     return "fused" if -(-r // TILE) <= MAX_CLUSTER else "composed"
+
+
+def roundtrip_plan(r: int) -> str:
+    """``"fused"`` where one launch computes the roundtrip and its error
+    (rank ``r`` spans at most ``MAX_CLUSTER`` column tiles: ``r <= 512``),
+    else ``"composed"``: ``lowrank_encode``, ``lowrank_decode`` and the
+    error summed by PyTorch; :func:`codec_quant_plan`'s rule."""
+    return codec_quant_plan(r)
 
 
 def lowrank_encode_quant_plain(
@@ -100,10 +131,21 @@ def lowrank_roundtrip_plain(
     x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(X̂ in x's type, Σ(X − X̂)² in f32): Z stays in f32 and the error is
-    taken from the unrounded f32 X̂."""
+    taken from the unrounded f32 X̂ (the reference kernel's contract)."""
     xf = x.float()
     x_hat = (xf @ enc.float()) @ dec.float()
     return x_hat.to(x.dtype), (xf - x_hat).square().sum()
+
+
+def lowrank_roundtrip_loss_plain(
+    x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The consumer's roundtrip: (X̂ = T(T(X·E)·D) in x's type T, Σ(X − X̂)²
+    and its mean over X's elements, both f32), the error over the rounded
+    X̂ (the reference's ``roundtrip_1d`` then ``recon_loss``)."""
+    x_hat = lowrank_project_plain(lowrank_project_plain(x, enc), dec)
+    sq = (x.float() - x_hat.float()).square().sum()
+    return x_hat, sq, sq / x.numel()
 
 
 def _check(what: str, x: torch.Tensor, *ws: torch.Tensor) -> None:
@@ -163,16 +205,31 @@ def _fused(what: str, r: int) -> None:
                          f"{TILE}; codec_quant_plan composes the standalone kernels there")
 
 
+def _co_scheduled(what: str, n: int, dtype: torch.dtype, blocks: int) -> int:
+    if n <= 0:
+        raise RuntimeError(f"{what}: the card co-schedules no cluster of {blocks} "
+                           f"blocks of the {dtype} form (cudaOccupancyMaxActiveClusters: {n})")
+    return n
+
+
 @functools.lru_cache(maxsize=None)
 def encode_quant_clusters(dtype: torch.dtype, cluster: int) -> int:
     """How many clusters of ``cluster`` column tiles of the fused encode in
     ``dtype`` the card runs at once (``cudaOccupancyMaxActiveClusters``,
     read once a shape); raises if it runs none."""
-    n = _lib().lowrank_encode_quant_clusters(_DTYPES[dtype], cluster)
-    if n <= 0:
-        raise RuntimeError(f"lowrank_encode_quant: the card co-schedules no cluster of {cluster} "
-                           f"blocks of the {dtype} form (cudaOccupancyMaxActiveClusters: {n})")
-    return n
+    return _co_scheduled("lowrank_encode_quant",
+                         _lib().lowrank_encode_quant_clusters(_DTYPES[dtype], cluster), dtype,
+                         cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def roundtrip_clusters(dtype: torch.dtype, cluster: int, split: int = 1) -> int:
+    """How many clusters of ``cluster`` column tiles times the K split
+    ``split`` of the roundtrip in ``dtype`` the card runs at once (read once
+    a shape); raises if it runs none."""
+    return _co_scheduled("lowrank_roundtrip",
+                         _lib().lowrank_roundtrip_clusters(_DTYPES[dtype], cluster, split), dtype,
+                         cluster * split)
 
 
 def lowrank_encode_quant(x: torch.Tensor, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -232,37 +289,79 @@ def lowrank_decode_quant(q: torch.Tensor, scale: torch.Tensor, dec: torch.Tensor
     return y
 
 
-def lowrank_roundtrip(
-    x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused eq. 8 path: (X̂ in x's type, Σ(X − X̂)² as an f32 scalar); the
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors (the
-    error sum is deterministic: per-block partials summed in fixed order)."""
-    if x.device.type == "cpu":
-        return lowrank_roundtrip_plain(x, enc, dec)
-    _check("lowrank_roundtrip", x, enc, dec)
+# one ticket a (device, stream): the roundtrip's last block to finish sums
+# the error partials and puts its ticket back to 0; launches on one stream
+# never overlap, so none shares a ticket with another in flight
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+def _roundtrip(what: str, x: torch.Tensor, enc: torch.Tensor,
+               dec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the roundtrip kernel on checked CUDA operands: (X̂ in
+    x's type, f32 [2]: Σ(X − X̂)² over the rounded X̂ and its mean)."""
     nt, d = x.shape
     r = enc.shape[1]
     if enc.shape[0] != d or dec.shape != (r, d):
         raise ValueError(
-            f"lowrank_roundtrip: shapes x={tuple(x.shape)} enc={tuple(enc.shape)} "
+            f"{what}: shapes x={tuple(x.shape)} enc={tuple(enc.shape)} "
             f"dec={tuple(dec.shape)} do not agree"
         )
-    if 4 * ROWS * (d + r) > SMEM_LIMIT:
-        raise ValueError(f"lowrank_roundtrip: d + r = {d + r} exceeds the kernel's shared memory")
+    if roundtrip_plan(r) != "fused":
+        raise ValueError(f"{what}: rank {r} spans more than {MAX_CLUSTER} column tiles of "
+                         f"{TILE}; roundtrip_plan composes the standalone kernels there")
     x_hat = torch.empty_like(x)
-    err_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
-        return x_hat, err_sum
-    partial = torch.empty(-(-nt // ROWS), dtype=torch.float32, device=x.device)
-    err = _lib().lowrank_roundtrip_launch(
-        x.data_ptr(), enc.data_ptr(), dec.data_ptr(), x_hat.data_ptr(),
-        partial.data_ptr(), err_sum.data_ptr(), nt, d, r, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+    if x.numel() == 0:  # an empty grid is no launch; the mean of nothing is NaN
+        return x_hat, torch.tensor([0.0, float("nan")], device=x.device)
+    c, split = -(-r // TILE), roundtrip_split(nt, r, x.dtype)
+    roundtrip_clusters(x.dtype, c, split)
+    err = torch.empty(2, dtype=torch.float32, device=x.device)
+    partial = torch.empty(-(-nt // TILE), dtype=torch.float32, device=x.device)  # a row tile each
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _lib().lowrank_roundtrip_launch(
+        x.data_ptr(), enc.data_ptr(), dec.data_ptr(), x_hat.data_ptr(), partial.data_ptr(),
+        _ticket(x.device, stream).data_ptr(), err.data_ptr(), nt, d, r, split,
+        _DTYPES[x.dtype], stream,
     )
-    build.check_launch(err, "lowrank_roundtrip")
+    build.check_launch(code, what)
+    return x_hat, err
+
+
+def lowrank_roundtrip_loss(
+    x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The consumer's roundtrip in one launch: (X̂ = T(T(X·E)·D) in x's type
+    T, Σ(X − X̂)² over the rounded X̂, its mean over X's elements), the sums
+    in f32; the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (rank at most 512, :func:`roundtrip_plan`)."""
+    if x.device.type == "cpu":
+        return lowrank_roundtrip_loss_plain(x, enc, dec)
+    _check("lowrank_roundtrip_loss", x, enc, dec)
+    x_hat, err = _roundtrip("lowrank_roundtrip_loss", x, enc, dec)
+    lowrank_roundtrip_loss.launches += 1
+    return x_hat, err[0], err[1]
+
+
+def lowrank_roundtrip(
+    x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference kernel's contract: (X̂ in x's type, Σ(X − X̂)² as an f32
+    scalar), Z and X̂ in f32 and the error from the unrounded X̂; the plain
+    version for CPU tensors, the roundtrip kernel's f32 form on f32 copies
+    of the operands for CUDA tensors, X̂ rounded to x's type after it."""
+    if x.device.type == "cpu":
+        return lowrank_roundtrip_plain(x, enc, dec)
+    _check("lowrank_roundtrip", x, enc, dec)
+    x_hat, err = _roundtrip("lowrank_roundtrip", x.float(), enc.float(), dec.float())
     lowrank_roundtrip.launches += 1
-    return x_hat, err_sum
+    return x_hat.to(x.dtype), err[0]
 
 
 lowrank_encode.launches = 0
@@ -270,3 +369,4 @@ lowrank_decode.launches = 0
 lowrank_encode_quant.launches = 0
 lowrank_decode_quant.launches = 0
 lowrank_roundtrip.launches = 0
+lowrank_roundtrip_loss.launches = 0

@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.core.compression import compute_codec
 from repro_torch.core.moe import apply_moe, init_moe
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache
@@ -77,12 +78,14 @@ def compute_params(params: Dict, cfg) -> Dict:
     """Params with every weight the forward casts to the activation type
     (``COMPUTE_CAST``) stored in that type once, at load.  Each use casts to
     the same type, so the values the forward sees are identical (parity
-    holds) and the per-step casts become no-ops."""
+    holds) and the per-step casts become no-ops.  A MoE layer's dispatch
+    codec keeps its f32 ``enc`` / ``dec`` and gains their activation-type
+    copies (``compression.compute_codec``), which its roundtrips read."""
     dt = cfg.torch_dtype
 
     def walk(tree):
         return {
-            k: walk(v) if isinstance(v, dict)
+            k: (compute_codec(v, dt) if k == "codec" else walk(v)) if isinstance(v, dict)
             else (v.to(dt) if k in COMPUTE_CAST else v)
             for k, v in tree.items()
         }

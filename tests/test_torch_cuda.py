@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import CompressionConfig, get_config, smoke_config
 from repro_torch.core.expertpool import quantize_slab
 from repro_torch.core.gating import init_group_gate
 from repro_torch.core.hardware import PROFILES
@@ -36,6 +36,8 @@ from repro_torch.kernels.lowrank import (
     lowrank_encode_quant,
     lowrank_project_plain,
     lowrank_roundtrip,
+    lowrank_roundtrip_loss,
+    lowrank_roundtrip_loss_plain,
     lowrank_roundtrip_plain,
 )
 from repro_torch.kernels.lowrank import ops as lowrank_ops
@@ -608,6 +610,44 @@ def test_stream_engine_on_card_matches_cpu(gen, name):
     assert tokens["cuda"] == tokens["cpu"]
 
 
+@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])
+def test_dispatch_codec_engines_on_card_match_cpu(gen, name):
+    """The MoE dispatch codec (rank d_model // 2 on the expert dispatch), f32
+    smoke model: the paged serving engine and the streaming engine at the
+    middle split (pooled end tier) launch the roundtrip twice a gate launch
+    on the card, the boundary codec's projections never (the engines get
+    no boundary codec here), and give the CPU's tokens."""
+    cfg = smoke_config(get_config(name)).replace(
+        num_layers=4, dtype="float32",
+        compression=CompressionConfig(rank=64, boundaries=("dispatch",), recon_weight=0.05))
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 500, size=int(rng.integers(4, 40))).astype(np.int32)
+               for _ in range(5)]
+    counters = (lowrank_roundtrip_loss, group_gate, lowrank_encode)
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        for kind in ("serving", "stream"):
+            model, p = Model(cfg, device=dev), to_device(params, dev)
+            if kind == "serving":
+                eng = ServingEngine(model, p, max_batch=4, max_len=64, prefill_chunk=8)
+            else:
+                eng = EndCloudServingEngine(
+                    model, p, end_profile=PROFILES["a100"], cloud_profile=PROFILES["a100"],
+                    max_batch=4, max_len=64, force_split=1, timing="modeled", prefill_chunk=8)
+            before = [c.launches for c in counters]
+            reqs = [Request(i, q, max_new_tokens=6) for i, q in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            tokens[dev, kind] = [r.generated for r in reqs]
+            rt, gate, enc = (c.launches - b for c, b in zip(counters, before))
+            if dev == "cuda":
+                assert rt > 0 and rt == 2 * gate and enc == 0
+    assert tokens["cuda", "serving"] == tokens["cpu", "serving"]
+    assert tokens["cuda", "stream"] == tokens["cpu", "stream"]
+
+
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "llama4-scout-17b-16e"])
 def test_stream_engine_int8_streams_on_card_match_cpu(gen, name):
     """The streaming engine with all three int8 streams on, f32 smoke model,
@@ -806,6 +846,99 @@ def test_lowrank_kernels(gen, dtype, T, d, r):
     assert torch.equal(again, xr) and torch.equal(err2, err)  # deterministic, no atomics
     with pytest.raises(ValueError, match="dtype"):
         lowrank_encode(x, enc.float() if dtype == torch.bfloat16 else enc.bfloat16())
+
+
+def _roundtrip_case(gen, T, d, r, dtype):
+    x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+    q = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0]
+    return x, q.to(dtype).contiguous(), q.T.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,d,r", [
+    (1, 768, 384), (4, 768, 384), (8, 768, 384), (32, 768, 384), (1000, 768, 384),
+    (1024, 768, 384), (8, 768, 512), (1000, 768, 512),  # 6 and 8 column tiles a cluster
+    (4, 768, 100), (37, 96, 24), (37, 90, 22),  # the scalar loads (r or d not a multiple of 8)
+    (130, 768, 256),  # 4 blocks a cluster, 3 row tiles, the last ragged
+])
+def test_roundtrip_loss_kernel(gen, dtype, T, d, r):
+    """The consumer's roundtrip against its plain version: X̂ within one
+    rounding (f32: 1e-5; bf16: 2^-7 and 2^-7 max|X̂|, Z rounded once more
+    between the products), the error sum against the plain sum over the
+    kernel's own X̂ (the reduction: rtol 1e-5) and against the plain
+    version's (f32 1e-5; bf16 1e-3: a few X̂ values one ulp apart), the
+    mean the sum over T*d, one launch counted."""
+    x, enc, dec = _roundtrip_case(gen, T, d, r, dtype)
+    before = lowrank_roundtrip_loss.launches
+    xh, sq, mean = lowrank_roundtrip_loss(x, enc, dec)
+    assert lowrank_roundtrip_loss.launches == before + 1
+    torch.cuda.synchronize()
+    xp, sqp, _ = lowrank_roundtrip_loss_plain(x, enc, dec)
+    assert xh.dtype == dtype and xh.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(xh, xp, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(xh.float(), xp.float(), rtol=2 ** -7,
+                                   atol=2 ** -7 * xp.float().abs().max().item())
+    own = (x.float() - xh.float()).square().sum()
+    torch.testing.assert_close(sq, own, rtol=1e-5, atol=0)
+    torch.testing.assert_close(sq, sqp, rtol=1e-5 if dtype == torch.float32 else 1e-3, atol=0)
+    torch.testing.assert_close(mean, sq / (T * d), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roundtrip_loss_relaunch_bits(gen, dtype):
+    """100 launches at T = 4 (the streaming group) and two at T = 1000
+    (many clusters: the ticket picks the last block, whichever it is) give
+    the same bits."""
+    for T, n in ((4, 100), (1000, 2)):
+        x, enc, dec = _roundtrip_case(gen, T, 768, 384, dtype)
+        xh, sq, mean = lowrank_roundtrip_loss(x, enc, dec)
+        first = (xh.clone(), sq.clone(), mean.clone())
+        for _ in range(n):
+            xh, sq, mean = lowrank_roundtrip_loss(x, enc, dec)
+            assert torch.equal(xh, first[0]) and torch.equal(sq, first[1])
+            assert torch.equal(mean, first[2])
+
+
+def test_roundtrip_padded_rows_add_nothing(gen):
+    """A 4-row tile's 60 padded rows: rows of x past T that hold large
+    values in memory (a view's tail) are never read, and X̂ of the live
+    rows and the error match a copy of the 4 rows alone."""
+    x, enc, dec = _roundtrip_case(gen, 64, 768, 384, torch.bfloat16)
+    x[4:] = 1e4
+    head = x[:4].clone()
+    xh, sq, _ = lowrank_roundtrip_loss(x[:4], enc, dec)
+    xh2, sq2, _ = lowrank_roundtrip_loss(head, enc, dec)
+    assert torch.equal(xh, xh2) and torch.equal(sq, sq2)
+    # 4 rows of unit variance lose about half their energy to a rank-384
+    # codec (~1.5e3); the 60 rows of 1e4 would add ~1e11
+    assert sq.item() < 1e5
+
+
+def test_roundtrip_plan_composes_wide_ranks(gen):
+    """r = 640 spans 10 column tiles: roundtrip_loss_1d composes encode,
+    decode and a PyTorch error sum; the fused wrapper refuses it."""
+    x, enc, dec = _roundtrip_case(gen, 8, 768, 640, torch.bfloat16)
+    names = (lowrank_encode, lowrank_decode, lowrank_roundtrip_loss)
+    before = [f.launches for f in names]
+    xh, loss = comp.roundtrip_loss_1d({"enc": enc, "dec": dec}, x)
+    assert [f.launches - b for f, b in zip(names, before)] == [1, 1, 0]
+    assert torch.equal(xh, lowrank_decode(lowrank_encode(x, enc), dec))
+    torch.testing.assert_close(loss, (x.float() - xh.float()).square().mean())
+    with pytest.raises(ValueError, match="column tiles"):
+        lowrank_roundtrip_loss(x, enc, dec)
+
+
+def test_roundtrip_refused_cluster_raises(gen):
+    """The portable 8 blocks and the bf16 split's 12 (a non-portable
+    cluster) co-schedule; 16 column tiles (their shared memory past the
+    block's limit) raise."""
+    assert lowrank_ops.roundtrip_clusters(torch.bfloat16, 6, 2) > 0
+    for dtype in (torch.bfloat16, torch.float32):
+        assert lowrank_ops.roundtrip_clusters(dtype, 8) > 0
+        with pytest.raises(RuntimeError, match="co-schedules no cluster"):
+            lowrank_ops.roundtrip_clusters(dtype, 16)
 
 
 @pytest.mark.parametrize("rank", [0, 32])

@@ -14,7 +14,7 @@ from repro.configs import get_config as jget
 from repro.configs import smoke_config as jsmoke
 from repro.core import moe as jmoe
 from repro_torch.bridge import params_from_numpy
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import CompressionConfig, get_config, smoke_config
 from repro_torch.core import gating as tg
 from repro_torch.core import moe as tmoe
 
@@ -99,11 +99,17 @@ def test_apply_moe_with_shared_expert(impl):
 
 
 def test_codec_and_unported_paths_raise():
+    """The dispatch codec is ported (held to the reference in
+    ``tests/test_torch_dispatch.py``): a layer with one runs it; the
+    expert-parallel paths still raise."""
     _, cfg = _cfgs("switch-base")
     _, tp = _params(_cfgs("switch-base")[0])
     x = torch.zeros(4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="codec"):
-        tmoe.moe_sorted({**tp, "codec": {}}, x, cfg)
+    eye = torch.eye(cfg.d_model)
+    cfg_codec = cfg.replace(compression=CompressionConfig(rank=cfg.d_model,
+                                                          boundaries=("dispatch",)))
+    y, aux = tmoe.moe_sorted({**tp, "codec": {"enc": eye, "dec": eye}}, x, cfg_codec)
+    assert y.shape == x.shape and float(aux["recon_loss"]) == 0.0
     with pytest.raises(NotImplementedError, match="a2a"):
         tmoe.apply_moe(tp, x, cfg.replace(moe_impl="a2a"))
 

@@ -34,7 +34,9 @@ expert FFN at ``FFN_CASES`` and ``WIDE_FFN_CASES``, the resident FFN at
 ``RESIDENT_CASES`` (f32 store) and ``RESIDENT_QUANT_CASES`` (int8 store);
 the row quantizer and dequantizer on a raw boundary's rows (no path
 quantizes KV rows with them any more: the KV pools' layer write does); the
-codec roundtrip at 1000 rows; the int8 boundary at the stream's 4, 32 and
+codec roundtrip's contract form at 1000 rows and the MoE dispatch codec's
+form at 4, 8, 32 and 1024 rows (where the tree has it) beside two
+``torch.matmul`` calls; the int8 boundary at the stream's 4, 32 and
 128 rows (rank 384, bf16): encode + quantize and dequantize + decode fused
 (where the tree has them) and composed from the standalone kernels; and the
 slab store's column quantization (wi, wo at 1 and 3 slabs, f32).  ``--src`` names the ``src`` directory whose
@@ -80,6 +82,7 @@ from chip_smoke import (  # noqa: E402
 )
 
 CODEC_ROWS = (4, 32, 1024)
+ROUNDTRIP_PROBE_ROWS = (4, 8, 32, 1024)  # the stream's group, serving decode, a chunk, run_batch
 GATE_ROWS = (4, 8, 256, 1024)
 
 
@@ -428,6 +431,16 @@ def quant_and_roundtrip(pr: Probe):
     x = torch.randn(1000, 768, generator=g, device="cuda").bfloat16()
     pr.reading("lowrank_roundtrip T=1000", functools.partial(lowrank_roundtrip, x, enc, dec),
                functools.partial(lowrank_roundtrip_plain, x, enc, dec))
+    from repro_torch.kernels import lowrank as lr
+
+    if not hasattr(lr, "lowrank_roundtrip_loss"):  # a tree before the dispatch codec
+        return
+    for T in ROUNDTRIP_PROBE_ROWS:  # the MoE dispatch codec's form
+        xt = torch.randn(T, 768, generator=g, device="cuda").bfloat16()
+        pr.reading(f"lowrank_roundtrip_loss T={T}",
+                   functools.partial(lr.lowrank_roundtrip_loss, xt, enc, dec),
+                   functools.partial(lr.lowrank_roundtrip_loss_plain, xt, enc, dec),
+                   [("torch.matmul pair", lambda xt=xt: torch.matmul(torch.matmul(xt, enc), dec))])
 
 
 def codec_quant(pr: Probe):
