@@ -111,9 +111,34 @@ Phases, in order; any failure exits non-zero before the result lines:
    f32 replan run, card against CPU: with each int8 stream alone the tokens
    are equal; with all three, the tokens are equal or the first top-1 route
    that differs is a near tie (``f32_all_streams_card_vs_cpu``).
+8. Speculative decode and preemption on the streaming engine
+   (``spec_and_preempt``), ``stream_engine``'s settings at split 1 with a
+   jetson-orin end and modeled stage times, ``SPEC`` (``spec_k=4`` and a
+   50 ms round trip an upload, which plans k = 4).  In f32 on the card, 8
+   requests of 32 tokens, with the rank-384 boundary codec and without it
+   (the draft never runs the codec, so with it on random weights nearly
+   every round rejects): the speculative run's tokens equal the plain
+   run's and the CPU's, or the first token that differs is a near tie
+   (``equal_or_tie``: a top-2 gap below ``TIE`` of some layer's gate
+   probabilities or of the LM head's logits, through the engine's tiers);
+   its counters and host syncs (``SPEC_COUNTERS``) equal the CPU run's;
+   rounds roll back, and without the codec drafts are also accepted.  In
+   bf16 with the expert pool and the three int8 streams: it completes, the
+   pools drain, the path's kernels launch and no other (``SPEC_PATH``;
+   flash attention from the draft installs, paged attention at C = k, a
+   histogram of its calls by rows a slot), and one round's draft scan, end
+   chunk and cloud verify are profiled beside a plain round's end and
+   cloud steps.  Then preemption in f32: 8 low-priority requests decoding
+   in every slot, then 2 interactive ones: 2 spills and 2 restores, the
+   spill bytes equal the CPU run's, the tokens equal a run without
+   preemption (tie rule), the pools drain; over dense and int8 KV pools,
+   with the host time of each spill and restore.  Phase 2 also checks
+   paged attention at the speculative chunks' C = 2 and 4 (B = 4, 16-page
+   rings) and flash attention at the draft prefill's [1, 256, 12, 64].
 
-The last lines are the kernels' JSON record, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``.  The profiled
+The last lines are the kernels' JSON record (``spec_launches``: each
+wrapper's launches in phase 8's bf16 speculative run), the ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
 (streaming kernel and reduction, or the two tensor-core GEMMs), the gate,
@@ -275,6 +300,9 @@ PA_CASES = (
     ("B=8 pps=16 C=32", 8, 16, 32, (0, 15, 16, 47, 100, 199, 231, 300)),
     ("B=4 pps=32 C=1", 4, 32, 1, (37, 118, 199, 231)),
     ("B=4 pps=32 C=16", 4, 32, 16, (37, 118, 199, 231)),
+    # speculative decode's end and verify chunks (phase 8: max_len 256)
+    ("B=4 pps=16 C=2", 4, 16, 2, (37, 118, 199, 231)),
+    ("B=4 pps=16 C=4", 4, 16, 4, (37, 118, 199, 231)),
 )
 
 
@@ -704,6 +732,8 @@ def run_flash_attention(torch, timer):
         ("pipeline B=4 S=256 H=12", 4, 256, 12, 12, None),
         # ragged S, GQA G=4 and a 64-key window (tail tile, window tile skip)
         ("ragged S=200 H=8 KV=2 window=64", 2, 200, 8, 2, 64),
+        # speculative decode's draft-cache prefill (phase 8): [1, max_len]
+        ("draft prefill B=1 S=256 H=12", 1, 256, 12, 12, None),
     ]
     for name, B, S, H, KV, window in cases:
         hd = 64
@@ -1900,13 +1930,13 @@ def stream_requests(vocab, n, seed, new, hi=200, base=0):
                     .astype(np.int32), max_new_tokens=new) for i in range(n)]
 
 
-def stream_engine(model, params, end, **kw):
+def stream_engine(model, params, end, rank=384, **kw):
     from repro_torch.core.hardware import PROFILES
     from repro_torch.serving import EndCloudServingEngine
 
     return EndCloudServingEngine(
         model, params, end_profile=end, cloud_profile=PROFILES["a100"],
-        compression_rank=384, max_batch=8, n_groups=2, page_size=16, prefill_chunk=32,
+        compression_rank=rank, max_batch=8, n_groups=2, page_size=16, prefill_chunk=32,
         max_len=256, **kw)
 
 
@@ -2206,6 +2236,353 @@ def f32_all_streams_card_vs_cpu(torch, model, params):
         raise AssertionError("all int8 streams, f32: the card flipped a route that is no tie")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: speculative decode and preemption on the streaming engine
+# ---------------------------------------------------------------------------
+
+# a per-upload round trip at which the planner drafts k = 4 for the
+# jetson-orin / a100 pair at split 1 (any acceptance above 0 plans 4 there)
+SPEC = dict(spec_k=4, link_rtt_s=0.05)
+SPEC_HI = 64  # prompt lengths of the f32 runs (the CPU runs them too)
+TIE = 1e-2  # a top-2 gap below this is a near tie (f32_all_streams_card_vs_cpu)
+# the kernels the bf16 speculative run (expert pool, all three int8
+# streams, the rank-384 boundary codec) launches; every other wrapper: 0
+SPEC_PATH = ("paged_attention_quant", "paged_write_quant", "group_gate", "grouped_mlp",
+             "grouped_mlp_resident_quant", "flash_attention_fwd", "lowrank_encode_quant",
+             "lowrank_decode_quant", "quantize_rows")
+SPEC_COUNTERS = ("spec_plan_k", "spec_k_eff", "spec_rounds", "spec_drafted", "spec_accepted",
+                 "spec_rollbacks", "n_host_syncs", "n_stage_steps", "prefill_chunks",
+                 "bytes_up")
+
+
+def spec_engine(model, params, **kw):
+    """``stream_engine``'s settings at split 1, jetson-orin end, modeled
+    stage times."""
+    from repro_torch.core.hardware import PROFILES
+
+    return stream_engine(model, params, PROFILES["jetson-orin"], force_split=1,
+                         timing="modeled", **kw)
+
+
+def drive(eng, reqs, hook=None, limit=3000):
+    """Submit ``reqs`` and tick until the engine drains (``hook(engine,
+    tick)`` before each tick); returns the requests' tokens."""
+    for r in reqs:
+        eng.submit(r)
+    tick = 0
+    while eng.busy():
+        if hook is not None:
+            hook(eng, tick)
+        eng.step()
+        tick += 1
+        if tick > limit:
+            raise AssertionError(f"the engine did not drain in {limit} ticks")
+    return [list(r.generated) for r in reqs]
+
+
+def near_tie(torch, eng, stream) -> float:
+    """The smallest top-2 gap at the last position of ``stream``: of the
+    gate's probabilities in every MoE layer, and of the LM head's logits,
+    through the engine's own tiers (the end tier's blocks under its expert
+    mask, the boundary codec, the cloud's blocks; the full-sequence forward
+    on the card)."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core import gating
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    from repro_torch.serving.endcloud import split_block_params
+
+    import numpy as np
+
+    cfg = eng.cfg
+    gaps = []
+    gate = gating.gate
+
+    def gate_rec(*args, **kw):
+        out = gate(*args, **kw)
+        top2 = out.probs.float()[-1].topk(2).values
+        gaps.append((top2[0] - top2[1]).item())
+        return out
+
+    end_p, cloud_p = split_block_params(eng._cparams, eng.split)
+    tokens = torch.tensor(np.asarray(stream, np.int32)[None], device=eng.device)
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=eng.device)[None]
+    angles = attn.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    gating.gate = gate_rec
+    try:
+        with torch.no_grad():
+            x = transformer.embed_inputs(end_p, cfg, tokens)
+            x = transformer.apply_stack_full(end_p, x, cfg, angles,
+                                             expert_mask=eng.tiers.end_mask)[0]
+            if eng.tiers.compress:
+                x = comp.decode_1d(eng.tiers.codec, comp.encode_1d(eng.tiers.codec, x))
+            x = transformer.apply_stack_full(cloud_p, x.to(cfg.torch_dtype), cfg, angles)[0]
+            top2 = transformer.lm_logits(cloud_p, cfg, x[:, -1:]).float()[0, 0].topk(2).values
+    finally:
+        gating.gate = gate
+    return min(gaps + [(top2[0] - top2[1]).item()])
+
+
+def equal_or_tie(torch, eng, reqs, got, want, tag):
+    """``got == want``, or the first position where they differ is a near
+    tie (``near_tie`` of the common prefix below ``TIE``); logs the count
+    of equal tokens."""
+    pairs = [(a, b) for ta, tb in zip(got, want) for a, b in zip(ta, tb)]
+    equal = sum(a == b for a, b in pairs)
+    if got == want:
+        log(f"{tag}: tokens equal ({equal} of {len(pairs)})")
+        return
+    r, i = next((r, i) for r, (ta, tb) in enumerate(zip(got, want))
+                for i, (a, b) in enumerate(zip(ta, tb)) if a != b)
+    stream = list(reqs[r].prompt) + list(want[r][:i])
+    gap = near_tie(torch, eng, stream)
+    log(f"{tag}: tokens equal {equal} of {len(pairs)}; the first that differs (request "
+        f"{r}, token {i}) is at a top-2 gap of {gap:.3e} (tie < {TIE:g})")
+    if gap >= TIE:
+        raise AssertionError(f"{tag}: tokens differ where the model has no near tie")
+
+
+class RoundProfiler:
+    """Wraps stage functions so that, once ``armed``, the first call of
+    each runs under its own ``torch.profiler`` context: (device us of its
+    kernels, synchronized wall ms) a stage."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.armed = False
+        self.out = {}
+
+    def wrap(self, name, fn):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+
+        def call(*args):
+            if not self.armed or name in self.out:
+                return fn(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                res = fn(*args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            dev = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+            self.out[name] = (sum(e.self_device_time_total for e in dev), wall * 1e3)
+            return res
+        return call
+
+
+def all_decoding(eng) -> bool:
+    return not eng._jobs and not eng.waiting and int(eng._active.sum()) == 8
+
+
+def spec_f32(torch, model, params):
+    """Speculative decode in f32 on the card: tokens against the same
+    engine's plain run and the CPU's under the tie rule, counters (host
+    syncs included) equal to the CPU's.  Twice: with the rank-384 boundary
+    codec, which the draft (the full stack under the end mask) never runs:
+    on random weights the codec moves nearly every token, so rounds reject;
+    and without it, where the draft differs from the model by the end mask
+    alone (3 of 8 experts) and rounds both accept and reject."""
+    from repro_torch.models.model import Model, to_device
+
+    cfg = model.cfg.replace(dtype="float32")
+    hparams = to_device(params, "cpu")
+    for name, rank in (("codec rank 384", 384), ("no codec", 0)):
+        runs = {}
+        for tag, dev, kw in (("spec", "cuda", SPEC), ("plain", "cuda", {"link_rtt_s": 0.05}),
+                             ("cpu", "cpu", SPEC)):
+            t0 = time.perf_counter()
+            eng = spec_engine(Model(cfg, device=dev), params if dev == "cuda" else hparams,
+                              rank=rank, **kw)
+            reqs = stream_requests(cfg.vocab_size, 8, 0, 32, hi=SPEC_HI)
+            tokens = drive(eng, reqs)
+            met = eng.metrics()
+            runs[tag] = (tokens, met, eng, reqs)
+            log(f"spec run f32, {name} ({tag}, {dev}): {time.perf_counter() - t0:.1f} s, "
+                f"{int(eng.tiers.end_mask.sum())} mask experts, "
+                f"{ {k: met[k] for k in SPEC_COUNTERS} }")
+            if met["kv_pages_in_use"] or not all(len(t) == 32 for t in tokens):
+                raise AssertionError(f"spec run f32 ({tag}): pages left mapped or a request "
+                                     "short")
+        spec, plain, host = runs["spec"], runs["plain"], runs["cpu"]
+        m = spec[1]
+        if not (m["spec_plan_k"] > 1 and m["spec_rounds"] > 0):
+            raise AssertionError(f"spec run f32, {name}: no speculative round ran: {m}")
+        if m["spec_rollbacks"] == 0 or (rank == 0 and m["spec_accepted"] == 0):
+            raise AssertionError(f"spec run f32, {name}: the accept and reject paths did not "
+                                 f"both run: {m}")
+        if plain[1]["spec_rounds"] != 0:
+            raise AssertionError("spec run f32: the plain run speculated")
+        got = {k: m[k] for k in SPEC_COUNTERS}
+        want = {k: host[1][k] for k in SPEC_COUNTERS}
+        if got != want:
+            raise AssertionError(f"spec run f32, {name}: card counters {got}, CPU {want}")
+        log(f"spec run f32, {name}: card counters equal the CPU's; acceptance "
+            f"{m['spec_accepted']} of {m['spec_drafted']} drafts")
+        equal_or_tie(torch, spec[2], spec[3], spec[0], plain[0],
+                     f"spec run f32, {name}, spec vs plain")
+        equal_or_tie(torch, spec[2], spec[3], spec[0], host[0],
+                     f"spec run f32, {name}, card vs CPU")
+
+
+def spec_bf16(torch, model, params, counters):
+    """Speculative decode in bf16 with the expert pool and the three int8
+    streams: it completes, the pools drain, the path's kernels launch (a
+    histogram of paged attention's rows a slot), and one profiled round's
+    stages beside a plain round's.  Returns the run's launch counts."""
+    from repro_torch.models import attention as attn
+
+    rows = {}
+    chunk_attn = attn.paged_chunk_attention
+
+    def count_rows(q, *args, **kw):
+        rows[q.shape[1]] = rows.get(q.shape[1], 0) + 1
+        return chunk_attn(q, *args, **kw)
+
+    prof = RoundProfiler(torch)
+    for c in counters:
+        c.launches = 0
+    attn.paged_chunk_attention = count_rows
+    try:
+        t0 = time.perf_counter()
+        eng = spec_engine(model, params, **SPEC, **QUANT)
+        make = eng._spec_fns_for_k
+
+        def wrapped(k):
+            fns = make(k)
+            return tuple(prof.wrap(f"{n} (k={k})", f) for n, f in
+                         zip(("draft scan", "end chunk", "cloud verify"), fns))
+
+        eng._spec_fns_for_k = wrapped
+
+        def arm(e, tick):
+            prof.armed = all_decoding(e)
+
+        reqs = stream_requests(model.cfg.vocab_size, 8, 0, 32)
+        tokens = drive(eng, reqs, hook=arm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attn.paged_chunk_attention = chunk_attn
+    launches = {c.__name__: c.launches for c in counters}
+    m = eng.metrics()
+    log(f"spec run bf16 (expert pool, int8 streams): {wall:.1f} s, "
+        f"{ {k: m[k] for k in SPEC_COUNTERS} }; launches {launches}; paged attention calls "
+        f"by rows a slot {dict(sorted(rows.items()))}")
+    if m["kv_pages_in_use"] or not all(len(t) == 32 for t in tokens):
+        raise AssertionError("spec run bf16: pages left mapped or a request short")
+    if m["spec_rounds"] == 0 or not any(c > 1 and c < eng.prefill_chunk for c in rows):
+        raise AssertionError("spec run bf16: no speculative round ran")
+    zero = [k for k in SPEC_PATH if launches[k] == 0]
+    off = {k: v for k, v in launches.items() if k not in SPEC_PATH and v}
+    if zero or off:
+        raise AssertionError(f"spec run bf16: path kernels not launched {zero}, kernels "
+                             f"off the path launched {off}")
+    if launches["flash_attention_fwd"] % (model.cfg.block_repeat * len(model.cfg.layer_pattern)):
+        raise AssertionError("spec run bf16: flash attention launches are not whole prefills")
+
+    # a plain round at the same settings, profiled once 8 slots decode
+    plain = RoundProfiler(torch)
+    peng = spec_engine(model, params, link_rtt_s=SPEC["link_rtt_s"], **QUANT)
+    peng._end_step = plain.wrap("end step", peng._end_step)
+    peng._cloud_step = plain.wrap("cloud step", peng._cloud_step)
+    for r in stream_requests(model.cfg.vocab_size, 8, 0, 32):
+        peng.submit(r)
+    for _ in range(400):
+        plain.armed = all_decoding(peng)
+        peng.step()
+        if len(plain.out) == 2:
+            break
+    del peng
+    spec_us = sum(us for us, _ in prof.out.values())
+    plain_us = sum(us for us, _ in plain.out.values())
+    log("spec round profile (bf16, int8 streams, 8 slots decoding; device us, wall ms a "
+        "stage call): " + "; ".join(f"{n} {us:.1f} us, {ms:.3f} ms" for n, (us, ms)
+                                    in {**prof.out, **plain.out}.items())
+        + f"; a speculative round {spec_us:.1f} us of device time against a plain round's "
+        f"{plain_us:.1f}")
+    if len(prof.out) != 3 or len(plain.out) != 2:
+        raise AssertionError(f"spec round profile: stages read {sorted(prof.out)}, "
+                             f"{sorted(plain.out)}")
+    return launches
+
+
+def preempt_run(model, params, **kw):
+    """8 low-priority requests decoding in every slot, then 2 interactive
+    ones; returns (tokens, engine, host seconds of each spill and restore)."""
+    eng = spec_engine(model, params, **kw)
+    low = stream_requests(model.cfg.vocab_size, 8, 2, 16, hi=SPEC_HI)
+    high = stream_requests(model.cfg.vocab_size, 2, 3, 8, hi=SPEC_HI, base=100)
+    for r in low:
+        r.priority = 2
+        eng.submit(r)
+    for r in high:
+        r.priority = 0
+    times = {"spill": [], "restore": []}
+    for name, attr in (("spill", "_spill_slot_state"), ("restore", "_restore_into_slot")):
+        fn = getattr(eng, attr)
+
+        def timed(*args, fn=fn, name=name):
+            eng._sync()
+            t = time.perf_counter()
+            out = fn(*args)
+            eng._sync()
+            times[name].append(time.perf_counter() - t)
+            return out
+        setattr(eng, attr, timed)
+    while not (all_decoding(eng) and all(len(r.generated) >= 2 for r in low)):
+        eng.step()
+    tokens = drive(eng, high)
+    return [list(r.generated) for r in low] + tokens, eng, times
+
+
+def preemption(torch, model, params):
+    """Phase 8's preemption, in f32, dense and int8 KV pools: 2 spills and
+    2 restores; spill bytes equal the CPU run's; tokens equal a run without
+    preemption under the tie rule; the pools drain."""
+    from repro_torch.models.model import Model, to_device
+
+    cfg32 = model.cfg.replace(dtype="float32")
+    card, host = Model(cfg32, device="cuda"), Model(cfg32, device="cpu")
+    hparams = to_device(params, "cpu")
+    for kw in ({}, {"quantize_kv": True}):
+        t0 = time.perf_counter()
+        tokens, eng, times = preempt_run(card, params, **kw)
+        ref, _, _ = preempt_run(card, params, preemption=False, **kw)
+        htok, heng, _ = preempt_run(host, hparams, **kw)
+        m, hm = eng.metrics(), heng.metrics()
+        got = (m["preemptions"], m["preempt_restores"], m["preempt_spill_bytes"])
+        log(f"preemption (f32, {kw or 'dense pools'}): {time.perf_counter() - t0:.1f} s; "
+            f"preemptions, restores, spill bytes {got} (CPU "
+            f"{(hm['preemptions'], hm['preempt_restores'], hm['preempt_spill_bytes'])}); "
+            f"host ms a spill {[round(t * 1e3, 3) for t in times['spill']]}, a restore "
+            f"{[round(t * 1e3, 3) for t in times['restore']]}")
+        if got[:2] != (2, 2) or got[2] != hm["preempt_spill_bytes"]:
+            raise AssertionError(f"preemption {kw}: counters {got}, CPU {hm}")
+        if m["kv_pages_in_use"] or hm["kv_pages_in_use"]:
+            raise AssertionError(f"preemption {kw}: pages left mapped")
+        reqs = (stream_requests(cfg32.vocab_size, 8, 2, 16, hi=SPEC_HI)
+                + stream_requests(cfg32.vocab_size, 2, 3, 8, hi=SPEC_HI, base=100))
+        equal_or_tie(torch, eng, reqs, tokens, ref, f"preemption {kw}, against no preemption")
+        equal_or_tie(torch, eng, reqs, tokens, htok, f"preemption {kw}, card vs CPU")
+
+
+def spec_and_preempt(torch, model, params, counters):
+    """Phase 8; returns the bf16 speculative run's launch counts."""
+    t0 = time.perf_counter()
+    spec_f32(torch, model, params)
+    log(f"spec f32 runs took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = spec_bf16(torch, model, params, counters)
+    log(f"spec bf16 runs took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    preemption(torch, model, params)
+    log(f"preemption runs took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def stream(torch, counters):
     """Phase 6 on a fresh full-width switch-base with its weights as stored
     (f32) and bf16 activations; returns the model, its params, the pool
@@ -2313,6 +2690,10 @@ def main() -> int:
     t0 = time.perf_counter()
     quant_launches = stream_quant(torch, model, params, stream_counters, base)
     log(f"int8 stream phase took {time.perf_counter() - t0:.1f} s")
+    log("streaming end-cloud engine: speculative decode and preemption:")
+    t0 = time.perf_counter()
+    spec_launches = spec_and_preempt(torch, model, params, stream_counters)
+    log(f"speculative decode and preemption phase took {time.perf_counter() - t0:.1f} s")
     log("profiler device time a call, us (L2 flushed; phase 2's kernels and yardsticks, "
         "read after the timed runs):")
     t0 = time.perf_counter()
@@ -2378,6 +2759,8 @@ def main() -> int:
             "launches": launches[counter], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # launches in phase 8's bf16 speculative run (expert pool, int8 streams)
+            "spec_launches": spec_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -8,7 +8,9 @@ boundary activation may be compressed (eq. 8).  The estimates come from
 the capability model (``core.hardware``): they are modeled times that
 steer the search, not measurements.  Replanning re-runs the search
 against measured link conditions (``BandwidthEstimator``,
-``replan_pipeline``) with hysteresis (``should_replan``).
+``replan_pipeline``) with hysteresis (``should_replan``).  The draft
+length of speculative decode is planned from the same estimates
+(``plan_spec_k``).
 """
 
 from __future__ import annotations
@@ -172,3 +174,52 @@ def replan_pipeline(
     if should_replan(refreshed, proposed, rel_threshold=rel_threshold):
         return proposed, True
     return refreshed, False
+
+
+def plan_spec_k(
+    layer_gflops: Sequence[float],
+    boundary_bytes: float,
+    end_cap: Capability,
+    cloud_cap: Capability,
+    *,
+    split: int,
+    link_rtt_s: float = 0.0,
+    measured_gbps: Optional[float] = None,
+    compression_ratio: float = 1.0,
+    acceptance: float = 0.7,
+    k_max: int = 8,
+    min_gain: float = 1.1,
+) -> int:
+    """Speculative draft length k for the current plan, or 1 to turn
+    speculation off.  A plain round pays end chunk + RTT + boundary wire +
+    cloud chunk for one token; a speculative round adds k full-stack draft
+    steps on the end tier and spreads the round over ``1 + acceptance *
+    (k - 1)`` expected tokens.  Candidates are powers of two up to
+    ``k_max``; a best rate under ``min_gain`` times the plain rate gives 1
+    (the compute-bound regime: no speculative machinery at all)."""
+    n = len(layer_gflops)
+    if not 0 <= split <= n:
+        raise ValueError(f"split={split} outside [0, {n}]")
+    gbps = measured_gbps if measured_gbps is not None else end_cap.net_gbps
+    end_rate = max(end_cap.gflop_budget * 1e3, 1e-9)
+    cloud_rate = max(cloud_cap.gflop_budget * 1e3, 1e-9)
+    draft_s = sum(layer_gflops) / end_rate
+    end_tok_s = sum(layer_gflops[:split]) / end_rate
+    cloud_tok_s = sum(layer_gflops[split:]) / cloud_rate
+    wire_s_per_tok = boundary_bytes * compression_ratio * 8.0 / max(gbps * 1e9, 1e-9)
+
+    def round_s(k: int) -> float:
+        draft = k * draft_s if k > 1 else 0.0  # k = 1: the plain round
+        return draft + k * end_tok_s + link_rtt_s + k * wire_s_per_tok + k * cloud_tok_s
+
+    base_rate = 1.0 / max(round_s(1), 1e-12)
+    best_k, best_rate = 1, base_rate
+    k = 2
+    while k <= k_max:
+        rate = (1.0 + acceptance * (k - 1)) / max(round_s(k), 1e-12)
+        if rate > best_rate:
+            best_k, best_rate = k, rate
+        k *= 2
+    if best_k > 1 and best_rate < min_gain * base_rate:
+        return 1
+    return best_k

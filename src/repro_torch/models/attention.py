@@ -1,7 +1,8 @@
-"""Attention: GQA projections, RoPE, full-sequence flash attention, and
-attention straight off the KV page pool (port of the reference's
-``models/attention.py``: the parts the paged engine and the one-shot
-end-cloud pipeline run, and the O(S²) oracle)."""
+"""Attention: GQA projections, RoPE, full-sequence flash attention,
+attention straight off the KV page pool, and one decode token against a
+dense ring (port of the reference's ``models/attention.py``: the parts the
+serving engines and the one-shot end-cloud pipeline run, and the O(S²)
+oracle)."""
 
 from __future__ import annotations
 
@@ -92,6 +93,35 @@ def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqgnk,bkgd->bqgnd", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    k_cache: torch.Tensor,  # [B, S, KV, hd] dense ring
+    v_cache: torch.Tensor,
+    q_positions: torch.Tensor,  # [B] position of the query token
+    key_positions: torch.Tensor,  # [B, S] position each ring slot holds
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One query token against a dense ring (speculative decode's draft
+    cache), in plain PyTorch as the reference computes it (``jnp``, no
+    Pallas body): scores in f32, keys that hold a position past the query,
+    outside the window or below 0 (slots never written) masked to -1e30,
+    the softmax's p rounded to the cache type for the value product."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qr = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bgnd,bkgd->bgnk", qr.float(), k_cache.float()) * (1.0 / hd ** 0.5)
+    qp = q_positions.long()[:, None]
+    kp = key_positions.long()
+    valid = (kp <= qp) & (kp >= 0)
+    if window is not None:
+        valid &= kp > qp - window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bgnk,bkgd->bgnd", p.float(), v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def paged_chunk_attention(

@@ -1,6 +1,8 @@
-"""Paged KV cache: the host page allocator, the device-side paged writes,
-and the page moves of a tier re-split (port of the reference's
-``models/kvcache.py``, paged part).
+"""KV caches: the paged pools (the host page allocator, the device-side
+paged writes, the page moves of a tier re-split, speculative rollback and
+preemption spill) and the dense rings of ``Model.prefill`` /
+``decode_step`` (speculative decode's draft caches), port of the
+reference's ``models/kvcache.py``.
 
 A tier owns one shared :class:`PagePool` of ``num_pages`` fixed-size pages;
 storage leaves are ``[R, P+1, page_size, KV, hd]`` (the last row is the
@@ -46,6 +48,48 @@ def attn_cache_len(cfg, max_len: int) -> int:
     if cfg.sliding_window is not None:
         return min(cfg.sliding_window, max_len)
     return max_len
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
+               device=DEFAULT_DEVICE) -> Dict:
+    """An empty dense decode cache (zeros): per pattern position, ``k``/``v``
+    rings ``[R, batch, W, KV, hd]`` stacked over the block repeats, and
+    ``lengths`` [batch].  Attention layers only: the cache leaves of SSM and
+    cross-attention layers are not ported."""
+    R, KV, hd = cfg.block_repeat, cfg.num_kv_heads, cfg.head_dim
+    blocks: Dict[str, Dict] = {}
+    for i, spec in enumerate(cfg.layer_pattern):
+        if spec.kind != "attn" or spec.cross_attn:
+            raise NotImplementedError(f"dense cache of layer kind {spec} is not ported yet")
+        shape = (R, batch, attn_cache_len(cfg, max_len), KV, hd)
+        blocks[f"pos{i}"] = {n: torch.zeros(shape, dtype=dtype, device=device)
+                             for n in ("k", "v")}
+    return {"blocks": blocks,
+            "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def ring_write(kcache: torch.Tensor, vcache: torch.Tensor, k, v, lengths: torch.Tensor):
+    """Write one new token's k/v ([B, 1, KV, hd]) at ring slot ``lengths %
+    W`` of dense rings [B, W, KV, hd], in place."""
+    b = torch.arange(kcache.shape[0], device=kcache.device)
+    slot = torch.remainder(lengths.long(), kcache.shape[1])
+    kcache[b, slot] = k[:, 0].to(kcache.dtype)
+    vcache[b, slot] = v[:, 0].to(vcache.dtype)
+    return kcache, vcache
+
+
+def prefill_write(kcache: torch.Tensor, vcache: torch.Tensor, k, v):
+    """Write a prefix [B, S, KV, hd] into fresh rings [B, W, KV, hd] in
+    place: position p at slot ``p % W``, only the last W kept when S > W."""
+    S, W = k.shape[1], kcache.shape[1]
+    if S >= W:
+        slot = torch.remainder(torch.arange(S - W, S, device=k.device), W)
+        kcache[:, slot] = k[:, S - W:].to(kcache.dtype)
+        vcache[:, slot] = v[:, S - W:].to(vcache.dtype)
+    else:
+        kcache[:, :S] = k.to(kcache.dtype)
+        vcache[:, :S] = v.to(vcache.dtype)
+    return kcache, vcache
 
 
 def ring_key_positions(lengths: torch.Tensor, W: int) -> torch.Tensor:
@@ -169,6 +213,58 @@ class PagePool:
     def reserved_pages(self, slot: int) -> int:
         """Pages this slot's reservation holds (0 = no reservation)."""
         return int(self._reserved[slot])
+
+    # -- speculative decode: provisional maps and their rollback -------------
+
+    def map_tokens(self, slot: int, start_pos: int, end_pos: int) -> List[int]:
+        """:meth:`map_range`, returning the entries this call newly mapped
+        (a draft chunk's provisional pages); entries mapped before (ring
+        reuse) are not returned, so a rollback never touches them."""
+        new_entries: List[int] = []
+        if end_pos > start_pos:
+            for pi in range(start_pos // self.page_size,
+                            (end_pos - 1) // self.page_size + 1):
+                entry = pi % self.pages_per_slot
+                if self.table[slot, entry] < 0:
+                    self._map_entry(slot, entry)
+                    new_entries.append(entry)
+        return new_entries
+
+    def rollback(self, slot: int, entries) -> None:
+        """Unmap provisionally mapped ``entries`` (from :meth:`map_tokens`),
+        their pages back on the free list.  Table surgery only: rejected
+        drafts' KV stays in pages no table maps, and is never read."""
+        for e in entries:
+            e = int(e)
+            if self.table[slot, e] < 0:
+                raise ValueError(f"slot {slot}: rollback of unmapped entry {e}")
+            self._free.append(int(self.table[slot, e]))
+            self.table[slot, e] = -1
+            self._mapped[slot] -= 1
+
+    # -- preemption: spill and restore ---------------------------------------
+
+    def spill_slot(self, slot: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Evict a live slot: returns ``(entries, phys, n_reserved)``, its
+        mapped table entries, the physical row of each, and its reservation,
+        and frees the slot.  The caller copies the rows at ``phys`` before
+        anything maps (and writes) those pages again."""
+        entries = np.nonzero(self.table[slot] >= 0)[0].astype(np.int64)
+        phys = self.table[slot, entries].astype(np.int64).copy()
+        n_reserved = int(self._reserved[slot])
+        self.free(slot)
+        return entries, phys, n_reserved
+
+    def restore_slot(self, slot: int, entries: np.ndarray, n_pages: int) -> np.ndarray:
+        """Re-admit a spilled slot: reserve ``n_pages`` (its original
+        reservation) and map exactly ``entries``; returns their new physical
+        rows, where the caller scatters the saved page data.  Entries, not
+        rows, are what attention reads, so the restored cache is the
+        spilled one."""
+        self.reserve(slot, n_pages)
+        for e in entries:
+            self._map_entry(slot, int(e))
+        return self.table[slot, np.asarray(entries, np.int64)].astype(np.int64).copy()
 
     def free(self, slot: int):
         if not self._reserved[slot]:

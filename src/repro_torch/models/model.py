@@ -1,5 +1,7 @@
-"""Model facade for paged serving (port of the reference's
-``models/model.py``: ``init``, ``decode_step_paged``, ``prefill_chunk_step``)."""
+"""Model facade for serving (port of the reference's ``models/model.py``:
+``init``, ``prefill`` and ``decode_step`` over dense rings, and
+``decode_step_paged``, ``prefill_chunk_step``, ``verify_chunk_step`` over
+paged pools)."""
 
 from __future__ import annotations
 
@@ -29,6 +31,38 @@ class Model:
 
     def _angles(self, positions: torch.Tensor) -> torch.Tensor:
         return attn.rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+
+    def prefill(self, params, batch: Dict, *, max_len: int = 0,
+                expert_mask=None) -> Tuple[torch.Tensor, Dict]:
+        """A full prompt ``batch["tokens"]`` [B, S] -> (logits of the last
+        position [B, V], dense cache of ``kvcache.init_cache``'s layout with
+        rings of ``max_len`` (S by default) and ``lengths`` S)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+        x = transformer.embed_inputs(params, cfg, tokens)
+        x, _, blocks = transformer.apply_stack_full(
+            params, x, cfg, self._angles(positions), causal=True, expert_mask=expert_mask,
+            collect_cache=True, max_len=max_len or S,
+        )
+        logits = transformer.lm_logits(params, cfg, x[:, -1:])[:, 0]
+        lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+        return logits, {"blocks": blocks, "lengths": lengths}
+
+    def decode_step(self, params, tokens: torch.Tensor, cache: Dict, *,
+                    expert_mask=None) -> Tuple[torch.Tensor, Dict]:
+        """tokens [B, 1] against a dense cache -> (logits [B, V], the cache
+        with its rings written in place and ``lengths`` advanced)."""
+        cfg = self.cfg
+        lengths = cache["lengths"]
+        x = transformer.embed_inputs(params, cfg, tokens)
+        x, blocks, _ = transformer.apply_stack_decode(
+            params, x, cfg, self._angles(lengths[:, None]), cache["blocks"], lengths,
+            expert_mask,
+        )
+        logits = transformer.lm_logits(params, cfg, x)[:, 0]
+        return logits, {"blocks": blocks, "lengths": lengths + 1}
 
     def decode_step_paged(
         self, params, tokens: torch.Tensor, page_blocks: Dict,
@@ -67,6 +101,25 @@ class Model:
         last = (n_valid.long() - 1).clamp_min(0)
         x_last = x[torch.arange(B, device=x.device), last][:, None]
         return transformer.lm_logits(params, cfg, x_last)[:, 0], page_blocks
+
+
+    def verify_chunk_step(
+        self, params, tokens: torch.Tensor, page_blocks: Dict,
+        page_table: torch.Tensor, start: torch.Tensor, n_valid: torch.Tensor, *,
+        page_size: int, expert_mask=None,
+    ) -> Tuple[torch.Tensor, Dict]:
+        """Speculative verify: :meth:`prefill_chunk_step`'s forward, with
+        the logits of every position [B, C, V] (row i predicts the token at
+        ``start + i + 1``; rows past ``n_valid`` are padding)."""
+        cfg = self.cfg
+        C = tokens.shape[1]
+        positions = start[:, None] + torch.arange(C, dtype=torch.int32, device=tokens.device)[None, :]
+        x = transformer.embed_inputs(params, cfg, tokens)
+        x, page_blocks = transformer.apply_stack_prefill_chunk(
+            params, x, cfg, self._angles(positions), page_blocks, page_table, positions,
+            n_valid, page_size, expert_mask=expert_mask,
+        )
+        return transformer.lm_logits(params, cfg, x), page_blocks
 
 
 def to_device(tree: Dict, device) -> Dict:

@@ -1,7 +1,8 @@
 """Transformer stack (port of the reference's ``models/transformer.py``:
-init, embedding and head, the full-sequence layer of the one-shot end-cloud
-pipeline, and the paged decode and chunked-prefill stacks of attention-only
-patterns).
+init, embedding and head, the full-sequence layer and stack (the one-shot
+end-cloud pipeline, and ``Model.prefill`` with its collected dense
+rings), and the decode stack over paged pools or dense rings and the
+chunked-prefill stack of attention-only patterns).
 
 Params keep the reference's layout: ``blocks["pos{i}"]`` leaves are stacked
 over the ``block_repeat`` axis, and a Python loop over blocks takes the
@@ -112,11 +113,12 @@ def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None)
 
 
 def _self_attention_full(p: Dict, h: torch.Tensor, cfg, angles, causal: bool):
+    """(output, (k, v)): the keys and values feed a collected cache."""
     q, k, v = attn.project_qkv(p, h, cfg, angles)
     o = attn.flash_attention(
         q, k, v, causal=causal, window=cfg.sliding_window if causal else None
     )
-    return attn.output_proj(p, o)
+    return attn.output_proj(p, o), (k, v)
 
 
 def apply_layer_full(
@@ -129,24 +131,60 @@ def apply_layer_full(
     causal: bool = True,
     expert_mask=None,
     collect_cache: bool = False,
+    max_len: int = 0,
 ):
     """Full-sequence layer (prefill-style) of an attention pattern, for
     serving: the reference's ``train=False`` (no router losses; training is
-    not ported).  Returns (x, aux, cache_entry); cache_entry is empty.
+    not ported).  Returns (x, aux, cache_entry); with ``collect_cache`` the
+    entry holds the layer's k/v written into fresh dense rings of
+    ``max_len`` (``kvcache.prefill_write``), else it is empty.
 
     The reference's other branches are not ported: SSM and cross-attention
-    layers and ``collect_cache`` raise; the sequence-parallel attention
-    needs a device mesh, which the port (one device) does not have."""
+    layers raise; the sequence-parallel attention needs a device mesh,
+    which the port (one device) does not have."""
     if spec.kind != "attn" or spec.cross_attn:
         raise NotImplementedError(f"layer kind {spec} is not ported yet")
-    if collect_cache:
-        raise NotImplementedError("collect_cache (dense KV rings) is not ported yet")
     aux: Dict[str, torch.Tensor] = {}
+    cache_entry: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + _self_attention_full(p["attn"], h, cfg, angles, causal)
+    o, (k, v) = _self_attention_full(p["attn"], h, cfg, angles, causal)
+    x = x + o
+    if collect_cache:
+        shape = (x.shape[0], kvcache.attn_cache_len(cfg, max_len), cfg.num_kv_heads,
+                 cfg.head_dim)
+        kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
+        cache_entry["k"], cache_entry["v"] = kvcache.prefill_write(kc, torch.zeros_like(kc),
+                                                                   k, v)
     if _has_ffn(spec, cfg):
         x, aux = _ffn(p, x, spec, cfg, expert_mask)
-    return x, aux, {}
+    return x, aux, cache_entry
+
+
+def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *,
+                     causal: bool = True, expert_mask=None, collect_cache: bool = False,
+                     max_len: int = 0):
+    """Loop the block pattern over a full sequence.  Returns (x, the aux of
+    every MoE layer in order, cache blocks or None): with ``collect_cache``
+    the blocks pytree of ``kvcache.init_cache``'s layout, each leaf the
+    layers' rings stacked over the block repeats."""
+    layer_aux: List[Dict[str, torch.Tensor]] = []
+    caches: Dict[str, Dict[str, List[torch.Tensor]]] = {}
+    for r in range(_n_blocks(params["blocks"])):
+        bp = block_params(params["blocks"], r)
+        for i, spec in enumerate(cfg.layer_pattern):
+            x, aux, ce = apply_layer_full(
+                bp[f"pos{i}"], x, spec, cfg, angles, causal=causal, expert_mask=expert_mask,
+                collect_cache=collect_cache, max_len=max_len,
+            )
+            if aux:
+                layer_aux.append(aux)
+            for n, leaf in ce.items():
+                caches.setdefault(f"pos{i}", {}).setdefault(n, []).append(leaf)
+    if not collect_cache:
+        return x, layer_aux, None
+    blocks = {pos: {n: torch.stack(leaves) for n, leaves in entry.items()}
+              for pos, entry in caches.items()}
+    return x, layer_aux, blocks
 
 
 def _write_kv(entry: Dict, k, v, table, positions, page_size: int, valid=None):
@@ -180,25 +218,32 @@ def apply_layer_decode(
     spec,
     cfg,
     angles: torch.Tensor,  # [B, 1, hd/2]
-    cache_entry: Dict,  # {"k", "v"} page pools [P+1, ps, KV, hd] (+ int8 scales)
+    cache_entry: Dict,  # {"k", "v"}: page pools [P+1, ps, KV, hd] (+ int8
+    # scales) with a page table, else dense rings [B, W, KV, hd]
     lengths: torch.Tensor,  # [B] int32
     expert_mask=None,
     page_table: Optional[torch.Tensor] = None,  # [B, pps] int32
     page_size: int = 0,
     expert_resident: Optional[Dict] = None,  # this layer's resident tables
 ):
-    """Single-token decode layer against the paged KV cache.  Returns
-    (x, cache_entry, aux); the pools are written in place."""
-    if page_table is None:
-        raise NotImplementedError("only the paged KV layout is ported")
+    """Single-token decode layer against the paged KV cache, or with no
+    ``page_table`` against dense rings (``attn.decode_attention``, masked
+    by ``kvcache.ring_key_positions``).  Returns (x, cache_entry, aux); the
+    cache is written in place."""
     aux: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     q, k, v = attn.project_qkv(p["attn"], h, cfg, angles)
-    _write_kv(cache_entry, k, v, page_table, lengths, page_size)
-    o = attn.paged_decode_attention(
-        q, cache_entry["k"], cache_entry["v"], page_table, lengths,
-        window=cfg.sliding_window, **_scales(cache_entry),
-    )
+    if page_table is None:
+        kc, vc = kvcache.ring_write(cache_entry["k"], cache_entry["v"], k, v, lengths)
+        o = attn.decode_attention(q, kc, vc, lengths,
+                                  kvcache.ring_key_positions(lengths, kc.shape[1]),
+                                  window=cfg.sliding_window)
+    else:
+        _write_kv(cache_entry, k, v, page_table, lengths, page_size)
+        o = attn.paged_decode_attention(
+            q, cache_entry["k"], cache_entry["v"], page_table, lengths,
+            window=cfg.sliding_window, **_scales(cache_entry),
+        )
     x = x + attn.output_proj(p["attn"], o)
     if _has_ffn(spec, cfg):
         x, aux = _ffn(p, x, spec, cfg, expert_mask, expert_resident)
@@ -224,10 +269,12 @@ def _resident(expert_resident: Optional[Dict], i: int, spec, r: int) -> Optional
 
 def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
                        cache_blocks: Dict, lengths: torch.Tensor, expert_mask=None,
-                       *, page_table: torch.Tensor, page_size: int,
+                       *, page_table: Optional[torch.Tensor] = None, page_size: int = 0,
                        expert_resident: Optional[Dict] = None):
     """Loop the block pattern over one decode token, over the blocks the
-    params hold (a tier may hold a slice).  ``expert_resident`` (pooled end
+    params hold (a tier may hold a slice), against paged pools through
+    ``page_table``, or without one against the dense rings of
+    ``kvcache.init_cache``.  ``expert_resident`` (pooled end
     tier) is ``{"store": {...}, "tables": {"pos{i}": {"ids": [R, S+1],
     "slot": [R, E]}}}`` from ``core.expertpool``.  Returns (x,
     cache_blocks, the aux of every MoE layer in order: each holds the

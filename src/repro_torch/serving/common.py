@@ -47,6 +47,7 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     seq: int = -1  # submission order stamp (ties within a priority class)
+    n_preemptions: int = 0  # times this request was spilled and requeued
 
     @property
     def done(self) -> bool:
@@ -298,6 +299,28 @@ class SlotEngineBase:
                 self.slots[slot] = None
                 self._active[slot] = False
                 self._release_slot(slot)
+        return n_emitted
+
+    def _harvest_tokens(self, slot: int, tokens) -> int:
+        """:meth:`_harvest` of several tokens for one slot (a speculative
+        round's accepted ones), in order; EOS or the budget mid-way retires
+        the slot and drops the rest, which plain decode never produced."""
+        req = self.slots[slot]
+        if req is None or not tokens:
+            return 0
+        n_emitted = 0
+        for tok in tokens:
+            tok = int(tok)
+            req.generated.append(tok)
+            n_emitted += 1
+            self._next_token[slot, 0] = tok
+            if tok == req.eos_id or len(req.generated) >= req.max_new_tokens:
+                req.finish_time = self.clock()
+                self.finished.append(req)
+                self.slots[slot] = None
+                self._active[slot] = False
+                self._release_slot(slot)
+                break
         return n_emitted
 
     def step(self) -> int:

@@ -1,6 +1,7 @@
 """Streaming end-cloud decode engine (port of the reference's
 ``serving/stream.py``: the two-tier token pipeline with chunked prefill,
-the end tier's expert slab pool, and replanning at safe points).
+the end tier's expert slab pool, speculative decode, preemption with spill
+and restore, and replanning at safe points).
 
 ``EndCloudServingEngine`` is the continuous-batching engine re-expressed as
 a two-tier token pipeline: each decode step is split at the route-aware
@@ -37,6 +38,21 @@ tier.  Both tiers run in this process on one device.
   variants of the paged attention and resident FFN kernels on the card).
   Each flag works alone; wire costs, capacities and meters price the
   stored sizes, while the planner keeps the unquantized boundary.
+* **Speculative decode.**  With ``spec_k > 1`` the planner
+  (``core.pipeline.plan_spec_k``) picks a draft length k from the modeled
+  stage and link times, the per-upload round trip ``link_rtt_s`` included;
+  in the compute-bound regime it picks 1 and no speculative machinery runs.
+  A round drafts k tokens on the end tier (the full stack under the end
+  mask against a dense draft cache a group, built by ``Model.prefill``),
+  ships one C = k boundary chunk and verifies all k in one cloud chunk off
+  the paged pools (``serving.specdecode``: accept, rollback, acceptance
+  feedback).  Rejected positions' pages are unmapped (table surgery).
+* **Priority admission and preemption.**  Admission scans the queue in
+  (priority, submission) order; a blocked head that outranks running work
+  spills the youngest lowest-class decoding slot at the drained safe
+  point: its mapped page rows of both pools (int8 scales included) are
+  copied to the host merged across the tiers, and restored on
+  re-admission at the split of that moment.
 * **Replanning.**  ``observe_bandwidth`` and ``update_device_state`` re-run
   the split search against measured conditions; a changed plan or mask is
   applied at the next safe point (every boundary drained) by re-splitting
@@ -48,16 +64,17 @@ Stage times: ``timing="measured"`` takes each stage's host-clock time with
 the device synchronized after it (``torch.cuda.synchronize``, where the
 reference waits with ``block_until_ready``); ``"modeled"`` takes the
 planner's capability cost model, so the schedule is deterministic.  Each
-tick moves every drained group's token ids, and every finished prefill's
-first token, to the host in one copy.
+tick moves every drained group's token ids (a speculative round's drafts
+and verify ids), and every finished prefill's first token, to the host in
+one copy each.
 
-Not ported yet (each raises ``NotImplementedError``): speculative decode
-(``spec_k > 1``), a preemption that would spill a running slot, fleet
-sharing (``cloud_pool``, ``expert_registry``, a shared ``timeline`` or
+Not ported yet (each raises ``NotImplementedError``): fleet sharing
+(``cloud_pool``, ``expert_registry``, a shared ``timeline`` or
 ``resources``), the ``health`` monitor and transfer-fault injection, and
-``evacuate``.  The
+``evacuate`` (with the speculative round's abort it calls).  The
 reference's options of those slices that only tune them (``cloud_share``
-and ``set_cloud_share``, ``link_rtt_s``, ``expert_slabs``) come with them.
+and ``set_cloud_share``, ``expert_slabs``) come with them; so does the
+``VirtualClock`` that stamps request times on the modeled timeline.
 The reference's tuning options that no caller sets (``end_state``,
 ``alpha``, ``selection_eps``, ``replan_threshold``, ``clock``,
 ``kv_pages``, ``blackout_gbps``) are fixed at the reference's defaults.
@@ -79,6 +96,7 @@ from repro_torch.core.pipeline import (
     BandwidthEstimator,
     PipelinePlan,
     plan_pipeline_split,
+    plan_spec_k,
     replan_pipeline,
 )
 from repro_torch.core.selection import group_priority_from_freq, validate_expert_mask
@@ -102,6 +120,12 @@ from repro_torch.serving.endcloud import (
     plan_tiers,
     split_block_params,
     strip_expert_weights,
+)
+from repro_torch.serving.specdecode import (
+    SpecState,
+    batched_accept,
+    min_pow2_le,
+    rollback_entries,
 )
 
 __all__ = ["EndCloudServingEngine"]
@@ -145,6 +169,32 @@ class _PrefillJob:
         self.ready_s = 0.0  # modeled completion time of the last chunk
 
 
+class _SpillState:
+    """A preempted request's KV, copied off the device pools.  ``blocks``
+    holds the slot's mapped page rows of every pool leaf (int8 codes and
+    their f16 scales on int8 pools) for all block repeats, the two tiers'
+    rows merged in block order: a restore re-splits them at the split of
+    that moment, and ring entries, not physical rows, are what attention
+    reads, so a replan in between leaves the stream intact."""
+
+    __slots__ = ("entries", "blocks", "length", "next_token", "n_pages")
+
+    def __init__(self, entries: np.ndarray, blocks: Dict, length: int, next_token: int,
+                 n_pages: int):
+        self.entries = entries  # mapped ring entries (the same in both pools)
+        self.blocks = blocks  # {pos: {leaf: [R, n_entries, ...]}} on the host
+        self.length = length  # the slot's length at the safe point
+        self.next_token = next_token  # pending token (its KV not yet written)
+        self.n_pages = n_pages  # the original reservation
+
+    @property
+    def nbytes(self) -> int:
+        """Spilled bytes at the stored type (an int8 pool's codes and
+        scales, never the dense equivalent)."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for entry in self.blocks.values() for leaf in entry.values())
+
+
 class EndCloudServingEngine(SlotEngineBase):
     def __init__(
         self,
@@ -176,11 +226,10 @@ class EndCloudServingEngine(SlotEngineBase):
         quantize_experts: bool = False,  # int8 slab store + f32 column scales
         quantize_boundary: bool = False,  # int8 boundary rows + f16 row scales
         health=None,
-        spec_k: int = 1,
+        spec_k: int = 1,  # speculative draft-length budget (1 = off)
+        link_rtt_s: float = 0.0,  # modeled round trip of every upload
     ):
         cfg = model.cfg
-        if spec_k > 1:
-            _unported("speculative decode (spec_k > 1)", "ROADMAP queue A, speculative decode")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if (cloud_pool is not None or expert_registry is not None
@@ -204,6 +253,10 @@ class EndCloudServingEngine(SlotEngineBase):
         super().__init__(padded_batch, max_len=max_len, admission=admission)
         self.request_capacity = max_batch
         self.preemption = preemption and admission == "priority"
+        self._spilled: Dict[int, _SpillState] = {}  # request_id -> spilled KV
+        self.n_preemptions = 0
+        self.n_preempt_restores = 0
+        self.preempt_spill_bytes = 0
         self.quantize_kv = bool(quantize_kv)
         self.quantize_experts = bool(quantize_experts)
         self.quantize_boundary = bool(quantize_boundary)
@@ -326,6 +379,24 @@ class EndCloudServingEngine(SlotEngineBase):
             # the initial residency ships with the deployment: filled at
             # once, unmetered; only runtime changes ride the link
             self._expert_sync(instant_lids=set(self._active_lids()))
+
+        # -- speculative decode: draft caches, acceptance state, planned k --
+        # ``spec_k`` is the budget; plan_spec_k picks k from the modeled
+        # stage and link times and gives 1 in the compute-bound regime,
+        # where no speculative machinery runs at all
+        self.spec_k_max = min(int(spec_k), self.prefill_chunk)
+        self.link_rtt_s = float(link_rtt_s)
+        self._spec_state: Optional[SpecState] = None
+        self._spec_plan_k = 1
+        self._spec_fns: Dict[int, Tuple] = {}  # k -> (draft, end, cloud) stage fns
+        self._spec_prefill = None  # the draft cache's prefill, [1, max_len]
+        # a dense draft cache a group ({pos: {k, v: [R, gsz, W, KV, hd]}}),
+        # and a slot's draft length and whether its cache is current
+        self._draft_cache: List[Optional[Dict]] = [None] * self.n_groups
+        self._draft_len = np.zeros((padded_batch,), np.int64)
+        self._draft_ready = np.zeros((padded_batch,), bool)
+        # a group's round in flight: set by its end stage, read at the drain
+        self._spec_pending: List[Optional[Dict]] = [None] * self.n_groups
 
         self.n_host_syncs = 0  # batched device->host copies of token ids
         self.n_stage_steps = 0  # decode end steps (== drained cloud steps)
@@ -576,6 +647,18 @@ class EndCloudServingEngine(SlotEngineBase):
             logits = transformer.lm_logits(cloud_params, cfg, x_last)[:, 0]
             return torch.argmax(logits, dim=-1).to(torch.int32), pages
 
+        def cloud_verify_chunk(cloud_params, z, pages, table, start, n_valid):
+            """The speculative verify: the cloud chunk's forward with the
+            greedy id of every position (k int32 a row cross the link)."""
+            x = wire_decode(z)
+            positions = chunk_positions(start, x.shape[1])
+            x, pages = transformer.apply_stack_prefill_chunk(
+                cloud_params, x, cfg, angles(positions), pages, table, positions,
+                n_valid, ps, expert_mask=None,
+            )
+            logits = transformer.lm_logits(cloud_params, cfg, x)
+            return torch.argmax(logits, dim=-1).to(torch.int32), pages
+
         self._build_gen += 1
         gen = self._build_gen
 
@@ -586,6 +669,13 @@ class EndCloudServingEngine(SlotEngineBase):
         self._cloud_step = counted("cloud_step", cloud_step)
         self._end_prefill_chunk = counted("end_prefill_chunk", end_prefill_chunk)
         self._cloud_prefill_chunk = counted("cloud_prefill_chunk", cloud_prefill_chunk)
+        # a speculative round's end chunk is the prefill chunk's forward at
+        # C = k; the speculative stage functions close over this build's
+        # codec, mask and split, so they are made again lazily
+        self._spec_bodies = (end_prefill_chunk, cloud_verify_chunk)
+        self._spec_fns = {}
+        self._spec_prefill = None
+        self._recompute_spec_plan()
         self._warmup_stage_fns()
 
     def _eargs(self) -> Tuple:
@@ -632,6 +722,293 @@ class EndCloudServingEngine(SlotEngineBase):
             self._sync()
         return out, time.perf_counter() - t0
 
+    # -- speculative decode: draft on the end tier, verify in one C = k chunk -
+    #
+    # A round replaces one plain pipeline round of a group: the end tier
+    # drafts k tokens with the full stack under its expert mask against a
+    # dense draft cache, runs its blocks over the chunk [pending, y_1 ..
+    # y_{k-1}] and ships one boundary payload; the cloud verifies the k
+    # positions in one chunk off the paged pools.  The accepted prefix
+    # commits, the pages mapped past it roll back (table surgery), and the
+    # verify id at the first rejection is the corrected token.
+
+    def _recompute_spec_plan(self):
+        """Re-plan the draft length against the measured link (at every
+        stage rebuild, bandwidth observation and replan); k = 1 turns every
+        piece of speculative machinery off."""
+        if self.spec_k_max <= 1:
+            self._spec_plan_k = 1
+            return
+        st = self._spec_state
+        acc = st.acceptance if st is not None and st.acceptance is not None else 0.7
+        k = plan_spec_k(
+            self.tiers.layer_gflops,
+            self.tiers.boundary_bytes,
+            self.tiers.end_cap,
+            self.tiers.cloud_cap,
+            split=self.split,
+            link_rtt_s=self.link_rtt_s,
+            measured_gbps=self.bw.gbps,
+            compression_ratio=self.tiers.compression_ratio if self.tiers.compress else 1.0,
+            acceptance=acc,
+            k_max=self.spec_k_max,
+        )
+        self._spec_plan_k = k
+        if k > 1:
+            if st is None:
+                self._spec_state = SpecState(k)
+            else:
+                st.k_plan = k
+                st.k_eff = max(2, min(st.k_eff, min_pow2_le(k)))
+
+    def _init_draft_cache(self) -> Dict:
+        return kvcache.init_cache(self.cfg, self._group_size, self.max_len,
+                                  self.cfg.torch_dtype, self.device)["blocks"]
+
+    def _draft_prefill_fn(self):
+        """The draft cache of one slot: ``Model.prefill`` of its committed
+        stream on [1, max_len] (the full stack under the end mask: flash
+        attention, the gate and the expert FFN on the card)."""
+        if self._spec_prefill is None:
+            model, max_len = self.model, self.max_len
+
+            def spec_draft_prefill(params, tokens, emask):
+                _, cache = model.prefill(params, {"tokens": tokens}, max_len=max_len,
+                                         expert_mask=emask)
+                return cache["blocks"]
+
+            self._spec_prefill = ShapeSignatures(
+                spec_draft_prefill, self._traces.setdefault("spec_draft_prefill", set()),
+                self._build_gen)
+        return self._spec_prefill
+
+    def _spec_fns_for_k(self, k: int):
+        """The three speculative stage functions at chunk size k (made
+        lazily, kept until the next stage rebuild): the draft scan, the end
+        tier's C = k chunk and the cloud's C = k verify."""
+        if k in self._spec_fns:
+            return self._spec_fns[k]
+        cfg = self.cfg
+
+        def spec_draft(params, tokens, blocks, lengths, emask):
+            # k greedy steps off the dense draft cache: step 0 consumes the
+            # pending token, step i its predecessor's argmax; the k-th draft
+            # is not verified, but its write keeps the cache contiguous
+            # through base + k - 1 for a full accept
+            drafts = []
+            for _ in range(k):
+                x = transformer.embed_inputs(params, cfg, tokens)
+                x, blocks, _ = transformer.apply_stack_decode(
+                    params, x, cfg,
+                    attn.rope_angles(lengths[:, None], cfg.head_dim, cfg.rope_theta),
+                    blocks, lengths, emask,
+                )
+                logits = transformer.lm_logits(params, cfg, x)[:, 0]
+                tokens = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                drafts.append(tokens[:, 0])
+                lengths = lengths + 1
+            return torch.stack(drafts, dim=1), blocks
+
+        end_chunk, cloud_verify = self._spec_bodies
+        gen = self._build_gen
+
+        def counted(name, fn):
+            return ShapeSignatures(fn, self._traces.setdefault(name, set()), gen)
+
+        fns = (counted(f"spec_draft_k{k}", spec_draft), counted(f"spec_end_k{k}", end_chunk),
+               counted(f"spec_cloud_k{k}", cloud_verify))
+        self._spec_fns[k] = fns
+        self._warmup_spec_fns(k, fns)
+        return fns
+
+    def _warmup_spec_fns(self, k: int, fns):
+        """First launches at the group and chunk shapes, writes to the
+        garbage page and a fresh draft cache, so measured rounds are warm."""
+        draft_fn, end_fn, cloud_fn = fns
+        gsz = self._group_size
+        inactive = np.zeros((gsz,), bool)
+        zeros = self._ints(np.zeros((gsz,)))
+        draft_fn(self._cparams, self._ints(np.zeros((gsz, 1))), self._init_draft_cache(),
+                 zeros, self.tiers.end_mask)
+        te = self.end_pool.device_rows(range(gsz), active=inactive, device=self.device)
+        tc = self.cloud_pool.device_rows(range(gsz), active=inactive, device=self.device)
+        valid = self._ints(np.ones((gsz,)))
+        z, _ = end_fn(self.end_params, self._ints(np.zeros((gsz, k))), self._end_pages, te,
+                      zeros, valid, *self._eargs())
+        cloud_fn(self.cloud_params, z, self._cloud_pages, tc, zeros, valid)
+        self._sync()
+
+    def _draft_seconds(self, n_tokens: int, measured_s: float) -> float:
+        """End-tier seconds of ``n_tokens`` through the FULL stack (the draft
+        runs every block on the end device): ``measured_s`` in measured
+        timing, else the capability model's."""
+        if self.timing != "modeled":
+            return measured_s
+        rate = self.tiers.end_cap.gflop_budget * 1e3
+        return n_tokens * sum(self.tiers.layer_gflops) / max(rate, 1e-9)
+
+    def _install_draft(self, slot: int):
+        """(Re)build one slot's draft cache from its committed stream, at
+        activation, after a restore, and when the plan turns speculation on
+        mid-run; the end tier pays the forward on the timeline."""
+        req = self.slots[slot]
+        L = int(self._slot_len[slot])
+        stream = list(req.prompt) + list(req.generated)
+        padded = np.zeros((1, self.max_len), np.int32)
+        padded[0, :L] = np.asarray(stream[:L], np.int32)
+        blocks, t = self._measure(self._draft_prefill_fn(), self._cparams, self._ints(padded),
+                                  self.tiers.end_mask)
+        td = self._draft_seconds(L, t)
+        g = self._group_of(slot)
+        r = slot - g * self._group_size
+        if self._draft_cache[g] is None:
+            self._draft_cache[g] = self._init_draft_cache()
+        for pos, entry in self._draft_cache[g].items():
+            for n, big in entry.items():
+                big[:, r] = blocks[pos][n][:, 0].to(big.dtype)
+        self._draft_len[slot] = L
+        self._draft_ready[slot] = True
+        done = self.timeline.occupy("end", self._group_ready_s[g], td)
+        self._prefill_busy["end"] += td
+        self._group_ready_s[g] = max(self._group_ready_s[g], done)
+
+    def _spec_refresh_drafts(self):
+        """Build draft caches for active slots that lack one, while their
+        group is drained (a pending round's commit cannot clobber them)."""
+        for slot in range(self.max_batch):
+            if (self._active[slot] and not self._draft_ready[slot]
+                    and self.slots[slot] is not None
+                    and self._phase[self._group_of(slot)] == "ready"):
+                self._install_draft(slot)
+
+    def _spec_round_k(self, g: int) -> int:
+        """The group's draft length for its next round: the adaptive k while
+        speculation is planned and some active row has a current draft
+        cache and two tokens of budget left; 1 (a plain round) otherwise."""
+        if self._spec_plan_k <= 1 or self._spec_state is None:
+            return 1
+        gs, ge = self._group_slices[g]
+        for s in range(gs, ge):
+            req = self.slots[s]
+            if (self._active[s] and self._draft_ready[s] and req is not None
+                    and req.max_new_tokens - len(req.generated) >= 2):
+                return max(2, self._spec_state.k_eff)
+        return 1
+
+    def _run_end_stage_spec(self, g: int, k: int):
+        """Speculative end stage: the draft scan, then the C = k boundary
+        chunk.  The chunk's pages past the committed length are mapped
+        provisionally (``map_tokens`` returns exactly the new entries); the
+        commit or rollback comes when the verify ids drain."""
+        gs, ge = self._group_slices[g]
+        gsz = ge - gs
+        active = self._active[gs:ge]
+        base_len = self._slot_len[gs:ge].copy()
+        draft_fn, end_fn, _ = self._spec_fns_for_k(k)
+        # positions a row verifies: k with a current draft cache and the
+        # budget, the bare pending token otherwise; inactive rows verify one
+        # padding position that writes to the garbage page
+        n_valid = np.ones((gsz,), np.int64)
+        for i, slot in enumerate(range(gs, ge)):
+            req = self.slots[slot]
+            if req is not None and self._active[slot] and self._draft_ready[slot]:
+                n_valid[i] = max(1, min(k, req.max_new_tokens - len(req.generated)))
+
+        tokens = self._ints(self._next_token[gs:ge])
+        dcache = self._draft_cache[g]
+        if dcache is None:
+            dcache = self._init_draft_cache()
+        (drafts, dcache), td = self._measure(
+            draft_fn, self._cparams, tokens, dcache, self._ints(self._draft_len[gs:ge]),
+            self.tiers.end_mask)
+        td = self._draft_seconds(gsz * k, td)
+        self._draft_cache[g] = dcache
+
+        # provisional pages in both pools, in lockstep
+        new_entries: Dict[int, List[int]] = {}
+        for i, slot in enumerate(range(gs, ge)):
+            if not self._active[slot]:
+                continue
+            L = int(base_len[i])
+            ents = self.end_pool.map_tokens(slot, L, L + int(n_valid[i]))
+            ents_c = self.cloud_pool.map_tokens(slot, L, L + int(n_valid[i]))
+            if ents != ents_c:
+                raise RuntimeError(f"tier pools out of lockstep for slot {slot}: "
+                                   f"{ents} vs {ents_c}")
+            new_entries[slot] = ents
+
+        chunk = torch.cat([tokens, drafts[:, : k - 1]], dim=1)
+        table = self.end_pool.device_rows(range(gs, ge), active=active, device=self.device)
+        start, nv = self._ints(base_len), self._ints(n_valid)
+        (z, self._end_pages), te = self._measure(
+            end_fn, self.end_params, chunk, self._end_pages, table, start, nv, *self._eargs())
+        te = self._stage_seconds("end", gsz * k, te)
+
+        # meter the valid positions of active rows only
+        n_tok_active = int(n_valid[active].sum())
+        t_comm = self._link_transfer(payload_nbytes(_row(z, 0, 0)) * n_tok_active)
+        if self._expert_pooled:
+            self.expert_routed_tokens += n_tok_active
+
+        self._book_end_stage(g, td + te, t_comm, z)
+        self._spec_pending[g] = {"k": k, "drafts": drafts, "base_len": base_len,
+                                 "n_valid": n_valid, "new_entries": new_entries}
+
+    def _drain_cloud_stage_spec(self, g: int) -> Dict:
+        """Cloud half of a round: one C = k verify chunk off the paged
+        pools.  The drafts and verify ids stay on the device until the
+        tick's one batched copy (``_harvest_drained``)."""
+        pend = self._spec_pending[g]
+        gs, ge = self._group_slices[g]
+        k = pend["k"]
+        _, _, cloud_fn = self._spec_fns_for_k(k)
+        active = self._active[gs:ge]
+        table = self.cloud_pool.device_rows(range(gs, ge), active=active, device=self.device)
+        (ids, self._cloud_pages), tc = self._measure(
+            cloud_fn, self.cloud_params, self._boundary[g], self._cloud_pages, table,
+            self._ints(pend["base_len"]), self._ints(pend["n_valid"]))
+        tc = self._stage_seconds("cloud", (ge - gs) * k, tc)
+
+        # one verify id back a valid position of each active row
+        self._book_cloud_stage(g, tc, int(pend["n_valid"][active].sum()))
+        self._spec_pending[g] = None
+        return {"g": g, "dev": (pend["drafts"], ids), "pend": pend}
+
+    def _spec_commit(self, rec: Dict, drafts: np.ndarray, verify: np.ndarray) -> int:
+        """Host side of a round: greedy accept a row, roll the provisional
+        pages past the committed prefix back in both pools, commit the
+        accepted tokens, feed the acceptance EMA."""
+        g, pend = rec["g"], rec["pend"]
+        gs, ge = self._group_slices[g]
+        active = self._active[gs:ge]
+        nv_eff = np.where(active, pend["n_valid"], 0)
+        committed, _ = batched_accept(drafts, verify, nv_eff)
+        emitted = n_drafted = n_accepted = 0
+        rolled = False
+        for i, slot in enumerate(range(gs, ge)):
+            if not active[i]:
+                continue
+            toks = committed[i]
+            L = int(pend["base_len"][i])
+            rb = rollback_entries(pend["new_entries"].get(slot, []), base_len=L,
+                                  n_commit=len(toks), page_size=self.page_size,
+                                  pages_per_slot=self.pages_per_slot)
+            if rb:
+                self.end_pool.rollback(slot, rb)
+                self.cloud_pool.rollback(slot, rb)
+                rolled = True
+            self._slot_len[slot] = L + len(toks)
+            if self._draft_ready[slot]:
+                # the accepted prefix is what the draft scan wrote
+                self._draft_len[slot] = L + len(toks)
+            n_drafted += int(nv_eff[i]) - 1
+            n_accepted += len(toks) - 1
+            emitted += self._harvest_tokens(slot, toks)
+        if self._spec_state is not None:
+            self._spec_state.observe_round(n_drafted, n_accepted,
+                                           rolled_back=rolled or n_accepted < n_drafted)
+        return emitted
+
     # -- admission: chunked prefill as a pipeline stage -----------------------
 
     def _group_of(self, slot: int) -> int:
@@ -651,50 +1028,134 @@ class EndCloudServingEngine(SlotEngineBase):
 
     def _admit(self):
         """Admit waiting requests in ``_admission_order``: reserve the
-        request's worst-case pages in BOTH tier pools and start a chunked
-        prefill job.  The order head blocks its order.  With preemption on,
-        a head that outranks a running request and could be admitted by
-        spilling it raises: preemption spill is not ported."""
-        self._admit_pass()
-        if self.preemption:
-            self._try_preempt()
+        request's worst-case pages in BOTH tier pools, then start a chunked
+        prefill job or, for a preempted request, restore its spilled KV and
+        resume decode.  The order head blocks its order; when it outranks
+        running work and preemption is on, a lower-priority slot is spilled
+        and admission retries."""
+        while True:
+            self._admit_pass()
+            if not (self.preemption and self._try_preempt()):
+                break
 
-    def _admit_pass(self):
+    def _admit_pass(self) -> int:
+        admitted = 0
         free = [s for s in range(self.max_batch)
                 if self.slots[s] is None and self._slot_usable(s)]
         for req in self._admission_order():
-            if not free:
+            spilled = req.request_id in self._spilled
+            # a restore activates its slot at once: only where the slot's
+            # group has no boundary in flight
+            usable = [s for s in free
+                      if not spilled or self._phase[self._group_of(s)] == "ready"]
+            if not usable:
                 break
             need = self._pages_for(req)
             if not (self.end_pool.can_reserve(need) and self.cloud_pool.can_reserve(need)):
                 break
-            slot = free.pop(0)
+            slot = usable[0]
+            free.remove(slot)
             self.waiting.remove(req)
-            self.end_pool.reserve(slot, need)
-            self.cloud_pool.reserve(slot, need)
-            self._jobs[slot] = _PrefillJob(req, slot, self._group_of(slot))
+            if spilled:
+                self._restore_into_slot(slot, req)  # restore_slot reserves
+            else:
+                self.end_pool.reserve(slot, need)
+                self.cloud_pool.reserve(slot, need)
+                self._jobs[slot] = _PrefillJob(req, slot, self._group_of(slot))
+            admitted += 1
+        return admitted
 
-    def _try_preempt(self):
-        """Where the reference would evict a victim (the head outranks a
-        running slot, and spilling every such slot would free the head's
-        pages in both pools), raise: the spill and restore of a running
-        slot's KV are not ported."""
+    # -- preemption: spill a lower-priority slot at the drained safe point ----
+
+    def preemptible_slots(self, priority: int) -> int:
+        """Running slots of a strictly lower class than ``priority`` (the
+        victims a request of that class could evict); 0 with preemption
+        off."""
+        if not self.preemption:
+            return 0
+        return sum(1 for s in range(self.max_batch)
+                   if self.slots[s] is not None and self.slots[s].priority > priority)
+
+    def _try_preempt(self) -> bool:
+        """If the admission head outranks running work and cannot be
+        admitted, spill one victim: the youngest decoding slot of the lowest
+        class below the head's.  Prefill jobs are never victims.  Nothing is
+        spilled unless evicting every candidate would free the head's pages
+        in both pools.  Returns True iff a victim was spilled."""
         queue = self._admission_order()
         if not queue:
-            return
+            return False
         head = queue[0]
         victims = [s for s in range(self.max_batch)
                    if self.slots[s] is not None and self.slots[s].priority > head.priority]
         if not victims:
-            return
+            return False
         need = self._pages_for(head)
         e_avail = self.end_pool.pages_available + sum(
             self.end_pool.reserved_pages(s) for s in victims)
         c_avail = self.cloud_pool.pages_available + sum(
             self.cloud_pool.reserved_pages(s) for s in victims)
-        if e_avail >= need and c_avail >= need:
-            _unported("preemption spill and restore",
-                      "ROADMAP queue A, preemption spill and restore")
+        if e_avail < need or c_avail < need:
+            return False
+        _, _, victim = max((self.slots[s].priority, self.slots[s].seq, s) for s in victims)
+        self._preempt_slot(victim)
+        return True
+
+    def _spill_slot_state(self, slot: int) -> _SpillState:
+        """Copy the slot's mapped page rows of every leaf of both pools to
+        the host (copies: the freed pages are mapped again before the
+        restore), the tiers merged in block order, and free the slot.  Its
+        group is drained, so the slot is at a token boundary: the pending
+        token's KV is not written yet."""
+        entries, phys_e, n_pages = self.end_pool.spill_slot(slot)
+        entries_c, phys_c, _ = self.cloud_pool.spill_slot(slot)
+        if not np.array_equal(entries, entries_c):
+            raise RuntimeError(f"tier pools out of lockstep for slot {slot}: "
+                               f"{entries.tolist()} vs {entries_c.tolist()}")
+        ie = torch.from_numpy(phys_e).to(self.device)
+        ic = torch.from_numpy(phys_c).to(self.device)
+        blocks = {pos: {n: torch.cat([leaf[:, ie], self._cloud_pages[pos][n][:, ic]]).cpu()
+                        for n, leaf in entry.items()}
+                  for pos, entry in self._end_pages.items()}
+        st = _SpillState(entries, blocks, int(self._slot_len[slot]),
+                         int(self._next_token[slot, 0]), n_pages)
+        self.slots[slot] = None
+        self._active[slot] = False
+        self._slot_len[slot] = 0
+        self._draft_ready[slot] = False
+        return st
+
+    def _preempt_slot(self, slot: int):
+        """Spill a decoding slot and queue its request again, the spilled KV
+        kept under its request id."""
+        req = self.slots[slot]
+        st = self._spill_slot_state(slot)
+        self._spilled[req.request_id] = st
+        self.preempt_spill_bytes += st.nbytes
+        req.n_preemptions += 1
+        self.n_preemptions += 1
+        self.waiting.append(req)
+
+    def _restore_into_slot(self, slot: int, req: Request):
+        """Re-admit a preempted request: both pools re-reserve its pages and
+        map its spilled entries, the saved rows are scattered into the new
+        physical rows split at the current split, and decode resumes where
+        it stopped.  Its draft cache is rebuilt at the next drained tick."""
+        st = self._spilled.pop(req.request_id)
+        ie = torch.from_numpy(self.end_pool.restore_slot(slot, st.entries, st.n_pages))
+        ic = torch.from_numpy(self.cloud_pool.restore_slot(slot, st.entries, st.n_pages))
+        ie, ic, s = ie.to(self.device), ic.to(self.device), self.split
+        for pos, entry in st.blocks.items():
+            for n, saved in entry.items():
+                saved = saved.to(self.device)
+                self._end_pages[pos][n][:, ie] = saved[:s]
+                self._cloud_pages[pos][n][:, ic] = saved[s:]
+        self._slot_len[slot] = st.length
+        self.slots[slot] = req
+        self._next_token[slot, 0] = st.next_token
+        self._active[slot] = True
+        self._draft_ready[slot] = False
+        self.n_preempt_restores += 1
 
     def _advance_prefill(self, job: _PrefillJob):
         """Stream one prompt chunk through end -> link -> cloud, booking the
@@ -770,20 +1231,27 @@ class EndCloudServingEngine(SlotEngineBase):
             self.slots[slot] = req
             self._next_token[slot, 0] = tok
             self._active[slot] = True
+            if self._spec_plan_k > 1:
+                self._install_draft(slot)
 
     def _release_slot(self, slot: int):
         self.end_pool.free(slot)
         self.cloud_pool.free(slot)
         self._slot_len[slot] = 0
+        self._draft_ready[slot] = False
 
     def busy(self) -> bool:
         return super().busy() or bool(self._jobs)
 
     def _progress_sig(self) -> tuple:
-        # pipeline stages, prefill chunks and slab transfers count as progress
+        # pipeline stages, prefill chunks, spills and restores, slab
+        # transfers and speculative rounds count as progress
+        st = self._spec_state
         return super()._progress_sig() + (
             self.n_stage_steps, self.n_prefill_chunks,
+            self.n_preemptions, self.n_preempt_restores,
             self.n_expert_prefetches if self._expert_pooled else 0,
+            st.rounds if st else 0, st.rollbacks if st else 0,
         )
 
     # -- pipelined stepping ---------------------------------------------------
@@ -809,8 +1277,10 @@ class EndCloudServingEngine(SlotEngineBase):
         return gflops / max(rate, 1e-9)
 
     def _link_transfer(self, nbytes: int) -> float:
-        """Meter one boundary upload; returns its modeled wire time."""
-        return self.link.record_up(nbytes, self.bw.gbps)
+        """Meter one boundary upload; returns its modeled time: the wire
+        time plus the round trip every transfer pays (``link_rtt_s``, what
+        speculative decode spreads over k tokens)."""
+        return self.link_rtt_s + self.link.record_up(nbytes, self.bw.gbps)
 
     def inject_transfer_faults(self, count: int):
         _unported("transfer-fault injection", "ROADMAP queue A, fault injection")
@@ -819,6 +1289,10 @@ class EndCloudServingEngine(SlotEngineBase):
         _unported("lane evacuation (migration)", "ROADMAP queue A, fleet")
 
     def _run_end_stage(self, g: int):
+        k = self._spec_round_k(g)
+        if k > 1:
+            self._run_end_stage_spec(g, k)
+            return
         gs, ge = self._group_slices[g]
         for slot in range(gs, ge):
             if self._active[slot]:
@@ -842,22 +1316,39 @@ class EndCloudServingEngine(SlotEngineBase):
         if self._expert_pooled:
             self.expert_routed_tokens += n_active
 
-        done_e = self.timeline.occupy("end", self._group_ready_s[g], te)
+        self._book_end_stage(g, te, t_comm, z)
+
+    def _book_end_stage(self, g: int, t_end: float, t_comm: float, z):
+        """Book a group's end stage and its upload on the timeline and the
+        decode-only clock; its boundary payload ``z`` is now in flight."""
+        done_e = self.timeline.occupy("end", self._group_ready_s[g], t_end)
         done_l = self.timeline.occupy("link", done_e, t_comm)
-        m_e = self._metric_clock.occupy("end", self._m_group_ready[g], te)
+        m_e = self._metric_clock.occupy("end", self._m_group_ready[g], t_end)
         self._m_boundary_ready[g] = self._metric_clock.occupy("link", m_e, t_comm)
-        self._stage_busy["end"] += te
+        self._stage_busy["end"] += t_end
         self._stage_busy["link"] += t_comm
         self.n_stage_steps += 1
-
         self._boundary[g] = z
         self._boundary_ready_s[g] = done_l
         self._phase[g] = "boundary"
+
+    def _book_cloud_stage(self, g: int, t_cloud: float, n_ids: int):
+        """Book a group's cloud stage after its boundary arrived, and the
+        ``n_ids`` token ids sent back down; the group is drained."""
+        self._group_ready_s[g] = self.timeline.occupy("cloud", self._boundary_ready_s[g], t_cloud)
+        self._m_group_ready[g] = self._metric_clock.occupy(
+            "cloud", self._m_boundary_ready[g], t_cloud)
+        self._stage_busy["cloud"] += t_cloud
+        self.link.record_down(n_ids * element_bytes(torch.int32))
+        self._boundary[g] = None
+        self._phase[g] = "ready"
 
     def _drain_cloud_stage(self, g: int) -> Dict:
         """Run the cloud half of an in-flight boundary; the token ids stay
         on the device until ``_harvest_drained`` moves every group's at
         once."""
+        if self._spec_pending[g] is not None:
+            return self._drain_cloud_stage_spec(g)
         gs, ge = self._group_slices[g]
         active = self._active[gs:ge]
         table = self.cloud_pool.device_rows(range(gs, ge), active=active, device=self.device)
@@ -868,32 +1359,30 @@ class EndCloudServingEngine(SlotEngineBase):
         )
         tc = self._stage_seconds("cloud", ge - gs, tc)
 
-        done_c = self.timeline.occupy("cloud", self._boundary_ready_s[g], tc)
-        self._m_group_ready[g] = self._metric_clock.occupy(
-            "cloud", self._m_boundary_ready[g], tc
-        )
-        self._stage_busy["cloud"] += tc
-        self._group_ready_s[g] = done_c
         # token ids back to the end tier, for the slots that decoded
-        self.link.record_down(int(active.sum()) * element_bytes(torch.int32))
-
-        self._boundary[g] = None
-        self._phase[g] = "ready"
+        self._book_cloud_stage(g, tc, int(active.sum()))
         self._slot_len[np.nonzero(active)[0] + gs] += 1
-        return {"g": g, "ids": ids_dev}
+        return {"g": g, "dev": (ids_dev,)}
 
     def _harvest_drained(self, records: List[Dict]) -> int:
-        """ONE device->host copy of every drained group's token ids, then
-        the per-group harvest in drain order."""
-        host = torch.cat([rec["ids"] for rec in records]).cpu().numpy()
+        """ONE device->host copy of every drained group's token ids (and a
+        speculative round's drafts), then the per-group harvest in drain
+        order: plain groups directly, speculative ones through accept and
+        rollback (``_spec_commit``)."""
+        devs = [t for rec in records for t in rec["dev"]]
+        host = torch.cat([t.reshape(-1) for t in devs]).cpu().numpy()
         self.n_host_syncs += 1
-        emitted, off = 0, 0
+        parts = iter(np.split(host, np.cumsum([t.numel() for t in devs])[:-1]))
+        emitted = 0
         for rec in records:
             gs, ge = self._group_slices[rec["g"]]
-            ids = np.zeros((self.max_batch,), np.int64)
-            ids[gs:ge] = host[off : off + ge - gs]
-            off += ge - gs
-            emitted += self._harvest(ids, slot_range=range(gs, ge))
+            if "pend" in rec:
+                drafts, verify = (next(parts).reshape(t.shape) for t in rec["dev"])
+                emitted += self._spec_commit(rec, drafts, verify)
+            else:
+                ids = np.zeros((self.max_batch,), np.int64)
+                ids[gs:ge] = next(parts)
+                emitted += self._harvest(ids, slot_range=range(gs, ge))
         return emitted
 
     def step(self) -> int:
@@ -917,6 +1406,8 @@ class EndCloudServingEngine(SlotEngineBase):
             if job.first_tok is None and job.first_tok_dev is None:
                 self._advance_prefill(job)
         self._resolve_prefill_tokens()
+        if self._spec_plan_k > 1:
+            self._spec_refresh_drafts()
         self._activate_ready_jobs()
         for g in range(self.n_groups):
             if self._phase[g] == "ready" and self._group_active(g):
@@ -937,6 +1428,9 @@ class EndCloudServingEngine(SlotEngineBase):
             self.bw.observe_rate(gbps)
         if not self.link_degraded:
             self._check_replan()
+        # the draft length tracks the same link: a faster one turns
+        # speculation off (compute-bound), a slower one on or longer
+        self._recompute_spec_plan()
 
     def _update_link_health(self):
         """Bottom rung of the degradation ladder: below ``blackout_gbps``
@@ -1049,6 +1543,9 @@ class EndCloudServingEngine(SlotEngineBase):
             self._end_mask_np = np.asarray(self._pending_mask, bool)
             updates["end_mask"] = torch.from_numpy(self._end_mask_np.copy()).to(self.device)
             self._pending_mask = _KEEP
+            # the draft model speculates under the end mask: every draft
+            # cache holds the old mask's KV
+            self._draft_ready[:] = False
         self.tiers = dataclasses.replace(self.tiers, **updates)
         if self.split != old_split:
             self._split_params()
@@ -1075,6 +1572,8 @@ class EndCloudServingEngine(SlotEngineBase):
             # pooled engines take the mask and tables as arguments: a
             # mask-only change needs no rebuild
             self._build_stage_fns()
+        else:
+            self._recompute_spec_plan()
         if had_pending:
             self.replan_events.append({
                 "old_split": old_split,
@@ -1182,8 +1681,8 @@ class EndCloudServingEngine(SlotEngineBase):
 
     def metrics(self) -> Dict[str, float]:
         """The reference's metrics; the counters of the paths that are not
-        ported (speculative rounds, preemption spills, migrations, transfer
-        retries) read 0, as the reference's do when those paths are idle."""
+        ported (fleet migrations, transfer retries) read 0, as the
+        reference's do when those paths are idle."""
         n = max(self.n_stage_steps, 1)
         mean = {r: t / n for r, t in self._stage_busy.items()}
         # the engine's own pipelined DECODE span (the decode-only clock)
@@ -1207,9 +1706,9 @@ class EndCloudServingEngine(SlotEngineBase):
             "serial_total_s": sum(self._stage_busy.values()),
             "prefill_s": sum(self._prefill_busy.values()),
             "prefill_chunks": self.n_prefill_chunks,
-            "preemptions": 0,
-            "preempt_restores": 0,
-            "preempt_spill_bytes": 0,
+            "preemptions": self.n_preemptions,
+            "preempt_restores": self.n_preempt_restores,
+            "preempt_spill_bytes": self.preempt_spill_bytes,
             "migration_restores": 0,
             "transfer_retries": 0,
             "degraded_ticks": self.degraded_ticks,
@@ -1217,13 +1716,11 @@ class EndCloudServingEngine(SlotEngineBase):
             "replan_events": len(self.replan_events),
             "measured_gbps": self.bw.gbps,
             "n_host_syncs": self.n_host_syncs,
-            "spec_plan_k": 1,
-            "spec_k_eff": 1,
-            "spec_rounds": 0,
-            "spec_drafted": 0,
-            "spec_accepted": 0,
-            "spec_acceptance_rate": 0.0,
-            "spec_rollbacks": 0,
+            "spec_plan_k": self._spec_plan_k,
+            "spec_k_eff": self._spec_state.k_eff if self._spec_state is not None else 1,
+            **(self._spec_state.metrics() if self._spec_state is not None else {
+                "spec_rounds": 0, "spec_drafted": 0, "spec_accepted": 0,
+                "spec_acceptance_rate": 0.0, "spec_rollbacks": 0}),
             **self.kv_metrics(),
             **self.expert_metrics(),
         }

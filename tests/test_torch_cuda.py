@@ -1,7 +1,8 @@
 """The port's kernels on the card: each against its plain version, the
 wrappers' input checks, and the serving engine, the one-shot end-cloud
 pipeline and the streaming end-cloud engine (with and without its int8
-streams) on the card against the same on the CPU.  Marked ``cuda``; skipped where no CUDA device is
+streams, with speculative decode and with a preemption) on the card
+against the same on the CPU.  Marked ``cuda``; skipped where no CUDA device is
 visible.  Run on a machine with the card (``--noconftest``: the suite's
 conftest imports JAX, which the port does not need):
 
@@ -472,6 +473,25 @@ def test_paged_attention_split_counts(gen, shape, C, window, kind, tol):
         assert torch.equal(again, got), f"splits={S}: two launches differ"
 
 
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2), ("int8", 2e-2)])
+def test_paged_attention_verify_chunks(gen, C, kind, tol):
+    """Speculative decode's end and verify chunks: C = k rows a slot of the
+    streaming engine's 4-slot group (dense and int8 pools), through the
+    wrapper, within the plain version's tolerance; two launches equal."""
+    q, pk, pv, (ks, vs), table, q_pos, lengths = _split_case(gen, "stream", C, kind)
+    want = paged_attention_plain(q, pk, pv, table, q_pos, lengths, k_scale=ks, v_scale=vs)
+    if kind == "int8":
+        def run():
+            return paged_attention_quant(q, pk, pv, ks, vs, table, q_pos, lengths)
+    else:
+        def run():
+            return paged_attention(q, pk, pv, table, q_pos, lengths)
+    got = run()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(run(), got)
+
+
 FFN_SIZES = [  # 4 groups; totals 2, 63, 64, 65 and 1024 around the tensor-core rule's 64
     [0, 0, 0, 0], [0, 1, 62, 0], [0, 64, 0, 0], [1, 64, 0, 0], [63, 0, 1, 1], [0, 65, 0, 0],
     [1024, 0, 0, 0],
@@ -684,6 +704,77 @@ def test_stream_engine_int8_streams_on_card_match_cpu(gen, name):
             assert all(a > b for a, b in zip(after[1:4], before[1:4]))
             assert after[4] == before[4] and (after[5] > before[5]) == (cfg.moe is not None)
     assert tokens["cuda"] == tokens["cpu"]
+
+
+def _serve_spec(cfg, params, dev, **kw):
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 500, size=int(rng.integers(4, 40))).astype(np.int32)
+               for _ in range(5)]
+    eng = EndCloudServingEngine(
+        Model(cfg, device=dev), to_device(params, dev), end_profile=PROFILES["a100"],
+        cloud_profile=PROFILES["a100"], max_batch=4, max_len=64, force_split=2,
+        timing="modeled", prefill_chunk=8, spec_k=4, link_rtt_s=0.05, **kw)
+    reqs = [Request(i, p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert eng.end_pool.pages_in_use == eng.cloud_pool.pages_in_use == 0
+    return [r.generated for r in reqs], eng.metrics()
+
+
+SPEC_KEYS = ("spec_plan_k", "spec_k_eff", "spec_rounds", "spec_drafted", "spec_accepted",
+             "spec_rollbacks", "n_host_syncs", "n_stage_steps", "bytes_up")
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "llama4-scout-17b-16e"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_spec_engine_on_card_matches_cpu(gen, name, quant):
+    """Speculative decode on the f32 smoke model (middle split, k = 4
+    planned): draft installs launch flash attention and the verify chunks
+    paged attention on the card; tokens and the speculative counters equal
+    the CPU's, with and without the int8 KV pages and boundary."""
+    cfg = smoke_config(get_config(name)).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    kw = dict(quantize_kv=True, quantize_boundary=True) if quant else {}
+    before = flash_attention_fwd.launches, paged_attention.launches + paged_attention_quant.launches
+    card, mc = _serve_spec(cfg, params, "cuda", **kw)
+    after = flash_attention_fwd.launches, paged_attention.launches + paged_attention_quant.launches
+    host, mh = _serve_spec(cfg, params, "cpu", **kw)
+    assert after[0] > before[0] and after[1] > before[1]
+    assert mc["spec_rounds"] > 0
+    assert card == host
+    assert {k: mc[k] for k in SPEC_KEYS} == {k: mh[k] for k in SPEC_KEYS}
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_preemption_on_card_matches_cpu(gen, quant):
+    """Two low-priority requests decode in both slots, an interactive one
+    spills the younger: on the card and on the CPU the same victim, spill
+    bytes and tokens, and the tokens of a run without preemption."""
+    cfg = smoke_config(get_config("tinyllama-1.1b")).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, 500, size=n).astype(np.int32) for n in (12, 14, 9)]
+    out = {}
+    for dev, preempt in (("cuda", True), ("cpu", True), ("cuda", False)):
+        eng = EndCloudServingEngine(
+            Model(cfg, device=dev), to_device(params, dev), end_profile=PROFILES["a100"],
+            cloud_profile=PROFILES["a100"], max_batch=2, max_len=64, force_split=2,
+            timing="modeled", preemption=preempt, quantize_kv=quant)
+        a1, a2 = (Request(i, prompts[i], max_new_tokens=12, priority=2) for i in range(2))
+        eng.submit(a1)
+        eng.submit(a2)
+        while len(a1.generated) < 3 or len(a2.generated) < 3:
+            eng.step()
+        eng.submit(Request(2, prompts[2], max_new_tokens=12, priority=0))
+        done = eng.run()
+        m = eng.metrics()
+        assert m["kv_pages_in_use"] == 0 and m["preemptions"] == m["preempt_restores"]
+        out[dev, preempt] = ({r.request_id: r.generated for r in done}, a2.n_preemptions,
+                             m["preempt_spill_bytes"])
+    assert out["cuda", True][1] == 1 and out["cuda", True][2] > 0
+    assert out["cuda", True] == out["cpu", True]
+    assert out["cuda", True][0] == out["cuda", False][0]
 
 
 @pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])

@@ -306,8 +306,18 @@ def test_apply_layer_full_refuses_unported_branches():
     angles = torch.zeros(1, 4, cfg.head_dim // 2)
     y, aux, entry = transformer.apply_layer_full(p, x, spec, cfg, angles)
     assert y.shape == x.shape and aux == {} and entry == {}
-    with pytest.raises(NotImplementedError, match="collect_cache"):
-        transformer.apply_layer_full(p, x, spec, cfg, angles, collect_cache=True)
+    # collect_cache (ported with speculative decode's draft caches): the
+    # layer's k/v in fresh dense rings of max_len, the rest zeros
+    x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    y2, _, entry = transformer.apply_layer_full(p, x, spec, cfg, angles, collect_cache=True,
+                                                max_len=8)
+    h = transformer.rms_norm(x, p["norm1"], cfg.norm_eps)
+    _, k, v = transformer.attn.project_qkv(p["attn"], h, cfg, angles)
+    assert torch.equal(y2, transformer.apply_layer_full(p, x, spec, cfg, angles)[0])
+    for name, want in (("k", k), ("v", v)):
+        ring = entry[name]
+        assert ring.shape == (1, 8, cfg.num_kv_heads, cfg.head_dim)
+        assert torch.equal(ring[:, :4], want.to(ring.dtype)) and not ring[:, 4:].any()
     for bad in (dataclasses.replace(spec, kind="ssm"), dataclasses.replace(spec, cross_attn=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             transformer.apply_layer_full(p, x, bad, cfg, angles)

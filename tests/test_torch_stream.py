@@ -8,6 +8,8 @@ the eq. 8 codec off and on, pooled against dense-mask end tiers, a hard
 bandwidth replan, and the link-blackout rung.  Smoke switch-base
 (non-gated GELU experts) and smoke llama4-scout (gated SiLU experts and a
 shared expert).  Plus the options the port does not have yet, which raise.
+(Speculative decode and preemption are held to the reference in
+``test_torch_specdecode.py`` and ``test_torch_preempt.py``.)
 (The int8 streams are held to the reference in ``test_torch_stream_quant.py``.)
 """
 
@@ -199,7 +201,6 @@ def _engine(tiny, **kw):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("spec_k", 2, "speculative"),
     ("cloud_pool", object(), "fleet"),
     ("expert_registry", object(), "fleet"),
     ("timeline", object(), "fleet"),
@@ -220,9 +221,11 @@ def test_unported_methods_raise(tiny):
 
 
 def test_preemption_that_would_spill_raises(tiny):
-    """Priority admission stays; where the reference would spill a running
-    lower-priority slot for a blocked head, the port raises, and without
-    preemption (or under FIFO) the head simply waits."""
+    """A blocked head that outranks a running lower-priority slot spills it
+    (it raised before the spill was ported) and the spilled request resumes
+    with the tokens of a run without preemption; without preemption (or
+    under FIFO) the head simply waits.  (The spill against the reference:
+    ``test_torch_preempt.py``.)"""
     def serve(**kw):
         eng = _engine(tiny, **kw)
         for i in range(2):
@@ -232,13 +235,19 @@ def test_preemption_that_would_spill_raises(tiny):
         eng.submit(Request(9, np.arange(5, dtype=np.int32), max_new_tokens=4, priority=0))
         return eng
 
-    with pytest.raises(NotImplementedError, match="preemption"):
-        serve().step()
-    for kw in (dict(preemption=False), dict(admission="fifo")):
+    runs = {}
+    for name, kw in (("preempt", {}), ("off", dict(preemption=False)),
+                     ("fifo", dict(admission="fifo"))):
         eng = serve(**kw)
         done = eng.run()
         assert sorted(r.request_id for r in done) == [0, 1, 9]
         assert all(len(r.generated) == r.max_new_tokens for r in done)
+        assert eng.end_pool.pages_in_use == eng.cloud_pool.pages_in_use == 0
+        runs[name] = ({r.request_id: r.generated for r in done}, eng.metrics())
+    tokens, m = runs["preempt"]
+    assert m["preemptions"] == m["preempt_restores"] == 1 and m["preempt_spill_bytes"] > 0
+    assert runs["off"][1]["preemptions"] == runs["fifo"][1]["preemptions"] == 0
+    assert tokens == runs["off"][0] == runs["fifo"][0]
 
 
 def test_stage_signatures_are_bounded_by_shapes(tiny):
