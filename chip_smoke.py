@@ -135,9 +135,29 @@ Phases, in order; any failure exits non-zero before the result lines:
    with the host time of each spill and restore.  Phase 2 also checks
    paged attention at the speculative chunks' C = 2 and 4 (B = 4, 16-page
    rings) and flash attention at the draft prefill's [1, 256, 12, 64].
+9. The fleet (``fleet_phase``): ``FleetServingEngine`` with three lanes
+   (jetson-orin, jetson-orin, phone-soc ends, ``stream_engine``'s
+   settings a lane, splits forced to 1, 2, 1 where the planner gives 1
+   everywhere), an a100 cloud of two servers shared by every lane's cloud
+   stages (one page pool, one multi-server timeline resource), modeled
+   stage times, priority admission with preemption, the fleet expert
+   registry with a 1 Gbps modeled end<->end LAN.  ``FLEET_N`` seeded
+   requests of the interactive and batch classes at ``FLEET_RATE``
+   (Poisson) driven by ``loadgen.drive`` on a ``VirtualClock``; lane 0,
+   then lane 1, turns hot on expert group 2 (``FLEET_SKEW_TICKS``), so
+   lane 1's new slabs come from lane 0 over the LAN.  In f32 on the card
+   against the port's own CPU run of the same schedule: the counters
+   (``FLEET_COUNTERS``), placement log, replan events and every request's
+   stamps equal, tokens equal or the first difference a near tie, peer
+   fetches and preemptions both > 0, the pools drain, the path's kernels
+   launch.  In bf16 with the three int8 streams: completes and drains,
+   ``summarize()`` a class (modeled clock, not the card's speed), only the
+   path's kernels launch (``FLEET_BF16_PATH``), and one profiled fleet
+   tick (``chiprun_out/fleet_profile.txt``) beside phases 6-7's ticks.
 
 The last lines are the kernels' JSON record (``spec_launches``: each
-wrapper's launches in phase 8's bf16 speculative run), the ``nvidia-smi``
+wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
+in phase 9's bf16 fleet run), the ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
@@ -1941,10 +1961,11 @@ def stream_engine(model, params, end, rank=384, **kw):
 
 
 def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters=POOL_COUNTERS,
-                    tag="pool run", profile_name="stream_profile.txt"):
+                    tag="pool run", profile_name="stream_profile.txt", profiles=None):
     """The expert pool through a memory shrink and regrow, stage times
     measured, with the int8 streams of ``flags``; returns the launch counts
-    of the run, the requests' tokens and the engine's metrics."""
+    of the run, the requests' tokens and the engine's metrics, and records
+    the profiled tick's (device ms, wall ms) in ``profiles[tag]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2085,6 +2106,8 @@ def stream_pool_run(torch, model, params, counters, *, flags=None, want_counters
         ("dequantize", ("dequantize_rows_kernel",), ()),
         *CODEC_KERNELS, *CODEC_QUANT_KERNELS, *ROUNDTRIP_KERNELS))
     casts = sum(e.count for e in dev if "direct_copy_kernel" in e.key)
+    if profiles is not None:
+        profiles[tag] = (dev_us / 1e3, wall * 1e3)
     log(f"{tag} profile (tick {ptick}, 8 slots decoding): device time {dev_us / 1e3:.3f} ms "
         f"of {wall * 1e3:.3f} ms wall ({dev_us / 1e3 / (wall * 1e3):.1%} busy); kernels in "
         f"path, a launch: {in_path}; copy and cast kernels (direct_copy): {casts}; written "
@@ -2154,14 +2177,14 @@ def stream_replan_runs(torch, model, params):
     f32_card_vs_cpu(model, params, "replan run")
 
 
-def stream_quant(torch, model, params, counters, base):
+def stream_quant(torch, model, params, counters, base, profiles):
     """Phase 7: the pool run with every int8 stream on, held to the
     reference's quantized engine, beside phase 6's run ``base`` = (tokens,
     metrics); then the f32 card-vs-CPU replan run with the streams on.
     Returns the pool run's launch counts."""
     launches, tokens, m = stream_pool_run(
         torch, model, params, counters, flags=QUANT, want_counters=QUANT_POOL_COUNTERS,
-        tag="quant pool run", profile_name="stream_quant_profile.txt")
+        tag="quant pool run", profile_name="stream_quant_profile.txt", profiles=profiles)
     base_tokens, mb = base
     pairs = [(a, b) for ta, tb in zip(tokens, base_tokens) for a, b in zip(ta, tb)]
     match = sum(a == b for a, b in pairs) / len(pairs)
@@ -2325,7 +2348,8 @@ def near_tie(torch, eng, stream) -> float:
 
 def equal_or_tie(torch, eng, reqs, got, want, tag):
     """``got == want``, or the first position where they differ is a near
-    tie (``near_tie`` of the common prefix below ``TIE``); logs the count
+    tie (``near_tie`` of the common prefix below ``TIE``, through ``eng``,
+    or ``eng(r)`` for request ``r`` when it is a function); logs the count
     of equal tokens."""
     pairs = [(a, b) for ta, tb in zip(got, want) for a, b in zip(ta, tb)]
     equal = sum(a == b for a, b in pairs)
@@ -2335,7 +2359,7 @@ def equal_or_tie(torch, eng, reqs, got, want, tag):
     r, i = next((r, i) for r, (ta, tb) in enumerate(zip(got, want))
                 for i, (a, b) in enumerate(zip(ta, tb)) if a != b)
     stream = list(reqs[r].prompt) + list(want[r][:i])
-    gap = near_tie(torch, eng, stream)
+    gap = near_tie(torch, eng(r) if callable(eng) else eng, stream)
     log(f"{tag}: tokens equal {equal} of {len(pairs)}; the first that differs (request "
         f"{r}, token {i}) is at a top-2 gap of {gap:.3e} (tie < {TIE:g})")
     if gap >= TIE:
@@ -2582,8 +2606,269 @@ def spec_and_preempt(torch, model, params, counters):
     log(f"preemption runs took {time.perf_counter() - t0:.1f} s")
     return launches
 
+# -- phase 9: the fleet -----------------------------------------------------
 
-def stream(torch, counters):
+FLEET_ENDS = ("jetson-orin", "jetson-orin", "phone-soc")
+# the planner gives split 1 on every lane (each plans against 2/3 of the
+# a100); lane 1 is pinned at 2, so two interior splits share the cloud
+FLEET_SPLITS = (1, 2, 1)
+FLEET_PEER_GBPS = 1.0  # modeled end<->end LAN (each lane's uplink: 0.1 or 0.05)
+FLEET_N, FLEET_RATE = 48, 4000.0  # Poisson requests/s on the modeled clock
+FLEET_SKEW_TICKS = (2, 6)  # lane 0, then lane 1, turns hot on expert group 2
+FLEET_F32_PATH = ("paged_attention", "group_gate", "grouped_mlp", "grouped_mlp_resident",
+                  "lowrank_encode", "lowrank_decode")
+FLEET_BF16_PATH = ("paged_attention_quant", "paged_write_quant", "group_gate", "grouped_mlp",
+                   "grouped_mlp_resident_quant", "lowrank_encode_quant", "lowrank_decode_quant",
+                   "quantize_rows")
+FLEET_COUNTERS = ("splits", "replan_events", "preemptions", "preempt_restores",
+                  "preempt_spill_bytes", "expert_prefetches", "expert_peer_fetches",
+                  "expert_bytes_peer", "expert_bytes_down", "expert_unique_residents",
+                  "n_host_syncs", "n_placed", "tokens", "kv_pages_in_use")
+
+
+def fleet_schedule(vocab):
+    """``FLEET_N`` requests at ``FLEET_RATE`` (Poisson, seed 9), the
+    interactive and batch classes of ``benchmarks/serve_load.py`` (seed
+    10)."""
+    from repro_torch.serving import loadgen
+
+    arr = loadgen.poisson_arrivals(FLEET_N, FLEET_RATE, seed=9)
+    return loadgen.build_schedule(arr, (loadgen.INTERACTIVE, loadgen.BATCH), seed=10, vocab=vocab)
+
+
+def fleet_run(torch, model, params, *, profile_tick=False, **kw):
+    """The seeded schedule through a fresh three-lane fleet, driven by
+    ``loadgen.drive`` on a ``VirtualClock``: ``stream_engine``'s settings on
+    each lane (8 slots in 2 groups, 16-token pages, prefill chunk 32,
+    max_len 256, the rank-384 codec), an a100 cloud of two servers, modeled
+    stage times, priority admission with preemption, the expert pools under
+    the fleet registry.  Before tick ``FLEET_SKEW_TICKS[i]`` lane i's
+    measured routing turns hot on group 2 and its mask is re-derived, so
+    lane 1's new slabs come from lane 0 over the LAN.  ``profile_tick``
+    profiles a tick that starts with every lane decoding and no prefill in
+    flight (``fleet_decoding``): the first one with no request waiting
+    either, so that it runs decode steps only, else the last such tick.
+    Returns (requests, fleet, ticks, (tick, slots decoding, (end steps,
+    cloud steps, prefill chunks), decode only, profiler averages, wall s) or
+    None)."""
+    import numpy as np
+
+    from repro_torch.core.hardware import PROFILES
+    from repro_torch.serving import FleetServingEngine, VirtualClock, loadgen
+
+    cfg = model.cfg
+    fleet = FleetServingEngine(
+        model, params, end_profiles=[PROFILES[n] for n in FLEET_ENDS],
+        cloud_profile=PROFILES["a100"], cloud_servers=2, compression_rank=384, max_batch=8,
+        n_groups=2, page_size=16, prefill_chunk=32, max_len=256, timing="modeled",
+        clock=VirtualClock(), force_splits=FLEET_SPLITS, expert_peer_gbps=FLEET_PEER_GBPS, **kw)
+    E, K = cfg.moe.num_experts, cfg.moe.num_groups
+    gf, ef = np.zeros(K), np.zeros(E)
+    gf[2] = 1.0
+    ef[2 * (E // K):3 * (E // K)] = K / E
+    step, state = fleet.step, {"tick": 0, "prof": None}
+
+    def stepped():
+        t = state["tick"]
+        state["tick"] += 1
+        for i, at in enumerate(FLEET_SKEW_TICKS):
+            if t == at:
+                lane = fleet.lanes[i]
+                lane._group_freq, lane._route_freq = gf.copy(), ef.copy()
+                fleet.update_device_state(i, type(lane.end_state)())
+        if profile_tick and not (state["prof"] and state["prof"][3]) and fleet_decoding(fleet):
+            from torch.profiler import ProfilerActivity, profile
+
+            only = not fleet.waiting and not any(l.waiting for l in fleet.lanes)
+            slots = sum(int(l._active.sum()) for l in fleet.lanes)
+            # the groups with a boundary in flight drain on the cloud this tick
+            clouds = sum(p == "boundary" for l in fleet.lanes for p in l._phase)
+            before = [sum(getattr(l, k) for l in fleet.lanes)
+                      for k in ("n_stage_steps", "n_prefill_chunks")]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ends, chunks = (sum(getattr(l, k) for l in fleet.lanes) - b for k, b in
+                            zip(("n_stage_steps", "n_prefill_chunks"), before))
+            state["prof"] = (t, slots, (ends, clouds, chunks), only, prof.key_averages(), wall)
+            return out
+        return step()
+
+    fleet.step = stepped
+    reqs = loadgen.drive(fleet, fleet_schedule(cfg.vocab_size))
+    return reqs, fleet, state["tick"], state["prof"]
+
+
+def fleet_decoding(fleet) -> bool:
+    """Every lane has decoding slots and no lane a prefill in flight."""
+    return all(l._active.any() and not l._jobs for l in fleet.lanes)
+
+
+def fleet_record(fleet, reqs):
+    """What the card's f32 run must share with the CPU's: the counters, the
+    placement log and every request's stamps."""
+    m = fleet.metrics()
+    return {
+        "counters": {k: m[k] for k in FLEET_COUNTERS},
+        "replans": fleet.replan_events,
+        "placed": [(p["request_id"], p["device"], p["priority"]) for p in fleet.placed],
+        "stamps": [(r.submit_time, r.first_token_time, r.finish_time) for r in reqs],
+    }
+
+
+def fleet_f32(torch, model, params, counters):
+    """Phase 9 in f32: the card against the port's own CPU run of the same
+    schedule."""
+    from repro_torch.core.hardware import PROFILES, DeviceState, capability
+    from repro_torch.core.pipeline import plan_fleet_splits
+    from repro_torch.models.model import Model, to_device
+
+    cfg32 = model.cfg.replace(dtype="float32")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for c in counters:
+                c.launches = 0
+        t0 = time.perf_counter()
+        reqs, fleet, ticks, _ = fleet_run(
+            torch, Model(cfg32, device=dev), params if dev == "cuda" else to_device(params, "cpu"))
+        wall = time.perf_counter() - t0
+        rec = fleet_record(fleet, reqs)
+        runs[dev] = (reqs, fleet, rec)
+        extra = ""
+        if dev == "cuda":
+            launches = {c.__name__: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated()
+            extra = (f"; peak device memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} "
+                     f"MiB above the {held / 2**20:.1f} MiB held before the fleet was built "
+                     f"(three lanes' cloud storage of {fleet.cloud_pool.num_pages} pages each); "
+                     f"launches {launches}")
+            zero = [k for k in FLEET_F32_PATH if launches[k] == 0]
+            if zero:
+                raise AssertionError(f"fleet f32: path kernels not launched: {zero}")
+        log(f"fleet f32 ({dev}): {wall:.1f} s, {ticks} ticks, {rec['counters']}{extra}")
+    (treqs, tfleet, trec), (hreqs, hfleet, hrec) = runs["cuda"], runs["cpu"]
+    lanes = tfleet.lanes
+    planned = plan_fleet_splits(
+        lanes[0].tiers.layer_gflops, lanes[0].tiers.boundary_bytes,
+        [l.tiers.end_cap for l in lanes], capability(PROFILES["a100"], DeviceState()),
+        cloud_servers=2, compression_ratio=lanes[0].tiers.compression_ratio, edge_boundary=True)
+    log(f"fleet splits: planned {[p.split_layer for p in planned]} (plan_fleet_splits), "
+        f"forced {list(FLEET_SPLITS)}, run {trec['counters']['splits']}; cloud slot bases "
+        f"{[l._cloud_base for l in lanes]}; placements by device "
+        f"{[sum(p[1] == d for p in trec['placed']) for d in range(len(lanes))]}")
+    for what in ("counters", "replans", "placed"):
+        if trec[what] != hrec[what]:
+            raise AssertionError(f"fleet f32: {what} on the card {trec[what]}, CPU {hrec[what]}")
+    bad = [i for i, (a, b) in enumerate(zip(trec["stamps"], hrec["stamps"]))
+           if any(x is None or y is None or abs(x - y) > 1e-9 for x, y in zip(a, b))]
+    if bad:
+        raise AssertionError(f"fleet f32: stamps of requests {bad} differ from the CPU's")
+    c = trec["counters"]
+    if not (c["expert_peer_fetches"] > 0 and c["preemptions"] > 0):
+        raise AssertionError(f"fleet f32: the peer and preemption paths did not both run: {c}")
+    if c["kv_pages_in_use"] or len(set(trec["counters"]["splits"])) < 2 or not all(
+            0 < s < model.cfg.block_repeat for s in c["splits"]):
+        raise AssertionError(f"fleet f32: pages left mapped or splits not interior: {c}")
+    if any(not r.done or len(r.generated) != r.max_new_tokens for r in treqs):
+        raise AssertionError("fleet f32: a request did not finish with its tokens")
+    device_of = {p[0]: p[1] for p in trec["placed"]}
+    equal_or_tie(torch, lambda r: lanes[device_of[treqs[r].request_id]], treqs,
+                 [list(r.generated) for r in treqs], [list(r.generated) for r in hreqs],
+                 "fleet f32, card vs CPU")
+    log(f"fleet f32: counters, placement log ({len(trec['placed'])} placements), replan events "
+        f"({len(trec['replans'])}) and all {len(treqs)} requests' stamps equal the CPU's")
+
+
+def fleet_bf16(torch, model, params, counters, tick_profiles):
+    """Phase 9 in bf16 with the three int8 streams: completes, drains,
+    summarizes the classes on the modeled clock, launches the path's
+    kernels and no other, and one profiled fleet tick beside phases 6-7's
+    single-engine ticks (``tick_profiles``).  Returns the run's launch
+    counts."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.serving import loadgen
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    reqs, fleet, ticks, prof = fleet_run(torch, model, params, profile_tick=True, **QUANT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    m = fleet.metrics()
+    log(f"fleet bf16 (int8 streams): {wall:.1f} s, {ticks} ticks, "
+        f"{ {k: m[k] for k in FLEET_COUNTERS} }; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB above the "
+        f"{held / 2**20:.1f} MiB held before the fleet was built; launches {launches}")
+    if m["kv_pages_in_use"] or any(not r.done or len(r.generated) != r.max_new_tokens
+                                   for r in reqs):
+        raise AssertionError("fleet bf16: pages left mapped or a request short")
+    zero = [k for k in FLEET_BF16_PATH if launches[k] == 0]
+    off = {k: v for k, v in launches.items() if k not in FLEET_BF16_PATH and v}
+    if zero or off:
+        raise AssertionError(f"fleet bf16: path kernels not launched {zero}, kernels off the "
+                             f"path launched {off}")
+    for name, prio in (("interactive", 0), ("batch", 2), ("all", None)):
+        s = loadgen.summarize(reqs, priority=prio)
+        log(f"fleet bf16 summarize, {name} (modeled clock, not the card's speed): n {s['n']}, "
+            f"TTFT p50/p90/p99 {s['ttft_p50'] * 1e3:.3f}/{s['ttft_p90'] * 1e3:.3f}/"
+            f"{s['ttft_p99'] * 1e3:.3f} ms, TPOT p50/p90/p99 {s['tpot_p50'] * 1e3:.3f}/"
+            f"{s['tpot_p90'] * 1e3:.3f}/{s['tpot_p99'] * 1e3:.3f} ms, sustained "
+            f"{s['sustained_tok_s']:.1f} tokens/s, preemptions {s['preemptions']}")
+    if prof is None:
+        raise AssertionError("fleet bf16: no tick had every lane decoding and no prefill")
+    ptick, slots, calls, only, avgs, pwall = prof
+    dev = [e for e in avgs if e.device_type != DeviceType.CPU]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    (OUT_DIR / "fleet_profile.txt").write_text(avgs.table(sort_by="cuda_time_total",
+                                                          row_limit=40))
+    base = ", ".join(f"{tag} {d:.3f} ms of {w:.3f} ms" for tag, (d, w) in tick_profiles.items())
+    in_path = kernels_in_path(dev, (
+        *ffn_kernels("resident FFN", "signed char"),
+        *ffn_kernels("cloud expert FFN", "__nv_bfloat16"),
+        *PAGED_KERNELS, *GATE_KERNELS, ("KV write", ("paged_write_quant_kernel<",), ()),
+        *CODEC_QUANT_KERNELS))
+    what = ("decode steps only" if only
+            else "decode steps and the prefill chunks of requests admitted in the tick")
+    ends, clouds, chunks = calls
+    n_calls = ends + clouds + 2 * chunks  # a prefill chunk: one end and one cloud call
+    log(f"fleet bf16 profile (tick {ptick}, every lane decoding, {slots} slots, {ends} end "
+        f"steps, {clouds} cloud steps, {chunks} prefill chunks: {what}): device time "
+        f"{dev_us / 1e3:.3f} ms of {pwall * 1e3:.3f} ms wall "
+        f"({dev_us / 1e3 / (pwall * 1e3):.1%} busy; {dev_us / 1e3 / max(n_calls, 1):.3f} ms of "
+        f"device time a stage call); kernels in path, a launch: {in_path}; the single "
+        f"engine's profiled ticks (phases 6-7, 8 slots, 2 end and 2 cloud steps): {base}; "
+        f"written to chiprun_out/fleet_profile.txt")
+    return launches
+
+
+def fleet_phase(torch, model, params, counters, tick_profiles):
+    """Phase 9; returns the bf16 fleet run's launch counts."""
+    t0 = time.perf_counter()
+    fleet_f32(torch, model, params, counters)
+    log(f"fleet f32 runs took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = fleet_bf16(torch, model, params, counters, tick_profiles)
+    log(f"fleet bf16 run took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
+def stream(torch, counters, profiles):
     """Phase 6 on a fresh full-width switch-base with its weights as stored
     (f32) and bf16 activations; returns the model, its params, the pool
     run's launch counts and its (tokens, metrics)."""
@@ -2592,7 +2877,7 @@ def stream(torch, counters):
 
     model = Model(get_config("switch-base"), device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    launches, tokens, m = stream_pool_run(torch, model, params, counters)
+    launches, tokens, m = stream_pool_run(torch, model, params, counters, profiles=profiles)
     stream_replan_runs(torch, model, params)
     return model, params, launches, (tokens, m)
 
@@ -2672,7 +2957,8 @@ def main() -> int:
         lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
         quantize_rows, dequantize_rows, paged_write_quant, flash_attention_fwd,
         lowrank_roundtrip, lowrank_roundtrip_loss, lowrank_encode_quant, lowrank_decode_quant]
-    model, params, stream_launches, base = stream(torch, stream_counters)
+    tick_profiles = {}  # phases 6-7's profiled ticks, read beside phase 9's
+    model, params, stream_launches, base = stream(torch, stream_counters, tick_profiles)
     log(f"stream phase took {time.perf_counter() - t0:.1f} s")
     log("streaming end-cloud engine with the MoE dispatch codec:")
     t0 = time.perf_counter()
@@ -2688,12 +2974,16 @@ def main() -> int:
     log(f"int8 kernel checks took {time.perf_counter() - t0:.2f} s")
     log("streaming end-cloud engine with the int8 streams:")
     t0 = time.perf_counter()
-    quant_launches = stream_quant(torch, model, params, stream_counters, base)
+    quant_launches = stream_quant(torch, model, params, stream_counters, base, tick_profiles)
     log(f"int8 stream phase took {time.perf_counter() - t0:.1f} s")
     log("streaming end-cloud engine: speculative decode and preemption:")
     t0 = time.perf_counter()
     spec_launches = spec_and_preempt(torch, model, params, stream_counters)
     log(f"speculative decode and preemption phase took {time.perf_counter() - t0:.1f} s")
+    log("fleet engine: three lanes over one shared cloud, driven by the load generator:")
+    t0 = time.perf_counter()
+    fleet_launches = fleet_phase(torch, model, params, stream_counters, tick_profiles)
+    log(f"fleet phase took {time.perf_counter() - t0:.1f} s")
     log("profiler device time a call, us (L2 flushed; phase 2's kernels and yardsticks, "
         "read after the timed runs):")
     t0 = time.perf_counter()
@@ -2761,6 +3051,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             # launches in phase 8's bf16 speculative run (expert pool, int8 streams)
             "spec_launches": spec_launches.get(counter, 0),
+            # launches in phase 9's bf16 fleet run (three lanes, int8 streams)
+            "fleet_launches": fleet_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

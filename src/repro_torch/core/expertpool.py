@@ -20,18 +20,23 @@ A quantized store (``quantized=True``) holds int8 codes with one f32 scale
 per output column (``wi_scale``/``wg_scale [N+1, f]``, ``wo_scale [N+1,
 d]``), quantized on write (``quantize_slab``, ``kernels.quant`` on the card:
 the column mode of the row quantizer, so no transposed copy); its size is
-what the budget, the byte meters and the wire see.  Not ported: the
-fleet-wide ``FleetExpertRegistry``.
+what the budget, the byte meters and the wire see.
+
+In a fleet, :class:`FleetExpertRegistry` plans residency across every
+lane's slab pool: de-duplicated placement, peer-versus-cloud slab sourcing
+over the modeled end<->end link, and the placement costs the fleet
+frontend and the eq. 4 group admit read.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.core.pipeline import peer_comm_time
 from repro_torch.kernels.quant import SCALE_FLOOR, quantize_rows
 
 SLAB_SCALE_DTYPE = torch.float32  # one scale per output column
@@ -305,6 +310,250 @@ class ExpertSlabPool:
                     need -= 1
                     overflow -= 1
         return wanted, evictions
+
+
+class FleetExpertRegistry:
+    """Location-aware fleet-wide expert store: residency *planning* split
+    from each lane's slab pool, which stays the storage.  The registry
+    reads the fleet-wide map ``(layer, expert) -> {lane: slab}`` and adds
+    three policies:
+
+    * **De-duplication** (:meth:`plan_lane`): a lane fetches its own copy of
+      an expert a peer already holds only when its measured route frequency
+      clears ``dedup_min_freq`` (default ``1/E``); unmeasured lanes always
+      replicate, so a cold fleet behaves like isolated pools.
+    * **Source choice** (:meth:`pick_source`): each slab transfer picks a
+      peer lane or the cloud by modeled wire time at transfer time; a peer
+      must be strictly cheaper (without a declared fleet LAN it never is).
+    * **Placement costs** (:meth:`lane_miss_cost_s`,
+      :meth:`group_fetch_costs`): expected wire seconds to repair a lane's
+      misses, read by ``place_fleet`` and the eq. 4 group admit.
+
+    Pure host bookkeeping: peer wire time is booked through per-lane
+    callbacks on the fleet's shared timeline (both ends of a transfer)."""
+
+    def __init__(self, n_layers: int, num_experts: int, slab_bytes: int, *,
+                 lan_gbps: Optional[float] = None, dedup_min_freq: Optional[float] = None):
+        self.n_layers = n_layers
+        self.num_experts = num_experts
+        self.slab_bytes = slab_bytes
+        self.lan_gbps = lan_gbps
+        self.dedup_min_freq = 1.0 / num_experts if dedup_min_freq is None else dedup_min_freq
+        self._pools: List[ExpertSlabPool] = []
+        self._link_gbps: List[Callable[[], float]] = []
+        self._book_link: List[Callable[[float, float], float]] = []
+        self._freq: List[Optional[np.ndarray]] = []
+        self._alive: List[bool] = []
+        self.peer_fetches = 0
+        self.peer_bytes = 0
+        # (src_lane, dst_lane, wire_seconds) a peer transfer booked
+        self.peer_bookings: List[Tuple[int, int, float]] = []
+        # armed peer-fetch failures, and how many fell back to the cloud
+        self._peer_faults = 0
+        self.peer_fault_fallbacks = 0
+
+    # -- lanes ----------------------------------------------------------------
+
+    @property
+    def n_lanes(self) -> int:
+        return len(self._pools)
+
+    def register_lane(self, pool: ExpertSlabPool, *, link_gbps: Callable[[], float],
+                      book_link: Callable[[float, float], float]) -> int:
+        """Attach one lane's slab pool.  ``link_gbps`` reports the lane's
+        measured uplink, ``book_link(ready_s, seconds) -> end_s`` occupies
+        its link resource on the fleet timeline.  Returns the lane id
+        (registration order)."""
+        if pool.n_layers != self.n_layers or pool.num_experts != self.num_experts:
+            raise ValueError(
+                f"pool geometry ({pool.n_layers}, {pool.num_experts}) != "
+                f"registry ({self.n_layers}, {self.num_experts})"
+            )
+        self._pools.append(pool)
+        self._link_gbps.append(link_gbps)
+        self._book_link.append(book_link)
+        self._freq.append(None)
+        self._alive.append(True)
+        return len(self._pools) - 1
+
+    def set_lane_alive(self, lane: int, alive: bool):
+        """A dead lane's residency is invisible to every view of the map."""
+        self._alive[lane] = bool(alive)
+
+    def lane_alive(self, lane: int) -> bool:
+        return self._alive[lane]
+
+    def _live_pools(self):
+        return ((i, p) for i, p in enumerate(self._pools) if self._alive[i])
+
+    def inject_peer_faults(self, count: int):
+        """Arm ``count`` peer slab-fetch failures (the next peer fetches
+        fail and fall back to the cloud after one backoff)."""
+        if count < 1:
+            raise ValueError(f"count={count} must be >= 1")
+        self._peer_faults += count
+
+    def take_peer_fault(self) -> bool:
+        """Consume one armed peer-fetch failure: True means this fetch fails
+        and the caller re-sources from the cloud."""
+        if self._peer_faults > 0:
+            self._peer_faults -= 1
+            self.peer_fault_fallbacks += 1
+            return True
+        return False
+
+    def note_freq(self, lane: int, freq: Optional[np.ndarray]):
+        """Record a lane's measured route-frequency EMA."""
+        if freq is not None:
+            self._freq[lane] = np.asarray(freq, np.float64).copy()
+
+    # -- the fleet-wide map ---------------------------------------------------
+
+    def holders(self, lid: int, e: int, *, exclude: Optional[int] = None) -> List[int]:
+        """Live lanes whose pool holds ``(layer, expert)``."""
+        return [i for i, p in self._live_pools() if i != exclude and p.table[lid, e] >= 0]
+
+    def fleet_map(self) -> Dict[Tuple[int, int], Dict]:
+        """Every fleet-resident ``(layer, expert)``: its holders' slabs, the
+        largest measured frequency among them and the freshest LRU stamp."""
+        out: Dict[Tuple[int, int], Dict] = {}
+        for i, p in self._live_pools():
+            for lid, e in zip(*np.nonzero(p.table >= 0)):
+                lid, e = int(lid), int(e)
+                ent = out.setdefault((lid, e), {"holders": {}, "freq": 0.0, "last_use": 0})
+                ent["holders"][i] = int(p.table[lid, e])
+                if self._freq[i] is not None:
+                    ent["freq"] = max(ent["freq"], float(self._freq[i][e]))
+                ent["last_use"] = max(ent["last_use"], int(p.last_used[lid, e]))
+        return out
+
+    def unique_residents(self) -> int:
+        """Distinct fleet-resident ``(layer, expert)`` pairs."""
+        if not self._pools:
+            return 0
+        held = np.zeros((self.n_layers, self.num_experts), bool)
+        for _, p in self._live_pools():
+            held |= p.table >= 0
+        return int(held.sum())
+
+    def total_residents(self) -> int:
+        return sum(p.slabs_in_use for _, p in self._live_pools())
+
+    def dedup_ratio(self) -> float:
+        """Resident slabs over unique resident pairs: 1.0 fully de-duplicated,
+        ``n_lanes`` every resident everywhere."""
+        return self.total_residents() / max(self.unique_residents(), 1)
+
+    # -- link cost model ------------------------------------------------------
+
+    def cloud_fetch_s(self, lane: int) -> float:
+        """Modeled wire time of one slab over the lane's cloud uplink."""
+        gbps = self._link_gbps[lane]()
+        return self.slab_bytes * 8.0 / max(gbps * 1e9, 1e-9)
+
+    def peer_fetch_s(self, lane: int, src: int) -> float:
+        """Modeled wire time of one slab over the end<->end link."""
+        return peer_comm_time(self.slab_bytes, self._link_gbps[src](), self._link_gbps[lane](),
+                              lan_gbps=self.lan_gbps)
+
+    def pick_source(self, lane: int, lid: int, e: int) -> Tuple[Optional[int], float]:
+        """Cheapest source of a slab fetch onto ``lane``: ``(peer lane, or
+        None for the cloud; wire seconds)``.  Ties keep the cloud."""
+        best_src: Optional[int] = None
+        best_t = self.cloud_fetch_s(lane)
+        for j in self.holders(lid, e, exclude=lane):
+            t = self.peer_fetch_s(lane, j)
+            if t < best_t:
+                best_src, best_t = j, t
+        return best_src, best_t
+
+    def book_peer(self, src: int, dst: int, ready_s: float, seconds: float) -> float:
+        """Occupy the *source* lane's link for a peer transfer (the
+        destination books its own link)."""
+        done = self._book_link[src](ready_s, seconds)
+        self.peer_fetches += 1
+        self.peer_bytes += self.slab_bytes
+        self.peer_bookings.append((src, dst, seconds))
+        return done
+
+    # -- residency planning ---------------------------------------------------
+
+    def _replicate_justified(self, lane: int, lid: int, e: int,
+                             freq: Optional[np.ndarray]) -> bool:
+        if not self.holders(lid, e, exclude=lane):
+            return True  # the fleet's only copy: always place it
+        if freq is None:
+            return True  # unmeasured lane: no evidence to de-duplicate on
+        return float(freq[e]) >= self.dedup_min_freq
+
+    def plan_lane(self, lane: int, active_layers: Sequence[int], target: np.ndarray,
+                  freq: Optional[np.ndarray] = None
+                  ) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
+        """The lane pool's :meth:`ExpertSlabPool.plan` with the
+        de-duplication rule applied to its want list; the evictions are the
+        pool's own (de-duplication never forces one)."""
+        self.note_freq(lane, freq)
+        wanted, evictions = self._pools[lane].plan(active_layers, target, freq)
+        wanted = [(lid, e) for lid, e in wanted
+                  if self._replicate_justified(lane, lid, e, freq)]
+        return wanted, evictions
+
+    # -- placement cost feeds -------------------------------------------------
+
+    def _f_eff(self, lane: int) -> np.ndarray:
+        """Measured frequency EMA plus the uniform ``1/E`` prior."""
+        E = self.num_experts
+        f = self._freq[lane]
+        return (np.zeros((E,)) if f is None else f) + 1.0 / E
+
+    def expert_fetch_costs(self, lane: int, active_layers: Sequence[int]) -> np.ndarray:
+        """Per expert, the modeled wire seconds to make it resident on the
+        lane's active end layers (0 where it is), averaged over layers."""
+        E = self.num_experts
+        cost = np.zeros((E,))
+        active = list(active_layers)
+        if not active:
+            return cost
+        pool = self._pools[lane]
+        for e in range(E):
+            c = 0.0
+            for lid in active:
+                if pool.table[lid, e] < 0:
+                    c += self.pick_source(lane, lid, e)[1]
+            cost[e] = c / len(active)
+        return cost
+
+    def group_fetch_costs(self, lane: int, active_layers: Sequence[int],
+                          num_groups: int) -> np.ndarray:
+        """Expert fetch costs folded to HL-GGN groups (mean a group)."""
+        return self.expert_fetch_costs(lane, active_layers).reshape(num_groups, -1).mean(-1)
+
+    def lane_miss_cost_s(self, lane: int, active_layers: Sequence[int],
+                         target: np.ndarray) -> float:
+        """Expected extra wire seconds a routed token on this lane: each
+        active layer's non-resident target experts, weighted by measured
+        routing frequency, times their cheapest fetch time."""
+        f = self._f_eff(lane)
+        target = np.asarray(target, bool)
+        pool = self._pools[lane]
+        cost = 0.0
+        for lid in active_layers:
+            for e in np.nonzero(target & (pool.table[lid] < 0))[0]:
+                e = int(e)
+                cost += float(f[e]) * self.pick_source(lane, lid, e)[1]
+        return cost
+
+    # -- cloud-side view ------------------------------------------------------
+
+    def cloud_expert_load(self) -> np.ndarray:
+        """Per expert, the share of fleet traffic that drains to the cloud
+        tier: each lane's effective frequency where it holds no layer's copy
+        (the weight ``distributed.sharding.fleet_expert_shards`` balances)."""
+        load = np.zeros((self.num_experts,))
+        for i, p in self._live_pools():
+            any_resident = (p.table >= 0).any(axis=0)
+            load += self._f_eff(i) * (~any_resident)
+        return load
 
 
 def device_resident_tables(

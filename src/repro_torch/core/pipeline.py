@@ -11,14 +11,81 @@ against measured link conditions (``BandwidthEstimator``,
 ``replan_pipeline``) with hysteresis (``should_replan``).  The draft
 length of speculative decode is planned from the same estimates
 (``plan_spec_k``).
+
+The fleet reading (N heterogeneous end devices sharing one cloud tier):
+each device plans its split against its share of the cloud
+(``fleet_cloud_share``, ``plan_fleet_splits``), and requests are placed
+across devices by the eq. 9 marginal cost (``place_fleet``, built on the
+eq. 10 ``priority`` and the ``Task`` / ``SchedulerConfig`` records).  A
+peer expert-slab fetch between two end devices is priced over the modeled
+end<->end link (``peer_link_gbps``, ``peer_comm_time``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.hardware import Capability
+
+
+@dataclass(frozen=True)
+class Task:
+    """One schedulable inference sub-stage (a fleet request, here)."""
+
+    task_id: int
+    gflops: float  # C(t_i): compute complexity
+    comm_bytes: float  # Comm(t_i): input that must move if offloaded
+    request_id: int = -1
+    stage: str = ""
+    priority_class: int = 0  # request SLO class (0 = interactive)
+
+
+@dataclass
+class SchedulerConfig:
+    alpha: float = 0.5  # eq. 9 compute/comm trade-off
+    beta: float = 1.0  # eq. 11 priority threshold for local execution
+    eps: float = 1e-6  # eq. 10 division guard
+    t_end: float = 50.0  # eq. 11 max tolerable end load (GFLOP in flight)
+
+
+@dataclass(frozen=True)
+class Placement:
+    task: Task
+    location: str  # "end" | "cloud"
+    exec_time_s: float
+    comm_time_s: float
+    priority: float
+
+
+def priority(task: Task, comm_time_s: float, eps: float) -> float:
+    """P(t_i) = C(t_i) / (Comm(t_i) + eps) (eq. 10), Comm in seconds so the
+    ratio is bandwidth-aware."""
+    return task.gflops / (comm_time_s + eps)
+
+
+def exec_time(task: Task, cap: Capability) -> float:
+    return task.gflops / max(cap.gflop_budget * 1e3, 1e-9)
+
+
+def comm_time(task: Task, net_gbps: float, compression: float = 1.0) -> float:
+    return task.comm_bytes * compression * 8.0 / max(net_gbps * 1e9, 1e-9)
+
+
+def peer_link_gbps(gbps_a: float, gbps_b: float, *, lan_gbps: Optional[float] = None) -> float:
+    """Modeled end<->end link rate between two fleet devices: the declared
+    fleet LAN's rate, else both WAN uplinks' slower one (which can then
+    never beat the direct cloud path)."""
+    if lan_gbps is not None:
+        return lan_gbps
+    return min(gbps_a, gbps_b)
+
+
+def peer_comm_time(nbytes: float, gbps_a: float, gbps_b: float, *,
+                   lan_gbps: Optional[float] = None) -> float:
+    """Wire seconds for ``nbytes`` over the modeled end<->end link."""
+    rate = peer_link_gbps(gbps_a, gbps_b, lan_gbps=lan_gbps)
+    return nbytes * 8.0 / max(rate * 1e9, 1e-9)
 
 
 @dataclass(frozen=True)
@@ -223,3 +290,119 @@ def plan_spec_k(
     if best_k > 1 and best_rate < min_gain * base_rate:
         return 1
     return best_k
+
+
+# ---------------------------------------------------------------------------
+# Fleet planning (N heterogeneous end devices sharing one cloud tier)
+# ---------------------------------------------------------------------------
+
+
+def fleet_cloud_share(cloud_cap: Capability, cloud_servers: int, n_devices: int) -> Capability:
+    """Per-device view of a shared cloud tier: ``cloud_servers`` servers
+    split across ``n_devices`` end devices, as a scaled capability."""
+    share = cloud_servers / max(n_devices, 1)
+    return replace(cloud_cap, gflop_budget=cloud_cap.gflop_budget * share)
+
+
+def plan_fleet_splits(
+    layer_gflops: Sequence[float],
+    boundary_bytes: float,
+    end_caps: Sequence[Capability],
+    cloud_cap: Capability,
+    *,
+    cloud_servers: int = 1,
+    compression_ratio: float = 1.0,
+    alpha: float = 0.5,
+    edge_boundary: bool = False,
+    pin_splits: Optional[Sequence[Optional[int]]] = None,
+) -> List[PipelinePlan]:
+    """The route-aware split of every end device (eq. 9-11), each planned
+    against its share of the cloud tier: a weak device offloads more
+    layers than a strong one."""
+    share_cap = fleet_cloud_share(cloud_cap, cloud_servers, len(end_caps))
+    return [
+        plan_pipeline_split(
+            layer_gflops, boundary_bytes, end_cap, share_cap,
+            compression_ratio=compression_ratio, alpha=alpha, edge_boundary=edge_boundary,
+            pin_split=pin_splits[i] if pin_splits is not None else None,
+        )
+        for i, end_cap in enumerate(end_caps)
+    ]
+
+
+def place_fleet(
+    tasks: Sequence[Task],
+    end_caps: Sequence[Capability],
+    cfg: SchedulerConfig,
+    *,
+    loads: Optional[Sequence[float]] = None,
+    measured_gbps: Optional[Sequence[float]] = None,
+    capacity: Optional[Sequence[int]] = None,
+    max_spill: Optional[float] = None,
+    order: Optional[Sequence[int]] = None,
+    expert_cost: Optional[Sequence[float]] = None,
+) -> Tuple[List[int], Dict[str, float]]:
+    """Route-aware request placement across N end devices (eq. 10/11
+    generalized from the end/cloud choice to a fleet).
+
+    Tasks are taken in their best-case eq. 10 priority order, or in an
+    explicit ``order`` (a permutation, used verbatim); each goes to the
+    open device (``capacity`` left) minimizing the eq. 9 marginal
+
+        alpha * (load_d + C) / rate_d + (1 - alpha) * Comm_d + expert_cost_d * C
+
+    preferring devices whose load stays under ``cfg.t_end``.  ``loads``
+    seeds the in-flight GFLOPs, ``measured_gbps`` overrides the nominal
+    uplinks, ``expert_cost`` is the fleet registry's residency surcharge in
+    seconds per task GFLOP.  With ``max_spill``, a task whose cheapest open
+    device costs more than ``max_spill`` times the fleet-wide best stays
+    unplaced (-1) for a better device to free up.  Returns one device index
+    a task and stats."""
+    n = len(end_caps)
+    load = list(loads) if loads is not None else [0.0] * n
+    cap_left = list(capacity) if capacity is not None else [len(tasks)] * n
+    gbps = [(measured_gbps[d] if measured_gbps is not None else end_caps[d].net_gbps)
+            for d in range(n)]
+    ecost = list(expert_cost) if expert_cost is not None else [0.0] * n
+    if len(ecost) != n:
+        raise ValueError(f"expert_cost has {len(ecost)} entries for {n} devices")
+
+    def marginal(t: Task, d: int) -> float:
+        ex = (load[d] + t.gflops) / max(end_caps[d].gflop_budget * 1e3, 1e-9)
+        cm = t.comm_bytes * 8.0 / max(gbps[d] * 1e9, 1e-9)
+        return cfg.alpha * ex + (1.0 - cfg.alpha) * cm + ecost[d] * t.gflops
+
+    if order is None:
+        order = sorted(
+            range(len(tasks)),
+            key=lambda i: -max(priority(tasks[i], comm_time(tasks[i], g), cfg.eps) for g in gbps),
+        )
+    elif sorted(order) != list(range(len(tasks))):
+        raise ValueError("order must be a permutation of the task indices")
+    assignment = [-1] * len(tasks)
+    obj = 0.0
+    for i in order:
+        t = tasks[i]
+        open_d = [d for d in range(n) if cap_left[d] > 0]
+        if not open_d:
+            continue
+        # eq. 11: devices with headroom first; spill past t_end only when
+        # every device is loaded
+        headroom = [d for d in open_d if load[d] + t.gflops <= cfg.t_end]
+        best = min(headroom or open_d, key=lambda d: marginal(t, d))
+        if max_spill is not None:
+            best_any = min(marginal(t, d) for d in range(n))
+            if marginal(t, best) > max_spill * best_any:
+                best = min(open_d, key=lambda d: marginal(t, d))
+                if marginal(t, best) > max_spill * best_any:
+                    continue  # wait for a better device to free a slot
+        obj += marginal(t, best)
+        assignment[i] = best
+        load[best] += t.gflops
+        cap_left[best] -= 1
+    stats = {
+        "objective": obj,
+        "n_unplaced": sum(1 for a in assignment if a < 0),
+        **{f"load_dev{d}": load[d] for d in range(n)},
+    }
+    return assignment, stats

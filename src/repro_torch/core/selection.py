@@ -1,7 +1,8 @@
 """Hardware-aware local expert selection (paper eq. 4) and expert-mask
 validation at the engine boundary (the port's own copy of the reference's
 ``core/selection.py``: ``local_expert_mask``, ``end_mask_for``,
-``group_priority_from_freq`` and ``validate_expert_mask``).
+``group_priority_from_freq``, ``validate_expert_mask`` and the fleet's
+``fleet_device_mask`` / ``shard_masks_for_fleet``).
 
     E_local = { e_i | f(V_expert_i, T_capability) <= eps }
 
@@ -81,20 +82,28 @@ def end_mask_for(
     )
 
 
-def group_priority_from_freq(group_freq: Optional[np.ndarray],
-                             num_groups: int) -> Sequence[int]:
+def group_priority_from_freq(group_freq: Optional[np.ndarray], num_groups: int,
+                             group_cost: Optional[np.ndarray] = None) -> Sequence[int]:
     """Group order for the eq. 4 greedy admit from *measured* stage-1
     routing frequencies (the serving engine's EMA of the gate's
     ``group_frac``): most-routed group first, stable natural order on ties,
-    and exactly natural order before anything has been measured.  (The
-    reference's ``group_cost`` term comes from the fleet expert registry,
-    which is not ported.)"""
+    and exactly natural order before anything has been measured.
+
+    ``group_cost`` ([K] >= 0) is the fleet expert registry's modeled wire
+    seconds to make each group resident; both signals are normalized to sum
+    1 and the score is ``freq - 0.5 * cost``, so among similarly routed
+    groups the cheap-to-place ones are admitted first.  All-zero costs leave
+    the frequency order as it is."""
     if group_freq is None:
         return list(range(num_groups))
     f = np.asarray(group_freq, np.float64)
     if f.shape != (num_groups,) or not np.isfinite(f).all():
         return list(range(num_groups))
     score = f / s if (s := float(f.sum())) > 0 else f
+    if group_cost is not None:
+        c = np.asarray(group_cost, np.float64)
+        if c.shape == (num_groups,) and np.isfinite(c).all() and c.sum() > 0:
+            score = score - 0.5 * c / float(c.sum())
     return [int(g) for g in np.argsort(-score, kind="stable")]
 
 
@@ -119,3 +128,25 @@ def validate_expert_mask(mask, num_experts: Optional[int] = None, *,
             "experts; widen the selection or drop the mask entirely"
         )
     return mask
+
+
+def fleet_device_mask(profile: DeviceProfile, state: DeviceState, d_model: int,
+                      d_ff_expert: int, num_experts: int, num_groups: int, **kw) -> np.ndarray:
+    """One fleet device's mask: the eq. 2-4 mask with the fleet's never-empty
+    guarantee (a device whose budget admits no expert still exposes its
+    first one)."""
+    m = end_mask_for(profile, state, d_model, d_ff_expert, num_experts, num_groups, **kw)
+    if not m.any():
+        m = m.copy()
+        m[0] = True
+    return m
+
+
+def shard_masks_for_fleet(profiles: Sequence[DeviceProfile], states: Sequence[DeviceState],
+                          d_model: int, d_ff_expert: int, num_experts: int, num_groups: int,
+                          **kw) -> np.ndarray:
+    """One mask a fleet device, ``[n_devices, E]``."""
+    return np.stack([
+        fleet_device_mask(p, s, d_model, d_ff_expert, num_experts, num_groups, **kw)
+        for p, s in zip(profiles, states)
+    ])

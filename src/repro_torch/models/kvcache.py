@@ -133,7 +133,8 @@ class PagePool:
     can never run out of pages mid-stream), then maps pages lazily as
     prefill chunks and decode steps first touch each ring entry; ``free``
     returns a finished slot's pages.  Tables hold ``-1`` for unmapped
-    entries."""
+    entries.  One pool can serve several fleet lanes' cloud tiers: each lane
+    registers its slot block with :meth:`add_slots`."""
 
     def __init__(self, num_pages: int, page_size: int, pages_per_slot: int,
                  n_slots: int = 0):
@@ -169,6 +170,21 @@ class PagePool:
     @property
     def utilization(self) -> float:
         return self.pages_in_use / self.num_pages
+
+    def mapped_for(self, slots) -> int:
+        """Pages mapped by a subset of slots (a lane's share of a shared
+        pool)."""
+        return int(self._mapped[np.asarray(slots)].sum())
+
+    def add_slots(self, n: int) -> int:
+        """Register ``n`` more slots (fleet lanes sharing one cloud pool, so
+        page accounting and admission are fleet-wide); returns the first
+        new slot's id."""
+        base = self.table.shape[0]
+        self.table = np.concatenate([self.table, np.full((n, self.pages_per_slot), -1, np.int32)])
+        self._reserved = np.concatenate([self._reserved, np.zeros(n, np.int64)])
+        self._mapped = np.concatenate([self._mapped, np.zeros(n, np.int64)])
+        return base
 
     def can_reserve(self, n_pages: int) -> bool:
         return self.pages_available >= n_pages

@@ -1,8 +1,8 @@
 """Serving infrastructure shared by the port's engines: requests, slot
-bookkeeping, a shape-signature counter, the end<->cloud link meter and the
-pipeline's resource-occupancy clock (port of the reference's
-``serving/common.py``, the parts the paged ``ServingEngine``, the one-shot
-``EndCloudPipeline`` and the streaming ``EndCloudServingEngine`` use).
+bookkeeping, a shape-signature counter, the end<->cloud link meter, the
+pipeline's multi-server resource-occupancy clock and the modeled clock
+that request stamps can run on (port of the reference's
+``serving/common.py``).
 
 ``SlotEngineBase`` is a slot machine: a fixed decode batch of ``max_batch``
 slots; finished requests free their slot and waiting requests are prefilled
@@ -18,6 +18,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.serving.faults import StallGuard
 
 
 def element_bytes(dtype: torch.dtype) -> int:
@@ -39,8 +41,11 @@ class Request:
     prompt: np.ndarray  # [S] int32
     max_new_tokens: int = 16
     eos_id: int = -1  # -1 = never
-    # SLO class: lower ``priority`` admits first (0 = interactive)
+    # SLO class: lower ``priority`` admits first (0 = interactive); the
+    # latency targets ride along for the load harness to score
     priority: int = 1
+    ttft_slo_s: Optional[float] = None
+    tpot_slo_s: Optional[float] = None
     # filled by the engine
     generated: List[int] = field(default_factory=list)
     submit_time: float = 0.0
@@ -48,26 +53,72 @@ class Request:
     finish_time: Optional[float] = None
     seq: int = -1  # submission order stamp (ties within a priority class)
     n_preemptions: int = 0  # times this request was spilled and requeued
+    n_migrations: int = 0  # lane-death migrations (0 until faults are ported)
 
     @property
     def done(self) -> bool:
         return self.finish_time is not None
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Time to first token (None until it lands)."""
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.submit_time
+
+    @property
+    def tpot_s(self) -> Optional[float]:
+        """Mean time per output token after the first (None until finished,
+        or for one-token generations)."""
+        if self.finish_time is None or len(self.generated) < 2:
+            return None
+        return (self.finish_time - self.first_token_time) / (len(self.generated) - 1)
+
+
+class VirtualClock:
+    """Callable clock over modeled time.  An engine handed one stamps
+    request times (submit, first token, finish) on its ``StageTimeline``
+    axis: it sets ``now`` to the modeled completion of the stage that
+    produced each event, so TTFT and TPOT are read on the deterministic
+    clock the schedule is computed on.  The load generator's loop
+    (``serving.loadgen.drive``) releases arrivals as ``now`` passes them and
+    advances ``now`` to the timeline's makespan after each tick."""
+
+    def __init__(self, now: float = 0.0):
+        self.now = now
+
+    def __call__(self) -> float:
+        return self.now
+
+    def advance_to(self, t: float) -> float:
+        """Monotone advance (only an engine stamping a stage completion
+        moves ``now`` backwards)."""
+        self.now = max(self.now, t)
+        return self.now
 
 
 @dataclass
 class LinkStats:
     """Meter for the end<->cloud link: bytes on the wire in each direction
     plus modeled uplink seconds (bytes over the planner's link rate: a
-    model of the link, not a measurement).  The reference's peer meter
-    comes with the fleet engine that records it."""
+    model of the link, not a measurement), and the end<->end peer traffic
+    of a fleet's expert slabs."""
 
     bytes_up: int = 0
     bytes_down: int = 0
+    bytes_peer: int = 0
     transfers: int = 0
     seconds_up: float = 0.0
+    seconds_peer: float = 0.0
 
     def transfer_time(self, nbytes: int, gbps: float) -> float:
         return nbytes * 8.0 / max(gbps * 1e9, 1e-9)
+
+    def record_peer(self, nbytes: int, seconds: float) -> None:
+        """Meter an end<->end slab fetch; its wire time comes from the fleet
+        registry's peer-link model, so it is recorded, not derived."""
+        self.bytes_peer += nbytes
+        self.seconds_peer += seconds
 
     def record_up(self, nbytes: int, gbps: float) -> float:
         """Meter an end->cloud transfer; returns its modeled wire time."""
@@ -84,17 +135,37 @@ class LinkStats:
 
 class StageTimeline:
     """Resource-occupancy clock of the decode pipeline: a stage starts at
-    max(input ready, resource free), each resource books jobs into busy
-    intervals and a job starts in the earliest gap at or after its ready
-    time.  The streaming engine feeds it stage times (measured or modeled)
-    and modeled link times; each booking's end is when its stage's output
-    is ready, and ``busy_s`` sums each resource's booked seconds.  (The
-    reference's multi-server resources serve the fleet engine, which is not
-    ported.)"""
+    max(input ready, resource free).  A resource may have several servers
+    (``capacity``), each booking jobs into busy intervals, and a job starts
+    in the earliest gap at or after its ready time on whichever server
+    offers the earliest start (backfill: fleet lanes book the shared cloud
+    out of modeled-time order, and a fast lane's job must land in the
+    earlier gap).  The streaming engine feeds it stage times (measured or
+    modeled) and modeled link times; ``busy_s`` sums each resource's booked
+    seconds, ``serial_s`` all of them, and ``makespan_s`` is the latest end.
+    The fleet engine shares one timeline: a multi-server ``"cloud"`` and
+    each lane's own end and link resources (``add_resource``)."""
 
-    def __init__(self, resources: Sequence[str] = ("end", "link", "cloud")):
-        self._intervals: Dict[str, List[Tuple[float, float]]] = {r: [] for r in resources}
+    def __init__(self, resources: Sequence[str] = ("end", "link", "cloud"),
+                 capacity: Optional[Dict[str, int]] = None):
+        capacity = capacity or {}
+        # per resource, per server: sorted [start, end) busy intervals
+        self._servers: Dict[str, List[List[Tuple[float, float]]]] = {
+            r: [[] for _ in range(max(capacity.get(r, 1), 1))] for r in resources
+        }
         self.busy_s: Dict[str, float] = {r: 0.0 for r in resources}
+        self.serial_s = 0.0
+        self._max_end = 0.0
+
+    def add_resource(self, name: str, capacity: int = 1):
+        """Register a resource if absent (an existing one keeps its
+        servers and bookings)."""
+        if name not in self._servers:
+            self._servers[name] = [[] for _ in range(max(capacity, 1))]
+            self.busy_s[name] = 0.0
+
+    def n_servers(self, name: str) -> int:
+        return len(self._servers[name])
 
     @staticmethod
     def _earliest_start(intervals: List[Tuple[float, float]], ready_s: float,
@@ -107,16 +178,27 @@ class StageTimeline:
                 start = e
         return start
 
+    @property
+    def free_at(self) -> Dict[str, float]:
+        """When each resource's earliest-draining server runs dry."""
+        return {r: min((ivals[-1][1] if ivals else 0.0) for ivals in servers)
+                for r, servers in self._servers.items()}
+
     def occupy(self, resource: str, ready_s: float, service_s: float) -> float:
         """Book ``service_s`` on ``resource`` no earlier than ``ready_s``;
         returns the job's end time."""
-        ivals = self._intervals[resource]
-        start = self._earliest_start(ivals, ready_s, service_s)
-        end = start + service_s
+        servers = self._servers[resource]
+        best, best_start = 0, None
+        for i, ivals in enumerate(servers):
+            start = self._earliest_start(ivals, ready_s, service_s)
+            if best_start is None or start < best_start:
+                best, best_start = i, start
+        end = best_start + service_s
         if service_s > 0:
-            j = bisect.bisect_left(ivals, (start, end))
+            ivals = servers[best]
+            j = bisect.bisect_left(ivals, (best_start, end))
             # coalesce with touching neighbours, so the lists stay short
-            s, e = start, end
+            s, e = best_start, end
             if j < len(ivals) and ivals[j][0] <= e:
                 e = max(e, ivals[j][1])
                 del ivals[j]
@@ -127,7 +209,17 @@ class StageTimeline:
                 j -= 1
             ivals.insert(j, (s, e))
         self.busy_s[resource] += service_s
+        self.serial_s += service_s
+        self._max_end = max(self._max_end, end)
         return end
+
+    @property
+    def makespan_s(self) -> float:
+        return self._max_end
+
+    def summary(self) -> Dict[str, float]:
+        return {"pipelined_s": self.makespan_s, "serial_s": self.serial_s,
+                **{f"busy_{r}_s": t for r, t in self.busy_s.items()}}
 
 
 def _signature(tree) -> Tuple:
@@ -232,8 +324,18 @@ class SlotEngineBase:
         self._submit_seq += 1
         self.waiting.append(req)
 
+    def _slot_usable(self, slot: int) -> bool:
+        """Hook: may this slot hold requests at all?  (Padding slots of
+        equal-sized micro-batch groups and slots mid-prefill may not.)"""
+        return True
+
     def _admittable(self, slot: int, req: Request) -> bool:
         return True
+
+    def free_slots(self) -> int:
+        """Slots able to take a request now (the fleet frontend's admission
+        capacity)."""
+        return sum(1 for i, s in enumerate(self.slots) if s is None and self._slot_usable(i))
 
     def busy(self) -> bool:
         return bool(self.waiting) or bool(self._active.any())
@@ -251,7 +353,7 @@ class SlotEngineBase:
         finishes at its prefill token leaves the slot free, so the same slot
         is offered to the next waiter at once."""
         for slot in range(self.max_batch):
-            while self.slots[slot] is None:
+            while self.slots[slot] is None and self._slot_usable(slot):
                 queue = self._admission_order()
                 if not queue or not self._admittable(slot, queue[0]):
                     break
@@ -330,21 +432,21 @@ class SlotEngineBase:
         gen = sum(len(r.generated) for r in self.slots if r is not None)
         return (len(self.finished), len(self.waiting), int(self._active.sum()), gen)
 
+    def stall_diagnostic(self) -> str:
+        """Queue and slot snapshot for the livelock guard's message (``.``
+        free, ``i`` installed but inactive, ``A`` decoding)."""
+        slots = "".join("." if r is None else ("A" if self._active[i] else "i")
+                        for i, r in enumerate(self.slots))
+        return f"waiting={len(self.waiting)} finished={len(self.finished)} slots=[{slots}]"
+
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Run until every submitted request finishes.  ``stall_limit``
-        consecutive busy ticks without progress raise (livelock) instead of
-        spinning to ``max_steps``."""
-        last, stalled = None, 0
+        consecutive busy ticks without progress raise (livelock) with the
+        engine's diagnostic instead of spinning to ``max_steps``."""
+        guard = StallGuard(self.stall_limit)
         for _ in range(max_steps):
             if not self.busy():
                 break
             self.step()
-            sig = self._progress_sig()
-            stalled = stalled + 1 if sig == last else 0
-            last = sig
-            if stalled >= self.stall_limit:
-                raise RuntimeError(
-                    f"livelock: {stalled} busy ticks without progress "
-                    f"(waiting={len(self.waiting)} finished={len(self.finished)})"
-                )
+            guard.note(self._progress_sig(), self.stall_diagnostic)
         return self.finished

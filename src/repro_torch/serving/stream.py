@@ -68,23 +68,30 @@ tick moves every drained group's token ids (a speculative round's drafts
 and verify ids), and every finished prefill's first token, to the host in
 one copy each.
 
-Not ported yet (each raises ``NotImplementedError``): fleet sharing
-(``cloud_pool``, ``expert_registry``, a shared ``timeline`` or
-``resources``), the ``health`` monitor and transfer-fault injection, and
-``evacuate`` (with the speculative round's abort it calls).  The
-reference's options of those slices that only tune them (``cloud_share``
-and ``set_cloud_share``, ``expert_slabs``) come with them; so does the
-``VirtualClock`` that stamps request times on the modeled timeline.
-The reference's tuning options that no caller sets (``end_state``,
-``alpha``, ``selection_eps``, ``replan_threshold``, ``clock``,
-``kv_pages``, ``blackout_gbps``) are fixed at the reference's defaults.
+* **Fleet sharing.**  A fleet lane (``serving.fleet``) shares one
+  ``StageTimeline`` (its own ``resources`` for end and link, one
+  multi-server cloud), one cloud ``PagePool`` (the lane's slots are a block
+  of fleet-global slot ids from ``cloud_pool.add_slots``, its storage is
+  indexed by fleet-global page ids), and one ``FleetExpertRegistry`` that
+  plans residency, picks peer or cloud as each slab's source and prices
+  group admits; ``cloud_share`` scales the planner's view of the cloud.
+* **Modeled clock.**  Handed a ``VirtualClock``, the engine stamps first
+  tokens and finishes at the modeled completion of the stage that made
+  them, and prefill starts no earlier than the request's arrival, so the
+  load generator (``serving.loadgen.drive``) reads TTFT and TPOT on the
+  schedule's own clock.
+
+Not ported yet (each raises ``NotImplementedError``, ROADMAP queue A item
+5b): injected transfer faults (``inject_transfer_faults``), lane
+``evacuate`` with the speculative abort it calls, ``set_cloud_share`` and
+the migrated restore.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,9 +117,11 @@ from repro_torch.serving.common import (
     ShapeSignatures,
     SlotEngineBase,
     StageTimeline,
+    VirtualClock,
     element_bytes,
     payload_nbytes,
 )
+from repro_torch.serving.faults import HealthMonitor
 from repro_torch.serving.endcloud import (
     TierPlan,
     end_mask_from_state,
@@ -134,6 +143,7 @@ _KEEP = object()  # sentinel: "no pending mask change"
 _RESOURCES = ("end", "link", "cloud")
 # a declared link rate below this share of the nominal uplink is a blackout
 _BLACKOUT_FRAC = 0.05
+_FAULTS = "ROADMAP queue A item 5b: fleet faults, health and migration"
 
 
 def _masks_equal(a, b) -> bool:
@@ -203,41 +213,43 @@ class EndCloudServingEngine(SlotEngineBase):
         *,
         end_profile: DeviceProfile,
         cloud_profile: DeviceProfile,
+        end_state: Optional[DeviceState] = None,
         codec_params: Optional[Dict] = None,  # 1-D low-rank codec {"enc","dec"}
         compression_rank: int = 0,
+        alpha: float = 0.5,
+        selection_eps: float = 1.0,
         max_batch: int = 8,
         max_len: int = 512,
         n_groups: int = 2,
         force_split: Optional[int] = None,
-        timeline=None,
-        resources: Tuple[str, str, str] = _RESOURCES,
+        replan_threshold: float = 0.15,
+        clock: Optional[Callable[[], float]] = None,
+        timeline: Optional[StageTimeline] = None,  # a fleet's shared clock
+        resources: Tuple[str, str, str] = _RESOURCES,  # (end, link, cloud) names
+        cloud_share: float = 1.0,  # this lane's share of a fleet's cloud
         timing: str = "measured",
         page_size: int = 16,
+        kv_pages: Optional[int] = None,
         prefill_chunk: int = 16,
-        cloud_pool=None,
+        cloud_pool: Optional[PagePool] = None,  # a fleet's shared cloud pages
         expert_pool: Optional[bool] = None,  # None = on for MoE models
+        expert_slabs: Optional[int] = None,  # physical slab-pool size
         expert_resident_slots: Optional[int] = None,  # per-layer slot count
         expert_mem_frac: float = 0.5,  # end memory budget share for slabs
         expert_prefetch_per_tick: int = 2,
-        expert_registry=None,
+        expert_registry=None,  # a fleet's expertpool.FleetExpertRegistry
         admission: str = "priority",  # "priority" | "fifo" (see SlotEngineBase)
         preemption: bool = True,
         quantize_kv: bool = False,  # int8 KV pages + f16 per-token scales
         quantize_experts: bool = False,  # int8 slab store + f32 column scales
         quantize_boundary: bool = False,  # int8 boundary rows + f16 row scales
-        health=None,
+        health: Optional[HealthMonitor] = None,  # a fleet's shared retry policy
         spec_k: int = 1,  # speculative draft-length budget (1 = off)
         link_rtt_s: float = 0.0,  # modeled round trip of every upload
     ):
         cfg = model.cfg
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
-        if (cloud_pool is not None or expert_registry is not None
-                or timeline is not None or tuple(resources) != _RESOURCES):
-            _unported("fleet sharing (cloud_pool, expert_registry, a shared "
-                      "timeline or resources)", "ROADMAP queue A, fleet")
-        if health is not None:
-            _unported("the health monitor", "ROADMAP queue A, fault injection")
         if not kvcache.pattern_is_pageable(cfg):
             raise NotImplementedError(
                 "the streaming end-cloud engine serves attention-only layer "
@@ -249,14 +261,16 @@ class EndCloudServingEngine(SlotEngineBase):
         # multiple of the group size; padding slots are never admitted
         self.n_groups = max(1, min(n_groups, max_batch))
         self._group_size = -(-max_batch // self.n_groups)
-        padded_batch = self._group_size * self.n_groups
-        super().__init__(padded_batch, max_len=max_len, admission=admission)
+        padded_batch = self.padded_batch(max_batch, n_groups)
+        super().__init__(padded_batch, clock, max_len=max_len, admission=admission)
         self.request_capacity = max_batch
         self.preemption = preemption and admission == "priority"
         self._spilled: Dict[int, _SpillState] = {}  # request_id -> spilled KV
         self.n_preemptions = 0
         self.n_preempt_restores = 0
         self.preempt_spill_bytes = 0
+        # a VirtualClock moves request stamps onto the modeled timeline
+        self._virtual_time = isinstance(self.clock, VirtualClock)
         self.quantize_kv = bool(quantize_kv)
         self.quantize_experts = bool(quantize_experts)
         self.quantize_boundary = bool(quantize_boundary)
@@ -270,7 +284,9 @@ class EndCloudServingEngine(SlotEngineBase):
         self._cparams = transformer.compute_params(params, cfg)
         self.end_profile = end_profile
         self.cloud_profile = cloud_profile
-        self.end_state = DeviceState()
+        self.end_state = end_state or DeviceState()
+        self.selection_eps = selection_eps
+        self.replan_threshold = replan_threshold
 
         self._moe_pos = [i for i, spec in enumerate(cfg.layer_pattern) if spec.moe]
         self._expert_pooled = bool(
@@ -280,6 +296,10 @@ class EndCloudServingEngine(SlotEngineBase):
         self._route_freq: Optional[np.ndarray] = None  # [E] EMA of expert_frac
         self._group_freq: Optional[np.ndarray] = None  # [K] EMA of group_frac
         self._freq_decay = 0.9
+        # a fleet's expert registry plans residency once this lane registers
+        # (after its pool exists); the mask derivation below may run first
+        self.expert_registry = expert_registry if self._expert_pooled else None
+        self._registry_lane: Optional[int] = None
         # any MoE end tier (pooled or dense-mask) measures routing stats
         self._route_stats_enabled = cfg.moe is not None and bool(self._moe_pos)
 
@@ -292,13 +312,18 @@ class EndCloudServingEngine(SlotEngineBase):
             end_mask=mask,
             codec_params=codec_params,
             compression_rank=compression_rank,
+            alpha=alpha,
+            selection_eps=selection_eps,
             force_split=force_split,
+            cloud_share=cloud_share,
         )
         self._end_mask_np = None if mask is None else np.asarray(mask, bool)
         self._split_params()
 
         self.link = LinkStats()
         self.bw = BandwidthEstimator(self.tiers.end_cap.net_gbps)
+        # a fleet shares one monitor (the backoff of a failed peer fetch)
+        self.health = health or HealthMonitor()
         # below this declared rate the link is blacked out and the engine
         # degrades to a cloud-only plan at the next safe point
         self.blackout_gbps = _BLACKOUT_FRAC * self.tiers.end_cap.net_gbps
@@ -306,10 +331,21 @@ class EndCloudServingEngine(SlotEngineBase):
         self._blackout_since = 0.0
         self.link_blackout_s = 0.0  # closed windows; see blackout_seconds()
         self.degraded_ticks = 0
-        self.timeline = StageTimeline(_RESOURCES)
+        self.transfer_retries = 0  # peer fetches retried from the cloud
+        # a fleet shares one occupancy clock: each lane brings its own end
+        # and link resources, every lane's cloud stage queues on one
+        # (multi-server) cloud resource
+        self._res_end, self._res_link, self._res_cloud = resources
+        if timeline is None:
+            timeline = StageTimeline(resources)
+        else:
+            for r in resources:
+                timeline.add_resource(r)
+        self.timeline = timeline
         if timing not in ("measured", "modeled"):
             raise ValueError(f"timing={timing!r}")
         self.timing = timing
+        self._cloud_share = cloud_share
         self.replan_events: List[Dict] = []
         self._pending_plan: Optional[PipelinePlan] = None
         self._pending_mask = _KEEP
@@ -325,12 +361,25 @@ class EndCloudServingEngine(SlotEngineBase):
                 "(a chunk must fit the slot's page list)"
             )
         self.prefill_chunk = prefill_chunk
-        n_pages = padded_batch * self.pages_per_slot
+        n_pages = kv_pages or padded_batch * self.pages_per_slot
         self.end_pool = PagePool(n_pages, page_size, self.pages_per_slot, n_slots=padded_batch)
-        self.cloud_pool = PagePool(n_pages, page_size, self.pages_per_slot, n_slots=padded_batch)
+        if cloud_pool is None:
+            self.cloud_pool = PagePool(n_pages, page_size, self.pages_per_slot,
+                                       n_slots=padded_batch)
+            self._cloud_base = 0
+            self._cloud_shared = False
+        else:
+            # a fleet's pool: this lane's slots are a block of fleet-global
+            # slot ids, and its storage is indexed by fleet-global pages
+            if (cloud_pool.page_size != page_size
+                    or cloud_pool.pages_per_slot != self.pages_per_slot):
+                raise ValueError("shared cloud pool geometry mismatch")
+            self.cloud_pool = cloud_pool
+            self._cloud_base = cloud_pool.add_slots(padded_batch)
+            self._cloud_shared = True
         self._end_pages, self._cloud_pages = init_tier_pages(
-            cfg, self.split, n_pages, n_pages, page_size, cfg.torch_dtype, self.device,
-            quantized=self.quantize_kv,
+            cfg, self.split, self.end_pool.num_pages, self.cloud_pool.num_pages, page_size,
+            cfg.torch_dtype, self.device, quantized=self.quantize_kv,
         )
         self._slot_len = np.zeros((padded_batch,), np.int64)
         self._jobs: Dict[int, _PrefillJob] = {}  # slot -> in-flight prefill
@@ -363,19 +412,28 @@ class EndCloudServingEngine(SlotEngineBase):
                 cfg, quantized=self.quantize_experts)
             self._slab_bytes_dense = expertpool.expert_slab_bytes(cfg)
             self._expert_mem_frac = expert_mem_frac
-            n_slabs = n_layers * self._s_cap
+            n_slabs = expert_slabs or n_layers * self._s_cap
             self.expert_pool = expertpool.ExpertSlabPool(n_slabs, n_layers, E, self._s_cap)
             self._slab_store = expertpool.init_slab_store(
                 cfg, n_slabs, quantized=self.quantize_experts, device=self.device)
             self._expert_prefetch_per_tick = max(1, expert_prefetch_per_tick)
             self._prefetch_queue: List[Tuple[int, int]] = []
             self._expert_ready_s = 0.0  # link-resource cursor for transfers
-            self.expert_bytes_down = 0  # runtime slab prefetch traffic
+            self.expert_bytes_down = 0  # runtime slab prefetch traffic (cloud)
+            self.expert_bytes_peer = 0  # slab traffic served by peer lanes
+            self.expert_bytes_up = 0  # evictions are drops: the cloud keeps all
             self.n_expert_prefetches = 0
+            self.n_expert_peer_fetches = 0
             self.n_expert_evictions = 0
             self.expert_routed_tokens = 0  # decoded tokens through the pool
-            self.expert_wire_s = 0.0  # slab wire time booked on the link
+            self.expert_wire_s = 0.0  # slab wire time booked on own link
             self._expert_dirty = False
+            if self.expert_registry is not None:
+                self._registry_lane = self.expert_registry.register_lane(
+                    self.expert_pool,
+                    link_gbps=lambda: self.bw.gbps,
+                    book_link=lambda ready_s, t: self.timeline.occupy(self._res_link, ready_s, t),
+                )
             # the initial residency ships with the deployment: filled at
             # once, unmetered; only runtime changes ride the link
             self._expert_sync(instant_lids=set(self._active_lids()))
@@ -407,6 +465,13 @@ class EndCloudServingEngine(SlotEngineBase):
         self._build_gen = 0
         self._build_stage_fns()
 
+    @staticmethod
+    def padded_batch(max_batch: int, n_groups: int) -> int:
+        """Slot count after rounding up to equal-sized micro-batch groups
+        (the fleet sizes its shared cloud pool with it)."""
+        g = max(1, min(n_groups, max_batch))
+        return -(-max_batch // g) * g
+
     # -- the active plan lives on self.tiers ---------------------------------
 
     @property
@@ -417,6 +482,10 @@ class EndCloudServingEngine(SlotEngineBase):
     def split(self) -> int:
         return self.tiers.plan.split_layer
 
+    def _cslot(self, slot: int) -> int:
+        """A slot's row in the (possibly fleet-shared) cloud pool."""
+        return self._cloud_base + slot
+
     def _split_params(self):
         self.end_params, self.cloud_params = split_block_params(self._cparams, self.split)
         if self._expert_pooled:
@@ -425,14 +494,28 @@ class EndCloudServingEngine(SlotEngineBase):
     def _derive_end_mask(self, end_state: DeviceState):
         """Hardware-aware expert mask for the end device (eq. 2-4), its
         greedy group admit ordered by the *measured* stage-1 routing
-        frequency (EMA of the gate's ``group_frac``)."""
-        group_priority = (
-            None if self.cfg.moe is None
-            else group_priority_from_freq(self._group_freq, self.cfg.moe.num_groups)
-        )
+        frequency (EMA of the gate's ``group_frac``) and, in a fleet, the
+        registry's placement cost.  A fleet lane overrides it with the
+        fleet's never-empty mask."""
         return end_mask_from_state(
-            self.cfg, self.end_profile, end_state, group_priority=group_priority,
+            self.cfg, self.end_profile, end_state, selection_eps=self.selection_eps,
+            group_priority=self._group_priority(),
         )
+
+    def _group_priority(self):
+        if self.cfg.moe is None:
+            return None
+        return group_priority_from_freq(self._group_freq, self.cfg.moe.num_groups,
+                                        group_cost=self._group_placement_cost())
+
+    def _group_placement_cost(self):
+        """Per-group modeled fetch cost from the fleet registry (None
+        standalone, or before this lane registered): the eq. 4 admit then
+        prefers groups already fleet-resident or cheap to fetch."""
+        if self.expert_registry is None or self._registry_lane is None:
+            return None
+        return self.expert_registry.group_fetch_costs(
+            self._registry_lane, self._active_lids(), self.cfg.moe.num_groups)
 
     # -- paged expert weights (slab pool; see core.expertpool) ---------------
 
@@ -451,6 +534,15 @@ class EndCloudServingEngine(SlotEngineBase):
         n = int(budget // self._slab_bytes)
         floor_n = max(1, len(self._active_lids()))
         return max(floor_n, min(n, self.expert_pool.num_slabs))
+
+    def _plan_residency(self, active, target):
+        """This lane's residency plan: through the fleet registry when
+        attached (the pool's policy plus the fleet's de-duplication rule),
+        the pool's own policy otherwise."""
+        if self.expert_registry is not None and self._registry_lane is not None:
+            return self.expert_registry.plan_lane(self._registry_lane, active, target,
+                                                  self._route_freq)
+        return self.expert_pool.plan(active, target, self._route_freq)
 
     def _write_slabs(self, assignments: List[Tuple[int, int, int, int]]):
         """(slab, pos index, block, expert) -> copy the weights into the
@@ -476,7 +568,7 @@ class EndCloudServingEngine(SlotEngineBase):
         target = self._end_mask_np
         active = self._active_lids()
         pool.set_capacity(self._expert_capacity())
-        wanted, evictions = pool.plan(active, target, self._route_freq)
+        wanted, evictions = self._plan_residency(active, target)
         for lid, e in evictions:
             pool.evict(lid, e)
             self.n_expert_evictions += 1
@@ -538,9 +630,31 @@ class EndCloudServingEngine(SlotEngineBase):
             slab = pool.alloc(lid, e)
             pi, b = self._lid_to_pos_block(lid)
             writes.append((slab, pi, b, e))
-            t_wire = self.link.transfer_time(self._slab_bytes, self.bw.gbps)
-            self.expert_bytes_down += self._slab_bytes
-            self._expert_ready_s = self.timeline.occupy("link", self._expert_ready_s, t_wire)
+            # the source is picked at transfer time against the live fleet
+            # map: a peer holding the slab serves it over the end<->end
+            # link when strictly cheaper (one that evicted meanwhile is not
+            # a holder any more, and the cloud serves)
+            src = None
+            reg = self.expert_registry
+            if reg is not None and self._registry_lane is not None:
+                src, t_wire = reg.pick_source(self._registry_lane, lid, e)
+            if src is not None and reg.take_peer_fault():
+                # an armed peer failure: back off once, then the cloud
+                self.transfer_retries += 1
+                self._expert_ready_s += self.health.backoff_s(0)
+                src = None
+            if src is None:
+                t_wire = self.link.transfer_time(self._slab_bytes, self.bw.gbps)
+                self.expert_bytes_down += self._slab_bytes
+            else:
+                # both ends of a peer transfer ride the fleet timeline: this
+                # lane's link here, the source's through the registry
+                reg.book_peer(src, self._registry_lane, self._expert_ready_s, t_wire)
+                self.link.record_peer(self._slab_bytes, t_wire)
+                self.expert_bytes_peer += self._slab_bytes
+                self.n_expert_peer_fetches += 1
+            self._expert_ready_s = self.timeline.occupy(self._res_link, self._expert_ready_s,
+                                                        t_wire)
             self.expert_wire_s += t_wire
             self.n_expert_prefetches += 1
             self._expert_dirty = True  # tables swap at the next safe point
@@ -695,7 +809,8 @@ class EndCloudServingEngine(SlotEngineBase):
         tokens = self._ints(np.zeros((gsz, 1)))
         lengths = self._ints(np.zeros((gsz,)))
         te = self.end_pool.device_rows(range(gsz), active=inactive, device=self.device)
-        tc = self.cloud_pool.device_rows(range(gsz), active=inactive, device=self.device)
+        tc = self.cloud_pool.device_rows([self._cslot(s) for s in range(gsz)], active=inactive,
+                                         device=self.device)
         z = self._end_step(self.end_params, tokens, self._end_pages, te, lengths,
                            *self._eargs())[0]
         self._cloud_step(self.cloud_params, z, self._cloud_pages, tc, lengths)
@@ -703,7 +818,8 @@ class EndCloudServingEngine(SlotEngineBase):
         ctok = self._ints(np.zeros((1, self.prefill_chunk)))
         start, valid = self._ints([0]), self._ints([1])
         te1 = self.end_pool.device_rows([0], active=np.zeros((1,), bool), device=self.device)
-        tc1 = self.cloud_pool.device_rows([0], active=np.zeros((1,), bool), device=self.device)
+        tc1 = self.cloud_pool.device_rows([self._cslot(0)], active=np.zeros((1,), bool),
+                                          device=self.device)
         z, _ = self._end_prefill_chunk(self.end_params, ctok, self._end_pages, te1,
                                        start, valid, *self._eargs())
         self._cloud_prefill_chunk(self.cloud_params, z, self._cloud_pages, tc1, start, valid)
@@ -831,7 +947,8 @@ class EndCloudServingEngine(SlotEngineBase):
         draft_fn(self._cparams, self._ints(np.zeros((gsz, 1))), self._init_draft_cache(),
                  zeros, self.tiers.end_mask)
         te = self.end_pool.device_rows(range(gsz), active=inactive, device=self.device)
-        tc = self.cloud_pool.device_rows(range(gsz), active=inactive, device=self.device)
+        tc = self.cloud_pool.device_rows([self._cslot(s) for s in range(gsz)], active=inactive,
+                                         device=self.device)
         valid = self._ints(np.ones((gsz,)))
         z, _ = end_fn(self.end_params, self._ints(np.zeros((gsz, k))), self._end_pages, te,
                       zeros, valid, *self._eargs())
@@ -868,7 +985,7 @@ class EndCloudServingEngine(SlotEngineBase):
                 big[:, r] = blocks[pos][n][:, 0].to(big.dtype)
         self._draft_len[slot] = L
         self._draft_ready[slot] = True
-        done = self.timeline.occupy("end", self._group_ready_s[g], td)
+        done = self.timeline.occupy(self._res_end, self._group_ready_s[g], td)
         self._prefill_busy["end"] += td
         self._group_ready_s[g] = max(self._group_ready_s[g], done)
 
@@ -931,7 +1048,7 @@ class EndCloudServingEngine(SlotEngineBase):
                 continue
             L = int(base_len[i])
             ents = self.end_pool.map_tokens(slot, L, L + int(n_valid[i]))
-            ents_c = self.cloud_pool.map_tokens(slot, L, L + int(n_valid[i]))
+            ents_c = self.cloud_pool.map_tokens(self._cslot(slot), L, L + int(n_valid[i]))
             if ents != ents_c:
                 raise RuntimeError(f"tier pools out of lockstep for slot {slot}: "
                                    f"{ents} vs {ents_c}")
@@ -963,16 +1080,17 @@ class EndCloudServingEngine(SlotEngineBase):
         k = pend["k"]
         _, _, cloud_fn = self._spec_fns_for_k(k)
         active = self._active[gs:ge]
-        table = self.cloud_pool.device_rows(range(gs, ge), active=active, device=self.device)
+        table = self.cloud_pool.device_rows([self._cslot(s) for s in range(gs, ge)],
+                                            active=active, device=self.device)
         (ids, self._cloud_pages), tc = self._measure(
             cloud_fn, self.cloud_params, self._boundary[g], self._cloud_pages, table,
             self._ints(pend["base_len"]), self._ints(pend["n_valid"]))
         tc = self._stage_seconds("cloud", (ge - gs) * k, tc)
 
         # one verify id back a valid position of each active row
-        self._book_cloud_stage(g, tc, int(pend["n_valid"][active].sum()))
+        done_c = self._book_cloud_stage(g, tc, int(pend["n_valid"][active].sum()))
         self._spec_pending[g] = None
-        return {"g": g, "dev": (pend["drafts"], ids), "pend": pend}
+        return {"g": g, "done_c": done_c, "dev": (pend["drafts"], ids), "pend": pend}
 
     def _spec_commit(self, rec: Dict, drafts: np.ndarray, verify: np.ndarray) -> int:
         """Host side of a round: greedy accept a row, roll the provisional
@@ -995,7 +1113,7 @@ class EndCloudServingEngine(SlotEngineBase):
                                   pages_per_slot=self.pages_per_slot)
             if rb:
                 self.end_pool.rollback(slot, rb)
-                self.cloud_pool.rollback(slot, rb)
+                self.cloud_pool.rollback(self._cslot(slot), rb)
                 rolled = True
             self._slot_len[slot] = L + len(toks)
             if self._draft_ready[slot]:
@@ -1060,8 +1178,11 @@ class EndCloudServingEngine(SlotEngineBase):
                 self._restore_into_slot(slot, req)  # restore_slot reserves
             else:
                 self.end_pool.reserve(slot, need)
-                self.cloud_pool.reserve(slot, need)
-                self._jobs[slot] = _PrefillJob(req, slot, self._group_of(slot))
+                self.cloud_pool.reserve(self._cslot(slot), need)
+                job = _PrefillJob(req, slot, self._group_of(slot))
+                if self._virtual_time:
+                    job.ready_s = req.submit_time  # no prefill before arrival
+                self._jobs[slot] = job
             admitted += 1
         return admitted
 
@@ -1094,7 +1215,7 @@ class EndCloudServingEngine(SlotEngineBase):
         e_avail = self.end_pool.pages_available + sum(
             self.end_pool.reserved_pages(s) for s in victims)
         c_avail = self.cloud_pool.pages_available + sum(
-            self.cloud_pool.reserved_pages(s) for s in victims)
+            self.cloud_pool.reserved_pages(self._cslot(s)) for s in victims)
         if e_avail < need or c_avail < need:
             return False
         _, _, victim = max((self.slots[s].priority, self.slots[s].seq, s) for s in victims)
@@ -1108,7 +1229,7 @@ class EndCloudServingEngine(SlotEngineBase):
         group is drained, so the slot is at a token boundary: the pending
         token's KV is not written yet."""
         entries, phys_e, n_pages = self.end_pool.spill_slot(slot)
-        entries_c, phys_c, _ = self.cloud_pool.spill_slot(slot)
+        entries_c, phys_c, _ = self.cloud_pool.spill_slot(self._cslot(slot))
         if not np.array_equal(entries, entries_c):
             raise RuntimeError(f"tier pools out of lockstep for slot {slot}: "
                                f"{entries.tolist()} vs {entries_c.tolist()}")
@@ -1143,7 +1264,8 @@ class EndCloudServingEngine(SlotEngineBase):
         it stopped.  Its draft cache is rebuilt at the next drained tick."""
         st = self._spilled.pop(req.request_id)
         ie = torch.from_numpy(self.end_pool.restore_slot(slot, st.entries, st.n_pages))
-        ic = torch.from_numpy(self.cloud_pool.restore_slot(slot, st.entries, st.n_pages))
+        ic = torch.from_numpy(self.cloud_pool.restore_slot(self._cslot(slot), st.entries,
+                                                           st.n_pages))
         ie, ic, s = ie.to(self.device), ic.to(self.device), self.split
         for pos, entry in st.blocks.items():
             for n, saved in entry.items():
@@ -1156,6 +1278,10 @@ class EndCloudServingEngine(SlotEngineBase):
         self._active[slot] = True
         self._draft_ready[slot] = False
         self.n_preempt_restores += 1
+        if self._virtual_time:
+            # the resumed stream cannot decode before "now"
+            g = self._group_of(slot)
+            self._group_ready_s[g] = max(self._group_ready_s[g], self.clock.now)
 
     def _advance_prefill(self, job: _PrefillJob):
         """Stream one prompt chunk through end -> link -> cloud, booking the
@@ -1166,7 +1292,7 @@ class EndCloudServingEngine(SlotEngineBase):
         p0 = job.pos
         v = min(C, S - p0)
         self.end_pool.map_range(slot, p0, p0 + v)
-        self.cloud_pool.map_range(slot, p0, p0 + v)
+        self.cloud_pool.map_range(self._cslot(slot), p0, p0 + v)
         chunk = np.zeros((1, C), np.int32)
         chunk[0, :v] = req.prompt[p0 : p0 + v]
         tokens, start, valid = self._ints(chunk), self._ints([p0]), self._ints([v])
@@ -1181,13 +1307,13 @@ class EndCloudServingEngine(SlotEngineBase):
         t_comm = self._link_transfer(payload_nbytes(_row(z, 0, 0)) * v)
         (ids, self._cloud_pages), tc = self._measure(
             self._cloud_prefill_chunk, self.cloud_params, z, self._cloud_pages,
-            self.cloud_pool.device_rows([slot], device=self.device), start, valid,
+            self.cloud_pool.device_rows([self._cslot(slot)], device=self.device), start, valid,
         )
         tc = self._stage_seconds("cloud", v, tc)
 
-        done_e = self.timeline.occupy("end", job.ready_s, te)
-        done_l = self.timeline.occupy("link", done_e, t_comm)
-        job.ready_s = self.timeline.occupy("cloud", done_l, tc)
+        done_e = self.timeline.occupy(self._res_end, job.ready_s, te)
+        done_l = self.timeline.occupy(self._res_link, done_e, t_comm)
+        job.ready_s = self.timeline.occupy(self._res_cloud, done_l, tc)
         self._prefill_busy["end"] += te
         self._prefill_busy["link"] += t_comm
         self._prefill_busy["cloud"] += tc
@@ -1219,6 +1345,9 @@ class EndCloudServingEngine(SlotEngineBase):
                 continue
             req, tok = job.req, job.first_tok
             req.generated.append(tok)
+            if self._virtual_time:
+                # the first token exists when the last chunk leaves the cloud
+                self.clock.now = job.ready_s
             if req.first_token_time is None:
                 req.first_token_time = self.clock()
             del self._jobs[slot]
@@ -1233,10 +1362,13 @@ class EndCloudServingEngine(SlotEngineBase):
             self._active[slot] = True
             if self._spec_plan_k > 1:
                 self._install_draft(slot)
+            if self._virtual_time:
+                # the group's next step cannot start before this prefill fed it
+                self._group_ready_s[job.group] = max(self._group_ready_s[job.group], job.ready_s)
 
     def _release_slot(self, slot: int):
         self.end_pool.free(slot)
-        self.cloud_pool.free(slot)
+        self.cloud_pool.free(self._cslot(slot))
         self._slot_len[slot] = 0
         self._draft_ready[slot] = False
 
@@ -1249,10 +1381,18 @@ class EndCloudServingEngine(SlotEngineBase):
         st = self._spec_state
         return super()._progress_sig() + (
             self.n_stage_steps, self.n_prefill_chunks,
-            self.n_preemptions, self.n_preempt_restores,
+            self.n_preemptions, self.n_preempt_restores, self.transfer_retries,
             self.n_expert_prefetches if self._expert_pooled else 0,
             st.rounds if st else 0, st.rollbacks if st else 0,
         )
+
+    def stall_diagnostic(self) -> str:
+        return (super().stall_diagnostic()
+                + f" jobs={sorted(self._jobs)} spilled={len(self._spilled)}"
+                + f" phases={list(self._phase)}"
+                + f" pages_end={self.end_pool.pages_available}"
+                + f" pages_cloud={self.cloud_pool.pages_available}"
+                + f" link_degraded={self.link_degraded}")
 
     # -- pipelined stepping ---------------------------------------------------
 
@@ -1263,7 +1403,9 @@ class EndCloudServingEngine(SlotEngineBase):
     def _stage_seconds(self, stage: str, batch: int, measured_s: float) -> float:
         """The stage's service time: ``measured_s`` in measured timing, else
         ``batch`` tokens through this tier's block range at the device's
-        modeled capability rate."""
+        modeled capability rate.  The cloud rate is one server's: a fleet's
+        cloud contention is the timeline's multi-server queue, so the
+        lane's share is divided back out."""
         if self.timing != "modeled":
             return measured_s
         lg = self.tiers.layer_gflops
@@ -1273,7 +1415,7 @@ class EndCloudServingEngine(SlotEngineBase):
             rate = self.tiers.end_cap.gflop_budget * 1e3
         else:
             gflops = batch * sum(lg[s:])
-            rate = self.tiers.cloud_cap.gflop_budget * 1e3
+            rate = self.tiers.cloud_cap.gflop_budget / max(self._cloud_share, 1e-12) * 1e3
         return gflops / max(rate, 1e-9)
 
     def _link_transfer(self, nbytes: int) -> float:
@@ -1283,10 +1425,13 @@ class EndCloudServingEngine(SlotEngineBase):
         return self.link_rtt_s + self.link.record_up(nbytes, self.bw.gbps)
 
     def inject_transfer_faults(self, count: int):
-        _unported("transfer-fault injection", "ROADMAP queue A, fault injection")
+        _unported("transfer-fault injection", _FAULTS)
 
     def evacuate(self):
-        _unported("lane evacuation (migration)", "ROADMAP queue A, fleet")
+        _unported("lane evacuation (migration)", _FAULTS)
+
+    def set_cloud_share(self, share: float):
+        _unported("re-scaling the cloud share (a lost cloud server)", _FAULTS)
 
     def _run_end_stage(self, g: int):
         k = self._spec_round_k(g)
@@ -1297,7 +1442,7 @@ class EndCloudServingEngine(SlotEngineBase):
         for slot in range(gs, ge):
             if self._active[slot]:
                 self.end_pool.append(slot, int(self._slot_len[slot]))
-                self.cloud_pool.append(slot, int(self._slot_len[slot]))
+                self.cloud_pool.append(self._cslot(slot), int(self._slot_len[slot]))
         active = self._active[gs:ge]
         tokens = self._ints(self._next_token[gs:ge])
         table = self.end_pool.device_rows(range(gs, ge), active=active, device=self.device)
@@ -1321,8 +1466,8 @@ class EndCloudServingEngine(SlotEngineBase):
     def _book_end_stage(self, g: int, t_end: float, t_comm: float, z):
         """Book a group's end stage and its upload on the timeline and the
         decode-only clock; its boundary payload ``z`` is now in flight."""
-        done_e = self.timeline.occupy("end", self._group_ready_s[g], t_end)
-        done_l = self.timeline.occupy("link", done_e, t_comm)
+        done_e = self.timeline.occupy(self._res_end, self._group_ready_s[g], t_end)
+        done_l = self.timeline.occupy(self._res_link, done_e, t_comm)
         m_e = self._metric_clock.occupy("end", self._m_group_ready[g], t_end)
         self._m_boundary_ready[g] = self._metric_clock.occupy("link", m_e, t_comm)
         self._stage_busy["end"] += t_end
@@ -1332,16 +1477,19 @@ class EndCloudServingEngine(SlotEngineBase):
         self._boundary_ready_s[g] = done_l
         self._phase[g] = "boundary"
 
-    def _book_cloud_stage(self, g: int, t_cloud: float, n_ids: int):
+    def _book_cloud_stage(self, g: int, t_cloud: float, n_ids: int) -> float:
         """Book a group's cloud stage after its boundary arrived, and the
-        ``n_ids`` token ids sent back down; the group is drained."""
-        self._group_ready_s[g] = self.timeline.occupy("cloud", self._boundary_ready_s[g], t_cloud)
+        ``n_ids`` token ids sent back down; the group is drained.  Returns
+        the stage's modeled completion."""
+        self._group_ready_s[g] = self.timeline.occupy(self._res_cloud, self._boundary_ready_s[g],
+                                                      t_cloud)
         self._m_group_ready[g] = self._metric_clock.occupy(
             "cloud", self._m_boundary_ready[g], t_cloud)
         self._stage_busy["cloud"] += t_cloud
         self.link.record_down(n_ids * element_bytes(torch.int32))
         self._boundary[g] = None
         self._phase[g] = "ready"
+        return self._group_ready_s[g]
 
     def _drain_cloud_stage(self, g: int) -> Dict:
         """Run the cloud half of an in-flight boundary; the token ids stay
@@ -1351,7 +1499,8 @@ class EndCloudServingEngine(SlotEngineBase):
             return self._drain_cloud_stage_spec(g)
         gs, ge = self._group_slices[g]
         active = self._active[gs:ge]
-        table = self.cloud_pool.device_rows(range(gs, ge), active=active, device=self.device)
+        table = self.cloud_pool.device_rows([self._cslot(s) for s in range(gs, ge)],
+                                            active=active, device=self.device)
         lengths = self._ints(self._slot_len[gs:ge])
         (ids_dev, self._cloud_pages), tc = self._measure(
             self._cloud_step, self.cloud_params, self._boundary[g], self._cloud_pages,
@@ -1360,9 +1509,9 @@ class EndCloudServingEngine(SlotEngineBase):
         tc = self._stage_seconds("cloud", ge - gs, tc)
 
         # token ids back to the end tier, for the slots that decoded
-        self._book_cloud_stage(g, tc, int(active.sum()))
+        done_c = self._book_cloud_stage(g, tc, int(active.sum()))
         self._slot_len[np.nonzero(active)[0] + gs] += 1
-        return {"g": g, "dev": (ids_dev,)}
+        return {"g": g, "done_c": done_c, "dev": (ids_dev,)}
 
     def _harvest_drained(self, records: List[Dict]) -> int:
         """ONE device->host copy of every drained group's token ids (and a
@@ -1376,6 +1525,9 @@ class EndCloudServingEngine(SlotEngineBase):
         emitted = 0
         for rec in records:
             gs, ge = self._group_slices[rec["g"]]
+            if self._virtual_time:
+                # this group's finish stamps land at its cloud completion
+                self.clock.now = rec["done_c"]
             if "pend" in rec:
                 drafts, verify = (next(parts).reshape(t.shape) for t in rec["dev"])
                 emitted += self._spec_commit(rec, drafts, verify)
@@ -1483,7 +1635,7 @@ class EndCloudServingEngine(SlotEngineBase):
             self._expert_dirty = True
             self.expert_pool.set_capacity(self._expert_capacity())
             target = np.asarray(new_mask if mask_changed else self._end_mask_np, bool)
-            wanted, _ = self.expert_pool.plan(self._active_lids(), target, self._route_freq)
+            wanted, _ = self._plan_residency(self._active_lids(), target)
             self._prefetch_queue = list(wanted)
         # a default bandwidth_free of 1.0 means "not measured"
         if end_state.bandwidth_free != 1.0:
@@ -1502,6 +1654,7 @@ class EndCloudServingEngine(SlotEngineBase):
             measured_gbps=self.bw.gbps,
             compression_ratio=self.tiers.compression_ratio,
             alpha=self.tiers.alpha,
+            rel_threshold=self.replan_threshold,
             edge_boundary=True,
         )
         moved = (plan.split_layer != self.plan.split_layer
@@ -1514,8 +1667,14 @@ class EndCloudServingEngine(SlotEngineBase):
             self.tiers = dataclasses.replace(self.tiers, plan=plan)
 
     def _defrag_pools(self):
-        """Compact both pools and permute their storage rows to match."""
-        for pool, attr in ((self.end_pool, "_end_pages"), (self.cloud_pool, "_cloud_pages")):
+        """Compact the engine's own pools and permute their storage rows to
+        match.  A fleet's shared cloud pool is never compacted here: its
+        permutation applies to every lane's storage
+        (``FleetServingEngine.defrag_kv``)."""
+        pools = [(self.end_pool, "_end_pages")]
+        if not self._cloud_shared:
+            pools.append((self.cloud_pool, "_cloud_pages"))
+        for pool, attr in pools:
             perm = torch.from_numpy(pool.defrag()).to(self.device)
             pages = getattr(self, attr)
             setattr(self, attr, {pos: {k: leaf[:, perm] for k, leaf in entry.items()}
@@ -1549,9 +1708,10 @@ class EndCloudServingEngine(SlotEngineBase):
         self.tiers = dataclasses.replace(self.tiers, **updates)
         if self.split != old_split:
             self._split_params()
-            e2c = kvcache.page_perm(self.end_pool.table, self.cloud_pool.table,
+            cloud_rows = self.cloud_pool.table[self._cloud_base:self._cloud_base + self.max_batch]
+            e2c = kvcache.page_perm(self.end_pool.table, cloud_rows,
                                     self.end_pool.num_pages, self.cloud_pool.num_pages)
-            c2e = kvcache.page_perm(self.cloud_pool.table, self.end_pool.table,
+            c2e = kvcache.page_perm(cloud_rows, self.end_pool.table,
                                     self.cloud_pool.num_pages, self.end_pool.num_pages)
             self._end_pages, self._cloud_pages = kvcache.resplit_paged_blocks(
                 self._end_pages, self._cloud_pages, old_split, self.split, e2c, c2e,
@@ -1591,14 +1751,20 @@ class EndCloudServingEngine(SlotEngineBase):
         lengths."""
         return {k: len(v) for k, v in self._traces.items()}
 
+    def _own_cloud(self) -> range:
+        """This engine's slot rows of the (possibly shared) cloud pool."""
+        return range(self._cloud_base, self._cloud_base + self.max_batch)
+
     def attn_bytes_step(self) -> Dict[str, int]:
         """KV bytes the paged attention sweep reads per decode step (both
-        tiers, all layers) at the current occupancy, beside a dense
-        ``slots x ring`` sweep at the activation type."""
+        tiers, all layers, this engine's own rows of a shared cloud pool)
+        at the current occupancy, beside a dense ``slots x ring`` sweep at
+        the activation type."""
         return {
             "attn_bytes_paged_step": (
                 self.end_pool.pages_in_use * kvcache.paged_block_bytes(self._end_pages)
-                + self.cloud_pool.pages_in_use * kvcache.paged_block_bytes(self._cloud_pages)
+                + self.cloud_pool.mapped_for(self._own_cloud())
+                * kvcache.paged_block_bytes(self._cloud_pages)
             ),
             "attn_bytes_dense_step": (
                 self.request_capacity * self.pages_per_slot * self._dense_page_bytes()
@@ -1630,8 +1796,7 @@ class EndCloudServingEngine(SlotEngineBase):
         """Paged expert-weight accounting: residency, hit rate, transfer
         traffic, and the per-step expert bytes of the resident path (at the
         stored slab size) beside the dense ``[E, d, f]`` sweep (at the
-        params' type, whatever the store holds).  The fleet's peer traffic
-        is not ported: its entries read as the reference's do without it."""
+        params' type, whatever the store holds)."""
         if not self._expert_pooled:
             return {}
         pool = self.expert_pool
@@ -1643,8 +1808,8 @@ class EndCloudServingEngine(SlotEngineBase):
             "expert_slab_capacity": pool.capacity,
             "expert_hit_rate": self._expert_hit_rate(),
             "expert_bytes_down": self.expert_bytes_down,
-            "expert_bytes_peer": 0,
-            "expert_bytes_up": 0,
+            "expert_bytes_peer": self.expert_bytes_peer,
+            "expert_bytes_up": self.expert_bytes_up,
             "expert_bytes_resident": pool.slabs_in_use * sb,
             "expert_bytes_step_resident": n_res_active * sb,
             "expert_bytes_step_dense": len(active) * self.cfg.moe.num_experts * sbd,
@@ -1653,17 +1818,19 @@ class EndCloudServingEngine(SlotEngineBase):
             "expert_capacity_ratio": sbd / sb,
             "expert_quantized": float(self.quantize_experts),
             "expert_prefetches": self.n_expert_prefetches,
-            "expert_peer_fetches": 0,
+            "expert_peer_fetches": self.n_expert_peer_fetches,
             "expert_evictions": self.n_expert_evictions,
             "expert_routed_tokens": self.expert_routed_tokens,
         }
 
     def kv_metrics(self) -> Dict[str, float]:
-        """Paged-KV memory accounting over both tiers."""
+        """Paged-KV memory accounting over both tiers.  With a fleet-shared
+        cloud pool the in-use pages count this engine's rows only, while the
+        peak is the pool's fleet-wide one (what admission gates on)."""
         end_pb = kvcache.paged_block_bytes(self._end_pages)
         cloud_pb = kvcache.paged_block_bytes(self._cloud_pages)
         dense_pb = self._dense_page_bytes()
-        in_use = self.end_pool.pages_in_use + self.cloud_pool.pages_in_use
+        in_use = self.end_pool.pages_in_use + self.cloud_pool.mapped_for(self._own_cloud())
         cap = self.end_pool.num_pages + self.cloud_pool.num_pages
         return {
             **self.attn_bytes_step(),
@@ -1680,9 +1847,9 @@ class EndCloudServingEngine(SlotEngineBase):
         }
 
     def metrics(self) -> Dict[str, float]:
-        """The reference's metrics; the counters of the paths that are not
-        ported (fleet migrations, transfer retries) read 0, as the
-        reference's do when those paths are idle."""
+        """The reference's metrics; ``migration_restores`` (a path not
+        ported yet) reads 0, as the reference's does on a run without lane
+        faults."""
         n = max(self.n_stage_steps, 1)
         mean = {r: t / n for r, t in self._stage_busy.items()}
         # the engine's own pipelined DECODE span (the decode-only clock)
@@ -1710,7 +1877,7 @@ class EndCloudServingEngine(SlotEngineBase):
             "preempt_restores": self.n_preempt_restores,
             "preempt_spill_bytes": self.preempt_spill_bytes,
             "migration_restores": 0,
-            "transfer_retries": 0,
+            "transfer_retries": self.transfer_retries,
             "degraded_ticks": self.degraded_ticks,
             "link_blackout_s": self.blackout_seconds(),
             "replan_events": len(self.replan_events),

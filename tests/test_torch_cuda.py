@@ -1,10 +1,11 @@
 """The port's kernels on the card: each against its plain version, the
 wrappers' input checks, and the serving engine, the one-shot end-cloud
 pipeline and the streaming end-cloud engine (with and without its int8
-streams, with speculative decode and with a preemption) on the card
-against the same on the CPU.  Marked ``cuda``; skipped where no CUDA device is
-visible.  Run on a machine with the card (``--noconftest``: the suite's
-conftest imports JAX, which the port does not need):
+streams, with speculative decode and with a preemption) and a two-lane
+fleet driven by ``loadgen.drive`` on the card against the same on the
+CPU.  Marked ``cuda``; skipped where no CUDA device is visible.  Run on a
+machine with the card (``--noconftest``: the suite's conftest imports
+JAX, which the port does not need):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -1218,3 +1219,47 @@ def test_dequantize_rows_widths(gen, rows, n, sdt, out):
     qm = buf[1:].view(rows, n)
     qm.copy_(q)
     assert torch.equal(dequantize_rows(qm, s, dtype=out), dequantize_rows_plain(q, s, dtype=out))
+
+
+@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])
+def test_fleet_driven_on_card_matches_cpu(gen, name):
+    """A two-lane fleet over one shared cloud pool (two interior splits),
+    driven by ``loadgen.drive`` on a ``VirtualClock`` with a seeded schedule
+    that oversubscribes it, f32 smoke model: tokens, the placement log and
+    every request's stamps equal the CPU's, both lanes held cloud rows at
+    once, and the pools drain."""
+    from repro_torch.serving import FleetServingEngine, VirtualClock, loadgen
+
+    cfg = smoke_config(get_config(name)).replace(num_layers=6, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        fleet = FleetServingEngine(
+            Model(cfg, device=dev), to_device(params, dev), end_profiles=[PROFILES["a100"]] * 2,
+            cloud_profile=PROFILES["a100"], cloud_servers=1, max_batch=2, max_len=128,
+            force_splits=[1, 2], compression_rank=cfg.d_model // 2, timing="modeled",
+            prefill_chunk=8, clock=VirtualClock(), expert_peer_gbps=5.0)
+        before = grouped_mlp_resident.launches
+        most_live, step = [0], fleet.step
+
+        def counted(fleet=fleet, step=step):
+            out = step()
+            most_live[0] = max(most_live[0], sum(
+                fleet.cloud_pool.mapped_for(range(l._cloud_base, l._cloud_base + l.max_batch)) > 0
+                for l in fleet.lanes))
+            return out
+
+        fleet.step = counted
+        sched = loadgen.build_schedule(loadgen.poisson_arrivals(12, 1e4, seed=3),
+                                       (loadgen.INTERACTIVE, loadgen.BATCH), seed=4)
+        reqs = loadgen.drive(fleet, sched)
+        runs[dev] = ([r.generated for r in reqs],
+                     [(p["request_id"], p["device"]) for p in fleet.placed],
+                     [(r.submit_time, r.first_token_time, r.finish_time) for r in reqs])
+        assert all(r.done for r in reqs) and most_live[0] == 2
+        assert fleet.metrics()["kv_pages_in_use"] == 0
+        if dev == "cuda":
+            assert grouped_mlp_resident.launches > before
+    assert runs["cuda"][:2] == runs["cpu"][:2]
+    for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
+        assert a == pytest.approx(b, abs=1e-9, rel=0)

@@ -257,9 +257,8 @@ def test_pipeline_matches_reference(pipelines):
 
 
 def _link_fields(link):
-    """The meter's fields that the port's ``LinkStats`` has (the
-    reference's peer meter is not ported)."""
-    return {f.name: getattr(link, f.name) for f in dataclasses.fields(LinkStats)}
+    """Every field of a link meter, the peer meter's too."""
+    return {f.name: getattr(link, f.name) for f in dataclasses.fields(link)}
 
 
 def test_link_stats_equal_the_reference():
@@ -270,8 +269,11 @@ def test_link_stats_equal_the_reference():
         assert got.record_up(nbytes, gbps) == want.record_up(nbytes, gbps)
         got.record_down(nbytes // 7)
         want.record_down(nbytes // 7)
+        got.record_peer(nbytes, nbytes * 1e-9)
+        want.record_peer(nbytes, nbytes * 1e-9)
     assert _link_fields(got) == _link_fields(want)
-    assert set(_link_fields(got)) == {"bytes_up", "bytes_down", "transfers", "seconds_up"}
+    assert set(_link_fields(got)) == {"bytes_up", "bytes_down", "bytes_peer", "transfers",
+                                      "seconds_up", "seconds_peer"}
 
 
 def test_pipeline_default_codec_and_refusals():

@@ -7,7 +7,8 @@ the wall clock (``link_blackout_s``), at forced splits 0, mid and R with
 the eq. 8 codec off and on, pooled against dense-mask end tiers, a hard
 bandwidth replan, and the link-blackout rung.  Smoke switch-base
 (non-gated GELU experts) and smoke llama4-scout (gated SiLU experts and a
-shared expert).  Plus the options the port does not have yet, which raise.
+shared expert).  Plus the fleet-sharing options (accepted) and the fault
+half that still raises (ROADMAP queue A item 5b).
 (Speculative decode and preemption are held to the reference in
 ``test_torch_specdecode.py`` and ``test_torch_preempt.py``.)
 (The int8 streams are held to the reference in ``test_torch_stream_quant.py``.)
@@ -28,8 +29,12 @@ from repro.serving.stream import EndCloudServingEngine as JEngine
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import hardware as thw
+from repro_torch.core.expertpool import FleetExpertRegistry
+from repro_torch.models.kvcache import PagePool
 from repro_torch.models.model import Model
 from repro_torch.serving import EndCloudServingEngine, Request
+from repro_torch.serving.common import StageTimeline
+from repro_torch.serving.faults import HealthMonitor
 
 # one intra-op thread per test worker: the suite runs several workers on a
 # few shared cores, where a many-thread pool stalls on every tiny op
@@ -201,15 +206,46 @@ def _engine(tiny, **kw):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    ("cloud_pool", object(), "fleet"),
-    ("expert_registry", object(), "fleet"),
-    ("timeline", object(), "fleet"),
-    ("resources", ("e", "l", "c"), "fleet"),
-    ("health", object(), "health"),
+    pytest.param("cloud_pool", lambda e: PagePool(64, 16, e.pages_per_slot), "fleet",
+                 id="cloud_pool-value0-fleet"),
+    pytest.param("expert_registry",
+                 lambda e: FleetExpertRegistry(e.expert_pool.n_layers, e.expert_pool.num_experts,
+                                               e._slab_bytes),
+                 "fleet", id="expert_registry-value1-fleet"),
+    pytest.param("timeline", lambda e: StageTimeline(["cloud"], capacity={"cloud": 2}), "fleet",
+                 id="timeline-value2-fleet"),
+    pytest.param("resources", lambda e: ("e", "l", "c"), "fleet", id="resources-value3-fleet"),
+    pytest.param("health", lambda e: HealthMonitor(), "health", id="health-value4-health"),
 ])
 def test_unported_options_raise(tiny, option, value, match):
+    """The fleet-sharing options are ported (the fleet engine passes them;
+    ``test_torch_fleet.py`` holds it to the reference): each is accepted and
+    wired in, while the fault half they belong to (ROADMAP queue A item
+    5b) still raises."""
+    plain = _engine(tiny)
+    v = value(plain)
+    eng = _engine(tiny, **{option: v})
+    if option == "cloud_pool":
+        assert eng.cloud_pool is v and eng._cloud_shared and eng._cloud_base == 0
+        assert v.table.shape[0] == eng.max_batch
+    elif option == "expert_registry":
+        assert eng.expert_registry is v and eng._registry_lane == 0 and v.n_lanes == 1
+    elif option == "timeline":
+        assert eng.timeline is v and v.n_servers("cloud") == 2
+        assert {"end", "link", "cloud"} <= set(v.busy_s)
+    elif option == "resources":
+        assert (eng._res_end, eng._res_link, eng._res_cloud) == v
+        assert set(eng.timeline.busy_s) == set(v)
+    elif option == "health":
+        assert eng.health is v
+    for req in (Request(0, np.arange(5, dtype=np.int32), max_new_tokens=3),):
+        eng.submit(req)
+    eng.run()
+    assert eng.finished and eng.cloud_pool.pages_in_use == 0
     with pytest.raises(NotImplementedError, match=match):
-        _engine(tiny, **{option: value})
+        eng.evacuate()
+    with pytest.raises(NotImplementedError, match="5b"):
+        eng.set_cloud_share(0.5)
 
 
 def test_unported_methods_raise(tiny):
