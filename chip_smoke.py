@@ -2645,9 +2645,9 @@ def fleet_run(torch, model, params, *, profile_tick=False, **kw):
     the fleet registry.  Before tick ``FLEET_SKEW_TICKS[i]`` lane i's
     measured routing turns hot on group 2 and its mask is re-derived, so
     lane 1's new slabs come from lane 0 over the LAN.  ``profile_tick``
-    profiles a tick that starts with every lane decoding and no prefill in
-    flight (``fleet_decoding``): the first one with no request waiting
-    either, so that it runs decode steps only, else the last such tick.
+    profiles the first tick that starts with every lane decoding and no
+    prefill in flight (``fleet_decoding``), and the first such tick with no
+    request waiting either, which runs decode steps only and replaces it.
     Returns (requests, fleet, ticks, (tick, slots decoding, (end steps,
     cloud steps, prefill chunks), decode only, profiler averages, wall s) or
     None)."""
@@ -2676,10 +2676,11 @@ def fleet_run(torch, model, params, *, profile_tick=False, **kw):
                 lane = fleet.lanes[i]
                 lane._group_freq, lane._route_freq = gf.copy(), ef.copy()
                 fleet.update_device_state(i, type(lane.end_state)())
-        if profile_tick and not (state["prof"] and state["prof"][3]) and fleet_decoding(fleet):
+        only = not fleet.waiting and not any(l.waiting for l in fleet.lanes)
+        if (profile_tick and (state["prof"] is None or (only and not state["prof"][3]))
+                and fleet_decoding(fleet)):
             from torch.profiler import ProfilerActivity, profile
 
-            only = not fleet.waiting and not any(l.waiting for l in fleet.lanes)
             slots = sum(int(l._active.sum()) for l in fleet.lanes)
             # the groups with a boundary in flight drain on the cloud this tick
             clouds = sum(p == "boundary" for l in fleet.lanes for p in l._phase)
@@ -2748,7 +2749,8 @@ def fleet_f32(torch, model, params, counters):
             peak = torch.cuda.max_memory_allocated()
             extra = (f"; peak device memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} "
                      f"MiB above the {held / 2**20:.1f} MiB held before the fleet was built "
-                     f"(three lanes' cloud storage of {fleet.cloud_pool.num_pages} pages each); "
+                     f"(one cloud storage of {fleet.cloud_pool.num_pages} pages behind the "
+                     f"three lanes); "
                      f"launches {launches}")
             zero = [k for k in FLEET_F32_PATH if launches[k] == 0]
             if zero:

@@ -357,6 +357,52 @@ def paged_block_bytes(blocks: Dict) -> int:
     return total
 
 
+class SharedPagedBlocks:
+    """One paged storage of block repeats ``[base, R)`` over the page space
+    of a pool that several engines share (a fleet's cloud ``PagePool``,
+    indexed by fleet-global page ids).  Each engine reads and writes the
+    blocks from its own split on through :meth:`view`, in place, at the
+    pages the pool maps to its slots, so the storage grows with the pool
+    and not with the number of engines.  A split below ``base`` extends it
+    downward (:meth:`reserve`); blocks above every engine's split stay."""
+
+    def __init__(self, cfg, num_pages: int, page_size: int, dtype: torch.dtype,
+                 device=DEFAULT_DEVICE, *, quantized: bool = False):
+        self.cfg = cfg
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.dtype = dtype
+        self.device = device
+        self.quantized = quantized
+        self.base = cfg.block_repeat
+        self.blocks = init_paged_blocks(cfg, 0, num_pages, page_size, dtype, device,
+                                        quantized=quantized)
+
+    def reserve(self, split: int):
+        """Make blocks ``[split, R)`` present (new blocks start zeroed)."""
+        if split >= self.base:
+            return
+        new = init_paged_blocks(self.cfg, self.base - split, self.num_pages, self.page_size,
+                                self.dtype, self.device, quantized=self.quantized)
+        self.blocks = {pos: {n: torch.cat([new[pos][n], leaf]) for n, leaf in entry.items()}
+                       for pos, entry in self.blocks.items()}
+        self.base = split
+
+    def view(self, split: int) -> Dict:
+        """Blocks ``[split, R)`` as views of the storage (no copy)."""
+        lo = split - self.base
+        if lo < 0:
+            raise ValueError(f"split {split} below the stored blocks (base {self.base})")
+        return {pos: {n: leaf[lo:] for n, leaf in entry.items()}
+                for pos, entry in self.blocks.items()}
+
+    def permute(self, perm: torch.Tensor):
+        """Re-index every page row (a pool defrag's ``perm``), once for all
+        the engines that share the storage."""
+        self.blocks = {pos: {n: leaf[:, perm] for n, leaf in entry.items()}
+                       for pos, entry in self.blocks.items()}
+
+
 def dense_page_bytes(cfg, n_blocks: int, page_size: int) -> int:
     """Bytes one physical page would occupy at the activation type across
     every pattern position of ``n_blocks`` blocks: the dense counterpart of

@@ -1,61 +1,35 @@
-"""The serving side's recovery policy knobs and livelock guard (the port's
-own copy of ``HealthMonitor`` and ``StallGuard`` from the reference's
+"""The serving side's retry policy and livelock guard (the port's own copy
+of ``HealthMonitor``'s backoff and ``StallGuard`` from the reference's
 ``serving/faults.py``).
 
-* :class:`HealthMonitor`: heartbeat bookkeeping on the modeled clock and
-  the bounded exponential backoff every retried transfer follows
-  (``backoff_s(attempt) = min(base * 2**attempt, cap)``).  The fleet beats
-  every lane each tick and shares one monitor across its lanes; a failed
-  peer slab fetch backs off once before it falls back to the cloud.
+* :class:`HealthMonitor`: the bounded exponential backoff every retried
+  transfer follows (``backoff_s(attempt) = min(base * 2**attempt, cap)``).
+  The fleet shares one monitor across its lanes; a failed peer slab fetch
+  backs off once before it falls back to the cloud.
 * :class:`StallGuard`: N consecutive busy ticks with an unchanged progress
   signature raise with a queue and slot diagnostic instead of spinning.
 
-The fault schedules and their injector (``FaultEvent``, ``FaultSchedule``,
+The monitor's heartbeat half (``beat``, ``suspect``, its timeouts and
+attempt limit), which only lane-failure detection reads, and the fault
+schedules and their injector (``FaultEvent``, ``FaultSchedule``,
 ``ChaosInjector``) are not ported yet (ROADMAP queue A item 5b).  Numpy
 free, torch free: the engines import this module, never the other way.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Union
 
 __all__ = ["HealthMonitor", "StallGuard"]
 
 
 class HealthMonitor:
-    """Fleet health bookkeeping and the shared retry and backoff policy.
+    """The shared retry and backoff policy: a retried transfer idles
+    ``backoff_s(attempt)`` before resending, capped at ``backoff_cap_s``."""
 
-    ``suspect`` flags a name whose last beat is older than
-    ``heartbeat_timeout_s``.  A retried transfer idles ``backoff_s(attempt)``
-    before resending, capped at ``backoff_cap_s``; ``max_transfer_attempts``
-    bounds the attempts."""
-
-    def __init__(self, *, heartbeat_timeout_s: float = 1.0, transfer_timeout_s: float = 0.5,
-                 backoff_base_s: float = 0.01, backoff_cap_s: float = 0.25,
-                 max_transfer_attempts: int = 5):
-        if max_transfer_attempts < 1:
-            raise ValueError("max_transfer_attempts must be >= 1")
-        self.heartbeat_timeout_s = heartbeat_timeout_s
-        self.transfer_timeout_s = transfer_timeout_s
+    def __init__(self, *, backoff_base_s: float = 0.01, backoff_cap_s: float = 0.25):
         self.backoff_base_s = backoff_base_s
         self.backoff_cap_s = backoff_cap_s
-        self.max_transfer_attempts = max_transfer_attempts
-        self._last_beat: Dict[str, float] = {}
-
-    def beat(self, name: str, now: float):
-        self._last_beat[name] = now
-
-    def last_beat(self, name: str) -> Optional[float]:
-        return self._last_beat.get(name)
-
-    def suspect(self, name: str, now: float) -> bool:
-        """True when ``name`` was seen but is past its heartbeat timeout (an
-        unseen name is unknown, not suspect)."""
-        last = self._last_beat.get(name)
-        return last is not None and now - last > self.heartbeat_timeout_s
-
-    def suspects(self, now: float) -> List[str]:
-        return [n for n in self._last_beat if self.suspect(n, now)]
 
     def backoff_s(self, attempt: int) -> float:
         """Delay before retry ``attempt`` (0-based): bounded exponential."""

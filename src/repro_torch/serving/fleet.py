@@ -19,9 +19,11 @@ The cloud is one shared resource: every lane's cloud stages queue on one
 multi-server ``"cloud"`` entry of one fleet-wide ``StageTimeline``
 (capacity ``cloud_servers``), and every lane's cloud KV draws pages from
 one ``PagePool`` (each lane registers its slot block), so cloud admission
-is fleet-wide while each lane keeps a private end pool.  Each lane keeps
-cloud *storage* of the pool's whole capacity, indexed by fleet-global page
-ids: one process stands in for the cloud and each end device at once.
+is fleet-wide while each lane keeps a private end pool.  One storage
+backs that pool (``kvcache.SharedPagedBlocks``, indexed by fleet-global
+page ids, the blocks from the lowest lane split on), and one copy of the
+compute-type weights serves every lane: one process stands in for the
+cloud and each end device at once.
 
 Pooled MoE lanes share one ``expertpool.FleetExpertRegistry``: de-duplicated
 residency, peer-versus-cloud slab sourcing over the modeled end<->end link
@@ -37,7 +39,12 @@ Fault injection and recovery (``fail_lane``, ``recover_lane``,
 ``set_link_rate``, ``inject_peer_faults``, ``inject_transfer_faults``,
 ``fail_cloud_server``) are not ported yet and raise (ROADMAP queue A item
 5b); their counters in ``metrics()`` read 0, as the reference's do on a run
-without faults.
+without faults.  The reference's tuning options that no caller sets
+(``end_states``, ``alpha``, ``selection_eps``, ``replan_threshold``,
+``scheduler``, ``kv_pages``, ``cloud_kv_pages``, ``expert_pool``,
+``expert_slabs``, ``expert_resident_slots``, ``expert_mem_frac``,
+``expert_prefetch_per_tick``, ``expert_dedup_min_freq``) are fixed at the
+reference's defaults: every MoE lane pools its experts.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from repro_torch.core.selection import fleet_device_mask
 from repro_torch.distributed.sharding import fleet_expert_shards
 from repro_torch.models import kvcache
 from repro_torch.models.kvcache import PagePool
+from repro_torch.models import transformer
 from repro_torch.models.model import Model
 from repro_torch.serving.common import Request, StageTimeline
 from repro_torch.serving.faults import HealthMonitor, StallGuard
@@ -74,7 +82,7 @@ class FleetLane(EndCloudServingEngine):
         return fleet_device_mask(
             self.end_profile, end_state, cfg.d_model, cfg.moe.d_ff_expert,
             cfg.moe.num_experts, cfg.moe.num_groups, gated=cfg.ffn_gated,
-            eps=self.selection_eps, selection_cap=cfg.moe.local_selection_cap,
+            selection_cap=cfg.moe.local_selection_cap,
             group_priority=self._group_priority(),
         )
 
@@ -89,33 +97,20 @@ class FleetServingEngine:
         *,
         end_profiles: Sequence[DeviceProfile],
         cloud_profile: DeviceProfile,
-        end_states: Optional[Sequence[DeviceState]] = None,
         cloud_servers: int = 1,
         codec_params: Optional[Dict] = None,
         compression_rank: int = 0,
-        alpha: float = 0.5,
-        selection_eps: float = 1.0,
         max_batch: int = 4,  # decode slots a device
         max_len: int = 512,
         n_groups: int = 2,
         force_splits: Optional[Sequence[Optional[int]]] = None,
-        replan_threshold: float = 0.15,
-        scheduler: Optional[SchedulerConfig] = None,
         max_spill: float = 1.5,
         clock: Optional[Callable[[], float]] = None,
         timing: str = "measured",
         page_size: int = 16,
-        kv_pages: Optional[int] = None,  # each lane's end-pool capacity
-        cloud_kv_pages: Optional[int] = None,  # the shared cloud capacity
         prefill_chunk: int = 16,
-        expert_pool: Optional[bool] = None,  # each lane's paged expert weights
-        expert_slabs: Optional[int] = None,
-        expert_resident_slots: Optional[int] = None,
-        expert_mem_frac: float = 0.5,
-        expert_prefetch_per_tick: int = 2,
         expert_fleet: bool = True,  # the fleet-wide registry (vs isolated pools)
         expert_peer_gbps: Optional[float] = None,  # modeled end<->end LAN rate
-        expert_dedup_min_freq: Optional[float] = None,  # default 1/E
         admission: str = "priority",  # "priority" | "fifo" (frontend and lanes)
         preemption: bool = True,
         quantize_kv: bool = False,
@@ -127,9 +122,6 @@ class FleetServingEngine:
         n = len(end_profiles)
         if n < 1:
             raise ValueError("fleet needs at least one end device")
-        states = list(end_states) if end_states is not None else [DeviceState() for _ in range(n)]
-        if len(states) != n:
-            raise ValueError(f"{len(states)} states for {n} profiles")
         if admission not in ("priority", "fifo"):
             raise ValueError(f"admission={admission!r}")
         self.model = model
@@ -137,54 +129,51 @@ class FleetServingEngine:
         self.n_devices = n
         self.cloud_servers = cloud_servers
         self.clock = clock or time.monotonic
-        self.scheduler = scheduler or SchedulerConfig(alpha=alpha)
+        self.scheduler = SchedulerConfig()
         self.max_spill = max_spill
         self.admission = admission
         self.waiting: List[Request] = []  # the frontend queue, before placement
         self.placed: List[Dict] = []  # placement log: request -> device
         self._submit_seq = 0
-        self.health = HealthMonitor()  # beaten every tick, shared by the lanes
+        self.health = HealthMonitor()  # the lanes' shared retry policy
         self.stall_limit = 256
 
         # one fleet-wide occupancy clock: each lane's end and link, and one
         # shared multi-server cloud every lane's boundaries drain into
         self.timeline = StageTimeline(resources=["cloud"], capacity={"cloud": cloud_servers})
         # one fleet-wide cloud page pool (lanes register their slot blocks)
-        pps, _ = kvcache.page_geometry(model.cfg, max_len, page_size,
-                                       chunk_headroom=prefill_chunk)
+        # and the one storage behind it
+        cfg = model.cfg
+        pps, _ = kvcache.page_geometry(cfg, max_len, page_size, chunk_headroom=prefill_chunk)
         padded = EndCloudServingEngine.padded_batch(max_batch, n_groups)
-        self.cloud_pool = PagePool(cloud_kv_pages or n * padded * pps, page_size, pps, n_slots=0)
+        self.cloud_pool = PagePool(n * padded * pps, page_size, pps, n_slots=0)
+        self.cloud_kv = kvcache.SharedPagedBlocks(cfg, self.cloud_pool.num_pages, page_size,
+                                                  cfg.torch_dtype, model.device,
+                                                  quantized=quantize_kv)
         # the fleet expert store: lanes register in device order, so
         # registry lane ids are device ids; it prices wire costs at the
         # stored slab size (int8 slabs under quantize_experts)
-        pooled = bool((expert_pool if expert_pool is not None else True)
-                      and model.cfg.moe is not None
-                      and any(spec.moe for spec in model.cfg.layer_pattern))
         self.expert_registry: Optional[expertpool.FleetExpertRegistry] = None
-        if expert_fleet and pooled:
-            n_moe = sum(1 for spec in model.cfg.layer_pattern if spec.moe)
+        if expert_fleet and cfg.moe is not None and any(spec.moe for spec in cfg.layer_pattern):
+            n_moe = sum(1 for spec in cfg.layer_pattern if spec.moe)
             self.expert_registry = expertpool.FleetExpertRegistry(
-                n_moe * model.cfg.block_repeat,
-                model.cfg.moe.num_experts,
-                expertpool.expert_slab_bytes(model.cfg, quantized=quantize_experts),
+                n_moe * cfg.block_repeat,
+                cfg.moe.num_experts,
+                expertpool.expert_slab_bytes(cfg, quantized=quantize_experts),
                 lan_gbps=expert_peer_gbps,
-                dedup_min_freq=expert_dedup_min_freq,
             )
+        cparams = transformer.compute_params(params, cfg)  # one copy for every lane
         self.lanes: List[FleetLane] = [
             FleetLane(
                 model, params,
-                end_profile=end_profiles[i], cloud_profile=cloud_profile, end_state=states[i],
-                codec_params=codec_params, compression_rank=compression_rank, alpha=alpha,
-                selection_eps=selection_eps, max_batch=max_batch, max_len=max_len,
-                n_groups=n_groups,
+                end_profile=end_profiles[i], cloud_profile=cloud_profile,
+                codec_params=codec_params, compression_rank=compression_rank,
+                max_batch=max_batch, max_len=max_len, n_groups=n_groups,
                 force_split=force_splits[i] if force_splits is not None else None,
-                replan_threshold=replan_threshold, clock=self.clock, timeline=self.timeline,
+                clock=self.clock, timeline=self.timeline,
                 resources=(f"end{i}", f"link{i}", "cloud"), cloud_share=cloud_servers / n,
-                timing=timing, page_size=page_size, kv_pages=kv_pages,
-                prefill_chunk=prefill_chunk, cloud_pool=self.cloud_pool,
-                expert_pool=expert_pool, expert_slabs=expert_slabs,
-                expert_resident_slots=expert_resident_slots, expert_mem_frac=expert_mem_frac,
-                expert_prefetch_per_tick=expert_prefetch_per_tick,
+                timing=timing, page_size=page_size, prefill_chunk=prefill_chunk,
+                cloud_pool=self.cloud_pool, cloud_kv=self.cloud_kv, cparams=cparams,
                 expert_registry=self.expert_registry, admission=admission,
                 preemption=preemption, health=self.health, quantize_kv=quantize_kv,
                 quantize_experts=quantize_experts, quantize_boundary=quantize_boundary,
@@ -278,12 +267,9 @@ class FleetServingEngine:
     # -- stepping -------------------------------------------------------------
 
     def step(self) -> int:
-        """One fleet tick: beat every lane, push every lane's measured route
-        frequencies into the registry, place frontend requests, then advance
-        every lane in device order."""
-        now = self.clock()
-        for i in range(self.n_devices):
-            self.health.beat(f"lane{i}", now)
+        """One fleet tick: push every lane's measured route frequencies into
+        the registry, place frontend requests, then advance every lane in
+        device order."""
         if self.expert_registry is not None:
             for i, lane in enumerate(self.lanes):
                 self.expert_registry.note_freq(i, lane._route_freq)
@@ -363,14 +349,11 @@ class FleetServingEngine:
         return [lane.tiers.end_mask for lane in self.lanes]
 
     def defrag_kv(self):
-        """Compact the shared cloud pool: one permutation, applied to every
-        lane's cloud storage (each lane's private end pool compacts at its
-        own replans).  The gathers make new tensors, one set a lane."""
+        """Compact the shared cloud pool: one permutation, applied once to
+        the one cloud storage every lane views (each lane's private end pool
+        compacts at its own replans)."""
         perm = self.cloud_pool.defrag()
-        for lane in self.lanes:
-            idx = torch.from_numpy(perm).to(lane.device)
-            lane._cloud_pages = {pos: {k: leaf[:, idx] for k, leaf in entry.items()}
-                                 for pos, entry in lane._cloud_pages.items()}
+        self.cloud_kv.permute(torch.from_numpy(perm).to(self.cloud_kv.device))
 
     def metrics(self) -> Dict:
         per_device = [lane.metrics() for lane in self.lanes]

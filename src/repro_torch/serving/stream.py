@@ -71,10 +71,12 @@ one copy each.
 * **Fleet sharing.**  A fleet lane (``serving.fleet``) shares one
   ``StageTimeline`` (its own ``resources`` for end and link, one
   multi-server cloud), one cloud ``PagePool`` (the lane's slots are a block
-  of fleet-global slot ids from ``cloud_pool.add_slots``, its storage is
-  indexed by fleet-global page ids), and one ``FleetExpertRegistry`` that
-  plans residency, picks peer or cloud as each slab's source and prices
-  group admits; ``cloud_share`` scales the planner's view of the cloud.
+  of fleet-global slot ids from ``cloud_pool.add_slots``) with one storage
+  behind it (``cloud_kv``, indexed by fleet-global page ids; the lane reads
+  the blocks from its split on), one copy of the compute-type weights
+  (``cparams``), and one ``FleetExpertRegistry`` that plans residency,
+  picks peer or cloud as each slab's source and prices group admits;
+  ``cloud_share`` scales the planner's view of the cloud.
 * **Modeled clock.**  Handed a ``VirtualClock``, the engine stamps first
   tokens and finishes at the modeled completion of the stage that made
   them, and prefill starts no earlier than the request's arrival, so the
@@ -84,7 +86,10 @@ one copy each.
 Not ported yet (each raises ``NotImplementedError``, ROADMAP queue A item
 5b): injected transfer faults (``inject_transfer_faults``), lane
 ``evacuate`` with the speculative abort it calls, ``set_cloud_share`` and
-the migrated restore.
+the migrated restore.  The reference's tuning options that no caller sets
+(``end_state``, ``alpha``, ``selection_eps``, ``replan_threshold``,
+``kv_pages``, ``expert_slabs``, ``blackout_gbps``) are fixed at the
+reference's defaults.
 """
 
 from __future__ import annotations
@@ -213,27 +218,23 @@ class EndCloudServingEngine(SlotEngineBase):
         *,
         end_profile: DeviceProfile,
         cloud_profile: DeviceProfile,
-        end_state: Optional[DeviceState] = None,
         codec_params: Optional[Dict] = None,  # 1-D low-rank codec {"enc","dec"}
         compression_rank: int = 0,
-        alpha: float = 0.5,
-        selection_eps: float = 1.0,
         max_batch: int = 8,
         max_len: int = 512,
         n_groups: int = 2,
         force_split: Optional[int] = None,
-        replan_threshold: float = 0.15,
         clock: Optional[Callable[[], float]] = None,
         timeline: Optional[StageTimeline] = None,  # a fleet's shared clock
         resources: Tuple[str, str, str] = _RESOURCES,  # (end, link, cloud) names
         cloud_share: float = 1.0,  # this lane's share of a fleet's cloud
         timing: str = "measured",
         page_size: int = 16,
-        kv_pages: Optional[int] = None,
         prefill_chunk: int = 16,
         cloud_pool: Optional[PagePool] = None,  # a fleet's shared cloud pages
+        cloud_kv: Optional[kvcache.SharedPagedBlocks] = None,  # and their storage
+        cparams: Optional[Dict] = None,  # a fleet's shared compute-type weights
         expert_pool: Optional[bool] = None,  # None = on for MoE models
-        expert_slabs: Optional[int] = None,  # physical slab-pool size
         expert_resident_slots: Optional[int] = None,  # per-layer slot count
         expert_mem_frac: float = 0.5,  # end memory budget share for slabs
         expert_prefetch_per_tick: int = 2,
@@ -281,12 +282,11 @@ class EndCloudServingEngine(SlotEngineBase):
         # is the store's); the tiers run on copies of the weights in the
         # activation type, as the reference casts them at every use
         self.params = params
-        self._cparams = transformer.compute_params(params, cfg)
+        self._cparams = (cparams if cparams is not None
+                         else transformer.compute_params(params, cfg))
         self.end_profile = end_profile
         self.cloud_profile = cloud_profile
-        self.end_state = end_state or DeviceState()
-        self.selection_eps = selection_eps
-        self.replan_threshold = replan_threshold
+        self.end_state = DeviceState()
 
         self._moe_pos = [i for i, spec in enumerate(cfg.layer_pattern) if spec.moe]
         self._expert_pooled = bool(
@@ -312,8 +312,6 @@ class EndCloudServingEngine(SlotEngineBase):
             end_mask=mask,
             codec_params=codec_params,
             compression_rank=compression_rank,
-            alpha=alpha,
-            selection_eps=selection_eps,
             force_split=force_split,
             cloud_share=cloud_share,
         )
@@ -361,26 +359,40 @@ class EndCloudServingEngine(SlotEngineBase):
                 "(a chunk must fit the slot's page list)"
             )
         self.prefill_chunk = prefill_chunk
-        n_pages = kv_pages or padded_batch * self.pages_per_slot
+        n_pages = padded_batch * self.pages_per_slot
         self.end_pool = PagePool(n_pages, page_size, self.pages_per_slot, n_slots=padded_batch)
+        self._cloud_kv: Optional[kvcache.SharedPagedBlocks] = None
         if cloud_pool is None:
             self.cloud_pool = PagePool(n_pages, page_size, self.pages_per_slot,
                                        n_slots=padded_batch)
             self._cloud_base = 0
             self._cloud_shared = False
+            self._end_pages, self._cloud_pages = init_tier_pages(
+                cfg, self.split, n_pages, n_pages, page_size, cfg.torch_dtype, self.device,
+                quantized=self.quantize_kv,
+            )
         else:
             # a fleet's pool: this lane's slots are a block of fleet-global
-            # slot ids, and its storage is indexed by fleet-global pages
+            # slot ids, and its cloud blocks are views of one storage
+            # indexed by fleet-global pages (see _cloud_pages)
             if (cloud_pool.page_size != page_size
                     or cloud_pool.pages_per_slot != self.pages_per_slot):
                 raise ValueError("shared cloud pool geometry mismatch")
+            if cloud_kv is None:
+                cloud_kv = kvcache.SharedPagedBlocks(cfg, cloud_pool.num_pages, page_size,
+                                                     cfg.torch_dtype, self.device,
+                                                     quantized=self.quantize_kv)
+            if cloud_kv.num_pages != cloud_pool.num_pages or cloud_kv.quantized != self.quantize_kv:
+                raise ValueError("shared cloud storage does not match the pool")
             self.cloud_pool = cloud_pool
             self._cloud_base = cloud_pool.add_slots(padded_batch)
             self._cloud_shared = True
-        self._end_pages, self._cloud_pages = init_tier_pages(
-            cfg, self.split, self.end_pool.num_pages, self.cloud_pool.num_pages, page_size,
-            cfg.torch_dtype, self.device, quantized=self.quantize_kv,
-        )
+            self._cloud_kv = cloud_kv
+            cloud_kv.reserve(self.split)
+            self._end_pages = kvcache.init_paged_blocks(
+                cfg, self.split, n_pages, page_size, cfg.torch_dtype, self.device,
+                quantized=self.quantize_kv,
+            )
         self._slot_len = np.zeros((padded_batch,), np.int64)
         self._jobs: Dict[int, _PrefillJob] = {}  # slot -> in-flight prefill
 
@@ -412,7 +424,7 @@ class EndCloudServingEngine(SlotEngineBase):
                 cfg, quantized=self.quantize_experts)
             self._slab_bytes_dense = expertpool.expert_slab_bytes(cfg)
             self._expert_mem_frac = expert_mem_frac
-            n_slabs = expert_slabs or n_layers * self._s_cap
+            n_slabs = n_layers * self._s_cap
             self.expert_pool = expertpool.ExpertSlabPool(n_slabs, n_layers, E, self._s_cap)
             self._slab_store = expertpool.init_slab_store(
                 cfg, n_slabs, quantized=self.quantize_experts, device=self.device)
@@ -486,6 +498,21 @@ class EndCloudServingEngine(SlotEngineBase):
         """A slot's row in the (possibly fleet-shared) cloud pool."""
         return self._cloud_base + slot
 
+    @property
+    def _cloud_pages(self) -> Dict:
+        """The cloud tier's paged storage: the engine's own, or in a fleet
+        views from this lane's split on of the one shared storage."""
+        if self._cloud_kv is not None:
+            return self._cloud_kv.view(self.split)
+        return self._own_cloud_pages
+
+    @_cloud_pages.setter
+    def _cloud_pages(self, pages: Dict):
+        # the stage functions write their pages in place and hand them back:
+        # a shared storage already holds what they wrote
+        if self._cloud_kv is None:
+            self._own_cloud_pages = pages
+
     def _split_params(self):
         self.end_params, self.cloud_params = split_block_params(self._cparams, self.split)
         if self._expert_pooled:
@@ -498,8 +525,7 @@ class EndCloudServingEngine(SlotEngineBase):
         registry's placement cost.  A fleet lane overrides it with the
         fleet's never-empty mask."""
         return end_mask_from_state(
-            self.cfg, self.end_profile, end_state, selection_eps=self.selection_eps,
-            group_priority=self._group_priority(),
+            self.cfg, self.end_profile, end_state, group_priority=self._group_priority(),
         )
 
     def _group_priority(self):
@@ -1654,7 +1680,6 @@ class EndCloudServingEngine(SlotEngineBase):
             measured_gbps=self.bw.gbps,
             compression_ratio=self.tiers.compression_ratio,
             alpha=self.tiers.alpha,
-            rel_threshold=self.replan_threshold,
             edge_boundary=True,
         )
         moved = (plan.split_layer != self.plan.split_layer
@@ -1679,6 +1704,32 @@ class EndCloudServingEngine(SlotEngineBase):
             pages = getattr(self, attr)
             setattr(self, attr, {pos: {k: leaf[:, perm] for k, leaf in entry.items()}
                                  for pos, entry in pages.items()})
+
+    def _resplit_shared(self, old_split: int, cloud_rows: np.ndarray, e2c: np.ndarray,
+                        c2e: np.ndarray):
+        """:func:`kvcache.resplit_paged_blocks` against a fleet's shared cloud
+        storage: blocks entering the cloud tier are written at this lane's
+        own pages only (the other rows are other lanes' KV), blocks leaving
+        it are gathered into the end pool, and the storage keeps them."""
+        new, kv = self.split, self._cloud_kv
+        if new < old_split:  # blocks [new, old) end -> cloud
+            kv.reserve(new)
+            dst = cloud_rows[cloud_rows >= 0].astype(np.int64)
+            src = torch.from_numpy(e2c[dst]).to(self.device)
+            dst = torch.from_numpy(dst).to(self.device)
+            lo, hi = new - kv.base, old_split - kv.base
+            for pos, entry in self._end_pages.items():
+                for n, leaf in entry.items():
+                    kv.blocks[pos][n][lo:hi, dst] = leaf[new:old_split][:, src]
+            self._end_pages = {pos: {n: leaf[:new] for n, leaf in entry.items()}
+                               for pos, entry in self._end_pages.items()}
+        else:  # blocks [old, new) cloud -> end
+            perm = torch.from_numpy(c2e).to(self.device)
+            cloud = kv.view(old_split)
+            self._end_pages = {
+                pos: {n: torch.cat([leaf, cloud[pos][n][:new - old_split][:, perm]])
+                      for n, leaf in entry.items()}
+                for pos, entry in self._end_pages.items()}
 
     def _apply_pending_replan(self):
         """Adopt a pending plan or mask once no boundary is in flight: re-split
@@ -1713,9 +1764,12 @@ class EndCloudServingEngine(SlotEngineBase):
                                     self.end_pool.num_pages, self.cloud_pool.num_pages)
             c2e = kvcache.page_perm(cloud_rows, self.end_pool.table,
                                     self.cloud_pool.num_pages, self.end_pool.num_pages)
-            self._end_pages, self._cloud_pages = kvcache.resplit_paged_blocks(
-                self._end_pages, self._cloud_pages, old_split, self.split, e2c, c2e,
-            )
+            if self._cloud_kv is None:
+                self._end_pages, self._cloud_pages = kvcache.resplit_paged_blocks(
+                    self._end_pages, self._cloud_pages, old_split, self.split, e2c, c2e,
+                )
+            else:
+                self._resplit_shared(old_split, cloud_rows, e2c, c2e)
             self._defrag_pools()
         if self._expert_pooled:
             # blocks entering the end tier fill their target residents with

@@ -11,7 +11,9 @@ the one shared cloud pool at the same tick, one of them at a nonzero
 ``_cloud_base``: a lane indexing another's slot rows would change tokens
 there.  Cases: one lane (which also equals the standalone engine), three
 heterogeneous lanes over two cloud servers, a bandwidth cut on one lane,
-speculative lanes (``spec_k=4``), and ``defrag_kv`` mid-run.  (The expert
+a lane's replan moving blocks into and out of the one shared cloud storage
+while another lane's pages live in it, speculative lanes (``spec_k=4``),
+and ``defrag_kv`` mid-run.  (The expert
 registry's cases: ``test_torch_fleet_experts.py``.)
 """
 
@@ -171,6 +173,47 @@ def test_heterogeneous_lanes_share_the_cloud(tiny):
     lane_cloud = sum(l._stage_busy["cloud"] + l._prefill_busy["cloud"] for l in tf.lanes)
     assert tf.metrics()["cloud_busy_s"] == pytest.approx(lane_cloud)
     assert [l._cloud_base for l in tf.lanes] == [0, 2, 4]
+    # one cloud storage (the pool's pages, from the lowest split on) and one
+    # copy of the compute-type weights behind every lane
+    R = tf.cfg.block_repeat
+    leaf = tf.cloud_kv.blocks["pos0"]["k"]
+    assert leaf.shape[:2] == (R - min(l.split for l in tf.lanes), tf.cloud_pool.num_pages + 1)
+    assert all(l._cloud_kv is tf.cloud_kv and l._cparams is tf.lanes[0]._cparams
+               for l in tf.lanes)
+
+
+@pytest.mark.parametrize("direction", ["to_cloud", "to_end"])
+def test_lane_replan_across_the_shared_storage(tiny, direction):
+    """Lane 1 re-splits while lane 0's pages live in the shared cloud
+    storage: a blackout moves its blocks [0, 3) into the storage, below
+    the lowest split it held so far (the storage grows downward, and only
+    lane 1's pages are written); a faster link moves its blocks [0, R)
+    out of it.  Tokens and metrics stay the reference's."""
+    held = []
+
+    def spy(f):
+        lane = f.lanes[1]
+        if hasattr(lane, "_resplit_shared"):  # the port's lane
+            inner = lane._resplit_shared
+
+            def resplit(*a):
+                held.append([f.cloud_pool.mapped_for(l._own_cloud()) for l in f.lanes])
+                return inner(*a)
+            lane._resplit_shared = resplit
+
+    if direction == "to_cloud":
+        kw = dict(ends=["mid", "strong"], cloud="a100", force_splits=[2, 3])
+        act = {0: spy, 3: lambda f: f.observe_bandwidth(1, 0.001),
+               8: lambda f: f.observe_bandwidth(1, 1.0)}
+        moves = [(3, 0)]
+    else:
+        kw = dict(ends=["a100", "a100"], cloud="cloud", force_splits=[1, 0])
+        act = {0: spy, **{t: (lambda f: f.observe_bandwidth(1, 5.0)) for t in range(3, 8)}}
+        moves = [(0, tiny[1][0].cfg.block_repeat)]
+    _, tf, _ = check(tiny, cloud_servers=2, max_batch=2, n_req=8, new=16, actions=act, **kw)
+    assert [(ev["old_split"], ev["new_split"]) for ev in tf.replan_events] == moves
+    assert len(held) == 1 and all(n > 0 for n in held[0])
+    assert tf.cloud_kv.base == min(kw["force_splits"] + [s for _, s in moves])
 
 
 def test_bandwidth_cut_replans_only_that_lane(tiny):
@@ -191,8 +234,8 @@ def test_speculative_lanes(tiny):
 
 
 def test_defrag_mid_run(tiny):
-    """``defrag_kv`` compacts the shared pool and permutes every lane's
-    cloud storage by the same permutation, once a lane."""
+    """``defrag_kv`` compacts the shared pool and permutes the one cloud
+    storage every lane views, once."""
     moved = []
 
     def defrag(f):

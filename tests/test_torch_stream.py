@@ -206,27 +206,29 @@ def _engine(tiny, **kw):
 
 
 @pytest.mark.parametrize("option,value,match", [
-    pytest.param("cloud_pool", lambda e: PagePool(64, 16, e.pages_per_slot), "fleet",
+    pytest.param("cloud_pool", lambda e: PagePool(64, 16, e.pages_per_slot), "5b",
                  id="cloud_pool-value0-fleet"),
     pytest.param("expert_registry",
                  lambda e: FleetExpertRegistry(e.expert_pool.n_layers, e.expert_pool.num_experts,
                                                e._slab_bytes),
-                 "fleet", id="expert_registry-value1-fleet"),
-    pytest.param("timeline", lambda e: StageTimeline(["cloud"], capacity={"cloud": 2}), "fleet",
+                 "5b", id="expert_registry-value1-fleet"),
+    pytest.param("timeline", lambda e: StageTimeline(["cloud"], capacity={"cloud": 2}), "5b",
                  id="timeline-value2-fleet"),
-    pytest.param("resources", lambda e: ("e", "l", "c"), "fleet", id="resources-value3-fleet"),
-    pytest.param("health", lambda e: HealthMonitor(), "health", id="health-value4-health"),
+    pytest.param("resources", lambda e: ("e", "l", "c"), "5b", id="resources-value3-fleet"),
+    pytest.param("health", lambda e: HealthMonitor(), "5b", id="health-value4-health"),
 ])
 def test_unported_options_raise(tiny, option, value, match):
     """The fleet-sharing options are ported (the fleet engine passes them;
     ``test_torch_fleet.py`` holds it to the reference): each is accepted and
     wired in, while the fault half they belong to (ROADMAP queue A item
-    5b) still raises."""
+    5b) still raises.  The name and case ids are the ones the options had
+    while they raised."""
     plain = _engine(tiny)
     v = value(plain)
     eng = _engine(tiny, **{option: v})
     if option == "cloud_pool":
         assert eng.cloud_pool is v and eng._cloud_shared and eng._cloud_base == 0
+        assert eng._cloud_kv.num_pages == v.num_pages and eng._cloud_kv.base == eng.split
         assert v.table.shape[0] == eng.max_batch
     elif option == "expert_registry":
         assert eng.expert_registry is v and eng._registry_lane == 0 and v.n_lanes == 1
