@@ -154,10 +154,33 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``summarize()`` a class (modeled clock, not the card's speed), only the
    path's kernels launch (``FLEET_BF16_PATH``), and one profiled fleet
    tick (``chiprun_out/fleet_profile.txt``) beside phases 6-7's ticks.
+10. Chaos on that fleet (``chaos_phase``): ``CHAOS_N`` of the seeded
+   requests under a declared schedule after ``benchmarks/serve_chaos.py``
+   with every kind of event (``chaos_faults``: a peer-fetch fault armed at
+   once, flaky uploads on lane 0, lane 1's crash while it decodes and its
+   cold recovery, the loss of one of the two cloud servers, a blackout
+   window on lane 0), each event on a tick of its own (``CHAOS_TIMES``,
+   placed by ``chaos_calibrate``; ``--chaos-timeline`` runs the phase alone
+   and times them anew).  In f32 with the exact boundary: a clean and a
+   chaos run on the card and the port's CPU chaos run; card = CPU in fire
+   log, placement log, replans, fault counters, peer-fault fallbacks,
+   ``FLEET_COUNTERS``, the server-loss shard layout and every request's
+   stamps, tokens equal or the first difference a near tie; every request
+   finishes once, each fault met live traffic (migrations with spilled
+   bytes, lane 0 at split 0 with degraded ticks, retries, one server lost,
+   a peer fetch fell back), the pools and the migration park drain; the
+   requests no fault moved keep the clean run's tokens (or differ first at
+   a near tie); the interactive class's modeled p99 TTFT beside the fault
+   window.  In bf16 with the int8 streams and the rank-384 codec: the same
+   checks but the CPU's, the migrated bytes a page below 0.7 of the f32
+   run's, only ``CHAOS_BF16_PATH``'s kernels, device memory after the
+   blackout's ``reserve(0)``, and one profiled tick with lane 1 down
+   (``chiprun_out/chaos_profile.txt``) beside phase 9's.
 
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
-in phase 9's bf16 fleet run), the ``nvidia-smi``
+in phase 9's bf16 fleet run; ``chaos_launches``: in phase 10's bf16 chaos
+run), the ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
@@ -2626,27 +2649,32 @@ FLEET_COUNTERS = ("splits", "replan_events", "preemptions", "preempt_restores",
                   "n_host_syncs", "n_placed", "tokens", "kv_pages_in_use")
 
 
-def fleet_schedule(vocab):
-    """``FLEET_N`` requests at ``FLEET_RATE`` (Poisson, seed 9), the
-    interactive and batch classes of ``benchmarks/serve_load.py`` (seed
-    10)."""
+def fleet_schedule(vocab, n=FLEET_N):
+    """``n`` requests at ``FLEET_RATE`` (Poisson, seed 9), the interactive
+    and batch classes of ``benchmarks/serve_load.py`` (seed 10)."""
     from repro_torch.serving import loadgen
 
-    arr = loadgen.poisson_arrivals(FLEET_N, FLEET_RATE, seed=9)
+    arr = loadgen.poisson_arrivals(n, FLEET_RATE, seed=9)
     return loadgen.build_schedule(arr, (loadgen.INTERACTIVE, loadgen.BATCH), seed=10, vocab=vocab)
 
 
-def fleet_run(torch, model, params, *, profile_tick=False, **kw):
-    """The seeded schedule through a fresh three-lane fleet, driven by
-    ``loadgen.drive`` on a ``VirtualClock``: ``stream_engine``'s settings on
-    each lane (8 slots in 2 groups, 16-token pages, prefill chunk 32,
-    max_len 256, the rank-384 codec), an a100 cloud of two servers, modeled
-    stage times, priority admission with preemption, the expert pools under
-    the fleet registry.  Before tick ``FLEET_SKEW_TICKS[i]`` lane i's
-    measured routing turns hot on group 2 and its mask is re-derived, so
-    lane 1's new slabs come from lane 0 over the LAN.  ``profile_tick``
-    profiles the first tick that starts with every lane decoding and no
-    prefill in flight (``fleet_decoding``), and the first such tick with no
+def fleet_run(torch, model, params, *, profile_tick=None, n=FLEET_N, faults=(), watch=None,
+              **kw):
+    """The seeded schedule of ``n`` requests through a fresh three-lane
+    fleet, driven by ``loadgen.drive`` on a ``VirtualClock``:
+    ``stream_engine``'s settings on each lane (8 slots in 2 groups, 16-token
+    pages, prefill chunk 32, max_len 256, the rank-384 codec unless
+    ``compression_rank`` says otherwise), an a100 cloud of two servers,
+    modeled stage times, priority admission with preemption, the expert
+    pools under the fleet registry.  Before tick ``FLEET_SKEW_TICKS[i]``
+    lane i's measured routing turns hot on group 2 and its mask is
+    re-derived, so lane 1's new slabs come from lane 0 over the LAN.
+    ``faults`` (``(t_s, kind, kwargs)`` events) fire through a bound
+    ``ChaosInjector``, the layouts ``fail_cloud_server`` returns are kept
+    in ``fleet.lost_server_shards`` and the pages of the slots a crash
+    parks are counted in ``fleet.migrated_pages``; ``watch(fleet, tick)``
+    runs after each tick.  ``profile_tick(fleet)`` (a predicate) profiles the first
+    tick that starts where it holds, and the first such tick with no
     request waiting either, which runs decode steps only and replaces it.
     Returns (requests, fleet, ticks, (tick, slots decoding, (end steps,
     cloud steps, prefill chunks), decode only, profiler averages, wall s) or
@@ -2655,18 +2683,42 @@ def fleet_run(torch, model, params, *, profile_tick=False, **kw):
 
     from repro_torch.core.hardware import PROFILES
     from repro_torch.serving import FleetServingEngine, VirtualClock, loadgen
+    from repro_torch.serving.faults import ChaosInjector, FaultEvent, FaultSchedule
 
     cfg = model.cfg
+    kw.setdefault("compression_rank", 384)
     fleet = FleetServingEngine(
         model, params, end_profiles=[PROFILES[n] for n in FLEET_ENDS],
-        cloud_profile=PROFILES["a100"], cloud_servers=2, compression_rank=384, max_batch=8,
+        cloud_profile=PROFILES["a100"], cloud_servers=2, max_batch=8,
         n_groups=2, page_size=16, prefill_chunk=32, max_len=256, timing="modeled",
         clock=VirtualClock(), force_splits=FLEET_SPLITS, expert_peer_gbps=FLEET_PEER_GBPS, **kw)
+    fleet.lost_server_shards = []
+    fleet.migrated_pages = 0
+    if faults:
+        ChaosInjector(FaultSchedule([FaultEvent(t, k, **a) for t, k, a in faults]), fleet)
+        fail_server = fleet.fail_cloud_server
+
+        def failed_server():
+            fleet.lost_server_shards.append(fail_server())
+            return fleet.lost_server_shards[-1]
+
+        fleet.fail_cloud_server = failed_server
+        fail_lane = fleet.fail_lane
+
+        def failed_lane(device):
+            before = set(fleet._migrating)
+            fail_lane(device)
+            fleet.migrated_pages += sum(len(fleet._migrating[r].entries)
+                                        for r in set(fleet._migrating) - before)
+
+        fleet.fail_lane = failed_lane
     E, K = cfg.moe.num_experts, cfg.moe.num_groups
     gf, ef = np.zeros(K), np.zeros(E)
     gf[2] = 1.0
     ef[2 * (E // K):3 * (E // K)] = K / E
     step, state = fleet.step, {"tick": 0, "prof": None}
+
+    fleet.tick_log = []
 
     def stepped():
         t = state["tick"]
@@ -2676,14 +2728,19 @@ def fleet_run(torch, model, params, *, profile_tick=False, **kw):
                 lane = fleet.lanes[i]
                 lane._group_freq, lane._route_freq = gf.copy(), ef.copy()
                 fleet.update_device_state(i, type(lane.end_state)())
+        # the clock the injector reads at this tick, and the lanes then
+        fleet.tick_log.append({"t": fleet.clock(),
+                               "active": [int(l._active.sum()) for l in fleet.lanes],
+                               "fallbacks": fleet.expert_registry.peer_fault_fallbacks})
         only = not fleet.waiting and not any(l.waiting for l in fleet.lanes)
-        if (profile_tick and (state["prof"] is None or (only and not state["prof"][3]))
-                and fleet_decoding(fleet)):
+        if (profile_tick is not None and (state["prof"] is None or (only and not state["prof"][3]))
+                and profile_tick(fleet)):
             from torch.profiler import ProfilerActivity, profile
 
-            slots = sum(int(l._active.sum()) for l in fleet.lanes)
+            live = [l for i, l in enumerate(fleet.lanes) if fleet.lane_alive[i]]
+            slots = sum(int(l._active.sum()) for l in live)
             # the groups with a boundary in flight drain on the cloud this tick
-            clouds = sum(p == "boundary" for l in fleet.lanes for p in l._phase)
+            clouds = sum(p == "boundary" for l in live for p in l._phase)
             before = [sum(getattr(l, k) for l in fleet.lanes)
                       for k in ("n_stage_steps", "n_prefill_chunks")]
             torch.cuda.synchronize()
@@ -2695,11 +2752,14 @@ def fleet_run(torch, model, params, *, profile_tick=False, **kw):
             ends, chunks = (sum(getattr(l, k) for l in fleet.lanes) - b for k, b in
                             zip(("n_stage_steps", "n_prefill_chunks"), before))
             state["prof"] = (t, slots, (ends, clouds, chunks), only, prof.key_averages(), wall)
-            return out
-        return step()
+        else:
+            out = step()
+        if watch is not None:
+            watch(fleet, t)
+        return out
 
     fleet.step = stepped
-    reqs = loadgen.drive(fleet, fleet_schedule(cfg.vocab_size))
+    reqs = loadgen.drive(fleet, fleet_schedule(cfg.vocab_size, n))
     return reqs, fleet, state["tick"], state["prof"]
 
 
@@ -2793,10 +2853,8 @@ def fleet_bf16(torch, model, params, counters, tick_profiles):
     """Phase 9 in bf16 with the three int8 streams: completes, drains,
     summarizes the classes on the modeled clock, launches the path's
     kernels and no other, and one profiled fleet tick beside phases 6-7's
-    single-engine ticks (``tick_profiles``).  Returns the run's launch
-    counts."""
-    from torch.autograd import DeviceType
-
+    single-engine ticks (``tick_profiles``, which gains it).  Returns the
+    run's launch counts."""
     from repro_torch.serving import loadgen
 
     gc.collect()
@@ -2806,7 +2864,8 @@ def fleet_bf16(torch, model, params, counters, tick_profiles):
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
-    reqs, fleet, ticks, prof = fleet_run(torch, model, params, profile_tick=True, **QUANT)
+    reqs, fleet, ticks, prof = fleet_run(torch, model, params, profile_tick=fleet_decoding,
+                                         **QUANT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
@@ -2833,12 +2892,22 @@ def fleet_bf16(torch, model, params, counters, tick_profiles):
             f"{s['sustained_tok_s']:.1f} tokens/s, preemptions {s['preemptions']}")
     if prof is None:
         raise AssertionError("fleet bf16: no tick had every lane decoding and no prefill")
+    tick_profiles["fleet (phase 9, three lanes)"] = log_fleet_tick(
+        prof, "fleet bf16", "every lane decoding", "fleet_profile.txt", tick_profiles)
+    return launches
+
+
+def log_fleet_tick(prof, tag, when, name, tick_profiles):
+    """Log a profiled fleet tick (``fleet_run``'s record) beside the ticks
+    of ``tick_profiles`` and write its table to ``chiprun_out/name``;
+    returns (device ms, wall ms)."""
+    from torch.autograd import DeviceType
+
     ptick, slots, calls, only, avgs, pwall = prof
     dev = [e for e in avgs if e.device_type != DeviceType.CPU]
     dev_us = sum(e.self_device_time_total for e in dev)
-    (OUT_DIR / "fleet_profile.txt").write_text(avgs.table(sort_by="cuda_time_total",
-                                                          row_limit=40))
-    base = ", ".join(f"{tag} {d:.3f} ms of {w:.3f} ms" for tag, (d, w) in tick_profiles.items())
+    (OUT_DIR / name).write_text(avgs.table(sort_by="cuda_time_total", row_limit=40))
+    base = ", ".join(f"{t} {d:.3f} ms of {w:.3f} ms" for t, (d, w) in tick_profiles.items())
     in_path = kernels_in_path(dev, (
         *ffn_kernels("resident FFN", "signed char"),
         *ffn_kernels("cloud expert FFN", "__nv_bfloat16"),
@@ -2848,14 +2917,14 @@ def fleet_bf16(torch, model, params, counters, tick_profiles):
             else "decode steps and the prefill chunks of requests admitted in the tick")
     ends, clouds, chunks = calls
     n_calls = ends + clouds + 2 * chunks  # a prefill chunk: one end and one cloud call
-    log(f"fleet bf16 profile (tick {ptick}, every lane decoding, {slots} slots, {ends} end "
+    log(f"{tag} profile (tick {ptick}, {when}, {slots} slots, {ends} end "
         f"steps, {clouds} cloud steps, {chunks} prefill chunks: {what}): device time "
         f"{dev_us / 1e3:.3f} ms of {pwall * 1e3:.3f} ms wall "
         f"({dev_us / 1e3 / (pwall * 1e3):.1%} busy; {dev_us / 1e3 / max(n_calls, 1):.3f} ms of "
-        f"device time a stage call); kernels in path, a launch: {in_path}; the single "
-        f"engine's profiled ticks (phases 6-7, 8 slots, 2 end and 2 cloud steps): {base}; "
-        f"written to chiprun_out/fleet_profile.txt")
-    return launches
+        f"device time a stage call); kernels in path, a launch: {in_path}; beside the "
+        f"profiled ticks of earlier phases (the single engine's in phases 6-7: 8 slots, 2 end "
+        f"and 2 cloud steps): {base}; written to chiprun_out/{name}")
+    return dev_us / 1e3, pwall * 1e3
 
 
 def fleet_phase(torch, model, params, counters, tick_profiles):
@@ -2868,6 +2937,354 @@ def fleet_phase(torch, model, params, counters, tick_profiles):
     log(f"fleet bf16 run took {time.perf_counter() - t0:.1f} s")
     return launches
 
+
+
+# -- phase 10: chaos on the fleet ---------------------------------------------
+
+CHAOS_N = 32  # phase 9's schedule with fewer requests (the phase's seconds)
+# the declared schedule, after benchmarks/serve_chaos.py::_fault_schedule
+# and extended to every kind of event: the peer fault is armed at once and
+# meets the first peer fetch; flaky uploads on lane 0; lane 1 (split 2)
+# dies while it decodes, its slots migrate onto the split-1 lanes, and it
+# recovers cold three ticks or more later; one of the two cloud servers is
+# lost; lane 0's link blacks out (split 0) and recovers.  An event fires at the first tick whose modeled
+# clock (the driver moves it to the timeline's makespan after each tick)
+# has passed it; slab transfers book seconds of a jetson-orin uplink ahead
+# of the decode, so the clock leaps and then stands still for ticks.  The
+# times, in modeled seconds, are each run's own (f32 slabs and the exact
+# boundary, or int8 slabs and the rank-384 codec), placed on its own
+# timeline by ``chaos_calibrate`` so that each fault lands on a tick of its
+# own (``python3 chip_smoke.py --chaos-timeline`` prints them)
+CHAOS_TIMES = {
+    "f32": {"transfer_flaky": 0.004929733406140636, "lane_crash": 0.07195924730043123,
+            "lane_recover": 3.163465653972841, "cloud_server_loss": 4.679420052286961,
+            "link_blackout": 7.02484168428696, "link_recover": 14.964688219244909},
+    "bf16": {"transfer_flaky": 0.0014916534061406366, "lane_crash": 0.039782727788909865,
+             "lane_recover": 0.8376547676685682, "cloud_server_loss": 1.2215641996784141,
+             "link_blackout": 1.8135742476784142, "link_recover": 2.818139118636363},
+}
+# the bf16 chaos run's kernels: phase 9's, and the blacked-out lane's split
+# 0, whose plan has no codec, takes the int8 boundary through the
+# standalone quantizer and dequantizer
+CHAOS_BF16_PATH = FLEET_BF16_PATH + ("dequantize_rows",)
+CHAOS_KEYS = ("lane_failures", "lane_recoveries", "migrations", "migration_restores",
+              "migration_spill_bytes", "transfer_retries", "degraded_ticks", "link_blackout_s",
+              "cloud_server_failures")
+
+
+def chaos_faults(times):
+    """The declared events at ``times`` (a ``CHAOS_TIMES`` entry, or part of
+    one) as ``fleet_run``'s ``faults``; the peer fault is armed at 0."""
+    from repro_torch.core.hardware import PROFILES
+
+    args = {"transfer_flaky": dict(device=0, count=3), "cloud_server_loss": {},
+            "link_blackout": dict(device=0),
+            "link_recover": dict(device=0, gbps=PROFILES[FLEET_ENDS[0]].net_gbps),
+            "lane_crash": dict(device=1), "lane_recover": dict(device=1)}
+    return ((0.0, "peer_fetch_fail", dict(count=1)),
+            *((t, kind, args[kind]) for kind, t in times.items()))
+
+
+# the order the events are placed in by ``chaos_calibrate``, each with the
+# condition its tick must meet (on ``fleet.tick_log``'s entry).  The clock
+# moves only while some lane's uplink is booked past it, at first lane 0's
+# (its slab refill), later lane 1's: lane 1 goes down and comes back early,
+# while lane 0's backlog still moves the clock, and its cold refill moves
+# it again for the events after
+CHAOS_PLAN = (
+    ("transfer_flaky", lambda e: True),
+    ("lane_crash", lambda e: e["active"][1] > 0),  # while lane 1 decodes
+    ("lane_recover", lambda e: True),
+    # once the armed peer fault met a peer fetch (lane 1's cold refill from
+    # lane 0): a blackout's split 0 drops lane 0's slabs
+    ("cloud_server_loss", lambda e: e["fallbacks"] >= 1),
+    ("link_blackout", lambda e: True),
+    ("link_recover", lambda e: True),
+)
+
+
+def chaos_calibrate(torch, model, params, kind, **kw):
+    """Time the declared events on one run's own timeline: each in turn
+    (``CHAOS_PLAN``), run the fleet with the events placed so far and put
+    the next one halfway between the starts of the first qualifying tick
+    after the previous event's and of the tick before it, where the clock
+    moved (the events before it leave the timeline up to that tick as it
+    was, so it fires there); lane 1 stays down for three ticks at least.
+    Returns ``{event: modeled s}`` for ``CHAOS_TIMES[kind]``."""
+    times, prev = {}, 0
+    for name, ok in CHAOS_PLAN:
+        _, fleet, _, _ = fleet_run(torch, model, params, n=CHAOS_N,
+                                   faults=chaos_faults(times), **kw)
+        log_ = fleet.tick_log
+        first = prev + (3 if name == "lane_recover" else 1)
+        k = next((k for k in range(max(first, 1), len(log_))
+                  if ok(log_[k]) and log_[k]["t"] > log_[k - 1]["t"]), None)
+        if k is None:
+            raise AssertionError(f"chaos calibration ({kind}): no tick for {name} after "
+                                 f"tick {prev}")
+        times[name] = (log_[k - 1]["t"] + log_[k]["t"]) / 2
+        log(f"chaos calibration ({kind}): {name} at {times[name]!r} (tick {k}, starts "
+            f"{log_[k - 1]['t']!r} / {log_[k]['t']!r})")
+        prev = k
+    return times
+
+
+def chaos_watch(torch, state, timeline=False):
+    """``fleet_run``'s ``watch`` for phase 10: device memory right after the
+    shared storage grew to split 0, the pages of the slots a crash parked,
+    and with ``timeline`` one line a tick (the modeled clock and each
+    lane's state)."""
+
+    def watch(fleet, tick):
+        kv = fleet.cloud_kv
+        if "reserve0" not in state and kv.base == 0 and str(kv.device).startswith("cuda"):
+            torch.cuda.synchronize()
+            state["reserve0"] = (tick, torch.cuda.memory_allocated(),
+                                 torch.cuda.max_memory_allocated())
+        if timeline:
+            lanes = " | ".join(
+                f"{'up' if fleet.lane_alive[i] else 'DOWN'} s{l.split} act {int(l._active.sum())} "
+                f"jobs {len(l._jobs)} wait {len(l.waiting)} peer {l.n_expert_peer_fetches} "
+                f"q {len(l._prefetch_queue)} up {l.link.transfers}"
+                for i, l in enumerate(fleet.lanes))
+            log(f"  tick {tick} t {fleet.clock():.6f} next {fleet.timeline.makespan_s:.6f} "
+                f"front {len(fleet.waiting)} "
+                f"park {len(fleet._migrating)} fired {len(fleet.chaos.fired) if fleet.chaos else 0}"
+                f" :: {lanes}")
+    return watch
+
+
+def chaos_record(fleet, reqs):
+    """What the card's f32 chaos run must share with the CPU's."""
+    m = fleet.metrics()
+    return {
+        "fired": fleet.chaos.fire_log() if fleet.chaos else [],
+        "placed": [(p["request_id"], p["device"], p["priority"]) for p in fleet.placed],
+        "replans": fleet.replan_events,
+        "faults": {k: m[k] for k in CHAOS_KEYS},
+        "peer_fault_fallbacks": fleet.expert_registry.peer_fault_fallbacks,
+        "counters": {k: m[k] for k in FLEET_COUNTERS},
+        "shards": fleet.lost_server_shards,
+        "stamps": [(r.submit_time, r.first_token_time, r.finish_time) for r in reqs],
+    }
+
+
+def chaos_checks(tag, fleet, reqs):
+    """Exactly once, drained, every declared fault met live traffic."""
+    m = fleet.metrics()
+    ids = [r.request_id for r in fleet.finished]
+    if sorted(ids) != sorted(r.request_id for r in reqs) or len(ids) != len(set(ids)):
+        raise AssertionError(f"{tag}: a request finished twice or never")
+    if any(not r.done or len(r.generated) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{tag}: a request finished short")
+    if m["kv_pages_in_use"] or fleet._migrating or fleet.chaos.pending:
+        raise AssertionError(f"{tag}: pages left mapped ({m['kv_pages_in_use']}), migrations "
+                             f"parked ({len(fleet._migrating)}) or faults not fired "
+                             f"({fleet.chaos.pending})")
+    blacked = any(ev["device"] == 0 and ev["new_split"] == 0 for ev in fleet.replan_events)
+    hit = {
+        "migration": m["migrations"] >= 1 and m["migration_spill_bytes"] > 0,
+        "restores": m["migration_restores"] == m["migrations"],
+        "crash and recovery": m["lane_failures"] == m["lane_recoveries"] == 1,
+        "blackout to split 0": blacked and m["degraded_ticks"] > 0,
+        "transfer retries": m["transfer_retries"] >= 1,
+        "cloud server loss": m["cloud_server_failures"] == 1 and fleet.cloud_servers == 1,
+        "peer fault": fleet.expert_registry.peer_fault_fallbacks >= 1,
+    }
+    missed = [k for k, ok in hit.items() if not ok]
+    if missed:
+        raise AssertionError(f"{tag}: faults that did not meet live traffic: {missed}; "
+                             f"{ {k: m[k] for k in CHAOS_KEYS} }")
+
+
+def placements(fleet):
+    out = {}
+    for p in fleet.placed:
+        out.setdefault(p["request_id"], []).append(p["device"])
+    return out
+
+
+def chaos_f32(torch, model, params, counters, timeline=False):
+    """Phase 10 in f32 with the exact boundary: a clean and a chaos run on
+    the card and the port's CPU chaos run of the same schedule.  Returns
+    the card chaos run's migrated bytes a spilled page."""
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.serving import loadgen
+
+    cfg32 = model.cfg.replace(dtype="float32")
+    runs = {}
+    for tag, dev in (("clean", "cuda"), ("chaos", "cuda"), ("chaos", "cpu")):
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+        state = {}
+        t0 = time.perf_counter()
+        reqs, fleet, ticks, _ = fleet_run(
+            torch, Model(cfg32, device=dev), params if dev == "cuda" else to_device(params, "cpu"),
+            n=CHAOS_N, faults=chaos_faults(CHAOS_TIMES["f32"]) if tag == "chaos" else (),
+            compression_rank=0,
+            watch=chaos_watch(torch, state, timeline and dev == "cuda"))
+        wall = time.perf_counter() - t0
+        rec = chaos_record(fleet, reqs)
+        runs[tag, dev] = (reqs, fleet, rec)
+        launches = ""
+        if dev == "cuda":
+            got = {c.__name__: c.launches for c in counters}
+            zero = [k for k in FLEET_F32_PATH if k not in ("lowrank_encode", "lowrank_decode")
+                    and got[k] == 0]
+            if zero:
+                raise AssertionError(f"chaos f32 {tag}: path kernels not launched: {zero}")
+            launches = f"; launches {got}"
+        log(f"chaos f32 {tag} ({dev}): {wall:.1f} s, {ticks} ticks, modeled end "
+            f"{fleet.clock():.4f} s, faults {rec['faults']}, peer fault fallbacks "
+            f"{rec['peer_fault_fallbacks']}, {rec['counters']}{launches}")
+        if tag == "chaos":
+            log(f"chaos f32 ({dev}) fire log (modeled s): "
+                f"{[(d['kind'], d['device'], d['t_s'], round(d['t_fired_s'], 6)) for d in rec['fired']]}"
+                f"; replans {[(ev['device'], ev['old_split'], ev['new_split']) for ev in rec['replans']]}"
+                f"; server-loss shards {rec['shards']}")
+    (creqs, cfleet, crec), (hreqs, _, hrec) = runs["chaos", "cuda"], runs["chaos", "cpu"]
+    (kreqs, kfleet, _) = runs["clean", "cuda"]
+    for what in ("fired", "placed", "replans", "faults", "peer_fault_fallbacks", "counters",
+                 "shards"):
+        if crec[what] != hrec[what]:
+            raise AssertionError(f"chaos f32: {what} on the card {crec[what]}, CPU {hrec[what]}")
+    bad = [i for i, (a, b) in enumerate(zip(crec["stamps"], hrec["stamps"]))
+           if any(x is None or y is None or abs(x - y) > 1e-9 for x, y in zip(a, b))]
+    if bad:
+        raise AssertionError(f"chaos f32: stamps of requests {bad} differ from the CPU's")
+    chaos_checks("chaos f32 (card)", cfleet, creqs)
+    chaos_checks("chaos f32 (CPU)", runs["chaos", "cpu"][1], hreqs)
+    last = {rid: devs[-1] for rid, devs in placements(cfleet).items()}
+    equal_or_tie(torch, lambda r: cfleet.lanes[last[creqs[r].request_id]], creqs,
+                 [list(r.generated) for r in creqs], [list(r.generated) for r in hreqs],
+                 "chaos f32, card vs CPU")
+    log(f"chaos f32: fire log ({len(crec['fired'])} events), placement log "
+        f"({len(crec['placed'])} placements), replans ({len(crec['replans'])}), fault counters, "
+        f"peer fault fallbacks, counters, server-loss shards and all {len(creqs)} requests' "
+        f"stamps equal the CPU's")
+    chaos_vs_clean(torch, cfleet, creqs, kfleet, kreqs)
+    window = [d["t_fired_s"] for d in crec["fired"] if d["kind"] in ("lane_crash", "lane_recover")]
+    window = window[1] - window[0] + crec["faults"]["link_blackout_s"]
+    p99 = [loadgen.summarize(r, priority=0)["ttft_p99"] for r in (kreqs, creqs)]
+    log(f"chaos f32: interactive TTFT p99 on the modeled clock (not the card's speed): clean "
+        f"{p99[0] * 1e3:.3f} ms, chaos {p99[1] * 1e3:.3f} ms, fault window (crash outage + "
+        f"blackout) {window * 1e3:.3f} ms; serve_chaos's bound clean + window + 50 ms "
+        f"{'holds' if p99[1] <= p99[0] + window + 0.05 else 'does not hold'}")
+    return crec["faults"]["migration_spill_bytes"] / max(cfleet.migrated_pages, 1)
+
+
+def chaos_vs_clean(torch, cfleet, creqs, kfleet, kreqs):
+    """Chaos against clean on the card: every request once, and the tokens
+    of every request the faults did not move equal, or differ first at a
+    near tie.  A fault moves a request's tokens where it changes the tiers
+    that compute them: the end tier runs its lane's expert mask, so a
+    request migrated or placed on another lane, or decoding on a lane whose
+    split a fault moved, meets other experts (``serve_chaos``'s affected
+    set, read off the placement log and the replan events)."""
+    if [r.request_id for r in creqs] != [r.request_id for r in kreqs]:
+        raise AssertionError("chaos f32: the schedules differ")
+    cp, kp = placements(cfleet), placements(kfleet)
+
+    def moves(fleet):
+        return [[(ev["old_split"], ev["new_split"], ev["mask_changed"])
+                 for ev in fleet.replan_events if ev["device"] == d]
+                for d in range(fleet.n_devices)]
+
+    replanned = {d for d, (a, b) in enumerate(zip(moves(cfleet), moves(kfleet))) if a != b}
+    affected = {r.request_id for r in creqs
+                if cp.get(r.request_id) != kp.get(r.request_id)
+                or len(cp.get(r.request_id, [])) > 1
+                or replanned & set(cp.get(r.request_id, []))}
+    keep = [i for i, r in enumerate(creqs) if r.request_id not in affected]
+    moved = [i for i, r in enumerate(creqs) if r.request_id in affected]
+    same = sum(creqs[i].generated == kreqs[i].generated for i in moved)
+    log(f"chaos f32 vs clean (card): {len(creqs)} requests each finished once; lanes whose "
+        f"split or mask a fault moved: {sorted(replanned)}; {len(moved)} requests moved by a "
+        f"fault ({same} of them with the clean tokens all the same), {len(keep)} not moved")
+    if keep:
+        last = {rid: devs[-1] for rid, devs in kp.items()}
+        equal_or_tie(torch, lambda r: kfleet.lanes[last[kreqs[keep[r]].request_id]],
+                     [kreqs[i] for i in keep], [list(creqs[i].generated) for i in keep],
+                     [list(kreqs[i].generated) for i in keep],
+                     "chaos f32 vs clean (card), requests no fault moved")
+
+
+def lane1_down_decoding(fleet) -> bool:
+    """Lane 1 is down and the live lanes decode."""
+    return not fleet.lane_alive[1] and all(
+        l._active.any() for i, l in enumerate(fleet.lanes) if fleet.lane_alive[i])
+
+
+def chaos_bf16(torch, model, params, counters, tick_profiles, f32_page_bytes, timeline=False):
+    """Phase 10 in bf16 with the three int8 streams and the rank-384 codec
+    under the same schedule: exactly once, drained, sane counters, the
+    migrated spill at the int8 stored size, only ``CHAOS_BF16_PATH``'s
+    kernels, device memory after the blackout's ``reserve(0)``, and one
+    profiled tick with lane 1 down beside phase 9's.  Returns the run's
+    launch counts."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters:
+        c.launches = 0
+    state = {}
+    t0 = time.perf_counter()
+    reqs, fleet, ticks, prof = fleet_run(
+        torch, model, params, n=CHAOS_N, faults=chaos_faults(CHAOS_TIMES["bf16"]),
+        profile_tick=lane1_down_decoding,
+        watch=chaos_watch(torch, state, timeline), **QUANT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    m = fleet.metrics()
+    page_bytes = m["migration_spill_bytes"] / max(fleet.migrated_pages, 1)
+    log(f"chaos bf16 (int8 streams, rank-384 codec): {wall:.1f} s, {ticks} ticks, modeled end "
+        f"{fleet.clock():.4f} s, faults { {k: m[k] for k in CHAOS_KEYS} }, peer fault fallbacks "
+        f"{fleet.expert_registry.peer_fault_fallbacks}, { {k: m[k] for k in FLEET_COUNTERS} }; "
+        f"migrated {fleet.migrated_pages} pages at {page_bytes:.1f} bytes a page ("
+        f"{page_bytes / (f32_page_bytes or page_bytes or 1):.4f} of the f32 run's "
+        f"{f32_page_bytes}); launches "
+        f"{launches}")
+    log(f"chaos bf16 fire log (modeled s): "
+        f"{[(d['kind'], d['device'], round(d['t_fired_s'], 6)) for d in fleet.chaos.fired]}; "
+        f"replans {[(ev['device'], ev['old_split'], ev['new_split']) for ev in fleet.replan_events]}")
+    chaos_checks("chaos bf16", fleet, reqs)
+    if f32_page_bytes is not None and not 0 < page_bytes < 0.7 * f32_page_bytes:
+        raise AssertionError(f"chaos bf16: migrated {page_bytes} bytes a page, not below 0.7 of "
+                             f"the f32 run's {f32_page_bytes}")
+    zero = [k for k in CHAOS_BF16_PATH if launches[k] == 0]
+    off = {k: v for k, v in launches.items() if k not in CHAOS_BF16_PATH and v}
+    if zero or off:
+        raise AssertionError(f"chaos bf16: path kernels not launched {zero}, kernels off the "
+                             f"path launched {off}")
+    if "reserve0" not in state:
+        raise AssertionError("chaos bf16: the shared storage never grew to split 0")
+    rtick, now_b, peak_b = state["reserve0"]
+    log(f"chaos bf16 device memory: {now_b / 2**20:.1f} MiB allocated after the tick (tick "
+        f"{rtick}) in which the blackout's reserve(0) grew the shared cloud storage to every "
+        f"block, peak {peak_b / 2**20:.1f} MiB so far and "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB over the run "
+        f"({held / 2**20:.1f} MiB held before the fleet was built)")
+    if prof is None:
+        raise AssertionError("chaos bf16: no tick had lane 1 down and the live lanes decoding")
+    log_fleet_tick(prof, "chaos bf16", "lane 1 down, lanes 0 and 2 decoding",
+                   "chaos_profile.txt", tick_profiles)
+    return launches
+
+
+def chaos_phase(torch, model, params, counters, tick_profiles, timeline=False):
+    """Phase 10; returns the bf16 chaos run's launch counts."""
+    t0 = time.perf_counter()
+    page_bytes = chaos_f32(torch, model, params, counters, timeline)
+    log(f"chaos f32 runs took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = chaos_bf16(torch, model, params, counters, tick_profiles, page_bytes, timeline)
+    log(f"chaos bf16 run took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def stream(torch, counters, profiles):
@@ -2884,6 +3301,55 @@ def stream(torch, counters, profiles):
     return model, params, launches, (tokens, m)
 
 
+def chaos_timeline(torch) -> int:
+    """``--chaos-timeline``: phase 10 alone on a fresh full-width switch-base:
+    times the events anew on each run's timeline (``chaos_calibrate``),
+    prints the ``CHAOS_TIMES`` it found, and runs the phase with them,
+    logging each tick of its card runs (the modeled clock and every lane's
+    state); prints no result line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_resident
+    from repro_torch.kernels.expert_mlp import grouped_mlp_resident_quant
+    from repro_torch.kernels.group_gate import group_gate
+    from repro_torch.kernels.lowrank import (
+        lowrank_decode,
+        lowrank_decode_quant,
+        lowrank_encode,
+        lowrank_encode_quant,
+    )
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
+    from repro_torch.kernels.quant import dequantize_rows, paged_write_quant, quantize_rows
+    from repro_torch.models.model import Model
+
+    log(f"card: {nvidia_smi()}")
+    build.build()
+    OUT_DIR.mkdir(exist_ok=True)
+    counters = [grouped_mlp_resident, grouped_mlp_resident_quant, grouped_mlp, group_gate,
+                lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
+                quantize_rows, dequantize_rows, paged_write_quant, lowrank_encode_quant,
+                lowrank_decode_quant]
+    model = Model(get_config("switch-base"), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    from repro_torch.models.model import Model as M
+
+    f32 = M(model.cfg.replace(dtype="float32"), device="cuda")
+    CHAOS_TIMES["f32"] = chaos_calibrate(torch, f32, params, "f32", compression_rank=0)
+    CHAOS_TIMES["bf16"] = chaos_calibrate(torch, model, params, "bf16", **QUANT)
+    log(f"CHAOS_TIMES = {CHAOS_TIMES!r}")
+    failed = 0
+    for run in (lambda: chaos_f32(torch, model, params, counters, timeline=True),
+                lambda: chaos_bf16(torch, model, params, counters, {}, None, timeline=True)):
+        try:
+            run()
+        except AssertionError as e:  # a timing probe: log the miss and go on
+            log(f"chaos timeline: {e}")
+            failed += 1
+    log(f"chaos phase took {time.perf_counter() - t0:.1f} s")
+    return 1 if failed else 0
+
+
 def main() -> int:
     import torch
 
@@ -2891,6 +3357,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if "--chaos-timeline" in sys.argv[1:]:
+        return chaos_timeline(torch)
     from repro_torch.kernels import build
     from repro_torch.kernels.expert_mlp import (
         grouped_mlp,
@@ -2986,6 +3454,10 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet_launches = fleet_phase(torch, model, params, stream_counters, tick_profiles)
     log(f"fleet phase took {time.perf_counter() - t0:.1f} s")
+    log("fleet engine under a declared fault schedule (chaos):")
+    t0 = time.perf_counter()
+    chaos_launches = chaos_phase(torch, model, params, stream_counters, tick_profiles)
+    log(f"chaos phase took {time.perf_counter() - t0:.1f} s")
     log("profiler device time a call, us (L2 flushed; phase 2's kernels and yardsticks, "
         "read after the timed runs):")
     t0 = time.perf_counter()
@@ -3055,6 +3527,8 @@ def main() -> int:
             "spec_launches": spec_launches.get(counter, 0),
             # launches in phase 9's bf16 fleet run (three lanes, int8 streams)
             "fleet_launches": fleet_launches.get(counter, 0),
+            # launches in phase 10's bf16 chaos run (the same fleet under faults)
+            "chaos_launches": chaos_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -187,6 +187,11 @@ class ExpertSlabPool:
         self._free.append(slab)
         return slab
 
+    def free_layer(self, layer: int) -> List[int]:
+        """Release every slab a layer holds (the layer left the end tier, or
+        the device died); returns the freed physical slabs."""
+        return [self.evict(layer, int(e)) for e in np.nonzero(self.table[layer] >= 0)[0]]
+
     def touch(self, layers: Sequence[int], target: np.ndarray):
         """LRU stamp: residents inside the applied routing set count as
         used this tick (non-target residents age out)."""

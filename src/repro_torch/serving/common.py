@@ -53,7 +53,7 @@ class Request:
     finish_time: Optional[float] = None
     seq: int = -1  # submission order stamp (ties within a priority class)
     n_preemptions: int = 0  # times this request was spilled and requeued
-    n_migrations: int = 0  # lane-death migrations (0 until faults are ported)
+    n_migrations: int = 0  # times restored on another lane after its lane died
 
     @property
     def done(self) -> bool:
@@ -166,6 +166,18 @@ class StageTimeline:
 
     def n_servers(self, name: str) -> int:
         return len(self._servers[name])
+
+    def remove_server(self, name: str):
+        """Drop one server of a multi-server resource (a shared cloud server
+        dies).  Work already booked on it stays in ``busy_s`` and
+        ``makespan_s``, but its intervals go, so later bookings queue on the
+        survivors.  The last server cannot go: that is a total outage, not a
+        smaller capacity."""
+        servers = self._servers[name]
+        if len(servers) <= 1:
+            raise ValueError(f"resource {name!r} has a single server; removing it is a "
+                             "total outage, not a capacity reduction")
+        servers.pop()
 
     @staticmethod
     def _earliest_start(intervals: List[Tuple[float, float]], ready_s: float,

@@ -1,6 +1,6 @@
 """Heterogeneous multi-end fleet serving engine: many end devices sharing
 one cloud tier, the paper's scalability setting (the port of the
-reference's ``serving/fleet.py``, its fault-free part).
+reference's ``serving/fleet.py``).
 
 ``FleetServingEngine`` runs N end devices against one shared cloud.  Each
 device is a ``FleetLane``, the streaming end-cloud engine
@@ -35,11 +35,18 @@ marginal cost (``core.pipeline.place_fleet``) over measured bandwidth,
 in-flight load and free capacity (a full lane counts the slots a waiting
 request of the best class could preempt).
 
-Fault injection and recovery (``fail_lane``, ``recover_lane``,
-``set_link_rate``, ``inject_peer_faults``, ``inject_transfer_faults``,
-``fail_cloud_server``) are not ported yet and raise (ROADMAP queue A item
-5b); their counters in ``metrics()`` read 0, as the reference's do on a run
-without faults.  The reference's tuning options that no caller sets
+Faults (``serving.faults``; a bound ``ChaosInjector`` fires them at the top
+of each tick) go through the recovery entry points.  ``fail_lane``
+evacuates a dead device: its decoding slots spill for migration and wait in
+a park until the frontend places the request again, and the survivor
+restores the spill at its own split from the shared cloud storage;
+prefill jobs restart; the lane's slab residency is dropped and the
+registry stops naming it as a peer.  ``recover_lane`` brings it back cold.
+``set_link_rate`` declares a rate (a blackout pins the lane to split 0),
+``inject_peer_faults`` and ``inject_transfer_faults`` arm failed slab
+fetches and boundary uploads, and ``fail_cloud_server`` shrinks the shared
+cloud.  A health monitor beats every live lane each tick.  The reference's
+tuning options that no caller sets
 (``end_states``, ``alpha``, ``selection_eps``, ``replan_threshold``,
 ``scheduler``, ``kv_pages``, ``cloud_kv_pages``, ``expert_pool``,
 ``expert_slabs``, ``expert_resident_slots``, ``expert_mem_frac``,
@@ -65,7 +72,7 @@ from repro_torch.models import transformer
 from repro_torch.models.model import Model
 from repro_torch.serving.common import Request, StageTimeline
 from repro_torch.serving.faults import HealthMonitor, StallGuard
-from repro_torch.serving.stream import _FAULTS, EndCloudServingEngine, _unported
+from repro_torch.serving.stream import EndCloudServingEngine, _SpillState
 
 __all__ = ["FleetLane", "FleetServingEngine"]
 
@@ -135,8 +142,20 @@ class FleetServingEngine:
         self.waiting: List[Request] = []  # the frontend queue, before placement
         self.placed: List[Dict] = []  # placement log: request -> device
         self._submit_seq = 0
-        self.health = HealthMonitor()  # the lanes' shared retry policy
+        # the fault machinery: one health monitor for every lane, the chaos
+        # injector (ChaosInjector.bind), liveness, and the migration park:
+        # spill states off dead lanes, waiting for the lane each request is
+        # placed on next
+        self.health = HealthMonitor()
+        self.chaos = None
         self.stall_limit = 256
+        self.lane_alive: List[bool] = [True] * n
+        self._migrating: Dict[int, _SpillState] = {}
+        self.lane_failures = 0
+        self.lane_recoveries = 0
+        self.migrations = 0
+        self.migration_spill_bytes = 0
+        self.cloud_server_failures = 0
 
         # one fleet-wide occupancy clock: each lane's end and link, and one
         # shared multi-server cloud every lane's boundaries drain into
@@ -208,12 +227,14 @@ class FleetServingEngine:
         stable (priority class, arrival) order (``admission="fifo"``: arrival
         order), dispatched in that order so a one-device fleet admits like
         a standalone engine.  A full lane still offers the slots the best
-        waiting class could preempt."""
+        waiting class could preempt; a dead lane offers none."""
         if not self.waiting:
             return
         p_best = min(r.priority for r in self.waiting)
-        capacity = [max(0, lane.free_slots() + lane.preemptible_slots(p_best) - len(lane.waiting))
-                    for lane in self.lanes]
+        alive = self.lane_alive
+        capacity = [0 if not alive[i] else
+                    max(0, lane.free_slots() + lane.preemptible_slots(p_best) - len(lane.waiting))
+                    for i, lane in enumerate(self.lanes)]
         if not any(capacity):
             return
         tasks = [
@@ -227,11 +248,17 @@ class FleetServingEngine:
                            key=lambda i: (self.waiting[i].priority, self.waiting[i].seq))
         else:
             order = list(range(len(self.waiting)))
+        # a dead lane is priced at infinite load, not only zero capacity:
+        # place_fleet's max_spill baseline is the fleet-wide best device,
+        # and an idle corpse with a healthy link would anchor it, so that
+        # no survivor ever looks good enough and the clock never reaches
+        # the corpse's recovery
         assignment, _ = place_fleet(
             tasks,
             [lane.tiers.end_cap for lane in self.lanes],
             self.scheduler,
-            loads=[self._lane_load(lane) for lane in self.lanes],
+            loads=[self._lane_load(lane) if alive[i] else float("inf")
+                   for i, lane in enumerate(self.lanes)],
             measured_gbps=[lane.bw.gbps for lane in self.lanes],
             capacity=capacity,
             max_spill=self.max_spill,
@@ -243,6 +270,12 @@ class FleetServingEngine:
             if d < 0:
                 continue
             req = self.waiting[i]
+            if req.request_id in self._migrating:
+                # off a dead lane: its parked spill state goes with it, and
+                # the destination restores it through the preemption path
+                # at its own split
+                self.lanes[d]._spilled[req.request_id] = self._migrating.pop(req.request_id)
+                self.migrations += 1
             # direct dispatch: validated and stamped at the fleet's submit
             self.lanes[d].waiting.append(req)
             self.placed.append({"request_id": req.request_id, "device": d,
@@ -267,30 +300,41 @@ class FleetServingEngine:
     # -- stepping -------------------------------------------------------------
 
     def step(self) -> int:
-        """One fleet tick: push every lane's measured route frequencies into
-        the registry, place frontend requests, then advance every lane in
-        device order."""
+        """One fleet tick: fire the due faults, beat every live lane, push
+        each live lane's measured route frequencies into the registry, place
+        frontend requests, then advance the live lanes in device order."""
+        if self.chaos is not None:
+            self.chaos.tick()
+        now = self.clock()
+        live = [i for i in range(self.n_devices) if self.lane_alive[i]]
+        for i in live:
+            self.health.beat(f"lane{i}", now)
         if self.expert_registry is not None:
-            for i, lane in enumerate(self.lanes):
-                self.expert_registry.note_freq(i, lane._route_freq)
+            for i in live:
+                self.expert_registry.note_freq(i, self.lanes[i]._route_freq)
         self._place()
-        return sum(lane.step() for lane in self.lanes)
+        return sum(self.lanes[i].step() for i in live)
 
     def busy(self) -> bool:
-        """Anything left anywhere: the frontend queue, a lane's queue, a
-        prefill in flight or a decoding slot."""
-        return bool(self.waiting) or any(lane.busy() for lane in self.lanes)
+        """Anything left anywhere: the frontend queue, a parked migration, a
+        lane's queue, a prefill in flight or a decoding slot."""
+        return (bool(self.waiting) or bool(self._migrating)
+                or any(lane.busy() for lane in self.lanes))
 
     def _progress_sig(self) -> tuple:
-        sig = (len(self.placed), len(self.waiting))
+        # every lane contributes (dead ones too: a stable tuple shape);
+        # placements, migrations and fault transitions count as progress
+        sig = (len(self.placed), len(self.waiting), len(self._migrating), self.lane_failures,
+               self.lane_recoveries)
         for lane in self.lanes:
             sig += lane._progress_sig()
         return sig
 
     def stall_diagnostic(self) -> str:
-        lanes = "; ".join(f"lane{i} " + lane.stall_diagnostic()
-                          for i, lane in enumerate(self.lanes))
-        return f"frontend={len(self.waiting)} cloud_servers={self.cloud_servers} :: {lanes}"
+        lanes = "; ".join(f"lane{i}[{'up' if self.lane_alive[i] else 'DOWN'}] "
+                          + lane.stall_diagnostic() for i, lane in enumerate(self.lanes))
+        return (f"frontend={len(self.waiting)} migrating={len(self._migrating)} "
+                f"cloud_servers={self.cloud_servers} :: {lanes}")
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         guard = StallGuard(self.stall_limit)
@@ -313,25 +357,91 @@ class FleetServingEngine:
         re-checks its plan."""
         self.lanes[device].update_device_state(state)
 
-    # -- fault injection and recovery (not ported yet) ------------------------
+    # -- fault injection and recovery -----------------------------------------
 
     def fail_lane(self, device: int):
-        _unported("lane failure and migration", _FAULTS)
+        """Kill one end device: evacuate its work (decoding slots spill for
+        migration, prefill jobs restart), park the spill states, hand every
+        request back to the frontend, mark the lane dead so nothing is
+        placed on it, and drop its expert residency: the registry stops
+        seeing it (a peer fetch that named it re-prices and takes the
+        cloud), and a recovered lane fetches cold.  A dead lane's pages of
+        the shared cloud pool went back with the spill.  Killing a dead
+        lane is a no-op."""
+        if not self.lane_alive[device]:
+            return
+        lane = self.lanes[device]
+        reqs, spilled, nbytes = lane.evacuate()
+        self._migrating.update(spilled)
+        self.migration_spill_bytes += nbytes
+        self.waiting.extend(reqs)
+        self.waiting.sort(key=lambda r: r.seq)
+        self.lane_alive[device] = False
+        self.lane_failures += 1
+        if self.expert_registry is not None:
+            self.expert_registry.set_lane_alive(device, False)
+        if lane._expert_pooled:
+            for lid in range(lane.expert_pool.table.shape[0]):
+                lane.expert_pool.free_layer(lid)
+            lane._prefetch_queue = []
+            lane._expert_dirty = True
 
     def recover_lane(self, device: int):
-        _unported("lane recovery", _FAULTS)
+        """Bring a dead end device back, placeable, in the registry again,
+        its expert pool cold (its first safe point plans and fetches); its
+        modeled cursors move up to "now": a rebooted device did no work
+        while it was down.  Recovering a live lane is a no-op."""
+        if self.lane_alive[device]:
+            return
+        lane = self.lanes[device]
+        now = self.clock()
+        self.lane_alive[device] = True
+        self.lane_recoveries += 1
+        self.health.beat(f"lane{device}", now)
+        if self.expert_registry is not None:
+            self.expert_registry.set_lane_alive(device, True)
+        if lane._virtual_time:
+            for g in range(lane.n_groups):
+                lane._group_ready_s[g] = max(lane._group_ready_s[g], now)
+        if lane._expert_pooled:
+            lane._expert_ready_s = max(lane._expert_ready_s, now)
+            lane._expert_sync()
 
     def set_link_rate(self, device: int, gbps: float):
-        _unported("declared link events", _FAULTS)
+        """Declare one device's link rate (a chaos event or a recovery): a
+        hard estimator assignment, entering or leaving the lane's blackout
+        rung at its next safe point."""
+        self.lanes[device].observe_bandwidth(gbps, hard=True)
 
     def inject_peer_faults(self, count: int):
-        _unported("peer-fetch fault injection", _FAULTS)
+        """Arm ``count`` peer slab-fetch failures fleet-wide: the next peer
+        fetches back off once and take the cloud."""
+        if self.expert_registry is None:
+            raise RuntimeError("peer faults need the fleet expert registry")
+        self.expert_registry.inject_peer_faults(count)
 
     def inject_transfer_faults(self, device: int, count: int):
-        _unported("transfer-fault injection", _FAULTS)
+        """Arm ``count`` boundary-upload failures on one device's link."""
+        self.lanes[device].inject_transfer_faults(count)
 
-    def fail_cloud_server(self):
-        _unported("cloud-server loss", _FAULTS)
+    def fail_cloud_server(self) -> Optional[List[List[int]]]:
+        """Lose one cloud server: the shared resource loses a server, every
+        lane's share of the cloud becomes ``cloud_servers / n_devices``
+        (splits may move at each lane's next safe point), and the expert
+        layout re-sharded over the survivors is returned
+        (``cloud_expert_shards``).  The last server is refused: without a
+        cloud no lane can serve its blocks from the split on."""
+        if self.cloud_servers <= 1:
+            raise RuntimeError("cannot fail the last cloud server: the cloud tier hosts "
+                               "[split, R) + LM head for every lane — total outage, not "
+                               "graceful degradation")
+        self.cloud_servers -= 1
+        self.cloud_server_failures += 1
+        self.timeline.remove_server("cloud")
+        share = self.cloud_servers / self.n_devices
+        for lane in self.lanes:
+            lane.set_cloud_share(share)
+        return self.cloud_expert_shards()
 
     # -- introspection --------------------------------------------------------
 
@@ -383,16 +493,16 @@ class FleetServingEngine:
             "preemptions": sum(lane.n_preemptions for lane in self.lanes),
             "preempt_restores": sum(lane.n_preempt_restores for lane in self.lanes),
             "preempt_spill_bytes": sum(lane.preempt_spill_bytes for lane in self.lanes),
-            # the fault half's counters: 0 on a run without faults
-            "lane_failures": 0,
-            "lane_recoveries": 0,
-            "migrations": 0,
+            # the fault counters: the fleet's own and the lanes' summed
+            "lane_failures": self.lane_failures,
+            "lane_recoveries": self.lane_recoveries,
+            "migrations": self.migrations,
             "migration_restores": sum(m["migration_restores"] for m in per_device),
-            "migration_spill_bytes": 0,
+            "migration_spill_bytes": self.migration_spill_bytes,
             "transfer_retries": sum(lane.transfer_retries for lane in self.lanes),
             "degraded_ticks": sum(lane.degraded_ticks for lane in self.lanes),
             "link_blackout_s": sum(lane.blackout_seconds() for lane in self.lanes),
-            "cloud_server_failures": 0,
+            "cloud_server_failures": self.cloud_server_failures,
             # speculative decode over the lanes (acceptance: accepted/drafted)
             "spec_rounds": sum(m["spec_rounds"] for m in per_device),
             "spec_drafted": drafted,

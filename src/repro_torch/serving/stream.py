@@ -83,13 +83,20 @@ one copy each.
   load generator (``serving.loadgen.drive``) reads TTFT and TPOT on the
   schedule's own clock.
 
-Not ported yet (each raises ``NotImplementedError``, ROADMAP queue A item
-5b): injected transfer faults (``inject_transfer_faults``), lane
-``evacuate`` with the speculative abort it calls, ``set_cloud_share`` and
-the migrated restore.  The reference's tuning options that no caller sets
-(``end_state``, ``alpha``, ``selection_eps``, ``replan_threshold``,
-``kv_pages``, ``expert_slabs``, ``blackout_gbps``) are fixed at the
-reference's defaults.
+* **Faults.**  ``inject_transfer_faults`` arms failed boundary uploads:
+  each is resent after the health monitor's backoff, another round trip
+  and another metered upload (``transfer_retries``), and the attempt that
+  exhausts ``max_transfer_attempts`` raises.  ``evacuate`` (a fleet lane's
+  death) drops in-flight boundaries and unmaps an unverified speculative
+  round's pages, spills every decoding slot through the preemption path
+  for migration, restarts prefill jobs from scratch and hands the lane's
+  parked spill states over; a surviving lane restores a migrated state at
+  its own split (``n_migration_restores``).  ``set_cloud_share`` re-scales
+  the planner's view of the cloud when a fleet loses a cloud server.
+
+The reference's tuning options that no caller sets (``end_state``,
+``alpha``, ``selection_eps``, ``replan_threshold``, ``kv_pages``,
+``expert_slabs``, ``blackout_gbps``) are fixed at the reference's defaults.
 """
 
 from __future__ import annotations
@@ -148,7 +155,6 @@ _KEEP = object()  # sentinel: "no pending mask change"
 _RESOURCES = ("end", "link", "cloud")
 # a declared link rate below this share of the nominal uplink is a blackout
 _BLACKOUT_FRAC = 0.05
-_FAULTS = "ROADMAP queue A item 5b: fleet faults, health and migration"
 
 
 def _masks_equal(a, b) -> bool:
@@ -161,10 +167,6 @@ def _row(z, *idx):
     """Index every tensor of a boundary payload (one tensor, or the
     quantized ``(codes, scales)``) alike."""
     return tuple(p[idx] for p in z) if isinstance(z, tuple) else z[idx]
-
-
-def _unported(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet ({where})")
 
 
 class _PrefillJob:
@@ -192,7 +194,7 @@ class _SpillState:
     that moment, and ring entries, not physical rows, are what attention
     reads, so a replan in between leaves the stream intact."""
 
-    __slots__ = ("entries", "blocks", "length", "next_token", "n_pages")
+    __slots__ = ("entries", "blocks", "length", "next_token", "n_pages", "migrated")
 
     def __init__(self, entries: np.ndarray, blocks: Dict, length: int, next_token: int,
                  n_pages: int):
@@ -201,6 +203,7 @@ class _SpillState:
         self.length = length  # the slot's length at the safe point
         self.next_token = next_token  # pending token (its KV not yet written)
         self.n_pages = n_pages  # the original reservation
+        self.migrated = False  # off a dead lane (vs preempted in this one)
 
     @property
     def nbytes(self) -> int:
@@ -329,7 +332,9 @@ class EndCloudServingEngine(SlotEngineBase):
         self._blackout_since = 0.0
         self.link_blackout_s = 0.0  # closed windows; see blackout_seconds()
         self.degraded_ticks = 0
-        self.transfer_retries = 0  # peer fetches retried from the cloud
+        self.transfer_retries = 0  # resent uploads and peer fetches retried from the cloud
+        self._transfer_faults = 0  # armed boundary-upload failures
+        self.n_migration_restores = 0
         # a fleet shares one occupancy clock: each lane brings its own end
         # and link resources, every lane's cloud stage queues on one
         # (multi-server) cloud resource
@@ -1303,7 +1308,11 @@ class EndCloudServingEngine(SlotEngineBase):
         self._next_token[slot, 0] = st.next_token
         self._active[slot] = True
         self._draft_ready[slot] = False
-        self.n_preempt_restores += 1
+        if st.migrated:
+            self.n_migration_restores += 1
+            req.n_migrations += 1
+        else:
+            self.n_preempt_restores += 1
         if self._virtual_time:
             # the resumed stream cannot decode before "now"
             g = self._group_of(slot)
@@ -1407,7 +1416,8 @@ class EndCloudServingEngine(SlotEngineBase):
         st = self._spec_state
         return super()._progress_sig() + (
             self.n_stage_steps, self.n_prefill_chunks,
-            self.n_preemptions, self.n_preempt_restores, self.transfer_retries,
+            self.n_preemptions, self.n_preempt_restores, self.n_migration_restores,
+            self.transfer_retries,
             self.n_expert_prefetches if self._expert_pooled else 0,
             st.rounds if st else 0, st.rollbacks if st else 0,
         )
@@ -1446,18 +1456,103 @@ class EndCloudServingEngine(SlotEngineBase):
 
     def _link_transfer(self, nbytes: int) -> float:
         """Meter one boundary upload; returns its modeled time: the wire
-        time plus the round trip every transfer pays (``link_rtt_s``, what
-        speculative decode spreads over k tokens)."""
-        return self.link_rtt_s + self.link.record_up(nbytes, self.bw.gbps)
+        time plus the round trip every attempt pays (``link_rtt_s``, what
+        speculative decode spreads over k tokens).  An armed transfer fault
+        fails the attempt: the resend waits the health monitor's backoff
+        and crosses the wire again, metered.  The attempt that exhausts
+        ``max_transfer_attempts`` raises: a link that eats every retry is a
+        blackout, and the blackout rung handles those."""
+        total = self.link_rtt_s + self.link.record_up(nbytes, self.bw.gbps)
+        attempt = 0
+        while self._transfer_faults > 0:
+            self._transfer_faults -= 1
+            if attempt + 1 >= self.health.max_transfer_attempts:
+                raise RuntimeError(
+                    f"boundary transfer failed {attempt + 1} times (max_transfer_attempts="
+                    f"{self.health.max_transfer_attempts}); link presumed dead")
+            # the reference's order of additions: the modeled stamps match
+            total += self.health.backoff_s(attempt)
+            total += self.link_rtt_s + self.link.record_up(nbytes, self.bw.gbps)
+            self.transfer_retries += 1
+            attempt += 1
+        return total
 
     def inject_transfer_faults(self, count: int):
-        _unported("transfer-fault injection", _FAULTS)
+        """Arm ``count`` boundary-upload failures: the next uploads consume
+        them one an attempt, each resent after a backoff."""
+        if count < 1:
+            raise ValueError(f"count must be >= 1, got {count}")
+        self._transfer_faults += count
 
-    def evacuate(self):
-        _unported("lane evacuation (migration)", _FAULTS)
+    def _spec_abort(self, g: int):
+        """Drop a group's in-flight speculative round: its provisional pages
+        unmap in both pools and nothing commits; the slots stay at the
+        token boundary before the round, as with a dropped plain
+        boundary."""
+        pend = self._spec_pending[g]
+        if pend is None:
+            return
+        for slot, ents in pend["new_entries"].items():
+            if ents:
+                self.end_pool.rollback(slot, ents)
+                self.cloud_pool.rollback(self._cslot(slot), ents)
+        self._spec_pending[g] = None
+        gs, ge = self._group_slices[g]
+        self._draft_ready[gs:ge] = False
+        if self._spec_state is not None:
+            self._spec_state.rollbacks += 1
+
+    def evacuate(self) -> Tuple[List[Request], Dict[int, _SpillState], int]:
+        """The lane's device died: hand all its work back to the fleet.
+        In-flight boundaries are dropped (the slots are still at the token
+        boundary before the step, so the next lane recomputes it), and an
+        in-flight speculative round unmaps its provisional pages first, so
+        no unverified KV rides along.  Every decoding slot is spilled
+        through the preemption path, marked migrated (its rows merged
+        across the tiers, so a lane at another split restores them
+        exactly); prefill jobs restart from scratch (their first token was
+        never appended, so nothing repeats); the lane's parked spill states
+        migrate too.  Returns (the requests in submission order, request id
+        -> spill state, the spilled bytes at the stored type)."""
+        for g in range(self.n_groups):
+            self._spec_abort(g)
+            self._boundary[g] = None
+            self._phase[g] = "ready"
+        spilled: Dict[int, _SpillState] = {}
+        nbytes = 0
+        for slot in range(self.max_batch):
+            req = self.slots[slot]
+            if req is None:
+                continue
+            st = self._spill_slot_state(slot)
+            st.migrated = True
+            spilled[req.request_id] = st
+            nbytes += st.nbytes
+            self.waiting.append(req)
+        for slot in sorted(self._jobs):
+            job = self._jobs.pop(slot)
+            self._release_slot(slot)
+            self.waiting.append(job.req)
+        for rid, st in self._spilled.items():
+            st.migrated = True  # preempted here earlier: its KV moves too
+            spilled[rid] = st
+            nbytes += st.nbytes
+        self._spilled = {}
+        reqs = sorted(self.waiting, key=lambda r: r.seq)
+        self.waiting = []
+        return reqs, spilled, nbytes
 
     def set_cloud_share(self, share: float):
-        _unported("re-scaling the cloud share (a lost cloud server)", _FAULTS)
+        """Re-scale this lane's share of the fleet's cloud (a cloud server
+        died): one server's service time in ``_stage_seconds`` stays, as the
+        budget and the share scale together, but the planner sees less
+        aggregate cloud, so the split may move at the next safe point."""
+        old = max(self._cloud_share, 1e-12)
+        self.tiers = dataclasses.replace(self.tiers, cloud_cap=dataclasses.replace(
+            self.tiers.cloud_cap, gflop_budget=self.tiers.cloud_cap.gflop_budget * share / old))
+        self._cloud_share = share
+        if not self.link_degraded:
+            self._check_replan()
 
     def _run_end_stage(self, g: int):
         k = self._spec_round_k(g)
@@ -1901,9 +1996,7 @@ class EndCloudServingEngine(SlotEngineBase):
         }
 
     def metrics(self) -> Dict[str, float]:
-        """The reference's metrics; ``migration_restores`` (a path not
-        ported yet) reads 0, as the reference's does on a run without lane
-        faults."""
+        """The reference's metrics."""
         n = max(self.n_stage_steps, 1)
         mean = {r: t / n for r, t in self._stage_busy.items()}
         # the engine's own pipelined DECODE span (the decode-only clock)
@@ -1930,7 +2023,7 @@ class EndCloudServingEngine(SlotEngineBase):
             "preemptions": self.n_preemptions,
             "preempt_restores": self.n_preempt_restores,
             "preempt_spill_bytes": self.preempt_spill_bytes,
-            "migration_restores": 0,
+            "migration_restores": self.n_migration_restores,
             "transfer_retries": self.transfer_retries,
             "degraded_ticks": self.degraded_ticks,
             "link_blackout_s": self.blackout_seconds(),

@@ -1263,3 +1263,45 @@ def test_fleet_driven_on_card_matches_cpu(gen, name):
     assert runs["cuda"][:2] == runs["cpu"][:2]
     for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
         assert a == pytest.approx(b, abs=1e-9, rel=0)
+
+
+def test_fleet_chaos_on_card_matches_cpu(gen):
+    """The two-lane fleet of ``test_fleet_driven_on_card_matches_cpu`` with
+    the exact boundary under a declared schedule (flaky uploads on lane 0;
+    lane 1, at split 2, dies while it decodes and recovers), driven by
+    ``loadgen.drive``: in f32 the fire log, the placement log, the fault
+    counters, every request's stamps and tokens equal the CPU's; the slots
+    migrate onto lane 0 at split 1, and the pools and the park drain."""
+    from repro_torch.serving import FleetServingEngine, VirtualClock, loadgen
+    from repro_torch.serving.faults import ChaosInjector, FaultEvent, FaultSchedule
+
+    cfg = smoke_config(get_config("switch-base")).replace(num_layers=6, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    keys = ("lane_failures", "lane_recoveries", "migrations", "migration_restores",
+            "migration_spill_bytes", "transfer_retries", "n_placed", "tokens", "splits")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        fleet = FleetServingEngine(
+            Model(cfg, device=dev), to_device(params, dev), end_profiles=[PROFILES["a100"]] * 2,
+            cloud_profile=PROFILES["a100"], cloud_servers=1, max_batch=2, max_len=128,
+            force_splits=[1, 2], compression_rank=0, timing="modeled", prefill_chunk=8,
+            clock=VirtualClock(), expert_peer_gbps=5.0)
+        inj = ChaosInjector(FaultSchedule([
+            FaultEvent(0.0005, "transfer_flaky", device=0, count=2),
+            FaultEvent(0.0015, "lane_crash", device=1),
+            FaultEvent(0.003, "lane_recover", device=1)]), fleet)
+        sched = loadgen.build_schedule(loadgen.poisson_arrivals(12, 1e4, seed=3),
+                                       (loadgen.INTERACTIVE, loadgen.BATCH), seed=4)
+        reqs = loadgen.drive(fleet, sched)
+        m = fleet.metrics()
+        runs[dev] = ([r.generated for r in reqs],
+                     [(p["request_id"], p["device"]) for p in fleet.placed],
+                     inj.fire_log(), {k: m[k] for k in keys},
+                     [(r.submit_time, r.first_token_time, r.finish_time) for r in reqs])
+        ids = [r.request_id for r in fleet.finished]
+        assert all(r.done for r in reqs) and len(ids) == len(set(ids)) == 12
+        assert m["kv_pages_in_use"] == 0 and not fleet._migrating and inj.pending == 0
+        assert m["migrations"] == m["migration_restores"] >= 1 and m["transfer_retries"] == 2
+    assert runs["cuda"][:4] == runs["cpu"][:4]
+    for a, b in zip(runs["cuda"][4], runs["cpu"][4]):
+        assert a == pytest.approx(b, abs=1e-9, rel=0)

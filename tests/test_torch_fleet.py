@@ -273,16 +273,34 @@ def test_placement_order_within_and_across_classes(tiny):
 
 
 def test_fault_half_raises(tiny):
+    """The fault entry points are ported (the fleet under faults against
+    the reference: ``test_torch_chaos*.py``): each changes the fleet's
+    state, and the oversized submit is still refused.  The name is the one
+    the test had while they raised."""
     (_, (tm, tp)) = tiny
     f = FleetServingEngine(tm, tp, end_profiles=[thw.PROFILES["a100"]] * 2,
                            cloud_profile=thw.PROFILES["a100"], max_batch=2, max_len=64,
-                           timing="modeled")
-    for call in (lambda: f.fail_lane(0), lambda: f.recover_lane(0),
-                 lambda: f.set_link_rate(0, 1.0), lambda: f.inject_peer_faults(1),
-                 lambda: f.inject_transfer_faults(0, 1), f.fail_cloud_server,
-                 f.lanes[0].evacuate, lambda: f.lanes[0].inject_transfer_faults(1)):
-        with pytest.raises(NotImplementedError, match="5b"):
-            call()
+                           timing="modeled", cloud_servers=2)
+    lane = f.lanes[0]
+    f.fail_lane(0)
+    assert f.lane_alive == [False, True] and f.lane_failures == 1 and not f.busy()
+    f.recover_lane(0)
+    assert f.lane_alive == [True, True] and f.lane_recoveries == 1
+    nominal = lane.bw.gbps
+    f.set_link_rate(0, nominal / 1000)
+    assert lane.link_degraded and lane._pending_plan.split_layer == 0
+    f.set_link_rate(0, nominal)
+    assert not lane.link_degraded
+    with pytest.raises(RuntimeError, match="registry"):
+        f.inject_peer_faults(1)  # a dense fleet has no expert store
+    f.inject_transfer_faults(0, 1)
+    lane.inject_transfer_faults(1)
+    assert lane._transfer_faults == 2
+    assert f.fail_cloud_server() is None and f.cloud_servers == 1
+    assert f.timeline.n_servers("cloud") == 1 and f.metrics()["cloud_server_failures"] == 1
+    with pytest.raises(RuntimeError, match="last cloud server"):
+        f.fail_cloud_server()
+    assert lane.evacuate() == ([], {}, 0)
     with pytest.raises(ValueError, match="max_len"):
         f.submit(Request(0, np.arange(20, dtype=np.int32), max_new_tokens=60))
     assert f.waiting == []

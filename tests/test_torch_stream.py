@@ -7,8 +7,9 @@ the wall clock (``link_blackout_s``), at forced splits 0, mid and R with
 the eq. 8 codec off and on, pooled against dense-mask end tiers, a hard
 bandwidth replan, and the link-blackout rung.  Smoke switch-base
 (non-gated GELU experts) and smoke llama4-scout (gated SiLU experts and a
-shared expert).  Plus the fleet-sharing options (accepted) and the fault
-half that still raises (ROADMAP queue A item 5b).
+shared expert).  Plus the fleet-sharing options (accepted) and the
+streaming engine's fault entry points (evacuation, the cloud share,
+transfer faults).
 (Speculative decode and preemption are held to the reference in
 ``test_torch_specdecode.py`` and ``test_torch_preempt.py``.)
 (The int8 streams are held to the reference in ``test_torch_stream_quant.py``.)
@@ -220,9 +221,10 @@ def _engine(tiny, **kw):
 def test_unported_options_raise(tiny, option, value, match):
     """The fleet-sharing options are ported (the fleet engine passes them;
     ``test_torch_fleet.py`` holds it to the reference): each is accepted and
-    wired in, while the fault half they belong to (ROADMAP queue A item
-    5b) still raises.  The name and case ids are the ones the options had
-    while they raised."""
+    wired in, and so is the fault half they belong to: a lane evacuated
+    mid-decode hands back its request with a migrated spill state, and a
+    lost cloud server re-scales the lane's share of the cloud.  The name and
+    case ids are the ones the options had while they raised."""
     plain = _engine(tiny)
     v = value(plain)
     eng = _engine(tiny, **{option: v})
@@ -244,18 +246,54 @@ def test_unported_options_raise(tiny, option, value, match):
         eng.submit(req)
     eng.run()
     assert eng.finished and eng.cloud_pool.pages_in_use == 0
-    with pytest.raises(NotImplementedError, match=match):
-        eng.evacuate()
-    with pytest.raises(NotImplementedError, match="5b"):
-        eng.set_cloud_share(0.5)
+    # the fault half: evacuate a decoding slot, then lose cloud capacity
+    req = Request(1, np.arange(6, dtype=np.int32), max_new_tokens=8)
+    eng.submit(req)
+    while not any(r is not None and len(r.generated) >= 2 for r in eng.slots):
+        eng.step()
+    reqs, spilled, nbytes = eng.evacuate()
+    assert reqs == [req] and list(spilled) == [1] and spilled[1].migrated
+    assert nbytes == spilled[1].nbytes > 0 and spilled[1].length >= len(req.prompt) + 1
+    assert eng.cloud_pool.pages_in_use == eng.end_pool.pages_in_use == 0
+    assert not eng.busy() and all(p == "ready" for p in eng._phase)
+    budget = eng.tiers.cloud_cap.gflop_budget
+    eng.set_cloud_share(0.5)
+    assert eng._cloud_share == 0.5
+    assert eng.tiers.cloud_cap.gflop_budget == pytest.approx(budget * 0.5)
 
 
 def test_unported_methods_raise(tiny):
-    eng = _engine(tiny)
-    with pytest.raises(NotImplementedError, match="fault"):
-        eng.inject_transfer_faults(1)
-    with pytest.raises(NotImplementedError, match="evacuation"):
-        eng.evacuate()
+    """Transfer faults are ported: each armed fault fails one upload
+    attempt, resent after a backoff and metered again
+    (``transfer_retries``), with the same tokens; ``evacuate`` of an idle
+    engine hands back nothing, and of a prefill in flight the request
+    alone, to restart from scratch."""
+    def serve(faults):
+        eng = _engine(tiny)
+        if faults:
+            eng.inject_transfer_faults(faults)
+        reqs = [Request(i, np.arange(4 + i, dtype=np.int32), max_new_tokens=4) for i in range(2)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return eng, {r.request_id: r.generated for r in reqs}
+
+    clean, want = serve(0)
+    eng, got = serve(3)
+    assert got == want and eng.transfer_retries == 3 and eng._transfer_faults == 0
+    assert eng.link.transfers == clean.link.transfers + 3
+    assert eng.metrics()["transfer_retries"] == 3
+    with pytest.raises(ValueError, match="count"):
+        eng.inject_transfer_faults(0)
+    idle = _engine(tiny)
+    assert idle.evacuate() == ([], {}, 0)
+    req = Request(0, np.arange(40, dtype=np.int32), max_new_tokens=4)
+    idle.submit(req)
+    idle.step()
+    assert idle._jobs
+    assert idle.evacuate() == ([req], {}, 0)
+    assert not idle._jobs and idle.end_pool.pages_in_use == idle.cloud_pool.pages_in_use == 0
+    assert req.generated == []
 
 
 def test_preemption_that_would_spill_raises(tiny):
