@@ -176,11 +176,33 @@ Phases, in order; any failure exits non-zero before the result lines:
    run's, only ``CHAOS_BF16_PATH``'s kernels, device memory after the
    blackout's ``reserve(0)``, and one profiled tick with lane 1 down
    (``chiprun_out/chaos_profile.txt``) beside phase 9's.
+11. qwen2-vl-2b (``vlm_phase``): M-RoPE and patch embeddings at full width
+   and depth (28 layers, d_model 1536, 12 heads on 2 kv heads of 128,
+   vocab 151936), random weights from seed 0 (f32 as stored, bf16
+   activations).  (a) ``Model.prefill`` of 2 rows of 256 patch embeddings
+   on a 16 x 16 grid and 64 text tokens, then 16 greedy decode steps: one
+   flash-attention launch a layer; the grid's logits against uniform
+   positions' (M-RoPE moved them); f32 card against CPU (tokens equal or a
+   near tie) and bf16 layer by layer (each card layer fed the CPU's input),
+   the CPU side at ``VLM_CPU_LAYERS`` layers.  (b) Phase 3's traffic
+   through ``ServingEngine`` (paged attention only), a profiled decode step
+   (``chiprun_out/vlm_decode_profile.txt``) and phase 4's check in f32 at
+   full depth.  (c) ``EndCloudPipeline`` (jetson-orin end, a100 cloud, rank
+   384, tokens [4, 256]; the planner's split 1 of 28): 28 flash, 1 encode,
+   1 decode launches a ``run_batch``, per-tier times, f32 card against CPU.
+   (d) ``EndCloudServingEngine`` (``spec_engine``'s settings): f32 card
+   against CPU; bf16 with the three int8 streams (only ``VLM_INT8_PATH``'s
+   kernels, a profiled tick, ``chiprun_out/vlm_stream_profile.txt``); bf16
+   with ``spec_k = 4`` (its k-row verify chunks on the tensor-core body).
+   Every kernel of ``VLM_KERNELS`` launched over (a)-(d).  Then each of
+   them against its plain version at qwen2-vl's shapes, timed beside its
+   bound and library call (``vlm_kernels``).  ``python3 chip_smoke.py
+   --vlm`` runs the build and this phase alone and prints no result line.
 
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
 in phase 9's bf16 fleet run; ``chaos_launches``: in phase 10's bf16 chaos
-run), the ``nvidia-smi``
+run; ``vlm_launches``: over phase 11's runs), the ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
@@ -350,12 +372,13 @@ PA_CASES = (
 
 
 def paged_attention_inputs(torch, C: int, seed: int, B: int = 8, pps: int = 16,
-                           lengths=PA_CASES[0][4]):
-    """B slots, 12 kv heads of 64, 16-token pages, a pps-page ring; slot b
-    holds positions up to ``lengths[b]`` (its ring anchor), unmapped table
-    entries are garbage, and the C query rows end at the anchor."""
+                           lengths=PA_CASES[0][4], heads=(12, 12, 64)):
+    """B slots, ``heads`` = (query heads, kv heads, head dim), 16-token
+    pages, a pps-page ring; slot b holds positions up to ``lengths[b]`` (its
+    ring anchor), unmapped table entries are garbage, and the C query rows
+    end at the anchor."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, hd, ps = 12, 64, 16
+    (H, KV, hd), ps = heads, 16
     lengths = torch.tensor(lengths, dtype=torch.int32)
     P = B * pps
     perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed)).view(B, pps)
@@ -367,18 +390,19 @@ def paged_attention_inputs(torch, C: int, seed: int, B: int = 8, pps: int = 16,
     q_pos = q_pos.clamp_min(0).int()
     dev = dict(device="cuda")
     q = torch.randn(B, C, H, hd, generator=g, **dev).bfloat16()
-    pool_k = torch.randn(P + 1, ps, H, hd, generator=g, **dev).bfloat16()
-    pool_v = torch.randn(P + 1, ps, H, hd, generator=g, **dev).bfloat16()
+    pool_k = torch.randn(P + 1, ps, KV, hd, generator=g, **dev).bfloat16()
+    pool_v = torch.randn(P + 1, ps, KV, hd, generator=g, **dev).bfloat16()
     return q, pool_k, pool_v, table.cuda(), q_pos.cuda(), lengths.cuda()
 
 
-def run_paged_attention(torch, timer, quant: bool = False):
+def run_paged_attention(torch, timer, quant: bool = False, cases=PA_CASES, heads=(12, 12, 64)):
     """Paged attention (``quant``: over int8 pools, codes and f16 scales per
-    token from the quantizer) against its plain version at ``PA_CASES``:
-    within tolerance, the same bits from a second launch, the bound, and
-    beside the kernel's time SDPA's on the pre-gathered (and dequantized)
-    dense ring, each as an event pair and as the profiler's device time a
-    call.  Returns the first case's record, with the largest error."""
+    token from the quantizer) against its plain version at ``cases`` (query
+    heads, kv heads and head dim ``heads``): within tolerance, the same bits
+    from a second launch, the bound, and beside the kernel's time SDPA's on
+    the pre-gathered (and dequantized) dense ring, kv heads repeated for
+    GQA, each as an event pair and as the profiler's device time a call.
+    Returns the first case's record, with the largest error."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import (
@@ -395,12 +419,12 @@ def run_paged_attention(torch, timer, quant: bool = False):
 
     what = "paged_attention_quant" if quant else "paged_attention"
     rec = {}
-    for i, (name, B, pps, C, anchors) in enumerate(PA_CASES):
+    for i, (name, B, pps, C, anchors) in enumerate(cases):
         seed = (10 if quant else 0) + C + (100 if i >= 2 else 0)
         q, pool_k, pool_v, table, q_pos, lengths = paged_attention_inputs(
-            torch, C, seed, B=B, pps=pps, lengths=anchors)
+            torch, C, seed, B=B, pps=pps, lengths=anchors, heads=heads)
         H, hd = q.shape[2], q.shape[3]
-        ps = pool_k.shape[1]
+        ps, KV = pool_k.shape[1], pool_k.shape[2]
         if quant:
             kq, ks = quantize_kv_tokens(pool_k)
             vq, vs = quantize_kv_tokens(pool_v)
@@ -410,13 +434,13 @@ def run_paged_attention(torch, timer, quant: bool = False):
             plain_kw = dict(k_scale=ks, v_scale=vs)
             ring_k = dequantize_kv_pool(kq, ks, torch.bfloat16)
             ring_v = dequantize_kv_pool(vq, vs, torch.bfloat16)
-            page_bytes = 2 * ps * H * hd + 2 * ps * 2  # int8 K and V, f16 scales
+            page_bytes = 2 * ps * KV * hd + 2 * ps * 2  # int8 K and V, f16 scales
         else:
             args = (q, pool_k, pool_v, table, q_pos, lengths)
             fn = paged_attention
             plain_args, plain_kw = args, {}
             ring_k, ring_v = pool_k, pool_v
-            page_bytes = 2 * ps * H * hd * 2  # K and V of one page, bf16
+            page_bytes = 2 * ps * KV * hd * 2  # K and V of one page, bf16
         out = fn(*args)
         ref = paged_attention_plain(*plain_args, **plain_kw)
         # Both sides accumulate in f32 (int8 pools: dequantized exactly, p
@@ -437,8 +461,9 @@ def run_paged_attention(torch, timer, quant: bool = False):
                   + (table.numel() + q_pos.numel() + lengths.numel()) * 4)
         b_ms, b_by = bound(nbytes, 4 * hd * H * int(vis.sum()), "bf16")
         # yardstick: SDPA over the pre-gathered dense ring with a boolean mask
-        kd = paged_gather(ring_k, table).transpose(1, 2)  # [B, H, W, hd]
-        vd = paged_gather(ring_v, table).transpose(1, 2)
+        kd = paged_gather(ring_k, table).repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        vd = paged_gather(ring_v, table).repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        # kd, vd: [B, H, W, hd]
         qd, mask = q.transpose(1, 2), vis[:, None]  # mask [B, 1, C, W]
 
         sdpa = functools.partial(F.scaled_dot_product_attention, qd, kd, vd, attn_mask=mask)
@@ -449,11 +474,11 @@ def run_paged_attention(torch, timer, quant: bool = False):
         timer.later(f"{what} {name}", call,
                     lambda sdpa=sdpa: f"sdpa {timer.device_us(sdpa)[0]:.3f}")
         log(f"  {what} {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
-            f"({b_by}) library_ms(sdpa)={lib_ms:.4f}; rows C*G={C}, table entries "
+            f"({b_by}) library_ms(sdpa)={lib_ms:.4f}; rows C*G={C * H // KV}, table entries "
             f"{B * pps}, mapped {int(mapped.sum())}, live {int(live.sum())}; deterministic")
         rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms)
-    main = dict(rec[PA_CASES[0][0]])
+    main = dict(rec[cases[0][0]])
     main["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
     return main
 
@@ -762,6 +787,52 @@ def run_expert_mlp_resident(torch, timer):
     return main
 
 
+def flash_case(torch, timer, gen, name, B, S, H, KV, hd=64, window=None, later=False):
+    """Flash attention over bf16 [B, S, H | KV, hd], causal (and a window),
+    against its plain version; the kernel's time, the plain version's, the
+    bound and SDPA's (kv heads repeated for GQA), and with ``later`` their
+    device times queued (``Timer.later``); returns the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import block_mask
+
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
+    kw = dict(causal=True, window=window)
+    out = flash_attention_fwd(q, k, v, **kw)
+    ref = flash_attention_plain(q, k, v, **kw)
+    # the same tiles and rounding points, f32 sums in another order: one
+    # bf16 ulp of each element, and four at the median |output| (atol)
+    atol = 2 ** -6 * ref.float().abs().median().item()
+    err = check_close(f"flash_attention {name}", out, ref, rtol=2 ** -7, atol=atol)
+
+    pos = torch.arange(S, device="cuda")
+    vis = block_mask(pos, pos, True, window)  # [S, S]
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    b_ms, b_by = bound(nbytes, 4 * hd * B * H * int(vis.sum()), "bf16")
+    # yardstick: SDPA on [B, H, S, hd] copies, KV heads repeated for GQA
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    if window is None:
+        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=True)
+    else:
+        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, attn_mask=vis)
+    call = functools.partial(flash_attention_fwd, q, k, v, **kw)
+    lib_ms = timer(sdpa)
+    ms = timer(call)
+    plain_ms = timer(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
+    if later:
+        timer.later(f"flash_attention {name}", call,
+                    lambda: f"sdpa {timer.device_us(sdpa)[0]:.3f}")
+    log(f"  flash_attention {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa)={lib_ms:.4f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 def run_flash_attention(torch, timer):
     import torch.nn.functional as F
 
@@ -779,36 +850,7 @@ def run_flash_attention(torch, timer):
         ("draft prefill B=1 S=256 H=12", 1, 256, 12, 12, None),
     ]
     for name, B, S, H, KV, window in cases:
-        hd = 64
-        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
-        kw = dict(causal=True, window=window)
-        out = flash_attention_fwd(q, k, v, **kw)
-        ref = flash_attention_plain(q, k, v, **kw)
-        # the same tiles and rounding points, f32 sums in another order: one
-        # bf16 ulp of each element, and four at the median |output| (atol)
-        atol = 2 ** -6 * ref.float().abs().median().item()
-        err = check_close(f"flash_attention {name}", out, ref, rtol=2 ** -7, atol=atol)
-
-        pos = torch.arange(S, device="cuda")
-        vis = block_mask(pos, pos, True, window)  # [S, S]
-        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
-        b_ms, b_by = bound(nbytes, 4 * hd * B * H * int(vis.sum()), "bf16")
-        # yardstick: SDPA on [B, H, S, hd] copies, KV heads repeated for GQA
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-        if window is None:
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-        else:
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis))
-        ms = timer(lambda: flash_attention_fwd(q, k, v, **kw))
-        plain_ms = timer(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
-        log(f"  flash_attention {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa)={lib_ms:.4f}")
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms)
+        rec[name] = flash_case(torch, timer, gen, name, B, S, H, KV, window=window)
     # head dims 32 and 128 at the pipeline's batch and length, and query
     # rows that see no key (a window past every key; a negative offset
     # under causality), which the kernel and its plain version leave at 0
@@ -847,27 +889,19 @@ def run_flash_attention(torch, timer):
     return main
 
 
-def run_lowrank(torch, timer):
-    from repro_torch.core.compression import init_lowrank_1d
-    from repro_torch.kernels.lowrank import (
-        lowrank_decode,
-        lowrank_encode,
-        lowrank_project_plain,
-        lowrank_roundtrip,
-        lowrank_roundtrip_plain,
-    )
+def codec_cases(torch, timer, gen, codec, rows, later=False):
+    """``lowrank_encode`` and ``lowrank_decode`` of bf16 rows through the
+    bf16 copy of ``codec`` at ``rows`` rows each, against their plain
+    versions, each shape launched twice for the same bits; the kernel's
+    time, the plain version's, the bound and ``torch.matmul``'s (with
+    ``later`` their device times queued); returns the records at
+    ``rows[0]``."""
+    from repro_torch.kernels.lowrank import lowrank_decode, lowrank_encode, lowrank_project_plain
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    d, r = 768, 384
-    codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, r, device="cuda")
-    rec = {}
-
-    # encode and decode at the one-shot pipeline's boundary (T = 1024), bf16
-    # operands (the consumer casts the codec to the activation type),
-    # and at the streaming engine's decode group step (4 rows) and prefill
-    # chunk (32 rows); each shape launched twice must give the same bits
     enc, dec = codec["enc"].bfloat16(), codec["dec"].bfloat16()
-    for T in (1024, 4, 32):
+    d, r = enc.shape
+    rec = {}
+    for T in rows:
         x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
         z = lowrank_encode(x, enc)
         for name, fn, a, w in (("lowrank_encode", lowrank_encode, x, enc),
@@ -883,15 +917,35 @@ def run_lowrank(torch, timer):
             nt, k = a.shape
             n = w.shape[1]
             b_ms, b_by = bound((nt * k + k * n + nt * n) * 2, 2 * nt * k * n, "bf16")
-            ms = timer(lambda: fn(a, w))
+            call = functools.partial(fn, a, w)
+            lib = functools.partial(torch.matmul, a, w)
+            ms = timer(call)
             plain_ms = timer(lambda: lowrank_project_plain(a, w))
-            lib_ms = timer(lambda: torch.matmul(a, w))
-            log(f"  {name} T={T}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+            lib_ms = timer(lib)
+            if later:
+                timer.later(f"{name} T={T} d={d} r={r}", call, functools.partial(
+                    lambda lib: f"torch.matmul {timer.device_us(lib)[0]:.3f}", lib))
+            log(f"  {name} T={T} d={d}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
                 f"({b_by}) library_ms(matmul)={lib_ms:.4f} deterministic")
-            if T == 1024:  # the one-shot pipeline's boundary: the kernels line
+            if T == rows[0]:
                 rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=lib_ms)
+    return rec
 
+
+def run_lowrank(torch, timer):
+    from repro_torch.core.compression import init_lowrank_1d
+    from repro_torch.kernels.lowrank import lowrank_roundtrip, lowrank_roundtrip_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    d, r = 768, 384
+    codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, r, device="cuda")
+
+    # encode and decode at the one-shot pipeline's boundary (T = 1024), bf16
+    # operands (the consumer casts the codec to the activation type),
+    # and at the streaming engine's decode group step (4 rows) and prefill
+    # chunk (32 rows)
+    rec = codec_cases(torch, timer, gen, codec, (1024, 4, 32))
     # the roundtrip's contract form (Z in f32, the error from the unrounded
     # X^: the roundtrip kernel's f32 form on f32 copies) at a ragged T, in
     # f32 and in bf16, error sum included (timed in run_roundtrip)
@@ -1118,17 +1172,18 @@ CODEC_QUANT_ROWS = (1, 4, 32, 128, 1024)
 CODEC_QUANT_RANKS = (384, 512, 100)
 
 
-def run_codec_quant(torch, timer):
+def run_codec_quant(torch, timer, d=768, ranks=CODEC_QUANT_RANKS, rows=CODEC_QUANT_ROWS,
+                    timed=(4, 32, 128)):
     """The int8 boundary folded into the codec: ``lowrank_encode_quant``
-    and ``lowrank_decode_quant`` at ``CODEC_QUANT_ROWS`` x
-    ``CODEC_QUANT_RANKS`` (d = 768), bf16 and f32, an all-zero row and one
+    and ``lowrank_decode_quant`` at ``rows`` x ``ranks`` (d_model ``d``;
+    ``CODEC_QUANT_ROWS`` x ``CODEC_QUANT_RANKS`` at 768), bf16 and f32, an all-zero row and one
     whose f16 scale underflows to 0 included: codes, scales and x^
     bit-equal to the composed kernels (``lowrank_encode`` then
     ``quantize_rows``, ``dequantize_rows`` then ``lowrank_decode``), a
     second launch equal; the codes within one step (plus the codec's one
     ulp) of the plain Z and x^ within the codec's tolerance of the plain
-    composition on the same codes.  Timed at rank 384 in bf16 and 4, 32 and
-    128 rows, beside the plain composition and the composed kernels; the
+    composition on the same codes.  Timed at rank 384 in bf16 and ``timed``
+    rows, beside the plain composition and the composed kernels; the
     library yardstick is ``torch.matmul`` on the product alone (no single
     call also quantizes).  Returns the records at the stream's decode
     group (4 rows)."""
@@ -1145,13 +1200,13 @@ def run_codec_quant(torch, timer):
     from repro_torch.kernels.quant import dequantize_rows, quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    d, f16 = 768, torch.float16
+    f16 = torch.float16
     rec = {}
-    for r in CODEC_QUANT_RANKS:
+    for r in ranks:
         codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, r, device="cuda")
         for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             enc, dec = codec["enc"].to(dt), codec["dec"].to(dt)
-            for T in CODEC_QUANT_ROWS:
+            for T in rows:
                 x = torch.randn(T, d, generator=gen, device="cuda") * 3
                 x[0] = 0
                 if T > 1:
@@ -1172,7 +1227,7 @@ def run_codec_quant(torch, timer):
                 step = s.float()
                 near = (q.float() * step - z).abs() <= 1.5 * step + 2 ** -7 * z.abs()
                 codes_ok = bool(near[s[:, 0] > 0].all())
-                what = f"codec quant {kind} T={T} r={r}"
+                what = f"codec quant {kind} T={T} d={d} r={r}"
                 log(f"  {what}: codes, scales and x^ equal the composed kernels': {equal}; "
                     f"a second launch's: {same}; codes within a step of the plain Z: "
                     f"{codes_ok} ({under} scales underflowed to 0)")
@@ -1189,7 +1244,7 @@ def run_codec_quant(torch, timer):
                 else:
                     err = check_close(f"{what} x^", xh, ref, rtol=2 ** -7,
                                       atol=2 ** -6 * ref.float().abs().median().item())
-                if r != 384 or kind != "bf16" or T not in (4, 32, 128):
+                if r != 384 or kind != "bf16" or T not in timed:
                     continue
                 for name, call, plain, composed, lib, nbytes in (
                         ("lowrank_encode_quant", functools.partial(lowrank_encode_quant, x, enc),
@@ -1209,12 +1264,12 @@ def run_codec_quant(torch, timer):
                     plain_ms = timer(plain)
                     comp_ms = timer(composed)
                     lib_ms = timer(lib)
-                    timer.later(f"{name} T={T} r={r}", call, functools.partial(
+                    timer.later(f"{name} T={T} d={d} r={r}", call, functools.partial(
                         lambda composed, lib: (
                             f"the composed kernels {timer.device_us(composed)[0]:.3f}, "
                             f"torch.matmul (the product alone) {timer.device_us(lib)[0]:.3f}"),
                         composed, lib))
-                    log(f"  {name} T={T} r={r}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    log(f"  {name} T={T} d={d} r={r}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
                         f"composed_ms={comp_ms:.4f} bound_ms={b_ms:.6f} ({b_by}) "
                         f"library_ms(matmul, the product alone)={lib_ms:.4f}")
                     if T == 4:
@@ -1235,10 +1290,11 @@ KV_WRITE_CASES = (
 )
 
 
-def run_kv_write(torch, timer):
+def run_kv_write(torch, timer, heads=(12, 64)):
     """The int8 KV pools' quantize-and-write (``paged_write_quant``) against
     its plain version (the writers' old body: two token quantizations, the
-    slot arithmetic, four scatters) at ``KV_WRITE_CASES``, into pools that
+    slot arithmetic, four scatters) at ``KV_WRITE_CASES`` with ``heads`` =
+    (kv heads, head dim), into pools that
     are views of a block-stacked leaf holding random codes: codes and scales
     bit-equal outside the garbage row (padding rows all land there, in
     either order), also from a second launch, one launch counted a call; an
@@ -1247,7 +1303,7 @@ def run_kv_write(torch, timer):
     from repro_torch.models.kvcache import paged_write_quant_plain
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    P, ps, KV, hd, pps, R = 128, 16, 12, 64, 16, 6
+    (KV, hd), P, ps, pps, R = heads, 128, 16, 16, 6
     n = KV * hd
     perm = torch.randperm(P, generator=torch.Generator().manual_seed(8)).int()
     rec = {}
@@ -1295,14 +1351,13 @@ def run_kv_write(torch, timer):
         last = 0 if n_valid is None else n_valid[-1] - 1
         under = (want_s[0, 2][phys[0, 0], pos2[0, 0] % ps].item(),
                  want_s[1, 2][phys[-1, last], pos2[-1, last] % ps].item())
-        log(f"  paged_write_quant {name}: codes and scales equal the plain version's outside "
-            f"the garbage row: {same}; second launch equal: {again}; the zero and tiny "
-            f"tokens' scales {under}")
+        what = f"paged_write_quant {name} KV={KV} hd={hd}"
+        log(f"  {what}: codes and scales equal the plain version's outside the garbage row: "
+            f"{same}; second launch equal: {again}; the zero and tiny tokens' scales {under}")
         if not (same and again):
-            raise AssertionError(f"paged_write_quant {name}: codes or scales differ")
+            raise AssertionError(f"{what}: codes or scales differ")
         if under != (0.0, 0.0):
-            raise AssertionError(f"paged_write_quant {name}: the zero and tiny tokens' f16 "
-                                 "scales are not 0")
+            raise AssertionError(f"{what}: the zero and tiny tokens' f16 scales are not 0")
         tokens = B * C
         # k and v read, codes and f16 scales written, each token's position
         # (and valid flag) read, and the distinct page-table entries that
@@ -1316,8 +1371,8 @@ def run_kv_write(torch, timer):
         call = functools.partial(paged_write_quant, *dst, *args)
         ms = timer(call)
         plain_ms = timer(lambda: paged_write_quant_plain(*dst, *args))
-        timer.later(f"paged_write_quant {name}", call)
-        log(f"  paged_write_quant {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        timer.later(what, call)
+        log(f"  {what}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.6f} ({b_by}) library_ms=null")
         rec[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
@@ -2310,6 +2365,15 @@ def spec_engine(model, params, **kw):
                          timing="modeled", **kw)
 
 
+def only_path(tag, launches, path):
+    """Every wrapper of ``path`` launched and no other."""
+    zero = [k for k in path if launches[k] == 0]
+    off = {k: v for k, v in launches.items() if k not in path and v}
+    if zero or off:
+        raise AssertionError(f"{tag}: path kernels not launched {zero}, kernels off the path "
+                             f"launched {off}")
+
+
 def drive(eng, reqs, hook=None, limit=3000):
     """Submit ``reqs`` and tick until the engine drains (``hook(engine,
     tick)`` before each tick); returns the requests' tokens."""
@@ -2353,7 +2417,7 @@ def near_tie(torch, eng, stream) -> float:
     end_p, cloud_p = split_block_params(eng._cparams, eng.split)
     tokens = torch.tensor(np.asarray(stream, np.int32)[None], device=eng.device)
     pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=eng.device)[None]
-    angles = attn.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    angles = attn.model_angles(cfg, pos)
     gating.gate = gate_rec
     try:
         with torch.no_grad():
@@ -2522,11 +2586,7 @@ def spec_bf16(torch, model, params, counters):
         raise AssertionError("spec run bf16: pages left mapped or a request short")
     if m["spec_rounds"] == 0 or not any(c > 1 and c < eng.prefill_chunk for c in rows):
         raise AssertionError("spec run bf16: no speculative round ran")
-    zero = [k for k in SPEC_PATH if launches[k] == 0]
-    off = {k: v for k, v in launches.items() if k not in SPEC_PATH and v}
-    if zero or off:
-        raise AssertionError(f"spec run bf16: path kernels not launched {zero}, kernels "
-                             f"off the path launched {off}")
+    only_path("spec run bf16", launches, SPEC_PATH)
     if launches["flash_attention_fwd"] % (model.cfg.block_repeat * len(model.cfg.layer_pattern)):
         raise AssertionError("spec run bf16: flash attention launches are not whole prefills")
 
@@ -2878,11 +2938,7 @@ def fleet_bf16(torch, model, params, counters, tick_profiles):
     if m["kv_pages_in_use"] or any(not r.done or len(r.generated) != r.max_new_tokens
                                    for r in reqs):
         raise AssertionError("fleet bf16: pages left mapped or a request short")
-    zero = [k for k in FLEET_BF16_PATH if launches[k] == 0]
-    off = {k: v for k, v in launches.items() if k not in FLEET_BF16_PATH and v}
-    if zero or off:
-        raise AssertionError(f"fleet bf16: path kernels not launched {zero}, kernels off the "
-                             f"path launched {off}")
+    only_path("fleet bf16", launches, FLEET_BF16_PATH)
     for name, prio in (("interactive", 0), ("batch", 2), ("all", None)):
         s = loadgen.summarize(reqs, priority=prio)
         log(f"fleet bf16 summarize, {name} (modeled clock, not the card's speed): n {s['n']}, "
@@ -3256,11 +3312,7 @@ def chaos_bf16(torch, model, params, counters, tick_profiles, f32_page_bytes, ti
     if f32_page_bytes is not None and not 0 < page_bytes < 0.7 * f32_page_bytes:
         raise AssertionError(f"chaos bf16: migrated {page_bytes} bytes a page, not below 0.7 of "
                              f"the f32 run's {f32_page_bytes}")
-    zero = [k for k in CHAOS_BF16_PATH if launches[k] == 0]
-    off = {k: v for k, v in launches.items() if k not in CHAOS_BF16_PATH and v}
-    if zero or off:
-        raise AssertionError(f"chaos bf16: path kernels not launched {zero}, kernels off the "
-                             f"path launched {off}")
+    only_path("chaos bf16", launches, CHAOS_BF16_PATH)
     if "reserve0" not in state:
         raise AssertionError("chaos bf16: the shared storage never grew to split 0")
     rtick, now_b, peak_b = state["reserve0"]
@@ -3350,16 +3402,502 @@ def chaos_timeline(torch) -> int:
     return 1 if failed else 0
 
 
-def main() -> int:
-    import torch
+# ---------------------------------------------------------------------------
+# Phase 11: qwen2-vl-2b (M-RoPE and patch embeddings) through the model and
+# every engine, at full width and depth
+# ---------------------------------------------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    if "--chaos-timeline" in sys.argv[1:]:
-        return chaos_timeline(torch)
-    from repro_torch.kernels import build
+VLM = "qwen2-vl-2b"
+VLM_TEXT = 64  # text tokens after the 256 patches (part a)
+VLM_DECODE = 16  # greedy decode steps after the prefill (part a)
+VLM_CPU_LAYERS = 4  # depth of the CPU side of the full-sequence f32 and bf16 checks
+VLM_F32_REL, VLM_F32_COS = 1e-4, 0.9999  # f32 logits card vs CPU (as phase 5's)
+VLM_LAYER_REL, VLM_BF16_REL, VLM_BF16_COS = 2**-6, 0.02, 0.9999  # bf16, layer by layer
+# the wrappers that phase 11's runs must launch, summed over them
+VLM_KERNELS = ("paged_attention", "paged_attention_quant", "flash_attention_fwd",
+               "lowrank_encode", "lowrank_decode", "lowrank_encode_quant",
+               "lowrank_decode_quant", "paged_write_quant")
+# the bf16 int8-stream run's wrappers (a dense model: no gate, no expert FFN,
+# no slab to quantize; the int8 boundary through the fused codec)
+VLM_INT8_PATH = ("paged_attention_quant", "paged_write_quant", "lowrank_encode_quant",
+                 "lowrank_decode_quant")
+# the bf16 speculative run's: flash attention for the draft installs
+VLM_SPEC_PATH = ("paged_attention", "flash_attention_fwd", "lowrank_encode", "lowrank_decode")
+# paged attention at qwen2-vl's serving shapes (12 query heads on 2 kv heads
+# of 128): decode (C*G = 6 rows), a verify chunk (30) and a prompt chunk (192)
+VLM_ANCHORS = PA_CASES[0][4]  # 8 slots, one past a ring wrap
+VLM_PA_CASES = (
+    ("qwen2-vl B=8 pps=16 C=1", 8, 16, 1, VLM_ANCHORS),
+    ("qwen2-vl B=8 pps=16 C=5", 8, 16, 5, VLM_ANCHORS),
+    ("qwen2-vl B=8 pps=16 C=32", 8, 16, 32, VLM_ANCHORS),
+)
+
+
+def first_layers(params, n: int):
+    """``params`` cut to their first ``n`` blocks (views)."""
+    from repro_torch.serving.endcloud import split_block_params
+
+    return {**params, "blocks": split_block_params(params, n)[0]["blocks"]}
+
+
+def vlm_batch(torch, cfg, B: int, T: int, seed: int, grid: bool = True):
+    """CPU tensors: B rows of ``cfg.vision_patches`` patch embeddings (std 1,
+    as the token table's rows) and T text tokens from a seeded generator;
+    with ``grid`` Qwen2-VL's positions: the patches on a 1 x side x side
+    grid (t = 0, h = i // side, w = i % side), the text continuing from
+    ``side`` on all three axes (else 0..S-1 on every axis, the default)."""
+    g = torch.Generator().manual_seed(seed)
+    P = cfg.vision_patches
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T), generator=g, dtype=torch.int32),
+             "patch_embeds": torch.randn(B, P, cfg.d_model, generator=g)}
+    if grid:
+        side = round(P ** 0.5)
+        i = torch.arange(P)
+        img = torch.stack([torch.zeros_like(i), i // side, i % side])
+        txt = (side + torch.arange(T))[None].expand(3, T)
+        batch["positions"] = torch.cat([img, txt], 1)[None].expand(B, 3, P + T).int().contiguous()
+    return batch
+
+
+def vlm_generate(torch, model, params, batch, steps: int):
+    """``Model.prefill`` of ``batch`` then ``steps`` greedy ``decode_step`` s
+    on the model's device: (logits over the real vocabulary [steps + 1, B,
+    V], f32 on the host; their argmax)."""
+    b = {k: v.to(model.device) for k, v in batch.items()}
+    S = b["tokens"].shape[1] + b["patch_embeds"].shape[1]
+    out = []
+    with torch.no_grad():
+        logits, cache = model.prefill(params, b, max_len=S + steps)
+        for i in range(steps + 1):
+            out.append(logits.float().cpu())
+            if i < steps:
+                logits, cache = model.decode_step(params, logits.argmax(-1).int()[:, None],
+                                                  cache)
+    lg = torch.stack(out)[..., :model.cfg.vocab_size]
+    return lg, lg.argmax(-1)
+
+
+def vlm_equal_or_tie(torch, tag, card, host):
+    """Greedy runs (``vlm_generate``'s) on the card and on the CPU: the
+    tokens equal, or the first step where a row differs is a near tie of the
+    CPU's logits (top-2 gap below ``TIE``); the logits of every step up to
+    that one within ``VLM_F32_REL`` of max|cpu| and cosine ``VLM_F32_COS``."""
+    (lg, tok), (lc, tc) = card, host
+    same = (tok == tc).all(dim=1)
+    n = int(same.int().cumprod(0).sum())  # leading steps with every row equal
+    upto = min(n + 1, len(tok))
+    rel, cos = logit_gap(torch, lg[:upto], lc[:upto], lc.shape[-1])
+    log(f"{tag}: tokens equal at {n} of {len(tok)} steps; logits over steps 0-{upto - 1}: "
+        f"max|diff|/max|cpu|={rel:.3e} (<= {VLM_F32_REL:g}) cos={cos.min().item():.7f} "
+        f"(>= {VLM_F32_COS:g})")
+    if not (rel <= VLM_F32_REL and cos.min().item() >= VLM_F32_COS):
+        raise AssertionError(f"{tag}: the card's logits disagree with the CPU's")
+    if n < len(tok):
+        rows = (tok[n] != tc[n]).nonzero().squeeze(1)
+        top2 = lc[n, rows].topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).max().item()
+        log(f"{tag}: step {n} differs in rows {rows.tolist()} at a CPU top-2 gap of "
+            f"{gap:.3e} (tie < {TIE:g})")
+        if gap >= TIE:
+            raise AssertionError(f"{tag}: tokens differ where the model has no near tie")
+
+
+def vlm_layers(torch, model, params, batch, feed=None):
+    """``Model.prefill`` with every layer's input and output recorded on the
+    host: (last-position logits f32 on the host, {"in", "out": [layers]});
+    with ``feed`` each layer takes that run's input for it."""
+    from repro_torch.models import transformer
+
+    layer = transformer.apply_layer_full
+    rec = {"in": [], "out": []}
+
+    def layer_rec(p, x, *args, **kw):
+        if feed is not None:
+            x = feed[len(rec["in"])].to(x.device)
+        rec["in"].append(x.cpu())
+        y, aux, entry = layer(p, x, *args, **kw)
+        rec["out"].append(y.float().cpu())
+        return y, aux, entry
+
+    transformer.apply_layer_full = layer_rec
+    try:
+        with torch.no_grad():
+            logits, _ = model.prefill(params, {k: v.to(model.device) for k, v in batch.items()})
+    finally:
+        transformer.apply_layer_full = layer
+    return logits.float().cpu(), rec
+
+
+def profiled(torch, fn, name: str, names):
+    """One call of ``fn`` under ``torch.profiler``, its table written to
+    ``chiprun_out/name``: (device ms, synchronized wall ms, the in-path
+    reader's line over ``names``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    avgs = prof.key_averages()
+    dev = [e for e in avgs if e.device_type != DeviceType.CPU]
+    (OUT_DIR / name).write_text(avgs.table(sort_by="cuda_time_total", row_limit=40))
+    return (sum(e.self_device_time_total for e in dev) / 1e3, wall * 1e3,
+            kernels_in_path(dev, names))
+
+
+def counted_run(counters, fn):
+    """(``fn()``, each wrapper's launches in that call), counts zeroed first."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def vlm_model(torch, cfg, cparams, host32, counters):
+    """(a) ``Model.prefill`` of 256 patches on a 16 x 16 grid and 64 text
+    tokens, then 16 greedy decode steps, full depth in bf16 on the card;
+    the grid's logits against uniform positions'; f32 card against CPU and
+    bf16 layer by layer, at ``VLM_CPU_LAYERS`` layers.  Returns the
+    full-depth run's launches."""
+    from repro_torch.models.model import Model, to_device
+
+    L = cfg.num_layers
+    model = Model(cfg, device="cuda")
+    batch = vlm_batch(torch, cfg, 2, VLM_TEXT, seed=0)
+    t0 = time.perf_counter()
+    (lg, tok), launches = counted_run(
+        counters, lambda: vlm_generate(torch, model, cparams, batch, VLM_DECODE))
+    log(f"vlm prefill [2, {cfg.vision_patches} patches + {VLM_TEXT} tokens] and "
+        f"{VLM_DECODE} decode steps (bf16, {L} layers): {time.perf_counter() - t0:.2f} s; "
+        f"launches {launches}")
+    if launches["flash_attention_fwd"] != L or any(
+            v for k, v in launches.items() if k != "flash_attention_fwd"):
+        raise AssertionError(f"vlm prefill: launches {launches}, want {L} flash attention "
+                             "(one a layer) and nothing else (decode over dense rings)")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("vlm prefill: logits are not finite")
+    flat = vlm_batch(torch, cfg, 2, VLM_TEXT, seed=0, grid=False)
+    lu, _ = vlm_generate(torch, model, cparams, flat, 0)
+    moved = ((lg[0] - lu[0]).abs().max() / lu[0].abs().max()).item()
+    log(f"M-RoPE: the grid's prefill logits against uniform positions': max|diff|/max|.|="
+        f"{moved:.3e} (> 0.1), argmax equal {(lg[0].argmax(-1) == lu[0].argmax(-1)).tolist()}")
+    if moved <= 0.1:
+        raise AssertionError("M-RoPE: the grid positions did not move the logits")
+    del lu
+
+    cfg32 = cfg.replace(dtype="float32", num_layers=VLM_CPU_LAYERS)
+    t0 = time.perf_counter()
+    card = vlm_generate(torch, Model(cfg32, device="cuda"), to_device(host32, "cuda"), batch,
+                        VLM_DECODE)
+    t1 = time.perf_counter()
+    host = vlm_generate(torch, Model(cfg32, device="cpu"), host32, batch, VLM_DECODE)
+    vlm_equal_or_tie(torch, f"vlm f32 prefill + {VLM_DECODE} decode steps, card vs CPU "
+                     f"({VLM_CPU_LAYERS} layers; card {t1 - t0:.1f} s, CPU "
+                     f"{time.perf_counter() - t1:.1f} s)", card, host)
+
+    # bf16, row 0, each card layer fed the CPU's input for it
+    cfg4 = cfg.replace(num_layers=VLM_CPU_LAYERS)
+    cp4 = first_layers(cparams, VLM_CPU_LAYERS)
+    row = {k: v[:1] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    lc, rc = vlm_layers(torch, Model(cfg4, device="cpu"), to_device(cp4, "cpu"), row)
+    lf, rf = vlm_layers(torch, Model(cfg4, device="cuda"), cp4, row, feed=rc["in"])
+    layer_rel = [((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(rf["out"], rc["out"])]
+    rel, cos = logit_gap(torch, lf, lc, cfg.vocab_size)
+    log(f"vlm bf16 prefill, each layer fed the CPU's input ({VLM_CPU_LAYERS} layers, "
+        f"{time.perf_counter() - t0:.1f} s): layer max|diff|/max|cpu| "
+        f"{[f'{x:.2e}' for x in layer_rel]} (<= {VLM_LAYER_REL:g}); logits max|diff|/max|cpu|="
+        f"{rel:.3e} (<= {VLM_BF16_REL:g}) cos={cos.min().item():.6f} (>= {VLM_BF16_COS:g})")
+    if max(layer_rel) > VLM_LAYER_REL or rel > VLM_BF16_REL or cos.min().item() < VLM_BF16_COS:
+        raise AssertionError("vlm bf16: a layer fed the CPU's input disagrees")
+    return launches
+
+
+def vlm_serve(torch, cfg, params, cparams, counters):
+    """(b) Phase 3's traffic through ``ServingEngine`` at full depth in bf16,
+    a profiled decode step with 8 slots decoding, then phase 4's card
+    against CPU check in f32 at full depth.  Returns the run's launches."""
+    import numpy as np
+
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Request, ServingEngine
+
+    model = Model(cfg, device="cuda")
+    eng = ServingEngine(model, cparams, max_batch=8, max_len=256, page_size=16,
+                        prefill_chunk=32)
+    rng = np.random.default_rng(0)
+    prompt_lens = [16, 40, 77, 100, 128, 150, 181, 200]
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=32) for i, n in enumerate(prompt_lens)]
+    step_s = []
+
+    def run():
+        for r in reqs:
+            eng.submit(r)
+        while eng.busy():
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, launches = counted_run(counters, run)
+    run_s = time.perf_counter() - t0
+    log(f"vlm serving launches: {launches}")
+    only_path("vlm serving", launches, ("paged_attention",))
+    if not all(r.done and len(r.generated) == 32 for r in reqs) or eng.pool.pages_in_use:
+        raise AssertionError("vlm serving: a request did not finish, or pages stay mapped")
+    decode = sorted(step_s[1:])
+    log(f"vlm serving: first step {step_s[0] * 1e3:.3f} ms; decode step median "
+        f"{decode[len(decode) // 2] * 1e3:.3f} ms over {len(decode)} steps (host clock, "
+        f"synchronized); {8 * 32 / run_s:.1f} tokens/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for i, n in enumerate(prompt_lens):
+        eng.submit(Request(90 + i, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                           max_new_tokens=8))
+    eng.step()  # admission + decode
+    eng.step()
+    dev_ms, wall_ms, in_path = profiled(torch, eng.step, "vlm_decode_profile.txt",
+                                        PAGED_KERNELS)
+    log(f"vlm decode profile (1 step, 8 slots decoding): device time {dev_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall; kernels in path, a launch: {in_path}; written to "
+        f"chiprun_out/vlm_decode_profile.txt")
+    eng.run()
+    log(f"vlm card vs CPU (f32, {cfg.num_layers} layers, a 16-token prompt chunk and a decode "
+        "step):")
+    reference_check(torch, eng, cfg=cfg.replace(dtype="float32"), params=params,
+                    rel_tol=1e-3, cos_tol=0.99999)
+    return launches
+
+
+def vlm_pipeline(torch, cfg, cparams, host32, counters):
+    """(c) ``EndCloudPipeline``: jetson-orin end, a100 cloud, rank 384,
+    tokens [4, 256] at full depth in bf16 (the planner's split 1 of 28);
+    f32 card against CPU at ``VLM_CPU_LAYERS`` layers.  Returns one
+    ``run_batch``'s launches."""
+    from repro_torch.core.hardware import PROFILES
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.serving import EndCloudPipeline
+
+    prof = dict(end_profile=PROFILES["jetson-orin"], cloud_profile=PROFILES["a100"])
+    pipe = EndCloudPipeline(Model(cfg, device="cuda"), cparams, compression_rank=384, **prof)
+    L = cfg.num_layers
+    log(f"vlm pipeline plan (jetson-orin end, a100 cloud): split {pipe.split} of {L}, codec "
+        f"{'on' if pipe.tiers.compress else 'off'}")
+    if not (0 < pipe.split < L and pipe.tiers.compress):
+        raise AssertionError("vlm pipeline: the plan is not an interior split with the codec")
+    B, S = 4, 256
+    tok = pipeline_tokens(torch, cfg.vocab_size, B, S, 0).cuda()
+    pipe.run_batch(tok)  # warm-up
+    (logits, m), launches = counted_run(counters, lambda: pipe.run_batch(tok))
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention_fwd=L, lowrank_encode=1, lowrank_decode=1)
+    log(f"vlm pipeline launches per run_batch: {launches}")
+    if launches != want:
+        raise AssertionError(f"vlm pipeline launches {launches}, want {want}")
+    if m["boundary_bytes"] != B * S * 384 * 2 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"vlm pipeline: metrics {m}, or logits not finite")
+    del logits
+    runs = [pipe.run_batch(tok)[1] for _ in range(5)]
+    log(f"vlm pipeline run_batch [{B}, {S}]: median t_end "
+        f"{sorted(r['t_end_s'] for r in runs)[2] * 1e3:.3f} ms, median t_cloud "
+        f"{sorted(r['t_cloud_s'] for r in runs)[2] * 1e3:.3f} ms over 5 warm runs (host "
+        f"clock, device synchronized)")
+    dev_ms, wall_ms, in_path = profiled(
+        torch, lambda: pipe.run_batch(tok), "vlm_pipeline_profile.txt",
+        (("flash attention", ("flash_fwd_mma_kernel",), ()), *CODEC_KERNELS))
+    log(f"vlm pipeline profile (1 run_batch): device time {dev_ms:.3f} ms of {wall_ms:.3f} ms "
+        f"wall; kernels in path, a launch: {in_path}; written to "
+        f"chiprun_out/vlm_pipeline_profile.txt")
+
+    cfg32 = cfg.replace(dtype="float32", num_layers=VLM_CPU_LAYERS)
+    codec = pipe.codec
+    card = EndCloudPipeline(Model(cfg32, device="cuda"), to_device(host32, "cuda"),
+                            codec_params=codec, **prof)
+    host = EndCloudPipeline(Model(cfg32, device="cpu"), host32,
+                            codec_params=to_device(codec, "cpu"), **prof)
+    t0 = time.perf_counter()
+    lg, mg = card.run_batch(tok)
+    lc, mc = host.run_batch(tok.cpu())
+    rel, cos = logit_gap(torch, lg, lc, cfg.vocab_size)
+    log(f"vlm pipeline f32 card vs CPU ({VLM_CPU_LAYERS} layers, split {card.split}, "
+        f"{time.perf_counter() - t0:.1f} s): logits max|diff|/max|cpu|={rel:.3e} "
+        f"(<= {VLM_F32_REL:g}) cos={cos.min().item():.7f} (>= {VLM_F32_COS:g})")
+    if (mg["split"], mg["boundary_bytes"]) != (mc["split"], mc["boundary_bytes"]) or not (
+            rel <= VLM_F32_REL and cos.min().item() >= VLM_F32_COS):
+        raise AssertionError("vlm pipeline: the card disagrees with the CPU")
+    return launches
+
+
+def vlm_stream(torch, cfg, cparams, host32, counters):
+    """(d) ``EndCloudServingEngine`` (``spec_engine``: 8 slots in two
+    groups, rank 384, split 1, jetson-orin end, modeled stage times): f32
+    dense pools card against CPU at ``VLM_CPU_LAYERS`` layers; bf16 with the
+    three int8 streams (a profiled tick) and bf16 dense pools with
+    ``spec_k = 4``, both at full depth.  Returns the two bf16 runs' summed
+    launches."""
+    from repro_torch.kernels.paged_attention.ops import uses_tensor_cores
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model, to_device
+
+    cfg32 = cfg.replace(dtype="float32", num_layers=VLM_CPU_LAYERS)
+    runs = {}
+    t0 = time.perf_counter()
+    for dev, p in (("cuda", to_device(host32, "cuda")), ("cpu", host32)):
+        eng = spec_engine(Model(cfg32, device=dev), p)
+        reqs = stream_requests(cfg.vocab_size, 8, 0, 16, hi=SPEC_HI)
+        runs[dev] = (eng, reqs, drive(eng, reqs))
+    (ceng, creqs, card), (heng, _, host) = runs["cuda"], runs["cpu"]
+    keys = ("n_stage_steps", "n_prefill_chunks")
+    log(f"vlm stream f32 ({VLM_CPU_LAYERS} layers, 8 requests, 16 tokens, "
+        f"{time.perf_counter() - t0:.1f} s): counters card {[getattr(ceng, k) for k in keys]} "
+        f"CPU {[getattr(heng, k) for k in keys]}, bytes up {ceng.link.bytes_up} / "
+        f"{heng.link.bytes_up}")
+    if [getattr(ceng, k) for k in keys] != [getattr(heng, k) for k in keys]:
+        raise AssertionError("vlm stream f32: the card's counters differ from the CPU's")
+    equal_or_tie(torch, ceng, creqs, card, host, "vlm stream f32 card vs CPU")
+    del runs, ceng, heng
+
+    model = Model(cfg, device="cuda")
+    tick = {}
+
+    def profile_tick(e, t):
+        if not tick and all_decoding(e):
+            tick["at"] = t
+            tick["prof"] = profiled(torch, e.step, "vlm_stream_profile.txt", (
+                *PAGED_KERNELS, ("KV write", ("paged_write_quant_kernel<",), ()),
+                *CODEC_QUANT_KERNELS))
+
+    eng = spec_engine(model, cparams, **QUANT)
+    reqs = stream_requests(cfg.vocab_size, 8, 0, 32)
+    t0 = time.perf_counter()
+    tokens, quant = counted_run(counters, lambda: drive(eng, reqs, hook=profile_tick))
+    m = eng.metrics()
+    log(f"vlm stream bf16 + int8 streams ({cfg.num_layers} layers, 8 requests, 32 tokens): "
+        f"{time.perf_counter() - t0:.1f} s, {eng.n_stage_steps} end-stage steps, "
+        f"{eng.n_prefill_chunks} prefill chunks, {eng.link.bytes_up} bytes up; launches {quant}")
+    if m["kv_pages_in_use"] or not all(len(t) == 32 for t in tokens):
+        raise AssertionError("vlm stream bf16 int8: pages left mapped or a request short")
+    only_path("vlm stream bf16 int8", quant, VLM_INT8_PATH)
+    if not tick:
+        raise AssertionError("vlm stream bf16 int8: no tick had 8 slots decoding")
+    dev_ms, wall_ms, in_path = tick["prof"]
+    log(f"vlm stream tick profile (int8 streams, tick {tick['at']}, 8 slots decoding): device "
+        f"time {dev_ms:.3f} ms of {wall_ms:.3f} ms wall ({dev_ms / wall_ms:.1%} busy); kernels "
+        f"in path, a launch: {in_path}; written to chiprun_out/vlm_stream_profile.txt")
+    del eng
+
+    rows = {}
+    chunk_attn = attn.paged_chunk_attention
+
+    def count_rows(q, *args, **kw):
+        rows[q.shape[1]] = rows.get(q.shape[1], 0) + 1
+        return chunk_attn(q, *args, **kw)
+
+    attn.paged_chunk_attention = count_rows
+    try:
+        eng = spec_engine(model, cparams, **SPEC)
+        reqs = stream_requests(cfg.vocab_size, 8, 0, 32, hi=SPEC_HI)
+        t0 = time.perf_counter()
+        tokens, spec = counted_run(counters, lambda: drive(eng, reqs))
+    finally:
+        attn.paged_chunk_attention = chunk_attn
+    m = eng.metrics()
+    G = cfg.num_heads // cfg.num_kv_heads
+    mma = {c: uses_tensor_cores(torch.bfloat16, False, c * G, eng.page_size) for c in rows}
+    log(f"vlm stream bf16 spec_k=4 ({time.perf_counter() - t0:.1f} s): "
+        f"{ {k: m[k] for k in SPEC_COUNTERS} }; launches {spec}; paged attention calls by "
+        f"rows a slot {dict(sorted(rows.items()))}, tensor-core body {mma}")
+    if m["kv_pages_in_use"] or not all(len(t) == 32 for t in tokens) or not m["spec_rounds"]:
+        raise AssertionError("vlm stream bf16 spec: pages left mapped, a request short, or no "
+                             "speculative round")
+    only_path("vlm stream bf16 spec", spec, VLM_SPEC_PATH)
+    if spec["flash_attention_fwd"] % cfg.num_layers:
+        raise AssertionError("vlm stream bf16 spec: flash attention launches are not whole "
+                             "prefills")
+    if not any(v for c, v in mma.items() if 1 < c < eng.prefill_chunk):
+        raise AssertionError("vlm stream bf16 spec: no speculative chunk took the tensor cores")
+    return {k: quant[k] + spec[k] for k in quant}
+
+
+def vlm_kernels(torch, timer):
+    """The kernels of phase 11's path against their plain versions at
+    qwen2-vl's shapes, timed beside their bound and library call: paged
+    attention over bf16 and int8 pools (``VLM_PA_CASES``), flash attention
+    at the prefill's [2, 320] and a ragged [2, 301] (12 heads on 2 of 128),
+    the codec and its fused int8 forms at d 1536 and rank 384, and the
+    int8 KV write at 2 kv heads of 128; the profiler's device times read
+    at the end."""
+    from repro_torch.core.compression import init_lowrank_1d
+
+    heads = (12, 2, 128)
+    run_paged_attention(torch, timer, cases=VLM_PA_CASES, heads=heads)
+    run_paged_attention(torch, timer, quant=True, cases=VLM_PA_CASES, heads=heads)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, S in (("qwen2-vl prefill B=2 S=320 H=12 KV=2 hd=128", 320),
+                    ("qwen2-vl ragged B=2 S=301 H=12 KV=2 hd=128", 301)):
+        flash_case(torch, timer, gen, name, 2, S, 12, 2, hd=128, later=True)
+    codec = init_lowrank_1d(torch.Generator().manual_seed(7), 1536, 384, device="cuda")
+    codec_cases(torch, timer, gen, codec, (1024, 4, 32), later=True)
+    run_codec_quant(torch, timer, d=1536, ranks=(384,), rows=(1, 4, 32, 1024), timed=(4, 32))
+    run_kv_write(torch, timer, heads=(2, 128))
+    timer.read_later()
+
+
+def vlm_phase(torch, timer, counters):
+    """Phase 11 on full-width, full-depth qwen2-vl-2b with random weights
+    from seed 0 (f32 as stored, bf16 activations): (a) the model with patch
+    embeddings, (b) ``ServingEngine``, (c) ``EndCloudPipeline``, (d)
+    ``EndCloudServingEngine``, then the kernels at its shapes.  Returns
+    each wrapper's launches summed over the runs of (a)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, leaves, to_device
+    from repro_torch.models.transformer import compute_params
+
+    cfg = get_config(VLM)
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cparams = compute_params(params, cfg)  # the bf16 copy every engine reads
+    host32 = to_device(first_layers(params, VLM_CPU_LAYERS), "cpu")
+    torch.cuda.synchronize()
+    log(f"{VLM}: {sum(t.numel() for t in leaves(params)) / 1e9:.3f} B params, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads on "
+        f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, M-RoPE sections "
+        f"{cfg.mrope_sections}, {cfg.vision_patches} patches; built in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    parts = []
+    for tag, part in (
+            ("(a) model with patches", lambda: vlm_model(torch, cfg, cparams, host32, counters)),
+            ("(b) ServingEngine", lambda: vlm_serve(torch, cfg, params, cparams, counters)),
+            ("(c) EndCloudPipeline",
+             lambda: vlm_pipeline(torch, cfg, cparams, host32, counters)),
+            ("(d) EndCloudServingEngine",
+             lambda: vlm_stream(torch, cfg, cparams, host32, counters))):
+        t0 = time.perf_counter()
+        log(f"vlm {tag}:")
+        parts.append(part())
+        log(f"vlm {tag} took {time.perf_counter() - t0:.1f} s")
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    log(f"vlm launches over (a)-(d): {launches}")
+    missing = [k for k in VLM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"vlm: path kernels never launched: {missing}")
+    del params, cparams, host32
+    t0 = time.perf_counter()
+    log("vlm kernels against their plain versions at qwen2-vl's shapes (bf16, card):")
+    vlm_kernels(torch, timer)
+    log(f"vlm kernel checks took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def wrappers():
+    """Every kernel wrapper of the port, each counting its launches."""
     from repro_torch.kernels.expert_mlp import (
         grouped_mlp,
         grouped_mlp_resident,
@@ -3377,6 +3915,50 @@ def main() -> int:
     )
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
     from repro_torch.kernels.quant import dequantize_rows, paged_write_quant, quantize_rows
+
+    return [grouped_mlp_resident, grouped_mlp_resident_quant, grouped_mlp, group_gate,
+            lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
+            quantize_rows, dequantize_rows, paged_write_quant, flash_attention_fwd,
+            lowrank_roundtrip, lowrank_roundtrip_loss, lowrank_encode_quant, lowrank_decode_quant]
+
+
+def vlm_alone(torch) -> int:
+    """``--vlm``: the build and phase 11 alone; prints no result line."""
+    from repro_torch.kernels import build
+
+    log(f"card: {nvidia_smi()}")
+    t0 = time.perf_counter()
+    build.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    vlm_phase(torch, Timer(torch), wrappers())
+    log(f"vlm phase took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    if "--chaos-timeline" in sys.argv[1:]:
+        return chaos_timeline(torch)
+    if "--vlm" in sys.argv[1:]:
+        return vlm_alone(torch)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.expert_mlp import grouped_mlp
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.group_gate import group_gate
+    from repro_torch.kernels.lowrank import (
+        lowrank_decode,
+        lowrank_encode,
+        lowrank_roundtrip,
+        lowrank_roundtrip_loss,
+    )
+    from repro_torch.kernels.paged_attention import paged_attention
 
     log(f"card: {nvidia_smi()}")
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
@@ -3422,11 +4004,7 @@ def main() -> int:
     log(f"dispatch codec serving and pipeline took {time.perf_counter() - t0:.1f} s")
     log("streaming end-cloud engine:")
     t0 = time.perf_counter()
-    stream_counters = [
-        grouped_mlp_resident, grouped_mlp_resident_quant, grouped_mlp, group_gate,
-        lowrank_encode, lowrank_decode, paged_attention, paged_attention_quant,
-        quantize_rows, dequantize_rows, paged_write_quant, flash_attention_fwd,
-        lowrank_roundtrip, lowrank_roundtrip_loss, lowrank_encode_quant, lowrank_decode_quant]
+    stream_counters = wrappers()
     tick_profiles = {}  # phases 6-7's profiled ticks, read beside phase 9's
     model, params, stream_launches, base = stream(torch, stream_counters, tick_profiles)
     log(f"stream phase took {time.perf_counter() - t0:.1f} s")
@@ -3463,6 +4041,10 @@ def main() -> int:
     t0 = time.perf_counter()
     timer.read_later()
     log(f"profiler readings took {time.perf_counter() - t0:.1f} s")
+    log("qwen2-vl-2b (M-RoPE, patch embeddings) through the model and every engine:")
+    t0 = time.perf_counter()
+    vlm_launches = vlm_phase(torch, timer, stream_counters)
+    log(f"vlm phase took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention, the serving run with the dispatch codec for its
@@ -3529,6 +4111,8 @@ def main() -> int:
             "fleet_launches": fleet_launches.get(counter, 0),
             # launches in phase 10's bf16 chaos run (the same fleet under faults)
             "chaos_launches": chaos_launches.get(counter, 0),
+            # launches in phase 11's runs of qwen2-vl-2b, (a)-(d) summed
+            "vlm_launches": vlm_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -6,7 +6,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs import llama4_scout_17b_16e, switch_base, tinyllama_1_1b
+from repro_torch.configs import (
+    h2o_danube_3_4b,
+    internlm2_20b,
+    llama4_scout_17b_16e,
+    qwen2_vl_2b,
+    qwen3_14b,
+    qwen3_moe_235b_a22b,
+    switch_base,
+    tinyllama_1_1b,
+)
 from repro_torch.configs.base import (
     CompressionConfig,
     LayerSpec,
@@ -16,7 +25,8 @@ from repro_torch.configs.base import (
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (tinyllama_1_1b, llama4_scout_17b_16e, switch_base)
+    for m in (h2o_danube_3_4b, tinyllama_1_1b, internlm2_20b, qwen3_14b,
+              llama4_scout_17b_16e, qwen3_moe_235b_a22b, qwen2_vl_2b, switch_base)
 }
 
 
@@ -29,7 +39,8 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to a CPU-runnable size, keeping its structure (layer
-    pattern, MoE grouping); the reference's ``smoke_config``."""
+    pattern, MoE grouping, M-RoPE and patches); the reference's
+    ``smoke_config``."""
     kw = dict(
         num_layers=len(cfg.layer_pattern),
         d_model=128,
@@ -51,6 +62,10 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
             d_ff_expert=128,
             capacity_factor=2.0,
         )
+    if cfg.vision_patches:
+        kw["vision_patches"] = 16
+    if cfg.mrope_sections is not None:
+        kw["mrope_sections"] = (4, 6, 6)  # sums to head_dim/2 = 16
     if cfg.compression is not None and cfg.compression.rank > 0:
         kw["compression"] = dataclasses.replace(
             cfg.compression, rank=min(cfg.compression.rank, 128 // 2)

@@ -17,13 +17,39 @@ from repro_torch.kernels.paged_attention import paged_attention, paged_attention
 from repro_torch.models.layers import rms_norm, truncated_normal_init
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
-    """positions [B, S] -> angles [B, S, head_dim // 2] (f32)."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """positions [B, S] (RoPE) or [B, 3, S] (M-RoPE) -> angles
+    [B, S, head_dim // 2] (f32).  Under M-RoPE the half dimension is cut into
+    the (temporal, height, width) ``mrope_sections``, each rotated by its own
+    component of the positions; [B, 3, S] positions without sections take
+    component 0."""
     half = head_dim // 2
     freqs = theta ** (
         -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     )
-    return positions[..., None].float() * freqs
+    if mrope_sections is None:
+        if positions.dim() == 3:
+            positions = positions[:, 0]
+        return positions[..., None].float() * freqs
+    if positions.dim() != 3:
+        raise ValueError(f"M-RoPE needs [B, 3, S] positions, got {tuple(positions.shape)}")
+    if sum(mrope_sections) != half:
+        raise ValueError(f"M-RoPE sections {mrope_sections} do not sum to head_dim // 2 = {half}")
+    parts, lo = [], 0
+    for c, sec in enumerate(mrope_sections):
+        parts.append(positions[:, c, :, None].float() * freqs[lo:lo + sec])
+        lo += sec
+    return torch.cat(parts, dim=-1)
+
+
+def model_angles(cfg, positions: torch.Tensor) -> torch.Tensor:
+    """The model's rotary angles at token positions [B, S]: under M-RoPE the
+    same position on all three axes (text), as the reference's decode and
+    chunk steps broadcast it."""
+    if cfg.mrope_sections is not None and positions.dim() == 2:
+        positions = positions[:, None].expand(-1, 3, -1)
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -30,18 +30,25 @@ class Model:
         return to_device(transformer.init_params(self.cfg, generator), self.device)
 
     def _angles(self, positions: torch.Tensor) -> torch.Tensor:
-        return attn.rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        """Angles at positions [B, S], or [B, 3, S] under M-RoPE (a text
+        token's [B, S] position goes on all three axes)."""
+        return attn.model_angles(self.cfg, positions)
 
     def prefill(self, params, batch: Dict, *, max_len: int = 0,
                 expert_mask=None) -> Tuple[torch.Tensor, Dict]:
-        """A full prompt ``batch["tokens"]`` [B, S] -> (logits of the last
-        position [B, V], dense cache of ``kvcache.init_cache``'s layout with
-        rings of ``max_len`` (S by default) and ``lengths`` S)."""
+        """A full prompt -> (logits of the last position [B, V], dense cache
+        of ``kvcache.init_cache``'s layout with rings of ``max_len`` (S by
+        default) and ``lengths`` S).  ``batch``: ``tokens`` [B, T]; for a
+        VLM optionally ``patch_embeds`` [B, P, d], which go in front of the
+        tokens (S = P + T), and ``positions`` ([B, S], or [B, 3, S] under
+        M-RoPE; 0..S-1 on every axis by default)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-        x = transformer.embed_inputs(params, cfg, tokens)
+        x = transformer.embed_inputs(params, cfg, tokens, batch.get("patch_embeds"))
+        B, S = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
         x, _, blocks = transformer.apply_stack_full(
             params, x, cfg, self._angles(positions), causal=True, expert_mask=expert_mask,
             collect_cache=True, max_len=max_len or S,

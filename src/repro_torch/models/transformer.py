@@ -335,10 +335,16 @@ def apply_stack_prefill_chunk(
     return x, page_blocks
 
 
-def embed_inputs(params: Dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def embed_inputs(params: Dict, cfg, tokens: torch.Tensor,
+                 patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather then cast: the same values as the reference's cast-then-gather,
-    without converting the whole table."""
-    return params["embed"][tokens.long()].to(cfg.torch_dtype)
+    without converting the whole table.  Precomputed patch embeddings
+    [B, P, d] (a VLM's stubbed vision frontend) go in front of the tokens'
+    rows, cast to the activation type."""
+    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def lm_logits(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -260,8 +260,6 @@ class EndCloudPipeline:
         selection_eps: float = 1.0,
     ):
         cfg = model.cfg
-        if cfg.mrope_sections is not None:
-            raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -314,7 +312,7 @@ class EndCloudPipeline:
 
     def _angles(self, B: int, S: int) -> torch.Tensor:
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
-        return attn.rope_angles(pos, self.cfg.head_dim, self.cfg.rope_theta)
+        return attn.model_angles(self.cfg, pos)
 
     def _blocks(self, tier_params: Dict, n_blocks: int, x: torch.Tensor,
                 expert_mask) -> torch.Tensor:

@@ -259,8 +259,6 @@ class EndCloudServingEngine(SlotEngineBase):
                 "the streaming end-cloud engine serves attention-only layer "
                 "patterns (paged KV + chunked prefill)"
             )
-        if cfg.mrope_sections is not None:
-            raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet")
         # equal-sized micro-batch groups: the slot count is padded up to a
         # multiple of the group size; padding slots are never admitted
         self.n_groups = max(1, min(n_groups, max_batch))
@@ -737,8 +735,8 @@ class EndCloudServingEngine(SlotEngineBase):
                 x = comp.dequantize_boundary(*z, dtype=act) if qb else z
             return x.to(act)
 
-        def angles(positions):
-            return attn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        def angles(positions):  # [B, S]; M-RoPE: the same position on all three axes
+            return attn.model_angles(cfg, positions)
 
         def chunk_positions(start, C):
             return start[:, None] + torch.arange(C, dtype=torch.int32, device=start.device)[None]
@@ -947,7 +945,7 @@ class EndCloudServingEngine(SlotEngineBase):
                 x = transformer.embed_inputs(params, cfg, tokens)
                 x, blocks, _ = transformer.apply_stack_decode(
                     params, x, cfg,
-                    attn.rope_angles(lengths[:, None], cfg.head_dim, cfg.rope_theta),
+                    attn.model_angles(cfg, lengths[:, None]),
                     blocks, lengths, emask,
                 )
                 logits = transformer.lm_logits(params, cfg, x)[:, 0]

@@ -310,7 +310,7 @@ def _kv_write_case(gen, kind, dtype, KV, hd, P=40, ps=16, pps=4, R=3):
     return leaves, scales, k, v, args
 
 
-@pytest.mark.parametrize("KV,hd", [(12, 64), (8, 128), (2, 16)])
+@pytest.mark.parametrize("KV,hd", [(12, 64), (8, 128), (2, 16), (2, 128)])  # (2, 128): qwen2-vl
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind", ["ring", "chunk"])
 def test_paged_write_quant_kernel(gen, kind, dtype, KV, hd):
@@ -489,6 +489,52 @@ def test_paged_attention_verify_chunks(gen, C, kind, tol):
         def run():
             return paged_attention(q, pk, pv, table, q_pos, lengths)
     got = run()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(run(), got)
+
+
+@pytest.mark.parametrize("C", [1, 5, 32])
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2), ("int8", 2e-2)])
+def test_paged_attention_qwen2_vl_shapes(gen, C, kind, tol):
+    """qwen2-vl-2b's serving shapes: 8 slots, 12 query heads on 2 kv heads
+    of 128 (G = 6), 16-token pages, 16-page rings, one slot past a wrap.
+    Decode (C * G = 6 rows) and a 5-row verify chunk (30 rows) and a
+    32-row prompt chunk (192 rows): bf16 pools of 16 rows or more take the
+    tensor-core body at HD = 128, the rest the CUDA cores; split_plan gives
+    16 splits (one a table entry) at B * KV = 16.  Through the wrappers, one launch counted,
+    within the plain version's tolerance; a second launch gives the same
+    bits."""
+    B, H, KV, hd, ps, pps = 8, 12, 2, 128, 16, 16
+    lengths = torch.tensor([0, 15, 16, 47, 100, 199, 231, 300], dtype=torch.int32)
+    P = B * pps
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(C)).view(B, pps)
+    table = torch.full((B, pps), P, dtype=torch.int32)
+    for b, ln in enumerate(lengths.tolist()):
+        mapped = min(pps, ln // ps + 1)
+        table[b, :mapped] = perm[b, :mapped].int()
+    q_pos = (lengths[:, None] - (C - 1) + torch.arange(C, dtype=torch.int32)[None]).clamp_min(0)
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.randn(B, C, H, hd, generator=gen, device="cuda").to(dt)
+    pk = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dt)
+    pv = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dt)
+    table, q_pos, lengths = table.cuda(), q_pos.int().cuda(), lengths.cuda()
+    if kind == "int8":
+        (pk, ks), (pv, vs) = quantize_kv_tokens(pk), quantize_kv_tokens(pv)
+        wrapper = paged_attention_quant
+
+        def run():
+            return paged_attention_quant(q, pk, pv, ks, vs, table, q_pos, lengths)
+        want = paged_attention_plain(q, pk, pv, table, q_pos, lengths, k_scale=ks, v_scale=vs)
+    else:
+        wrapper = paged_attention
+
+        def run():
+            return paged_attention(q, pk, pv, table, q_pos, lengths)
+        want = paged_attention_plain(q, pk, pv, table, q_pos, lengths)
+    assert pa_ops.split_plan(B, KV, pps) == 16
+    before = wrapper.launches
+    got = run()
+    assert wrapper.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(run(), got)
 
@@ -778,7 +824,7 @@ def test_preemption_on_card_matches_cpu(gen, quant):
     assert out["cuda", True][0] == out["cuda", False][0]
 
 
-@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e"])
+@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e", "qwen2-vl-2b"])
 def test_engine_on_card_matches_cpu(gen, name):
     """Greedy tokens of the f32 smoke model: kernels on the card, plain
     versions on the CPU, the same weights."""
@@ -800,6 +846,38 @@ def test_engine_on_card_matches_cpu(gen, name):
     assert tokens["cuda"] == tokens["cpu"]
 
 
+def test_vlm_prefill_on_card_matches_cpu(gen):
+    """Smoke qwen2-vl-2b in f32: 16 patch embeddings on a 4 x 4 grid then
+    text, ``Model.prefill`` (flash attention on the card) and 6 greedy
+    ``decode_step`` s: logits within 1e-4 of the CPU's, equal tokens."""
+    cfg = smoke_config(get_config("qwen2-vl-2b")).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    P, T = cfg.vision_patches, 20
+    i = np.arange(P)
+    pos = np.concatenate([np.stack([0 * i, i // 4, i % 4]),
+                          np.broadcast_to(4 + np.arange(T), (3, T))], axis=1)
+    batch = {"tokens": rng.integers(0, 500, size=(2, T)).astype(np.int32),
+             "patch_embeds": rng.standard_normal((2, P, cfg.d_model)).astype(np.float32),
+             "positions": np.broadcast_to(pos, (2, 3, P + T)).astype(np.int32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        p = to_device(params, dev)
+        before = flash_attention_fwd.launches
+        logits, cache = model.prefill(p, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                                      max_len=P + T + 6)
+        seq = [logits]
+        for _ in range(6):
+            logits, cache = model.decode_step(p, logits.argmax(-1).int()[:, None], cache)
+            seq.append(logits)
+        out[dev] = torch.stack(seq).cpu()
+        if dev == "cuda":
+            assert flash_attention_fwd.launches == before + cfg.num_layers
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"].argmax(-1), out["cpu"].argmax(-1))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,q_offset", [
     (2, 64, 64, 4, 4, 32, True, None, 0),
@@ -812,6 +890,8 @@ def test_engine_on_card_matches_cpu(gen, name):
     (2, 130, 130, 4, 2, 32, True, None, 0),  # hd 32, ragged tail tiles
     (1, 64, 300, 8, 2, 64, True, None, 236),  # Skv > Sq, queries at the end of the keys
     (2, 190, 190, 8, 2, 64, True, 40, 0),  # GQA G = 4 with a window
+    (2, 301, 301, 12, 2, 128, True, None, 0),  # qwen2-vl: 256 patches + 45 text, G = 6
+    (1, 45, 301, 12, 2, 128, True, None, 256),  # G = 6, queries at the end of the keys
 ])
 def test_flash_attention_kernel(gen, dtype, B, Sq, Skv, H, KV, hd, causal, window, q_offset):
     q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
@@ -916,7 +996,8 @@ def test_bf16_projection_scalar_path_is_deterministic(gen, odd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,d,r", [(1024, 768, 384), (37, 96, 24), (1, 64, 64), (37, 90, 22)])
+@pytest.mark.parametrize("T,d,r", [(1024, 768, 384), (37, 96, 24), (1, 64, 64), (37, 90, 22),
+                                   (1024, 1536, 384), (4, 1536, 384)])  # qwen2-vl's width
 def test_lowrank_kernels(gen, dtype, T, d, r):
     x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
     q = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0]
@@ -1074,11 +1155,12 @@ def _codec_quant_case(gen, T, d, r, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("r", [384, 512, 100])  # 6 and 8 column tiles; the scalar path
 @pytest.mark.parametrize("T", [1, 4, 32, 128, 1024])
-def test_codec_quant_fused_kernels(gen, T, r, dtype):
+@pytest.mark.parametrize("d", [768, 1536])  # switch-base's and qwen2-vl's widths
+def test_codec_quant_fused_kernels(gen, d, T, r, dtype):
     """The fused boundary forms bit-equal to the composed kernels (codes,
     scales and x^), each launch counted once, a second launch equal, and
     within the codec's tolerance of the plain composition."""
-    x, enc, dec = _codec_quant_case(gen, T, 768, r, dtype)
+    x, enc, dec = _codec_quant_case(gen, T, d, r, dtype)
     before = (lowrank_encode_quant.launches, lowrank_decode_quant.launches)
     q, s = lowrank_encode_quant(x, enc)
     xh = lowrank_decode_quant(q, s, dec)

@@ -278,8 +278,9 @@ def test_link_stats_equal_the_reference():
 
 def test_pipeline_default_codec_and_refusals():
     """Without ``codec_params`` a rank > 0 draws the port's own orthonormal
-    codec (seed 7, on the CPU); M-RoPE and the hard group restriction are
-    not ported and raise."""
+    codec (seed 7, on the CPU); an M-RoPE config runs, its text positions
+    on all three axes, so its logits are the plain-RoPE ones bit for bit;
+    the hard group restriction is not ported and raises."""
     cfg = smoke_config(get_config("llama4-scout-17b-16e")).replace(num_layers=4, dtype="float32")
     model = Model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
@@ -290,9 +291,9 @@ def test_pipeline_default_codec_and_refusals():
     logits, m = pipe.run_batch(np.zeros((1, 8), np.int32))
     assert m["compressed"] and m["boundary_bytes"] == 8 * 16 * 4
     assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        EndCloudPipeline(Model(cfg.replace(mrope_sections=(4, 6, 6)), device="cpu"),
-                         params, **prof)
+    mrope = EndCloudPipeline(Model(cfg.replace(mrope_sections=(4, 6, 6)), device="cpu"),
+                             params, compression_rank=16, **prof)
+    assert torch.equal(mrope.run_batch(np.zeros((1, 8), np.int32))[0], logits)
     hard = cfg.replace(moe=dataclasses.replace(cfg.moe, group_top_k=1))
     with pytest.raises(NotImplementedError, match="group_top_k"):
         EndCloudPipeline(Model(hard, device="cpu"), params, **prof).run_batch(

@@ -95,7 +95,8 @@ def test_config_copies_equal_the_reference(name):
         jcfg.head_dim, jcfg.block_repeat, jcfg.padded_vocab_size)
 
 
-@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e", "tinyllama-1.1b"])
+@pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e", "tinyllama-1.1b",
+                                  "qwen2-vl-2b"])
 def test_bridge_and_init_match_the_reference_tree(name):
     jcfg = jsmoke(jget(name)).replace(num_layers=4)
     jp = jax.tree.map(np.asarray, build_model(jcfg).init(jax.random.PRNGKey(0)))
