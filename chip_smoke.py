@@ -199,10 +199,33 @@ Phases, in order; any failure exits non-zero before the result lines:
    bound and library call (``vlm_kernels``).  ``python3 chip_smoke.py
    --vlm`` runs the build and this phase alone and prints no result line.
 
+12. mamba2-130m (``ssm_phase``): the Mamba-2 SSM layer at full width and
+   depth (24 layers, d_model 768, 24 heads of 64, d_state 128, chunk 256,
+   tied vocab 50280), random weights from seed 0 (f32 as stored, bf16
+   activations).  (a) ``Model.prefill`` of 2 x 256 and 1 x 1024 tokens (4
+   chunks) then 16 greedy steps: no kernel launches in bf16; f32 card
+   against CPU at full depth (tokens equal, logits within 1e-4 of max).
+   (b) Phase 3's traffic through the dense-ring ``ServingEngine`` (every
+   request finishes), a profiled 8-slot decode step
+   (``chiprun_out/ssm_decode_profile.txt``) and the SSD update's and conv
+   step's share of it (``ssm_step_shares``), f32 card tokens = CPU's (16 a
+   request).  (c) ``EndCloudPipeline`` (jetson-orin end, a100 cloud, rank
+   384, tokens [4, 256]; split 1 of 24): one encode and one decode launch
+   and nothing else, f32 card logits = CPU's (two rows).  (d) jamba-1.5-large's hybrid at smoke
+   width in ``HYBRID_LAYERS`` layers (SSM x7, attention at position 4,
+   top-2 MoE over 4 groups at the odd positions): the model, the dense
+   engine (1- and 2-token prompts among ``HYBRID_SERVE_LENS``) and the
+   pipeline (rank 64, split 1 of 2) in bf16 (gate, expert FFN, flash
+   attention and, in the pipeline, the codec launch; nothing else) and f32
+   card against CPU.  Then each of its kernels against its plain version
+   at the hybrid's shapes (``ssm_kernels``).  ``python3 chip_smoke.py
+   --ssm`` runs the build and this phase alone and prints no result line.
+
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
 in phase 9's bf16 fleet run; ``chaos_launches``: in phase 10's bf16 chaos
-run; ``vlm_launches``: over phase 11's runs), the ``nvidia-smi``
+run; ``vlm_launches``: over phase 11's runs; ``ssm_launches``: over phase
+12's bf16 runs), the ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
@@ -3896,6 +3919,438 @@ def vlm_phase(torch, timer, counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the Mamba-2 SSM layer and the dense-ring ServingEngine:
+# mamba2-130m at full width and depth, jamba-1.5-large's hybrid at smoke size
+# ---------------------------------------------------------------------------
+
+SSM = "mamba2-130m"
+HYBRID = "jamba-1.5-large-398b"
+HYBRID_LAYERS = 16  # two smoke blocks of 8, so the pipeline has an interior split
+SSM_DECODE = 16  # greedy decode steps after each prefill
+# (rows, tokens): one 256-token chunk, and four (the recurrence over chunk states)
+SSM_PROMPTS = ((2, 256), (1, 1024))
+# prompts of the hybrid's dense engine: 1 and 2 tokens (conv tails padded at
+# install), past one 32-token smoke chunk only whole chunks
+HYBRID_SERVE_LENS = (2, 16, 32, 64, 96, 128, 1, 24)
+SSM_F32_REL, SSM_F32_COS = 1e-4, 0.9999  # f32 logits card vs CPU (as phase 11's)
+# the wrappers phase 12's bf16 runs launch, summed over them (mamba2 runs no
+# kernel but the pipeline's codec); every other wrapper makes 0 launches
+SSM_PATH = ("group_gate", "grouped_mlp", "flash_attention_fwd", "lowrank_encode",
+            "lowrank_decode")
+HYBRID_MODEL_PATH = ("group_gate", "grouped_mlp", "flash_attention_fwd")
+SSM_PIPELINE_PATH = ("lowrank_encode", "lowrank_decode")
+
+
+def ssm_generate(torch, model, params, tokens, steps: int, max_len: int = 0):
+    """``Model.prefill`` of ``tokens`` [B, S] then ``steps`` greedy
+    ``decode_step`` s on the model's device: (logits over the real
+    vocabulary [steps + 1, B, V], f32 on the host; their argmax)."""
+    out = []
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens.to(model.device)},
+                                      max_len=max_len or tokens.shape[1] + steps)
+        for i in range(steps + 1):
+            out.append(logits.float().cpu())
+            if i < steps:
+                logits, cache = model.decode_step(params, logits.argmax(-1).int()[:, None],
+                                                  cache)
+    lg = torch.stack(out)[..., :model.cfg.vocab_size]
+    return lg, lg.argmax(-1)
+
+
+def card_equals_cpu(torch, tag, card, host):
+    """f32 runs of the same work on the card and the CPU: (logits, tokens)
+    each; the tokens equal, the logits within ``SSM_F32_REL`` of max|cpu|
+    and at cosine ``SSM_F32_COS`` or above."""
+    (lg, tok), (lc, tc) = card, host
+    rel, cos = logit_gap(torch, lg, lc, lc.shape[-1])
+    same = bool(torch.equal(tok, tc))
+    log(f"{tag}: tokens equal {same} ({tok.numel()}); logits max|diff|/max|cpu|={rel:.3e} "
+        f"(<= {SSM_F32_REL:g}) cos={cos.min().item():.7f} (>= {SSM_F32_COS:g})")
+    if not (same and rel <= SSM_F32_REL and cos.min().item() >= SSM_F32_COS):
+        raise AssertionError(f"{tag}: the card disagrees with the CPU")
+
+
+def ssm_requests(vocab: int, lens, new: int, base: int = 0):
+    """One request a prompt length, ids from a seeded generator."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(base + i, rng.integers(0, vocab, size=n).astype(np.int32),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+
+
+def dense_serve(torch, model, params, lens, new: int, max_len: int, step_s=None):
+    """``lens``' requests through the dense-ring ``ServingEngine`` (8
+    slots), with each step's synchronized host time appended to
+    ``step_s``: (engine, each request's tokens)."""
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, params, max_batch=8, max_len=max_len)
+    reqs = ssm_requests(model.cfg.vocab_size, lens, new)
+    for r in reqs:
+        eng.submit(r)
+    while eng.busy():
+        t = time.perf_counter()
+        eng.step()
+        if step_s is not None:
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    if eng.paged or not all(r.done and len(r.generated) == new for r in reqs):
+        raise AssertionError(f"{model.cfg.name} dense engine: a request did not finish")
+    return eng, [list(r.generated) for r in reqs]
+
+
+def ssm_step_shares(torch, step):
+    """One call of ``step`` under ``torch.profiler``, the SSM's decode
+    update (``ssd_decode_step``) and conv step (``conv1d_decode_step``)
+    each wrapped in a ``record_function`` range: (device ms of every kernel,
+    {range: device ms of the kernels launched inside it})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm
+
+    names = ("ssd_decode_step", "conv1d_decode_step")
+    saved = {n: getattr(ssm, n) for n in names}
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    for n in names:
+        setattr(ssm, n, ranged(n, saved[n]))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(ssm, n, fn)
+    avgs = prof.key_averages()
+    total = sum(e.self_device_time_total for e in avgs
+                if e.device_type != DeviceType.CPU and e.key not in names) / 1e3
+    part = {n: sum(e.device_time_total for e in avgs
+                   if e.key == n and e.device_type == DeviceType.CPU) / 1e3 for n in names}
+    return total, part
+
+
+def ssm_model(torch, cfg, params, cparams, host32, counters):
+    """(a) ``Model.prefill`` then ``SSM_DECODE`` greedy steps at
+    ``SSM_PROMPTS``: bf16 on the card at full depth (no kernel launches:
+    the SSD and conv are plain PyTorch, as ``jnp`` in the reference), then
+    f32 card against CPU at full depth.  Returns the bf16 runs' launches."""
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, device="cuda")
+    cfg32 = cfg.replace(dtype="float32")
+    runs = []
+    for B, S in SSM_PROMPTS:
+        tokens = pipeline_tokens(torch, cfg.vocab_size, B, S, seed=S)
+        t0 = time.perf_counter()
+        (lg, _), launches = counted_run(
+            counters, lambda: ssm_generate(torch, model, cparams, tokens, SSM_DECODE))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs.append(launches)
+        only_path(f"ssm bf16 prefill [{B}, {S}]", launches, ())
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"ssm bf16 prefill [{B}, {S}]: logits are not finite")
+        card = ssm_generate(torch, Model(cfg32, device="cuda"), params, tokens, SSM_DECODE)
+        t2 = time.perf_counter()
+        host = ssm_generate(torch, Model(cfg32, device="cpu"), host32, tokens, SSM_DECODE)
+        t3 = time.perf_counter()
+        rel, cos = logit_gap(torch, lg[0], card[0][0], cfg.vocab_size)
+        log(f"ssm bf16 prefill [{B}, {S}] + {SSM_DECODE} steps ({cfg.num_layers} layers): "
+            f"{t1 - t0:.2f} s; its prefill logits against the card's f32: max|diff|/max|f32|="
+            f"{rel:.3e} cos={cos.min().item():.5f} (reported); f32 card {t2 - t1:.1f} s, "
+            f"CPU {t3 - t2:.1f} s")
+        card_equals_cpu(torch, f"ssm f32 prefill [{B}, {S}] + {SSM_DECODE} steps, card vs CPU",
+                        card, host)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def ssm_serve(torch, cfg, params, cparams, host32, counters):
+    """(b) Phase 3's traffic through the dense-ring ``ServingEngine`` at
+    full depth in bf16 (no kernel launches), a profiled decode step with 8
+    slots decoding and the SSD update's and conv's share of it, then the
+    same prompts in f32 (16 new tokens each), card against CPU.  Returns
+    the bf16 run's launches."""
+    from repro_torch.models.model import Model
+
+    lens = (16, 40, 77, 100, 128, 150, 181, 200)
+    model = Model(cfg, device="cuda")
+    step_s = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (eng, _), launches = counted_run(
+        counters, lambda: dense_serve(torch, model, cparams, lens, 32, 256, step_s))
+    run_s = time.perf_counter() - t0
+    only_path("ssm serving", launches, ())
+    decode = sorted(step_s[1:])
+    log(f"ssm serving (dense ring, 8 slots, {len(lens)} requests x 32 tokens): first step "
+        f"{step_s[0] * 1e3:.3f} ms; decode step median {decode[len(decode) // 2] * 1e3:.3f} "
+        f"ms over {len(decode)} steps (host clock, synchronized); "
+        f"{len(lens) * 32 / run_s:.1f} tokens/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for r in ssm_requests(cfg.vocab_size, lens, 8, base=90):
+        eng.submit(r)
+    eng.step()  # admission (8 whole-prompt prefills) + decode
+    eng.step()
+    dev_ms, wall_ms, _ = profiled(torch, eng.step, "ssm_decode_profile.txt", ())
+    total, part = ssm_step_shares(torch, eng.step)
+    calls = {"ssd_decode_step": cfg.num_layers, "conv1d_decode_step": 2 * cfg.num_layers}
+    log(f"ssm decode profile (1 step, 8 slots decoding): device time {dev_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall ({dev_ms / wall_ms:.1%} busy); written to "
+        f"chiprun_out/ssm_decode_profile.txt. Annotated step: {total:.3f} ms of kernels, "
+        + ", ".join(f"{n} {ms:.3f} ms ({ms / max(total, 1e-9):.1%}, {calls[n]} calls)"
+                    for n, ms in part.items()))
+    eng.run()
+    # f32 over 16 new tokens a request (the CPU side's seconds)
+    cfg32 = cfg.replace(dtype="float32")
+    t0 = time.perf_counter()
+    _, card = dense_serve(torch, Model(cfg32, device="cuda"), params, lens, 16, 256)
+    t1 = time.perf_counter()
+    _, host = dense_serve(torch, Model(cfg32, device="cpu"), host32, lens, 16, 256)
+    same = card == host
+    log(f"ssm serving f32 card vs CPU ({cfg.num_layers} layers; card {t1 - t0:.1f} s, CPU "
+        f"{time.perf_counter() - t1:.1f} s): tokens equal {same} "
+        f"({sum(a == b for x, y in zip(card, host) for a, b in zip(x, y))} of "
+        f"{sum(len(x) for x in host)})")
+    if not same:
+        raise AssertionError("ssm serving f32: the card's tokens differ from the CPU's")
+    return launches
+
+
+def ssm_pipeline_runs(torch, tag, cfg, params, cparams, host32, counters, rank, path):
+    """``EndCloudPipeline`` (jetson-orin end, a100 cloud, a rank-``rank``
+    codec, tokens [4, 256]) at the planner's interior split: one bf16
+    ``run_batch`` launches ``path``'s wrappers and no other, the codec's
+    encode and decode once each;
+    per-tier times and a profiled ``run_batch``; then f32 card against CPU
+    on the same codec, over the first two rows.  Returns the bf16 run's
+    launches."""
+    from repro_torch.core.hardware import PROFILES
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.serving import EndCloudPipeline
+
+    prof = dict(end_profile=PROFILES["jetson-orin"], cloud_profile=PROFILES["a100"])
+    pipe = EndCloudPipeline(Model(cfg, device="cuda"), cparams, compression_rank=rank, **prof)
+    R = cfg.block_repeat
+    log(f"{tag} pipeline plan (jetson-orin end, a100 cloud, rank {rank}): split {pipe.split} "
+        f"of {R} blocks, codec {'on' if pipe.tiers.compress else 'off'}")
+    if not (0 < pipe.split < R and pipe.tiers.compress):
+        raise AssertionError(f"{tag} pipeline: the plan is not an interior split with the codec")
+    B, S = 4, 256
+    tok = pipeline_tokens(torch, cfg.vocab_size, B, S, 0).cuda()
+    pipe.run_batch(tok)  # warm-up
+    (logits, m), launches = counted_run(counters, lambda: pipe.run_batch(tok))
+    log(f"{tag} pipeline launches per run_batch: { {k: v for k, v in launches.items() if v} }")
+    only_path(f"{tag} pipeline", launches, path)
+    if launches["lowrank_encode"] != 1 or launches["lowrank_decode"] != 1:
+        raise AssertionError(f"{tag} pipeline: the codec launched {launches}, want once a side")
+    if m["boundary_bytes"] != B * S * rank * 2 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} pipeline: metrics {m}, or logits not finite")
+    del logits
+    runs = [pipe.run_batch(tok)[1] for _ in range(5)]
+    dev_ms, wall_ms, in_path = profiled(
+        torch, lambda: pipe.run_batch(tok), f"{tag}_pipeline_profile.txt", CODEC_KERNELS)
+    log(f"{tag} pipeline run_batch [{B}, {S}]: median t_end "
+        f"{sorted(r['t_end_s'] for r in runs)[2] * 1e3:.3f} ms, median t_cloud "
+        f"{sorted(r['t_cloud_s'] for r in runs)[2] * 1e3:.3f} ms over 5 warm runs (host "
+        f"clock, device synchronized); profiled: device time {dev_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall; kernels in path, a launch: {in_path}")
+    cfg32 = cfg.replace(dtype="float32")
+    codec = pipe.codec
+    card = EndCloudPipeline(Model(cfg32, device="cuda"), params, codec_params=codec, **prof)
+    host = EndCloudPipeline(Model(cfg32, device="cpu"), host32,
+                            codec_params=to_device(codec, "cpu"), **prof)
+    t0 = time.perf_counter()
+    lg, mg = card.run_batch(tok[:2])
+    lc, mc = host.run_batch(tok[:2].cpu())
+    rel, cos = logit_gap(torch, lg, lc, cfg.vocab_size)
+    log(f"{tag} pipeline f32 card vs CPU (split {card.split}, {time.perf_counter() - t0:.1f} "
+        f"s): logits max|diff|/max|cpu|={rel:.3e} (<= {SSM_F32_REL:g}) "
+        f"cos={cos.min().item():.7f} (>= {SSM_F32_COS:g})")
+    if (mg["split"], mg["boundary_bytes"]) != (mc["split"], mc["boundary_bytes"]) or not (
+            rel <= SSM_F32_REL and cos.min().item() >= SSM_F32_COS):
+        raise AssertionError(f"{tag} pipeline: the card disagrees with the CPU")
+    return launches
+
+
+def hybrid_runs(torch, counters):
+    """(d) jamba-1.5-large's pattern at smoke width, ``HYBRID_LAYERS``
+    layers (SSM x7, attention at position 4, top-2 group-gated MoE at the
+    odd positions, a block), random weights from seed 0: ``Model.prefill``
+    of [2, 64] and 8 greedy steps, the dense ``ServingEngine`` at
+    ``HYBRID_SERVE_LENS`` and the pipeline (rank 64), each in bf16 on the
+    card (launches counted) and in f32 card against CPU.  Returns the bf16
+    runs' launches summed."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.models.transformer import compute_params
+
+    cfg = smoke_config(get_config(HYBRID)).replace(num_layers=HYBRID_LAYERS)
+    params = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cparams = compute_params(params, cfg)
+    host32 = to_device(params, "cpu")
+    cfg32 = cfg.replace(dtype="float32")
+    log(f"{HYBRID} smoke: {cfg.num_layers} layers of "
+        f"{''.join('A' if s.kind == 'attn' else 'S' for s in cfg.layer_pattern)} "
+        f"(MoE at {[i for i, s in enumerate(cfg.layer_pattern) if s.moe]}), d_model "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts in {cfg.moe.num_groups} groups, top-"
+        f"{cfg.moe.top_k}, SSM d_state {cfg.ssm.d_state}, head_dim {cfg.ssm.head_dim}, chunk "
+        f"{cfg.ssm.chunk_size}")
+    tokens = pipeline_tokens(torch, cfg.vocab_size, 2, 64, seed=1)
+    model = Model(cfg, device="cuda")
+    (lg, _), gen_l = counted_run(counters, lambda: ssm_generate(torch, model, cparams,
+                                                                 tokens, 8))
+    log(f"hybrid bf16 prefill [2, 64] + 8 steps: launches "
+        f"{ {k: v for k, v in gen_l.items() if v} }")
+    only_path("hybrid bf16 model", gen_l, HYBRID_MODEL_PATH)
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("hybrid bf16: logits are not finite")
+    card_equals_cpu(torch, "hybrid f32 prefill [2, 64] + 8 steps, card vs CPU",
+                    ssm_generate(torch, Model(cfg32, device="cuda"), params, tokens, 8),
+                    ssm_generate(torch, Model(cfg32, device="cpu"), host32, tokens, 8))
+    (_, _), serve_l = counted_run(
+        counters, lambda: dense_serve(torch, model, cparams, HYBRID_SERVE_LENS, 16, 160))
+    log(f"hybrid bf16 serving ({len(HYBRID_SERVE_LENS)} requests, prompts "
+        f"{HYBRID_SERVE_LENS}, 16 tokens): launches { {k: v for k, v in serve_l.items() if v} }")
+    only_path("hybrid bf16 serving", serve_l, HYBRID_MODEL_PATH)
+    _, card = dense_serve(torch, Model(cfg32, device="cuda"), params, HYBRID_SERVE_LENS, 16,
+                          160)
+    _, host = dense_serve(torch, Model(cfg32, device="cpu"), host32, HYBRID_SERVE_LENS, 16,
+                          160)
+    log(f"hybrid serving f32 card vs CPU: tokens equal {card == host}")
+    if card != host:
+        raise AssertionError("hybrid serving f32: the card's tokens differ from the CPU's")
+    pipe_l = ssm_pipeline_runs(
+        torch, "hybrid", cfg, params, cparams, host32, counters, 64,
+        (*HYBRID_MODEL_PATH, *SSM_PIPELINE_PATH))
+    return {k: gen_l[k] + serve_l[k] + pipe_l[k] for k in gen_l}
+
+
+def ssm_kernels(torch, timer):
+    """The kernels of phase 12's path at the hybrid's smoke shapes against
+    their plain versions, timed beside their bound (and library call where
+    one exists): the group gate (8 experts in 4 groups at d 128; decode's 8
+    rows, the prefill's 128 and the pipeline's 1024, x in bf16 and f32),
+    the expert FFN (d 128, f 128, gated silu, bf16 rows: top-2 of those
+    rows), flash attention ([2, 64] and [4, 256], 4 heads on 2 of 32) and
+    the codec (d 128, rank 64; mamba2's d 768, rank 384 is phase 2's);
+    the profiler's device times read at the end."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.compression import init_lowrank_1d
+    from repro_torch.core.gating import init_group_gate
+    from repro_torch.kernels.expert_mlp import ffn_plan, grouped_mlp, grouped_mlp_plain
+    from repro_torch.kernels.group_gate import group_gate, group_gate_plain
+
+    cfg = smoke_config(get_config(HYBRID))
+    E, K, d, f = cfg.moe.num_experts, cfg.moe.num_groups, cfg.d_model, cfg.moe.d_ff_expert
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    p = init_group_gate(gen, d, cfg.moe)
+    for T in (8, 128, 1024):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(T, d, generator=gen, device="cuda").to(dt)
+            args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], None)
+            probs, pg = group_gate(*args)
+            rprobs, rpg = group_gate_plain(*args)
+            tag = f"hybrid T={T} x {str(dt)[6:]}"
+            check_close(f"group_gate probs {tag}", probs, rprobs, rtol=0, atol=1e-4)
+            check_close(f"group_gate p_group {tag}", pg, rpg, rtol=0, atol=1e-4)
+            if dt == torch.bfloat16:
+                nbytes = T * d * 2 + d * (E + K) * 4 + (E + K) * 4 + T * (E + K) * 4
+                b_ms, b_by = bound(nbytes, 2 * T * d * (E + K), "f32")
+                call = functools.partial(group_gate, *args)
+                ms, plain_ms = timer(call), timer(lambda: group_gate_plain(*args))
+                timer.later(f"group_gate {tag}", call)
+                log(f"  group_gate {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                    f"{b_ms:.6f} ({b_by}) library_ms=null")
+    wi, wg, wo = (torch.randn(E, a, b, generator=gen, device="cuda").div(a ** 0.5).bfloat16()
+                  for a, b in ((d, f), (d, f), (f, d)))
+    for T in (8, 128, 1024):
+        n = 2 * T  # top-2
+        cut = torch.sort(torch.randint(0, n + 1, (E - 1,), generator=gen, device="cuda")).values
+        sizes = torch.diff(torch.cat([cut.new_zeros(1), cut, cut.new_full((1,), n)]))
+        gs = sizes.int()
+        xs = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+        args = (xs, gs, wi, wg, wo, "silu")
+        y, ref = grouped_mlp(*args), grouped_mlp_plain(*args)
+        check_close(f"expert_mlp hybrid n={n}", y, ref, rtol=0,
+                    atol=2e-2 * ref.float().abs().max().item())
+        routed = int((sizes > 0).sum())
+        nbytes = 2 * n * d * 2 + routed * 3 * d * f * 2 + E * 4
+        b_ms, b_by = bound(nbytes, 3 * 2 * n * d * f, "bf16")
+        call = functools.partial(grouped_mlp, *args)
+        ms, plain_ms = timer(call), timer(lambda: grouped_mlp_plain(*args))
+        timer.later(f"expert_mlp hybrid n={n}", call)
+        log(f"  expert_mlp hybrid n={n}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+            f"{b_ms:.6f} ({b_by}) library_ms=null path={ffn_plan(n, d, f, torch.bfloat16)}")
+    for B, S in ((2, 64), (4, 256)):
+        flash_case(torch, timer, gen, f"hybrid B={B} S={S} H=4 KV=2 hd=32", B, S, 4, 2, hd=32,
+                   later=True)
+    codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, 64, device="cuda")
+    codec_cases(torch, timer, gen, codec, (1024, 8), later=True)
+    timer.read_later()
+
+
+def ssm_phase(torch, timer, counters):
+    """Phase 12: mamba2-130m at full width and depth (24 SSM layers, d_model
+    768, 24 heads of 64, d_state 128, chunk 256, tied vocab 50280), random
+    weights from seed 0 (f32 as stored, bf16 activations): (a) the model,
+    (b) the dense-ring ``ServingEngine``, (c) ``EndCloudPipeline``; then
+    (d) jamba's hybrid at smoke size through the same three, and the
+    kernels at its shapes.  Returns each wrapper's launches summed over the
+    bf16 runs of (a)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, leaves, to_device
+    from repro_torch.models.transformer import compute_params
+
+    cfg = get_config(SSM)
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cparams = compute_params(params, cfg)  # the bf16 copy every bf16 run reads
+    host32 = to_device(params, "cpu")
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    log(f"{SSM}: {sum(t.numel() for t in leaves(params)) / 1e6:.3f} M params, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, d_inner {s.expand * cfg.d_model} in "
+        f"{s.expand * cfg.d_model // s.head_dim} heads of {s.head_dim}, d_state {s.d_state}, "
+        f"chunk {s.chunk_size}, vocab {cfg.vocab_size} (tied); built in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    parts = []
+    for tag, part in (
+            ("(a) model", lambda: ssm_model(torch, cfg, params, cparams, host32, counters)),
+            ("(b) dense-ring ServingEngine",
+             lambda: ssm_serve(torch, cfg, params, cparams, host32, counters)),
+            ("(c) EndCloudPipeline", lambda: ssm_pipeline_runs(
+                torch, "ssm", cfg, params, cparams, host32, counters, 384,
+                SSM_PIPELINE_PATH)),
+            ("(d) jamba hybrid at smoke size", lambda: hybrid_runs(torch, counters))):
+        t0 = time.perf_counter()
+        log(f"ssm {tag}:")
+        parts.append(part())
+        log(f"ssm {tag} took {time.perf_counter() - t0:.1f} s")
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    log(f"ssm launches over the bf16 runs of (a)-(d): "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    only_path("ssm phase", launches, SSM_PATH)
+    del params, cparams, host32
+    t0 = time.perf_counter()
+    log("ssm kernels against their plain versions at the hybrid's shapes (card):")
+    ssm_kernels(torch, timer)
+    log(f"ssm kernel checks took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def wrappers():
     """Every kernel wrapper of the port, each counting its launches."""
     from repro_torch.kernels.expert_mlp import (
@@ -3937,6 +4392,21 @@ def vlm_alone(torch) -> int:
     return 0
 
 
+def ssm_alone(torch) -> int:
+    """``--ssm``: the build and phase 12 alone; prints no result line."""
+    from repro_torch.kernels import build
+
+    log(f"card: {nvidia_smi()}")
+    t0 = time.perf_counter()
+    build.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ssm_phase(torch, Timer(torch), wrappers())
+    log(f"ssm phase took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3948,6 +4418,8 @@ def main() -> int:
         return chaos_timeline(torch)
     if "--vlm" in sys.argv[1:]:
         return vlm_alone(torch)
+    if "--ssm" in sys.argv[1:]:
+        return ssm_alone(torch)
     from repro_torch.kernels import build
     from repro_torch.kernels.expert_mlp import grouped_mlp
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -4045,6 +4517,11 @@ def main() -> int:
     t0 = time.perf_counter()
     vlm_launches = vlm_phase(torch, timer, stream_counters)
     log(f"vlm phase took {time.perf_counter() - t0:.1f} s")
+    log("mamba2-130m (SSM) and jamba's hybrid through the model, the dense-ring "
+        "ServingEngine and the pipeline:")
+    t0 = time.perf_counter()
+    ssm_launches = ssm_phase(torch, timer, stream_counters)
+    log(f"ssm phase took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention, the serving run with the dispatch codec for its
@@ -4113,6 +4590,8 @@ def main() -> int:
             "chaos_launches": chaos_launches.get(counter, 0),
             # launches in phase 11's runs of qwen2-vl-2b, (a)-(d) summed
             "vlm_launches": vlm_launches.get(counter, 0),
+            # launches in phase 12's bf16 runs (mamba2-130m, jamba's hybrid)
+            "ssm_launches": ssm_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -9,7 +9,9 @@ from typing import Dict
 from repro_torch.configs import (
     h2o_danube_3_4b,
     internlm2_20b,
+    jamba_1_5_large_398b,
     llama4_scout_17b_16e,
+    mamba2_130m,
     qwen2_vl_2b,
     qwen3_14b,
     qwen3_moe_235b_a22b,
@@ -21,12 +23,14 @@ from repro_torch.configs.base import (
     LayerSpec,
     ModelConfig,
     MoEConfig,
+    SSMConfig,
 )
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (h2o_danube_3_4b, tinyllama_1_1b, internlm2_20b, qwen3_14b,
-              llama4_scout_17b_16e, qwen3_moe_235b_a22b, qwen2_vl_2b, switch_base)
+    for m in (jamba_1_5_large_398b, h2o_danube_3_4b, tinyllama_1_1b, internlm2_20b,
+              qwen3_14b, llama4_scout_17b_16e, qwen3_moe_235b_a22b, qwen2_vl_2b,
+              mamba2_130m, switch_base)
 }
 
 
@@ -39,7 +43,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to a CPU-runnable size, keeping its structure (layer
-    pattern, MoE grouping, M-RoPE and patches); the reference's
+    pattern, MoE grouping, SSM-ness, M-RoPE and patches); the reference's
     ``smoke_config``."""
     kw = dict(
         num_layers=len(cfg.layer_pattern),
@@ -62,6 +66,10 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
             d_ff_expert=128,
             capacity_factor=2.0,
         )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(
+            cfg.ssm, d_state=16, head_dim=32, chunk_size=32
+        )
     if cfg.vision_patches:
         kw["vision_patches"] = 16
     if cfg.mrope_sections is not None:
@@ -79,6 +87,7 @@ __all__ = [
     "LayerSpec",
     "ModelConfig",
     "MoEConfig",
+    "SSMConfig",
     "get_config",
     "smoke_config",
 ]

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,6 +51,19 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) configuration."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 128  # SSD chunk length (intra-chunk quadratic)
+    n_groups: int = 1  # B/C groups (Mamba-2 "G")
+    head_block: int = 8  # heads processed per step (bounds the [Q, Q, hb] buffer)
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One layer of the repeating block pattern."""
 
@@ -83,7 +96,7 @@ class ModelConfig:
 
     layer_pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
     moe: Optional[MoEConfig] = None
-    ssm: Optional[Any] = None  # the SSM layers are not ported yet
+    ssm: Optional[SSMConfig] = None
     compression: Optional[CompressionConfig] = None
 
     qk_norm: bool = False

@@ -1,8 +1,9 @@
 """KV caches: the paged pools (the host page allocator, the device-side
 paged writes, the page moves of a tier re-split, speculative rollback and
-preemption spill) and the dense rings of ``Model.prefill`` /
-``decode_step`` (speculative decode's draft caches), port of the
-reference's ``models/kvcache.py``.
+preemption spill) and the dense caches of ``Model.prefill`` /
+``decode_step`` (speculative decode's draft rings; the SSM states and conv
+tails of the dense-ring ``ServingEngine``), port of the reference's
+``models/kvcache.py``.
 
 A tier owns one shared :class:`PagePool` of ``num_pages`` fixed-size pages;
 storage leaves are ``[R, P+1, page_size, KV, hd]`` (the last row is the
@@ -39,6 +40,7 @@ from repro_torch.kernels.quant import (
     quantize_rows,
     quantize_rows_plain,
 )
+from repro_torch.models.ssm import ssm_dims
 
 KV_SCALE_DTYPE = torch.float16  # per-token scale: an int8 page stays <= 0.55x of bf16
 KV_SCALE_FLOOR = SCALE_FLOOR  # all-zero tokens: a finite divide, codes 0
@@ -52,20 +54,80 @@ def attn_cache_len(cfg, max_len: int) -> int:
 
 def init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
                device=DEFAULT_DEVICE) -> Dict:
-    """An empty dense decode cache (zeros): per pattern position, ``k``/``v``
-    rings ``[R, batch, W, KV, hd]`` stacked over the block repeats, and
-    ``lengths`` [batch].  Attention layers only: the cache leaves of SSM and
-    cross-attention layers are not ported."""
+    """An empty dense decode cache (zeros), each leaf stacked over the block
+    repeats: per attention position ``k``/``v`` rings ``[R, batch, W, KV,
+    hd]``; per SSM position the conv tails ``conv_x [R, batch, d_conv-1,
+    d_in]`` and ``conv_bc [R, batch, d_conv-1, 2*G*N]`` in ``dtype`` and
+    the state ``ssm [R, batch, H, P, N]`` in f32; and ``lengths`` [batch].
+    Cross-attention leaves (encoder-decoder, queue A item 6c) are not
+    ported."""
     R, KV, hd = cfg.block_repeat, cfg.num_kv_heads, cfg.head_dim
     blocks: Dict[str, Dict] = {}
     for i, spec in enumerate(cfg.layer_pattern):
-        if spec.kind != "attn" or spec.cross_attn:
-            raise NotImplementedError(f"dense cache of layer kind {spec} is not ported yet")
-        shape = (R, batch, attn_cache_len(cfg, max_len), KV, hd)
-        blocks[f"pos{i}"] = {n: torch.zeros(shape, dtype=dtype, device=device)
-                             for n in ("k", "v")}
+        if spec.cross_attn:
+            raise NotImplementedError(
+                f"dense cache of layer kind {spec}: cross-attention (encoder-decoder, "
+                "queue A item 6c) is not ported yet")
+        if spec.kind == "attn":
+            shape = (R, batch, attn_cache_len(cfg, max_len), KV, hd)
+            blocks[f"pos{i}"] = {n: torch.zeros(shape, dtype=dtype, device=device)
+                                 for n in ("k", "v")}
+            continue
+        s = cfg.ssm
+        d_in, H, _ = ssm_dims(cfg)
+        gn = s.n_groups * s.d_state
+        blocks[f"pos{i}"] = {
+            "conv_x": torch.zeros((R, batch, s.d_conv - 1, d_in), dtype=dtype, device=device),
+            "conv_bc": torch.zeros((R, batch, s.d_conv - 1, 2 * gn), dtype=dtype,
+                                   device=device),
+            "ssm": torch.zeros((R, batch, H, s.head_dim, s.d_state), dtype=torch.float32,
+                               device=device),
+        }
     return {"blocks": blocks,
             "lengths": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _map_blocks(fn, *trees: Dict) -> Dict:
+    """``fn`` over the matching leaves of nested dicts of tensors."""
+    return {k: _map_blocks(fn, *(t[k] for t in trees)) if isinstance(v, dict)
+            else fn(*(t[k] for t in trees)) for k, v in trees[0].items()}
+
+
+def split_cache(cache: Dict, split: int) -> Tuple[Dict, Dict]:
+    """Split a stacked dense cache by block range: blocks ``[0, split)`` for
+    the end tier, ``[split, R)`` for the cloud tier (views); both keep the
+    ``lengths`` vector."""
+    end = {"blocks": _map_blocks(lambda leaf: leaf[:split], cache["blocks"]),
+           "lengths": cache["lengths"]}
+    cloud = {"blocks": _map_blocks(lambda leaf: leaf[split:], cache["blocks"]),
+             "lengths": cache["lengths"]}
+    return end, cloud
+
+
+def merge_cache(end_cache: Dict, cloud_cache: Dict) -> Dict:
+    """Inverse of :func:`split_cache`: the tiers' block caches re-stacked
+    along the block axis, with the end tier's ``lengths``."""
+    blocks = _map_blocks(lambda a, b: torch.cat([a, b], dim=0), end_cache["blocks"],
+                         cloud_cache["blocks"])
+    return {"blocks": blocks, "lengths": end_cache["lengths"]}
+
+
+def install_slot(batch_cache: Dict, slot: int, one_cache: Dict) -> Dict:
+    """Copy a single-request cache (batch dim 1) into slot ``slot`` of a
+    batched dense cache, in place.  Block leaves are ``[R, B, W, ...]``;
+    axis 2 (a ring, or an SSM conv tail) is truncated to the destination's
+    width, or filled with zeros at its end when the source is shorter (a
+    prompt of fewer than ``d_conv - 1`` tokens), as the reference pads."""
+
+    def copy_leaf(dst: torch.Tensor, src: torch.Tensor):
+        n = min(dst.shape[2], src.shape[2])
+        row = dst[:, slot]
+        row[:, :n] = src[:, 0, :n]
+        row[:, n:] = 0
+
+    _map_blocks(copy_leaf, batch_cache["blocks"], one_cache["blocks"])
+    batch_cache["lengths"][slot] = one_cache["lengths"][0]
+    return batch_cache
 
 
 def ring_write(kcache: torch.Tensor, vcache: torch.Tensor, k, v, lengths: torch.Tensor):

@@ -38,7 +38,7 @@ class Model:
                 expert_mask=None) -> Tuple[torch.Tensor, Dict]:
         """A full prompt -> (logits of the last position [B, V], dense cache
         of ``kvcache.init_cache``'s layout with rings of ``max_len`` (S by
-        default) and ``lengths`` S).  ``batch``: ``tokens`` [B, T]; for a
+        default) or SSM states and conv tails, and ``lengths`` S).  ``batch``: ``tokens`` [B, T]; for a
         VLM optionally ``patch_embeds`` [B, P, d], which go in front of the
         tokens (S = P + T), and ``positions`` ([B, S], or [B, 3, S] under
         M-RoPE; 0..S-1 on every axis by default)."""
@@ -60,7 +60,8 @@ class Model:
     def decode_step(self, params, tokens: torch.Tensor, cache: Dict, *,
                     expert_mask=None) -> Tuple[torch.Tensor, Dict]:
         """tokens [B, 1] against a dense cache -> (logits [B, V], the cache
-        with its rings written in place and ``lengths`` advanced)."""
+        with its rings and SSM states written in place and ``lengths``
+        advanced)."""
         cfg = self.cfg
         lengths = cache["lengths"]
         x = transformer.embed_inputs(params, cfg, tokens)

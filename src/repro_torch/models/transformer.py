@@ -1,8 +1,10 @@
 """Transformer stack (port of the reference's ``models/transformer.py``:
 init, embedding and head, the full-sequence layer and stack (the one-shot
 end-cloud pipeline, and ``Model.prefill`` with its collected dense
-rings), and the decode stack over paged pools or dense rings and the
-chunked-prefill stack of attention-only patterns).
+caches), and the decode stack over paged pools or dense caches and the
+chunked-prefill stack of attention-only patterns).  A layer is an
+attention or a Mamba-2 SSM layer (``models/ssm.py``), each with an
+optional dense or MoE FFN.
 
 Params keep the reference's layout: ``blocks["pos{i}"]`` leaves are stacked
 over the ``block_repeat`` axis, and a Python loop over blocks takes the
@@ -18,7 +20,7 @@ import torch
 from repro_torch.core.compression import compute_codec
 from repro_torch.core.moe import apply_moe, init_moe
 from repro_torch.models import attention as attn
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, ssm
 from repro_torch.models.layers import (
     apply_mlp,
     init_embedding,
@@ -30,8 +32,17 @@ from repro_torch.models.layers import (
 
 NEG_INF = -1e30
 # weights every use site casts to the activation type (``.astype(x.dtype)``
-# in the reference); norms and the gate stay in f32
-COMPUTE_CAST = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "embed", "lm_head"})
+# in the reference); norms and the gate stay in f32, and so do the SSM's
+# conv weights (its decode step reads them in f32), A_log, D and dt_bias
+COMPUTE_CAST = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "embed", "lm_head",
+                          "w_z", "w_x", "w_bc", "w_dt", "out_proj"})
+
+
+def _refuse_cross_attention(spec) -> None:
+    if spec.cross_attn:
+        raise NotImplementedError(
+            f"layer kind {spec}: cross-attention (encoder-decoder, queue A item 6c) "
+            "is not ported yet")
 
 
 def _has_ffn(spec, cfg) -> bool:
@@ -41,12 +52,12 @@ def _has_ffn(spec, cfg) -> bool:
 def init_layer(generator: torch.Generator, cfg, spec, R: int) -> Dict:
     """One pattern position's params, stacked over ``R`` block repeats."""
     dtype, dev, lead = cfg.torch_param_dtype, generator.device, (R,)
-    if spec.kind != "attn" or spec.cross_attn:
-        raise NotImplementedError(f"layer kind {spec} is not ported yet")
-    p: Dict[str, Any] = {
-        "norm1": init_norm(cfg.d_model, dtype, dev, lead),
-        "attn": attn.init_attention(generator, cfg, dtype, lead),
-    }
+    _refuse_cross_attention(spec)
+    p: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, dtype, dev, lead)}
+    if spec.kind == "attn":
+        p["attn"] = attn.init_attention(generator, cfg, dtype, lead)
+    else:
+        p["ssm"] = ssm.init_ssm(generator, cfg, dtype, lead)
     if _has_ffn(spec, cfg):
         p["norm2"] = init_norm(cfg.d_model, dtype, dev, lead)
         if spec.moe:
@@ -133,28 +144,33 @@ def apply_layer_full(
     collect_cache: bool = False,
     max_len: int = 0,
 ):
-    """Full-sequence layer (prefill-style) of an attention pattern, for
-    serving: the reference's ``train=False`` (no router losses; training is
-    not ported).  Returns (x, aux, cache_entry); with ``collect_cache`` the
-    entry holds the layer's k/v written into fresh dense rings of
-    ``max_len`` (``kvcache.prefill_write``), else it is empty.
+    """Full-sequence layer (prefill-style), for serving: the reference's
+    ``train=False`` (no router losses; training is not ported).  Returns
+    (x, aux, cache_entry); with ``collect_cache`` the entry holds an
+    attention layer's k/v written into fresh dense rings of ``max_len``
+    (``kvcache.prefill_write``), or an SSM layer's final state and conv
+    tails (``ssm``, ``conv_x``, ``conv_bc``), else it is empty.
 
-    The reference's other branches are not ported: SSM and cross-attention
-    layers raise; the sequence-parallel attention needs a device mesh,
-    which the port (one device) does not have."""
-    if spec.kind != "attn" or spec.cross_attn:
-        raise NotImplementedError(f"layer kind {spec} is not ported yet")
+    The reference's other branches are not ported: cross-attention layers
+    raise; the sequence-parallel attention and the tensor-parallel SSM need
+    a device mesh, which the port (one device) does not have."""
+    _refuse_cross_attention(spec)
     aux: Dict[str, torch.Tensor] = {}
     cache_entry: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    o, (k, v) = _self_attention_full(p["attn"], h, cfg, angles, causal)
+    if spec.kind == "attn":
+        o, (k, v) = _self_attention_full(p["attn"], h, cfg, angles, causal)
+        if collect_cache:
+            shape = (x.shape[0], kvcache.attn_cache_len(cfg, max_len), cfg.num_kv_heads,
+                     cfg.head_dim)
+            kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
+            cache_entry["k"], cache_entry["v"] = kvcache.prefill_write(
+                kc, torch.zeros_like(kc), k, v)
+    else:
+        o, (final_state, (cx, cbc)) = ssm.apply_ssm(p["ssm"], h, cfg, return_state=True)
+        if collect_cache:
+            cache_entry.update(ssm=final_state, conv_x=cx, conv_bc=cbc)
     x = x + o
-    if collect_cache:
-        shape = (x.shape[0], kvcache.attn_cache_len(cfg, max_len), cfg.num_kv_heads,
-                 cfg.head_dim)
-        kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
-        cache_entry["k"], cache_entry["v"] = kvcache.prefill_write(kc, torch.zeros_like(kc),
-                                                                   k, v)
     if _has_ffn(spec, cfg):
         x, aux = _ffn(p, x, spec, cfg, expert_mask)
     return x, aux, cache_entry
@@ -166,7 +182,7 @@ def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *
     """Loop the block pattern over a full sequence.  Returns (x, the aux of
     every MoE layer in order, cache blocks or None): with ``collect_cache``
     the blocks pytree of ``kvcache.init_cache``'s layout, each leaf the
-    layers' rings stacked over the block repeats."""
+    layers' rings or SSM states stacked over the block repeats."""
     layer_aux: List[Dict[str, torch.Tensor]] = []
     caches: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     for r in range(_n_blocks(params["blocks"])):
@@ -219,7 +235,8 @@ def apply_layer_decode(
     cfg,
     angles: torch.Tensor,  # [B, 1, hd/2]
     cache_entry: Dict,  # {"k", "v"}: page pools [P+1, ps, KV, hd] (+ int8
-    # scales) with a page table, else dense rings [B, W, KV, hd]
+    # scales) with a page table, else dense rings [B, W, KV, hd]; an SSM
+    # layer's {"ssm", "conv_x", "conv_bc"}
     lengths: torch.Tensor,  # [B] int32
     expert_mask=None,
     page_table: Optional[torch.Tensor] = None,  # [B, pps] int32
@@ -228,23 +245,33 @@ def apply_layer_decode(
 ):
     """Single-token decode layer against the paged KV cache, or with no
     ``page_table`` against dense rings (``attn.decode_attention``, masked
-    by ``kvcache.ring_key_positions``).  Returns (x, cache_entry, aux); the
-    cache is written in place."""
+    by ``kvcache.ring_key_positions``); an SSM layer steps its dense
+    ``ssm`` / ``conv_x`` / ``conv_bc`` entry.  Returns (x, cache_entry,
+    aux); the cache is written in place."""
     aux: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    q, k, v = attn.project_qkv(p["attn"], h, cfg, angles)
-    if page_table is None:
-        kc, vc = kvcache.ring_write(cache_entry["k"], cache_entry["v"], k, v, lengths)
-        o = attn.decode_attention(q, kc, vc, lengths,
-                                  kvcache.ring_key_positions(lengths, kc.shape[1]),
-                                  window=cfg.sliding_window)
-    else:
-        _write_kv(cache_entry, k, v, page_table, lengths, page_size)
-        o = attn.paged_decode_attention(
-            q, cache_entry["k"], cache_entry["v"], page_table, lengths,
-            window=cfg.sliding_window, **_scales(cache_entry),
+    if spec.kind != "attn":
+        o, (new_ssm, (new_cx, new_cbc)) = ssm.apply_ssm_decode(
+            p["ssm"], h, cfg, cache_entry["ssm"],
+            (cache_entry["conv_x"], cache_entry["conv_bc"]),
         )
-    x = x + attn.output_proj(p["attn"], o)
+        for name, new in (("ssm", new_ssm), ("conv_x", new_cx), ("conv_bc", new_cbc)):
+            cache_entry[name].copy_(new)
+        x = x + o
+    else:
+        q, k, v = attn.project_qkv(p["attn"], h, cfg, angles)
+        if page_table is None:
+            kc, vc = kvcache.ring_write(cache_entry["k"], cache_entry["v"], k, v, lengths)
+            o = attn.decode_attention(q, kc, vc, lengths,
+                                      kvcache.ring_key_positions(lengths, kc.shape[1]),
+                                      window=cfg.sliding_window)
+        else:
+            _write_kv(cache_entry, k, v, page_table, lengths, page_size)
+            o = attn.paged_decode_attention(
+                q, cache_entry["k"], cache_entry["v"], page_table, lengths,
+                window=cfg.sliding_window, **_scales(cache_entry),
+            )
+        x = x + attn.output_proj(p["attn"], o)
     if _has_ffn(spec, cfg):
         x, aux = _ffn(p, x, spec, cfg, expert_mask, expert_resident)
     return x, cache_entry, aux
@@ -273,7 +300,7 @@ def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
                        expert_resident: Optional[Dict] = None):
     """Loop the block pattern over one decode token, over the blocks the
     params hold (a tier may hold a slice), against paged pools through
-    ``page_table``, or without one against the dense rings of
+    ``page_table``, or without one against the dense caches of
     ``kvcache.init_cache``.  ``expert_resident`` (pooled end
     tier) is ``{"store": {...}, "tables": {"pos{i}": {"ids": [R, S+1],
     "slot": [R, E]}}}`` from ``core.expertpool``.  Returns (x,

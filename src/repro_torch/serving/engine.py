@@ -1,13 +1,17 @@
-"""Batched serving engine with continuous batching over a paged KV cache
-(port of the reference's paged ``ServingEngine``).
+"""Batched serving engine with continuous batching (port of the
+reference's ``ServingEngine``).
 
-A fixed decode batch of ``max_batch`` slots shares one
-:class:`~repro_torch.models.kvcache.PagePool` of fixed-size KV pages; each
-slot owns a bounded page list (ring semantics at page granularity),
-admission is gated on page availability (worst case reserved up front,
-mapped lazily), and prompts are prefilled in fixed-size chunks.  Only
-attention-only patterns are served; the reference's dense-ring branch for
-SSM and cross-attention patterns is not ported yet.
+For attention-only patterns the engine is *paged*: a fixed decode batch of
+``max_batch`` slots shares one :class:`~repro_torch.models.kvcache.PagePool`
+of fixed-size KV pages; each slot owns a bounded page list (ring semantics
+at page granularity), admission is gated on page availability (worst case
+reserved up front, mapped lazily), and prompts are prefilled in fixed-size
+chunks.  Patterns with SSM layers take the reference's dense branch: one
+``kvcache.init_cache`` of ``max_batch`` slots, a whole-prompt
+``Model.prefill`` per request copied into its slot (``install_slot``), and
+a dense ``decode_step`` over every slot, inactive ones too (their recurrent
+prefill state cannot stream through fixed-shape chunks).  Cross-attention
+patterns (encoder-decoder, queue A item 6c) are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,10 +46,10 @@ class ServingEngine(SlotEngineBase):
     ):
         super().__init__(max_batch, clock, max_len=max_len, admission=admission)
         cfg = model.cfg
-        if not kvcache.pattern_is_pageable(cfg):
+        if any(spec.cross_attn for spec in cfg.layer_pattern):
             raise NotImplementedError(
-                f"{cfg.name}: the dense-ring engine for SSM / cross-attention "
-                "patterns is not ported yet"
+                f"{cfg.name}: cross-attention patterns (encoder-decoder, queue A "
+                "item 6c) are not ported yet"
             )
         self.model = model
         self.device = model.device
@@ -59,6 +63,11 @@ class ServingEngine(SlotEngineBase):
             else torch.as_tensor(np.asarray(expert_mask, bool), device=self.device)
         )
         self._traces: Dict[str, set] = {}
+        self.paged = kvcache.pattern_is_pageable(cfg)
+        if not self.paged:
+            self.cache = kvcache.init_cache(cfg, max_batch, max_len, cfg.torch_dtype,
+                                            self.device)
+            return
         self.page_size = page_size
         self.pages_per_slot, ring = kvcache.page_geometry(
             cfg, max_len, page_size, chunk_headroom=prefill_chunk
@@ -103,15 +112,22 @@ class ServingEngine(SlotEngineBase):
         )
 
     def _page_capacity(self):
-        return self.pool.num_pages
+        return self.pool.num_pages if self.paged else None
 
     def _admittable(self, slot: int, req: Request) -> bool:
         # a free slot is not enough: the request's worst-case page count must
         # be reservable now, because nothing preempts it once it decodes
-        return self.pool.can_reserve(self._pages_for(req))
+        return not self.paged or self.pool.can_reserve(self._pages_for(req))
 
     def _prefill_into_slot(self, slot: int, req: Request):
-        """Chunked prefill straight into the slot's pages."""
+        """Chunked prefill straight into the slot's pages; on the dense
+        branch a whole-prompt prefill whose cache :meth:`_install_slot`
+        copies into the slot."""
+        if not self.paged:
+            logits, one_cache = self.model.prefill(
+                self.params, {"tokens": self._ints(req.prompt)[None]}, max_len=self.max_len,
+                expert_mask=self.expert_mask)
+            return int(torch.argmax(logits[0])), one_cache
         S = len(req.prompt)
         C = self.prefill_chunk
         self.pool.reserve(slot, self._pages_for(req))
@@ -129,11 +145,15 @@ class ServingEngine(SlotEngineBase):
         return int(torch.argmax(logits[0])), S
 
     def _install_slot(self, slot: int, payload):
-        self._slot_len[slot] = payload  # the pages already hold the prompt
+        if not self.paged:
+            self.cache = kvcache.install_slot(self.cache, slot, payload)
+        else:
+            self._slot_len[slot] = payload  # the pages already hold the prompt
 
     def _release_slot(self, slot: int):
-        self.pool.free(slot)
-        self._slot_len[slot] = 0
+        if self.paged:
+            self.pool.free(slot)
+            self._slot_len[slot] = 0
 
     # -- stepping -------------------------------------------------------------
 
@@ -143,6 +163,11 @@ class ServingEngine(SlotEngineBase):
         self._admit()
         if not self._active.any():
             return 0
+        if not self.paged:
+            logits, self.cache = self.model.decode_step(
+                self.params, self._ints(self._next_token), self.cache,
+                expert_mask=self.expert_mask)
+            return self._harvest(torch.argmax(logits, dim=-1).cpu().numpy())
         for slot in range(self.max_batch):
             if self._active[slot]:
                 self.pool.append(slot, int(self._slot_len[slot]))
@@ -167,7 +192,10 @@ class ServingEngine(SlotEngineBase):
     def attn_bytes_step(self) -> Dict[str, int]:
         """KV bytes the paged attention sweep reads per decode step across
         all layers at the current occupancy, beside what a dense
-        ``max_batch x ring`` sweep would read."""
+        ``max_batch x ring`` sweep would read.  The dense branch has no
+        paged sweep: both read zero."""
+        if not self.paged:
+            return {"attn_bytes_paged_step": 0, "attn_bytes_dense_step": 0}
         page_bytes = kvcache.paged_block_bytes(self.pages)
         return {
             "attn_bytes_paged_step": self.pool.pages_in_use * page_bytes,
@@ -175,6 +203,8 @@ class ServingEngine(SlotEngineBase):
         }
 
     def metrics(self) -> Dict[str, float]:
+        if not self.paged:
+            return {"requests_finished": len(self.finished), "paged": False}
         page_bytes = kvcache.paged_block_bytes(self.pages)
         return {
             "requests_finished": len(self.finished),

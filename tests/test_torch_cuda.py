@@ -1387,3 +1387,91 @@ def test_fleet_chaos_on_card_matches_cpu(gen):
     assert runs["cuda"][:4] == runs["cpu"][:4]
     for a, b in zip(runs["cuda"][4], runs["cpu"][4]):
         assert a == pytest.approx(b, abs=1e-9, rel=0)
+
+
+# -- the Mamba-2 SSM layer and the dense-ring ServingEngine ----------------------------
+
+
+def test_ssm_layer_prefill_and_decode_chain_on_card_matches_cpu(gen):
+    """mamba2 smoke's layer in f32: the full-sequence forward over 64
+    tokens (two 32-token chunks), a 48-token prefill (state and conv
+    tails) and 16 decode steps on the card against the same on the CPU,
+    at the reference test's tolerances (1e-4, the chain 3e-4)."""
+    from repro_torch.models import ssm
+
+    cfg = smoke_config(get_config("mamba2-130m"))
+    p = ssm.init_ssm(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd, xd = to_device(p, dev), x.to(dev)
+        full = ssm.apply_ssm(pd, xd, cfg)
+        y, (state, conv) = ssm.apply_ssm(pd, xd[:, :32], cfg, return_state=True)
+        ys = [y]
+        for t in range(32, 48):
+            y, (state, conv) = ssm.apply_ssm_decode(pd, xd[:, t:t + 1], cfg, state, conv)
+            ys.append(y)
+        out[dev] = [t.cpu() for t in (full, torch.cat(ys, 1), state, *conv)]
+    (fc, cc, sc, *tc), (fg, cg, sg, *tg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(fg, fc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cg, cc, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(cg, fc[:, :48], rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(sg, sc, rtol=3e-4, atol=3e-4)
+    for a, b in zip(tg, tc):
+        torch.testing.assert_close(a, b, rtol=3e-4, atol=3e-4)
+
+
+def test_dense_engine_on_card_matches_cpu(gen):
+    """mamba2 smoke at 4 layers in f32 through the dense-ring
+    ``ServingEngine`` (4 slots, 1- and 2-token prompts among 7): the
+    card's greedy tokens equal the CPU's; no kernel launches (the SSD and
+    conv are plain PyTorch)."""
+    cfg = smoke_config(get_config("mamba2-130m")).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 500, size=n).astype(np.int32) for n in (2, 9, 1, 32, 17, 64, 5)]
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(Model(cfg, device=dev), to_device(params, dev), max_batch=4,
+                            max_len=80)
+        reqs = [Request(i, p, max_new_tokens=8) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        before = (flash_attention_fwd.launches, group_gate.launches, paged_attention.launches)
+        eng.run()
+        assert not eng.paged and eng.metrics()["requests_finished"] == len(prompts)
+        assert (flash_attention_fwd.launches, group_gate.launches,
+                paged_attention.launches) == before
+        toks[dev] = [r.generated for r in reqs]
+    assert toks["cuda"] == toks["cpu"]
+
+
+def test_hybrid_pipeline_on_card_matches_cpu(gen):
+    """jamba smoke at two blocks (16 layers: SSM, attention and top-2 MoE)
+    in f32 through ``EndCloudPipeline`` (jetson-orin end, a100 cloud, rank
+    64: split 1 of 2 with the codec): the card's logits equal the CPU's
+    within 1e-4, flash attention launched once an attention layer, the
+    gate once a MoE layer."""
+    cfg = smoke_config(get_config("jamba-1.5-large-398b")).replace(num_layers=16,
+                                                                  dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.arange(2 * 64, dtype=torch.int32).view(2, 64) * 7 % 500
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pipe = EndCloudPipeline(Model(cfg, device=dev), to_device(params, dev),
+                                end_profile=PROFILES["jetson-orin"],
+                                cloud_profile=PROFILES["a100"], compression_rank=64)
+        before = (flash_attention_fwd.launches, group_gate.launches, lowrank_encode.launches)
+        logits, m = pipe.run_batch(tokens)
+        if dev == "cuda":
+            n_attn = sum(s.kind == "attn" for s in cfg.layer_pattern) * cfg.block_repeat
+            n_moe = sum(s.moe for s in cfg.layer_pattern) * cfg.block_repeat
+            assert (flash_attention_fwd.launches, group_gate.launches,
+                    lowrank_encode.launches) == (before[0] + n_attn, before[1] + n_moe,
+                                                 before[2] + 1)
+        out[dev] = (logits.float().cpu(), m)
+    (lc, mc), (lg, mg) = out["cpu"], out["cuda"]
+    assert (mg["split"], mg["compressed"]) == (mc["split"], mc["compressed"]) == (1, True)
+    for key in ("boundary_bytes", "t_comm_s"):
+        assert mg[key] == mc[key], key
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)

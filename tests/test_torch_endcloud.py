@@ -52,11 +52,16 @@ def _jstate(s):
 
 def _configs():
     """(name, port config, reference config): full-width switch-base and
-    the smoke llama4-scout and tinyllama of the reference's own tests."""
-    out = [("switch-base", get_config("switch-base"), jget("switch-base"))]
+    mamba2-130m (the SSM planner's inputs), the smoke llama4-scout and
+    tinyllama of the reference's own tests, and the smoke jamba-1.5-large
+    (hybrid; at full width its experts fit on no xeon-4214r or phone-soc
+    end, whose mask then selects none: both packages refuse that plan)."""
+    out = [(name, get_config(name), jget(name)) for name in ("switch-base", "mamba2-130m")]
     for name in ("llama4-scout-17b-16e", "tinyllama-1.1b"):
         out.append((name, smoke_config(get_config(name)).replace(num_layers=4),
                     jsmoke(jget(name)).replace(num_layers=4)))
+    out.append(("jamba-1.5-large-398b", smoke_config(get_config("jamba-1.5-large-398b")),
+                jsmoke(jget("jamba-1.5-large-398b"))))
     return out
 
 
@@ -301,6 +306,8 @@ def test_pipeline_default_codec_and_refusals():
 
 
 def test_apply_layer_full_refuses_unported_branches():
+    """An attention layer with and without ``collect_cache``; an SSM layer
+    equal to the reference's; cross-attention still raises."""
     cfg = smoke_config(get_config("tinyllama-1.1b"))
     spec = cfg.layer_pattern[0]
     p = transformer.block_params(
@@ -321,6 +328,30 @@ def test_apply_layer_full_refuses_unported_branches():
         ring = entry[name]
         assert ring.shape == (1, 8, cfg.num_kv_heads, cfg.head_dim)
         assert torch.equal(ring[:, :4], want.to(ring.dtype)) and not ring[:, 4:].any()
-    for bad in (dataclasses.replace(spec, kind="ssm"), dataclasses.replace(spec, cross_attn=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            transformer.apply_layer_full(p, x, bad, cfg, angles)
+    # cross-attention (encoder-decoder, queue A item 6c) is not ported
+    with pytest.raises(NotImplementedError, match="6c"):
+        transformer.apply_layer_full(p, x, dataclasses.replace(spec, cross_attn=True), cfg,
+                                     angles)
+    # an SSM layer (mamba2 smoke's) equals the reference's, its collected
+    # state and conv tails too
+    from repro.models import transformer as jtransformer
+
+    scfg = smoke_config(get_config("mamba2-130m")).replace(dtype="float32")
+    sspec = scfg.layer_pattern[0]
+    sp = transformer.block_params(
+        transformer.init_params(scfg, torch.Generator().manual_seed(2))["blocks"], 0)["pos0"]
+    jsp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), sp)
+    xs = torch.randn(2, 8, scfg.d_model, generator=torch.Generator().manual_seed(3))
+    sangles = torch.zeros(2, 8, scfg.head_dim // 2)
+    ys, aux, entry = transformer.apply_layer_full(sp, xs, sspec, scfg, sangles,
+                                                  collect_cache=True, max_len=8)
+    jys, jaux, jentry = jax.jit(
+        jtransformer.apply_layer_full, static_argnums=(2, 3, 4),
+        static_argnames=("train", "collect_cache", "max_len"),
+    )(jsp, xs.numpy(), sspec, jsmoke(jget("mamba2-130m")).replace(dtype="float32"), None,
+      sangles.numpy(), train=False, collect_cache=True, max_len=8)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(jys), rtol=1e-4, atol=1e-4)
+    assert aux == {} and set(entry) == set(jentry) == {"ssm", "conv_x", "conv_bc"}
+    for name, want in jentry.items():
+        assert tuple(entry[name].shape) == want.shape
+        np.testing.assert_allclose(entry[name].numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)

@@ -96,12 +96,14 @@ def test_config_copies_equal_the_reference(name):
 
 
 @pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e", "tinyllama-1.1b",
-                                  "qwen2-vl-2b"])
+                                  "qwen2-vl-2b", "mamba2-130m", "jamba-1.5-large-398b"])
 def test_bridge_and_init_match_the_reference_tree(name):
-    jcfg = jsmoke(jget(name)).replace(num_layers=4)
+    # 4 layers, or one block of a longer pattern (jamba's 8)
+    layers = max(4, len(jget(name).layer_pattern))
+    jcfg = jsmoke(jget(name)).replace(num_layers=layers)
     jp = jax.tree.map(np.asarray, build_model(jcfg).init(jax.random.PRNGKey(0)))
     tp = params_from_numpy(jp, "cpu")
-    own = transformer.init_params(smoke_config(get_config(name)).replace(num_layers=4),
+    own = transformer.init_params(smoke_config(get_config(name)).replace(num_layers=layers),
                                   torch.Generator().manual_seed(0))
     for path, want in jax.tree_util.tree_flatten_with_path(jp)[0]:
         got, mine = tp, own
@@ -122,3 +124,16 @@ def test_compute_params_casts_only_what_every_use_casts():
     assert blk["attn"]["wq"].dtype == blk["moe"]["wi"].dtype == blk["moe"]["shared"]["wg"].dtype == torch.bfloat16
     assert blk["norm1"].dtype == p["final_norm"].dtype == torch.float32
     assert all(v.dtype == torch.float32 for v in blk["moe"]["gate"].values())
+    # the SSM's projections are cast; its conv weights (read in f32 by the
+    # decode step), A_log, D, dt_bias and norm stay f32 (jamba: SSM, MoE
+    # and attention in one pattern)
+    cfg = smoke_config(get_config("jamba-1.5-large-398b"))
+    p = transformer.compute_params(
+        transformer.init_params(cfg, torch.Generator().manual_seed(0)), cfg)
+    ssm = p["blocks"]["pos0"]["ssm"]
+    assert {k for k, v in ssm.items() if v.dtype == torch.bfloat16} == {
+        "w_z", "w_x", "w_bc", "w_dt", "out_proj"}
+    assert {k for k, v in ssm.items() if v.dtype == torch.float32} == {
+        "conv_x", "conv_x_b", "conv_bc", "conv_bc_b", "A_log", "D", "dt_bias", "norm_w"}
+    assert p["blocks"]["pos4"]["attn"]["wq"].dtype == torch.bfloat16
+    assert p["blocks"]["pos1"]["moe"]["wi"].dtype == torch.bfloat16

@@ -250,9 +250,21 @@ def test_init_cache_matches_reference_and_refuses_other_layers():
     for pos, entry in jc["blocks"].items():
         assert {n: tuple(l.shape) for n, l in tc["blocks"][pos].items()} == {
             n: tuple(l.shape) for n, l in entry.items()}
-    for spec in (LayerSpec(kind="ssm"), LayerSpec(cross_attn=True)):
-        with pytest.raises(NotImplementedError):
-            tkv.init_cache(cfg.replace(layer_pattern=(spec,)), 1, 8, torch.float32, "cpu")
+    # cross-attention leaves (encoder-decoder, queue A item 6c) are not ported
+    with pytest.raises(NotImplementedError, match="6c"):
+        tkv.init_cache(cfg.replace(layer_pattern=(LayerSpec(cross_attn=True),)), 1, 8,
+                       torch.float32, "cpu")
+    # SSM leaves (mamba2 smoke's): the reference's shapes and types, zeros
+    scfg = smoke_config(get_config("mamba2-130m")).replace(num_layers=2)
+    jc = jkv.init_cache(jsmoke(jget("mamba2-130m")).replace(num_layers=2), 3, 8, jnp.bfloat16)
+    tc = tkv.init_cache(scfg, 3, 8, torch.bfloat16, "cpu")
+    assert tc["lengths"].shape == jc["lengths"].shape
+    for pos, entry in jc["blocks"].items():
+        assert set(entry) == set(tc["blocks"][pos]) == {"ssm", "conv_x", "conv_bc"}
+        for n, leaf in entry.items():
+            got = tc["blocks"][pos][n]
+            assert tuple(got.shape) == leaf.shape and not got.any()
+            assert str(got.dtype) == f"torch.{leaf.dtype}"
 
 
 @pytest.mark.parametrize("window", [None, 5])
