@@ -220,12 +220,43 @@ Phases, in order; any failure exits non-zero before the result lines:
    card against CPU.  Then each of its kernels against its plain version
    at the hybrid's shapes (``ssm_kernels``).  ``python3 chip_smoke.py
    --ssm`` runs the build and this phase alone and prints no result line.
+13. h2o-danube-3-4b (``danube_phase``), the attention kernels at head_dim
+   120 (32 heads on 8 kv heads; computed at a width of 128 over rows of
+   stride 120), at full width and depth (24 layers, d_model 3840, window
+   4096), random weights from seed 0 (f32 as stored, bf16 activations).
+   First its kernels against their plain versions at its shapes
+   (``danube_kernels``: paged attention at decode over f32, bf16 and int8
+   pools and a 32-row chunk, the tensor-core body in bf16; flash attention
+   [2, 256] causal with and without a window; the int8 KV write at a line
+   of 960), timed beside bound and SDPA.  Then phase 11's (b)-(d) on it:
+   phase 3's traffic through ``ServingEngine``, the pipeline (split 1 of
+   24, rank 384: 24 flash, 1 encode, 1 decode launches) and the streaming
+   engine with the int8 streams (8 requests of 16 tokens); its f32
+   card-vs-CPU checks run the first ``VLM_CPU_LAYERS`` layers at full
+   width (the whole f32 model is 15.8 GB).  ``python3 chip_smoke.py
+   --danube`` runs the build and this phase alone.
+14. whisper-base (``encdec_phase``), the encoder-decoder at full width and
+   depth (6 decoder layers of self- and cross-attention over a 6-layer
+   bidirectional encoder of 1500 frames, d_model 512, 8 heads of 64),
+   random weights from seed 0, frame embeddings from a seeded generator:
+   ``Model.prefill`` of 4 rows of 64 tokens (rings of 448, whisper's text
+   context) then 32 greedy ``decode_step`` s in bf16: exactly 18 flash
+   launches a prefill (6 encoder, 6 causal self, 6 cross, non-causal with
+   Sq != Skv) and none in a decode step (dense rings and the cross cache,
+   plain PyTorch); the cross cache's bytes a slot; a profiled decode step
+   (``chiprun_out/encdec_decode_profile.txt``) and cross-attention's share
+   of it; f32 card against CPU at full depth (tokens equal, logits within
+   ``SSM_F32_REL`` of max); then flash attention at the encoder's [4, 1500,
+   8, 64] and the cross-attention's 64 queries on 1500 frames, not causal,
+   bf16 and f32, beside bound and SDPA (``encdec_kernels``).  ``python3
+   chip_smoke.py --encdec`` runs the build and this phase alone.
 
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
 in phase 9's bf16 fleet run; ``chaos_launches``: in phase 10's bf16 chaos
 run; ``vlm_launches``: over phase 11's runs; ``ssm_launches``: over phase
-12's bf16 runs), the ``nvidia-smi``
+12's bf16 runs; ``danube_launches``: over phase 13's runs;
+``encdec_launches``: in phase 14's bf16 run), the ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
@@ -395,11 +426,11 @@ PA_CASES = (
 
 
 def paged_attention_inputs(torch, C: int, seed: int, B: int = 8, pps: int = 16,
-                           lengths=PA_CASES[0][4], heads=(12, 12, 64)):
+                           lengths=PA_CASES[0][4], heads=(12, 12, 64), dtype=None):
     """B slots, ``heads`` = (query heads, kv heads, head dim), 16-token
     pages, a pps-page ring; slot b holds positions up to ``lengths[b]`` (its
     ring anchor), unmapped table entries are garbage, and the C query rows
-    end at the anchor."""
+    end at the anchor; q and the pools in ``dtype`` (bf16 by default)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     (H, KV, hd), ps = heads, 16
     lengths = torch.tensor(lengths, dtype=torch.int32)
@@ -412,20 +443,23 @@ def paged_attention_inputs(torch, C: int, seed: int, B: int = 8, pps: int = 16,
     q_pos = lengths[:, None] - (C - 1) + torch.arange(C, dtype=torch.int32)[None, :]
     q_pos = q_pos.clamp_min(0).int()
     dev = dict(device="cuda")
-    q = torch.randn(B, C, H, hd, generator=g, **dev).bfloat16()
-    pool_k = torch.randn(P + 1, ps, KV, hd, generator=g, **dev).bfloat16()
-    pool_v = torch.randn(P + 1, ps, KV, hd, generator=g, **dev).bfloat16()
+    dtype = dtype or torch.bfloat16
+    q = torch.randn(B, C, H, hd, generator=g, **dev).to(dtype)
+    pool_k = torch.randn(P + 1, ps, KV, hd, generator=g, **dev).to(dtype)
+    pool_v = torch.randn(P + 1, ps, KV, hd, generator=g, **dev).to(dtype)
     return q, pool_k, pool_v, table.cuda(), q_pos.cuda(), lengths.cuda()
 
 
-def run_paged_attention(torch, timer, quant: bool = False, cases=PA_CASES, heads=(12, 12, 64)):
+def run_paged_attention(torch, timer, quant: bool = False, cases=PA_CASES, heads=(12, 12, 64),
+                        dtype=None):
     """Paged attention (``quant``: over int8 pools, codes and f16 scales per
     token from the quantizer) against its plain version at ``cases`` (query
-    heads, kv heads and head dim ``heads``): within tolerance, the same bits
-    from a second launch, the bound, and beside the kernel's time SDPA's on
-    the pre-gathered (and dequantized) dense ring, kv heads repeated for
-    GQA, each as an event pair and as the profiler's device time a call.
-    Returns the first case's record, with the largest error."""
+    heads, kv heads and head dim ``heads``; q and dense pools in ``dtype``,
+    bf16 by default): within tolerance, the same bits from a second launch,
+    the bound, and beside the kernel's time SDPA's on the pre-gathered (and
+    dequantized) dense ring, kv heads repeated for GQA, each as an event
+    pair and as the profiler's device time a call.  Returns the first
+    case's record, with the largest error."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import (
@@ -440,12 +474,15 @@ def run_paged_attention(torch, timer, quant: bool = False, cases=PA_CASES, heads
         ring_key_positions,
     )
 
-    what = "paged_attention_quant" if quant else "paged_attention"
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    isz = 4 if f32 else 2
+    what = ("paged_attention_quant" if quant else "paged_attention") + (" f32" if f32 else "")
     rec = {}
     for i, (name, B, pps, C, anchors) in enumerate(cases):
         seed = (10 if quant else 0) + C + (100 if i >= 2 else 0)
         q, pool_k, pool_v, table, q_pos, lengths = paged_attention_inputs(
-            torch, C, seed, B=B, pps=pps, lengths=anchors, heads=heads)
+            torch, C, seed, B=B, pps=pps, lengths=anchors, heads=heads, dtype=dtype)
         H, hd = q.shape[2], q.shape[3]
         ps, KV = pool_k.shape[1], pool_k.shape[2]
         if quant:
@@ -455,23 +492,25 @@ def run_paged_attention(torch, timer, quant: bool = False, cases=PA_CASES, heads
             fn = paged_attention_quant
             plain_args = (q, kq, vq, table, q_pos, lengths)
             plain_kw = dict(k_scale=ks, v_scale=vs)
-            ring_k = dequantize_kv_pool(kq, ks, torch.bfloat16)
-            ring_v = dequantize_kv_pool(vq, vs, torch.bfloat16)
+            ring_k = dequantize_kv_pool(kq, ks, dtype)
+            ring_v = dequantize_kv_pool(vq, vs, dtype)
             page_bytes = 2 * ps * KV * hd + 2 * ps * 2  # int8 K and V, f16 scales
         else:
             args = (q, pool_k, pool_v, table, q_pos, lengths)
             fn = paged_attention
             plain_args, plain_kw = args, {}
             ring_k, ring_v = pool_k, pool_v
-            page_bytes = 2 * ps * KV * hd * 2  # K and V of one page, bf16
+            page_bytes = 2 * ps * KV * hd * isz  # K and V of one page
         out = fn(*args)
         ref = paged_attention_plain(*plain_args, **plain_kw)
         # Both sides accumulate in f32 (int8 pools: dequantized exactly, p
         # kept in f32) and round once to bf16, in another order: one to two
         # bf16 ulps of each element (rtol 2^-7), and four ulps at the median
-        # |output| (atol) for elements near zero.
-        atol = 2 ** -6 * ref.float().abs().median().item()
-        err = check_close(f"{what} {name}", out, ref, rtol=2 ** -7, atol=atol)
+        # |output| (atol) for elements near zero.  In f32 the sums alone
+        # differ: 2^-16 of each element, 2^-14 of the median.
+        rtol, arel = (2 ** -16, 2 ** -14) if f32 else (2 ** -7, 2 ** -6)
+        atol = arel * ref.float().abs().median().item()
+        err = check_close(f"{what} {name}", out, ref, rtol=rtol, atol=atol)
         if not torch.equal(fn(*args), out):
             raise AssertionError(f"{what} {name}: two launches on the same inputs differ")
 
@@ -480,9 +519,9 @@ def run_paged_attention(torch, timer, quant: bool = False, cases=PA_CASES, heads
         vis = (kp[:, None, :] <= q_pos[:, :, None].long()) & (kp[:, None, :] >= 0)
         mapped = table != pool_k.shape[0] - 1
         live = vis.view(B, C, pps, ps).any(dim=(1, 3)) & mapped
-        nbytes = (2 * q.numel() * 2 + int(live.sum()) * page_bytes
+        nbytes = (2 * q.numel() * isz + int(live.sum()) * page_bytes
                   + (table.numel() + q_pos.numel() + lengths.numel()) * 4)
-        b_ms, b_by = bound(nbytes, 4 * hd * H * int(vis.sum()), "bf16")
+        b_ms, b_by = bound(nbytes, 4 * hd * H * int(vis.sum()), "f32" if f32 else "bf16")
         # yardstick: SDPA over the pre-gathered dense ring with a boolean mask
         kd = paged_gather(ring_k, table).repeat_interleave(H // KV, dim=2).transpose(1, 2)
         vd = paged_gather(ring_v, table).repeat_interleave(H // KV, dim=2).transpose(1, 2)
@@ -810,37 +849,46 @@ def run_expert_mlp_resident(torch, timer):
     return main
 
 
-def flash_case(torch, timer, gen, name, B, S, H, KV, hd=64, window=None, later=False):
-    """Flash attention over bf16 [B, S, H | KV, hd], causal (and a window),
-    against its plain version; the kernel's time, the plain version's, the
-    bound and SDPA's (kv heads repeated for GQA), and with ``later`` their
-    device times queued (``Timer.later``); returns the record."""
+def flash_case(torch, timer, gen, name, B, S, H, KV, hd=64, window=None, later=False,
+               causal=True, Skv=None, dtype=None):
+    """Flash attention over [B, S, H, hd] queries and [B, Skv (S), KV, hd]
+    keys and values in ``dtype`` (bf16 by default), causal or not (and a
+    window), against its plain version; the kernel's time, the plain
+    version's, the bound and SDPA's (kv heads repeated for GQA), and with
+    ``later`` their device times queued (``Timer.later``); returns the
+    record."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
     from repro_torch.kernels.flash_attention.ops import block_mask
 
-    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").bfloat16()
-    kw = dict(causal=True, window=window)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    Skv = Skv or S
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window)
     out = flash_attention_fwd(q, k, v, **kw)
     ref = flash_attention_plain(q, k, v, **kw)
     # the same tiles and rounding points, f32 sums in another order: one
-    # bf16 ulp of each element, and four at the median |output| (atol)
-    atol = 2 ** -6 * ref.float().abs().median().item()
-    err = check_close(f"flash_attention {name}", out, ref, rtol=2 ** -7, atol=atol)
+    # bf16 ulp of each element, and four at the median |output| (atol); in
+    # f32 2^-16 of each element and 2^-14 of the median
+    rtol, arel = (2 ** -16, 2 ** -14) if f32 else (2 ** -7, 2 ** -6)
+    atol = arel * ref.float().abs().median().item()
+    err = check_close(f"flash_attention {name}", out, ref, rtol=rtol, atol=atol)
 
-    pos = torch.arange(S, device="cuda")
-    vis = block_mask(pos, pos, True, window)  # [S, S]
-    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
-    b_ms, b_by = bound(nbytes, 4 * hd * B * H * int(vis.sum()), "bf16")
+    vis = block_mask(torch.arange(S, device="cuda"), torch.arange(Skv, device="cuda"), causal,
+                     window)  # [S, Skv]
+    isz = 4 if f32 else 2
+    nbytes = 2 * q.numel() * isz + 2 * k.numel() * isz
+    b_ms, b_by = bound(nbytes, 4 * hd * B * H * int(vis.sum()), "f32" if f32 else "bf16")
     # yardstick: SDPA on [B, H, S, hd] copies, KV heads repeated for GQA
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
     if window is None:
-        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=True)
+        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=causal)
     else:
         sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, attn_mask=vis)
     call = functools.partial(flash_attention_fwd, q, k, v, **kw)
@@ -3640,10 +3688,12 @@ def vlm_model(torch, cfg, cparams, host32, counters):
     return launches
 
 
-def vlm_serve(torch, cfg, params, cparams, counters):
+def vlm_serve(torch, cfg, params, cparams, counters, tag="vlm", check_layers=None):
     """(b) Phase 3's traffic through ``ServingEngine`` at full depth in bf16,
-    a profiled decode step with 8 slots decoding, then phase 4's card
-    against CPU check in f32 at full depth.  Returns the run's launches."""
+    a profiled decode step with 8 slots decoding
+    (``chiprun_out/{tag}_decode_profile.txt``), then phase 4's card against
+    CPU check in f32 at full depth, or at the first ``check_layers`` layers.
+    Returns the run's launches."""
     import numpy as np
 
     from repro_torch.models.model import Model
@@ -3671,12 +3721,12 @@ def vlm_serve(torch, cfg, params, cparams, counters):
     t0 = time.perf_counter()
     _, launches = counted_run(counters, run)
     run_s = time.perf_counter() - t0
-    log(f"vlm serving launches: {launches}")
-    only_path("vlm serving", launches, ("paged_attention",))
+    log(f"{tag} serving launches: {launches}")
+    only_path(f"{tag} serving", launches, ("paged_attention",))
     if not all(r.done and len(r.generated) == 32 for r in reqs) or eng.pool.pages_in_use:
-        raise AssertionError("vlm serving: a request did not finish, or pages stay mapped")
+        raise AssertionError(f"{tag} serving: a request did not finish, or pages stay mapped")
     decode = sorted(step_s[1:])
-    log(f"vlm serving: first step {step_s[0] * 1e3:.3f} ms; decode step median "
+    log(f"{tag} serving: first step {step_s[0] * 1e3:.3f} ms; decode step median "
         f"{decode[len(decode) // 2] * 1e3:.3f} ms over {len(decode)} steps (host clock, "
         f"synchronized); {8 * 32 / run_s:.1f} tokens/s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -3685,24 +3735,25 @@ def vlm_serve(torch, cfg, params, cparams, counters):
                            max_new_tokens=8))
     eng.step()  # admission + decode
     eng.step()
-    dev_ms, wall_ms, in_path = profiled(torch, eng.step, "vlm_decode_profile.txt",
+    dev_ms, wall_ms, in_path = profiled(torch, eng.step, f"{tag}_decode_profile.txt",
                                         PAGED_KERNELS)
-    log(f"vlm decode profile (1 step, 8 slots decoding): device time {dev_ms:.3f} ms of "
+    log(f"{tag} decode profile (1 step, 8 slots decoding): device time {dev_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall; kernels in path, a launch: {in_path}; written to "
-        f"chiprun_out/vlm_decode_profile.txt")
+        f"chiprun_out/{tag}_decode_profile.txt")
     eng.run()
-    log(f"vlm card vs CPU (f32, {cfg.num_layers} layers, a 16-token prompt chunk and a decode "
-        "step):")
-    reference_check(torch, eng, cfg=cfg.replace(dtype="float32"), params=params,
-                    rel_tol=1e-3, cos_tol=0.99999)
+    L = check_layers or cfg.num_layers
+    log(f"{tag} card vs CPU (f32, {L} of {cfg.num_layers} layers, a 16-token prompt chunk and "
+        "a decode step):")
+    reference_check(torch, eng, cfg=cfg.replace(dtype="float32", num_layers=L),
+                    params=first_layers(params, L), rel_tol=1e-3, cos_tol=0.99999)
     return launches
 
 
-def vlm_pipeline(torch, cfg, cparams, host32, counters):
+def vlm_pipeline(torch, cfg, cparams, host32, counters, tag="vlm"):
     """(c) ``EndCloudPipeline``: jetson-orin end, a100 cloud, rank 384,
     tokens [4, 256] at full depth in bf16 (the planner's split 1 of 28);
-    f32 card against CPU at ``VLM_CPU_LAYERS`` layers.  Returns one
-    ``run_batch``'s launches."""
+    f32 card against CPU at ``VLM_CPU_LAYERS`` layers (``host32`` holds
+    them).  Returns one ``run_batch``'s launches."""
     from repro_torch.core.hardware import PROFILES
     from repro_torch.models.model import Model, to_device
     from repro_torch.serving import EndCloudPipeline
@@ -3710,33 +3761,33 @@ def vlm_pipeline(torch, cfg, cparams, host32, counters):
     prof = dict(end_profile=PROFILES["jetson-orin"], cloud_profile=PROFILES["a100"])
     pipe = EndCloudPipeline(Model(cfg, device="cuda"), cparams, compression_rank=384, **prof)
     L = cfg.num_layers
-    log(f"vlm pipeline plan (jetson-orin end, a100 cloud): split {pipe.split} of {L}, codec "
+    log(f"{tag} pipeline plan (jetson-orin end, a100 cloud): split {pipe.split} of {L}, codec "
         f"{'on' if pipe.tiers.compress else 'off'}")
     if not (0 < pipe.split < L and pipe.tiers.compress):
-        raise AssertionError("vlm pipeline: the plan is not an interior split with the codec")
+        raise AssertionError(f"{tag} pipeline: the plan is not an interior split with the codec")
     B, S = 4, 256
     tok = pipeline_tokens(torch, cfg.vocab_size, B, S, 0).cuda()
     pipe.run_batch(tok)  # warm-up
     (logits, m), launches = counted_run(counters, lambda: pipe.run_batch(tok))
     want = {c.__name__: 0 for c in counters}
     want.update(flash_attention_fwd=L, lowrank_encode=1, lowrank_decode=1)
-    log(f"vlm pipeline launches per run_batch: {launches}")
+    log(f"{tag} pipeline launches per run_batch: {launches}")
     if launches != want:
-        raise AssertionError(f"vlm pipeline launches {launches}, want {want}")
+        raise AssertionError(f"{tag} pipeline launches {launches}, want {want}")
     if m["boundary_bytes"] != B * S * 384 * 2 or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"vlm pipeline: metrics {m}, or logits not finite")
+        raise AssertionError(f"{tag} pipeline: metrics {m}, or logits not finite")
     del logits
     runs = [pipe.run_batch(tok)[1] for _ in range(5)]
-    log(f"vlm pipeline run_batch [{B}, {S}]: median t_end "
+    log(f"{tag} pipeline run_batch [{B}, {S}]: median t_end "
         f"{sorted(r['t_end_s'] for r in runs)[2] * 1e3:.3f} ms, median t_cloud "
         f"{sorted(r['t_cloud_s'] for r in runs)[2] * 1e3:.3f} ms over 5 warm runs (host "
         f"clock, device synchronized)")
     dev_ms, wall_ms, in_path = profiled(
-        torch, lambda: pipe.run_batch(tok), "vlm_pipeline_profile.txt",
+        torch, lambda: pipe.run_batch(tok), f"{tag}_pipeline_profile.txt",
         (("flash attention", ("flash_fwd_mma_kernel",), ()), *CODEC_KERNELS))
-    log(f"vlm pipeline profile (1 run_batch): device time {dev_ms:.3f} ms of {wall_ms:.3f} ms "
+    log(f"{tag} pipeline profile (1 run_batch): device time {dev_ms:.3f} ms of {wall_ms:.3f} ms "
         f"wall; kernels in path, a launch: {in_path}; written to "
-        f"chiprun_out/vlm_pipeline_profile.txt")
+        f"chiprun_out/{tag}_pipeline_profile.txt")
 
     cfg32 = cfg.replace(dtype="float32", num_layers=VLM_CPU_LAYERS)
     codec = pipe.codec
@@ -3748,24 +3799,19 @@ def vlm_pipeline(torch, cfg, cparams, host32, counters):
     lg, mg = card.run_batch(tok)
     lc, mc = host.run_batch(tok.cpu())
     rel, cos = logit_gap(torch, lg, lc, cfg.vocab_size)
-    log(f"vlm pipeline f32 card vs CPU ({VLM_CPU_LAYERS} layers, split {card.split}, "
+    log(f"{tag} pipeline f32 card vs CPU ({VLM_CPU_LAYERS} layers, split {card.split}, "
         f"{time.perf_counter() - t0:.1f} s): logits max|diff|/max|cpu|={rel:.3e} "
         f"(<= {VLM_F32_REL:g}) cos={cos.min().item():.7f} (>= {VLM_F32_COS:g})")
     if (mg["split"], mg["boundary_bytes"]) != (mc["split"], mc["boundary_bytes"]) or not (
             rel <= VLM_F32_REL and cos.min().item() >= VLM_F32_COS):
-        raise AssertionError("vlm pipeline: the card disagrees with the CPU")
+        raise AssertionError(f"{tag} pipeline: the card disagrees with the CPU")
     return launches
 
 
-def vlm_stream(torch, cfg, cparams, host32, counters):
-    """(d) ``EndCloudServingEngine`` (``spec_engine``: 8 slots in two
-    groups, rank 384, split 1, jetson-orin end, modeled stage times): f32
-    dense pools card against CPU at ``VLM_CPU_LAYERS`` layers; bf16 with the
-    three int8 streams (a profiled tick) and bf16 dense pools with
-    ``spec_k = 4``, both at full depth.  Returns the two bf16 runs' summed
-    launches."""
-    from repro_torch.kernels.paged_attention.ops import uses_tensor_cores
-    from repro_torch.models import attention as attn
+def vlm_stream_f32(torch, cfg, host32, tag):
+    """f32 dense pools through ``spec_engine`` on the card and on the CPU at
+    ``VLM_CPU_LAYERS`` layers (8 requests, 16 tokens): counters equal,
+    tokens equal or the first difference a near tie."""
     from repro_torch.models.model import Model, to_device
 
     cfg32 = cfg.replace(dtype="float32", num_layers=VLM_CPU_LAYERS)
@@ -3777,14 +3823,31 @@ def vlm_stream(torch, cfg, cparams, host32, counters):
         runs[dev] = (eng, reqs, drive(eng, reqs))
     (ceng, creqs, card), (heng, _, host) = runs["cuda"], runs["cpu"]
     keys = ("n_stage_steps", "n_prefill_chunks")
-    log(f"vlm stream f32 ({VLM_CPU_LAYERS} layers, 8 requests, 16 tokens, "
+    log(f"{tag} stream f32 ({VLM_CPU_LAYERS} layers, 8 requests, 16 tokens, "
         f"{time.perf_counter() - t0:.1f} s): counters card {[getattr(ceng, k) for k in keys]} "
         f"CPU {[getattr(heng, k) for k in keys]}, bytes up {ceng.link.bytes_up} / "
         f"{heng.link.bytes_up}")
     if [getattr(ceng, k) for k in keys] != [getattr(heng, k) for k in keys]:
-        raise AssertionError("vlm stream f32: the card's counters differ from the CPU's")
-    equal_or_tie(torch, ceng, creqs, card, host, "vlm stream f32 card vs CPU")
-    del runs, ceng, heng
+        raise AssertionError(f"{tag} stream f32: the card's counters differ from the CPU's")
+    equal_or_tie(torch, ceng, creqs, card, host, f"{tag} stream f32 card vs CPU")
+
+
+def vlm_stream(torch, cfg, cparams, host32, counters, tag="vlm", f32=True, spec=True,
+               new=32, hi=200):
+    """(d) ``EndCloudServingEngine`` (``spec_engine``: 8 slots in two
+    groups, rank 384, split 1, jetson-orin end, modeled stage times): with
+    ``f32``, f32 dense pools card against CPU at ``VLM_CPU_LAYERS`` layers;
+    bf16 with the three int8 streams (8 requests of ``new`` tokens on
+    prompts of 16 to ``hi`` tokens, a
+    profiled tick, ``chiprun_out/{tag}_stream_profile.txt``) and with
+    ``spec``, bf16 dense pools with ``spec_k = 4``, both at full depth.
+    Returns the bf16 runs' summed launches."""
+    from repro_torch.kernels.paged_attention.ops import uses_tensor_cores
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model
+
+    if f32:
+        vlm_stream_f32(torch, cfg, host32, tag)
 
     model = Model(cfg, device="cuda")
     tick = {}
@@ -3792,28 +3855,31 @@ def vlm_stream(torch, cfg, cparams, host32, counters):
     def profile_tick(e, t):
         if not tick and all_decoding(e):
             tick["at"] = t
-            tick["prof"] = profiled(torch, e.step, "vlm_stream_profile.txt", (
+            tick["prof"] = profiled(torch, e.step, f"{tag}_stream_profile.txt", (
                 *PAGED_KERNELS, ("KV write", ("paged_write_quant_kernel<",), ()),
                 *CODEC_QUANT_KERNELS))
 
     eng = spec_engine(model, cparams, **QUANT)
-    reqs = stream_requests(cfg.vocab_size, 8, 0, 32)
+    reqs = stream_requests(cfg.vocab_size, 8, 0, new, hi=hi)
     t0 = time.perf_counter()
     tokens, quant = counted_run(counters, lambda: drive(eng, reqs, hook=profile_tick))
     m = eng.metrics()
-    log(f"vlm stream bf16 + int8 streams ({cfg.num_layers} layers, 8 requests, 32 tokens): "
+    log(f"{tag} stream bf16 + int8 streams ({cfg.num_layers} layers, 8 requests, {new} tokens): "
         f"{time.perf_counter() - t0:.1f} s, {eng.n_stage_steps} end-stage steps, "
-        f"{eng.n_prefill_chunks} prefill chunks, {eng.link.bytes_up} bytes up; launches {quant}")
-    if m["kv_pages_in_use"] or not all(len(t) == 32 for t in tokens):
-        raise AssertionError("vlm stream bf16 int8: pages left mapped or a request short")
-    only_path("vlm stream bf16 int8", quant, VLM_INT8_PATH)
+        f"{eng.n_prefill_chunks} prefill chunks, {eng.link.bytes_up} bytes up, KV capacity "
+        f"ratio {m['kv_capacity_ratio']:.4f}; launches {quant}")
+    if m["kv_pages_in_use"] or not all(len(t) == new for t in tokens):
+        raise AssertionError(f"{tag} stream bf16 int8: pages left mapped or a request short")
+    only_path(f"{tag} stream bf16 int8", quant, VLM_INT8_PATH)
     if not tick:
-        raise AssertionError("vlm stream bf16 int8: no tick had 8 slots decoding")
+        raise AssertionError(f"{tag} stream bf16 int8: no tick had 8 slots decoding")
     dev_ms, wall_ms, in_path = tick["prof"]
-    log(f"vlm stream tick profile (int8 streams, tick {tick['at']}, 8 slots decoding): device "
+    log(f"{tag} stream tick profile (int8 streams, tick {tick['at']}, 8 slots decoding): device "
         f"time {dev_ms:.3f} ms of {wall_ms:.3f} ms wall ({dev_ms / wall_ms:.1%} busy); kernels "
-        f"in path, a launch: {in_path}; written to chiprun_out/vlm_stream_profile.txt")
+        f"in path, a launch: {in_path}; written to chiprun_out/{tag}_stream_profile.txt")
     del eng
+    if not spec:
+        return quant
 
     rows = {}
     chunk_attn = attn.paged_chunk_attention
@@ -4005,17 +4071,22 @@ def dense_serve(torch, model, params, lens, new: int, max_len: int, step_s=None)
 
 
 def ssm_step_shares(torch, step):
-    """One call of ``step`` under ``torch.profiler``, the SSM's decode
-    update (``ssd_decode_step``) and conv step (``conv1d_decode_step``)
-    each wrapped in a ``record_function`` range: (device ms of every kernel,
-    {range: device ms of the kernels launched inside it})."""
+    """``step_shares`` of the SSM's decode update (``ssd_decode_step``)
+    and conv step (``conv1d_decode_step``)."""
+    from repro_torch.models import ssm
+
+    return step_shares(torch, step, ssm, ("ssd_decode_step", "conv1d_decode_step"))
+
+
+def step_shares(torch, step, module, names):
+    """One call of ``step`` under ``torch.profiler``, each function of
+    ``module`` named in ``names`` wrapped in a ``record_function`` range:
+    (device ms of every kernel, {range: device ms of the kernels launched
+    inside it})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.models import ssm
-
-    names = ("ssd_decode_step", "conv1d_decode_step")
-    saved = {n: getattr(ssm, n) for n in names}
+    saved = {n: getattr(module, n) for n in names}
 
     def ranged(name, fn):
         def call(*args, **kw):
@@ -4024,7 +4095,7 @@ def ssm_step_shares(torch, step):
         return call
 
     for n in names:
-        setattr(ssm, n, ranged(n, saved[n]))
+        setattr(module, n, ranged(n, saved[n]))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4032,7 +4103,7 @@ def ssm_step_shares(torch, step):
             torch.cuda.synchronize()
     finally:
         for n, fn in saved.items():
-            setattr(ssm, n, fn)
+            setattr(module, n, fn)
     avgs = prof.key_averages()
     total = sum(e.self_device_time_total for e in avgs
                 if e.device_type != DeviceType.CPU and e.key not in names) / 1e3
@@ -4351,6 +4422,264 @@ def ssm_phase(torch, timer, counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: h2o-danube-3-4b (head_dim 120) at full width and depth
+# ---------------------------------------------------------------------------
+
+DANUBE = "h2o-danube-3-4b"
+# paged attention at h2o-danube's serving shapes (32 query heads on 8 kv
+# heads of 120): decode (C*G = 4 rows) and a prompt chunk (128 rows)
+DANUBE_PA_CASES = (
+    ("h2o-danube B=8 pps=16 C=1", 8, 16, 1, VLM_ANCHORS),
+    ("h2o-danube B=8 pps=16 C=32", 8, 16, 32, VLM_ANCHORS),
+)
+
+
+def danube_kernels(torch, timer):
+    """The head_dim-120 kernels against their plain versions at h2o-danube's
+    shapes, timed beside their bound and SDPA: paged attention at decode
+    over f32, bf16 and int8 pools and a 32-row chunk (the tensor-core body
+    in bf16), flash attention [2, 256, 32/8, 120] causal with and without a
+    64-key window, and the int8 KV write at a line of 8 x 120; the
+    profiler's device times read at the end."""
+    heads = (32, 8, 120)
+    run_paged_attention(torch, timer, cases=DANUBE_PA_CASES[:1], heads=heads,
+                        dtype=torch.float32)
+    run_paged_attention(torch, timer, cases=DANUBE_PA_CASES, heads=heads)
+    run_paged_attention(torch, timer, quant=True, cases=DANUBE_PA_CASES, heads=heads)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for window in (None, 64):
+        flash_case(torch, timer, gen, "h2o-danube B=2 S=256 H=32 KV=8 hd=120"
+                   + (f" window={window}" if window else ""), 2, 256, 32, 8, hd=120,
+                   window=window, later=True)
+    run_kv_write(torch, timer, heads=(8, 120))
+    timer.read_later()
+
+
+def danube_phase(torch, timer, counters):
+    """Phase 13 on h2o-danube-3-4b as the reference configures it (24
+    layers, d_model 3840, 32 heads on 8 kv heads of 120, window 4096),
+    random weights from seed 0 (f32 as stored, bf16 activations): the
+    head_dim-120 kernels against their plain versions, then (b)
+    ``ServingEngine``, (c) ``EndCloudPipeline``, (d) ``EndCloudServingEngine``
+    with the int8 streams.  The f32 card-vs-CPU checks run the first
+    ``VLM_CPU_LAYERS`` layers at full width: a CPU copy of the whole f32
+    model is 15.8 GB.  Returns each wrapper's launches summed over
+    (b)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, leaves, to_device
+    from repro_torch.models.transformer import compute_params
+
+    cfg = get_config(DANUBE)
+    t0 = time.perf_counter()
+    log("danube kernels against their plain versions at head_dim 120 (card):")
+    danube_kernels(torch, timer)
+    log(f"danube kernel checks took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cparams = compute_params(params, cfg)  # the bf16 copy every engine reads
+    host32 = to_device(first_layers(params, VLM_CPU_LAYERS), "cpu")
+    torch.cuda.synchronize()
+    log(f"{DANUBE}: {sum(t.numel() for t in leaves(params)) / 1e9:.3f} B params, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads on "
+        f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}; built in {time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    parts = []
+    for tag, part in (
+            ("(b) ServingEngine", lambda: vlm_serve(torch, cfg, params, cparams, counters,
+                                                    tag="danube", check_layers=VLM_CPU_LAYERS)),
+            ("(c) EndCloudPipeline",
+             lambda: vlm_pipeline(torch, cfg, cparams, host32, counters, tag="danube")),
+            ("(d) EndCloudServingEngine, int8 streams",
+             lambda: vlm_stream(torch, cfg, cparams, host32, counters, tag="danube", f32=False,
+                                spec=False, new=16, hi=SPEC_HI))):
+        t0 = time.perf_counter()
+        log(f"danube {tag}:")
+        parts.append(part())
+        log(f"danube {tag} took {time.perf_counter() - t0:.1f} s")
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    log(f"danube launches over (b)-(d): { {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in VLM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"danube: path kernels never launched: {missing}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: whisper-base's encoder-decoder through Model at full width and depth
+# ---------------------------------------------------------------------------
+
+ENCDEC = "whisper-base"
+ENCDEC_B, ENCDEC_T = 4, 64  # decoder prompts on the 1500 encoder frames
+ENCDEC_STEPS = 32  # greedy decode steps after the prefill
+ENCDEC_MAX_LEN = 448  # whisper's text context
+
+
+def encdec_batch(torch, cfg, B: int, T: int, seed: int):
+    """CPU tensors: T tokens and ``encoder_seq_len`` frame embeddings (std
+    1, f32) a row, from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, T), generator=g, dtype=torch.int32),
+            "frame_embeds": torch.randn(B, cfg.encoder_seq_len, cfg.d_model, generator=g)}
+
+
+def encdec_generate(torch, model, params, batch, steps: int, counters=(), step_s=None):
+    """``Model.prefill`` of ``batch`` (the frames in the model's activation
+    type, rings of ``ENCDEC_MAX_LEN``) then ``steps`` greedy ``decode_step``
+    s: (logits over the real vocabulary [steps + 1, B, V], f32 on the host;
+    their argmax; the cache; the prefill's launches; the decode steps'
+    launches), each step's synchronized host time appended to ``step_s``."""
+    cfg = model.cfg
+    b = {"tokens": batch["tokens"].to(model.device),
+         "frame_embeds": batch["frame_embeds"].to(model.device, cfg.torch_dtype)}
+    out = []
+    with torch.no_grad():
+        (logits, cache), pre = counted_run(
+            counters, lambda: model.prefill(params, b, max_len=ENCDEC_MAX_LEN))
+
+        def decode():
+            nonlocal logits, cache
+            for i in range(steps + 1):
+                out.append(logits.float().cpu())
+                if i < steps:
+                    t = time.perf_counter()
+                    logits, cache = model.decode_step(
+                        params, logits.argmax(-1).int()[:, None], cache)
+                    if step_s is not None:
+                        torch.cuda.synchronize()
+                        step_s.append(time.perf_counter() - t)
+
+        _, dec = counted_run(counters, decode)
+    lg = torch.stack(out)[..., :cfg.vocab_size]
+    return lg, lg.argmax(-1), cache, pre, dec
+
+
+def encdec_model(torch, cfg, params, cparams, host32, counters):
+    """(a) ``Model.prefill`` of ``ENCDEC_B`` rows of 1500 frames and
+    ``ENCDEC_T`` tokens, then ``ENCDEC_STEPS`` greedy decode steps, full
+    depth in bf16: 18 flash launches a prefill (6 encoder, 6 self, 6 cross,
+    the encoder's 6 counted alone too), none in a decode step, no other
+    wrapper.  (d) A profiled decode step: the cross-attention's share, the
+    cross cache's bytes a slot, device memory.  (b) f32 card against CPU at
+    full depth: tokens equal, logits within ``SSM_F32_REL`` of max.  Returns
+    the bf16 run's launches."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    L, E = cfg.num_layers, cfg.encoder_layers
+    model = Model(cfg, device="cuda")
+    batch = encdec_batch(torch, cfg, ENCDEC_B, ENCDEC_T, seed=0)
+    frames = batch["frame_embeds"].to("cuda", cfg.torch_dtype)
+    with torch.no_grad():
+        _, enc = counted_run(counters,
+                             lambda: transformer.apply_encoder(cparams, frames, cfg))
+    log(f"encdec encoder alone [{ENCDEC_B}, {cfg.encoder_seq_len}, {cfg.d_model}]: launches "
+        f"{ {k: v for k, v in enc.items() if v} }")
+    if enc["flash_attention_fwd"] != E or any(
+            v for k, v in enc.items() if k != "flash_attention_fwd"):
+        raise AssertionError(f"encdec encoder: launches {enc}, want {E} flash attention")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    t0 = time.perf_counter()
+    lg, tok, cache, pre, dec = encdec_generate(torch, model, cparams, batch, ENCDEC_STEPS,
+                                               counters, step_s)
+    run_s = time.perf_counter() - t0
+    want = {c.__name__: 0 for c in counters}
+    want["flash_attention_fwd"] = E + 2 * L
+    log(f"encdec prefill [{ENCDEC_B}, {ENCDEC_T} tokens on {cfg.encoder_seq_len} frames] and "
+        f"{ENCDEC_STEPS} decode steps (bf16, {L} decoder and {E} encoder layers): {run_s:.2f} s; "
+        f"decode step median {sorted(step_s)[len(step_s) // 2] * 1e3:.3f} ms (host clock, "
+        f"synchronized); prefill launches { {k: v for k, v in pre.items() if v} }, decode "
+        f"launches { {k: v for k, v in dec.items() if v} }; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if pre != want or any(dec.values()):
+        raise AssertionError(f"encdec: prefill launches {pre}, want {want}; decode launches "
+                             f"{dec}, want none (dense rings and the cross cache)")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("encdec: logits are not finite")
+    cross = sum(leaf.numel() * leaf.element_size() for n, leaf in cache["blocks"]["pos0"].items()
+                if n in ("xk", "xv"))
+    ring = sum(leaf.numel() * leaf.element_size() for n, leaf in cache["blocks"]["pos0"].items()
+               if n in ("k", "v"))
+    log(f"encdec cache a slot: cross (xk, xv) {cross // ENCDEC_B} B, self rings of "
+        f"{ENCDEC_MAX_LEN} {ring // ENCDEC_B} B; device memory "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+
+    tokens = tok[-1].int().cuda()[:, None]
+    with torch.no_grad():
+        dev_ms, wall_ms, _ = profiled(
+            torch, lambda: model.decode_step(cparams, tokens, cache), "encdec_decode_profile.txt",
+            ())
+        total, part = step_shares(torch, lambda: model.decode_step(cparams, tokens, cache),
+                                  transformer, ("_cross_attention_decode",))
+    ms = part["_cross_attention_decode"]
+    log(f"encdec decode profile (1 step, {ENCDEC_B} rows): device time {dev_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall ({dev_ms / wall_ms:.1%} busy); written to "
+        f"chiprun_out/encdec_decode_profile.txt. Annotated step: {total:.3f} ms of kernels, "
+        f"cross-attention {ms:.3f} ms ({ms / max(total, 1e-9):.1%}, {L} calls)")
+
+    cfg32 = cfg.replace(dtype="float32")
+    t0 = time.perf_counter()
+    card = encdec_generate(torch, Model(cfg32, device="cuda"), params, batch, ENCDEC_STEPS)
+    t1 = time.perf_counter()
+    host = encdec_generate(torch, Model(cfg32, device="cpu"), host32, batch, ENCDEC_STEPS)
+    rel, cos = logit_gap(torch, lg[0], card[0][0], cfg.vocab_size)
+    log(f"encdec bf16 prefill logits against the card's f32: max|diff|/max|f32|={rel:.3e} "
+        f"cos={cos.min().item():.5f} (reported)")
+    card_equals_cpu(torch, f"encdec f32 prefill + {ENCDEC_STEPS} steps, card vs CPU ({L} + {E} "
+                    f"layers; card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s)",
+                    card[:2], host[:2])
+    return {k: pre[k] + dec[k] for k in pre}
+
+
+def encdec_kernels(torch, timer):
+    """Flash attention against its plain version at whisper's shapes, not
+    causal: the encoder's [4, 1500, 8, 64] and the cross-attention's 64
+    queries a row on 1500 frames, in bf16 and f32, timed beside the bound
+    and SDPA (``is_causal=False``); the profiler's device times read at the
+    end."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        flash_case(torch, timer, gen, f"whisper encoder B=4 S=1500 H=8 hd=64 {name}", 4, 1500,
+                   8, 8, hd=64, causal=False, dtype=dt, later=True)
+        flash_case(torch, timer, gen, f"whisper cross B=4 Sq=64 Skv=1500 H=8 hd=64 {name}", 4,
+                   64, 8, 8, hd=64, causal=False, Skv=1500, dtype=dt, later=True)
+    timer.read_later()
+
+
+def encdec_phase(torch, timer, counters):
+    """Phase 14: whisper-base as the reference configures it (6 decoder
+    layers of self- and cross-attention over a 6-layer bidirectional
+    encoder of 1500 frames, d_model 512, 8 heads of 64, vocab 51865),
+    random weights from seed 0 (f32 as stored, bf16 activations), frame
+    embeddings from a seeded generator: ``encdec_model``, then flash
+    attention at its shapes.  Returns the bf16 run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, leaves, to_device
+    from repro_torch.models.transformer import compute_params
+
+    cfg = get_config(ENCDEC)
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cparams = compute_params(params, cfg)
+    host32 = to_device(params, "cpu")
+    torch.cuda.synchronize()
+    log(f"{ENCDEC}: {sum(t.numel() for t in leaves(params)) / 1e6:.3f} M params, "
+        f"{cfg.num_layers} decoder layers (self + cross), {cfg.encoder_layers} encoder layers "
+        f"over {cfg.encoder_seq_len} frames, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}; built in {time.perf_counter() - t0:.1f} s")
+    launches = encdec_model(torch, cfg, params, cparams, host32, counters)
+    del params, cparams, host32
+    t0 = time.perf_counter()
+    log("encdec flash attention against its plain version at whisper's shapes (card):")
+    encdec_kernels(torch, timer)
+    log(f"encdec kernel checks took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def wrappers():
     """Every kernel wrapper of the port, each counting its launches."""
     from repro_torch.kernels.expert_mlp import (
@@ -4377,33 +4706,25 @@ def wrappers():
             lowrank_roundtrip, lowrank_roundtrip_loss, lowrank_encode_quant, lowrank_decode_quant]
 
 
-def vlm_alone(torch) -> int:
-    """``--vlm``: the build and phase 11 alone; prints no result line."""
+# the phases that ``--flag`` runs alone, after the build; no result line
+ALONE = {"--vlm": ("vlm", lambda: vlm_phase), "--ssm": ("ssm", lambda: ssm_phase),
+         "--danube": ("danube", lambda: danube_phase),
+         "--encdec": ("encdec", lambda: encdec_phase)}
+
+
+def alone(torch, flag: str) -> int:
+    """The build and the phase of ``flag`` (``ALONE``) alone."""
     from repro_torch.kernels import build
 
+    tag, phase = ALONE[flag]
     log(f"card: {nvidia_smi()}")
     t0 = time.perf_counter()
     build.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     OUT_DIR.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    vlm_phase(torch, Timer(torch), wrappers())
-    log(f"vlm phase took {time.perf_counter() - t0:.1f} s")
-    return 0
-
-
-def ssm_alone(torch) -> int:
-    """``--ssm``: the build and phase 12 alone; prints no result line."""
-    from repro_torch.kernels import build
-
-    log(f"card: {nvidia_smi()}")
-    t0 = time.perf_counter()
-    build.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    OUT_DIR.mkdir(exist_ok=True)
-    t0 = time.perf_counter()
-    ssm_phase(torch, Timer(torch), wrappers())
-    log(f"ssm phase took {time.perf_counter() - t0:.1f} s")
+    phase()(torch, Timer(torch), wrappers())
+    log(f"{tag} phase took {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -4416,10 +4737,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if "--chaos-timeline" in sys.argv[1:]:
         return chaos_timeline(torch)
-    if "--vlm" in sys.argv[1:]:
-        return vlm_alone(torch)
-    if "--ssm" in sys.argv[1:]:
-        return ssm_alone(torch)
+    for flag in ALONE:
+        if flag in sys.argv[1:]:
+            return alone(torch, flag)
     from repro_torch.kernels import build
     from repro_torch.kernels.expert_mlp import grouped_mlp
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -4522,6 +4842,15 @@ def main() -> int:
     t0 = time.perf_counter()
     ssm_launches = ssm_phase(torch, timer, stream_counters)
     log(f"ssm phase took {time.perf_counter() - t0:.1f} s")
+    log("h2o-danube-3-4b (head_dim 120) through the kernels, ServingEngine, the pipeline and "
+        "the streaming engine:")
+    t0 = time.perf_counter()
+    danube_launches = danube_phase(torch, timer, stream_counters)
+    log(f"danube phase took {time.perf_counter() - t0:.1f} s")
+    log("whisper-base (encoder-decoder) through the model:")
+    t0 = time.perf_counter()
+    encdec_launches = encdec_phase(torch, timer, stream_counters)
+    log(f"encdec phase took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention, the serving run with the dispatch codec for its
@@ -4592,6 +4921,10 @@ def main() -> int:
             "vlm_launches": vlm_launches.get(counter, 0),
             # launches in phase 12's bf16 runs (mamba2-130m, jamba's hybrid)
             "ssm_launches": ssm_launches.get(counter, 0),
+            # launches in phase 13's runs of h2o-danube-3-4b, (b)-(d) summed
+            "danube_launches": danube_launches.get(counter, 0),
+            # launches in phase 14's bf16 run of whisper-base (prefill + decode)
+            "encdec_launches": encdec_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -17,6 +17,7 @@ from repro_torch.configs import (
     qwen3_moe_235b_a22b,
     switch_base,
     tinyllama_1_1b,
+    whisper_base,
 )
 from repro_torch.configs.base import (
     CompressionConfig,
@@ -29,8 +30,8 @@ from repro_torch.configs.base import (
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (jamba_1_5_large_398b, h2o_danube_3_4b, tinyllama_1_1b, internlm2_20b,
-              qwen3_14b, llama4_scout_17b_16e, qwen3_moe_235b_a22b, qwen2_vl_2b,
-              mamba2_130m, switch_base)
+              qwen3_14b, llama4_scout_17b_16e, qwen3_moe_235b_a22b, whisper_base,
+              qwen2_vl_2b, mamba2_130m, switch_base)
 }
 
 
@@ -43,7 +44,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to a CPU-runnable size, keeping its structure (layer
-    pattern, MoE grouping, SSM-ness, M-RoPE and patches); the reference's
+    pattern, MoE grouping, SSM-ness, enc-dec-ness, M-RoPE and patches); the reference's
     ``smoke_config``."""
     kw = dict(
         num_layers=len(cfg.layer_pattern),
@@ -70,6 +71,9 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, d_state=16, head_dim=32, chunk_size=32
         )
+    if cfg.encoder_decoder:
+        kw["encoder_layers"] = 2
+        kw["encoder_seq_len"] = 64
     if cfg.vision_patches:
         kw["vision_patches"] = 16
     if cfg.mrope_sections is not None:

@@ -1,9 +1,12 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a).
+// GQA flash-attention forward for Hopper (sm_90a), causal or not.
 //
 // Replaces repro/kernels/flash_attention/kernel.py::flash_attention_pallas
 // (_fa_kernel) in the role the port gives it: the full-sequence attention
 // of models/attention.py::flash_attention, which the one-shot end-cloud
-// pipeline runs in every layer.  Queries [B, Sq, H, hd] attend keys and
+// pipeline runs in every layer, Model.prefill in every layer, and an
+// encoder-decoder (whisper) without causality in its bidirectional
+// encoder and its cross-attention (Sq queries against Skv encoder
+// frames, Sq != Skv).  Queries [B, Sq, H, hd] attend keys and
 // values [B, Skv, KV, hd] (query head h reads kv head h / G, G = H / KV),
 // all in the models' layout, so no transpose runs around the kernel.  Key
 // j is visible to query row i (absolute position qp = q_offset + i) iff
@@ -45,6 +48,17 @@
 // batch, q tiles) with the q-tile index reversed, so the tiles that hold
 // the most kv tiles under causality are dispatched first.
 //
+// Head dims 32, 64, 128 and 120 (h2o-danube-3-4b).  At 120 the bf16 form
+// computes at a width of 128 (padded_hd) over rows of the true stride 120:
+// the shared-memory columns [120, 128) of the Q, K and V tiles are zeroed
+// once and no copy writes them, so the eighth k16 chunk of q . k adds
+// 0 * 0 terms and the last n8 tile of P V sums zero value columns; the
+// scores, the softmax and the 120 stored columns are exact, and that tile
+// is never stored.  120 = 15 x 8, so every 16-byte copy stays aligned.
+// The f32 form computes only real dims: its score loop runs over HD, and
+// of the output dims tx + 16c the ones at or past HD (c = 7, tx >= 8) are
+// skipped.
+//
 // f32, the CUDA-core form (exact f32, no TF32): q tiles of kBQ = 32 rows;
 // each kv tile is staged in shared memory (K rows padded by one float, so
 // the score loop is free of bank conflicts), scored, folded into the
@@ -80,6 +94,12 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+// The bf16 form's compute width of a head of HD dims (see the header).
+template <int HD>
+__host__ __device__ constexpr int padded_hd() {
+  return HD <= 32 ? 32 : HD <= 64 ? 64 : 128;
+}
+
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)kBQ * (HD + 1) + (size_t)kBK * (HD + 1) +
@@ -94,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     float* __restrict__ out,      // [B, Sq, H, HD]
     int Sq, int Skv, int H, int KV, int q_offset, int causal, int window,
     float scale) {
-  constexpr int kDimsPer = HD / 16;
+  constexpr int kDimsPer = (HD + 15) / 16;  // output dims tx + 16c; past HD skipped
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -196,6 +216,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int i = 0; i < kRowsPer; ++i) pv[i] = p_s[(ty * kRowsPer + i) * (kBK + 1) + kk];
 #pragma unroll
       for (int c = 0; c < kDimsPer; ++c) {
+        if (HD % 16 != 0 && tx + 16 * c >= HD) continue;
         const float vv = v_s[kk * HD + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < kRowsPer; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
@@ -211,7 +232,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float li = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < kDimsPer; ++c)
-      out[(((size_t)b * Sq + q0 + r) * H + h) * HD + tx + 16 * c] = acc[i][c] / li;
+      if (HD % 16 == 0 || tx + 16 * c < HD)
+        out[(((size_t)b * Sq + q0 + r) * H + h) * HD + tx + 16 * c] = acc[i][c] / li;
   }
 }
 
@@ -225,10 +247,10 @@ constexpr int kMThreads = 128;  // 4 warps
 
 template <int HD>
 constexpr size_t mma_smem_bytes() {  // Q, and a 2-stage ring of K and V tiles
-  return sizeof(bf16) * (size_t)(kMQ + 4 * kBK) * (HD + 8);
+  return sizeof(bf16) * (size_t)(kMQ + 4 * kBK) * (padded_hd<HD>() + 8);
 }
 
-// Rows [0, 64) of a [rows][ld] bf16 array at `src` into dst[64][HD + 8]
+// Rows [0, 64) of a [rows][ld] bf16 array at `src` into dst[64][padded_hd + 8]
 // (16 B of padding a row, so the 8 rows an ldmatrix reads fall in distinct
 // banks); rows from `nvalid` on are zero-filled and not read.  kVec: one
 // 16-byte cp.async a chunk of 8 values; otherwise synchronous scalar loads
@@ -239,7 +261,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
   constexpr int kCh = HD / 8;
   for (int c = threadIdx.x; c < 64 * kCh; c += kMThreads) {
     const int r = c / kCh, col = (c % kCh) * 8;
-    bf16* d = dst + r * (HD + 8) + col;
+    bf16* d = dst + r * (padded_hd<HD>() + 8) + col;
     const bf16* s = src + (size_t)r * ld + col;
     if constexpr (kVec) {
       tc::cp_async16(d, r < nvalid ? s : src, r < nvalid ? 16 : 0);
@@ -258,9 +280,10 @@ __global__ void __launch_bounds__(kMThreads) flash_fwd_mma_kernel(
     bf16* __restrict__ out,      // [B, Sq, H, HD]
     int Sq, int Skv, int H, int KV, int q_offset, int causal, int window,
     float scale) {
-  constexpr int kLd = HD + 8;
-  constexpr int kKC = HD / 16;  // k16 chunks of a q . k dot
-  constexpr int kND = HD / 8;   // n8 tiles of the output row
+  constexpr int kHP = padded_hd<HD>();  // compute width: columns [HD, kHP) hold zeros
+  constexpr int kLd = kHP + 8;
+  constexpr int kKC = kHP / 16;  // k16 chunks of a q . k dot
+  constexpr int kND = kHP / 8;   // n8 tiles of the output row
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kMQ;  // the heaviest causal tiles first
   const int hk = h / (H / KV);
@@ -274,6 +297,12 @@ __global__ void __launch_bounds__(kMThreads) flash_fwd_mma_kernel(
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kMQ][kLd]
   bf16* k_s = q_s + kMQ * kLd;                     // [2][kBK][kLd]
   bf16* v_s = k_s + 2 * kBK * kLd;                 // [2][kBK][kLd]
+  if constexpr (kHP != HD) {
+    // columns [HD, kHP) of every Q, K and V row: zeros that no copy overwrites
+    constexpr int kPad = kHP - HD;
+    for (int e = threadIdx.x; e < (kMQ + 4 * kBK) * kPad; e += kMThreads)
+      q_s[(e / kPad) * kLd + HD + e % kPad] = __float2bfloat16(0.f);
+  }
 
   // Keys [k_begin, k_end) hold every key visible to some row of this tile.
   const int qp_lo = q_offset + q0, qp_hi = q_offset + q0 + nq - 1;
@@ -423,8 +452,9 @@ __global__ void __launch_bounds__(kMThreads) flash_fwd_mma_kernel(
     bf16* o = out + (((size_t)b * Sq + q0 + r) * H + h) * HD + 2 * t;
 #pragma unroll
     for (int d = 0; d < kND; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(o + d * 8) =
-          __floats2bfloat162_rn(acc[d][2 * i] / li, acc[d][2 * i + 1] / li);
+      if (d * 8 < HD)  // the padding dims' tile is never stored
+        *reinterpret_cast<__nv_bfloat162*>(o + d * 8) =
+            __floats2bfloat162_rn(acc[d][2 * i] / li, acc[d][2 * i + 1] / li);
   }
 }
 
@@ -480,7 +510,7 @@ cudaError_t launch(const Args& a, int dtype) {
 
 }  // namespace
 
-// hd: 32, 64 or 128.  window <= 0 means no sliding window.  dtype: 0 =
+// hd: 32, 64, 120 or 128.  window <= 0 means no sliding window.  dtype: 0 =
 // float32, 1 = bfloat16.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
@@ -493,6 +523,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: return (int)launch<32>(a, dtype);
     case 64: return (int)launch<64>(a, dtype);
     case 128: return (int)launch<128>(a, dtype);
+    case 120: return (int)launch<120>(a, dtype);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -55,6 +55,18 @@
 //     S = Q K^T and P V with mma.m16n8k16 (bf16 in, f32 accumulate) from
 //     ldmatrix fragments, the online softmax on the accumulator fragments
 //     (scores in log2 units, exp2f), p rounded to bf16 as the A operand.
+//
+// Head dims 32, 64, 128 and 120 (h2o-danube-3-4b: d_model 3840 over 32
+// heads).  Both bodies compute at a width of padded_hd(HD), the power of
+// two at or above HD (128 for 120), over rows laid out at the true stride
+// HD: in the CUDA-core body a key row is padded_hd/8 lanes, and the lanes
+// whose 8 dims start at or past HD load no value and hold zeros; in the
+// tensor-core body the shared-memory columns [HD, padded_hd) of the Q, K
+// and V tiles are zeroed once and no copy writes them.  The q . k terms of
+// those dims are 0 * 0 and their value columns 0, so the scores, the
+// softmax and the HD stored output columns are exact, and the padding dims
+// of the output are never stored.  120 = 15 x 8, so every 16-byte load of
+// a row stays aligned (240 bytes a bf16 row, 480 f32, 120 int8).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -97,6 +109,12 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+
+// The compute width of a head of HD dims (see the header): a power of two.
+template <int HD>
+__host__ __device__ constexpr int padded_hd() {
+  return HD <= 32 ? 32 : HD <= 64 ? 64 : 128;
+}
 
 // position held by ring slot s after the write at ln: ln - ((ln - s) mod W)
 __device__ __forceinline__ int ring_pos(int ln, int s, int W) {
@@ -149,6 +167,17 @@ __device__ __forceinline__ void load8(float (&v)[8], const signed char* p) {
   for (int e = 0; e < 8; ++e) v[e] = (float)c[e];
 }
 
+// load8, or zeros for a lane past the head's last dim (nothing is read)
+template <typename P>
+__device__ __forceinline__ void load8_or_zero(float (&v)[8], const P* p, bool live) {
+  if (live) {
+    load8(v, p);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  }
+}
+
 // Index of row (b, c, query head hq) in the workspace's [B*C*H] rows.
 __device__ __forceinline__ size_t ws_row(const Args& a, int b, int c, int hq) {
   return ((size_t)b * a.C + c) * a.H + hq;
@@ -179,14 +208,15 @@ __device__ __forceinline__ void emit(const Args& a, int b, int c, int hq, int d,
 template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Args a) {
   constexpr bool kQuant = std::is_same<P, signed char>::value;
-  constexpr int kLPK = HD / 8;       // lanes a key row
-  constexpr int kKPW = 32 / kLPK;    // keys a warp pass
+  constexpr int kLPK = padded_hd<HD>() / 8;  // lanes a key row (a power of two)
+  constexpr int kKPW = 32 / kLPK;            // keys a warp pass
   const int KV = a.KV, h = blockIdx.x % KV, rc = blockIdx.x / KV;
   const int b = blockIdx.y, s = blockIdx.z, S = a.splits;
   const int G = a.H / KV, R = a.C * G;
   const int r0 = rc * kRB, nr = min(kRB, R - r0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kg = lane / kLPK, dg = lane % kLPK;  // key group, 8-dim group
+  const bool live_d = dg * 8 < HD;  // false: dims past the head, zeros (HD = 120)
   const int ps = a.ps, W = a.pps * ps;
   const int ln = a.lengths[b];
 
@@ -206,7 +236,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Args a)
   for (int r = 0; r < kRB; ++r) {
     const int rr = r0 + min(r, nr - 1);
     const int c = rr / G, g = rr - c * G;
-    load8(qv[r], static_cast<const T*>(a.q) + ws_row(a, b, c, h * G + g) * HD + dg * 8);
+    load8_or_zero(qv[r], static_cast<const T*>(a.q) + ws_row(a, b, c, h * G + g) * HD + dg * 8,
+                  live_d);
     qrow_pos[r] = qp_s[c];
   }
 
@@ -238,8 +269,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Args a)
         const int ii = has[p] ? i : 0;
         kp[p] = ring_pos(ln, j * ps + ii, W);
         const size_t off = (((size_t)phys * ps + ii) * KV + h) * HD + dg * 8;
-        load8(kr[p], pk + off);
-        load8(vr[p], pv + off);
+        load8_or_zero(kr[p], pk + off, live_d);
+        load8_or_zero(vr[p], pv + off, live_d);
         if constexpr (kQuant) {
           const float ks = __half2float(a.k_scale[(size_t)phys * ps + ii]);
           const float vs = __half2float(a.v_scale[(size_t)phys * ps + ii]);
@@ -300,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Args a)
 #pragma unroll
       for (int off = kLPK; off < 32; off <<= 1)
         acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
-  if (kg == 0) {
+  if (kg == 0 && live_d) {
 #pragma unroll
     for (int r = 0; r < kRB; ++r)
 #pragma unroll
@@ -336,15 +367,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Args a)
 
 template <int HD>
 constexpr size_t mma_smem_bytes() {  // Q tile, each warp's K and V tile, merge state
-  return sizeof(bf16) * (size_t)(kMB + kWarps * 2 * 16) * (HD + 8) +
+  return sizeof(bf16) * (size_t)(kMB + kWarps * 2 * 16) * (padded_hd<HD>() + 8) +
          sizeof(float) * (size_t)kWarps * 16 * (HD + 2);
 }
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads) paged_attention_mma_kernel(const Args a) {
-  constexpr int kLd = HD + 8;   // padded bf16 row: ldmatrix rows in distinct banks
-  constexpr int kKC = HD / 16;  // k16 chunks of a q . k dot
-  constexpr int kND = HD / 8;   // n8 tiles of an output row
+  constexpr int kHP = padded_hd<HD>();  // compute width: columns [HD, kHP) hold zeros
+  constexpr int kLd = kHP + 8;   // padded bf16 row: ldmatrix rows in distinct banks
+  constexpr int kKC = kHP / 16;  // k16 chunks of a q . k dot
+  constexpr int kND = kHP / 8;   // n8 tiles of an output row
   const int KV = a.KV, h = blockIdx.x % KV, rc = blockIdx.x / KV;
   const int b = blockIdx.y, s = blockIdx.z, S = a.splits;
   const int G = a.H / KV, R = a.C * G;
@@ -370,6 +402,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_mma_kernel(const Arg
   float* wacc = wl + 16;
   int* qp_s = reinterpret_cast<int*>(mstate + kWarps * 16 * (HD + 2));  // [C]
   for (int c = threadIdx.x; c < a.C; c += kThreads) qp_s[c] = a.qpos[b * a.C + c];
+  if constexpr (kHP != HD) {
+    // columns [HD, kHP) of the Q tile and of this warp's K and V tiles (32
+    // rows from k_s): zeros that no copy overwrites
+    constexpr int kPad = kHP - HD;
+    for (int e = threadIdx.x; e < kMB * kPad; e += kThreads)
+      q_s[(e / kPad) * kLd + HD + e % kPad] = __float2bfloat16(0.f);
+    for (int e = lane; e < 2 * 16 * kPad; e += 32)
+      k_s[(e / kPad) * kLd + HD + e % kPad] = __float2bfloat16(0.f);
+  }
 
   // the block's query rows, zero past nr
   const bf16* q = static_cast<const bf16*>(a.q);
@@ -492,10 +533,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_mma_kernel(const Arg
     wl[g8 + 8] = l[1];
   }
 #pragma unroll
-  for (int d = 0; d < kND; ++d)
+  for (int d = 0; d < kND; ++d) {
+    if (d * 8 >= HD) break;  // the padding dims: zeros, never stored
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       wacc[(g8 + 8 * (e >> 1)) * HD + d * 8 + 2 * t4 + (e & 1)] = acc[d][e];
+  }
   __syncthreads();
   for (int e = threadIdx.x; e < nr * HD; e += kThreads) {
     const int r = e / HD, d = e - r * HD, tile = r / 16, tr = r % 16;
@@ -574,6 +617,7 @@ cudaError_t launch_hd(const Args& a, int hd, bool mma, cudaStream_t stream) {
   if (hd == 32) return launch<T, P, 32>(a, mma, stream);
   if (hd == 64) return launch<T, P, 64>(a, mma, stream);
   if (hd == 128) return launch<T, P, 128>(a, mma, stream);
+  if (hd == 120) return launch<T, P, 120>(a, mma, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -581,7 +625,7 @@ cudaError_t launch_hd(const Args& a, int hd, bool mma, cudaStream_t stream) {
 
 // dtype (q, out): 0 = float32, 1 = bfloat16.  quant: 0 = pools in q's
 // type (k_scale, v_scale unused), 1 = int8 pools with f16 scales [P+1, ps].
-// window <= 0 means no sliding window.  hd is 32, 64 or 128; pointers are
+// window <= 0 means no sliding window.  hd is 32, 64, 120 or 128; pointers are
 // 16-byte aligned.  splits: the split count S (ops.py::split_plan); ws is
 // f32 [B*C*H*S*(hd + 2)] when S > 1 (unused otherwise).  mma: 1 takes the
 // tensor-core body (bf16 pools, C*G >= 16, ps a multiple of 16).  Returns

@@ -1,5 +1,5 @@
-"""Causal GQA flash-attention forward: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""GQA flash-attention forward, causal or not: the CUDA kernel's wrapper
+and its plain PyTorch version.
 
 ``flash_attention_fwd`` takes the models' layout as it is: queries
 ``[B, Sq, H, hd]``, keys and values ``[B, Skv, KV, hd]`` (H a multiple of
@@ -24,7 +24,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 BLOCK_KV = 64  # keys per kv tile (kBK in csrc/flash_attention.cu)
-HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
+# the kernel's instantiations; 120 (h2o-danube-3-4b) is computed at a width
+# of 128 over rows of stride 120 (csrc/flash_attention.cu), with no copy here
+HEAD_DIMS = (32, 64, 120, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -25,7 +25,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
+# the kernel's instantiations; 120 (h2o-danube-3-4b) is computed at a width
+# of 128 over rows of stride 120 (csrc/paged_attention.cu), with no copy here
+HEAD_DIMS = (32, 64, 120, 128)
 SPLIT_TARGET_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
 
 

@@ -130,7 +130,8 @@ def decode_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """One query token against a dense ring (speculative decode's draft
-    cache), in plain PyTorch as the reference computes it (``jnp``, no
+    cache, the dense-ring engine's caches) or an encoder-decoder's cross
+    cache, in plain PyTorch as the reference computes it (``jnp``, no
     Pallas body): scores in f32, keys that hold a position past the query,
     outside the window or below 0 (slots never written) masked to -1e30,
     the softmax's p rounded to the cache type for the value product."""

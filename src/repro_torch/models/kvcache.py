@@ -2,7 +2,8 @@
 paged writes, the page moves of a tier re-split, speculative rollback and
 preemption spill) and the dense caches of ``Model.prefill`` /
 ``decode_step`` (speculative decode's draft rings; the SSM states and conv
-tails of the dense-ring ``ServingEngine``), port of the reference's
+tails of the dense-ring ``ServingEngine``; an encoder-decoder's cross
+caches), port of the reference's
 ``models/kvcache.py``.
 
 A tier owns one shared :class:`PagePool` of ``num_pages`` fixed-size pages;
@@ -56,22 +57,22 @@ def init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
                device=DEFAULT_DEVICE) -> Dict:
     """An empty dense decode cache (zeros), each leaf stacked over the block
     repeats: per attention position ``k``/``v`` rings ``[R, batch, W, KV,
-    hd]``; per SSM position the conv tails ``conv_x [R, batch, d_conv-1,
-    d_in]`` and ``conv_bc [R, batch, d_conv-1, 2*G*N]`` in ``dtype`` and
-    the state ``ssm [R, batch, H, P, N]`` in f32; and ``lengths`` [batch].
-    Cross-attention leaves (encoder-decoder, queue A item 6c) are not
-    ported."""
+    hd]``, and with cross-attention the cross caches ``xk``/``xv`` ``[R,
+    batch, encoder_seq_len, KV, hd]``; per SSM position the conv tails
+    ``conv_x [R, batch, d_conv-1, d_in]`` and ``conv_bc [R, batch,
+    d_conv-1, 2*G*N]`` in ``dtype`` and the state ``ssm [R, batch, H, P,
+    N]`` in f32; and ``lengths`` [batch]."""
     R, KV, hd = cfg.block_repeat, cfg.num_kv_heads, cfg.head_dim
     blocks: Dict[str, Dict] = {}
     for i, spec in enumerate(cfg.layer_pattern):
-        if spec.cross_attn:
-            raise NotImplementedError(
-                f"dense cache of layer kind {spec}: cross-attention (encoder-decoder, "
-                "queue A item 6c) is not ported yet")
         if spec.kind == "attn":
-            shape = (R, batch, attn_cache_len(cfg, max_len), KV, hd)
+            ring = (R, batch, attn_cache_len(cfg, max_len), KV, hd)
+            shapes = {"k": ring, "v": ring}
+            if spec.cross_attn:
+                cross = (R, batch, cfg.encoder_seq_len, KV, hd)
+                shapes.update(xk=cross, xv=cross)
             blocks[f"pos{i}"] = {n: torch.zeros(shape, dtype=dtype, device=device)
-                                 for n in ("k", "v")}
+                                 for n, shape in shapes.items()}
             continue
         s = cfg.ssm
         d_in, H, _ = ssm_dims(cfg)

@@ -34,14 +34,25 @@ class Model:
         token's [B, S] position goes on all three axes)."""
         return attn.model_angles(self.cfg, positions)
 
+    def _encoder_out(self, params, batch: Dict):
+        """The encoder's output over ``batch["frame_embeds"]`` (None unless
+        the model is an encoder-decoder)."""
+        if not self.cfg.encoder_decoder:
+            return None
+        return transformer.apply_encoder(params, batch["frame_embeds"], self.cfg)
+
     def prefill(self, params, batch: Dict, *, max_len: int = 0,
                 expert_mask=None) -> Tuple[torch.Tensor, Dict]:
         """A full prompt -> (logits of the last position [B, V], dense cache
         of ``kvcache.init_cache``'s layout with rings of ``max_len`` (S by
-        default) or SSM states and conv tails, and ``lengths`` S).  ``batch``: ``tokens`` [B, T]; for a
-        VLM optionally ``patch_embeds`` [B, P, d], which go in front of the
-        tokens (S = P + T), and ``positions`` ([B, S], or [B, 3, S] under
-        M-RoPE; 0..S-1 on every axis by default)."""
+        default), cross caches or SSM states and conv tails, and ``lengths``
+        S).  ``batch``: ``tokens`` [B, T]; for a VLM optionally
+        ``patch_embeds`` [B, P, d], which go in front of the tokens (S = P +
+        T), and ``positions`` ([B, S], or [B, 3, S] under M-RoPE; 0..S-1 on
+        every axis by default); for an encoder-decoder ``frame_embeds``
+        [B, S_enc, d] in the activation type, the precomputed audio frames
+        that the encoder reads and every decoder layer's cross-attention
+        attends (their projections are the cache's ``xk``/``xv``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = transformer.embed_inputs(params, cfg, tokens, batch.get("patch_embeds"))
@@ -50,7 +61,8 @@ class Model:
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
         x, _, blocks = transformer.apply_stack_full(
-            params, x, cfg, self._angles(positions), causal=True, expert_mask=expert_mask,
+            params, x, cfg, self._angles(positions), causal=True,
+            enc_out=self._encoder_out(params, batch), expert_mask=expert_mask,
             collect_cache=True, max_len=max_len or S,
         )
         logits = transformer.lm_logits(params, cfg, x[:, -1:])[:, 0]

@@ -1,10 +1,12 @@
 """Transformer stack (port of the reference's ``models/transformer.py``:
 init, embedding and head, the full-sequence layer and stack (the one-shot
 end-cloud pipeline, and ``Model.prefill`` with its collected dense
-caches), and the decode stack over paged pools or dense caches and the
-chunked-prefill stack of attention-only patterns).  A layer is an
-attention or a Mamba-2 SSM layer (``models/ssm.py``), each with an
-optional dense or MoE FFN.
+caches), the bidirectional encoder of an encoder-decoder, and the decode
+stack over paged pools or dense caches and the chunked-prefill stack of
+attention-only patterns).  A layer is an attention layer, with
+cross-attention to the encoder's output in an encoder-decoder's decoder,
+or a Mamba-2 SSM layer (``models/ssm.py``), each with an optional dense or
+MoE FFN.
 
 Params keep the reference's layout: ``blocks["pos{i}"]`` leaves are stacked
 over the ``block_repeat`` axis, and a Python loop over blocks takes the
@@ -17,6 +19,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.configs.base import LayerSpec
 from repro_torch.core.compression import compute_codec
 from repro_torch.core.moe import apply_moe, init_moe
 from repro_torch.models import attention as attn
@@ -38,13 +41,6 @@ COMPUTE_CAST = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "embed", "lm_head"
                           "w_z", "w_x", "w_bc", "w_dt", "out_proj"})
 
 
-def _refuse_cross_attention(spec) -> None:
-    if spec.cross_attn:
-        raise NotImplementedError(
-            f"layer kind {spec}: cross-attention (encoder-decoder, queue A item 6c) "
-            "is not ported yet")
-
-
 def _has_ffn(spec, cfg) -> bool:
     return bool(spec.moe and cfg.moe) or cfg.d_ff > 0
 
@@ -52,10 +48,12 @@ def _has_ffn(spec, cfg) -> bool:
 def init_layer(generator: torch.Generator, cfg, spec, R: int) -> Dict:
     """One pattern position's params, stacked over ``R`` block repeats."""
     dtype, dev, lead = cfg.torch_param_dtype, generator.device, (R,)
-    _refuse_cross_attention(spec)
     p: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, dtype, dev, lead)}
     if spec.kind == "attn":
         p["attn"] = attn.init_attention(generator, cfg, dtype, lead)
+        if spec.cross_attn:
+            p["norm_x"] = init_norm(cfg.d_model, dtype, dev, lead)
+            p["cross"] = attn.init_attention(generator, cfg, dtype, lead)
     else:
         p["ssm"] = ssm.init_ssm(generator, cfg, dtype, lead)
     if _has_ffn(spec, cfg):
@@ -83,6 +81,11 @@ def init_params(cfg, generator: torch.Generator) -> Dict:
         params["lm_head"] = truncated_normal_init(
             generator, (cfg.d_model, cfg.padded_vocab_size), dtype, 1.0
         )
+    if cfg.encoder_decoder:  # plain attention layers stacked over encoder_layers
+        params["encoder"] = {
+            "blocks": init_layer(generator, cfg, LayerSpec(kind="attn"), cfg.encoder_layers),
+            "norm": init_norm(cfg.d_model, dtype, generator.device),
+        }
     return params
 
 
@@ -132,6 +135,22 @@ def _self_attention_full(p: Dict, h: torch.Tensor, cfg, angles, causal: bool):
     return attn.output_proj(p, o), (k, v)
 
 
+def _cross_attention_full(p: Dict, h: torch.Tensor, enc_out: torch.Tensor, cfg):
+    """Decoder queries ``h`` [B, S, d] against the encoder's output
+    ``enc_out`` [B, S_enc, d]: no RoPE, every frame visible (non-causal
+    flash attention with Sq != Skv).  Returns (output, (k, v)): the
+    projected frames feed the cross cache."""
+    q = attn._project(h, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k = attn._project(enc_out, p["wk"])
+    v = attn._project(enc_out, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    o = attn.flash_attention(q, k, v, causal=False)
+    return attn.output_proj(p, o), (k, v)
+
+
 def apply_layer_full(
     p: Dict,
     x: torch.Tensor,  # [B, S, d]
@@ -140,6 +159,7 @@ def apply_layer_full(
     angles: torch.Tensor,  # [B, S, hd/2]
     *,
     causal: bool = True,
+    enc_out: Optional[torch.Tensor] = None,  # [B, S_enc, d] (cross-attention layers)
     expert_mask=None,
     collect_cache: bool = False,
     max_len: int = 0,
@@ -148,49 +168,59 @@ def apply_layer_full(
     ``train=False`` (no router losses; training is not ported).  Returns
     (x, aux, cache_entry); with ``collect_cache`` the entry holds an
     attention layer's k/v written into fresh dense rings of ``max_len``
-    (``kvcache.prefill_write``), or an SSM layer's final state and conv
-    tails (``ssm``, ``conv_x``, ``conv_bc``), else it is empty.
+    (``kvcache.prefill_write``) and, with cross-attention, the projected
+    encoder frames ``xk``/``xv`` [B, S_enc, KV, hd]; or an SSM layer's
+    final state and conv tails (``ssm``, ``conv_x``, ``conv_bc``); else it
+    is empty.
 
-    The reference's other branches are not ported: cross-attention layers
-    raise; the sequence-parallel attention and the tensor-parallel SSM need
-    a device mesh, which the port (one device) does not have."""
-    _refuse_cross_attention(spec)
+    The reference's other branches are not ported: the sequence-parallel
+    attention and the tensor-parallel SSM need a device mesh, which the
+    port (one device) does not have."""
     aux: Dict[str, torch.Tensor] = {}
     cache_entry: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
         o, (k, v) = _self_attention_full(p["attn"], h, cfg, angles, causal)
+        x = x + o
         if collect_cache:
             shape = (x.shape[0], kvcache.attn_cache_len(cfg, max_len), cfg.num_kv_heads,
                      cfg.head_dim)
             kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
             cache_entry["k"], cache_entry["v"] = kvcache.prefill_write(
                 kc, torch.zeros_like(kc), k, v)
+        if spec.cross_attn:
+            hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
+            ox, (xk, xv) = _cross_attention_full(p["cross"], hx, enc_out, cfg)
+            x = x + ox
+            if collect_cache:
+                cache_entry["xk"], cache_entry["xv"] = xk, xv
     else:
         o, (final_state, (cx, cbc)) = ssm.apply_ssm(p["ssm"], h, cfg, return_state=True)
         if collect_cache:
             cache_entry.update(ssm=final_state, conv_x=cx, conv_bc=cbc)
-    x = x + o
+        x = x + o
     if _has_ffn(spec, cfg):
         x, aux = _ffn(p, x, spec, cfg, expert_mask)
     return x, aux, cache_entry
 
 
 def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *,
-                     causal: bool = True, expert_mask=None, collect_cache: bool = False,
-                     max_len: int = 0):
-    """Loop the block pattern over a full sequence.  Returns (x, the aux of
-    every MoE layer in order, cache blocks or None): with ``collect_cache``
-    the blocks pytree of ``kvcache.init_cache``'s layout, each leaf the
-    layers' rings or SSM states stacked over the block repeats."""
+                     causal: bool = True, enc_out: Optional[torch.Tensor] = None,
+                     expert_mask=None, collect_cache: bool = False, max_len: int = 0):
+    """Loop the block pattern over a full sequence (``enc_out``: the
+    encoder's output, which cross-attention layers attend).  Returns (x,
+    the aux of every MoE layer in order, cache blocks or None): with
+    ``collect_cache`` the blocks pytree of ``kvcache.init_cache``'s layout,
+    each leaf the layers' rings, cross caches or SSM states stacked over
+    the block repeats."""
     layer_aux: List[Dict[str, torch.Tensor]] = []
     caches: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     for r in range(_n_blocks(params["blocks"])):
         bp = block_params(params["blocks"], r)
         for i, spec in enumerate(cfg.layer_pattern):
             x, aux, ce = apply_layer_full(
-                bp[f"pos{i}"], x, spec, cfg, angles, causal=causal, expert_mask=expert_mask,
-                collect_cache=collect_cache, max_len=max_len,
+                bp[f"pos{i}"], x, spec, cfg, angles, causal=causal, enc_out=enc_out,
+                expert_mask=expert_mask, collect_cache=collect_cache, max_len=max_len,
             )
             if aux:
                 layer_aux.append(aux)
@@ -235,8 +265,9 @@ def apply_layer_decode(
     cfg,
     angles: torch.Tensor,  # [B, 1, hd/2]
     cache_entry: Dict,  # {"k", "v"}: page pools [P+1, ps, KV, hd] (+ int8
-    # scales) with a page table, else dense rings [B, W, KV, hd]; an SSM
-    # layer's {"ssm", "conv_x", "conv_bc"}
+    # scales) with a page table, else dense rings [B, W, KV, hd] (+ the
+    # cross cache "xk", "xv" [B, S_enc, KV, hd]); an SSM layer's {"ssm",
+    # "conv_x", "conv_bc"}
     lengths: torch.Tensor,  # [B] int32
     expert_mask=None,
     page_table: Optional[torch.Tensor] = None,  # [B, pps] int32
@@ -245,9 +276,10 @@ def apply_layer_decode(
 ):
     """Single-token decode layer against the paged KV cache, or with no
     ``page_table`` against dense rings (``attn.decode_attention``, masked
-    by ``kvcache.ring_key_positions``); an SSM layer steps its dense
-    ``ssm`` / ``conv_x`` / ``conv_bc`` entry.  Returns (x, cache_entry,
-    aux); the cache is written in place."""
+    by ``kvcache.ring_key_positions``), and a cross-attention layer's query
+    against its cross cache (every encoder frame visible, no RoPE); an SSM
+    layer steps its dense ``ssm`` / ``conv_x`` / ``conv_bc`` entry.
+    Returns (x, cache_entry, aux); the cache is written in place."""
     aux: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind != "attn":
@@ -272,9 +304,27 @@ def apply_layer_decode(
                 window=cfg.sliding_window, **_scales(cache_entry),
             )
         x = x + attn.output_proj(p["attn"], o)
+        if spec.cross_attn:
+            x = x + _cross_attention_decode(p, x, cfg, cache_entry["xk"], cache_entry["xv"])
     if _has_ffn(spec, cfg):
         x, aux = _ffn(p, x, spec, cfg, expert_mask, expert_resident)
     return x, cache_entry, aux
+
+
+def _cross_attention_decode(p: Dict, x: torch.Tensor, cfg, xk: torch.Tensor,
+                            xv: torch.Tensor) -> torch.Tensor:
+    """One decode token's cross-attention over the cross cache ``xk``/``xv``
+    [B, S_enc, KV, hd]: the query sits at S_enc and the frames at 0..S_enc-1,
+    so every frame is visible."""
+    hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
+    qx = attn._project(hx, p["cross"]["wq"])
+    if cfg.qk_norm:
+        qx = rms_norm(qx, p["cross"]["q_norm"], cfg.norm_eps)
+    B, S_enc = x.shape[0], xk.shape[1]
+    enc_pos = torch.full((B,), S_enc, dtype=torch.int32, device=x.device)
+    key_pos = torch.arange(S_enc, dtype=torch.int32, device=x.device)[None].expand(B, S_enc)
+    ox = attn.decode_attention(qx, xk, xv, enc_pos, key_pos)
+    return attn.output_proj(p["cross"], ox)
 
 
 def _n_blocks(blocks: Dict) -> int:
@@ -360,6 +410,23 @@ def apply_stack_prefill_chunk(
                 x, _ = _ffn(p, x, spec, cfg, expert_mask,
                             _resident(expert_resident, i, spec, r))
     return x, page_blocks
+
+
+def apply_encoder(params: Dict, frame_embeds: torch.Tensor, cfg) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings
+    [B, S, d] (the audio frontend is a stub, as in the reference): RoPE at
+    frame positions 0..S-1, plain attention layers without causality (no
+    window), then the encoder's norm."""
+    B, S, _ = frame_embeds.shape
+    positions = torch.arange(S, device=frame_embeds.device)[None].expand(B, S)
+    angles = attn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    enc = params["encoder"]
+    spec = LayerSpec(kind="attn")
+    x = frame_embeds
+    for r in range(_n_blocks(enc["blocks"])):
+        x, _, _ = apply_layer_full(block_params(enc["blocks"], r), x, spec, cfg, angles,
+                                   causal=False)
+    return rms_norm(x, enc["norm"], cfg.norm_eps)
 
 
 def embed_inputs(params: Dict, cfg, tokens: torch.Tensor,

@@ -260,6 +260,13 @@ class EndCloudPipeline:
         selection_eps: float = 1.0,
     ):
         cfg = model.cfg
+        if any(spec.cross_attn for spec in cfg.layer_pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: cross-attention (encoder-decoder) patterns are not served: "
+                "the reference EndCloudPipeline runs its layers with no encoder output "
+                "(enc_out), so its cross-attention has nothing to attend; run "
+                "Model.prefill / decode_step"
+            )
         self.model = model
         self.cfg = cfg
         self.device = model.device

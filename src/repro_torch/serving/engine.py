@@ -11,7 +11,10 @@ chunks.  Patterns with SSM layers take the reference's dense branch: one
 ``Model.prefill`` per request copied into its slot (``install_slot``), and
 a dense ``decode_step`` over every slot, inactive ones too (their recurrent
 prefill state cannot stream through fixed-shape chunks).  Cross-attention
-patterns (encoder-decoder, queue A item 6c) are not ported yet.
+(encoder-decoder) patterns are refused, as the reference has no engine path
+for them: its dense branch hands ``Model.prefill`` only the prompt's tokens,
+never an encoder input (``frame_embeds``); such a model runs through
+``Model.prefill`` and ``decode_step``.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ class ServingEngine(SlotEngineBase):
         cfg = model.cfg
         if any(spec.cross_attn for spec in cfg.layer_pattern):
             raise NotImplementedError(
-                f"{cfg.name}: cross-attention patterns (encoder-decoder, queue A "
-                "item 6c) are not ported yet"
+                f"{cfg.name}: cross-attention (encoder-decoder) patterns are not served: "
+                "the reference ServingEngine hands Model.prefill only the prompt's tokens, "
+                "no encoder input (frame_embeds); run Model.prefill / decode_step"
             )
         self.model = model
         self.device = model.device

@@ -310,7 +310,8 @@ def _kv_write_case(gen, kind, dtype, KV, hd, P=40, ps=16, pps=4, R=3):
     return leaves, scales, k, v, args
 
 
-@pytest.mark.parametrize("KV,hd", [(12, 64), (8, 128), (2, 16), (2, 128)])  # (2, 128): qwen2-vl
+# (2, 128): qwen2-vl; (8, 120): h2o-danube-3-4b, a line of KV * hd = 960
+@pytest.mark.parametrize("KV,hd", [(12, 64), (8, 128), (2, 16), (2, 128), (8, 120)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind", ["ring", "chunk"])
 def test_paged_write_quant_kernel(gen, kind, dtype, KV, hd):
@@ -493,18 +494,13 @@ def test_paged_attention_verify_chunks(gen, C, kind, tol):
     assert torch.equal(run(), got)
 
 
-@pytest.mark.parametrize("C", [1, 5, 32])
-@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2), ("int8", 2e-2)])
-def test_paged_attention_qwen2_vl_shapes(gen, C, kind, tol):
-    """qwen2-vl-2b's serving shapes: 8 slots, 12 query heads on 2 kv heads
-    of 128 (G = 6), 16-token pages, 16-page rings, one slot past a wrap.
-    Decode (C * G = 6 rows) and a 5-row verify chunk (30 rows) and a
-    32-row prompt chunk (192 rows): bf16 pools of 16 rows or more take the
-    tensor-core body at HD = 128, the rest the CUDA cores; split_plan gives
-    16 splits (one a table entry) at B * KV = 16.  Through the wrappers, one launch counted,
-    within the plain version's tolerance; a second launch gives the same
-    bits."""
-    B, H, KV, hd, ps, pps = 8, 12, 2, 128, 16, 16
+def _serving_shape_run(gen, C, kind, tol, H, KV, hd, window=None, splits=()):
+    """8 slots of ``H`` query heads on ``KV`` kv heads of ``hd``, 16-token
+    pages, 16-page rings, one slot past a wrap, the C rows ending at each
+    slot's anchor: through the wrappers, one launch counted, within the
+    plain version's tolerance, a second launch the same bits; then each
+    split count of ``splits`` through ``_launch``."""
+    B, ps, pps = 8, 16, 16
     lengths = torch.tensor([0, 15, 16, 47, 100, 199, 231, 300], dtype=torch.int32)
     P = B * pps
     perm = torch.randperm(P, generator=torch.Generator().manual_seed(C)).view(B, pps)
@@ -518,25 +514,60 @@ def test_paged_attention_qwen2_vl_shapes(gen, C, kind, tol):
     pk = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dt)
     pv = torch.randn(P + 1, ps, KV, hd, generator=gen, device="cuda").to(dt)
     table, q_pos, lengths = table.cuda(), q_pos.int().cuda(), lengths.cuda()
+    ks = vs = None
     if kind == "int8":
         (pk, ks), (pv, vs) = quantize_kv_tokens(pk), quantize_kv_tokens(pv)
         wrapper = paged_attention_quant
 
         def run():
-            return paged_attention_quant(q, pk, pv, ks, vs, table, q_pos, lengths)
-        want = paged_attention_plain(q, pk, pv, table, q_pos, lengths, k_scale=ks, v_scale=vs)
+            return paged_attention_quant(q, pk, pv, ks, vs, table, q_pos, lengths,
+                                         window=window)
     else:
         wrapper = paged_attention
 
         def run():
-            return paged_attention(q, pk, pv, table, q_pos, lengths)
-        want = paged_attention_plain(q, pk, pv, table, q_pos, lengths)
-    assert pa_ops.split_plan(B, KV, pps) == 16
+            return paged_attention(q, pk, pv, table, q_pos, lengths, window=window)
+    want = paged_attention_plain(q, pk, pv, table, q_pos, lengths, window=window,
+                                 k_scale=ks, v_scale=vs)
     before = wrapper.launches
     got = run()
     assert wrapper.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(run(), got)
+    for S in splits:
+        got = pa_ops._launch(q, pk, pv, ks, vs, table, q_pos, lengths, window, splits=S)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"splits={S}: {m}")
+
+
+@pytest.mark.parametrize("C", [1, 5, 32])
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2), ("int8", 2e-2)])
+def test_paged_attention_qwen2_vl_shapes(gen, C, kind, tol):
+    """qwen2-vl-2b's serving shapes: 8 slots, 12 query heads on 2 kv heads
+    of 128 (G = 6), 16-token pages, 16-page rings, one slot past a wrap.
+    Decode (C * G = 6 rows) and a 5-row verify chunk (30 rows) and a
+    32-row prompt chunk (192 rows): bf16 pools of 16 rows or more take the
+    tensor-core body at HD = 128, the rest the CUDA cores; split_plan gives
+    16 splits (one a table entry) at B * KV = 16.  Through the wrappers, one launch counted,
+    within the plain version's tolerance; a second launch gives the same
+    bits."""
+    assert pa_ops.split_plan(8, 2, 16) == 16
+    _serving_shape_run(gen, C, kind, tol, 12, 2, 128)
+
+
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("C", [1, 5, 32])
+@pytest.mark.parametrize("kind,tol", [("f32", 1e-5), ("bf16", 2e-2), ("int8", 2e-2)])
+def test_paged_attention_head_dim_120(gen, C, kind, tol, window):
+    """h2o-danube-3-4b's serving shapes: 32 query heads on 8 kv heads of
+    120 (G = 4), computed at a width of 128 over rows of stride 120.  Decode
+    (4 rows a kv head) on the CUDA cores, a 5-row chunk (20 rows) and a
+    32-row chunk (128 rows) on the tensor cores in bf16 (the CUDA cores
+    for f32 and int8 pools), with and without a window; every output
+    column within the plain version's tolerance, at the planned split
+    count and at 1, 3 and 16 splits."""
+    assert 120 in pa_ops.HEAD_DIMS
+    _serving_shape_run(gen, C, kind, tol, 32, 8, 120, window=window, splits=(1, 3, 16))
 
 
 FFN_SIZES = [  # 4 groups; totals 2, 63, 64, 65 and 1024 around the tensor-core rule's 64
@@ -892,6 +923,15 @@ def test_vlm_prefill_on_card_matches_cpu(gen):
     (2, 190, 190, 8, 2, 64, True, 40, 0),  # GQA G = 4 with a window
     (2, 301, 301, 12, 2, 128, True, None, 0),  # qwen2-vl: 256 patches + 45 text, G = 6
     (1, 45, 301, 12, 2, 128, True, None, 256),  # G = 6, queries at the end of the keys
+    # h2o-danube-3-4b: 32 heads on 8 kv heads of 120, computed at 128 over stride 120
+    (2, 256, 256, 32, 8, 120, True, None, 0),
+    (2, 256, 256, 32, 8, 120, True, 64, 0),  # with a window
+    (1, 45, 301, 32, 8, 120, True, None, 256),  # queries at the end of the keys
+    (2, 100, 100, 8, 2, 120, False, None, 0),  # ragged, not causal
+    # whisper-base: cross-attention (decoder rows on 1500 frames) and the
+    # bidirectional encoder, 8 heads of 64, not causal
+    (1, 64, 1500, 8, 8, 64, False, None, 0),
+    (2, 1500, 1500, 8, 8, 64, False, None, 0),
 ])
 def test_flash_attention_kernel(gen, dtype, B, Sq, Skv, H, KV, hd, causal, window, q_offset):
     q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
@@ -909,6 +949,43 @@ def test_flash_attention_kernel(gen, dtype, B, Sq, Skv, H, KV, hd, causal, windo
         flash_attention_fwd(q, k.float() if dtype == torch.bfloat16 else k.bfloat16(), v, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
+
+
+def test_encdec_on_card_matches_cpu(gen):
+    """Smoke whisper-base in f32 (2 decoder blocks of self- and
+    cross-attention over a 2-layer bidirectional encoder of 64 frames):
+    ``Model.prefill`` (flash attention on the card: the encoder's, the
+    decoder's causal and the cross-attention, one launch each a layer) and
+    6 greedy ``decode_step`` s over the dense rings and the cross cache (no
+    kernel): logits within 1e-4 of the CPU's, equal tokens, equal caches."""
+    cfg = smoke_config(get_config("whisper-base")).replace(num_layers=2, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 500, size=(2, 20)).astype(np.int32),
+             "frame_embeds": rng.standard_normal(
+                 (2, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)}
+    out, caches = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        p = to_device(params, dev)
+        before = flash_attention_fwd.launches
+        logits, cache = model.prefill(p, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                                      max_len=32)
+        if dev == "cuda":
+            assert flash_attention_fwd.launches == before + cfg.encoder_layers + 2 * cfg.num_layers
+        seq = [logits]
+        for _ in range(6):
+            logits, cache = model.decode_step(p, logits.argmax(-1).int()[:, None], cache)
+            seq.append(logits)
+        if dev == "cuda":
+            assert flash_attention_fwd.launches == before + cfg.encoder_layers + 2 * cfg.num_layers
+        out[dev] = torch.stack(seq).cpu()
+        caches[dev] = {n: t.cpu() for n, t in cache["blocks"]["pos0"].items()}
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"].argmax(-1), out["cpu"].argmax(-1))
+    assert sorted(caches["cuda"]) == ["k", "v", "xk", "xv"]
+    for n, t in caches["cuda"].items():
+        torch.testing.assert_close(t, caches["cpu"][n], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

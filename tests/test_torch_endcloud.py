@@ -307,7 +307,8 @@ def test_pipeline_default_codec_and_refusals():
 
 def test_apply_layer_full_refuses_unported_branches():
     """An attention layer with and without ``collect_cache``; an SSM layer
-    equal to the reference's; cross-attention still raises."""
+    and a cross-attention layer (ported with the encoder-decoder) equal to
+    the reference's, their collected caches too."""
     cfg = smoke_config(get_config("tinyllama-1.1b"))
     spec = cfg.layer_pattern[0]
     p = transformer.block_params(
@@ -328,13 +329,31 @@ def test_apply_layer_full_refuses_unported_branches():
         ring = entry[name]
         assert ring.shape == (1, 8, cfg.num_kv_heads, cfg.head_dim)
         assert torch.equal(ring[:, :4], want.to(ring.dtype)) and not ring[:, 4:].any()
-    # cross-attention (encoder-decoder, queue A item 6c) is not ported
-    with pytest.raises(NotImplementedError, match="6c"):
-        transformer.apply_layer_full(p, x, dataclasses.replace(spec, cross_attn=True), cfg,
-                                     angles)
+    from repro.models import transformer as jtransformer
+
+    layer = jax.jit(jtransformer.apply_layer_full, static_argnums=(2, 3, 4),
+                    static_argnames=("train", "collect_cache", "max_len"))
+    # a cross-attention layer (whisper smoke's) over 64 encoder frames
+    # equals the reference's, its rings and cross cache (xk, xv) too
+    wcfg = smoke_config(get_config("whisper-base")).replace(dtype="float32")
+    wspec = wcfg.layer_pattern[0]
+    wp = transformer.block_params(
+        transformer.init_params(wcfg, torch.Generator().manual_seed(4))["blocks"], 0)["pos0"]
+    enc = torch.randn(1, wcfg.encoder_seq_len, wcfg.d_model,
+                      generator=torch.Generator().manual_seed(5))
+    yw, _, entry = transformer.apply_layer_full(wp, x, wspec, wcfg, angles, enc_out=enc,
+                                                collect_cache=True, max_len=8)
+    jyw, _, jentry = layer(jax.tree.map(lambda t: jnp.asarray(t.numpy()), wp), x.numpy(), wspec,
+                           jsmoke(jget("whisper-base")).replace(dtype="float32"), None,
+                           angles.numpy(), enc_out=enc.numpy(), train=False,
+                           collect_cache=True, max_len=8)
+    np.testing.assert_allclose(yw.numpy(), np.asarray(jyw), rtol=1e-5, atol=1e-5)
+    assert set(entry) == set(jentry) == {"k", "v", "xk", "xv"}
+    for name, want in jentry.items():
+        assert tuple(entry[name].shape) == want.shape
+        np.testing.assert_allclose(entry[name].numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     # an SSM layer (mamba2 smoke's) equals the reference's, its collected
     # state and conv tails too
-    from repro.models import transformer as jtransformer
 
     scfg = smoke_config(get_config("mamba2-130m")).replace(dtype="float32")
     sspec = scfg.layer_pattern[0]
@@ -345,11 +364,9 @@ def test_apply_layer_full_refuses_unported_branches():
     sangles = torch.zeros(2, 8, scfg.head_dim // 2)
     ys, aux, entry = transformer.apply_layer_full(sp, xs, sspec, scfg, sangles,
                                                   collect_cache=True, max_len=8)
-    jys, jaux, jentry = jax.jit(
-        jtransformer.apply_layer_full, static_argnums=(2, 3, 4),
-        static_argnames=("train", "collect_cache", "max_len"),
-    )(jsp, xs.numpy(), sspec, jsmoke(jget("mamba2-130m")).replace(dtype="float32"), None,
-      sangles.numpy(), train=False, collect_cache=True, max_len=8)
+    jys, jaux, jentry = layer(
+        jsp, xs.numpy(), sspec, jsmoke(jget("mamba2-130m")).replace(dtype="float32"), None,
+        sangles.numpy(), train=False, collect_cache=True, max_len=8)
     np.testing.assert_allclose(ys.numpy(), np.asarray(jys), rtol=1e-4, atol=1e-4)
     assert aux == {} and set(entry) == set(jentry) == {"ssm", "conv_x", "conv_bc"}
     for name, want in jentry.items():

@@ -126,3 +126,41 @@ def test_rows_without_a_visible_key(dtype):
         want = _np(jattn.flash_attention(qj, kj, vj, causal=True, window=window,
                                          q_offset=q_offset))
         np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("Sq,Skv,causal,window,q_offset", [
+    (100, 100, True, 32, 0),  # causal, ragged, a window
+    (40, 150, True, 50, 110),  # Sq < Skv at the end of the keys
+    (24, 150, False, None, 0),  # cross-attention's shape: every key visible
+])
+def test_head_dim_120(Sq, Skv, causal, window, q_offset, dtype):
+    """h2o-danube-3-4b's head dim (d_model 3840 over 32 heads), which the
+    CUDA kernel computes at a width of 128 over rows of stride 120: the
+    plain version against the reference's consumer and oracle (32 heads on
+    8 of them, G = 4, cut to 8 on 2)."""
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+
+    assert 120 in HEAD_DIMS
+    jdt, tdt = DTYPES[dtype]
+    arrs = _qkv(2, Sq, Skv, 8, 2, 120, seed=5)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _port(arrs, tdt, **kw)
+    qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in arrs)
+    want = jattn.flash_attention(qj, kj, vj, q_chunk=Sq, kv_chunk=50, **kw)
+    np.testing.assert_allclose(got, _np(want), **TOL[dtype])
+    oracle = jattn.reference_attention(qj, kj, vj, **kw)
+    np.testing.assert_allclose(got, _np(oracle), **TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_120_against_pallas_kernel(causal):
+    """The reference's Pallas kernel takes the whole head axis as one block
+    (interpret mode, S a multiple of its 64-row blocks): at head dim 120
+    the port's plain version agrees with it too (f32)."""
+    jdt, tdt = DTYPES["float32"]
+    arrs = _qkv(1, 128, 128, 8, 2, 120, seed=6)
+    got = _port(arrs, tdt, causal=causal)
+    want = jflash_pallas(*(jnp.asarray(a).astype(jdt) for a in arrs), causal=causal,
+                         block_q=64, block_kv=64, interpret=True)
+    np.testing.assert_allclose(got, _np(want), **TOL["float32"])

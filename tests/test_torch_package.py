@@ -96,7 +96,8 @@ def test_config_copies_equal_the_reference(name):
 
 
 @pytest.mark.parametrize("name", ["switch-base", "llama4-scout-17b-16e", "tinyllama-1.1b",
-                                  "qwen2-vl-2b", "mamba2-130m", "jamba-1.5-large-398b"])
+                                  "qwen2-vl-2b", "mamba2-130m", "jamba-1.5-large-398b",
+                                  "whisper-base"])
 def test_bridge_and_init_match_the_reference_tree(name):
     # 4 layers, or one block of a longer pattern (jamba's 8)
     layers = max(4, len(jget(name).layer_pattern))

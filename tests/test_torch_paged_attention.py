@@ -321,3 +321,38 @@ def test_split_with_only_dead_pages(window):
     args = (q, pool_k, pool_v, table, lengths[:, None], lengths, window)
     assert pa_ops.split_plan(B, 2, pps) == pps
     np.testing.assert_allclose(_split_merge(*args, pps), _plain(*args), **TOL)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("quant", [False, True])
+def test_head_dim_120(quant, window):
+    """h2o-danube-3-4b's head dim (d_model 3840 over 32 heads), which the
+    CUDA kernel computes at a width of 128 over rows of stride 120: the
+    plain version against the reference at C = 1 and a 4-row chunk with
+    padding rows, over dense f32 pools and over int8 pools with f16
+    per-token scales (G = 4, as h2o's 32 heads on 8)."""
+    assert 120 in pa_ops.HEAD_DIMS
+    hd, KV, H = 120, 2, 8
+    for C, start, seed in ((1, np.asarray([1, 5, 9, 15]), 7),
+                           (4, np.asarray([0, 2, 6, 12]), 8)):
+        last = start + C - 1
+        pool_k, pool_v, table = _case(last, KV=KV, hd=hd, seed=seed)
+        rng = np.random.default_rng(seed)
+        q = rng.standard_normal((4, C, H, hd)).astype(np.float32)
+        positions = start[:, None] + np.arange(C)[None, :]
+        scales = {}
+        if quant:
+            pool_k = rng.integers(-127, 128, pool_k.shape).astype(np.int8)
+            pool_v = rng.integers(-127, 128, pool_v.shape).astype(np.int8)
+            scales = {n: (rng.random(pool_k.shape[:2]) / 127).astype(np.float16)
+                      for n in ("k_scale", "v_scale")}
+        want = paged_attention_ref(
+            jnp.asarray(q), jnp.asarray(pool_k), jnp.asarray(pool_v), jnp.asarray(table),
+            jnp.asarray(positions, jnp.int32), jnp.asarray(last, jnp.int32), window=window,
+            **{n: jnp.asarray(s) for n, s in scales.items()})
+        t = lambda a, dt=None: torch.as_tensor(np.array(a), dtype=dt)  # noqa: E731
+        got = tattn.paged_chunk_attention(
+            t(q), t(pool_k), t(pool_v), t(table, torch.int32), t(positions, torch.int32),
+            t(last, torch.int32), window=window, **{n: t(s) for n, s in scales.items()})
+        assert got.shape == (4, C, H, hd)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

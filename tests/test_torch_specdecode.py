@@ -250,10 +250,15 @@ def test_init_cache_matches_reference_and_refuses_other_layers():
     for pos, entry in jc["blocks"].items():
         assert {n: tuple(l.shape) for n, l in tc["blocks"][pos].items()} == {
             n: tuple(l.shape) for n, l in entry.items()}
-    # cross-attention leaves (encoder-decoder, queue A item 6c) are not ported
-    with pytest.raises(NotImplementedError, match="6c"):
-        tkv.init_cache(cfg.replace(layer_pattern=(LayerSpec(cross_attn=True),)), 1, 8,
-                       torch.float32, "cpu")
+    # cross-attention leaves (ported with the encoder-decoder): the
+    # reference's xk/xv of encoder_seq_len frames beside the rings
+    xcfg = dict(layer_pattern=(LayerSpec(cross_attn=True),), encoder_seq_len=12)
+    jc = jkv.init_cache(jcfg.replace(**xcfg), 1, 8, jnp.float32)
+    tc = tkv.init_cache(cfg.replace(**xcfg), 1, 8, torch.float32, "cpu")
+    for pos, entry in jc["blocks"].items():
+        assert set(entry) == {"k", "v", "xk", "xv"}
+        assert {n: tuple(l.shape) for n, l in tc["blocks"][pos].items()} == {
+            n: tuple(l.shape) for n, l in entry.items()}
     # SSM leaves (mamba2 smoke's): the reference's shapes and types, zeros
     scfg = smoke_config(get_config("mamba2-130m")).replace(num_layers=2)
     jc = jkv.init_cache(jsmoke(jget("mamba2-130m")).replace(num_layers=2), 3, 8, jnp.bfloat16)
