@@ -250,13 +250,37 @@ Phases, in order; any failure exits non-zero before the result lines:
    8, 64] and the cross-attention's 64 queries on 1500 frames, not causal,
    bf16 and f32, beside bound and SDPA (``encdec_kernels``).  ``python3
    chip_smoke.py --encdec`` runs the build and this phase alone.
+15. Training on switch-base at full width (``train_phase``; ``python3
+   chip_smoke.py --train`` runs the build and this phase alone): (a) the
+   flash backward kernel against its plain version (the reference's
+   ``_bwd``) at ``BWD_CASES`` (switch-base [4, 256, 12, 64] causal in bf16
+   and f32, GQA [2, 256, 40/8, 128], h2o-danube's hd 120 with a window of
+   64, whisper's non-causal encoder [4, 1500, 8, 64] and 64 queries on
+   1500 frames): dq, dk, dv within 1e-4 (f32) or 2e-2 (bf16) of each
+   one's largest |value|, the forward's log-sum-exp within 1e-5; flushed
+   ms and profiler device µs, the bound (five products), the plain
+   version's ms and SDPA's backward through autograd as a yardstick.
+   (b) The gate's and expert FFN's autograd Functions card vs CPU in f32
+   at 1024 tokens.  (c) The train step at full width and 2 blocks in f32,
+   card vs CPU: gradients, then 2 AdamW steps (routes, losses, grad norm,
+   routing statistics, params).  (d) ``Trainer`` at full width and depth
+   in bf16 (f32 master params, AdamW lr 3e-4 after 5 warmup steps) for
+   ``TRAIN_STEPS`` steps of batch 4 x 256 on the ``lm`` task, a
+   synchronous checkpoint every ``TRAIN_CKPT_EVERY`` steps: the loss
+   falls, ``TRAIN_PER_STEP`` launches a step and no other kernel, the
+   median step time, tokens/s, peak memory and one profiled step
+   (``chiprun_out/train_step_profile.txt``).  (e) In f32 at 2 blocks: a
+   run resumed from its step-3 checkpoint reproduces steps 4-6 within
+   1e-5, and a ``FailureInjector`` at step 4 makes exactly one restore.
 
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
 in phase 9's bf16 fleet run; ``chaos_launches``: in phase 10's bf16 chaos
 run; ``vlm_launches``: over phase 11's runs; ``ssm_launches``: over phase
 12's bf16 runs; ``danube_launches``: over phase 13's runs;
-``encdec_launches``: in phase 14's bf16 run), the ``nvidia-smi``
+``encdec_launches``: in phase 14's bf16 run; ``train_launches``: in
+phase 15's bf16 training run, whose count is also ``flash_attention_bwd``'s
+``launches``), the ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
@@ -279,6 +303,8 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -4680,6 +4706,472 @@ def encdec_phase(torch, timer, counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training (switch-base at full width)
+# ---------------------------------------------------------------------------
+
+TRAIN = "switch-base"
+TRAIN_B, TRAIN_S = 4, 256  # the paper's setting: batch 4 x seq 256
+TRAIN_STEPS = 30
+TRAIN_CKPT_EVERY = 10
+TRAIN_SMALL_LAYERS = 4  # (c) and (e): 2 blocks at full width, f32
+# lr 3e-4, the reference's default: at 1e-3 the reference's own train step
+# does not learn at full width (f32, 4 layers, these 30 batches on the CPU:
+# the mean loss of the last 5 steps 11.45 against the first 5's 11.22, with
+# spikes to 14.2; at 3e-4 10.84 against 11.06), since AdamW moves every
+# weight by about lr a step and a 768-wide layer's output by about 768 lr
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5)
+# launches a train step of full-depth switch-base (12 layers, 6 of them MoE,
+# each block recomputed once in the backward)
+TRAIN_PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd": 12, "group_gate": 12,
+                  "grouped_mlp": 12}
+# (name, B, Sq, Skv, H, KV, hd, causal, window, bf16)
+BWD_CASES = (
+    ("switch-base [4,256,12,64] causal bf16", 4, 256, 256, 12, 12, 64, True, None, True),
+    ("switch-base [4,256,12,64] causal f32", 4, 256, 256, 12, 12, 64, True, None, False),
+    ("gqa [2,256,40/8,128] causal bf16", 2, 256, 256, 40, 8, 128, True, None, True),
+    ("h2o-danube [2,256,32/8,120] window 64 bf16", 2, 256, 256, 32, 8, 120, True, 64, True),
+    ("whisper encoder [4,1500,8,64] bf16", 4, 1500, 1500, 8, 8, 64, False, None, True),
+    ("cross [4, 64 on 1500, 8, 64] bf16", 4, 64, 1500, 8, 8, 64, False, None, True),
+)
+
+
+def bwd_case(torch, timer, gen, name, B, Sq, Skv, H, KV, hd, causal, window, bf16):
+    """The flash backward kernel against its plain version (the reference's
+    ``_bwd``) on the card at one shape: dq, dk and dv within 1e-4 (f32) or
+    2e-2 (bf16) of each one's largest |value|, and the forward kernel's
+    log-sum-exp within 1e-5 relative of the plain forward's; the kernel's
+    time (flushed), the plain version's, the bound (each input and output
+    moved once; the five products over the visible pairs) and, as a
+    yardstick the port never calls, SDPA's backward through autograd on
+    [B, H, S, hd] copies (kv heads repeated; its forward run once before),
+    and its forward and backward together; the device times queued.
+    Returns the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import block_mask
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, dout = (torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype) for _ in "qo")
+    k, v = (torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype) for _ in "kv")
+    kw = dict(causal=causal, window=window, q_offset=0)
+    out, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    _, lse_plain = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    lse_err = ((lse - lse_plain).abs() / lse_plain.abs().clamp_min(1.0)).max().item()
+    if not lse_err <= 1e-5:
+        raise AssertionError(f"flash_attention {name}: lse disagrees ({lse_err:.3e})")
+    got = flash_attention_bwd(dout, q, k, v, out, lse, **kw)
+    want = flash_attention_bwd_plain(dout, q, k, v, out, lse, **kw)
+    rel = 2e-2 if bf16 else 1e-4
+    errs = []
+    for what, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        errs.append(err)
+        if not err <= rel * scale:
+            raise AssertionError(f"flash_attention_bwd {name}: {what} max|diff| {err:.3e} > "
+                                 f"{rel} x {scale:.3e}")
+    vis = block_mask(torch.arange(Sq, device="cuda"), torch.arange(Skv, device="cuda"), causal,
+                     window)
+    isz = 2 if bf16 else 4
+    nbytes = (4 * q.numel() + 4 * k.numel()) * isz + lse.numel() * 4
+    b_ms, b_by = bound(nbytes, 5 * 2 * hd * B * H * int(vis.sum()), "bf16" if bf16 else "f32")
+    call = functools.partial(flash_attention_bwd, dout, q, k, v, out, lse, **kw)
+    ms = timer(call)
+    plain_ms = timer(lambda: flash_attention_bwd_plain(dout, q, k, v, out, lse, **kw),
+                     iters=3, warmup=1)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+              for t in (k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    sdpa_kw = dict(is_causal=causal) if window is None else dict(attn_mask=vis)
+    o_t = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o_t, (qt, kt, vt), dot, retain_graph=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw), (qt, kt, vt),
+                            dot)
+
+    lib_ms = timer(sdpa_bwd)
+    lib_fb_ms = timer(sdpa_fwd_bwd)
+    timer.later(f"flash_attention_bwd {name}", call,
+                lambda: f"sdpa bwd {timer.device_us(sdpa_bwd)[0]:.3f}")
+    log(f"  flash_attention_bwd {name}: max_abs_err dq/dk/dv="
+        f"{'/'.join(f'{e:.2e}' for e in errs)} (<= {rel} x max) lse {lse_err:.1e}; "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+        f"library_ms(sdpa bwd)={lib_ms:.4f} sdpa fwd+bwd {lib_fb_ms:.4f}")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def train_kernels(torch, timer):
+    """(a) ``BWD_CASES``; the profiler's device times read at the end.
+    Returns switch-base's bf16 record (the shape phase 15's training runs)
+    with the largest error over every case."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    recs = [bwd_case(torch, timer, gen, *case) for case in BWD_CASES]
+    timer.read_later()
+    main = dict(recs[0])
+    main["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+    return main
+
+
+def grads_close(tag, card, host) -> float:
+    """Gradient leaves of the card (``card``) against the CPU's (``host``):
+    each within 1e-4 of its largest |value| on the CPU, and no leaf all 0
+    on the card where the CPU's is not (a gradient the card lost).
+    Returns the worst leaf's gap over its largest |value|."""
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(card, host)):
+        g = g.cpu()
+        scale = c.abs().max().item()
+        err = (g - c).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if not err <= 1e-4 * scale or (g.abs().max().item() == 0 and scale > 0):
+            raise AssertionError(f"{tag}: gradient leaf {i} card vs CPU max|diff| {err:.3e} of "
+                                 f"{scale:.3e}, or all 0 on the card only")
+    return worst
+
+
+def grads_card_vs_cpu(torch, tag, fn, leaves):
+    """``fn(*leaves)`` -> a scalar, on the card and on the CPU from the same
+    f32 leaves: :func:`grads_close` of the two runs' gradients."""
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        xs = [t.to(dev, copy=True).requires_grad_(t.is_floating_point()) for t in leaves]
+        grads[dev] = torch.autograd.grad(fn(*xs), [x for x in xs if x.requires_grad])
+    return grads_close(tag, grads["cuda"], grads["cpu"])
+
+
+def train_functions(torch):
+    """(b) The gate's and the expert FFN's autograd Functions at switch-base's
+    width on the card (their forward kernels; the backward in PyTorch ops)
+    against the same Functions on the CPU, in f32: the gate on 1024 tokens
+    without a mask and with a dead group, the FFN on 1024 sorted rows over 8
+    experts (one group empty)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import init_group_gate
+    from repro_torch.kernels.expert_mlp import grouped_mlp
+    from repro_torch.kernels.group_gate import group_gate
+
+    cfg = get_config(TRAIN)
+    m = cfg.moe
+    T, d, f, E, K = TRAIN_B * TRAIN_S, cfg.d_model, m.d_ff_expert, m.num_experts, m.num_groups
+    gen = torch.Generator().manual_seed(15)
+    gp = init_group_gate(gen, d, m)
+    x = torch.randn(T, d, generator=gen)
+    r1, r2 = torch.randn(T, E, generator=gen), torch.randn(T, K, generator=gen)
+    names = ("w_local", "b_local", "w_global", "b_global")
+    for mask in (None, torch.tensor([1, 1, 0, 0, 1, 0, 1, 1], dtype=torch.bool)):
+        before = group_gate.launches
+
+        def gate_loss(xx, *ps):
+            mm = None if mask is None else mask.to(xx.device)
+            probs, pg = group_gate(xx, *ps, mm)
+            return (probs * r1.to(xx.device)).sum() + (pg * r2.to(xx.device)).sum()
+
+        worst = grads_card_vs_cpu(torch, "gate", gate_loss, [x] + [gp[k] for k in names])
+        assert group_gate.launches == before + 1
+        log(f"  gate Function, T={T} {'dead group' if mask is not None else 'no mask'}: "
+            f"card = CPU (worst leaf {worst:.2e} of its max)")
+    sizes = torch.tensor([200, 0, 150, 300, 100, 74, 150, 50], dtype=torch.int32)
+    xs = torch.randn(T, d, generator=gen)
+    wi = torch.randn(E, d, f, generator=gen) / d ** 0.5
+    wo = torch.randn(E, f, d, generator=gen) / f ** 0.5
+    dy = torch.randn(T, d, generator=gen)
+    before = grouped_mlp.launches
+    worst = grads_card_vs_cpu(
+        torch, "expert FFN",
+        lambda a, s, w1, w2: (grouped_mlp(a, s, w1, None, w2, cfg.act) * dy.to(a.device)).sum(),
+        [xs, sizes, wi, wo])
+    assert grouped_mlp.launches == before + 1
+    log(f"  expert FFN Function, n={T} over {E} experts (one empty): card = CPU (worst leaf "
+        f"{worst:.2e} of its max)")
+
+
+def route_log(torch):
+    """A context that records every ``select_topk``'s expert ids (on the
+    host) into the list it yields."""
+    import contextlib
+
+    from repro_torch.core import gating
+
+    @contextlib.contextmanager
+    def recording():
+        routes, saved = [], gating.select_topk
+
+        def select(probs, top_k, renormalize=True):
+            idx, w = saved(probs, top_k, renormalize)
+            routes.append(idx.cpu())
+            return idx, w
+
+        gating.select_topk = select
+        try:
+            yield routes
+        finally:
+            gating.select_topk = saved
+
+    return recording()
+
+
+def train_batches(cfg, n: int, seed: int):
+    """``n`` batches of ``data.pipeline``'s ``lm`` task at the model's
+    vocabulary, [TRAIN_B, TRAIN_S]."""
+    from repro_torch.data.pipeline import DataConfig, batches
+
+    return list(batches(DataConfig(task="lm", vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                   seed=seed), TRAIN_B, n))
+
+
+def params_after_steps_close(torch, tag, got, want, lr_steps):
+    """Params of two runs after Adam steps: every element within ``lr``
+    a step (Adam's first update turns a gradient element near eps, most
+    of whose bits are rounding, into any update up to lr), all but 1% of
+    a leaf's within 1e-5 + 1e-5 |p|."""
+    from repro_torch.training.optimizer import tree_leaves
+
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        diff = (a.cpu().float() - b.float()).abs()
+        if not (diff.max().item() <= lr_steps
+                and (diff > 1e-5 + 1e-5 * b.abs()).float().mean().item() <= 0.01):
+            raise AssertionError(f"{tag}: params after the steps differ (max {diff.max():.3e})")
+
+
+def train_step_card_vs_cpu(torch):
+    """(c) The train step at full width and 2 blocks, f32, card against CPU
+    from the same params: the loss's gradients (every leaf within 1e-4 of
+    its largest |value|, no leaf all 0 on the card only), then 2 AdamW steps of
+    ``make_train_step``: routes (every ``select_topk``'s ids, the
+    recomputations included) equal, loss and ``grad_norm`` within 1e-5
+    relative, the routing statistics equal, and the params after."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.training import optimizer as opt_mod
+
+    cfg = get_config(TRAIN).replace(num_layers=TRAIN_SMALL_LAYERS, dtype="float32")
+    params = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    host = opt_mod.tree_map(lambda t: t.to("cpu", copy=True), params)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in train_batches(cfg, 2, 0)]
+    ocfg = opt_mod.OptimizerConfig(**TRAIN_OPT)
+    runs = {}
+    for dev, p in (("cuda", params), ("cpu", host)):
+        model = Model(cfg, device=dev)
+        t0 = time.perf_counter()
+        with route_log(torch) as routes:
+            _, metrics, grads = steps.loss_and_grads(
+                steps.make_loss_fn(model), p, {k: v.to(dev) for k, v in batches[0].items()})
+        grads = opt_mod.tree_map(lambda t: t.cpu(), grads)
+        state, step, seen = opt_mod.init_optimizer("adamw", p), steps.make_train_step(model, ocfg), []
+        for b in batches:
+            with route_log(torch) as step_routes:
+                p, state, m = step(p, state, {k: v.to(dev) for k, v in b.items()})
+            seen.append(({k: v.cpu() for k, v in m.items() if isinstance(v, torch.Tensor)},
+                         step_routes))
+        runs[dev] = (metrics, routes, grads, seen, p)
+        log(f"  train step {dev}: {time.perf_counter() - t0:.1f} s (gradients + 2 steps)")
+    (mg, rg, gg, sg, pg), (mc, rc, gc, sc, pc) = runs["cuda"], runs["cpu"]
+    if len(rg) != len(rc) or not all(torch.equal(a, b) for a, b in zip(rg, rc)):
+        raise AssertionError("train step: routes differ card vs CPU")
+    worst = grads_close("train step", opt_mod.tree_leaves(gg), opt_mod.tree_leaves(gc))
+    for i, ((m1, r1), (m2, r2)) in enumerate(zip(sg, sc)):
+        rel = {k: abs(m1[k].item() - m2[k].item()) / abs(m2[k].item())
+               for k in ("loss", "grad_norm")}
+        same = (all(torch.equal(a, b) for a, b in zip(r1, r2)) and len(r1) == len(r2)
+                and all(torch.equal(m1[k], m2[k]) for k in ("expert_frac", "group_frac")))
+        log(f"  step {i + 1}: loss {m1['loss'].item():.6f} vs CPU {m2['loss'].item():.6f}, "
+            f"relative gaps loss {rel['loss']:.2e} grad_norm {rel['grad_norm']:.2e}, routes "
+            f"and routing statistics equal {same}")
+        if not (same and max(rel.values()) <= 1e-5):
+            raise AssertionError(f"train step {i + 1}: card disagrees with the CPU")
+    params_after_steps_close(torch, "train step", pg, pc, ocfg.lr * 2)
+    log(f"  gradients at the first step: card = CPU (worst leaf {worst:.2e} of its max, "
+        f"{len(opt_mod.tree_leaves(gc))} leaves, none all 0 on the card only); "
+        f"{len(rc)} routes equal")
+
+
+def profile_train_step(torch, step, params, state, batch):
+    """One train step under ``torch.profiler``: (device ms, synchronized
+    wall ms, the top device ops by time); the table goes to
+    ``chiprun_out/train_step_profile.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    avgs = prof.key_averages()
+    (OUT_DIR / "train_step_profile.txt").write_text(
+        avgs.table(sort_by="cuda_time_total", row_limit=50))
+    dev = sorted((e for e in avgs if e.device_type != DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in dev) / 1e3
+    top = "; ".join(f"{short_name(e.key)} {e.self_device_time_total / 1e3:.3f} ms x {e.count}"
+                    for e in dev[:8])
+    return total, wall, top
+
+
+def train_bf16_run(torch, counters):
+    """(d) ``Trainer`` on full-width, full-depth switch-base: f32 master
+    params from seed 0, bf16 compute, AdamW (``TRAIN_OPT``),
+    ``TRAIN_STEPS`` steps on the ``lm`` task, a synchronous checkpoint
+    every ``TRAIN_CKPT_EVERY`` steps into a temporary directory (the last
+    one kept).  Every loss finite, the mean of the last 5 below the first
+    5's; exactly ``TRAIN_PER_STEP`` launches a step and no other kernel;
+    the median step time, tokens/s, peak device memory, and one profiled
+    step.  Returns the run's launches."""
+    import statistics
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.training.optimizer import OptimizerConfig, tree_leaves
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN)
+    data = train_batches(cfg, TRAIN_STEPS + 1, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, iter(data[:-1]), trainer_cfg=TrainerConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY, checkpoint_dir=tmp,
+            keep_checkpoints=1, async_checkpoint=False, log_every=1),
+            opt_cfg=OptimizerConfig(**TRAIN_OPT), device="cuda", seed=0).initialize()
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(tr.params))
+        log(f"{TRAIN}: {n / 1e6:.1f} M params (f32 master; AdamW state {8 * n / 2**30:.2f} "
+            f"GiB), {cfg.num_layers} layers, built in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = counted_run(counters, tr.run)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ckpts = Checkpointer(tmp).all_steps()
+        losses = [m["loss"] for m in out["log"]]
+        times = [m["step_time_s"] for m in out["log"]]
+        log(f"  losses: {' '.join(f'{x:.4f}' for x in losses)}")
+        ok = (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+              and statistics.mean(losses[-5:]) < statistics.mean(losses[:5]))
+        per_step = {k: launches[k] / TRAIN_STEPS for k in TRAIN_PER_STEP}
+        log(f"  {TRAIN_STEPS} steps in {run_s:.1f} s ({TRAIN_STEPS // TRAIN_CKPT_EVERY + 1} "
+            f"checkpoint writes of the state included); "
+            f"mean loss of the first 5 {statistics.mean(losses[:5]):.4f}, of the last 5 "
+            f"{statistics.mean(losses[-5:]):.4f}; launches a step {per_step}; checkpoints "
+            f"kept {ckpts}; restores {out['restores']}")
+        med = statistics.median(times[1:])
+        log(f"  step time median {med * 1e3:.1f} ms (host clock at the synchronizing "
+            f"float(loss); first step {times[0] * 1e3:.1f} ms), "
+            f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s, peak device memory {peak / 2**30:.2f} GiB")
+        if not ok or out["restores"] or ckpts != [TRAIN_STEPS]:
+            raise AssertionError("train: the losses did not fall, were not finite, or a step "
+                                 "was restored")
+        if per_step != {k: float(n) for k, n in TRAIN_PER_STEP.items()}:
+            raise AssertionError(f"train: launches a step {per_step}, want {TRAIN_PER_STEP}")
+        only_path("train", launches, TRAIN_PER_STEP)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data[-1].items()}
+        step = steps.make_train_step(tr.model, tr.opt_cfg)
+        dev_ms, wall_ms, top = profile_train_step(torch, step, tr.params, tr.opt_state, batch)
+        log(f"  profiled step: device {dev_ms:.3f} ms in {wall_ms:.1f} ms wall "
+            f"({100 * dev_ms / wall_ms:.1f}% busy); top device ops: {top}")
+        del tr
+    return launches
+
+
+def train_resume_and_guard(torch):
+    """(e) f32 at 2 blocks: a run of 6 steps (asynchronous checkpoints every
+    3), then a trainer that resumes from its step-3 checkpoint, fed the same
+    batches from step 4 on: its losses of steps 4-6 within 1e-5 relative
+    of the first run's; then a run whose ``FailureInjector`` fails step 4
+    makes exactly one restore and finishes."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN).replace(num_layers=TRAIN_SMALL_LAYERS, dtype="float32")
+    data = train_batches(cfg, 6, 1)
+
+    def trainer(where, it, injector=None):
+        return Trainer(cfg, it, trainer_cfg=TrainerConfig(
+            total_steps=6, checkpoint_every=3, checkpoint_dir=where, keep_checkpoints=3,
+            async_checkpoint=True, log_every=1), opt_cfg=OptimizerConfig(**TRAIN_OPT),
+            failure_injector=injector, device="cuda", seed=0).initialize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = trainer(f"{tmp}/full", iter(data)).run()
+        os.makedirs(f"{tmp}/resumed")
+        shutil.copytree(f"{tmp}/full/step_00000003", f"{tmp}/resumed/step_00000003")
+        tr = trainer(f"{tmp}/resumed", iter(data[3:]))
+        if tr.step != 3:
+            raise AssertionError(f"resume: started at step {tr.step}, want 3")
+        again = tr.run()
+        want = [m["loss"] for m in full["log"][3:]]
+        got = [m["loss"] for m in again["log"]]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        log(f"  resumed from step 3: losses of steps 4-6 {' '.join(f'{x:.6f}' for x in got)} "
+            f"against {' '.join(f'{x:.6f}' for x in want)} (largest relative gap {gap:.1e})")
+        if len(got) != 3 or not gap <= 1e-5:
+            raise AssertionError("resume: the resumed run's losses differ")
+        guard = trainer(f"{tmp}/guard", itertools.cycle(data), FailureInjector(fail_steps=(4,)))
+        out = guard.run()
+        log(f"  FailureInjector at step 4: restores {out['restores']}, final step "
+            f"{out['final_step']}")
+        if out["restores"] != 1 or out["final_step"] != 6:
+            raise AssertionError("guard: want exactly one restore and 6 steps")
+
+
+def train_phase(torch, timer, counters):
+    """Phase 15: training (``--train`` runs it alone): (a) the flash
+    backward kernel at ``BWD_CASES``, (b) the gate's and FFN's Functions
+    card vs CPU, (c) the train step card vs CPU at 2 blocks, (d) bf16
+    ``Trainer`` at full width and depth, (e) resume and guard.  Returns
+    (the backward kernel's record, (d)'s launches over ``counters`` and
+    the backward kernel's)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    counters = list(counters) + [flash_attention_bwd]
+    t0 = time.perf_counter()
+    log("(a) flash attention backward against its plain version (card):")
+    rec = train_kernels(torch, timer)
+    log(f"(a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    log("(b) the gate's and the expert FFN's autograd Functions, card vs CPU (f32):")
+    train_functions(torch)
+    log(f"(b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    log(f"(c) the train step at full width, {TRAIN_SMALL_LAYERS} layers, f32, card vs CPU:")
+    train_step_card_vs_cpu(torch)
+    log(f"(c) took {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    t1 = time.perf_counter()
+    log(f"(d) bf16 training at full width and depth ({TRAIN_STEPS} steps, Trainer):")
+    launches = train_bf16_run(torch, counters)
+    log(f"(d) took {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    t1 = time.perf_counter()
+    log(f"(e) resume and guard ({TRAIN_SMALL_LAYERS} layers, f32):")
+    train_resume_and_guard(torch)
+    log(f"(e) took {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def wrappers():
     """Every kernel wrapper of the port, each counting its launches."""
     from repro_torch.kernels.expert_mlp import (
@@ -4709,7 +5201,7 @@ def wrappers():
 # the phases that ``--flag`` runs alone, after the build; no result line
 ALONE = {"--vlm": ("vlm", lambda: vlm_phase), "--ssm": ("ssm", lambda: ssm_phase),
          "--danube": ("danube", lambda: danube_phase),
-         "--encdec": ("encdec", lambda: encdec_phase)}
+         "--encdec": ("encdec", lambda: encdec_phase), "--train": ("train", lambda: train_phase)}
 
 
 def alone(torch, flag: str) -> int:
@@ -4851,6 +5343,11 @@ def main() -> int:
     t0 = time.perf_counter()
     encdec_launches = encdec_phase(torch, timer, stream_counters)
     log(f"encdec phase took {time.perf_counter() - t0:.1f} s")
+    log("training on switch-base at full width (the flash backward kernel, the Functions, "
+        "the train step, Trainer):")
+    t0 = time.perf_counter()
+    recs["flash_attention_bwd"], train_launches = train_phase(torch, timer, stream_counters)
+    log(f"train phase took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention, the serving run with the dispatch codec for its
@@ -4864,7 +5361,8 @@ def main() -> int:
                 **{k: quant_launches[k] for k in (
                     "quantize_rows", "dequantize_rows", "paged_write_quant",
                     "paged_attention_quant", "grouped_mlp_resident_quant",
-                    "lowrank_encode_quant", "lowrank_decode_quant")}}
+                    "lowrank_encode_quant", "lowrank_decode_quant")},
+                "flash_attention_bwd": train_launches["flash_attention_bwd"]}
 
     meta = {
         "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -4902,6 +5400,8 @@ def main() -> int:
         "grouped_mlp_resident_quant": ("cuda", "src/repro_torch/csrc/expert_mlp.cu",
                                        "src/repro/kernels/expert_mlp/kernel.py:132",
                                        "grouped_mlp_resident_quant"),
+        "flash_attention_bwd": ("cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/models/attention.py:182", "flash_attention_bwd"),
     }
     kernels = []
     for name, (route, source, replaces, counter) in meta.items():
@@ -4925,6 +5425,8 @@ def main() -> int:
             "danube_launches": danube_launches.get(counter, 0),
             # launches in phase 14's bf16 run of whisper-base (prefill + decode)
             "encdec_launches": encdec_launches.get(counter, 0),
+            # launches in phase 15's bf16 training run (30 steps of switch-base)
+            "train_launches": train_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

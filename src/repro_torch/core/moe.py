@@ -219,7 +219,9 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg, *, expert_mask=None,
     elif impl == "naive":
         y, aux = moe_naive(params, x2, cfg, expert_mask, aux=train)
     else:
-        raise NotImplementedError(f"moe impl {impl!r} is not ported (single shard only)")
+        raise NotImplementedError(
+            f"moe impl {impl!r} needs a device mesh, which comes with ROADMAP item 8 "
+            "(the port runs 'sorted' and 'naive' on one device)")
     if cfg.moe.shared_experts and "shared" in params:
         y = y + apply_mlp(params["shared"], x2, cfg.act)
     return y.reshape(shape), aux

@@ -18,7 +18,11 @@
 // while l sums the unrounded p, and (m, l, acc) stay in f32.  A masked key
 // adds p = 0, so a row that has seen no visible key keeps l = 0 and the
 // single flush writes it as 0 (the l == 0 guard); every other row gets the
-// consumer's value.  The bf16 form folds log2(e) into the scale and takes
+// consumer's value.  On request (the training path) each row's natural
+// log-sum-exp m + ln l goes to an f32 [B, H, Sq] array, -1e30 for a row
+// that saw no key (the reference's, whose f32 -1e30 + ln Skv rounds to
+// -1e30); the backward (csrc/flash_attention_bwd.cu) recomputes P from it.
+// The bf16 form folds log2(e) into the scale and takes
 // exp2f: it scores s = dot * (scale * log2 e) and keeps m in those units,
 // so p = exp2(s - m) is the consumer's exp(dot * scale - m) up to the
 // rounding of the folded constant (~1e-6 relative in p, far under the
@@ -112,6 +116,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ k,  // [B, Skv, KV, HD]
     const float* __restrict__ v,  // [B, Skv, KV, HD]
     float* __restrict__ out,      // [B, Sq, H, HD]
+    float* __restrict__ lse,      // [B, H, Sq] or null
     int Sq, int Skv, int H, int KV, int q_offset, int causal, int window,
     float scale) {
   constexpr int kDimsPer = (HD + 15) / 16;  // output dims tx + 16c; past HD skipped
@@ -234,6 +239,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int c = 0; c < kDimsPer; ++c)
       if (HD % 16 == 0 || tx + 16 * c < HD)
         out[(((size_t)b * Sq + q0 + r) * H + h) * HD + tx + 16 * c] = acc[i][c] / li;
+    // every lane of the row group holds the row's m and l
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + r] = l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
   }
 }
 
@@ -278,6 +286,7 @@ __global__ void __launch_bounds__(kMThreads) flash_fwd_mma_kernel(
     const bf16* __restrict__ k,  // [B, Skv, KV, HD]
     const bf16* __restrict__ v,  // [B, Skv, KV, HD]
     bf16* __restrict__ out,      // [B, Sq, H, HD]
+    float* __restrict__ lse,     // [B, H, Sq] or null
     int Sq, int Skv, int H, int KV, int q_offset, int causal, int window,
     float scale) {
   constexpr int kHP = padded_hd<HD>();  // compute width: columns [HD, kHP) hold zeros
@@ -449,6 +458,10 @@ __global__ void __launch_bounds__(kMThreads) flash_fwd_mma_kernel(
     const int r = warp * 16 + g + 8 * i;
     if (r >= nq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];
+    // m is in log2 units: the natural log-sum-exp is m ln 2 + ln l
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + r] =
+          l[i] == 0.f ? kNegInf : m[i] * 0.6931471805599453f + logf(l[i]);
     bf16* o = out + (((size_t)b * Sq + q0 + r) * H + h) * HD + 2 * t;
 #pragma unroll
     for (int d = 0; d < kND; ++d)
@@ -461,6 +474,7 @@ __global__ void __launch_bounds__(kMThreads) flash_fwd_mma_kernel(
 struct Args {
   const void *q, *k, *v;
   void* out;
+  float* lse;
   int B, Sq, Skv, H, KV, q_offset, causal, window;
   float scale;
   cudaStream_t stream;
@@ -481,7 +495,7 @@ cudaError_t launch_f32(const Args& a) {
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
   flash_fwd_kernel<HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Sq, a.Skv, a.H, a.KV,
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.Sq, a.Skv, a.H, a.KV,
       a.q_offset, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
@@ -498,7 +512,7 @@ cudaError_t launch_mma(const Args& a) {
   const dim3 grid(a.H, a.B, (a.Sq + kMQ - 1) / kMQ);
   kernel<<<grid, kMThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.Sq, a.Skv, a.H, a.KV,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.Sq, a.Skv, a.H, a.KV,
       a.q_offset, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
@@ -511,14 +525,17 @@ cudaError_t launch(const Args& a, int dtype) {
 }  // namespace
 
 // hd: 32, 64, 120 or 128.  window <= 0 means no sliding window.  dtype: 0 =
-// float32, 1 = bfloat16.  Returns the launch's cudaError_t (0 = launched).
+// float32, 1 = bfloat16.  lse: null, or [B, H, Sq] f32 that receives each
+// row's natural log-sum-exp of its scaled scores (-1e30 for a row that saw
+// no key), which the backward (csrc/flash_attention_bwd.cu) reads.  Returns
+// the launch's cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Skv, int H, int KV, int hd,
+                                      const void* v, void* out, void* lse, int B,
+                                      int Sq, int Skv, int H, int KV, int hd,
                                       int q_offset, int causal, int window,
                                       float scale, int dtype, void* stream) {
-  const Args a{q, k, v, out, B, Sq, Skv, H, KV, q_offset, causal, window, scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, KV, q_offset,
+               causal, window, scale, static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 32: return (int)launch<32>(a, dtype);
     case 64: return (int)launch<64>(a, dtype);

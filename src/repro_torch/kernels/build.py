@@ -29,7 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("paged_attention", "expert_mlp", "lowrank", "flash_attention", "quant", "group_gate")
+SOURCES = ("paged_attention", "expert_mlp", "lowrank", "flash_attention", "flash_attention_bwd",
+           "quant", "group_gate")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

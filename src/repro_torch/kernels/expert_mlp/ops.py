@@ -19,6 +19,13 @@ CUDA tensor launches ``csrc/expert_mlp.cu`` or raises, on the path
 :func:`ffn_plan` picks from the row count: weight streaming (the hidden
 activation kept in f32 on chip) for decode-sized calls and every f32 call,
 a grouped GEMM on the tensor cores for bf16 rows at prefill sizes.
+
+For training, :class:`GroupedMLPFn` wraps ``grouped_mlp``: the forward is
+the same kernel; the backward is per-group ``torch.matmul`` (the
+reference has no backward of its own: XLA differentiates its
+``ragged_dot`` trio).  ``grouped_mlp`` enters it only when grad mode is on
+and an input requires a gradient.  The resident forms stay forward-only:
+the end tier does not train.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.models.layers import ACTIVATIONS
+from repro_torch.models.layers import ACTIVATION_GRADS, ACTIVATIONS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2  # the weight type code of an int8 store
@@ -95,9 +102,17 @@ def grouped_mlp(
     act: str,
 ) -> torch.Tensor:
     """Expert FFN over expert-sorted rows; plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors.  Rows past ``sum(group_sizes)`` come
-    back 0; the kernel reads no row past ``n`` whatever the group sizes
-    (which live on the device and are not checked on the host)."""
+    the CUDA kernel for CUDA tensors; through :class:`GroupedMLPFn` when a
+    gradient is wanted.  Rows past ``sum(group_sizes)`` come back 0; the
+    kernel reads no row past ``n`` whatever the group sizes (which live on
+    the device and are not checked on the host)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xs, wi, wg, wo)):
+        return GroupedMLPFn.apply(xs, group_sizes, wi, wg, wo, act)
+    return _grouped_mlp(xs, group_sizes, wi, wg, wo, act)
+
+
+def _grouped_mlp(xs, group_sizes, wi, wg, wo, act):
     if xs.device.type == "cpu":
         return grouped_mlp_plain(xs, group_sizes, wi, wg, wo, act)
     if xs.device.type != "cuda":
@@ -173,6 +188,63 @@ def _launch(xs, group_sizes, ids, wi, wg, wo, act, *, zero_group: int, scales=No
 
 
 grouped_mlp.launches = 0
+
+
+class GroupedMLPFn(torch.autograd.Function):
+    """The grouped expert FFN with an explicit backward, per expert group
+    (rows ``xs_e`` of group e, upstream ``dY_e``):
+
+    - recompute ``H = xs_e·Wi``, and ``G = xs_e·Wg`` where the FFN is gated;
+      ``A = act(H)``, times ``G`` where gated;
+    - ``dA = dY_e·Woᵀ``, ``dWo = Aᵀ·dY_e``;
+    - ``dH = dA ⊙ act'(H)``, times ``G`` where gated, and ``dG = dA ⊙
+      act(H)``, elementwise in f32 and rounded to the rows' type;
+    - ``dWi = xs_eᵀ·dH``, ``dWg = xs_eᵀ·dG``, ``dxs_e = dH·Wiᵀ + dG·Wgᵀ``.
+
+    The products are ``torch.matmul`` in the rows' type over the group
+    segments (as XLA computes the reference's ``ragged_dot`` gradients
+    outside any kernel), and the gradients come back in the weights' type;
+    an empty group gets zero weight gradients."""
+
+    @staticmethod
+    def forward(ctx, xs, group_sizes, wi, wg, wo, act):
+        ctx.save_for_backward(xs, group_sizes, wi, wg, wo)
+        ctx.act = act
+        return _grouped_mlp(xs, group_sizes, wi, wg, wo, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, group_sizes, wi, wg, wo = ctx.saved_tensors
+        a, a_grad = ACTIVATIONS[ctx.act], ACTIVATION_GRADS[ctx.act]
+        dt = xs.dtype
+        dy = dy.to(dt)
+        dxs = torch.zeros_like(xs)
+        dwi, dwo = torch.zeros_like(wi), torch.zeros_like(wo)
+        dwg = None if wg is None else torch.zeros_like(wg)
+        start = 0
+        # one host read of the group sizes a layer's backward: the products
+        # run over host-side slices of the sorted rows
+        for e, cnt in enumerate(group_sizes.tolist()):
+            if cnt:
+                x, dy_e = xs[start : start + cnt], dy[start : start + cnt]
+                h = x @ wi[e]
+                act_h = a(h)
+                g = None if wg is None else x @ wg[e]
+                dwo[e] = ((act_h if g is None else act_h * g).T @ dy_e).to(dwo.dtype)
+                da = (dy_e @ wo[e].T).float()
+                dh = da * a_grad(h.float())
+                if g is not None:
+                    dh = dh * g.float()
+                    dg = (da * act_h.float()).to(dt)
+                    dwg[e] = (x.T @ dg).to(dwg.dtype)
+                dh = dh.to(dt)
+                dwi[e] = (x.T @ dh).to(dwi.dtype)
+                dx = dh @ wi[e].T
+                if g is not None:
+                    dx = dx + dg @ wg[e].T
+                dxs[start : start + cnt] = dx
+            start += cnt
+        return dxs, None, dwi, dwg, dwo, None
 
 
 def grouped_mlp_resident_plain(

@@ -1,6 +1,15 @@
 from repro_torch.kernels.flash_attention.ops import (
+    FlashAttentionFn,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
 )
 
-__all__ = ["flash_attention_fwd", "flash_attention_plain"]
+__all__ = [
+    "FlashAttentionFn",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "flash_attention_fwd",
+    "flash_attention_plain",
+]

@@ -16,6 +16,12 @@ layouts (``w_local [K, d, Mk]``, ``w_global
 [d, K]``), the ``[E]`` bool mask read as given; see the source for what
 bounds it.  A per-token ``[T, E]`` mask runs only in the plain version
 (CPU), and a CUDA call with one raises.
+
+For training, :class:`GroupGateFn` wraps the call: the forward is the same
+kernel, the backward (the reference has none of its own: XLA
+differentiates its ``jnp`` gate) goes back through eq. 7 and the two
+softmaxes in PyTorch ops, in f32.  :func:`group_gate` enters it only when
+grad mode is on and an input requires a gradient.
 """
 
 from __future__ import annotations
@@ -103,7 +109,15 @@ def group_gate(
     expert_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused eq. 5-7 -> (probs [T, E], p_group [T, K]), f32; the plain
-    version for CPU tensors, ``csrc/group_gate.cu`` for CUDA tensors."""
+    version for CPU tensors, ``csrc/group_gate.cu`` for CUDA tensors;
+    through :class:`GroupGateFn` when a gradient is wanted."""
+    ins = (x, w_local, b_local, w_global, b_global)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return GroupGateFn.apply(*ins, expert_mask)
+    return _group_gate(*ins, expert_mask)
+
+
+def _group_gate(x, w_local, b_local, w_global, b_global, expert_mask):
     if x.device.type == "cpu":
         return group_gate_plain(x, w_local, b_local, w_global, b_global, expert_mask)
     if x.device.type != "cuda":
@@ -159,3 +173,55 @@ def group_gate(
 
 
 group_gate.launches = 0
+
+
+class GroupGateFn(torch.autograd.Function):
+    """The gate with an explicit backward through eq. 5-7.  With
+    ``probs = p_group ⊗ p_local`` (eq. 7), the upstream gradients split
+    into ``d p_local = d probs · p_group`` and ``d p_group = Σ_m d probs ·
+    p_local`` (plus the gradient of the ``p_group`` output); each goes back
+    through its softmax's Jacobian, ``p (dp - Σ dp p)``.  The logits are
+    recomputed from :func:`gate_logits` and masked as the forward masks
+    them; masked experts and dead groups get zero gradient.  Then ``dx``,
+    ``dW_local`` and ``dW_global`` are products and the bias gradients
+    sums, all in f32: ``dx`` goes back in x's type, the weight gradients
+    stay f32 like the gate's parameters."""
+
+    @staticmethod
+    def forward(ctx, x, w_local, b_local, w_global, b_global, expert_mask):
+        probs, p_group = _group_gate(x, w_local, b_local, w_global, b_global, expert_mask)
+        ctx.save_for_backward(x, w_local, b_local, w_global, b_global, expert_mask)
+        return probs, p_group
+
+    @staticmethod
+    def backward(ctx, d_probs, d_pgroup):
+        x, w_local, b_local, w_global, b_global, expert_mask = ctx.saved_tensors
+        K, d, Mk = w_local.shape
+        T = x.shape[0]
+        local, glob = gate_logits(x, w_local, b_local, w_global, b_global)
+        em = group_ok = None
+        if expert_mask is not None:
+            em = (expert_mask.reshape(-1, K, Mk) if expert_mask.dim() == 2
+                  else expert_mask.reshape(1, K, Mk))
+            group_ok = em.any(dim=-1)
+            local = torch.where(em, local, NEG_INF)
+            glob = torch.where(group_ok, glob, NEG_INF)
+        p_local = torch.softmax(local, dim=-1)  # [T, K, Mk]
+        p_group = torch.softmax(glob, dim=-1)  # [T, K]
+        dp = (torch.zeros((T, K, Mk), dtype=torch.float32, device=x.device) if d_probs is None
+              else d_probs.float().reshape(T, K, Mk))
+        d_local = dp * p_group[:, :, None]
+        d_group = (dp * p_local).sum(dim=-1)
+        if d_pgroup is not None:
+            d_group = d_group + d_pgroup.float()
+        d_local = p_local * (d_local - (d_local * p_local).sum(dim=-1, keepdim=True))
+        d_glob = p_group * (d_group - (d_group * p_group).sum(dim=-1, keepdim=True))
+        if em is not None:
+            d_local = torch.where(em, d_local, 0.0)
+            d_glob = torch.where(group_ok, d_glob, 0.0)
+        xf = x.float()
+        dx = (torch.einsum("tkm,kdm->td", d_local, w_local.float())
+              + d_glob @ w_global.float().T)
+        return (dx.to(x.dtype), torch.einsum("td,tkm->kdm", xf, d_local).to(w_local.dtype),
+                d_local.sum(dim=0).to(b_local.dtype), (xf.T @ d_glob).to(w_global.dtype),
+                d_glob.sum(dim=0).to(b_global.dtype), None)

@@ -10,8 +10,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ops import NEG_INF
+from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import NEG_INF, fill_rows_without_a_key
 from repro_torch.kernels.flash_attention.ops import block_mask as _block_mask
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_quant
 from repro_torch.models.layers import rms_norm, truncated_normal_init
@@ -78,30 +78,14 @@ def flash_attention(
     A row that sees no key gets the mean of V over every key, as in the
     reference consumer (every key masked to -1e30 leaves a uniform
     softmax); the kernel returns 0 there, so those rows, which follow from
-    the positions alone, are filled here."""
+    the positions alone, are filled after it.  When a gradient is wanted
+    (grad mode on and an input that requires one) the call goes through
+    ``FlashAttentionFn``, whose backward is the backward kernel; otherwise
+    (every serving path) no autograd graph is built."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
     out = flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    B, Sq, H, _ = q.shape
-    for lo, hi in _rows_without_a_key(Sq, k.shape[1], causal, window, q_offset):
-        mean_v = v.float().mean(dim=1).repeat_interleave(H // k.shape[2], dim=1)
-        out[:, lo:hi] = mean_v.to(out.dtype)[:, None]
-    return out
-
-
-def _rows_without_a_key(Sq: int, Skv: int, causal: bool, window: Optional[int],
-                        q_offset: int):
-    """Query-row ranges ``[lo, hi)`` that see no key: row i sits at
-    ``p = q_offset + i`` and sees key j in [0, Skv) iff ``(not causal or
-    p >= j)`` and ``(window is None or p - j < window)``."""
-    if Skv == 0:
-        return [(0, Sq)] if Sq else []
-    ranges = []
-    if causal and q_offset < 0:  # p < 0 sees no key
-        ranges.append((0, min(Sq, -q_offset)))
-    if window is not None:  # p - (Skv - 1) >= window: the window lies past every key
-        lo = max(0, Skv - 1 + window - q_offset)
-        if lo < Sq:
-            ranges.append((lo, Sq))
-    return [(lo, hi) for lo, hi in ranges if lo < hi]
+    return fill_rows_without_a_key(out, v, causal, window, q_offset)
 
 
 def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):

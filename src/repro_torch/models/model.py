@@ -1,5 +1,5 @@
-"""Model facade for serving (port of the reference's ``models/model.py``:
-``init``, ``prefill`` and ``decode_step`` over dense rings, and
+"""Model facade (port of the reference's ``models/model.py``: ``init``,
+``train_logits``, ``prefill`` and ``decode_step`` over dense rings, and
 ``decode_step_paged``, ``prefill_chunk_step``, ``verify_chunk_step`` over
 paged pools)."""
 
@@ -34,12 +34,43 @@ class Model:
         token's [B, S] position goes on all three axes)."""
         return attn.model_angles(self.cfg, positions)
 
+    def _embed(self, params, batch: Dict):
+        """(the embedded inputs [B, S, d] with any patch embeddings in
+        front, their rotary angles at ``batch["positions"]`` or 0..S-1)."""
+        tokens = batch["tokens"]
+        x = transformer.embed_inputs(params, self.cfg, tokens, batch.get("patch_embeds"))
+        B, S = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+        return x, self._angles(positions)
+
     def _encoder_out(self, params, batch: Dict):
         """The encoder's output over ``batch["frame_embeds"]`` (None unless
         the model is an encoder-decoder)."""
         if not self.cfg.encoder_decoder:
             return None
         return transformer.apply_encoder(params, batch["frame_embeds"], self.cfg)
+
+    def train_logits(self, params, batch: Dict, *, expert_mask=None,
+                     train: bool = True) -> Tuple[torch.Tensor, Dict]:
+        """The full-sequence forward of training -> (logits [B, S, V], aux):
+        ``batch`` as :meth:`prefill` takes it; the aux summed over the MoE
+        layers (``transformer.apply_stack_full(train=True)``: router
+        losses, ``aux_loss`` and the routing statistics).  ``train=True``
+        recomputes each block in the backward (the reference's ``remat and
+        train``) and takes only the patterns the training form takes
+        (``transformer.check_trainable``); ``train=False`` runs the same
+        forward without recomputation, on any pattern."""
+        cfg = self.cfg
+        if train:
+            transformer.check_trainable(cfg)
+        x, angles = self._embed(params, batch)
+        x, aux, _ = transformer.apply_stack_full(
+            params, x, cfg, angles, causal=True, enc_out=self._encoder_out(params, batch),
+            expert_mask=expert_mask, train=True, remat=train,
+        )
+        return transformer.lm_logits(params, cfg, x), aux
 
     def prefill(self, params, batch: Dict, *, max_len: int = 0,
                 expert_mask=None) -> Tuple[torch.Tensor, Dict]:
@@ -54,19 +85,15 @@ class Model:
         that the encoder reads and every decoder layer's cross-attention
         attends (their projections are the cache's ``xk``/``xv``)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = transformer.embed_inputs(params, cfg, tokens, batch.get("patch_embeds"))
+        x, angles = self._embed(params, batch)
         B, S = x.shape[:2]
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
         x, _, blocks = transformer.apply_stack_full(
-            params, x, cfg, self._angles(positions), causal=True,
+            params, x, cfg, angles, causal=True,
             enc_out=self._encoder_out(params, batch), expert_mask=expert_mask,
             collect_cache=True, max_len=max_len or S,
         )
         logits = transformer.lm_logits(params, cfg, x[:, -1:])[:, 0]
-        lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
         return logits, {"blocks": blocks, "lengths": lengths}
 
     def decode_step(self, params, tokens: torch.Tensor, cache: Dict, *,

@@ -3,7 +3,9 @@ init, embedding and head, the full-sequence layer and stack (the one-shot
 end-cloud pipeline, and ``Model.prefill`` with its collected dense
 caches), the bidirectional encoder of an encoder-decoder, and the decode
 stack over paged pools or dense caches and the chunked-prefill stack of
-attention-only patterns).  A layer is an attention layer, with
+attention-only patterns), and the training form of the full-sequence stack
+(router losses, the aux summed as the reference sums it, per-block
+recomputation).  A layer is an attention layer, with
 cross-attention to the encoder's output in an encoder-decoder's decoder,
 or a Mamba-2 SSM layer (``models/ssm.py``), each with an optional dense or
 MoE FFN.
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import LayerSpec
 from repro_torch.core.compression import compute_codec
@@ -113,7 +116,8 @@ def block_params(tree: Dict, r: int) -> Dict:
     return {k: block_params(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
 
 
-def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None):
+def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None,
+         train: bool = False):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.moe:
         mp = p["moe"]
@@ -121,7 +125,7 @@ def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None)
             # pooled end tier: the stripped moe params get this layer's
             # resident tables and the shared slab store (core.expertpool)
             mp = {**mp, "resident": expert_resident}
-        y, aux = apply_moe(mp, h, cfg, expert_mask=expert_mask, train=False)
+        y, aux = apply_moe(mp, h, cfg, expert_mask=expert_mask, train=train)
         return x + y, aux
     return x + apply_mlp(p["ffn"], h, cfg.act), {}
 
@@ -163,9 +167,11 @@ def apply_layer_full(
     expert_mask=None,
     collect_cache: bool = False,
     max_len: int = 0,
+    train: bool = False,
 ):
-    """Full-sequence layer (prefill-style), for serving: the reference's
-    ``train=False`` (no router losses; training is not ported).  Returns
+    """Full-sequence layer.  ``train=False`` (serving) skips a MoE layer's
+    router losses and statistics (its aux holds the gate's ``topk_idx``);
+    ``train=True`` computes them (``apply_moe(train=True)``).  Returns
     (x, aux, cache_entry); with ``collect_cache`` the entry holds an
     attention layer's k/v written into fresh dense rings of ``max_len``
     (``kvcache.prefill_write``) and, with cross-attention, the projected
@@ -200,19 +206,79 @@ def apply_layer_full(
             cache_entry.update(ssm=final_state, conv_x=cx, conv_bc=cbc)
         x = x + o
     if _has_ffn(spec, cfg):
-        x, aux = _ffn(p, x, spec, cfg, expert_mask)
+        x, aux = _ffn(p, x, spec, cfg, expert_mask, train=train)
     return x, aux, cache_entry
+
+
+def _merge_aux(acc: Dict, aux: Dict) -> Dict:
+    """The reference's ``_merge_aux``: sum each key in layer order."""
+    for k, v in aux.items():
+        acc[k] = acc[k] + v if k in acc else v
+    return acc
+
+
+def check_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` on what the training form does not
+    take yet: a compression codec (its joint loss comes with ROADMAP item
+    7b), SSM or cross-attention layers (item 7b), an expert-parallel MoE
+    implementation (item 8)."""
+    c = cfg.compression
+    if c is not None and c.rank > 0 and c.boundaries:
+        raise NotImplementedError(
+            f"{cfg.name}: training with a compression codec on {c.boundaries} "
+            "(the joint eq. 8 loss) comes with ROADMAP item 7b")
+    if any(s.kind != "attn" or s.cross_attn for s in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training a pattern with SSM or cross-attention layers comes "
+            "with ROADMAP item 7b")
+    if cfg.moe is not None and cfg.moe_impl not in ("auto", "sorted", "naive"):
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl={cfg.moe_impl!r} needs a device mesh (ROADMAP item 8)")
+
+
+def _train_block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask):
+    """One block of the pattern in the training form: (x, the block's aux
+    summed over its MoE layers)."""
+    aux_acc: Dict[str, torch.Tensor] = {}
+    for i, spec in enumerate(cfg.layer_pattern):
+        x, aux, _ = apply_layer_full(bp[f"pos{i}"], x, spec, cfg, angles, causal=causal,
+                                     enc_out=enc_out, expert_mask=expert_mask, train=True)
+        aux_acc = _merge_aux(aux_acc, aux)
+    return x, aux_acc
 
 
 def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *,
                      causal: bool = True, enc_out: Optional[torch.Tensor] = None,
-                     expert_mask=None, collect_cache: bool = False, max_len: int = 0):
+                     expert_mask=None, collect_cache: bool = False, max_len: int = 0,
+                     train: bool = False, remat: bool = False):
     """Loop the block pattern over a full sequence (``enc_out``: the
     encoder's output, which cross-attention layers attend).  Returns (x,
     the aux of every MoE layer in order, cache blocks or None): with
     ``collect_cache`` the blocks pytree of ``kvcache.init_cache``'s layout,
     each leaf the layers' rings, cross caches or SSM states stacked over
-    the block repeats."""
+    the block repeats.
+
+    ``train=True`` is the training form (attention and MoE patterns,
+    :func:`check_trainable`): every MoE layer computes its router losses
+    and statistics, and the aux comes back as one dict, summed within a
+    block and then over blocks as the reference sums it, so vector
+    statistics keep their ``[E]`` and ``[K]`` shapes; returns (x, aux,
+    None).  With ``remat`` (and grad mode on) each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which drops its saved
+    activations and recomputes the block in the backward, as the
+    reference's ``jax.checkpoint``."""
+    if train:
+        aux_sum: Dict[str, torch.Tensor] = {}
+        for r in range(_n_blocks(params["blocks"])):
+            bp = block_params(params["blocks"], r)
+            if remat and torch.is_grad_enabled():
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    _train_block, x, bp, cfg, angles, causal, enc_out, expert_mask,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux = _train_block(x, bp, cfg, angles, causal, enc_out, expert_mask)
+            aux_sum = _merge_aux(aux_sum, aux)
+        return x, aux_sum, None
     layer_aux: List[Dict[str, torch.Tensor]] = []
     caches: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     for r in range(_n_blocks(params["blocks"])):

@@ -1552,3 +1552,125 @@ def test_hybrid_pipeline_on_card_matches_cpu(gen):
     for key in ("boundary_bytes", "t_comm_s"):
         assert mg[key] == mc[key], key
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+def _bwd_case(gen, dtype, B, Sq, Skv, H, KV, hd, causal, window, q_offset):
+    """Inputs of a flash backward: q, k, v, the upstream dO, and the
+    forward's output (rows without a key filled) and log-sum-exp from the
+    kernel."""
+    from repro_torch.kernels.flash_attention.ops import fill_rows_without_a_key
+
+    q, dout = (torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype) for _ in "qo")
+    k, v = (torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype) for _ in "kv")
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                   return_lse=True)
+    fill_rows_without_a_key(out, v, causal, window, q_offset)
+    return q, k, v, dout, out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,q_offset", [
+    (4, 256, 256, 12, 12, 64, True, None, 0),  # switch-base's training shape
+    (2, 256, 256, 32, 8, 120, True, 64, 0),  # h2o-danube: hd 120, a window
+    (2, 200, 200, 8, 2, 32, True, None, 0),  # ragged tiles, G = 4
+    (1, 40, 150, 4, 2, 128, True, 30, 110),  # queries at the end of the keys
+    (2, 64, 300, 4, 4, 64, False, None, 0),  # cross-shaped, not causal
+    (1, 64, 128, 4, 2, 64, True, 32, 100),  # rows that see no key (the wrapper's terms)
+])
+def test_flash_attention_bwd_kernel(gen, dtype, B, Sq, Skv, H, KV, hd, causal, window,
+                                    q_offset):
+    """dQ, dK, dV of the backward kernel against its plain version (the
+    reference's ``_bwd``) on the same inputs, and the forward's log-sum-exp
+    against the plain forward's.  Tolerances, of each gradient's largest
+    |value|: f32 1e-4 (sums in another order); bf16 2e-2 (the outputs
+    round to bf16, and dQ's dS rounds to bf16 before its product, as in
+    ``_bwd``, where a sum in another order can flip a rounding)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_plain
+
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, dout, out, lse = _bwd_case(gen, dtype, B, Sq, Skv, H, KV, hd, **kw)
+    _, lse_plain = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    seen = lse_plain > -1e29
+    assert torch.equal(seen, lse > -1e29)
+    torch.testing.assert_close(lse[seen], lse_plain[seen], rtol=1e-5, atol=1e-4)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(dout, q, k, v, out, lse, **kw)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(dout, q, k, v, out, lse, **kw)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * scale, f"{name}: max |diff| {err} vs {rel} x {scale}"
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(dout.transpose(1, 2).contiguous().transpose(1, 2), q, k, v, out,
+                            lse, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_relaunches_give_equal_bits(gen, dtype):
+    """Two passes in a fixed order and no atomics: 20 relaunches give the
+    first launch's bits (what lets an f32 run resumed from a checkpoint
+    reproduce the steps of the run that did not stop)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    kw = dict(causal=True, window=None, q_offset=0)
+    args = _bwd_case(gen, dtype, 2, 256, 256, 8, 2, 64, **kw)
+    q, k, v, dout, out, lse = args
+    first = flash_attention_bwd(dout, q, k, v, out, lse, **kw)
+    for _ in range(20):
+        again = flash_attention_bwd(dout, q, k, v, out, lse, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_train_step_on_card_matches_cpu(gen):
+    """One f32 AdamW train step of smoke switch-base (2 blocks) on the card
+    against the CPU from the same params and batch: the forward through
+    the flash, gate and expert-FFN kernels, the backward through their
+    autograd Functions (the flash backward kernel).  Routes (the routing
+    statistics) equal, loss and grad norm within 1e-5 relative, every
+    gradient leaf within 1e-4 of its largest |value|, and none all 0 on
+    the card where the CPU's is not.  Params after the step: Adam's first
+    update is about ``lr · g / (|g| + eps)``, which turns a gradient
+    element near eps = 1e-8 (most of whose bits are then rounding) into
+    any update up to lr; so every element within lr, and all but 1% of a
+    leaf's within 1e-5 + 1e-5 |p|."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt_mod
+
+    cfg = smoke_config(get_config("switch-base")).replace(num_layers=4, dtype="float32")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)}
+    ocfg = opt_mod.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        p = opt_mod.tree_map(lambda t: t.to(dev, copy=True), params)  # the step updates in place
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches,
+                  group_gate.launches, grouped_mlp.launches)
+        _, metrics, grads = steps.loss_and_grads(steps.make_loss_fn(model), p, b)
+        if dev == "cuda":  # 4 layers, 2 of them MoE; each block recomputed once
+            assert (flash_attention_fwd.launches - before[0], flash_attention_bwd.launches
+                    - before[1], group_gate.launches - before[2],
+                    grouped_mlp.launches - before[3]) == (8, 4, 4, 4)
+        opt = opt_mod.init_optimizer("adamw", p)
+        p, opt, m2 = steps.make_train_step(model, ocfg)(p, opt, b)
+        got[dev] = (metrics, to_device(grads, "cpu"), to_device(p, "cpu"), m2)
+    (mc, gc, pc, sc), (mg, gg, pg, sg) = got["cpu"], got["cuda"]
+    assert torch.equal(mc["expert_frac"], mg["expert_frac"].cpu())
+    for key in ("loss", "ce_loss", "aux_loss"):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-5, atol=0)
+    torch.testing.assert_close(sg["grad_norm"].cpu(), sc["grad_norm"], rtol=1e-5, atol=0)
+    for a, b in zip(opt_mod.tree_leaves(gg), opt_mod.tree_leaves(gc)):
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * scale
+        assert a.abs().max().item() > 0 or scale == 0  # no leaf left without a gradient
+    for a, b in zip(opt_mod.tree_leaves(pg), opt_mod.tree_leaves(pc)):
+        diff = (a.float() - b.float()).abs()
+        assert diff.max().item() <= ocfg.lr
+        assert (diff > 1e-5 + 1e-5 * b.abs()).float().mean().item() <= 0.01
