@@ -272,6 +272,26 @@ Phases, in order; any failure exits non-zero before the result lines:
    (``chiprun_out/train_step_profile.txt``).  (e) In f32 at 2 blocks: a
    run resumed from its step-3 checkpoint reproduces steps 4-6 within
    1e-5, and a ``FailureInjector`` at step 4 makes exactly one restore.
+16. Training, second half (``train2_phase``; ``python3 chip_smoke.py
+   --train2`` runs the build and this phase alone): (a) the dispatch
+   codec's autograd Function (``RoundtripLossFn``: the roundtrip kernel's
+   forward, the encode and decode kernels' above rank 512) against
+   autograd of its plain version at ``CODEC_FN_CASES`` (the fused plan at
+   [1024, 768] and 8 rows, rank 384; the composed plan at d 4096, rank
+   1024, 256 rows; bf16 and f32): X̂, dX, dE, dD within 1e-5 (f32) or
+   2^-6 (bf16) of each one's largest |value|, the counters risen by the
+   plan's kernels.  (b) One f32 train step card vs CPU at full width and
+   reduced depth (the codec model, switch-base with ``DISPATCH_CODEC``, at
+   4 layers; mamba2-130m at 4; whisper-base at 2 decoder and 2 encoder
+   layers on 1500 frames; jamba's smoke hybrid): routes, loss,
+   ``recon_loss``, grad norm, every gradient leaf and every param after
+   the update.  (c) bf16 at full width and depth: ``Trainer`` on the codec
+   model and on mamba2-130m, ``make_train_step`` on whisper-base with
+   seeded frames [4, 1500, 512], ``TRAIN2_STEPS`` steps of 4 x 256 each:
+   losses finite, the codec's ``recon_loss`` falls, ``TRAIN2_PER_STEP``
+   launches a step and no other kernel, the median step time, tokens/s,
+   peak memory and a profiled step
+   (``chiprun_out/train2_{codec,mamba2,whisper}_profile.txt``).
 
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
@@ -280,7 +300,8 @@ run; ``vlm_launches``: over phase 11's runs; ``ssm_launches``: over phase
 12's bf16 runs; ``danube_launches``: over phase 13's runs;
 ``encdec_launches``: in phase 14's bf16 run; ``train_launches``: in
 phase 15's bf16 training run, whose count is also ``flash_attention_bwd``'s
-``launches``), the ``nvidia-smi``
+``launches``; ``train2_launches``: over phase 16's bf16 runs), the
+``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
 wrapper call, of paged attention (its sweep and merge), the expert FFNs
@@ -4998,10 +5019,10 @@ def train_step_card_vs_cpu(torch):
         f"{len(rc)} routes equal")
 
 
-def profile_train_step(torch, step, params, state, batch):
+def profile_train_step(torch, step, params, state, batch, name="train_step_profile.txt"):
     """One train step under ``torch.profiler``: (device ms, synchronized
     wall ms, the top device ops by time); the table goes to
-    ``chiprun_out/train_step_profile.txt``."""
+    ``chiprun_out/<name>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5012,7 +5033,7 @@ def profile_train_step(torch, step, params, state, batch):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     avgs = prof.key_averages()
-    (OUT_DIR / "train_step_profile.txt").write_text(
+    (OUT_DIR / name).write_text(
         avgs.table(sort_by="cuda_time_total", row_limit=50))
     dev = sorted((e for e in avgs if e.device_type != DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)
@@ -5172,6 +5193,316 @@ def train_phase(torch, timer, counters):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training, second half (the dispatch codec's joint eq. 8 loss, SSM
+# and encoder-decoder training)
+# ---------------------------------------------------------------------------
+
+TRAIN2_STEPS = 10
+# (rows, d, rank, bf16): the fused plan at phase 16(c)'s codec shape and at
+# 8 rows, the composed plan (rank 1024 > 512) at qwen3-moe's width
+CODEC_FN_CASES = ((1024, 768, 384, True), (1024, 768, 384, False), (8, 768, 384, True),
+                  (8, 768, 384, False), (256, 4096, 1024, True), (256, 4096, 1024, False))
+# launches a train step at full depth, each block recomputed once in the
+# backward: the codec model's 6 MoE layers run 2 roundtrips each, twice;
+# mamba2's SSM is plain PyTorch; whisper's 6 encoder layers run outside the
+# recomputation (6 forward, 6 backward) and its 6 decoder layers' self and
+# cross attention inside it (24 forward, 12 backward)
+TRAIN2_PER_STEP = {
+    "codec": {"lowrank_roundtrip_loss": 24, "flash_attention_fwd": 24,
+              "flash_attention_bwd": 12, "group_gate": 12, "grouped_mlp": 12},
+    "mamba2": {},
+    "whisper": {"flash_attention_fwd": 30, "flash_attention_bwd": 18},
+}
+
+
+def codec_function_case(torch, timer, gen, T, d, r, bf16):
+    """(a) ``RoundtripLossFn`` on the card against autograd of the plain
+    version on the same inputs (E, D f32 masters cast to the rows' type,
+    as the MoE layer casts them): X̂, dX, dE, dD within 1e-5 (f32) or
+    2^-6 (bf16) of each one's largest |value|; the launch counters rise by
+    the plan's kernels; one forward and backward's time, the Function's
+    and the plain version's (flushed).  Returns the largest error over
+    each one's largest |value|."""
+    from repro_torch.kernels.lowrank import (
+        lowrank_decode,
+        lowrank_encode,
+        lowrank_roundtrip_loss,
+        lowrank_roundtrip_loss_plain,
+        roundtrip_loss,
+        roundtrip_plan,
+    )
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    x = torch.randn(T, d, generator=gen, device="cuda")
+    e = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0].contiguous()
+    dec = e.T.contiguous() + 0.01 * torch.randn(r, d, generator=gen, device="cuda")
+    up = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+
+    def run(fn):
+        xs = x.to(dtype).requires_grad_(True)
+        es, ds = e.clone().requires_grad_(True), dec.clone().requires_grad_(True)
+        x_hat, _, mean = fn(xs, es.to(dtype), ds.to(dtype))
+        ((x_hat * up).float().sum() + 0.05 * mean).backward()
+        return x_hat, (xs.grad, es.grad, ds.grad)
+
+    counters = (lowrank_roundtrip_loss, lowrank_encode, lowrank_decode)
+    before = [c.launches for c in counters]
+    got_hat, got = run(roundtrip_loss)
+    plan = roundtrip_plan(r)
+    rose = [c.launches - b for c, b in zip(counters, before)]
+    if rose != ([1, 0, 0] if plan == "fused" else [0, 1, 1]):
+        raise AssertionError(f"codec Function {plan} [{T}, {d}] r {r}: launches {rose}")
+    if type(got_hat.grad_fn).__name__ != "RoundtripLossFnBackward":
+        raise AssertionError("codec Function: X̂ has no RoundtripLossFn graph")
+    want_hat, want = run(lowrank_roundtrip_loss_plain)
+    rel = 2 ** -6 if bf16 else 1e-5
+    worst = 0.0
+    for what, g, w in zip(("x_hat", "dx", "denc", "ddec"), (got_hat, *got), (want_hat, *want)):
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        worst = max(worst, err / scale)
+        if not err <= rel * scale:
+            raise AssertionError(f"codec Function {plan} [{T}, {d}] r {r} {dtype}: {what} "
+                                 f"max|diff| {err:.3e} > {rel} x {scale:.3e}")
+    ms = timer(lambda: run(roundtrip_loss), iters=10, warmup=2)
+    plain_ms = timer(lambda: run(lowrank_roundtrip_loss_plain), iters=10, warmup=2)
+    dev = ""
+    if T == 1024 and bf16:  # the codec model's shape: device time too (host-bound above)
+        us, per = timer.device_us(lambda: run(roundtrip_loss), iters=10)
+        plain_us, _ = timer.device_us(lambda: run(lowrank_roundtrip_loss_plain), iters=10)
+        dev = (f"; device {us:.1f} us [{short_names(per)}], the plain version's "
+               f"{plain_us:.1f} us")
+    log(f"  codec Function {plan} [{T}, {d}] rank {r} {'bf16' if bf16 else 'f32'}: "
+        f"X̂, dX, dE, dD within {worst:.2e} of max (<= {rel:.2e}); forward + backward "
+        f"{ms:.4f} ms, plain version through autograd {plain_ms:.4f} ms (flushed, the "
+        f"host's autograd included){dev}")
+    return worst
+
+
+def train2_frames(torch, cfg, dtype, seed):
+    """Seeded stand-ins for whisper's audio frames, [TRAIN_B, 1500, d]."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(TRAIN_B, cfg.encoder_seq_len, cfg.d_model, generator=g).to(dtype)
+
+
+def train2_card_vs_cpu(torch, tag, cfg, batch):
+    """(b) One f32 train step, card against CPU from the same params and
+    batch: the gradients at the params (every leaf within 1e-4 of its
+    largest |value|, none all 0 on the card only), then one
+    ``make_train_step`` (cfg's optimizer, ``TRAIN_OPT``): routes (every
+    ``select_topk``'s ids) equal, loss, ``recon_loss`` and grad norm
+    within 1e-5 relative, routing statistics equal, the params after."""
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.training import optimizer as opt_mod
+
+    params = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    host = opt_mod.tree_map(lambda t: t.to("cpu", copy=True), params)
+    ocfg = opt_mod.OptimizerConfig(name=cfg.optimizer, **TRAIN_OPT)
+    runs, secs = {}, {}
+    for dev, p in (("cuda", params), ("cpu", host)):
+        model = Model(cfg, device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        with route_log(torch) as routes:
+            _, metrics, grads = steps.loss_and_grads(steps.make_loss_fn(model), p, b)
+            grads = opt_mod.tree_map(lambda t: t.cpu(), grads)
+            state = opt_mod.init_optimizer(cfg.optimizer, p)
+            p, state, m = steps.make_train_step(model, ocfg)(p, state, b)
+        secs[dev] = time.perf_counter() - t0
+        runs[dev] = ({k: v.cpu() for k, v in metrics.items()},
+                     {k: v.cpu() for k, v in m.items() if isinstance(v, torch.Tensor)},
+                     routes, grads, p)
+    (mg, sg, rg, gg, pg), (mc, sc, rc, gc, pc) = runs["cuda"], runs["cpu"]
+    if len(rg) != len(rc) or not all(torch.equal(a, b) for a, b in zip(rg, rc)):
+        raise AssertionError(f"{tag}: routes differ card vs CPU")
+    worst = grads_close(tag, opt_mod.tree_leaves(gg), opt_mod.tree_leaves(gc))
+    keys = [k for k in ("loss", "ce_loss", "recon_loss", "aux_loss") if k in mc]
+    rel = {k: abs(mg[k].item() - mc[k].item()) / abs(mc[k].item()) for k in keys}
+    rel["grad_norm"] = abs(sg["grad_norm"].item() - sc["grad_norm"].item()) / sc["grad_norm"].item()
+    stats = all(torch.equal(sg[k], sc[k]) for k in ("expert_frac", "group_frac") if k in sc)
+    log(f"  {tag}: loss {mg['loss'].item():.6f} vs CPU {mc['loss'].item():.6f}; relative gaps "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; {len(rc)} routes and the routing statistics equal {stats}; gradients: worst leaf "
+        f"{worst:.2e} of its max ({len(opt_mod.tree_leaves(gc))} leaves); card "
+        f"{secs['cuda']:.1f} s, CPU {secs['cpu']:.1f} s")
+    if not (stats and max(rel.values()) <= 1e-5):
+        raise AssertionError(f"{tag}: the card's step disagrees with the CPU's")
+    params_after_steps_close(torch, tag, pg, pc, ocfg.lr)
+
+
+def train2_trainer(torch, counters, tag, cfg):
+    """(c) ``Trainer`` for ``TRAIN2_STEPS`` steps of the ``lm`` task in bf16
+    (f32 masters) from seed 0, checkpoints only at the end, every step's
+    metrics recorded: (the losses, the recon losses or None, the median
+    step time at the synchronizing ``float(loss)``, peak memory, the
+    run's launches, the trainer)."""
+    import statistics
+    import tempfile
+
+    from repro_torch.launch import steps
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    data = train_batches(cfg, TRAIN2_STEPS, 0)
+    seen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, iter(data), trainer_cfg=TrainerConfig(
+            total_steps=TRAIN2_STEPS, checkpoint_every=TRAIN2_STEPS, checkpoint_dir=tmp,
+            keep_checkpoints=1, async_checkpoint=False, log_every=1),
+            opt_cfg=OptimizerConfig(name=cfg.optimizer, **TRAIN_OPT), device="cuda",
+            seed=0).initialize()
+        inner = steps.make_train_step(tr.model, tr.opt_cfg)
+
+        def recording(params, state, batch, *, accept=None):
+            params, state, m = inner(params, state, batch, accept=accept)
+            seen.append(float(m["recon_loss"]) if "recon_loss" in m else None)
+            return params, state, m
+
+        tr._step_fn = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = counted_run(counters, tr.run)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in out["log"]]
+    med = statistics.median(m["step_time_s"] for m in out["log"][1:])
+    log(f"  {tag}: {TRAIN2_STEPS} steps in {run_s:.1f} s (the final checkpoint included); "
+        f"losses {' '.join(f'{x:.4f}' for x in losses)}")
+    if len(losses) != TRAIN2_STEPS or not all(math.isfinite(x) for x in losses) or out["restores"]:
+        raise AssertionError(f"{tag}: a loss was not finite, or a step was restored")
+    return losses, seen, med, peak, launches, tr
+
+
+def check_per_step(tag, launches, per_step):
+    """Exactly ``per_step`` launches a step of each kernel named, and no
+    other kernel (``only_path``)."""
+    got = {k: launches[k] / TRAIN2_STEPS for k in per_step}
+    log(f"  {tag}: launches a step {got}")
+    if got != {k: float(n) for k, n in per_step.items()}:
+        raise AssertionError(f"{tag}: launches a step {got}, want {per_step}")
+    only_path(tag, launches, per_step)
+
+
+def train2_bf16_runs(torch, counters):
+    """(c) bf16 at full width and depth: ``Trainer`` on the codec model
+    (its ``recon_loss`` at the last step below the first step's: the codec
+    learns) and on mamba2-130m, then ``make_train_step`` on whisper-base
+    with seeded frames [4, 1500, 512]; every loss finite, the launches a
+    step exact (``TRAIN2_PER_STEP``), the median step time, tokens/s, peak
+    memory and one profiled step of each.  Returns the three runs'
+    launches summed."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.training import optimizer as opt_mod
+
+    total = {c.__name__: 0 for c in counters}
+    tokens = TRAIN_B * TRAIN_S
+
+    def report(tag, med, peak, step, params, state, batch, name):
+        dev_ms, wall_ms, top = profile_train_step(torch, step, params, state, batch, name)
+        log(f"  {tag}: step time median {med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s, peak "
+            f"device memory {peak / 2**30:.2f} GiB; profiled step: device {dev_ms:.3f} ms in "
+            f"{wall_ms:.1f} ms wall ({100 * dev_ms / wall_ms:.1f}% busy); top device ops: {top}")
+
+    for tag, cfg in (("codec", dispatch_config()), ("mamba2", get_config(SSM))):
+        losses, recon, med, peak, launches, tr = train2_trainer(torch, counters, tag, cfg)
+        if tag == "codec":
+            log(f"  codec: recon_loss a step {' '.join(f'{x:.4f}' for x in recon)}")
+            if not recon[-1] < recon[0]:
+                raise AssertionError("codec: recon_loss did not fall (the codec did not learn)")
+        check_per_step(tag, launches, TRAIN2_PER_STEP[tag])
+        batch = {k: torch.from_numpy(v).cuda() for k, v in train_batches(cfg, 1, 5)[0].items()}
+        report(tag, med, peak, steps.make_train_step(tr.model, tr.opt_cfg), tr.params,
+               tr.opt_state, batch, f"train2_{tag}_profile.txt")
+        for k, n in launches.items():
+            total[k] += n
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = get_config(ENCDEC)
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state = opt_mod.init_optimizer(cfg.optimizer, params)
+    step = steps.make_train_step(model, opt_mod.OptimizerConfig(name=cfg.optimizer, **TRAIN_OPT))
+    batches = [{**{k: torch.from_numpy(v).cuda() for k, v in b.items()},
+                "frame_embeds": train2_frames(torch, cfg, cfg.torch_dtype, i).cuda()}
+               for i, b in enumerate(train_batches(cfg, TRAIN2_STEPS + 1, 0))]
+    losses, times = [], []
+
+    def run():
+        nonlocal params, state
+        for b in batches[:-1]:
+            t = time.perf_counter()
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, launches = counted_run(counters, run)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  whisper: losses {' '.join(f'{x:.4f}' for x in losses)}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("whisper: a loss was not finite")
+    check_per_step("whisper", launches, TRAIN2_PER_STEP["whisper"])
+    report("whisper (step time to the synchronized end of the step)",
+           statistics.median(times[1:]), peak, step, params, state, batches[-1],
+           "train2_whisper_profile.txt")
+    for k, n in launches.items():
+        total[k] += n
+    return total
+
+
+def train2_phase(torch, timer, counters):
+    """Phase 16: training, second half (``--train2`` runs it alone): (a)
+    the dispatch codec's autograd Function against autograd of its plain
+    version at ``CODEC_FN_CASES``, (b) one f32 train step card vs CPU of
+    the codec model, mamba2-130m, whisper-base and jamba's smoke hybrid,
+    (c) bf16 at full width and depth.  Returns (c)'s launches over
+    ``counters`` and the backward kernel's."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    counters = list(counters) + [flash_attention_bwd]
+    t0 = time.perf_counter()
+    log("(a) the dispatch codec's autograd Function against its plain version (card):")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for case in CODEC_FN_CASES:
+        codec_function_case(torch, timer, gen, *case)
+    log(f"(a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    log("(b) one f32 train step, card vs CPU, at full width and reduced depth:")
+    small = (("codec model, 4 layers", dispatch_config().replace(num_layers=4, dtype="float32")),
+             ("mamba2-130m, 4 layers", get_config(SSM).replace(num_layers=4, dtype="float32")),
+             ("whisper-base, 2 + 2 layers", get_config(ENCDEC).replace(
+                 num_layers=2, encoder_layers=2, dtype="float32")),
+             ("jamba-1.5-large smoke, 8 layers", smoke_config(get_config(HYBRID)).replace(
+                 dtype="float32")))
+    for tag, cfg in small:
+        batch = {k: torch.from_numpy(v) for k, v in train_batches(cfg, 1, 3)[0].items()}
+        if cfg.encoder_decoder:
+            batch["frame_embeds"] = train2_frames(torch, cfg, torch.float32, 3)
+        train2_card_vs_cpu(torch, tag, cfg, batch)
+        gc.collect()
+    log(f"(b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    log(f"(c) bf16 at full width and depth ({TRAIN2_STEPS} steps each; card "
+        f"{nvidia_smi()}):")
+    launches = train2_bf16_runs(torch, counters)
+    log(f"(c) took {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def wrappers():
     """Every kernel wrapper of the port, each counting its launches."""
     from repro_torch.kernels.expert_mlp import (
@@ -5201,7 +5532,8 @@ def wrappers():
 # the phases that ``--flag`` runs alone, after the build; no result line
 ALONE = {"--vlm": ("vlm", lambda: vlm_phase), "--ssm": ("ssm", lambda: ssm_phase),
          "--danube": ("danube", lambda: danube_phase),
-         "--encdec": ("encdec", lambda: encdec_phase), "--train": ("train", lambda: train_phase)}
+         "--encdec": ("encdec", lambda: encdec_phase), "--train": ("train", lambda: train_phase),
+         "--train2": ("train2", lambda: train2_phase)}
 
 
 def alone(torch, flag: str) -> int:
@@ -5348,6 +5680,11 @@ def main() -> int:
     t0 = time.perf_counter()
     recs["flash_attention_bwd"], train_launches = train_phase(torch, timer, stream_counters)
     log(f"train phase took {time.perf_counter() - t0:.1f} s")
+    log("training, second half: the dispatch codec's joint eq. 8 loss, SSM and "
+        "encoder-decoder training:")
+    t0 = time.perf_counter()
+    train2_launches = train2_phase(torch, timer, stream_counters)
+    log(f"train2 phase took {time.perf_counter() - t0:.1f} s")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention, the serving run with the dispatch codec for its
@@ -5427,6 +5764,9 @@ def main() -> int:
             "encdec_launches": encdec_launches.get(counter, 0),
             # launches in phase 15's bf16 training run (30 steps of switch-base)
             "train_launches": train_launches.get(counter, 0),
+            # launches in phase 16's bf16 runs (the codec model's and
+            # mamba2's Trainer, whisper's train steps), summed
+            "train2_launches": train2_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,6 +1,7 @@
 """PO-ECC low-rank compression (paper eq. 8), 1-D token-tensor form, and
 the int8 second stage of the boundary payload: the port of the reference's
-``core/compression.py`` parts the end-cloud engines use.
+``core/compression.py`` (its 2-D faithful form, ``joint_loss`` and the
+int8 range codec too, which only tests call).
 
 Token tensors ``[..., d]`` cross a communication boundary as
 ``Z = X E`` (``E`` in R^{d x r}) and are restored as ``X̂ = Z D``, cutting
@@ -9,7 +10,8 @@ CUDA kernel on the card) with the reference consumer's casting: the codec
 is cast to the activation type before the product (``compute_codec``
 keeps that copy beside the f32 one, made once).  The MoE dispatch codec
 runs both products and its reconstruction loss in one launch
-(``roundtrip_loss_1d``).  The boundary's int8
+(``roundtrip_loss_1d``), and trains through an autograd Function around
+that launch.  The boundary's int8
 stage runs with the codec in one launch a side (``encode_quantized_1d``,
 ``decode_quantized_1d``, ``kernels.lowrank``'s fused forms), or alone
 (``quantize_boundary``, ``kernels.quant``) where there is no codec.
@@ -27,8 +29,7 @@ from repro_torch.kernels.lowrank import (
     lowrank_decode_quant,
     lowrank_encode,
     lowrank_encode_quant,
-    lowrank_roundtrip_loss,
-    roundtrip_plan,
+    roundtrip_loss,
 )
 from repro_torch.kernels.lowrank.ops import BOUNDARY_SCALE_DTYPE  # f16: a row is r + 2 bytes
 from repro_torch.kernels.quant import dequantize_rows, quantize_rows
@@ -125,18 +126,74 @@ def roundtrip_loss_1d(params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torc
     """``(x̂, recon_loss(x, x̂))`` with ``x̂ = roundtrip_1d(params, x)``: the
     MoE dispatch codec's two numbers, in one launch
     (``kernels.lowrank.lowrank_roundtrip_loss``) where ``roundtrip_plan``
-    fuses the rank, else encode, decode and the loss one after the other."""
+    fuses the rank, else encode, decode and the loss one after the other
+    (``kernels.lowrank.roundtrip_loss``).  When a gradient is wanted the
+    call goes through ``RoundtripLossFn``, whose backward carries the task
+    loss's gradient and the eq. 8 term's through the codec to x and to the
+    codec's f32 ``enc`` / ``dec``."""
     enc, dec = _weight(params, "enc", x.dtype), _weight(params, "dec", x.dtype)
-    if roundtrip_plan(enc.shape[1]) == "fused":
-        x_hat, _, loss = lowrank_roundtrip_loss(_rows(x), enc, dec)
-        return x_hat.reshape(x.shape), loss
-    x_hat = decode_1d(params, encode_1d(params, x))
-    return x_hat, recon_loss(x, x_hat)
+    x_hat, _, loss = roundtrip_loss(_rows(x), enc, dec)
+    return x_hat.reshape(x.shape), loss
 
 
 def recon_loss(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
     """||X - X_hat||_2^2 (mean over elements, f32)."""
     return (x.float() - x_hat.float()).square().mean()
+
+
+def joint_loss(x: torch.Tensor, x_hat: torch.Tensor, task_loss: torch.Tensor,
+               recon_weight: float = 1.0, task_weight: float = 1.0) -> torch.Tensor:
+    """L_rec = ||X - X_hat||^2 + lambda * L_task  (eq. 8)."""
+    return recon_weight * recon_loss(x, x_hat) + task_weight * task_loss
+
+
+# -- the 2-D faithful form (eq. 8 verbatim, feature maps [..., h, w, c]) -----
+
+
+def init_lowrank_2d(generator: torch.Generator, h: int, w: int, r: int,
+                    dtype: torch.dtype = torch.float32, device=None) -> Dict:
+    """``{"U", "V", "U_hat", "V_hat"}``: ``U`` [h, r] and ``V`` [w, r] from
+    the QRs of standard normal draws, the decoder starting as the encoder
+    (the identity is recoverable at r = min(h, w)).  As with
+    :func:`init_lowrank_1d`, a codec that must equal the reference's is
+    carried across."""
+    u, v = (torch.linalg.qr(torch.randn(n, r, generator=generator, dtype=torch.float32,
+                                        device=generator.device).cpu())[0]
+            for n in (h, w))
+    u, v = (t.contiguous().to(device=device, dtype=dtype) for t in (u, v))
+    return {"U": u, "V": v, "U_hat": u.clone(), "V_hat": v.clone()}
+
+
+def encode_2d(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """``x [..., h, w, c] -> z [..., r, r, c]`` (Z = U^T X V, per channel)."""
+    return torch.einsum("hr,...hwc,ws->...rsc", params["U"].to(x.dtype), x,
+                        params["V"].to(x.dtype))
+
+
+def decode_2d(params: Dict, z: torch.Tensor) -> torch.Tensor:
+    """``z [..., r, r, c] -> x_hat [..., h, w, c]`` (X_hat = U_hat Z V_hat^T)."""
+    return torch.einsum("hr,...rsc,ws->...hwc", params["U_hat"].to(z.dtype), z,
+                        params["V_hat"].to(z.dtype))
+
+
+# -- the int8 range codec (the reference's beyond-paper alternative) ---------
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 along ``axis``: (codes, f32 scale = max|x| / 127,
+    at least 1e-12), codes rounded half to even and clipped to ±127."""
+    xf = x.float()
+    # a tensor divisor: CUDA divides by a Python scalar as a product with its
+    # reciprocal, one ulp off the reference's quotient
+    scale = (xf.abs().amax(dim=axis, keepdim=True)
+             / torch.tensor(127.0, device=x.device)).clamp_min(1e-12)
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
 
 
 def quantize_boundary(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

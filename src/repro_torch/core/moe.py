@@ -213,7 +213,7 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg, *, expert_mask=None,
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if "resident" in params:
-        y, aux = moe_resident(params, x2, cfg, expert_mask)
+        y, aux = moe_resident(params, x2, cfg, expert_mask, aux=train)
     elif impl == "sorted":
         y, aux = moe_sorted(params, x2, cfg, expert_mask, aux=train)
     elif impl == "naive":

@@ -271,6 +271,11 @@ def _resident(what, xs, group_sizes, store_wi, store_wg, store_wo, ids, act, sca
     column scales) int8 codes with float32 scales."""
     if xs.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {xs.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xs, store_wi, store_wg, store_wo)):
+        raise NotImplementedError(
+            f"{what}: the resident kernel has no backward (the end tier serves; "
+            "training runs moe_sorted's grouped_mlp)")
     store = dict(store_wi=store_wi, store_wo=store_wo)
     if store_wg is not None:
         store["store_wg"] = store_wg

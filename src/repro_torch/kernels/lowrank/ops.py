@@ -23,6 +23,9 @@ consumer's roundings, Z rounded to X's type between the products, and
 X̂ in f32, the error from the unrounded X̂, X̂ rounded at the end): on
 the card, the same kernel's f32 form on f32 copies of its operands.  The
 error sums are deterministic: per-block partials summed in a fixed order.
+Training enters ``roundtrip_loss`` through :class:`RoundtripLossFn`, whose
+forward is that launch (or the composed kernels) and whose backward is
+plain products, as the reference differentiates its consumer.
 
 The int8 boundary folds into the codec: ``lowrank_encode_quant`` is
 ``quantize_rows(lowrank_encode(x, enc), scale_dtype=float16)`` and
@@ -362,6 +365,83 @@ def lowrank_roundtrip(
     x_hat, err = _roundtrip("lowrank_roundtrip", x.float(), enc.float(), dec.float())
     lowrank_roundtrip.launches += 1
     return x_hat.to(x.dtype), err[0]
+
+
+def _roundtrip_loss(x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor):
+    """(X̂, Σ(X − X̂)², its mean, Z or None) by :func:`roundtrip_plan`: one
+    ``lowrank_roundtrip_loss`` where it fuses the rank (Z stays inside the
+    launch: None), else ``lowrank_encode``, ``lowrank_decode`` and the
+    error summed by PyTorch.  Each wrapper takes the plain version on CPU
+    tensors."""
+    if roundtrip_plan(enc.shape[1]) == "fused":
+        return (*lowrank_roundtrip_loss(x, enc, dec), None)
+    z = lowrank_encode(x, enc)
+    x_hat = lowrank_decode(z, dec)
+    err = (x.float() - x_hat.float()).square()
+    return x_hat, err.sum(), err.mean(), z
+
+
+def roundtrip_loss(
+    x: torch.Tensor, enc: torch.Tensor, dec: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The MoE dispatch codec's roundtrip: (X̂ = T(T(X·E)·D) in x's type T,
+    Σ(X − X̂)² and its mean over X's elements, f32), in one launch where
+    :func:`roundtrip_plan` fuses the rank, else the encode and decode
+    kernels; through :class:`RoundtripLossFn` when a gradient is wanted
+    (grad mode on and an input that requires one), so serving builds no
+    graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, enc, dec)):
+        return RoundtripLossFn.apply(x, enc, dec)
+    return _roundtrip_loss(x, enc, dec)[:3]
+
+
+class RoundtripLossFn(torch.autograd.Function):
+    """The roundtrip with an explicit backward, the autodiff of the
+    reference's ``roundtrip_1d`` then ``recon_loss`` (and of the plain
+    version) at their rounding points.  The forward is
+    :func:`_roundtrip_loss` (the kernels on the card).  The backward
+    recomputes Z = T(X·E) where the fused launch kept it inside (the
+    composed plan saves it), then, with N = X's elements and c the
+    gradient reaching Σ(X − X̂)² (the mean's over N added):
+
+    - dX̂ = upstream + T(2c(X̂ − X)), summed in T;
+    - dZ = T(dX̂·Dᵀ), dD = T(Zᵀ·dX̂);
+    - dX = T(dZ·Eᵀ) + T(2c(X − X̂)), dE = T(Xᵀ·dZ);
+
+    each product in f32 (``torch.matmul``: the reference has no backward
+    kernel for the codec, only plain products).  E and D arrive in T, as
+    the consumer casts its f32 masters; the cast's own backward returns
+    their gradients to f32."""
+
+    @staticmethod
+    def forward(ctx, x, enc, dec):
+        x_hat, sq, loss, z = _roundtrip_loss(x, enc, dec)
+        ctx.save_for_backward(x, enc, dec, x_hat, z)
+        return x_hat, sq, loss
+
+    @staticmethod
+    def backward(ctx, d_xhat, d_sq, d_loss):
+        x, enc, dec, x_hat, z = ctx.saved_tensors
+        dt = x.dtype
+        f32 = torch.float32
+        c = torch.zeros((), dtype=f32, device=x.device)
+        if d_sq is not None:
+            c = c + d_sq.float()
+        if d_loss is not None:
+            c = c + d_loss.float() / max(x.numel(), 1)
+        d_err = (x.float() - x_hat.float()) * (2.0 * c)  # the error's gradient at X
+        g = (-d_err).to(dt)
+        if d_xhat is not None:
+            g = d_xhat.to(dt) + g
+        if z is None:
+            z = (x.float() @ enc.float()).to(dt)
+        gf = g.float()
+        dz = (gf @ dec.float().T).to(dt)
+        d_dec = (z.float().T @ gf).to(dec.dtype)
+        dzf = dz.float()
+        dx = (dzf @ enc.float().T).to(dt) + d_err.to(dt)
+        d_enc = (x.float().T @ dzf).to(enc.dtype)
+        return dx, d_enc, d_dec
 
 
 lowrank_encode.launches = 0

@@ -1,8 +1,8 @@
 """Attention: GQA projections, RoPE, full-sequence flash attention,
 attention straight off the KV page pool, and one decode token against a
 dense ring (port of the reference's ``models/attention.py``: the parts the
-serving engines and the one-shot end-cloud pipeline run, and the O(S²)
-oracle)."""
+serving engines, the one-shot end-cloud pipeline and training run, and the
+O(S²) and dense-ring chunk oracles)."""
 
 from __future__ import annotations
 
@@ -133,6 +133,35 @@ def decode_attention(
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     o = torch.einsum("bgnk,bkgd->bgnd", p.float(), v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def chunk_attention(
+    q: torch.Tensor,  # [B, C, H, hd] one prefill chunk of queries
+    k_cache: torch.Tensor,  # [B, S, KV, hd] dense ring (pages gathered)
+    v_cache: torch.Tensor,
+    q_positions: torch.Tensor,  # [B, C] absolute position of each query
+    key_positions: torch.Tensor,  # [B, S] position each ring slot holds
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """C queries against a dense ring that already holds the chunk's own
+    k/v, in plain PyTorch as the reference computes it: per-query causal
+    masking over absolute positions (C = 1 is :func:`decode_attention`),
+    scores in f32, p rounded to the cache type for the value product.  The
+    oracle the paged chunk attention is held to; no engine path runs it."""
+    B, C, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qr = q.reshape(B, C, KV, G, hd)
+    s = torch.einsum("bcgnd,bkgd->bcgnk", qr.float(), k_cache.float()) * (1.0 / hd ** 0.5)
+    qp = q_positions.long()[:, :, None]
+    kp = key_positions.long()[:, None, :]
+    valid = (kp <= qp) & (kp >= 0)  # [B, C, S]
+    if window is not None:
+        valid &= kp > qp - window
+    s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bcgnk,bkgd->bcgnd", p.float(), v_cache.float())
+    return o.reshape(B, C, H, hd).to(q.dtype)
 
 
 def paged_chunk_attention(

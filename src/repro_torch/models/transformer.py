@@ -219,18 +219,11 @@ def _merge_aux(acc: Dict, aux: Dict) -> Dict:
 
 def check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` on what the training form does not
-    take yet: a compression codec (its joint loss comes with ROADMAP item
-    7b), SSM or cross-attention layers (item 7b), an expert-parallel MoE
-    implementation (item 8)."""
-    c = cfg.compression
-    if c is not None and c.rank > 0 and c.boundaries:
-        raise NotImplementedError(
-            f"{cfg.name}: training with a compression codec on {c.boundaries} "
-            "(the joint eq. 8 loss) comes with ROADMAP item 7b")
-    if any(s.kind != "attn" or s.cross_attn for s in cfg.layer_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training a pattern with SSM or cross-attention layers comes "
-            "with ROADMAP item 7b")
+    take on one device: an expert-parallel MoE implementation (ROADMAP
+    item 8).  Every pattern trains (attention, SSM, hybrid, cross-attention
+    with its encoder), and so does a dispatch codec, whose eq. 8 term joins
+    the aux loss; a pipeline codec is a serving boundary and never enters
+    the model."""
     if cfg.moe is not None and cfg.moe_impl not in ("auto", "sorted", "naive"):
         raise NotImplementedError(
             f"{cfg.name}: moe_impl={cfg.moe_impl!r} needs a device mesh (ROADMAP item 8)")
@@ -258,10 +251,10 @@ def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *
     each leaf the layers' rings, cross caches or SSM states stacked over
     the block repeats.
 
-    ``train=True`` is the training form (attention and MoE patterns,
-    :func:`check_trainable`): every MoE layer computes its router losses
-    and statistics, and the aux comes back as one dict, summed within a
-    block and then over blocks as the reference sums it, so vector
+    ``train=True`` is the training form (:func:`check_trainable`): every
+    MoE layer computes its router losses and statistics (and a dispatch
+    codec's ``recon_loss``), and the aux comes back as one dict, summed
+    within a block and then over blocks as the reference sums it, so vector
     statistics keep their ``[E]`` and ``[K]`` shapes; returns (x, aux,
     None).  With ``remat`` (and grad mode on) each block runs under
     ``torch.utils.checkpoint`` (non-reentrant), which drops its saved

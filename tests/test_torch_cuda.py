@@ -1674,3 +1674,149 @@ def test_train_step_on_card_matches_cpu(gen):
         diff = (a.float() - b.float()).abs()
         assert diff.max().item() <= ocfg.lr
         assert (diff > 1e-5 + 1e-5 * b.abs()).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,r", [(1024, 768, 384), (8, 768, 384), (256, 4096, 1024)])
+def test_roundtrip_function_on_card(gen, T, d, r, dtype):
+    """The dispatch codec's ``RoundtripLossFn`` on the card (its forward the
+    fused roundtrip kernel to rank 512, the encode and decode kernels
+    beyond) against autograd of the plain version on the same inputs: X̂,
+    and dX, dE, dD (E and D f32 masters cast to the rows' type, as the
+    MoE layer casts them) within 1e-5 (f32) or 2^-6 (bf16: the kernel's
+    X̂ one ulp off where its sums run in another order) of each one's
+    largest |value|; the launch counters rise by the kernels the plan
+    names."""
+    from repro_torch.kernels.lowrank import roundtrip_loss, roundtrip_plan
+
+    x = torch.randn(T, d, generator=gen, device="cuda")
+    e = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0].contiguous()
+    dec = e.T.contiguous() + 0.01 * torch.randn(r, d, generator=gen, device="cuda")
+    up = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+
+    def run(fn):
+        xs, es, ds = (t.to(dtype) if t is x else t.clone() for t in (x, e, dec))
+        for t in (xs, es, ds):
+            t.requires_grad_(True)
+        x_hat, _, mean = fn(xs, es.to(dtype), ds.to(dtype))
+        ((x_hat * up).float().sum() + 0.05 * mean).backward()
+        return x_hat, (xs.grad, es.grad, ds.grad)
+
+    counters = (lowrank_roundtrip_loss, lowrank_encode, lowrank_decode)
+    before = [c.launches for c in counters]
+    got_hat, got = run(roundtrip_loss)
+    fused = roundtrip_plan(r) == "fused"
+    assert [c.launches - b for c, b in zip(counters, before)] == ([1, 0, 0] if fused
+                                                                 else [0, 1, 1])
+    assert type(got_hat.grad_fn).__name__ == "RoundtripLossFnBackward"
+    want_hat, want = run(lowrank_roundtrip_loss_plain)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -6
+    for name, g, w in zip(("x_hat", "dx", "denc", "ddec"), (got_hat, *got), (want_hat, *want)):
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * scale, f"{name}: max |diff| {err} vs {rel} x {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv", [(1500, 1500), (256, 1500)])  # encoder; cross
+def test_flash_attention_function_whisper_shapes(gen, dtype, Sq, Skv):
+    """``attention.flash_attention`` under grad (``FlashAttentionFn``: the
+    forward kernel with its log-sum-exp, the backward kernel) at whisper's
+    non-causal encoder [4, 1500, 8, 64] and its cross-attention 256 on
+    1500, against the plain forward and backward (the reference's
+    ``_bwd``) on the same inputs: output, dq, dk, dv within 1e-4 (f32) or
+    2e-2 (bf16) of each one's largest |value|."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_plain
+    from repro_torch.models.attention import flash_attention
+
+    q, dout = (torch.randn(4, Sq, 8, 64, generator=gen, device="cuda").to(dtype) for _ in "qo")
+    k, v = (torch.randn(4, Skv, 8, 64, generator=gen, device="cuda").to(dtype) for _ in "kv")
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(qs, ks, vs, causal=False)
+    out.backward(dout)
+    assert (flash_attention_fwd.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (1, 1)
+    want_out, lse = flash_attention_plain(q, k, v, causal=False, return_lse=True)
+    want = flash_attention_bwd_plain(dout, q, k, v, want_out, lse, causal=False, window=None,
+                                     q_offset=0)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("out", "dq", "dk", "dv"), (out, qs.grad, ks.grad, vs.grad),
+                          (want_out, *want)):
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * scale, f"{name}: max |diff| {err} vs {rel} x {scale}"
+
+
+@pytest.mark.parametrize("name", ["mamba2-130m", "switch-base codec", "whisper-base"])
+def test_train_step_7b_on_card_matches_cpu(gen, name):
+    """One f32 train step on the card against the CPU from the same params
+    and batch: mamba2 smoke (the SSM in plain PyTorch: no kernel launches),
+    switch-base smoke with a rank-32 dispatch codec (the roundtrip kernel
+    inside ``RoundtripLossFn``, 2 launches a MoE layer, doubled by the
+    recomputation) and whisper-base smoke (encoder and cross-attention
+    through the flash kernels).  Loss, ``recon_loss`` and grad norm within
+    1e-5 relative, every gradient leaf within 1e-4 of its largest |value|
+    and none all 0 on the card only; the params after the step as
+    ``test_train_step_on_card_matches_cpu`` holds them."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt_mod
+
+    cfg = smoke_config(get_config(name.split()[0])).replace(dtype="float32")
+    if name.endswith("codec"):
+        cfg = cfg.replace(num_layers=4, compression=CompressionConfig(
+            rank=32, boundaries=("dispatch",), recon_weight=0.05))
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)}
+    if cfg.encoder_decoder:
+        batch["frame_embeds"] = rng.standard_normal(
+            (2, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    counters = (flash_attention_fwd, flash_attention_bwd, group_gate, grouped_mlp,
+                lowrank_roundtrip_loss)
+    want_launches = {"mamba2-130m": (0, 0, 0, 0, 0), "switch-base codec": (8, 4, 4, 4, 8),
+                     "whisper-base": (6, 4, 0, 0, 0)}[name]
+    ocfg = opt_mod.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev)
+        p = opt_mod.tree_map(lambda t: t.to(dev, copy=True), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = [c.launches for c in counters]
+        _, metrics, grads = steps.loss_and_grads(steps.make_loss_fn(model), p, b)
+        if dev == "cuda":
+            assert tuple(c.launches - n for c, n in zip(counters, before)) == want_launches
+        opt = opt_mod.init_optimizer(cfg.optimizer, p)
+        p, opt, m2 = steps.make_train_step(model, ocfg)(p, opt, b)
+        got[dev] = (metrics, to_device(grads, "cpu"), to_device(p, "cpu"), m2)
+    (mc, gc, pc, sc), (mg, gg, pg, sg) = got["cpu"], got["cuda"]
+    for key in ("loss", "ce_loss", "recon_loss"):
+        if key in mc:
+            torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-5, atol=0)
+    assert ("recon_loss" in mc) == name.endswith("codec")
+    torch.testing.assert_close(sg["grad_norm"].cpu(), sc["grad_norm"], rtol=1e-5, atol=0)
+    for a, b in zip(opt_mod.tree_leaves(gg), opt_mod.tree_leaves(gc)):
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * scale
+        assert a.abs().max().item() > 0 or scale == 0
+    for a, b in zip(opt_mod.tree_leaves(pg), opt_mod.tree_leaves(pc)):
+        diff = (a.float() - b.float()).abs()
+        assert diff.max().item() <= ocfg.lr
+        assert (diff > 1e-5 + 1e-5 * b.abs()).float().mean().item() <= 0.01
+
+
+def test_resident_ffn_refuses_a_gradient(gen):
+    """The resident expert FFN (the end tier's serving kernel) has no
+    backward: asked for a gradient on the card it raises instead of
+    returning an output without one."""
+    xs = torch.randn(4, 32, generator=gen, device="cuda", requires_grad=True)
+    store_wi = torch.randn(3, 32, 64, generator=gen, device="cuda")
+    store_wo = torch.randn(3, 64, 32, generator=gen, device="cuda")
+    sizes = torch.tensor([2, 2], dtype=torch.int32, device="cuda")
+    ids = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        grouped_mlp_resident(xs, sizes, store_wi, None, store_wo, ids, "gelu")
+    with torch.no_grad():
+        assert grouped_mlp_resident(xs, sizes, store_wi, None, store_wo, ids, "gelu").shape == (4, 32)

@@ -3,8 +3,11 @@ gate's and the expert FFN's autograd Functions (the backward the card runs
 around their kernels) against autograd of their plain versions and
 ``jax.grad`` of the reference's ``gating.gate`` and ``moe_sorted``;
 ``make_train_step`` against the reference's on three smoke configs, with
-AdamW, Adafactor and ``grad_accum=2``; ``Model.train_logits(train=False)``;
-the loss falling over 8 steps; and what the training form refuses.
+AdamW, Adafactor and ``grad_accum=2`` (``steps_equal_the_reference``, which
+the codec, SSM and encoder-decoder files share);
+``Model.train_logits(train=False)``; the loss falling over 8 steps, on
+every pattern the reference's smoke test trains; and what the training
+form refuses (a mesh: ROADMAP item 8).
 Reference weights reach the port through the numpy bridge; reference
 calls are jitted.
 
@@ -20,6 +23,7 @@ Tolerances:
 """
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -31,20 +35,25 @@ from repro.configs import get_config as jget
 from repro.configs import smoke_config as jsmoke
 from repro.core import gating as jgating
 from repro.core import moe as jmoe
+from repro.data import pipeline as jpipeline
 from repro.launch.steps import make_loss_fn as jmake_loss_fn
 from repro.launch.steps import make_train_step as jmake_train_step
 from repro.models.model import build_model, make_dummy_batch
 from repro.training.optimizer import OptimizerConfig as JOptimizerConfig
 from repro.training.optimizer import init_optimizer as jinit_optimizer
+from repro.training.trainer import Trainer as JTrainer
+from repro.training.trainer import TrainerConfig as JTrainerConfig
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import gating, moe
+from repro_torch.data import pipeline
 from repro_torch.kernels.expert_mlp import ops as ffn_ops
 from repro_torch.kernels.expert_mlp import grouped_mlp, grouped_mlp_plain
 from repro_torch.kernels.group_gate import group_gate, group_gate_plain
 from repro_torch.launch import steps
 from repro_torch.models.model import Model
 from repro_torch.training import optimizer as opt_mod
+from repro_torch.training.trainer import Trainer, TrainerConfig
 
 # one intra-op thread per test worker: the suite runs several workers on a
 # few shared cores, where a many-thread pool stalls on every tiny op
@@ -239,10 +248,19 @@ def test_train_step_equals_the_reference(case):
     microbatches, llama4-scout (shared expert, gated FFN) with
     Adafactor."""
     name, kw = STEP_CASES[case]
-    jcfg, cfg = _cfgs(name, **kw)
+    steps_equal_the_reference(case, *_cfgs(name, **kw))
+
+
+def steps_equal_the_reference(case, jcfg, cfg, n_steps=3, seq=32):
+    """``n_steps`` of the port's ``make_train_step`` against the
+    reference's from the reference's seed-0 params on its dummy batch [4,
+    ``seq``] (``frame_embeds`` and patches too where the config has
+    them): before each step every gradient leaf at the reference's
+    params, after it every metric and the params (the module's
+    tolerances)."""
     jm = build_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
-    batch = jax.tree.map(np.asarray, make_dummy_batch(jcfg, jax.random.PRNGKey(1), 4, 32))
+    batch = jax.tree.map(np.asarray, make_dummy_batch(jcfg, jax.random.PRNGKey(1), 4, seq))
     tb = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     jo = jinit_optimizer(cfg.optimizer, jp)
@@ -252,7 +270,7 @@ def test_train_step_equals_the_reference(case):
     model = Model(cfg, device="cpu")
     tloss = steps.make_loss_fn(model)
     tstep = steps.make_train_step(model, opt_mod.OptimizerConfig(name=cfg.optimizer, **OPT))
-    for i in range(3):
+    for i in range(n_steps):
         # the gradients at the reference's params (the two runs' params part
         # by Adam's amplified roundings, held below)
         (_, _), jg = jgrad(jp, batch)
@@ -267,6 +285,32 @@ def test_train_step_equals_the_reference(case):
             _leaf_close(np.asarray(tmetrics[key], np.float32), want, f"{case} {key}", rel)
         assert int(to["step"]) == int(jo["step"]) == i + 1
         _params_close(tp, jax.tree.map(np.asarray, jp), OPT["lr"] * (i + 1))
+
+
+def trainer_equals_the_reference(tmp_path, jcfg, cfg, total=4):
+    """``Trainer`` for ``total`` steps of the ``lm`` task ([4, 32] at vocab
+    512), a checkpoint every 2 steps, against the reference trainer: the
+    port's params and optimizer state bridged from the reference's after
+    ``initialize()``; every logged loss within 1e-5 relative and grad norm
+    within 1e-4 of the reference's."""
+    kw = dict(total_steps=total, checkpoint_every=2, log_every=1, async_checkpoint=False)
+
+    def data(mod):
+        return itertools.cycle(mod.batches(mod.DataConfig(task="lm", vocab_size=512, seq_len=32),
+                                           4, 8))
+
+    jt = JTrainer(jcfg, data(jpipeline), trainer_cfg=JTrainerConfig(
+        checkpoint_dir=str(tmp_path / "ref"), **kw)).initialize()
+    tt = Trainer(cfg, data(pipeline), device="cpu", trainer_cfg=TrainerConfig(
+        checkpoint_dir=str(tmp_path / "port"), **kw)).initialize()
+    tt.params = params_from_numpy(jax.tree.map(np.asarray, jt.params), "cpu")
+    tt.opt_state = params_from_numpy(jax.tree.map(np.asarray, jt.opt_state), "cpu")
+    want, got = jt.run()["log"], tt.run()["log"]
+    assert [m["step"] for m in got] == [m["step"] for m in want] == list(range(1, total + 1))
+    for a, b in zip(got, want):
+        assert np.isfinite(a["loss"])
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]), (a, b)
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 1e-4 * abs(b["grad_norm"]), (a, b)
 
 
 def test_train_logits_without_training_equals_the_reference():
@@ -289,14 +333,15 @@ def test_train_logits_without_training_equals_the_reference():
         assert tuple(aux[key].shape) == np.shape(want)
 
 
-@pytest.mark.parametrize("name", ["tinyllama-1.1b", "llama4-scout-17b-16e"])
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "llama4-scout-17b-16e",
+                                  "qwen3-moe-235b-a22b", "mamba2-130m", "jamba-1.5-large-398b"])
 def test_train_step_decreases_loss(name):
     """The reference's ``test_smoke_train_step_decreases_loss`` setting
     (``tests/test_models_smoke.py``): smoke config as the registry gives it
     (bf16 activations), the reference's dummy batch [4, 32], lr 1e-2 after
     one warmup step, 8 steps; every loss finite and the last below the
-    first.  qwen3-moe keeps its dispatch codec at smoke size and mamba2 /
-    jamba hold SSM layers: those train with ROADMAP item 7b."""
+    first.  qwen3-moe keeps its rank-64 dispatch codec at smoke size (the
+    joint eq. 8 term in its loss); mamba2 and jamba hold SSM layers."""
     jcfg = jsmoke(jget(name))
     cfg = smoke_config(get_config(name))
     batch = make_dummy_batch(jcfg, jax.random.PRNGKey(1), 4, 32)
@@ -318,10 +363,6 @@ def test_train_step_decreases_loss(name):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("qwen3-moe-235b-a22b", "7b"),  # its rank-64 dispatch codec
-    ("mamba2-130m", "7b"),  # SSM layers
-    ("jamba-1.5-large-398b", "7b"),  # SSM + attention + MoE
-    ("whisper-base", "7b"),  # cross-attention layers
     ("switch-base a2a", "8"),  # an expert-parallel MoE implementation
 ])
 def test_what_the_training_form_refuses(name, item):
