@@ -44,7 +44,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    every kernel must have launched, every request must finish and the KV
    page pool must be empty again.  Step times, tokens/s and peak memory;
    then 8 more requests of the same prompt lengths, and a profiled decode
-   step with their 8 slots decoding.
+   step with their 8 slots decoding.  ``python3 chip_smoke.py --serve``
+   runs the build and this phase alone.
 4. The first prefill chunk and one decode step of a short prompt on the card
    against the same model on the CPU (plain versions, same bf16 weights).
 5. The one-shot two-tier ``EndCloudPipeline`` on the same full-width
@@ -118,10 +119,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    requests of 32 tokens, with the rank-384 boundary codec and without it
    (the draft never runs the codec, so with it on random weights nearly
    every round rejects): the speculative run's tokens equal the plain
-   run's and the CPU's, or the first token that differs is a near tie
-   (``equal_or_tie``: a top-2 gap below ``TIE`` of some layer's gate
-   probabilities or of the LM head's logits, through the engine's tiers);
-   its counters and host syncs (``SPEC_COUNTERS``) equal the CPU run's;
+   run's and, without the codec, the CPU's, or the first token that
+   differs is a near tie (``equal_or_tie``: a top-2 gap below ``TIE`` of
+   some layer's gate probabilities or of the LM head's logits, through the
+   engine's tiers); without the codec its counters and host syncs
+   (``SPEC_COUNTERS``) equal the CPU run's;
    rounds roll back, and without the codec drafts are also accepted.  In
    bf16 with the expert pool and the three int8 streams: it completes, the
    pools drain, the path's kernels launch and no other (``SPEC_PATH``;
@@ -146,11 +148,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    (Poisson) driven by ``loadgen.drive`` on a ``VirtualClock``; lane 0,
    then lane 1, turns hot on expert group 2 (``FLEET_SKEW_TICKS``), so
    lane 1's new slabs come from lane 0 over the LAN.  In f32 on the card
-   against the port's own CPU run of the same schedule: the counters
-   (``FLEET_COUNTERS``), placement log, replan events and every request's
-   stamps equal, tokens equal or the first difference a near tie, peer
-   fetches and preemptions both > 0, the pools drain, the path's kernels
-   launch.  In bf16 with the three int8 streams: completes and drains,
+   (phase 10 holds the same engine against its CPU run): every request
+   finishes and is stamped, peer fetches and preemptions both > 0, the
+   splits interior, the pools drain, the path's kernels launch.  In bf16 with the three int8 streams: completes and drains,
    ``summarize()`` a class (modeled clock, not the card's speed), only the
    path's kernels launch (``FLEET_BF16_PATH``), and one profiled fleet
    tick (``chiprun_out/fleet_profile.txt``) beside phases 6-7's ticks.
@@ -292,6 +292,36 @@ Phases, in order; any failure exits non-zero before the result lines:
    launches a step and no other kernel, the median step time, tokens/s,
    peak memory and a profiled step
    (``chiprun_out/train2_{codec,mamba2,whisper}_profile.txt``).
+17. Expert parallelism (``ep_phase``; ``python3 chip_smoke.py --ep`` runs
+   the build and this phase alone): qwen3-moe-235b-a22b at full width
+   (d_model 4096, 64 heads on 4 kv heads of 128, 128 experts in 16 groups,
+   top-8, d_ff 1536, vocab 151936) cut to ``EP_LAYERS`` layers, over
+   ``EP_MESH`` = (1, 4) ranks (``serve_tp``: 32 experts a rank) that
+   ``launch.mesh.spawn_ranks`` starts on the one card (gloo over CUDA
+   tensors), every rank drawing the non-expert weights from one seed and
+   only its own experts, each from a generator seeded by (seed, layer,
+   expert).  First the path's kernels against their plain versions at its
+   shapes (``ep_kernels``: paged attention at 64/4 heads of 128, decode and
+   a 32-token chunk, bf16 and f32; the gate's wide form at d 4096 with 128
+   experts in 16 groups; the expert FFN over 32 local experts at ``ep·C`` =
+   32 and 64 rows, and in f32 also at (a)'s 16 and 256; the codec at 4096
+   -> 1024), then one-process runs on the card
+   (never beside the ranks: about 25 GB against 4 x 10): (a)'s sorted
+   serving, (b)'s plain composition.  In the ranks: (a) f32, no codec,
+   dropless (``eval_capacity_factor`` = ep): 4 requests (prompts 16-200, 16
+   new tokens) through 4 slots (the a2a body) and through 2 (decode's 2
+   tokens fall back to the tp body); every rank's tokens equal the
+   one-process run's.  (b) One MoE layer with the config's rank-1024
+   dispatch codec, f32: each body's gathered output against the plain
+   composition (a2a: decode(encode(FFN_e(decode(encode(x))))) times w,
+   summed; tp: the codec around the summed partials), within ``EP_REL`` of
+   max |y|.  (c) bf16 with the codec, 8 requests through 4 slots: every
+   request finishes, every pool drains, the ranks' tokens are equal,
+   ``EP_PATH``'s kernels launch and no other; the step times, each rank's
+   peak memory, the collectives' calls and bytes a decode step (the a2a
+   payload at rank 1024 a quarter of the uncompressed one, shape-only)
+   and a profiled decode step's busy share on rank 0
+   (``chiprun_out/ep_decode_profile.txt``).
 
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
@@ -300,7 +330,8 @@ run; ``vlm_launches``: over phase 11's runs; ``ssm_launches``: over phase
 12's bf16 runs; ``danube_launches``: over phase 13's runs;
 ``encdec_launches``: in phase 14's bf16 run; ``train_launches``: in
 phase 15's bf16 training run, whose count is also ``flash_attention_bwd``'s
-``launches``; ``train2_launches``: over phase 16's bf16 runs), the
+``launches``; ``train2_launches``: over phase 16's bf16 runs;
+``ep_launches``: rank 0's in phase 17's bf16 run), the
 ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
@@ -1770,7 +1801,7 @@ CODEC_QUANT_KERNELS = (("encode + quantize", ("encode_quant_wgmma_kernel",
 # the merge of the splits
 PAGED_KERNELS = (("paged attention", ("paged_attention_kernel<", "paged_attention_mma_kernel<"),
                   ("paged_attention_merge_kernel<",)),)
-GATE_KERNELS = (("group gate", ("group_gate_kernel<",), ()),)
+GATE_KERNELS = (("group gate", ("group_gate_kernel<", "group_gate_wide_kernel<"), ()),)
 # the MoE dispatch codec's fused roundtrip (bf16 and f32 forms)
 ROUNDTRIP_KERNELS = (("dispatch codec roundtrip", ("roundtrip_wgmma_kernel",
                                                    "roundtrip_f32_kernel"), ()),)
@@ -2613,7 +2644,9 @@ def spec_f32(torch, model, params):
     codec, which the draft (the full stack under the end mask) never runs:
     on random weights the codec moves nearly every token, so rounds reject;
     and without it, where the draft differs from the model by the end mask
-    alone (3 of 8 experts) and rounds both accept and reject."""
+    alone (3 of 8 experts) and rounds both accept and reject.  The CPU runs
+    the second only (its speculative path is the first's less the codec,
+    which the stream phases hold card against CPU)."""
     from repro_torch.models.model import Model, to_device
 
     cfg = model.cfg.replace(dtype="float32")
@@ -2621,7 +2654,7 @@ def spec_f32(torch, model, params):
     for name, rank in (("codec rank 384", 384), ("no codec", 0)):
         runs = {}
         for tag, dev, kw in (("spec", "cuda", SPEC), ("plain", "cuda", {"link_rtt_s": 0.05}),
-                             ("cpu", "cpu", SPEC)):
+                             ("cpu", "cpu", SPEC))[: 2 if rank else 3]:
             t0 = time.perf_counter()
             eng = spec_engine(Model(cfg, device=dev), params if dev == "cuda" else hparams,
                               rank=rank, **kw)
@@ -2635,7 +2668,7 @@ def spec_f32(torch, model, params):
             if met["kv_pages_in_use"] or not all(len(t) == 32 for t in tokens):
                 raise AssertionError(f"spec run f32 ({tag}): pages left mapped or a request "
                                      "short")
-        spec, plain, host = runs["spec"], runs["plain"], runs["cpu"]
+        spec, plain, host = runs["spec"], runs["plain"], runs.get("cpu")
         m = spec[1]
         if not (m["spec_plan_k"] > 1 and m["spec_rounds"] > 0):
             raise AssertionError(f"spec run f32, {name}: no speculative round ran: {m}")
@@ -2644,14 +2677,16 @@ def spec_f32(torch, model, params):
                                  f"both run: {m}")
         if plain[1]["spec_rounds"] != 0:
             raise AssertionError("spec run f32: the plain run speculated")
+        equal_or_tie(torch, spec[2], spec[3], spec[0], plain[0],
+                     f"spec run f32, {name}, spec vs plain")
+        if host is None:
+            continue
         got = {k: m[k] for k in SPEC_COUNTERS}
         want = {k: host[1][k] for k in SPEC_COUNTERS}
         if got != want:
             raise AssertionError(f"spec run f32, {name}: card counters {got}, CPU {want}")
         log(f"spec run f32, {name}: card counters equal the CPU's; acceptance "
             f"{m['spec_accepted']} of {m['spec_drafted']} drafts")
-        equal_or_tie(torch, spec[2], spec[3], spec[0], plain[0],
-                     f"spec run f32, {name}, spec vs plain")
         equal_or_tie(torch, spec[2], spec[3], spec[0], host[0],
                      f"spec run f32, {name}, card vs CPU")
 
@@ -2959,42 +2994,32 @@ def fleet_record(fleet, reqs):
 
 
 def fleet_f32(torch, model, params, counters):
-    """Phase 9 in f32: the card against the port's own CPU run of the same
-    schedule."""
+    """Phase 9 in f32 on the card (chaos_f32 holds the same engine, card
+    against CPU, under faults)."""
     from repro_torch.core.hardware import PROFILES, DeviceState, capability
     from repro_torch.core.pipeline import plan_fleet_splits
-    from repro_torch.models.model import Model, to_device
+    from repro_torch.models.model import Model
 
     cfg32 = model.cfg.replace(dtype="float32")
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        gc.collect()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-            for c in counters:
-                c.launches = 0
-        t0 = time.perf_counter()
-        reqs, fleet, ticks, _ = fleet_run(
-            torch, Model(cfg32, device=dev), params if dev == "cuda" else to_device(params, "cpu"))
-        wall = time.perf_counter() - t0
-        rec = fleet_record(fleet, reqs)
-        runs[dev] = (reqs, fleet, rec)
-        extra = ""
-        if dev == "cuda":
-            launches = {c.__name__: c.launches for c in counters}
-            peak = torch.cuda.max_memory_allocated()
-            extra = (f"; peak device memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} "
-                     f"MiB above the {held / 2**20:.1f} MiB held before the fleet was built "
-                     f"(one cloud storage of {fleet.cloud_pool.num_pages} pages behind the "
-                     f"three lanes); "
-                     f"launches {launches}")
-            zero = [k for k in FLEET_F32_PATH if launches[k] == 0]
-            if zero:
-                raise AssertionError(f"fleet f32: path kernels not launched: {zero}")
-        log(f"fleet f32 ({dev}): {wall:.1f} s, {ticks} ticks, {rec['counters']}{extra}")
-    (treqs, tfleet, trec), (hreqs, hfleet, hrec) = runs["cuda"], runs["cpu"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    treqs, tfleet, ticks, _ = fleet_run(torch, Model(cfg32, device="cuda"), params)
+    wall = time.perf_counter() - t0
+    trec = fleet_record(tfleet, treqs)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"fleet f32 (cuda): {wall:.1f} s, {ticks} ticks, {trec['counters']}; peak device memory "
+        f"{peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} MiB above the "
+        f"{held / 2**20:.1f} MiB held before the fleet was built (one cloud storage of "
+        f"{tfleet.cloud_pool.num_pages} pages behind the three lanes); launches {launches}")
+    zero = [k for k in FLEET_F32_PATH if launches[k] == 0]
+    if zero:
+        raise AssertionError(f"fleet f32: path kernels not launched: {zero}")
     lanes = tfleet.lanes
     planned = plan_fleet_splits(
         lanes[0].tiers.layer_gflops, lanes[0].tiers.boundary_bytes,
@@ -3004,13 +3029,6 @@ def fleet_f32(torch, model, params, counters):
         f"forced {list(FLEET_SPLITS)}, run {trec['counters']['splits']}; cloud slot bases "
         f"{[l._cloud_base for l in lanes]}; placements by device "
         f"{[sum(p[1] == d for p in trec['placed']) for d in range(len(lanes))]}")
-    for what in ("counters", "replans", "placed"):
-        if trec[what] != hrec[what]:
-            raise AssertionError(f"fleet f32: {what} on the card {trec[what]}, CPU {hrec[what]}")
-    bad = [i for i, (a, b) in enumerate(zip(trec["stamps"], hrec["stamps"]))
-           if any(x is None or y is None or abs(x - y) > 1e-9 for x, y in zip(a, b))]
-    if bad:
-        raise AssertionError(f"fleet f32: stamps of requests {bad} differ from the CPU's")
     c = trec["counters"]
     if not (c["expert_peer_fetches"] > 0 and c["preemptions"] > 0):
         raise AssertionError(f"fleet f32: the peer and preemption paths did not both run: {c}")
@@ -3019,12 +3037,10 @@ def fleet_f32(torch, model, params, counters):
         raise AssertionError(f"fleet f32: pages left mapped or splits not interior: {c}")
     if any(not r.done or len(r.generated) != r.max_new_tokens for r in treqs):
         raise AssertionError("fleet f32: a request did not finish with its tokens")
-    device_of = {p[0]: p[1] for p in trec["placed"]}
-    equal_or_tie(torch, lambda r: lanes[device_of[treqs[r].request_id]], treqs,
-                 [list(r.generated) for r in treqs], [list(r.generated) for r in hreqs],
-                 "fleet f32, card vs CPU")
-    log(f"fleet f32: counters, placement log ({len(trec['placed'])} placements), replan events "
-        f"({len(trec['replans'])}) and all {len(treqs)} requests' stamps equal the CPU's")
+    if any(any(x is None for x in st) for st in trec["stamps"]):
+        raise AssertionError("fleet f32: a request lacks a stamp")
+    log(f"fleet f32: {len(trec['placed'])} placements, {len(trec['replans'])} replan events, "
+        f"all {len(treqs)} requests finished and stamped")
 
 
 def fleet_bf16(torch, model, params, counters, tick_profiles):
@@ -5503,6 +5519,404 @@ def train2_phase(torch, timer, counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: expert parallelism (the a2a and tp bodies on torch.distributed)
+# ---------------------------------------------------------------------------
+
+
+EP = "qwen3-moe-235b-a22b"
+EP_LAYERS = 2  # full width, depth cut to 2 of 94 layers
+EP_MESH = (1, 4)  # serve_tp: dp 1, ep 4 (32 of 128 experts a rank)
+EP_SEED = 0  # non-expert params' generator; experts by (seed, layer, expert)
+EP_LENS = (16, 77, 150, 200)  # (a): 4 requests
+EP_BF16_LENS = (16, 40, 77, 100, 128, 150, 181, 200)  # (c): 8 requests through 4 slots
+EP_NEW = 16
+EP_LAYER_TOKENS = 64  # (b): 16 tokens a rank in a2a; tp takes the first 2 (a 2-slot decode)
+EP_TIE = 1e-6  # (b): a token whose 8th and 9th gate probabilities are closer is left out
+EP_REL = 1e-4  # (b): the bodies against the plain composition, of max |y| (f32)
+EP_PATH = ("paged_attention", "group_gate", "grouped_mlp", "lowrank_encode", "lowrank_decode")
+EP_TIMEOUT_S = 180  # the process group's and the ranks' deadline
+
+
+def ep_configs():
+    """(the f32 model of (a) without a codec and dropless at serving, the
+    one MoE layer of (b) with the config's rank-1024 dispatch codec, the
+    bf16 model of (c) with the codec and the config's eval capacity)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(EP).replace(num_layers=EP_LAYERS)
+    # eval_capacity_factor = ep: a bucket holds every assignment, so (a) is
+    # dropless and must give a one-device sorted run's tokens
+    dropless = dataclasses.replace(base.moe, eval_capacity_factor=float(EP_MESH[1]),
+                                   capacity_factor=8.0)
+    f32 = base.replace(dtype="float32", compression=None, moe=dropless)
+    layer = base.replace(dtype="float32", moe=dropless)
+    bf16 = base.replace(param_dtype="bfloat16")
+    return f32, layer, bf16
+
+
+def ep_requests(vocab, lens, new, base=0):
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(17)
+    return [Request(base + i, rng.integers(0, vocab, size=n).astype(np.int32),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+
+
+def ep_serve(torch, model, params, slots, lens, new, step_s=None):
+    """``ServingEngine`` (``slots`` slots, pages of 16, chunks of 32) over
+    ``ep_requests``; ``step_s`` collects (all slots decoding before the
+    step, synchronized seconds) a step.  Returns (tokens, engine)."""
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, params, max_batch=slots, max_len=256, page_size=16,
+                        prefill_chunk=32)
+    reqs = ep_requests(model.cfg.vocab_size, lens, new)
+    for r in reqs:
+        eng.submit(r)
+    while eng.busy():
+        full = all(s is not None for s in eng.slots)
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if step_s is not None:
+            step_s.append((full, time.perf_counter() - t))
+    eng.run()  # drained: on a mesh, the ranks' tokens are gathered and compared
+    if eng.pool.pages_in_use or not all(len(r.generated) == new for r in reqs):
+        raise AssertionError("ep serving: pages left mapped or a request short")
+    return [list(r.generated) for r in reqs], eng
+
+
+def ep_layer(torch, cfg, topo, device):
+    """(b)'s MoE layer params (gate and codec from ``EP_SEED``'s generator,
+    this rank's experts, or all of them without ``topo``) and its input."""
+    from repro_torch.core.moe import init_expert_slices, init_moe
+
+    gen = torch.Generator(device=device).manual_seed(EP_SEED + 1)
+    p = init_moe(gen, cfg, draw_experts=False)
+    p.update({k: v[0] for k, v in init_expert_slices(cfg, EP_SEED, [0], topo, device).items()})
+    x = torch.randn(EP_LAYER_TOKENS, cfg.d_model, generator=gen, device=device)
+    return p, x
+
+
+def ep_plain_layer(torch, p, x, cfg, impl):
+    """The plain composition of the bodies' semantics on one device, f32,
+    dropless: the plain gate; for a2a decode(encode(FFN_e(decode(encode(x)))))
+    times w, summed over each token's k experts; for tp each rank's partial
+    sum over its experts, encoded, summed over the ranks and decoded.
+    Returns (y, the tokens whose 8th and 9th gate probabilities are within
+    ``EP_TIE``)."""
+    from repro_torch.core.gating import select_topk
+    from repro_torch.kernels.expert_mlp import grouped_mlp_plain
+    from repro_torch.kernels.group_gate import group_gate_plain
+    from repro_torch.kernels.lowrank import lowrank_project_plain
+
+    m = cfg.moe
+    E, k, ep = m.num_experts, m.top_k, EP_MESH[1]
+    T, d = x.shape
+    g = p["gate"]
+    probs, _ = group_gate_plain(x, g["w_local"], g["b_local"], g["w_global"], g["b_global"], None)
+    top = torch.sort(probs, dim=-1, descending=True).values
+    ties = (top[:, k - 1] - top[:, k]) < EP_TIE
+    idx, w = select_topk(probs, k)
+    enc = functools.partial(lowrank_project_plain, w=p["codec"]["enc"])
+    dec = functools.partial(lowrank_project_plain, w=p["codec"]["dec"])
+    eid = idx.reshape(-1)
+    rows = x.repeat_interleave(k, dim=0)
+    if impl == "a2a":
+        rows = dec(enc(rows))
+    order = torch.argsort(eid, stable=True)
+    gs = torch.bincount(eid, minlength=E).int()
+    y_sorted = grouped_mlp_plain(rows[order], gs, p["wi"], p.get("wg"), p["wo"], cfg.act)
+    y_rows = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
+    if impl == "a2a":
+        y_rows = dec(enc(y_rows))
+        return (y_rows * w.reshape(-1, 1)).reshape(T, k, d).sum(1), ties
+    contrib = (y_rows * w.reshape(-1, 1)).reshape(T, k, d)
+    owner = (idx // (E // ep))  # [T, k] the rank of each assignment's expert
+    z = sum(enc((contrib * (owner == r)[..., None]).sum(1)) for r in range(ep))
+    return dec(z), ties
+
+
+def ep_rank(topo, device, plain_tokens):
+    """One rank of phase 17 (every rank the same host code): (a) the f32
+    model served with 4 slots (a2a) and 2 slots (tp), tokens against the
+    one-process run's; (b) the MoE layer's a2a and tp bodies with the codec;
+    (c) the bf16 model with the codec, 8 requests through 4 slots, its
+    launches, step times, memory, collectives and a profiled decode step
+    (rank 0).  Returns what the parent checks and logs."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import moe
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models.model import Model
+
+    out = {"rank": topo.rank}
+    f32, layer_cfg, bf16 = ep_configs()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(f32, device, topo)
+    params = model.init(torch.Generator(device=device).manual_seed(EP_SEED),
+                        expert_seed=EP_SEED)
+    out["init_s"] = time.perf_counter() - t0
+    for slots, body in ((4, "a2a"), (2, "tp")):
+        before = (moe._moe_a2a_body.calls, moe._moe_tp_body.calls)
+        t0 = time.perf_counter()
+        tokens = ep_serve(torch, model, params, slots, EP_LENS, EP_NEW)[0]  # engine dropped
+        out[f"a_{body}"] = dict(
+            tokens=tokens, seconds=time.perf_counter() - t0,
+            bodies=(moe._moe_a2a_body.calls - before[0], moe._moe_tp_body.calls - before[1]))
+        if tokens != plain_tokens[slots]:
+            raise AssertionError(f"ep (a) rank {topo.rank}, {slots} slots: tokens differ from "
+                                 f"the one-process sorted run: {tokens} vs {plain_tokens[slots]}")
+    out["a_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    p, x = ep_layer(torch, layer_cfg, topo, device)
+    for impl, T in (("a2a", EP_LAYER_TOKENS), ("tp", 2)):
+        with torch.no_grad():
+            y, aux = moe.apply_moe(p, x[:T], layer_cfg.replace(moe_impl=impl), topo, train=True)
+        out[f"b_{impl}"] = (y.cpu().numpy(), float(aux["dropped_frac"]))
+    del p, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(bf16, device, topo)
+    params = model.init(torch.Generator(device=device).manual_seed(EP_SEED),
+                        expert_seed=EP_SEED)
+    counters = wrappers()
+    for c in counters:
+        c.launches = 0
+    before = (moe._moe_a2a_body.calls, moe._moe_tp_body.calls)
+    step_s = []
+    t0 = time.perf_counter()
+    tokens, eng = ep_serve(torch, model, params, 4, EP_BF16_LENS, EP_NEW, step_s)
+    out["c_seconds"] = time.perf_counter() - t0
+    out["c_launches"] = {c.__name__: c.launches for c in counters}
+    out["c_bodies"] = (moe._moe_a2a_body.calls - before[0], moe._moe_tp_body.calls - before[1])
+    out["c_tokens"] = tokens
+    out["c_steps"] = step_s
+    # one decode step with every slot decoding: its collectives, profiled on rank 0
+    for r in ep_requests(bf16.vocab_size, EP_LENS, EP_NEW, base=100):
+        eng.submit(r)
+    while not all(s is not None for s in eng.slots) or eng.waiting:
+        eng.step()
+    coll.reset_counts()
+    if topo.rank == 0:
+        names = (PAGED_KERNELS + GATE_KERNELS + ffn_kernels("expert FFN", "__nv_bfloat16")
+                 + CODEC_KERNELS)
+        dev_ms, wall_ms, path = profiled(torch, eng.step, "ep_decode_profile.txt", names)
+        out["c_profile"] = (dev_ms, wall_ms, path)
+    else:
+        eng.step()
+    out["c_collectives"] = coll.counts()
+    eng.run()
+    out["c_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["c_pages_left"] = eng.pool.pages_in_use
+    return out
+
+
+# phase 17's paged attention: 4 slots (and 2) of 16-page rings, decode and
+# a 32-token prefill chunk, at qwen3-moe's 64 query heads on 4 kv heads of
+# 128 (G = 16: the mma rows of one position at C = 1)
+EP_PA_CASES = (
+    ("qwen3-moe B=4 pps=16 C=1", 4, 16, 1, (37, 118, 199, 231)),
+    ("qwen3-moe B=4 pps=16 C=32", 4, 16, 32, (37, 118, 199, 231)),
+)
+EP_HEADS = (64, 4, 128)
+
+
+def ep_kernels(torch, timer):
+    """The kernels of phase 17's path against their plain versions at its
+    shapes: paged attention at 64/4 heads of 128 (``EP_PA_CASES``), bf16
+    and f32; the group gate at d 4096 with 128 experts in 16 groups (top-8)
+    at a rank's 1, 8 and 16 tokens; the expert FFN over 32 local experts
+    (d 4096, f 1536, gated silu) at ``ep·C`` received rows (32: the decode's
+    C of 8; 64: a 32-token chunk's C of 16), bf16 and f32, and in f32 at the
+    rows of (a)'s dropless runs too (16: the tp decode; 256: a 32-token
+    chunk's C of 64); the codec at 4096 -> 1024 at the payload's 8, 32 and
+    64 rows."""
+    from repro_torch.core.compression import init_lowrank_1d
+    from repro_torch.core.gating import init_group_gate
+    from repro_torch.kernels.expert_mlp import ffn_plan, grouped_mlp, grouped_mlp_plain
+    from repro_torch.kernels.group_gate import group_gate, group_gate_plain
+
+    _, cfg, _ = ep_configs()
+    m = cfg.moe
+    E, K, d, f = m.num_experts, m.num_groups, cfg.d_model, m.d_ff_expert
+    E_loc = E // EP_MESH[1]
+    for dt in (torch.bfloat16, torch.float32):
+        run_paged_attention(torch, timer, cases=EP_PA_CASES, heads=EP_HEADS, dtype=dt)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    p = init_group_gate(gen, d, m)
+    for T in (1, 8, 16):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(T, d, generator=gen, device="cuda").to(dt)
+            args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], None)
+            probs, pg = group_gate(*args)
+            rprobs, rpg = group_gate_plain(*args)
+            tag = f"qwen3-moe T={T} x {str(dt)[6:]}"
+            check_close(f"group_gate probs {tag}", probs, rprobs, rtol=0, atol=1e-4)
+            check_close(f"group_gate p_group {tag}", pg, rpg, rtol=0, atol=1e-4)
+            nbytes = T * d * x.element_size() + d * (E + K) * 4 + (E + K) * 4 + T * (E + K) * 4
+            b_ms, b_by = bound(nbytes, 2 * T * d * (E + K), "f32")
+            call = functools.partial(group_gate, *args)
+            ms, plain_ms = timer(call), timer(lambda: group_gate_plain(*args))
+            log(f"  group_gate {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                f"{b_ms:.6f} ({b_by}) library_ms=null")
+    for dt in (torch.bfloat16, torch.float32):
+        wi, wg, wo = (torch.randn(E_loc, a, b, generator=gen, device="cuda").div(a ** 0.5).to(dt)
+                      for a, b in ((d, f), (d, f), (f, d)))
+        for n in (32, 64) if dt == torch.bfloat16 else (16, 32, 64, 256):
+            cut = torch.sort(torch.randint(0, n + 1, (E_loc - 1,), generator=gen,
+                                           device="cuda")).values
+            sizes = torch.diff(torch.cat([cut.new_zeros(1), cut, cut.new_full((1,), n)]))
+            gs = sizes.int()
+            xs = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+            args = (xs, gs, wi, wg, wo, "silu")
+            y, ref = grouped_mlp(*args), grouped_mlp_plain(*args)
+            rel = 2e-2 if dt == torch.bfloat16 else 1e-5
+            tag = f"qwen3-moe ep n={n} {str(dt)[6:]}"
+            check_close(f"expert_mlp {tag}", y, ref, rtol=0,
+                        atol=rel * ref.float().abs().max().item())
+            routed = int((sizes > 0).sum())
+            es = xs.element_size()
+            nbytes = 2 * n * d * es + routed * 3 * d * f * es + E_loc * 4
+            b_ms, b_by = bound(nbytes, 3 * 2 * n * d * f,
+                               "bf16" if dt == torch.bfloat16 else "f32")
+            call = functools.partial(grouped_mlp, *args)
+            ms, plain_ms = timer(call), timer(lambda: grouped_mlp_plain(*args))
+            log(f"  expert_mlp {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+                f"{b_ms:.6f} ({b_by}) library_ms=null path={ffn_plan(n, d, f, dt)}")
+        del wi, wg, wo
+    codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, cfg.compression.rank,
+                            device="cuda")
+    codec_cases(torch, timer, gen, codec, (8, 32, 64))
+
+
+def ep_phase(torch, timer, counters=None):
+    """Phase 17: qwen3-moe-235b-a22b at full width (``EP_LAYERS`` layers)
+    over ``EP_MESH`` ranks sharing the card (gloo over CUDA tensors), every
+    rank spawned by ``launch.mesh.spawn_ranks``; the one-process runs first
+    (the card holds them or the ranks, never both).  Returns each wrapper's
+    launches in (c), rank 0's."""
+    import gc
+
+    from repro_torch.core.moe import _capacity
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    ep_kernels(torch, timer)
+    f32, layer_cfg, bf16 = ep_configs()
+    # (a)'s reference: one process, moe_impl "sorted", the same weights
+    t0 = time.perf_counter()
+    model = Model(f32, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(EP_SEED), expert_seed=EP_SEED)
+    plain_tokens = {slots: ep_serve(torch, model, params, slots, EP_LENS, EP_NEW)[0]
+                    for slots in (4, 2)}
+    one_peak = torch.cuda.max_memory_allocated()
+    del model, params
+    log(f"ep (a) one-process sorted runs (f32, 4 and 2 slots): {time.perf_counter() - t0:.1f} s")
+    # (b)'s plain composition, one process, all 128 experts
+    p, x = ep_layer(torch, layer_cfg, None, "cuda")
+    plain = {impl: ep_plain_layer(torch, p, x[:T], layer_cfg, impl)
+             for impl, T in (("a2a", EP_LAYER_TOKENS), ("tp", 2))}
+    plain = {k: (y.cpu().numpy(), ties.cpu().numpy()) for k, (y, ties) in plain.items()}
+    del p, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    world = EP_MESH[0] * EP_MESH[1]
+    backend = backend_for(world, "cuda")[0]
+    log(f"ep ranks: mesh {EP_MESH} (serve_tp), {backend} over CUDA tensors, "
+        f"{torch.cuda.device_count()} card(s); parent holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    # a rank that fails stops them all at once; one that hangs, within
+    # EP_TIMEOUT_S (the ranks take ~45 s)
+    ranks = spawn_ranks(EP_MESH, ep_rank, plain_tokens, device="cuda", policy="serve_tp",
+                        timeout_s=EP_TIMEOUT_S)
+    log(f"ep ranks took {time.perf_counter() - t0:.1f} s (spawn, init, (a)-(c))")
+    r0 = ranks[0]
+    for body in ("a2a", "tp"):
+        a = r0[f"a_{body}"]
+        want = (a["bodies"][0] > 0, a["bodies"][1] > 0)
+        if want != ((True, body == "tp")):
+            raise AssertionError(f"ep (a) {body}: body calls {a['bodies']}")
+        log(f"ep (a) f32 {4 if body == 'a2a' else 2} slots ({body} decode): tokens of every "
+            f"rank equal the one-process sorted run's ({len(EP_LENS)} x {EP_NEW}); "
+            f"a2a/tp body calls {a['bodies']}; {a['seconds']:.1f} s")
+    log(f"ep (a) peak memory a rank (f32, 2 layers, 32 experts a layer): "
+        + ", ".join(f"{r['a_peak_bytes'] / 2**30:.2f}" for r in ranks)
+        + f" GiB (sum {sum(r['a_peak_bytes'] for r in ranks) / 2**30:.2f}); one process "
+        f"{one_peak / 2**30:.2f} GiB; init {r0['init_s']:.1f} s")
+    for impl in ("a2a", "tp"):
+        ys = [r[f"b_{impl}"][0] for r in ranks]
+        if any(not (y == ys[0]).all() for y in ys):
+            raise AssertionError(f"ep (b) {impl}: the ranks' outputs differ")
+        dropped = [r[f"b_{impl}"][1] for r in ranks]
+        want, ties = plain[impl]
+        keep = ~ties
+        err = float(abs(ys[0] - want)[keep].max())
+        scale = float(abs(want).max())
+        log(f"ep (b) {impl} body (rank-{layer_cfg.compression.rank} codec, f32, {want.shape[0]} "
+            f"tokens): max |y - "
+            f"plain| {err:.3e} of max |y| {scale:.3e} (limit {EP_REL:g} of it), "
+            f"{int(ties.sum())} near-tied tokens left out; dropped_frac {dropped}")
+        if err > EP_REL * scale or any(dropped):
+            raise AssertionError(f"ep (b) {impl}: the body disagrees with the plain "
+                                 "composition, or dropped")
+        if ties.sum() > 2:
+            raise AssertionError(f"ep (b) {impl}: {int(ties.sum())} near ties")
+    toks = [r["c_tokens"] for r in ranks]
+    if any(t != toks[0] for t in toks) or any(r["c_pages_left"] for r in ranks):
+        raise AssertionError("ep (c): the ranks' tokens differ or a pool did not drain")
+    launches = r0["c_launches"]
+    for r in ranks:
+        only_path(f"ep (c) rank {r['rank']}", r["c_launches"], EP_PATH)
+    decode = sorted(s for full, s in r0["c_steps"] if full)
+    cfg = bf16
+    m = cfg.moe
+    C = _capacity(m.top_k, EP_MESH[1], m.eval_capacity_factor)  # a decode: 1 token a rank
+    r, d = cfg.compression.rank, cfg.d_model
+    coll_c = r0["c_collectives"]
+    payload = 2 * cfg.num_layers * EP_MESH[1] * C * r * 2  # there and back, bf16
+    meta = cfg.num_layers * EP_MESH[1] * C * 4
+    log(f"ep (c) bf16, codec rank {r}, 8 requests x {EP_NEW} through 4 slots: "
+        f"{r0['c_seconds']:.1f} s; decode step median {decode[len(decode) // 2] * 1e3:.3f} ms "
+        f"over {len(decode)} steps (rank 0, host clock, synchronized; first step "
+        f"{r0['c_steps'][0][1] * 1e3:.1f} ms); a2a/tp body calls {r0['c_bodies']}; launches "
+        f"{launches}")
+    log(f"ep (c) peak memory a rank: "
+        + ", ".join(f"{x['c_peak_bytes'] / 2**30:.2f}" for x in ranks)
+        + f" GiB (sum {sum(x['c_peak_bytes'] for x in ranks) / 2**30:.2f})")
+    log(f"ep (c) collectives a decode step (rank 0, calls / bytes handed in): {coll_c}; "
+        f"the a2a payload {payload} B at rank {r} against {payload * d // r} B "
+        f"uncompressed (ratio {r / d:.3f}, shape-only) plus {meta} B of expert ids")
+    if coll_c["all_to_all"]["bytes"] != payload + meta:
+        raise AssertionError(f"ep (c): all_to_all bytes {coll_c['all_to_all']} vs "
+                             f"{payload} + {meta}")
+    dev_ms, wall_ms, path = r0["c_profile"]
+    log(f"ep (c) decode profile (rank 0, 4 slots decoding, the other ranks stepping beside "
+        f"it): device time {dev_ms:.3f} ms of {wall_ms:.3f} ms wall ({dev_ms / wall_ms:.1%} "
+        f"busy); kernels in path {path}; written to chiprun_out/ep_decode_profile.txt")
+    if r0["c_bodies"][0] == 0:
+        raise AssertionError("ep (c): the a2a body never ran")
+    log(f"ep phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def wrappers():
     """Every kernel wrapper of the port, each counting its launches."""
     from repro_torch.kernels.expert_mlp import (
@@ -5529,11 +5943,18 @@ def wrappers():
             lowrank_roundtrip, lowrank_roundtrip_loss, lowrank_encode_quant, lowrank_decode_quant]
 
 
+def serve_phase(torch, timer, counters):
+    """Phase 3 alone: full-width switch-base's ServingEngine (its decode
+    step times), through the path's three kernels."""
+    path = [c for c in counters if c.__name__ in ("paged_attention", "group_gate", "grouped_mlp")]
+    serve(torch, path)
+
+
 # the phases that ``--flag`` runs alone, after the build; no result line
-ALONE = {"--vlm": ("vlm", lambda: vlm_phase), "--ssm": ("ssm", lambda: ssm_phase),
-         "--danube": ("danube", lambda: danube_phase),
+ALONE = {"--serve": ("serve", lambda: serve_phase), "--vlm": ("vlm", lambda: vlm_phase),
+         "--ssm": ("ssm", lambda: ssm_phase), "--danube": ("danube", lambda: danube_phase),
          "--encdec": ("encdec", lambda: encdec_phase), "--train": ("train", lambda: train_phase),
-         "--train2": ("train2", lambda: train2_phase)}
+         "--train2": ("train2", lambda: train2_phase), "--ep": ("ep", lambda: ep_phase)}
 
 
 def alone(torch, flag: str) -> int:
@@ -5576,6 +5997,7 @@ def main() -> int:
     )
     from repro_torch.kernels.paged_attention import paged_attention
 
+    t_script = time.perf_counter()
     log(f"card: {nvidia_smi()}")
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -5685,6 +6107,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train2_launches = train2_phase(torch, timer, stream_counters)
     log(f"train2 phase took {time.perf_counter() - t0:.1f} s")
+    log("expert parallelism: qwen3-moe at full width over 4 ranks on the card (the a2a and "
+        "tp bodies through Model and ServingEngine):")
+    ep_launches = ep_phase(torch, timer)
+    log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s (from the build on)")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
     # flash attention, the serving run with the dispatch codec for its
@@ -5767,6 +6193,9 @@ def main() -> int:
             # launches in phase 16's bf16 runs (the codec model's and
             # mamba2's Trainer, whisper's train steps), summed
             "train2_launches": train2_launches.get(counter, 0),
+            # launches in phase 17's bf16 run on rank 0 of 4 (qwen3-moe,
+            # the a2a body through the codec)
+            "ep_launches": ep_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -4,23 +4,39 @@ The reference package's parameters, handed over as nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), become the
 port's tensors one to one: same keys, same stacked ``[n_blocks, ...]``
 layouts, same values.  Taking numpy keeps JAX out of this package.
+
+On an expert-parallel topology each rank holds its own experts: a MoE
+layer's ``wi``/``wg``/``wo`` (``[..., E, d, f]`` / ``[..., E, f, d]``, the
+expert axis third from the end, stacked or not) come across as this rank's
+slice ``[r·E/ep, (r+1)·E/ep)`` along the model axis, everything else whole.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.distributed.topology import Topology
+
+EXPERT_LEAVES = ("wi", "wg", "wo")
 
 
-def params_from_numpy(tree: Dict, device=DEFAULT_DEVICE) -> Dict:
+def params_from_numpy(tree: Dict, device=DEFAULT_DEVICE, topo: Optional[Topology] = None) -> Dict:
     """Nested dict of numpy arrays -> the same nested dict of tensors on
-    ``device``."""
+    ``device``; with an expert-parallel ``topo`` a MoE layer's (a dict with
+    a ``gate``) expert leaves are cut to this rank's slice."""
+    moe_layer = "gate" in tree and topo is not None and topo.use_shard_map_moe
+
+    def leaf(k, v):
+        a = np.asarray(v)
+        if moe_layer and k in EXPERT_LEAVES:
+            a = a[..., topo.expert_slice(a.shape[-3]), :, :]
+        return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
     return {
-        k: params_from_numpy(v, device) if isinstance(v, dict)
-        else torch.from_numpy(np.array(v)).to(device)  # a writable copy
+        k: params_from_numpy(v, device, topo) if isinstance(v, dict) else leaf(k, v)
         for k, v in tree.items()
     }

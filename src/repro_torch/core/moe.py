@@ -1,14 +1,27 @@
-"""Group-gated Mixture-of-Experts layer, single shard (port of the
-reference's ``core/moe.py``: the ``sorted``, ``naive`` and pooled
-``resident`` paths of ``apply_moe``).
+"""Group-gated Mixture-of-Experts layer (port of the reference's
+``core/moe.py``: the ``sorted``, ``naive``, pooled ``resident`` and the
+expert-parallel ``a2a`` and ``tp`` paths of ``apply_moe``).
 
 ``sorted`` sorts the token-to-expert assignments by expert, runs the expert
 FFN as one grouped product over the sorted rows (``kernels.expert_mlp``,
 the CUDA kernel on the card), and scatters the rows back; ``naive`` runs
 every expert on every token and is the oracle; ``resident`` is the end
 tier's pooled path, the same product over rows sorted by resident slot,
-each slot reading its slab of the expert pool's store.  All three share
-the HL-GGN gate.
+each slot reading its slab of the expert pool's store.
+
+The expert-parallel bodies run on a :class:`Topology` whose model axis
+holds ``E / ep`` experts a rank (each rank's params hold its slices of
+``wi``/``wg``/``wo``, everything else whole; ``bridge.params_from_numpy``
+hands them out).  ``a2a`` is the paper-faithful one: each rank gates its
+share of the tokens, packs the assignments into per-destination capacity
+buffers, exchanges them with ``all_to_all`` (through the eq. 8 low-rank
+codec when the config has a dispatch codec), runs its experts on what it
+received and sends the rows back.  ``tp`` gates every token on every rank,
+runs the assignments that hit its own experts and sums the partial outputs
+over the model axis (through the codec: the codec is linear, so the sum
+commutes with decoding).  The ranks run SPMD on replicated activations: the
+collectives are ``distributed.collectives``, and the bodies' data-local
+outputs are gathered back to every rank.  All paths share the HL-GGN gate.
 """
 
 from __future__ import annotations
@@ -19,6 +32,8 @@ import torch
 
 from repro_torch.core import compression as comp
 from repro_torch.core import gating
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.topology import Topology
 from repro_torch.kernels.expert_mlp import (
     grouped_mlp,
     grouped_mlp_resident,
@@ -27,16 +42,18 @@ from repro_torch.kernels.expert_mlp import (
 from repro_torch.models.layers import ACTIVATIONS, apply_mlp, init_mlp, truncated_normal_init
 
 
-def init_moe(generator: torch.Generator, cfg, lead: Tuple[int, ...] = ()) -> Dict:
+def init_moe(generator: torch.Generator, cfg, lead: Tuple[int, ...] = (),
+             draw_experts: bool = True) -> Dict:
+    """A MoE layer's params; ``draw_experts=False`` leaves out ``wi`` /
+    ``wg`` / ``wo`` (drawn apart by :func:`init_expert_slices`)."""
     m = cfg.moe
     dtype = cfg.torch_param_dtype
     d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
-    p = {
-        "gate": gating.init_group_gate(generator, d, m, lead),
-        "wi": truncated_normal_init(generator, (E, d, f), dtype, 1.0, lead),
-        "wo": truncated_normal_init(generator, (E, f, d), dtype, 1.0, lead),
-    }
-    if cfg.ffn_gated:
+    p = {"gate": gating.init_group_gate(generator, d, m, lead)}
+    if draw_experts:
+        p["wi"] = truncated_normal_init(generator, (E, d, f), dtype, 1.0, lead)
+        p["wo"] = truncated_normal_init(generator, (E, f, d), dtype, 1.0, lead)
+    if cfg.ffn_gated and draw_experts:
         p["wg"] = truncated_normal_init(generator, (E, d, f), dtype, 1.0, lead)
     if m.shared_experts:
         p["shared"] = init_mlp(generator, d, m.shared_experts * f, dtype,
@@ -47,9 +64,40 @@ def init_moe(generator: torch.Generator, cfg, lead: Tuple[int, ...] = ()) -> Dic
     return p
 
 
+def init_expert_slices(cfg, seed: int, layers, topo: Optional[Topology], device) -> Dict:
+    """The expert weights of MoE layers ``layers`` (their indices in the
+    whole stack), only this rank's experts (``topo.expert_slice``; all of
+    them without a topology), stacked ``[len(layers), E_loc, ...]``.
+    Expert e of layer l is drawn from a generator on ``device`` seeded by
+    (``seed``, l, e), so the draw does not depend on the mesh, with
+    :func:`init_moe`'s distribution (the truncated normal at 1/sqrt(E))."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    experts = range(E)[(topo.expert_slice(E) if topo is not None else slice(0, E))]
+    shapes = {"wi": (d, f), "wo": (f, d)}
+    if cfg.ffn_gated:
+        shapes["wg"] = (d, f)
+    out = {k: torch.empty((len(layers), len(experts)) + s, dtype=cfg.torch_param_dtype,
+                          device=device) for k, s in shapes.items()}
+    g = torch.Generator(device=device)
+    for li, layer in enumerate(layers):
+        for j, e in enumerate(experts):
+            g.manual_seed(((seed * 1_000_003 + layer) * 1_000_003 + e) % (1 << 63))
+            for k, s in shapes.items():
+                w = torch.empty(s, dtype=torch.float32, device=device)
+                torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+                out[k][li, j] = w * (1.0 / E ** 0.5)
+    return out
+
+
 def _dispatch_compressed(cfg) -> bool:
     c = cfg.compression
     return c is not None and c.rank > 0 and "dispatch" in c.boundaries
+
+
+def _capacity(n_assign: int, buckets: int, factor: float) -> int:
+    c = int(-(-n_assign * factor // buckets))  # ceil
+    return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
 def _codec_aux(aux: Dict, recon: torch.Tensor, cfg) -> None:
@@ -199,29 +247,255 @@ def moe_resident(params: Dict, x: torch.Tensor, cfg, expert_mask=None, *, aux: b
     return _combine(y_rows, w, k).to(x.dtype), out.aux
 
 
-def apply_moe(params: Dict, x: torch.Tensor, cfg, *, expert_mask=None,
-              train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """MoE FFN over ``x [B, S, d]`` (or ``[T, d]``), single shard.  With
+# ---------------------------------------------------------------------------
+# Expert-parallel paths (one rank of an SPMD group)
+# ---------------------------------------------------------------------------
+
+
+def _scatter_to_buckets(payload: torch.Tensor, dst: torch.Tensor, slot: torch.Tensor,
+                        capacity: int, n_buckets: int) -> torch.Tensor:
+    """payload [n, d]; dst/slot [n] -> [n_buckets, capacity, d] with
+    out-of-capacity rows dropped (parked in a pad row, then cut)."""
+    buf = payload.new_zeros((n_buckets, capacity + 1, payload.shape[-1]))
+    buf[dst, slot.clamp_max(capacity)] = payload
+    return buf[:, :capacity]
+
+
+def _scatter_meta(meta: torch.Tensor, dst: torch.Tensor, slot: torch.Tensor,
+                  capacity: int, n_buckets: int, fill: int = 0) -> torch.Tensor:
+    buf = meta.new_full((n_buckets, capacity + 1), fill)
+    buf[dst, slot.clamp_max(capacity)] = meta
+    return buf[:, :capacity]
+
+
+def _rank_in_bucket(dst: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """dst: [n] -> rank of each element among those with the same dst, in
+    row order (which rows a full bucket drops follows from it)."""
+    oh = torch.nn.functional.one_hot(dst, n_buckets).int()
+    return (oh.cumsum(0) - 1).gather(1, dst[:, None])[:, 0]
+
+
+def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    return rows.new_zeros((n, rows.shape[1])).index_add_(0, seg, rows)
+
+
+def _moe_a2a_body(
+    x: torch.Tensor,  # [t, d] data-local, model-replicated
+    experts: Dict,  # {"wi": [E_loc, d, f], ("wg"), "wo"}: this rank's slices
+    gate_params: Dict,
+    codec: Optional[Dict],
+    cfg,
+    topo: Topology,
+    expert_mask,
+    capacity_factor: float,
+    pre_sharded: bool = False,
+    *,
+    aux: bool = True,
+):
+    """The reference's ``_moe_a2a_body``: this rank takes tokens
+    ``[me·ts, (me+1)·ts)``, gates them, packs each assignment into the
+    capacity buffer of the rank owning its expert (``C`` rows a
+    destination; an assignment past ``C`` in its bucket, in row order, is
+    dropped), exchanges payload and local expert ids with ``all_to_all``,
+    runs the grouped FFN over its ``E / ep`` experts (padding rows on
+    expert 0, zero rows), sends the rows back, combines by gate weight and
+    gathers the tokens over the model axis.  A dispatch codec encodes the
+    payload before each exchange and decodes it after.  With ``aux`` the
+    gate's losses and statistics and ``dropped_frac`` come back averaged
+    over every rank; without it (serving) the aux is empty."""
+    if pre_sharded:
+        raise NotImplementedError(
+            "pre-sharded a2a tokens (sequence-parallel residuals) come with ROADMAP item 8c")
+    _moe_a2a_body.calls += 1
+    m = cfg.moe
+    ep, group = topo.ep_size, topo.model_group
+    E_loc = m.num_experts // ep
+    t, d = x.shape
+    k = m.top_k
+    ts = t // ep
+    me = topo.model_index
+    xs = x[me * ts : (me + 1) * ts]
+    out = gating.gate(gate_params, xs, m, expert_mask, aux=aux)
+    eid = out.topk_idx.reshape(-1)  # [ts*k]
+    w = out.topk_weight.reshape(-1)
+    dst = torch.div(eid, E_loc, rounding_mode="floor")
+    tok = torch.arange(ts * k, device=x.device) // k
+    slot = _rank_in_bucket(dst, ep)
+    C = _capacity(ts * k, ep, capacity_factor)
+    keep = slot < C
+
+    payload = xs[tok]  # [ts*k, d]
+    if codec is not None:
+        payload = comp.encode_1d(codec, payload).to(x.dtype)
+    send = _scatter_to_buckets(payload, dst, slot, C, ep)
+    send_eid = _scatter_meta((eid % E_loc).int(), dst, slot, C, ep)
+
+    recv = coll.all_to_all(send, group)  # [ep, C, dpay]
+    recv_eid = coll.all_to_all(send_eid, group)
+
+    rows = recv.reshape(ep * C, -1)
+    if codec is not None:
+        rows = comp.decode_1d(codec, rows).to(x.dtype)
+    y_rows = _sorted_expert_ffn(rows, recv_eid.reshape(-1).long(), E_loc, experts, cfg.act)
+    if codec is not None:
+        y_rows = comp.encode_1d(codec, y_rows).to(x.dtype)
+    back = coll.all_to_all(y_rows.reshape(ep, C, -1), group)
+
+    got = back[dst, slot.clamp_max(C - 1)]  # [ts*k, dpay]
+    if codec is not None:
+        got = comp.decode_1d(codec, got).to(x.dtype)
+    got = torch.where(keep[:, None], got * w[:, None].to(got.dtype), 0.0)
+    y = _segment_sum(got, tok, ts).to(x.dtype)
+    y = coll.all_gather(y, group)  # [t, d]
+    if not aux:
+        return y, {}
+    stats = _pmean_all({**out.aux, "dropped_frac": 1.0 - keep.float().mean()}, topo)
+    return y, stats
+
+
+def _moe_tp_body(
+    x: torch.Tensor,  # [t, d] data-local, model-replicated
+    experts: Dict,  # this rank's expert slices
+    gate_params: Dict,
+    codec: Optional[Dict],
+    cfg,
+    topo: Topology,
+    expert_mask,
+    capacity_factor: float,
+    *,
+    aux: bool = True,
+):
+    """The reference's ``_moe_tp_body``: every rank gates all ``t`` tokens,
+    keeps the first ``C`` assignments (in row order) that hit its own
+    experts, runs them, combines by gate weight and sums the partial
+    outputs over the model axis: in f32, or with a dispatch codec as
+    ``decode(psum(encode(y)))``.  ``aux`` as in :func:`_moe_a2a_body`."""
+    _moe_tp_body.calls += 1
+    m = cfg.moe
+    ep, group = topo.ep_size, topo.model_group
+    E_loc = m.num_experts // ep
+    t, d = x.shape
+    k = m.top_k
+    me = topo.model_index
+
+    out = gating.gate(gate_params, x, m, expert_mask, aux=aux)  # replicated compute
+    eid = out.topk_idx.reshape(-1)  # [t*k]
+    w = out.topk_weight.reshape(-1)
+    tok = torch.arange(t * k, device=x.device) // k
+    mine = torch.div(eid, E_loc, rounding_mode="floor") == me
+    slot = mine.int().cumsum(0) - 1  # rank among my local assignments
+    C = _capacity(t * k, ep, capacity_factor)
+    keep = mine & (slot < C)
+
+    idx = torch.where(keep, slot, C).long()  # the rest to the pad row
+    sel_tok = torch.zeros(C + 1, dtype=torch.long, device=x.device)
+    sel_tok[idx] = tok
+    sel_eid = torch.zeros(C + 1, dtype=torch.long, device=x.device)
+    sel_eid[idx] = eid % E_loc
+    sel_w = torch.zeros(C + 1, dtype=torch.float32, device=x.device)
+    sel_w[idx] = torch.where(keep, w, 0.0).float()
+    sel_tok, sel_eid, sel_w = sel_tok[:C], sel_eid[:C], sel_w[:C]
+
+    y_rows = _sorted_expert_ffn(x[sel_tok], sel_eid, E_loc, experts, cfg.act)  # [C, d]
+    y = _segment_sum(y_rows * sel_w[:, None].to(y_rows.dtype), sel_tok, t)
+    if codec is not None:
+        # compressed all-reduce: the codec is linear, so summing in the
+        # low-rank space commutes with decoding; the psum moves r/d the bytes
+        y = comp.decode_1d(codec, coll.psum(comp.encode_1d(codec, y), group)).to(x.dtype)
+    else:
+        y = coll.psum(y.float(), group).to(x.dtype)
+    if not aux:
+        return y, {}
+    stats = _pmean_all({**out.aux, "_kept": keep.sum() / (t * k)}, topo)
+    stats["dropped_frac"] = 1.0 - stats.pop("_kept") * ep
+    return y, stats
+
+
+def _pmean_all(values: Dict[str, torch.Tensor], topo: Topology) -> Dict[str, torch.Tensor]:
+    """Each value's mean over every rank (the reference's ``pmean`` over the
+    data and model axes), all in one f32 all-reduce."""
+    flat = [v.float().reshape(-1) for v in values.values()]
+    mean = coll.pmean(torch.cat(flat), topo.world_group)
+    out, i = {}, 0
+    for (key, v), f in zip(values.items(), flat):
+        out[key] = mean[i : i + f.numel()].reshape(v.shape)
+        i += f.numel()
+    return out
+
+
+_moe_a2a_body.calls = 0
+_moe_tp_body.calls = 0
+
+
+def _expert_parallel(params: Dict, x2: torch.Tensor, cfg, topo: Topology, impl: str,
+                     expert_mask, cf: float, train: bool):
+    """The reference's ``shard_map`` branch on one rank: the tokens' data
+    shard in (all of them when ``dp`` does not divide the count: they stay
+    replicated), the body, and the data shards gathered back."""
+    m = cfg.moe
+    if params["wi"].shape[-3] * topo.ep_size != m.num_experts:
+        raise ValueError(
+            f"expert-parallel MoE: wi {tuple(params['wi'].shape)} is not this rank's "
+            f"{m.num_experts // topo.ep_size} of {m.num_experts} experts")
+    dp, ep = topo.dp_size, topo.ep_size
+    T = x2.shape[0]
+    batch_shardable = T % dp == 0
+    t_loc = T // dp if batch_shardable else T
+    if impl == "a2a" and t_loc % ep != 0:  # decode shapes that ep does not divide
+        impl = "tp"
+    sharded = batch_shardable and dp > 1
+    if sharded:
+        i = topo.data_index
+        x2 = x2[i * t_loc : (i + 1) * t_loc]
+    experts = {kk: params[kk] for kk in ("wi", "wg", "wo") if kk in params}
+    body = _moe_a2a_body if impl == "a2a" else _moe_tp_body
+    y, aux = body(x2, experts, params["gate"], params.get("codec"), cfg, topo, expert_mask,
+                  cf, aux=train)
+    if sharded:
+        y = coll.all_gather(y, topo.data_group)
+    return y, aux
+
+
+def apply_moe(params: Dict, x: torch.Tensor, cfg, topo: Optional[Topology] = None, *,
+              expert_mask=None, train: bool = True
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MoE FFN over ``x [B, S, d]`` (or ``[T, d]``).  With
     ``params["resident"]`` (the pooled end tier) the dispatch runs over the
-    resident slabs (:func:`moe_resident`).
+    resident slabs (:func:`moe_resident`).  On an expert-parallel ``topo``
+    (``use_shard_map_moe``) ``impl="auto"`` is ``a2a``, and ``a2a``/``tp``
+    run their bodies on this rank's expert slices: ``x`` is the whole
+    (replicated) batch and so is the output; a token count that ``dp`` does
+    not divide stays replicated over the data axes, and ``a2a`` falls back
+    to ``tp`` when ``ep`` does not divide the data-local count.  Training
+    takes ``capacity_factor``, serving ``eval_capacity_factor``, so
+    serving can drop assignments.
 
     ``train=False`` (serving) skips the router losses and routing
-    statistics and returns the gate's ``topk_idx`` in their place: the
-    reference computes them and lets XLA drop them when the serving step
-    discards them, but eager PyTorch would run every one of those ops."""
-    impl = "sorted" if cfg.moe_impl == "auto" else cfg.moe_impl
+    statistics and returns the gate's ``topk_idx`` in their place on one
+    device, and an empty aux on a mesh: the reference computes them and
+    lets XLA drop them when the serving step discards them, but eager
+    PyTorch would run every one of those ops."""
+    m = cfg.moe
+    impl = cfg.moe_impl
+    ep_mode = topo is not None and topo.use_shard_map_moe
+    if impl == "auto":
+        impl = "a2a" if ep_mode else "sorted"
+    cf = m.capacity_factor if train else m.eval_capacity_factor
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
+    if ep_mode and impl not in ("a2a", "tp"):
+        raise ValueError(f"moe impl {impl!r} on an expert-parallel topology: its ranks "
+                         "hold expert slices, which only 'a2a' and 'tp' run")
     if "resident" in params:
         y, aux = moe_resident(params, x2, cfg, expert_mask, aux=train)
+    elif impl in ("a2a", "tp") and ep_mode:
+        y, aux = _expert_parallel(params, x2, cfg, topo, impl, expert_mask, cf, train)
     elif impl == "sorted":
         y, aux = moe_sorted(params, x2, cfg, expert_mask, aux=train)
     elif impl == "naive":
         y, aux = moe_naive(params, x2, cfg, expert_mask, aux=train)
     else:
-        raise NotImplementedError(
-            f"moe impl {impl!r} needs a device mesh, which comes with ROADMAP item 8 "
-            "(the port runs 'sorted' and 'naive' on one device)")
-    if cfg.moe.shared_experts and "shared" in params:
+        raise ValueError(f"unknown moe impl {impl!r} (topology={topo})")
+    if m.shared_experts and "shared" in params:
         y = y + apply_mlp(params["shared"], x2, cfg.act)
     return y.reshape(shape), aux

@@ -120,7 +120,10 @@ template <int ACT>
 __device__ __forceinline__ float act(float x) {
   if (ACT == 0) return x / (1.f + expf(-x));
   if (ACT == 1) {
+    // saturated where XLA's f32 tanh is exactly +-1 (|u| >= 7.9988117, as
+    // models/layers.py's TANH_SATURATION): exactly relu(x) there
     const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+    if (fabsf(u) >= 7.9988117f) return u > 0.f ? x : 0.f;
     return 0.5f * x * (1.f + tanhf(u));
   }
   return fmaxf(x, 0.f);

@@ -34,6 +34,21 @@
 // computes the softmaxes, each lane one expert (and one group) with every
 // max and sum taken in index order, and writes probs [T, E] and p_group
 // [T, K] only.  The mask is the [E] bool vector as given (masked -> -1e30).
+//
+// The wide form (group_gate_wide_kernel: more than 16 experts or 8 groups,
+// qwen3-moe's 128 experts in 16 groups at d 4096, E + K = 144 columns, too
+// many partial sums for a thread's registers) takes a block for each
+// (token, group): K blocks a token side by side, each reading its group's
+// Mk columns and the K global ones (every block computes the same group
+// softmax, so no block waits for another).  A warp's task is one of those
+// two column sets over one of kWideSplits slices of d, the warp's 32 lanes
+// reading 32 neighbouring floats of the set's weights per step (lane l:
+// element i0 + l / W, column l % W for W = Mk or K, both powers of two up
+// to 32), so every weight load is one 128-byte line.  The lanes of a
+// column meet in a butterfly of fixed shape, the slices in shared memory
+// summed in slice order (two launches give the same bits), then the
+// softmaxes in the block's first threads, every max and sum in index
+// order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,6 +58,9 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr int kMaxWarps = 16;  // 512 threads a block for one token, 256 for tiles
 constexpr int kMaxE = 16, kMaxK = 8;  // the generic form's bounds on E and K
+// the wide form: E <= 256, K <= 32, Mk and K powers of two up to 32; a
+// block of 512 threads a token, d in kWideSplits slices
+constexpr int kWideMaxE = 256, kWideMaxK = 32, kWideSplits = 16, kWideThreads = 512;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -214,6 +232,74 @@ __global__ void __launch_bounds__(RB == 1 ? 32 * kMaxWarps : 256) group_gate_ker
   }
 }
 
+// block (row, g): token row's group g (see the file's head); x [T, d],
+// w_local [K, d, Mk], w_global [d, K]
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) group_gate_wide_kernel(
+    const T* __restrict__ x, const float* __restrict__ w_local,
+    const float* __restrict__ b_local, const float* __restrict__ w_global,
+    const float* __restrict__ b_global, const unsigned char* __restrict__ mask,
+    float* __restrict__ probs, float* __restrict__ p_group, int d, int K, int Mk) {
+  __shared__ float part[kWideSplits][kWideMaxK + 32];  // the K global, then g's Mk
+  __shared__ float logit[kWideMaxK + 32];
+  __shared__ bool alive[kWideMaxK];
+  const int row = blockIdx.x, g = blockIdx.y;
+  const T* xr = x + (size_t)row * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int chunk = (d + kWideSplits - 1) / kWideSplits;
+  // task (c, s): column set c (0: the K global columns, 1: group g's Mk)
+  // over slice s of d
+  for (int task = warp; task < 2 * kWideSplits; task += n_warps) {
+    const int c = task / kWideSplits, s = task % kWideSplits;
+    const int W = c == 0 ? K : Mk;  // the task's columns, neighbours in memory
+    const float* w = c == 0 ? w_global : w_local + (size_t)g * d * Mk;
+    const int col = lane % W, step = 32 / W;
+    const int i1 = min(d, (s + 1) * chunk);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int i = s * chunk + lane / W; i < i1; i += step)
+      acc = fmaf(to_f(xr[i]), __ldg(w + (size_t)i * W + col), acc);
+    for (int o = W; o < 32; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane < W) part[s][(c == 0 ? 0 : K) + col] = acc;
+  }
+  if (threadIdx.x < K) {  // a group whose experts are all masked is dead
+    bool any = mask == nullptr;
+    for (int m = 0; mask != nullptr && m < Mk; ++m) any |= mask[threadIdx.x * Mk + m] != 0;
+    alive[threadIdx.x] = any;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < K + Mk; c += blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < kWideSplits; ++s) v += part[s][c];
+    if (c < K) {
+      logit[c] = alive[c] ? v + b_global[c] : kNegInf;
+    } else {
+      const int e = g * Mk + c - K;
+      logit[c] = mask == nullptr || mask[e] != 0 ? v + b_local[e] : kNegInf;
+    }
+  }
+  __syncthreads();
+  // eq. 5-7: thread m of the first Mk is expert g·Mk + m; every block
+  // computes the same group softmax (eq. 6), block 0 writes it
+  if (threadIdx.x < Mk || (g == 0 && threadIdx.x < K)) {
+    float gmax = -3.0e38f, gsum = 0.f;
+    for (int k = 0; k < K; ++k) gmax = fmaxf(gmax, logit[k]);
+    for (int k = 0; k < K; ++k) gsum += expf(logit[k] - gmax);
+    if (g == 0 && threadIdx.x < K)
+      p_group[(size_t)row * K + threadIdx.x] = expf(logit[threadIdx.x] - gmax) / gsum;
+    if (threadIdx.x < Mk) {
+      const float* L = logit + K;
+      float lmax = -3.0e38f, lsum = 0.f;
+      for (int m = 0; m < Mk; ++m) lmax = fmaxf(lmax, L[m]);
+      for (int m = 0; m < Mk; ++m) lsum += expf(L[m] - lmax);
+      const float pg = expf(logit[g] - gmax) / gsum;
+      probs[(size_t)row * K * Mk + g * Mk + threadIdx.x] =
+          pg * (expf(L[threadIdx.x] - lmax) / lsum);  // eq. 7
+    }
+  }
+}
+
 template <typename T, int K_, int MK_>
 cudaError_t launch(const void* x, const float* wl, const float* bl, const float* wg,
                    const float* bg, const unsigned char* mask, float* probs, float* pg,
@@ -246,6 +332,11 @@ cudaError_t launch_form(int form, const void* x, const float* wl, const float* b
   if (form == 2)
     return launch<T, 4, 4>(x, wl, bl, wg, bg, mask, probs, pg, n_tok, d, K, Mk,
                            rows_per_block, threads, deep, stream);
+  if (form == 3) {
+    group_gate_wide_kernel<T><<<dim3(n_tok, K), kWideThreads, 0, stream>>>(
+        static_cast<const T*>(x), wl, bl, wg, bg, mask, probs, pg, d, K, Mk);
+    return cudaGetLastError();
+  }
   return launch<T, 0, 0>(x, wl, bl, wg, bg, mask, probs, pg, n_tok, d, K, Mk, rows_per_block,
                          threads, deep, stream);
 }
@@ -256,16 +347,22 @@ cudaError_t launch_form(int form, const void* x, const float* wl, const float* b
 // b_local [K, Mk], w_global [d, K], b_global [K] (float32), mask [E] bool
 // or null -> probs [T, E], p_group [T, K] (float32).  form: 1 for (K, Mk) =
 // (4, 2), 2 for (4, 4) (w_local and w_global 16-byte aligned), 0 for any
-// E = K * Mk <= 16 and K <= 8.  rows_per_block: 1, or a multiple of 4.
-// threads: a multiple of 32, up to 512 with rows_per_block 1 and 256
-// otherwise.  deep: unroll the loop over d four deep.  Returns the launch's
-// cudaError_t.
+// E = K * Mk <= 16 and K <= 8, 3 (the wide form: rows_per_block 1, 512
+// threads) for E <= 256 and K <= 32 with Mk and K powers of two.
+// rows_per_block: 1, or a multiple of 4.  threads: a multiple of 32, up to
+// 512 with rows_per_block 1 and 256 otherwise.  deep: unroll the loop over
+// d four deep.  Returns the launch's cudaError_t.
 extern "C" int group_gate_launch(const void* x, const void* w_local, const void* b_local,
                                  const void* w_global, const void* b_global,
                                  const void* mask, void* probs, void* p_group, int n_tok,
                                  int d, int K, int Mk, int xdtype, int form,
                                  int rows_per_block, int threads, int deep, void* stream) {
-  if (K * Mk > kMaxE || K > kMaxK || threads < 32 || threads > 32 * kMaxWarps ||
+  const bool pow2 = K > 0 && Mk > 0 && (K & (K - 1)) == 0 && (Mk & (Mk - 1)) == 0;
+  if (form == 3 && (K * Mk > kWideMaxE || K > kWideMaxK || Mk > 32 || !pow2 ||
+                    rows_per_block != 1 || threads != kWideThreads))
+    return (int)cudaErrorInvalidValue;
+  if (form != 3 && (K * Mk > kMaxE || K > kMaxK)) return (int)cudaErrorInvalidValue;
+  if (threads < 32 || threads > 32 * kMaxWarps ||
       threads % 32 || (rows_per_block != 1 && (rows_per_block % 4 || threads > 256)) ||
       (form == 1 && (K != 4 || Mk != 2)) || (form == 2 && (K != 4 || Mk != 4)))
     return (int)cudaErrorInvalidValue;

@@ -4,7 +4,7 @@ loss, runaway grad norm, injected failures) so the trainer restores and
 continues, ``FailureInjector`` fails chosen steps deterministically (tests
 and drills), ``StragglerMitigator`` flags slow steps against the rolling
 median.  The reference's ``elastic_topology`` rebuilds a smaller mesh
-and is not ported: it comes with ROADMAP item 8.
+and is not ported: it comes with ROADMAP item 8b.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ whose misses drain to the cloud (``FleetExpertRegistry.cloud_expert_load``);
 :func:`fleet_expert_shards` balances the experts across the cloud's
 servers by that load, and :func:`shard_expert_stacks` slices the dense
 stacked expert weights accordingly.  The mesh-time rules of that module
-wait for the distributed slice (ROADMAP queue A item 8).
+come with training on a mesh (ROADMAP queue A item 8b).
 """
 
 from __future__ import annotations

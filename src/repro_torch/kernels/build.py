@@ -5,9 +5,13 @@ stream as arguments, ``cudaGetLastError()`` as the return value), so it
 compiles in seconds with ``nvcc`` alone, without PyTorch's headers.  The
 shared library lands in ``build/kernels/`` at the repository root, named by
 a digest of its source, the shared headers (``csrc/*.cuh``) and the flags:
-a changed source never loads a stale library, and concurrent processes
-racing on one build each write a private temporary file and rename it into
-place.
+a changed source never loads a stale library.  Building and loading hold
+an exclusive ``flock`` on ``build/kernels/lock``, so processes started
+together on a fresh tree (the ranks of a mesh) build each library once:
+the first builds, the others wait and then find it.  The kernel drops the
+lock with its holder, so a process killed mid-build leaves no stale lock
+(the file stays and is harmless); each ``nvcc`` still writes a private
+temporary file and renames it into place.
 
 Nothing here runs at import time; the first launch of a kernel builds it.
 :func:`build` compiles several sources at once, one ``nvcc`` process each.
@@ -15,7 +19,9 @@ Nothing here runs at import time; the first launch of a kernel builds it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -49,12 +55,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the exclusive lock of ``BUILD_DIR`` (blocking)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Compile every named source whose library is missing, all ``nvcc``
-    processes at once; raise with the compiler output if one fails.  Each
-    build's output (ptxas' register and spill report) is kept beside its
-    library as ``<library>.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    processes at once, under the build lock; raise with the compiler output
+    if one fails.  Each build's output (ptxas' register and spill report)
+    is kept beside its library as ``<library>.log``."""
+    with _build_lock():
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, Path]:
     out: Dict[str, Path] = {}
     procs = {}
     for name in names:
@@ -81,10 +103,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use (built
+    and loaded under the build lock)."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        with _build_lock():
+            lib = ctypes.CDLL(str(_build([name])[name]))
         _LIBS[name] = lib
     return lib
 

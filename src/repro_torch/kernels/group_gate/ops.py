@@ -13,8 +13,10 @@ On the card ``csrc/group_gate.cu`` computes it in one launch: d split over
 a block's threads (neighbouring threads on neighbouring elements), a token
 (or a tile of tokens at large T) a block, the parameters read in their own
 layouts (``w_local [K, d, Mk]``, ``w_global
-[d, K]``), the ``[E]`` bool mask read as given; see the source for what
-bounds it.  A per-token ``[T, E]`` mask runs only in the plain version
+[d, K]``), the ``[E]`` bool mask read as given; past 16 experts or 8
+groups (qwen3-moe's 128 in 16) the wide form, a block for each of a
+token's groups (its columns and the global ones), a warp a column set
+over a slice of d; see the source for what bounds it.  A per-token ``[T, E]`` mask runs only in the plain version
 (CPU), and a CUDA call with one raises.
 
 For training, :class:`GroupGateFn` wraps the call: the forward is the same
@@ -35,7 +37,11 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-MAX_EXPERTS, MAX_GROUPS = 16, 8  # the kernel's compile-time bounds on E and K
+MAX_EXPERTS, MAX_GROUPS = 16, 8  # the kernel's register forms' bounds on E and K
+# the wide form's (a block a token's group, a warp a set of columns over a
+# slice of d): E and K up to these, Mk and K powers of two (qwen3-moe: 128
+# in 16)
+WIDE_EXPERTS, WIDE_GROUPS, WIDE_THREADS = 256, 32, 512
 _XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,16 +90,29 @@ def _lib():
     return lib
 
 
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def wide(K: int, Mk: int) -> bool:
+    """More experts or groups than the register forms hold (the wide form)."""
+    return K * Mk > MAX_EXPERTS or K > MAX_GROUPS
+
+
 def launch_plan(T: int, d: int, K: int, Mk: int,
                 w_ptrs=(0, 0)) -> Tuple[int, int, int, int]:
     """(form, tokens a block, threads a block, deep) of a call.  Form 1 and 2
     are switch-base's (K, Mk) = (4, 2) and llama4-scout's (4, 4) with vector
     weight loads (both weight pointers ``w_ptrs`` 16-byte aligned), 0 any
-    other shape one float at a time.  One token a block up to 256 tokens (T
-    blocks side by side), then tiles of a multiple of 4 tokens (about 256
-    blocks); a thread for every element of d, 32 to 512 (256 for tiles);
-    the loop over d unrolled four deep (``deep``) only where a thread takes
-    more than two elements."""
+    other shape up to 16 experts in 8 groups one float at a time: one token
+    a block up to 256 tokens (T blocks side by side), then tiles of a
+    multiple of 4 tokens (about 256 blocks); a thread for every element of
+    d, 32 to 512 (256 for tiles); the loop over d unrolled four deep
+    (``deep``) only where a thread takes more than two elements.  Form 3,
+    the wide form, past 16 experts or 8 groups: a block of 512 threads for
+    each of a token's K groups."""
+    if wide(K, Mk):
+        return 3, 1, WIDE_THREADS, 0
     form = {(4, 2): 1, (4, 4): 2}.get((K, Mk), 0) if all(p % 16 == 0 for p in w_ptrs) else 0
     rows = 1 if T <= 256 else 4 * -(-T // 1024)
     threads = min(512 if rows == 1 else 256, max(32, -(-d // 32) * 32))
@@ -142,9 +161,11 @@ def _group_gate(x, w_local, b_local, w_global, b_global, expert_mask):
             f"group_gate: shapes x={tuple(x.shape)} w_local={tuple(w_local.shape)} "
             f"w_global={tuple(w_global.shape)} do not agree"
         )
-    if E > MAX_EXPERTS or K > MAX_GROUPS:
-        raise ValueError(f"group_gate: the kernel takes E <= {MAX_EXPERTS} experts in "
-                         f"K <= {MAX_GROUPS} groups, got E={E}, K={K}")
+    if wide(K, Mk) and (E > WIDE_EXPERTS or K > WIDE_GROUPS or Mk > 32
+                        or not (_pow2(K) and _pow2(Mk))):
+        raise ValueError(f"group_gate: the kernel takes E <= {WIDE_EXPERTS} experts in "
+                         f"K <= {WIDE_GROUPS} groups (past {MAX_EXPERTS} in {MAX_GROUPS}, "
+                         f"K and Mk powers of two), got E={E}, K={K}, Mk={Mk}")
     if expert_mask is not None:
         if expert_mask.shape != (E,):
             raise ValueError(

@@ -4,7 +4,6 @@ reference's ``models/layers.py``; dict params, plain functions)."""
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict, Tuple
 
@@ -38,20 +37,66 @@ def init_norm(d: int, dtype: torch.dtype, device, lead: Tuple[int, ...] = ()) ->
     return torch.zeros(lead + (d,), dtype=dtype, device=device)
 
 
-# jax.nn.gelu defaults to the tanh approximation; F.gelu does not.
-ACTIVATIONS = {
-    "silu": F.silu,
-    "gelu": functools.partial(F.gelu, approximate="tanh"),
-    "relu": F.relu,
-}
-
-
 _GELU_C = (2.0 / math.pi) ** 0.5
+# XLA's f32 tanh is exactly -1 (+1) from |u| = 7.9988117 on (its rational
+# approximation clamps there), torch.tanh only from 9.0108.  The GELU's
+# derivative below saturates at XLA's point, so it is exactly 0 (1 on the
+# positive side) where the reference's is, and the GELU is exactly 0 on the
+# negative tail, from x = GELU_ZERO_AT (where u = -7.9988117 in f32) down: a
+# hidden unit in the tail then gives exact zeros to its weight gradients,
+# which Adafactor's factored second moment would otherwise turn into a step
+# of ~lr.  On the positive tail F.gelu is within an ulp of the reference's
+# x.  (f32 literals; against a bf16 tensor GELU_ZERO_AT rounds to -4.875,
+# which splits the bf16 values as the f32 threshold does.)
+TANH_SATURATION = 7.9988117
+GELU_ZERO_AT = -4.8676996
+
+
+def _gelu_u(x: torch.Tensor) -> torch.Tensor:
+    return _GELU_C * (x + 0.044715 * x ** 3)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form, exactly 0 where XLA's tanh is saturated at -1."""
+    return F.gelu(x, approximate="tanh").masked_fill_(x <= GELU_ZERO_AT, 0.0)
 
 
 def _gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
-    t = torch.tanh(_GELU_C * (x + 0.044715 * x ** 3))
+    u = _gelu_u(x)
+    t = torch.where(u.abs() >= TANH_SATURATION, torch.sign(u), torch.tanh(u))
     return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * _GELU_C * (1.0 + 3 * 0.044715 * x * x)
+
+
+class _GeluTanhFn(torch.autograd.Function):
+    """The saturated tanh-form GELU with :func:`_gelu_tanh_grad` as its
+    derivative (in f32, rounded to the input's type), in place of
+    autograd's, which reaches 0 only below x = -5.061."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_tanh(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (g.float() * _gelu_tanh_grad(x.float())).to(g.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form; F.gelu's default is the erf form),
+    saturated where the reference's f32 tanh is; under autograd through
+    :class:`_GeluTanhFn`."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GeluTanhFn.apply(x)
+    return _gelu_tanh(x)
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": gelu_tanh,
+    "relu": F.relu,
+}
 
 
 def _silu_grad(x: torch.Tensor) -> torch.Tensor:

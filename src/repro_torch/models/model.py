@@ -1,17 +1,20 @@
 """Model facade (port of the reference's ``models/model.py``: ``init``,
 ``train_logits``, ``prefill`` and ``decode_step`` over dense rings, and
 ``decode_step_paged``, ``prefill_chunk_step``, ``verify_chunk_step`` over
-paged pools)."""
+paged pools, each on the model's topology: one device, or one rank of an
+expert-parallel mesh whose MoE layers run the ``a2a`` / ``tp`` bodies)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Iterator, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.moe import init_expert_slices
+from repro_torch.distributed.topology import Topology, single_device_topology
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer
 
@@ -20,14 +23,32 @@ from repro_torch.models import transformer
 class Model:
     cfg: ModelConfig
     device: torch.device = torch.device(DEFAULT_DEVICE)
+    topo: Topology = field(default_factory=single_device_topology)
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
 
-    def init(self, generator: torch.Generator) -> Dict:
+    def init(self, generator: torch.Generator, *, expert_seed: Optional[int] = None) -> Dict:
         """Random params (the reference's shapes and init scales) drawn from
-        ``generator``, placed on the model's device."""
-        return to_device(transformer.init_params(self.cfg, generator), self.device)
+        ``generator``, placed on the model's device.
+
+        With ``expert_seed`` the MoE layers' expert weights are drawn apart,
+        each expert's from a generator seeded by ``expert_seed``, its layer
+        and its index (``core.moe.init_expert_slices``), and only this
+        rank's experts (``Topology.expert_slice``): every rank of an
+        expert-parallel mesh draws the same non-expert params from
+        ``generator`` and its own experts alone, and a one-device model
+        drawn with the same seeds holds the same weights."""
+        if expert_seed is None:
+            return to_device(transformer.init_params(self.cfg, generator), self.device)
+        params = transformer.init_params(self.cfg, generator, draw_experts=False)
+        R, n_pos = self.cfg.block_repeat, len(self.cfg.layer_pattern)
+        for i, spec in enumerate(self.cfg.layer_pattern):
+            if spec.moe and self.cfg.moe is not None:
+                layers = [r * n_pos + i for r in range(R)]
+                params["blocks"][f"pos{i}"]["moe"].update(init_expert_slices(
+                    self.cfg, expert_seed, layers, self.topo, generator.device))
+        return to_device(params, self.device)
 
     def _angles(self, positions: torch.Tensor) -> torch.Tensor:
         """Angles at positions [B, S], or [B, 3, S] under M-RoPE (a text
@@ -64,11 +85,11 @@ class Model:
         forward without recomputation, on any pattern."""
         cfg = self.cfg
         if train:
-            transformer.check_trainable(cfg)
+            transformer.check_trainable(cfg, self.topo)
         x, angles = self._embed(params, batch)
         x, aux, _ = transformer.apply_stack_full(
             params, x, cfg, angles, causal=True, enc_out=self._encoder_out(params, batch),
-            expert_mask=expert_mask, train=True, remat=train,
+            expert_mask=expert_mask, train=True, remat=train, topo=self.topo,
         )
         return transformer.lm_logits(params, cfg, x), aux
 
@@ -90,7 +111,7 @@ class Model:
         x, _, blocks = transformer.apply_stack_full(
             params, x, cfg, angles, causal=True,
             enc_out=self._encoder_out(params, batch), expert_mask=expert_mask,
-            collect_cache=True, max_len=max_len or S,
+            collect_cache=True, max_len=max_len or S, topo=self.topo,
         )
         logits = transformer.lm_logits(params, cfg, x[:, -1:])[:, 0]
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -106,7 +127,7 @@ class Model:
         x = transformer.embed_inputs(params, cfg, tokens)
         x, blocks, _ = transformer.apply_stack_decode(
             params, x, cfg, self._angles(lengths[:, None]), cache["blocks"], lengths,
-            expert_mask,
+            expert_mask, topo=self.topo,
         )
         logits = transformer.lm_logits(params, cfg, x)[:, 0]
         return logits, {"blocks": blocks, "lengths": lengths + 1}
@@ -124,7 +145,7 @@ class Model:
         x = transformer.embed_inputs(params, cfg, tokens)
         x, page_blocks, _ = transformer.apply_stack_decode(
             params, x, cfg, angles, page_blocks, lengths, expert_mask,
-            page_table=page_table, page_size=page_size,
+            page_table=page_table, page_size=page_size, topo=self.topo,
         )
         return transformer.lm_logits(params, cfg, x)[:, 0], page_blocks
 
@@ -143,7 +164,7 @@ class Model:
         x = transformer.embed_inputs(params, cfg, tokens)
         x, page_blocks = transformer.apply_stack_prefill_chunk(
             params, x, cfg, angles, page_blocks, page_table, positions, n_valid,
-            page_size, expert_mask=expert_mask,
+            page_size, expert_mask=expert_mask, topo=self.topo,
         )
         last = (n_valid.long() - 1).clamp_min(0)
         x_last = x[torch.arange(B, device=x.device), last][:, None]
@@ -164,9 +185,14 @@ class Model:
         x = transformer.embed_inputs(params, cfg, tokens)
         x, page_blocks = transformer.apply_stack_prefill_chunk(
             params, x, cfg, self._angles(positions), page_blocks, page_table, positions,
-            n_valid, page_size, expert_mask=expert_mask,
+            n_valid, page_size, expert_mask=expert_mask, topo=self.topo,
         )
         return transformer.lm_logits(params, cfg, x), page_blocks
+
+
+def build_model(cfg: ModelConfig, topo: Optional[Topology] = None,
+                device=DEFAULT_DEVICE) -> Model:
+    return Model(cfg, device, topo or single_device_topology())
 
 
 def to_device(tree: Dict, device) -> Dict:

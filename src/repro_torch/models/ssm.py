@@ -287,7 +287,7 @@ def apply_ssm(params: Dict, x: torch.Tensor, cfg, *,
     """Full-sequence Mamba-2 layer x [B, S, d] -> [B, S, d]; with
     ``return_state`` also (final_state [B, H, P, N] f32, (conv_x tail,
     conv_bc tail)).  The reference's head-sharded tensor-parallel branch
-    needs a device mesh and is not ported."""
+    comes with ROADMAP item 8c."""
     out, state = _ssm_core(params, x, cfg, initial_state=initial_state,
                            initial_conv=initial_conv)
     return (out, state) if return_state else out

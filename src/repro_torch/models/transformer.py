@@ -13,6 +13,14 @@ MoE FFN.
 Params keep the reference's layout: ``blocks["pos{i}"]`` leaves are stacked
 over the ``block_repeat`` axis, and a Python loop over blocks takes the
 place of ``lax.scan``.  The paged KV pools are updated in place.
+
+``topo`` (a :class:`~repro_torch.distributed.topology.Topology`) reaches
+every MoE layer: on an expert-parallel topology each rank runs the same
+layers on the same (replicated) activations and its MoE layers run the
+``a2a`` / ``tp`` bodies over the rank's expert slices.  The reference's
+``_constrain_tokens`` pins the residual stream's sharding between blocks
+for GSPMD; SPMD torch has no layout to pin (every tensor here is this
+rank's own), so it has no counterpart.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import LayerSpec
 from repro_torch.core.compression import compute_codec
 from repro_torch.core.moe import apply_moe, init_moe
+from repro_torch.distributed.topology import Topology
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache, ssm
 from repro_torch.models.layers import (
@@ -48,8 +57,9 @@ def _has_ffn(spec, cfg) -> bool:
     return bool(spec.moe and cfg.moe) or cfg.d_ff > 0
 
 
-def init_layer(generator: torch.Generator, cfg, spec, R: int) -> Dict:
-    """One pattern position's params, stacked over ``R`` block repeats."""
+def init_layer(generator: torch.Generator, cfg, spec, R: int, draw_experts: bool = True) -> Dict:
+    """One pattern position's params, stacked over ``R`` block repeats
+    (``draw_experts=False``: a MoE layer's without its expert weights)."""
     dtype, dev, lead = cfg.torch_param_dtype, generator.device, (R,)
     p: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, dtype, dev, lead)}
     if spec.kind == "attn":
@@ -62,21 +72,22 @@ def init_layer(generator: torch.Generator, cfg, spec, R: int) -> Dict:
     if _has_ffn(spec, cfg):
         p["norm2"] = init_norm(cfg.d_model, dtype, dev, lead)
         if spec.moe:
-            p["moe"] = init_moe(generator, cfg, lead)
+            p["moe"] = init_moe(generator, cfg, lead, draw_experts)
         else:
             p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, cfg.ffn_gated, lead)
     return p
 
 
-def init_params(cfg, generator: torch.Generator) -> Dict:
+def init_params(cfg, generator: torch.Generator, draw_experts: bool = True) -> Dict:
     """Random params with the reference's shapes and init scales, made from
-    ``generator`` on its device."""
+    ``generator`` on its device (``draw_experts=False``: without the MoE
+    layers' expert weights, which ``Model.init`` draws apart)."""
     dtype = cfg.torch_param_dtype
     params: Dict[str, Any] = {
         "embed": init_embedding(generator, cfg.padded_vocab_size, cfg.d_model, dtype),
         "final_norm": init_norm(cfg.d_model, dtype, generator.device),
         "blocks": {
-            f"pos{i}": init_layer(generator, cfg, spec, cfg.block_repeat)
+            f"pos{i}": init_layer(generator, cfg, spec, cfg.block_repeat, draw_experts)
             for i, spec in enumerate(cfg.layer_pattern)
         },
     }
@@ -117,7 +128,7 @@ def block_params(tree: Dict, r: int) -> Dict:
 
 
 def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None,
-         train: bool = False):
+         train: bool = False, topo: Optional[Topology] = None):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.moe:
         mp = p["moe"]
@@ -125,7 +136,7 @@ def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None,
             # pooled end tier: the stripped moe params get this layer's
             # resident tables and the shared slab store (core.expertpool)
             mp = {**mp, "resident": expert_resident}
-        y, aux = apply_moe(mp, h, cfg, expert_mask=expert_mask, train=train)
+        y, aux = apply_moe(mp, h, cfg, topo, expert_mask=expert_mask, train=train)
         return x + y, aux
     return x + apply_mlp(p["ffn"], h, cfg.act), {}
 
@@ -168,6 +179,7 @@ def apply_layer_full(
     collect_cache: bool = False,
     max_len: int = 0,
     train: bool = False,
+    topo: Optional[Topology] = None,
 ):
     """Full-sequence layer.  ``train=False`` (serving) skips a MoE layer's
     router losses and statistics (its aux holds the gate's ``topk_idx``);
@@ -206,7 +218,7 @@ def apply_layer_full(
             cache_entry.update(ssm=final_state, conv_x=cx, conv_bc=cbc)
         x = x + o
     if _has_ffn(spec, cfg):
-        x, aux = _ffn(p, x, spec, cfg, expert_mask, train=train)
+        x, aux = _ffn(p, x, spec, cfg, expert_mask, train=train, topo=topo)
     return x, aux, cache_entry
 
 
@@ -217,25 +229,30 @@ def _merge_aux(acc: Dict, aux: Dict) -> Dict:
     return acc
 
 
-def check_trainable(cfg) -> None:
+def check_trainable(cfg, topo: Optional[Topology] = None) -> None:
     """Raise ``NotImplementedError`` on what the training form does not
-    take on one device: an expert-parallel MoE implementation (ROADMAP
-    item 8).  Every pattern trains (attention, SSM, hybrid, cross-attention
+    take: a device mesh, and with it an expert-parallel MoE implementation
+    (training on a mesh, the bodies' backward: ROADMAP item 8b).  Every
+    pattern trains on one device (attention, SSM, hybrid, cross-attention
     with its encoder), and so does a dispatch codec, whose eq. 8 term joins
     the aux loss; a pipeline codec is a serving boundary and never enters
     the model."""
+    if topo is not None and topo.num_devices > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: training on a mesh {topo.mesh_shape} comes with ROADMAP item 8b")
     if cfg.moe is not None and cfg.moe_impl not in ("auto", "sorted", "naive"):
         raise NotImplementedError(
-            f"{cfg.name}: moe_impl={cfg.moe_impl!r} needs a device mesh (ROADMAP item 8)")
+            f"{cfg.name}: moe_impl={cfg.moe_impl!r} trains on a mesh (ROADMAP item 8b)")
 
 
-def _train_block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask):
+def _train_block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask, topo=None):
     """One block of the pattern in the training form: (x, the block's aux
     summed over its MoE layers)."""
     aux_acc: Dict[str, torch.Tensor] = {}
     for i, spec in enumerate(cfg.layer_pattern):
         x, aux, _ = apply_layer_full(bp[f"pos{i}"], x, spec, cfg, angles, causal=causal,
-                                     enc_out=enc_out, expert_mask=expert_mask, train=True)
+                                     enc_out=enc_out, expert_mask=expert_mask, train=True,
+                                     topo=topo)
         aux_acc = _merge_aux(aux_acc, aux)
     return x, aux_acc
 
@@ -243,7 +260,8 @@ def _train_block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask):
 def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *,
                      causal: bool = True, enc_out: Optional[torch.Tensor] = None,
                      expert_mask=None, collect_cache: bool = False, max_len: int = 0,
-                     train: bool = False, remat: bool = False):
+                     train: bool = False, remat: bool = False,
+                     topo: Optional[Topology] = None):
     """Loop the block pattern over a full sequence (``enc_out``: the
     encoder's output, which cross-attention layers attend).  Returns (x,
     the aux of every MoE layer in order, cache blocks or None): with
@@ -259,17 +277,19 @@ def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *
     None).  With ``remat`` (and grad mode on) each block runs under
     ``torch.utils.checkpoint`` (non-reentrant), which drops its saved
     activations and recomputes the block in the backward, as the
-    reference's ``jax.checkpoint``."""
+    reference's ``jax.checkpoint``.  ``train=True`` on an expert-parallel
+    ``topo`` runs the forward (the router's aux averaged over the ranks);
+    its gradient comes with ROADMAP item 8b."""
     if train:
         aux_sum: Dict[str, torch.Tensor] = {}
         for r in range(_n_blocks(params["blocks"])):
             bp = block_params(params["blocks"], r)
             if remat and torch.is_grad_enabled():
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    _train_block, x, bp, cfg, angles, causal, enc_out, expert_mask,
+                    _train_block, x, bp, cfg, angles, causal, enc_out, expert_mask, topo,
                     use_reentrant=False, preserve_rng_state=False)
             else:
-                x, aux = _train_block(x, bp, cfg, angles, causal, enc_out, expert_mask)
+                x, aux = _train_block(x, bp, cfg, angles, causal, enc_out, expert_mask, topo)
             aux_sum = _merge_aux(aux_sum, aux)
         return x, aux_sum, None
     layer_aux: List[Dict[str, torch.Tensor]] = []
@@ -280,6 +300,7 @@ def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *
             x, aux, ce = apply_layer_full(
                 bp[f"pos{i}"], x, spec, cfg, angles, causal=causal, enc_out=enc_out,
                 expert_mask=expert_mask, collect_cache=collect_cache, max_len=max_len,
+                topo=topo,
             )
             if aux:
                 layer_aux.append(aux)
@@ -332,6 +353,7 @@ def apply_layer_decode(
     page_table: Optional[torch.Tensor] = None,  # [B, pps] int32
     page_size: int = 0,
     expert_resident: Optional[Dict] = None,  # this layer's resident tables
+    topo: Optional[Topology] = None,
 ):
     """Single-token decode layer against the paged KV cache, or with no
     ``page_table`` against dense rings (``attn.decode_attention``, masked
@@ -366,7 +388,7 @@ def apply_layer_decode(
         if spec.cross_attn:
             x = x + _cross_attention_decode(p, x, cfg, cache_entry["xk"], cache_entry["xv"])
     if _has_ffn(spec, cfg):
-        x, aux = _ffn(p, x, spec, cfg, expert_mask, expert_resident)
+        x, aux = _ffn(p, x, spec, cfg, expert_mask, expert_resident, topo=topo)
     return x, cache_entry, aux
 
 
@@ -406,7 +428,8 @@ def _resident(expert_resident: Optional[Dict], i: int, spec, r: int) -> Optional
 def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
                        cache_blocks: Dict, lengths: torch.Tensor, expert_mask=None,
                        *, page_table: Optional[torch.Tensor] = None, page_size: int = 0,
-                       expert_resident: Optional[Dict] = None):
+                       expert_resident: Optional[Dict] = None,
+                       topo: Optional[Topology] = None):
     """Loop the block pattern over one decode token, over the blocks the
     params hold (a tier may hold a slice), against paged pools through
     ``page_table``, or without one against the dense caches of
@@ -423,7 +446,7 @@ def apply_stack_decode(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor,
             x, _, aux = apply_layer_decode(
                 bp[f"pos{i}"], x, spec, cfg, angles, ce, lengths,
                 expert_mask=expert_mask, page_table=page_table, page_size=page_size,
-                expert_resident=_resident(expert_resident, i, spec, r),
+                expert_resident=_resident(expert_resident, i, spec, r), topo=topo,
             )
             if aux:
                 layer_aux.append(aux)
@@ -442,6 +465,7 @@ def apply_stack_prefill_chunk(
     page_size: int,
     expert_mask=None,
     expert_resident: Optional[Dict] = None,
+    topo: Optional[Topology] = None,
 ):
     """Chunked prefill: each layer writes the chunk's k/v through the page
     table (padding rows to the garbage page), then attends the chunk's
@@ -467,7 +491,7 @@ def apply_stack_prefill_chunk(
             x = x + attn.output_proj(p["attn"], o)
             if _has_ffn(spec, cfg):
                 x, _ = _ffn(p, x, spec, cfg, expert_mask,
-                            _resident(expert_resident, i, spec, r))
+                            _resident(expert_resident, i, spec, r), topo=topo)
     return x, page_blocks
 
 

@@ -15,6 +15,14 @@ prefill state cannot stream through fixed-shape chunks).  Cross-attention
 for them: its dense branch hands ``Model.prefill`` only the prompt's tokens,
 never an encoder input (``frame_embeds``); such a model runs through
 ``Model.prefill`` and ``decode_step``.
+
+On an expert-parallel :class:`~repro_torch.distributed.topology.Topology`
+every rank runs one engine (SPMD) on the same requests: the engine's
+decisions (admission, pages, harvest) read only the requests and the
+logits, which every rank computes alike, never the clock, which only
+stamps the requests' times, so the ranks meet in each MoE layer's
+collectives.  :meth:`run` then gathers each rank's generated tokens and
+raises if they differ.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.selection import validate_expert_mask
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import kvcache, transformer
 from repro_torch.models.model import Model
 from repro_torch.serving.common import Request, ShapeSignatures, SlotEngineBase
@@ -185,6 +194,18 @@ class ServingEngine(SlotEngineBase):
         self._slot_len[self._active] += 1
         next_ids = torch.argmax(logits, dim=-1).cpu().numpy()
         return self._harvest(next_ids)
+
+    def run(self, max_steps: int = 10_000):
+        finished = super().run(max_steps)
+        topo = self.model.topo
+        if topo.num_devices > 1:
+            mine = sorted((r.request_id, tuple(r.generated)) for r in finished)
+            ranks = coll.gather_objects(mine, topo.world_group)
+            if any(other != mine for other in ranks):
+                raise RuntimeError(
+                    "ServingEngine: the ranks generated different tokens: "
+                    + "; ".join(f"rank {i}: {r}" for i, r in enumerate(ranks)))
+        return finished
 
     # -- introspection --------------------------------------------------------
 

@@ -5,7 +5,7 @@ Composes the train step (``launch.steps``), the data pipeline, the
 checkpointer (atomic, optionally asynchronous), ``StepGuard`` (a NaN or
 runaway step restores the last checkpoint) and the straggler watchdog.
 The reference's topology, sharding and elastic branches need a device
-mesh and come with ROADMAP item 8.
+mesh and come with ROADMAP item 8b.
 """
 
 from __future__ import annotations
@@ -58,8 +58,8 @@ class Trainer:
         seed: int = 0,
         device=DEFAULT_DEVICE,
     ):
-        if topo is not None and getattr(topo, "mesh", None) is not None:
-            raise NotImplementedError("training on a device mesh comes with ROADMAP item 8")
+        if topo is not None and topo.num_devices > 1:
+            raise NotImplementedError("training on a device mesh comes with ROADMAP item 8b")
         self.cfg = cfg
         self.device = torch.device(device)
         self.tc = trainer_cfg or TrainerConfig()

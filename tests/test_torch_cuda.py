@@ -198,10 +198,12 @@ def test_group_gate_kernel(gen, mask, T):
 @pytest.mark.parametrize("mask", ["none", "partial", "dead group"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T", [4, 8, 256, 1024])
-@pytest.mark.parametrize("model", ["switch-base", "llama4-scout-17b-16e"])
+@pytest.mark.parametrize("model", ["switch-base", "llama4-scout-17b-16e",
+                                   "qwen3-moe-235b-a22b"])
 def test_group_gate_kernel_path_shapes(gen, model, T, dtype, mask):
     """The path's widths (switch-base d 768, 8 experts in 4 groups;
-    llama4-scout d 5120, 16 in 4) and row counts: within 1e-4 of the plain
+    llama4-scout d 5120, 16 in 4; qwen3-moe d 4096, 128 in 16, the wide
+    form) and row counts: within 1e-4 of the plain
     version (f32 probabilities, the logits summed in another order), the
     same bits from a second launch, one launch counted a call."""
     moe = get_config(model).moe
@@ -230,6 +232,8 @@ def test_group_gate_kernel_path_shapes(gen, model, T, dtype, mask):
     (2, 4, 96, True), (8, 2, 160, True), (1, 3, 2100, True),  # the generic form
     (4, 2, 96, False),  # switch-base's (K, Mk) off 16-byte alignment: generic too
     (4, 4, 2100, True),  # llama4-scout's form with a deep loop over d
+    (16, 8, 4096, True), (4, 8, 100, True), (32, 8, 96, True),  # the wide form
+    (2, 32, 333, False), (16, 1, 64, True),
 ])
 @pytest.mark.parametrize("masked", [False, True])
 def test_group_gate_kernel_forms(gen, K, Mk, d, aligned, masked):
@@ -241,7 +245,10 @@ def test_group_gate_kernel_forms(gen, K, Mk, d, aligned, masked):
     b_local = torch.randn(K, Mk, generator=gen, device="cuda")
     b_global = torch.randn(K, generator=gen, device="cuda")
     form = group_gate_ops.launch_plan(8, d, K, Mk, (w_local.data_ptr(), w_global.data_ptr()))[0]
-    assert (form == 0) == ((K, Mk) not in ((4, 2), (4, 4)) or not aligned)
+    if K * Mk > 16 or K > 8:
+        assert form == 3
+    else:
+        assert (form == 0) == ((K, Mk) not in ((4, 2), (4, 4)) or not aligned)
     m = (torch.arange(K * Mk, device="cuda") % 3 != 1) if masked else None
     for T in (6, 300):
         x = torch.randn(T, d, generator=gen, device="cuda").bfloat16()
@@ -277,9 +284,11 @@ def test_group_gate_kernel_raises(gen):
     with pytest.raises(ValueError, match="bool"):
         group_gate(x, w_local, b_local, w_global, b_global,
                    torch.ones(K * Mk, dtype=torch.uint8, device="cuda"))
-    wide = torch.randn(4, d, 8, generator=gen, device="cuda")  # E = 32
-    with pytest.raises(ValueError, match="E <= 16"):
-        group_gate(x, wide, torch.zeros(4, 8, device="cuda"), w_global, b_global)
+    # past 16 experts the wide form takes powers of two only (3 groups of 8)
+    wide = torch.randn(3, d, 8, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="E <= 256"):
+        group_gate(x, wide, torch.zeros(3, 8, device="cuda"), w_global[:, :3].contiguous(),
+                   b_global[:3])
 
 
 def _kv_write_case(gen, kind, dtype, KV, hd, P=40, ps=16, pps=4, R=3):
@@ -1820,3 +1829,104 @@ def test_resident_ffn_refuses_a_gradient(gen):
         grouped_mlp_resident(xs, sizes, store_wi, None, store_wo, ids, "gelu")
     with torch.no_grad():
         assert grouped_mlp_resident(xs, sizes, store_wi, None, store_wo, ids, "gelu").shape == (4, 32)
+
+
+# ------------------------------------------------- the GELU tail (queue C1)
+
+
+def test_gelu_tail_on_card(gen):
+    """The expert FFN kernel's GELU and the backward's derivative on the
+    card at the saturated tail: exactly 0 (relu(x)) where the plain
+    version's are, past XLA's f32 tanh saturation (|u| >= 7.9988117),
+    where CUDA's tanhf is not yet +-1."""
+    from repro_torch.models.layers import ACTIVATION_GRADS, ACTIVATIONS
+
+    x = torch.cat([torch.linspace(-9.0, -4.0, 4001), torch.linspace(4.0, 9.0, 4001),
+                   torch.linspace(-100.0, 100.0, 2001)])
+    for how in ("grad", "act"):
+        fn = (ACTIVATION_GRADS if how == "grad" else ACTIVATIONS)["gelu"]
+        cpu, card = fn(x), fn(x.cuda()).cpu()
+        torch.testing.assert_close(card, cpu, rtol=1e-5, atol=4e-6)
+        zero = cpu == 0
+        assert zero.sum() > 1000 and bool((card[zero] == 0).all()), how
+    # the kernel: one row per x value through an identity-like FFN (d = f =
+    # 8: wi picks x into hidden unit 0, wo reads it back), f32 and bf16
+    n, d = x.numel(), 8
+    wi = torch.zeros(1, d, d, device="cuda")
+    wi[0, 0, 0] = 1.0
+    wo = wi.clone()
+    xs = torch.zeros(n, d, device="cuda")
+    xs[:, 0] = x.cuda()
+    gs = torch.tensor([n], dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        got = grouped_mlp(xs.to(dt), gs, wi.to(dt), None, wo.to(dt), "gelu")[:, 0].float().cpu()
+        want = grouped_mlp_plain(xs.to(dt).cpu(), gs.cpu(), wi.to(dt).cpu(), None,
+                                 wo.to(dt).cpu(), "gelu")[:, 0].float()
+        far = (x < -4.9) | (x > 4.9)  # away from the edge's last ulps
+        assert bool((got[far & (want == 0)] == 0).all()), dt
+        pos = x > 4.9  # the kernel's relu(x), F.gelu's within an ulp of x
+        torch.testing.assert_close(got[pos], want[pos], rtol=2 ** -23, atol=0)
+        torch.testing.assert_close(got, want, rtol=1e-2 if dt == torch.bfloat16 else 1e-5,
+                                   atol=1e-5)
+
+
+# --------------------------------------------------- expert parallelism
+
+
+def test_spawn_ranks_backend_rule(gen):
+    """gloo on the CPU; nccl when each rank has a card; gloo over CUDA
+    tensors when ranks share a card (nccl refuses two ranks on one)."""
+    from repro_torch.launch.mesh import backend_for
+
+    cards = torch.cuda.device_count()
+    backend, devices = backend_for(cards, "cuda")
+    assert backend == "nccl" and devices == [torch.device("cuda", r) for r in range(cards)]
+    backend, devices = backend_for(cards + 1, "cuda")
+    assert backend == "gloo" and devices[cards] == torch.device("cuda", 0)
+    assert backend_for(2, "cpu")[0] == "gloo"
+
+
+def test_ep_bodies_on_card_match_cpu(gen, tmp_path):
+    """The a2a and tp bodies (codec off and on, with drops, the a2a -> tp
+    fallback) at smoke size over two gloo ranks sharing the card against
+    the same bodies over two gloo ranks on the CPU: outputs within 1e-4
+    (the kernels against their plain versions), aux within 1e-5, the same
+    bodies run, every rank's output equal."""
+    import _torch_ep_ranks as ranks
+    from repro_torch.core import moe as tmoe
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = smoke_config(get_config(ranks.NAME))
+    data = {}
+    for c in (0, 1):
+        ccfg = cfg.replace(compression=CompressionConfig(rank=ranks.CODEC_RANK,
+                                                         boundaries=("dispatch",)) if c else None)
+        p = tmoe.init_moe(torch.Generator().manual_seed(3), ccfg)
+        data.update(ranks.flatten(_np_tree(p), f"params_{c}/"))
+    rng = np.random.default_rng(0)
+    cases = []
+    for name, impl, cf, codec, B in [("a2a", "a2a", 8.0, False, 4), ("tp", "tp", 8.0, False, 4),
+                                     ("a2a codec drops", "a2a", 1.0, True, 4),
+                                     ("tp codec drops", "tp", 1.0, True, 4),
+                                     ("a2a->tp T=3", "a2a", 8.0, False, 3)]:
+        cases.append(dict(name=name, impl=impl, mesh=[1, 2], cf=cf, codec=codec, train=True))
+        data[f"x_{name}"] = rng.standard_normal((B, 1 if B == 3 else 16, cfg.d_model)).astype(
+            np.float32)
+    path = str(tmp_path / "data.npz")
+    np.savez(path, **data)
+    card = spawn_ranks((1, 2), ranks.moe_cases, path, cases, device="cuda", timeout_s=300)
+    cpu = spawn_ranks((1, 2), ranks.moe_cases, path, cases, device="cpu", timeout_s=300)
+    for case in cases:
+        name = case["name"]
+        (y, aux, bodies), (yc, auxc, bodiesc) = card[0][name], cpu[0][name]
+        np.testing.assert_array_equal(card[1][name][0], y)
+        assert bodies == bodiesc == ((0, 1) if "tp" in name else (1, 0)), name
+        np.testing.assert_allclose(y, yc, rtol=1e-4, atol=1e-4, err_msg=name)
+        assert set(aux) == set(auxc)
+        for k in aux:
+            np.testing.assert_allclose(aux[k], auxc[k], rtol=1e-5, atol=1e-5, err_msg=f"{name} {k}")
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else v.detach().cpu().numpy()
+            for k, v in tree.items()}

@@ -144,3 +144,75 @@ def test_group_top_k_is_not_ported():
 
     with pytest.raises(NotImplementedError, match="group_top_k"):
         tg.group_gate_probs(tparams, torch.from_numpy(x), dataclasses.replace(cfg, group_top_k=2))
+
+
+def _wide_form_emulated(x, w_local, b_local, w_global, b_global, mask, splits=16):
+    """``csrc/group_gate.cu``'s wide form on the CPU, lane by lane: a task is
+    one group's Mk columns (or the K global ones, which every group's block
+    computes alike) over one of ``splits`` slices of d; lane l reads element ``s·chunk + l / W + j·(32 / W)`` of
+    column ``l % W`` at flat offset ``i·W + col`` of the group's weights;
+    the lanes of a column meet in the butterfly (xor W, 2W, ... 16), the
+    slices are summed in order; masked experts and dead groups at -1e30."""
+    T, d = x.shape
+    K, _, Mk = w_local.shape
+    E = K * Mk
+    chunk = -(-d // splits)
+    part = np.zeros((T, splits, E + K))
+    wl, wg = w_local.reshape(-1), w_global.reshape(-1)
+    for g in range(K + 1):
+        glob = g == K
+        W = K if glob else Mk
+        flat, base = (wg, 0) if glob else (wl, g * d * Mk)
+        for s in range(splits):
+            lanes = np.zeros((T, 32))
+            for lane in range(32):
+                i = s * chunk + lane // W
+                while i < min(d, (s + 1) * chunk):
+                    lanes[:, lane] += x[:, i] * flat[base + i * W + lane % W]
+                    i += 32 // W
+            o = W
+            while o < 32:
+                lanes = lanes + lanes[:, [lane ^ o for lane in range(32)]]
+                o <<= 1
+            part[:, s, (E if glob else g * Mk):][:, :W] = lanes[:, :W]
+    logit = part.sum(1) + np.concatenate([b_local.reshape(-1), b_global])
+    allowed = np.ones(E, bool) if mask is None else mask
+    alive = allowed.reshape(K, Mk).any(-1)
+    local = np.where(allowed, logit[:, :E], -1e30).reshape(T, K, Mk)
+    glob = np.where(alive, logit[:, E:], -1e30)
+    p_group = np.exp(glob - glob.max(-1, keepdims=True))
+    p_group /= p_group.sum(-1, keepdims=True)
+    p_local = np.exp(local - local.max(-1, keepdims=True))
+    p_local /= p_local.sum(-1, keepdims=True)
+    return (p_group[:, :, None] * p_local).reshape(T, E), p_group
+
+
+@pytest.mark.parametrize("K,Mk,d,masked", [
+    (16, 8, 200, False),  # qwen3-moe's 128 experts in 16 groups, a short d
+    (16, 8, 200, True),
+    (4, 8, 97, True),  # d not a multiple of the slices or the lane steps
+    (32, 8, 40, False),  # the bounds: 256 experts, 32 groups
+    (2, 32, 70, True),
+])
+def test_wide_gate_form_decomposition(K, Mk, d, masked):
+    """The wide form's lanes and tasks cover every weight once and sum to the
+    plain version (the form runs only on the card; this holds its index
+    arithmetic, and ``launch_plan`` picks it for these shapes)."""
+    from repro_torch.kernels.group_gate import group_gate_plain
+    from repro_torch.kernels.group_gate.ops import launch_plan
+
+    assert launch_plan(3, d, K, Mk)[0] == 3
+    rng = np.random.default_rng(K * Mk + d)
+    E = K * Mk
+    x = rng.standard_normal((3, d))
+    w_local, b_local = rng.standard_normal((K, d, Mk)) / d ** 0.5, rng.standard_normal((K, Mk))
+    w_global, b_global = rng.standard_normal((d, K)) / d ** 0.5, rng.standard_normal(K)
+    mask = None
+    if masked:  # one group dead, a third of the rest masked
+        mask = (np.arange(E) % 3 != 1) & (np.arange(E) // Mk != 1)
+    got = _wide_form_emulated(x, w_local, b_local, w_global, b_global, mask)
+    want = group_gate_plain(*(torch.from_numpy(a) for a in (x, w_local, b_local, w_global,
+                                                            b_global)),
+                            None if mask is None else torch.from_numpy(mask))
+    for g, w in zip(got, want):  # f64 here, f32 in the plain version
+        np.testing.assert_allclose(g, w.numpy(), rtol=1e-5, atol=1e-7)

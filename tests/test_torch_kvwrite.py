@@ -166,6 +166,10 @@ def test_cpu_routes_to_plain_and_other_devices_raise():
     (8, 768, 4, 4, (0, 4), (0, 1, 512, 0)),  # w_global not 16-byte aligned
     (8, 96, 2, 4, (0, 0), (0, 1, 96, 0)),  # another (K, Mk): generic form
     (3, 16, 8, 2, (0, 0), (0, 1, 32, 0)),
+    (8, 4096, 16, 8, (0, 0), (3, 1, 512, 0)),  # qwen3-moe, 128 experts: the wide form
+    (1024, 4096, 16, 8, (0, 0), (3, 1, 512, 0)),  # a token a block at any T
+    (8, 96, 4, 8, (0, 0), (3, 1, 512, 0)),  # 32 experts
+    (8, 96, 16, 1, (0, 0), (3, 1, 512, 0)),  # 16 groups of 1
 ])
 def test_gate_launch_plan(T, d, K, Mk, ptrs, want):
     assert launch_plan(T, d, K, Mk, ptrs) == want

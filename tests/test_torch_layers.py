@@ -67,6 +67,63 @@ def test_gelu_is_the_tanh_form():
     assert np.abs(exact - want).max() > 1e-4
 
 
+def _floats_between(a, b):
+    """Every f32 from ``a`` to ``b`` (both signs of a range, in bits)."""
+    lo, hi = sorted(np.array([a, b], np.float32).view(np.int32))
+    return np.arange(lo, hi + 1, dtype=np.int32).view(np.float32)
+
+
+def test_tanh_saturation_is_the_reference_f32_tanh():
+    """XLA's f32 tanh is exactly -1 / +1 from |u| = TANH_SATURATION on and
+    not one f32 step before it (probed here, the constant in the port)."""
+    t = tlayers.TANH_SATURATION
+    edge = np.float32(t)
+    inner = np.nextafter(edge, np.float32(0))
+    got = np.asarray(jax.jit(jnp.tanh)(jnp.asarray([-edge, -inner, inner, edge, -9.0, 9.0],
+                                                   jnp.float32)))
+    assert got[0] == -1.0 and got[1] > -1.0 and got[2] < 1.0 and got[3] == 1.0
+    assert got[4] == -1.0 and got[5] == 1.0
+    u = _floats_between(-7.9, -8.1)
+    sat = np.asarray(jax.jit(jnp.tanh)(jnp.asarray(u))) == -1.0
+    np.testing.assert_array_equal(sat, np.abs(u) >= edge)
+
+
+def test_gelu_and_its_derivative_are_exact_on_the_saturated_tail():
+    """The port's GELU is exactly 0 wherever ``jax.nn.gelu`` is (from
+    GELU_ZERO_AT down, and nowhere else), and within an ulp of x where the
+    reference's is x; its derivative (the expert FFN's backward and the
+    dense FFN's autograd alike) is exactly 0 (1) wherever
+    ``jax.grad(jax.nn.gelu)`` is, over every f32 through both edges of the
+    saturated tail and a grid out to |x| = 100; elsewhere both agree to f32
+    noise (the two tanh forms' ulps)."""
+    x = np.concatenate([_floats_between(-4.85, -4.89), _floats_between(4.85, 4.89),
+                        np.linspace(-100, 100, 20001).astype(np.float32)])
+    fwd = np.asarray(jax.jit(jax.nn.gelu)(jnp.asarray(x)))
+    got_fwd = tlayers.ACTIVATIONS["gelu"](_t(x)).numpy()
+    np.testing.assert_array_equal(fwd == 0, (x <= np.float32(tlayers.GELU_ZERO_AT)) | (x == 0))
+    np.testing.assert_array_equal(got_fwd == 0, fwd == 0)
+    tail = x > 4.868  # the positive saturated tail: x in the reference
+    np.testing.assert_array_equal(fwd[tail], x[tail])
+    np.testing.assert_allclose(got_fwd[tail], x[tail], rtol=2 ** -23, atol=0)
+    np.testing.assert_allclose(got_fwd, fwd, rtol=1e-6, atol=1e-6)
+    want = np.asarray(jax.jit(jax.vmap(jax.grad(jax.nn.gelu)))(jnp.asarray(x)))
+    got = tlayers.ACTIVATION_GRADS["gelu"](_t(x)).numpy()
+    tx = _t(x).requires_grad_(True)
+    tlayers.ACTIVATIONS["gelu"](tx).sum().backward()
+    for g in (got, tx.grad.numpy()):
+        np.testing.assert_array_equal(g[want == 0], 0.0)
+        np.testing.assert_array_equal(g[want == 1], 1.0)
+        # just inside the edge t is a few f32 steps from -1, where 1 - t^2
+        # differs by an ulp of t between the two tanh forms (~3e-6 here)
+        np.testing.assert_allclose(g, want, rtol=1e-5, atol=4e-6)
+    assert (want == 0).sum() > 1000 and (want == 1).sum() > 1000
+    # the dense FFN's bf16 rows: the f32 derivative rounded once
+    xb = _t(x).to(torch.bfloat16).requires_grad_(True)
+    tlayers.ACTIVATIONS["gelu"](xb).sum().backward()
+    wb = np.asarray(jax.vmap(jax.grad(jax.nn.gelu))(jnp.asarray(xb.detach().float().numpy())))
+    np.testing.assert_array_equal(xb.grad.float().numpy()[wb == 0], 0.0)
+
+
 @pytest.mark.parametrize("theta", [10000.0, 500000.0])
 def test_rope(theta):
     rng = np.random.default_rng(2)

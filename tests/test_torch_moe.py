@@ -17,6 +17,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import CompressionConfig, get_config, smoke_config
 from repro_torch.core import gating as tg
 from repro_torch.core import moe as tmoe
+from repro_torch.distributed.topology import Topology, single_device_topology
 
 # one intra-op thread per test worker: the suite runs several workers on a
 # few shared cores, where a many-thread pool stalls on every tiny op
@@ -100,8 +101,10 @@ def test_apply_moe_with_shared_expert(impl):
 
 def test_codec_and_unported_paths_raise():
     """The dispatch codec is ported (held to the reference in
-    ``tests/test_torch_dispatch.py``): a layer with one runs it; the
-    expert-parallel paths still raise."""
+    ``tests/test_torch_dispatch.py``): a layer with one runs it.  The
+    expert-parallel bodies need a topology (``tests/test_torch_ep.py``):
+    without one, ``a2a`` and ``tp`` raise the reference's ``ValueError``,
+    as does a single-shard impl on an expert-parallel topology."""
     _, cfg = _cfgs("switch-base")
     _, tp = _params(_cfgs("switch-base")[0])
     x = torch.zeros(4, cfg.d_model)
@@ -110,8 +113,14 @@ def test_codec_and_unported_paths_raise():
                                                           boundaries=("dispatch",)))
     y, aux = tmoe.moe_sorted({**tp, "codec": {"enc": eye, "dec": eye}}, x, cfg_codec)
     assert y.shape == x.shape and float(aux["recon_loss"]) == 0.0
-    with pytest.raises(NotImplementedError, match="a2a"):
-        tmoe.apply_moe(tp, x, cfg.replace(moe_impl="a2a"))
+    for impl in ("a2a", "tp"):
+        with pytest.raises(ValueError, match=f"unknown moe impl '{impl}'"):
+            tmoe.apply_moe(tp, x, cfg.replace(moe_impl=impl))
+        with pytest.raises(ValueError, match=f"unknown moe impl '{impl}'"):
+            tmoe.apply_moe(tp, x, cfg.replace(moe_impl=impl), single_device_topology())
+    with pytest.raises(ValueError, match="expert-parallel topology"):
+        tmoe.apply_moe(tp, x, cfg.replace(moe_impl="sorted"),
+                       Topology(mesh_shape=(1, 4), coords=(0, 0)))
 
 
 def test_init_moe_shapes_and_scales_match_reference():

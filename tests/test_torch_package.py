@@ -44,7 +44,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     mods = _modules()
     assert {"repro_torch.serving.engine", "repro_torch.serving.stream",
             "repro_torch.core.expertpool", "repro_torch.bridge",
-            "repro_torch.kernels.quant", "repro_torch.kernels.quant.ops"} <= set(mods)
+            "repro_torch.kernels.quant", "repro_torch.kernels.quant.ops",
+            "repro_torch.distributed.topology", "repro_torch.distributed.collectives",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
