@@ -119,11 +119,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    requests of 32 tokens, with the rank-384 boundary codec and without it
    (the draft never runs the codec, so with it on random weights nearly
    every round rejects): the speculative run's tokens equal the plain
-   run's and, without the codec, the CPU's, or the first token that
-   differs is a near tie (``equal_or_tie``: a top-2 gap below ``TIE`` of
-   some layer's gate probabilities or of the LM head's logits, through the
-   engine's tiers); without the codec its counters and host syncs
-   (``SPEC_COUNTERS``) equal the CPU run's;
+   run's, or the first token that differs is a near tie
+   (``equal_or_tie``: a top-2 gap below ``TIE`` of some layer's gate
+   probabilities or of the LM head's logits, through the engine's tiers);
+   without the codec, at ``SPEC_CPU_LAYERS`` layers, a card run's tokens,
+   counters and host syncs (``SPEC_COUNTERS``) equal the CPU run's;
    rounds roll back, and without the codec drafts are also accepted.  In
    bf16 with the expert pool and the three int8 streams: it completes, the
    pools drain, the path's kernels launch and no other (``SPEC_PATH``;
@@ -132,8 +132,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    chunk and cloud verify are profiled beside a plain round's end and
    cloud steps.  Then preemption in f32: 8 low-priority requests decoding
    in every slot, then 2 interactive ones: 2 spills and 2 restores, the
-   spill bytes equal the CPU run's, the tokens equal a run without
-   preemption (tie rule), the pools drain; over dense and int8 KV pools,
+   tokens equal a run without preemption (tie rule), the pools drain, and
+   at ``SPEC_CPU_LAYERS`` layers the counters, spill bytes and tokens equal
+   the CPU run's; over dense and int8 KV pools,
    with the host time of each spill and restore.  Phase 2 also checks
    paged attention at the speculative chunks' C = 2 and 4 (B = 4, 16-page
    rings) and flash attention at the draft prefill's [1, 256, 12, 64].
@@ -162,10 +163,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    window on lane 0), each event on a tick of its own (``CHAOS_TIMES``,
    placed by ``chaos_calibrate``; ``--chaos-timeline`` runs the phase alone
    and times them anew).  In f32 with the exact boundary: a clean and a
-   chaos run on the card and the port's CPU chaos run; card = CPU in fire
-   log, placement log, replans, fault counters, peer-fault fallbacks,
-   ``FLEET_COUNTERS``, the server-loss shard layout and every request's
-   stamps, tokens equal or the first difference a near tie; every request
+   chaos run on the card (card = CPU in fire log, placements, replans,
+   counters, stamps and tokens is held by the card test
+   ``test_fleet_chaos_on_card_matches_cpu`` at smoke size); every request
    finishes once, each fault met live traffic (migrations with spilled
    bytes, lane 0 at split 0 with degraded ticks, retries, one server lost,
    a peer fetch fell back), the pools and the migration park drain; the
@@ -322,6 +322,29 @@ Phases, in order; any failure exits non-zero before the result lines:
    payload at rank 1024 a quarter of the uncompressed one, shape-only)
    and a profiled decode step's busy share on rank 0
    (``chiprun_out/ep_decode_profile.txt``).
+18. Training on a mesh (``train_mesh_phase``; ``python3 chip_smoke.py
+   --train-mesh`` runs the build and this phase alone): full-width,
+   full-depth switch-base over a (2, 2) mesh of 4 ranks
+   (``elastic_topology(4, model_axis_size=2)``: ZeRO-3 blocks over the
+   data axis, experts over the model axis, the a2a body) that
+   ``spawn_ranks`` starts on the one card (gloo over CUDA tensors).  First
+   the path's kernels at a rank's shapes (``tm_kernels``).  (a) f32 at
+   capacity 8 with the load-balance weight 0 (``tm_configs``): 2 steps of
+   ``Trainer`` on the mesh against 3 of the one-process ``Trainer`` on the
+   card from the same seed-0 params and batches: every step's loss within
+   1e-5 relative, grad norm within 1e-4, the mesh checkpoint's params
+   after step 2 (whole arrays) against the one process's.  (b) That
+   checkpoint resumed in one process and on
+   ``elastic_topology(2, model_axis_size=2)``, a (1, 2) mesh of 2 ranks:
+   step 3's loss within 1e-5 of the uninterrupted run's.  (c) bf16 at the
+   config's capacity 1.25, 5 steps: losses finite, rank 0's step median,
+   a profiled step's busy share (``chiprun_out/train_mesh_step_profile.txt``),
+   each rank's peak memory, the collectives' calls and bytes a step
+   (forward with the recomputation, and backward), ``TM_PER_STEP``
+   launches a step and no other kernel, ``dropped_frac``.  (d) The same
+   with the rank-384 dispatch codec, 3 steps: the a2a payload exactly
+   rank / d of (c)'s, the expert ids' bytes unchanged, the encode and
+   decode launches in ``TM_CODEC_PER_STEP``.
 
 The last lines are the kernels' JSON record (``spec_launches``: each
 wrapper's launches in phase 8's bf16 speculative run; ``fleet_launches``:
@@ -331,7 +354,8 @@ run; ``vlm_launches``: over phase 11's runs; ``ssm_launches``: over phase
 ``encdec_launches``: in phase 14's bf16 run; ``train_launches``: in
 phase 15's bf16 training run, whose count is also ``flash_attention_bwd``'s
 ``launches``; ``train2_launches``: over phase 16's bf16 runs;
-``ep_launches``: rank 0's in phase 17's bf16 run), the
+``ep_launches``: rank 0's in phase 17's bf16 run;
+``train_mesh_launches``: rank 0's in phase 18's bf16 runs), the
 ``nvidia-smi``
 name and power limit, and ``{"ok": true, "device": {...}}``.  The profiled
 decode step, ``run_batch`` and stream ticks log the mean time in path, a
@@ -2494,6 +2518,9 @@ def f32_all_streams_card_vs_cpu(torch, model, params):
 # jetson-orin / a100 pair at split 1 (any acceptance above 0 plans 4 there)
 SPEC = dict(spec_k=4, link_rtt_s=0.05)
 SPEC_HI = 64  # prompt lengths of the f32 runs (the CPU runs them too)
+# the depth at which phase 8's f32 runs hold the card against the CPU (the
+# CPU half at full depth took 99 s of speculation and ~45 s of preemption)
+SPEC_CPU_LAYERS = 4
 TIE = 1e-2  # a top-2 gap below this is a near tie (f32_all_streams_card_vs_cpu)
 # the kernels the bf16 speculative run (expert pool, all three int8
 # streams, the rank-384 boundary codec) launches; every other wrapper: 0
@@ -2646,29 +2673,36 @@ def spec_f32(torch, model, params):
     and without it, where the draft differs from the model by the end mask
     alone (3 of 8 experts) and rounds both accept and reject.  The CPU runs
     the second only (its speculative path is the first's less the codec,
-    which the stream phases hold card against CPU)."""
+    which the stream phases hold card against CPU), at ``SPEC_CPU_LAYERS``
+    layers beside a card run of that depth."""
     from repro_torch.models.model import Model, to_device
 
     cfg = model.cfg.replace(dtype="float32")
-    hparams = to_device(params, "cpu")
+    small = cfg.replace(num_layers=SPEC_CPU_LAYERS)
+    sparams = first_layers(params, SPEC_CPU_LAYERS // len(cfg.layer_pattern))
+    runs_of = {"spec": (cfg, "cuda", SPEC, params),
+               "plain": (cfg, "cuda", {"link_rtt_s": 0.05}, params),
+               "card": (small, "cuda", SPEC, sparams),
+               "cpu": (small, "cpu", SPEC, to_device(sparams, "cpu"))}
     for name, rank in (("codec rank 384", 384), ("no codec", 0)):
         runs = {}
-        for tag, dev, kw in (("spec", "cuda", SPEC), ("plain", "cuda", {"link_rtt_s": 0.05}),
-                             ("cpu", "cpu", SPEC))[: 2 if rank else 3]:
+        for tag in ("spec", "plain") if rank else ("spec", "plain", "card", "cpu"):
+            c, dev, kw, p = runs_of[tag]
             t0 = time.perf_counter()
-            eng = spec_engine(Model(cfg, device=dev), params if dev == "cuda" else hparams,
-                              rank=rank, **kw)
+            eng = spec_engine(Model(c, device=dev), p, rank=rank, **kw)
             reqs = stream_requests(cfg.vocab_size, 8, 0, 32, hi=SPEC_HI)
             tokens = drive(eng, reqs)
             met = eng.metrics()
             runs[tag] = (tokens, met, eng, reqs)
-            log(f"spec run f32, {name} ({tag}, {dev}): {time.perf_counter() - t0:.1f} s, "
+            log(f"spec run f32, {name} ({tag}, {dev}, {c.num_layers} layers): "
+                f"{time.perf_counter() - t0:.1f} s, "
                 f"{int(eng.tiers.end_mask.sum())} mask experts, "
                 f"{ {k: met[k] for k in SPEC_COUNTERS} }")
             if met["kv_pages_in_use"] or not all(len(t) == 32 for t in tokens):
                 raise AssertionError(f"spec run f32 ({tag}): pages left mapped or a request "
                                      "short")
-        spec, plain, host = runs["spec"], runs["plain"], runs.get("cpu")
+        spec, plain, card, host = (runs["spec"], runs["plain"], runs.get("card"),
+                                   runs.get("cpu"))
         m = spec[1]
         if not (m["spec_plan_k"] > 1 and m["spec_rounds"] > 0):
             raise AssertionError(f"spec run f32, {name}: no speculative round ran: {m}")
@@ -2681,14 +2715,15 @@ def spec_f32(torch, model, params):
                      f"spec run f32, {name}, spec vs plain")
         if host is None:
             continue
-        got = {k: m[k] for k in SPEC_COUNTERS}
+        got = {k: card[1][k] for k in SPEC_COUNTERS}
         want = {k: host[1][k] for k in SPEC_COUNTERS}
         if got != want:
             raise AssertionError(f"spec run f32, {name}: card counters {got}, CPU {want}")
-        log(f"spec run f32, {name}: card counters equal the CPU's; acceptance "
-            f"{m['spec_accepted']} of {m['spec_drafted']} drafts")
-        equal_or_tie(torch, spec[2], spec[3], spec[0], host[0],
-                     f"spec run f32, {name}, card vs CPU")
+        log(f"spec run f32, {name}: at {SPEC_CPU_LAYERS} layers the card's counters equal "
+            f"the CPU's; acceptance at full depth {m['spec_accepted']} of "
+            f"{m['spec_drafted']} drafts")
+        equal_or_tie(torch, card[2], card[3], card[0], host[0],
+                     f"spec run f32, {name}, card vs CPU at {SPEC_CPU_LAYERS} layers")
 
 
 def spec_bf16(torch, model, params, counters):
@@ -2800,33 +2835,40 @@ def preempt_run(model, params, **kw):
 
 def preemption(torch, model, params):
     """Phase 8's preemption, in f32, dense and int8 KV pools: 2 spills and
-    2 restores; spill bytes equal the CPU run's; tokens equal a run without
-    preemption under the tie rule; the pools drain."""
+    2 restores; tokens equal a run without preemption under the tie rule;
+    the pools drain; at ``SPEC_CPU_LAYERS`` layers the card's counters,
+    spill bytes and tokens equal the CPU run's."""
     from repro_torch.models.model import Model, to_device
 
     cfg32 = model.cfg.replace(dtype="float32")
-    card, host = Model(cfg32, device="cuda"), Model(cfg32, device="cpu")
-    hparams = to_device(params, "cpu")
+    small = cfg32.replace(num_layers=SPEC_CPU_LAYERS)
+    sparams = first_layers(params, SPEC_CPU_LAYERS // len(cfg32.layer_pattern))
+    card, scard, host = (Model(cfg32, device="cuda"), Model(small, device="cuda"),
+                         Model(small, device="cpu"))
+    hparams = to_device(sparams, "cpu")
     for kw in ({}, {"quantize_kv": True}):
         t0 = time.perf_counter()
         tokens, eng, times = preempt_run(card, params, **kw)
         ref, _, _ = preempt_run(card, params, preemption=False, **kw)
+        stok, seng, _ = preempt_run(scard, sparams, **kw)
         htok, heng, _ = preempt_run(host, hparams, **kw)
-        m, hm = eng.metrics(), heng.metrics()
-        got = (m["preemptions"], m["preempt_restores"], m["preempt_spill_bytes"])
+        m, sm, hm = eng.metrics(), seng.metrics(), heng.metrics()
+        counts = [(x["preemptions"], x["preempt_restores"], x["preempt_spill_bytes"])
+                  for x in (m, sm, hm)]
         log(f"preemption (f32, {kw or 'dense pools'}): {time.perf_counter() - t0:.1f} s; "
-            f"preemptions, restores, spill bytes {got} (CPU "
-            f"{(hm['preemptions'], hm['preempt_restores'], hm['preempt_spill_bytes'])}); "
-            f"host ms a spill {[round(t * 1e3, 3) for t in times['spill']]}, a restore "
+            f"preemptions, restores, spill bytes {counts[0]} ({SPEC_CPU_LAYERS} layers: card "
+            f"{counts[1]}, CPU {counts[2]}); host ms a spill "
+            f"{[round(t * 1e3, 3) for t in times['spill']]}, a restore "
             f"{[round(t * 1e3, 3) for t in times['restore']]}")
-        if got[:2] != (2, 2) or got[2] != hm["preempt_spill_bytes"]:
-            raise AssertionError(f"preemption {kw}: counters {got}, CPU {hm}")
-        if m["kv_pages_in_use"] or hm["kv_pages_in_use"]:
+        if counts[0][:2] != (2, 2) or counts[1] != counts[2] or counts[1][:2] != (2, 2):
+            raise AssertionError(f"preemption {kw}: counters {counts}")
+        if m["kv_pages_in_use"] or sm["kv_pages_in_use"] or hm["kv_pages_in_use"]:
             raise AssertionError(f"preemption {kw}: pages left mapped")
         reqs = (stream_requests(cfg32.vocab_size, 8, 2, 16, hi=SPEC_HI)
                 + stream_requests(cfg32.vocab_size, 2, 3, 8, hi=SPEC_HI, base=100))
         equal_or_tie(torch, eng, reqs, tokens, ref, f"preemption {kw}, against no preemption")
-        equal_or_tie(torch, eng, reqs, tokens, htok, f"preemption {kw}, card vs CPU")
+        equal_or_tie(torch, seng, reqs, stok, htok,
+                     f"preemption {kw}, card vs CPU at {SPEC_CPU_LAYERS} layers")
 
 
 def spec_and_preempt(torch, model, params, counters):
@@ -3296,65 +3338,44 @@ def placements(fleet):
 
 def chaos_f32(torch, model, params, counters, timeline=False):
     """Phase 10 in f32 with the exact boundary: a clean and a chaos run on
-    the card and the port's CPU chaos run of the same schedule.  Returns
-    the card chaos run's migrated bytes a spilled page."""
-    from repro_torch.models.model import Model, to_device
+    the card (the card-vs-CPU comparison of the chaos run, 60 s of CPU at
+    full width, is ``tests/test_torch_cuda.py``'s
+    ``test_fleet_chaos_on_card_matches_cpu`` at smoke size).  Returns the
+    card chaos run's migrated bytes a spilled page."""
+    from repro_torch.models.model import Model
     from repro_torch.serving import loadgen
 
     cfg32 = model.cfg.replace(dtype="float32")
     runs = {}
-    for tag, dev in (("clean", "cuda"), ("chaos", "cuda"), ("chaos", "cpu")):
+    for tag in ("clean", "chaos"):
         gc.collect()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            for c in counters:
-                c.launches = 0
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
         state = {}
         t0 = time.perf_counter()
         reqs, fleet, ticks, _ = fleet_run(
-            torch, Model(cfg32, device=dev), params if dev == "cuda" else to_device(params, "cpu"),
+            torch, Model(cfg32, device="cuda"), params,
             n=CHAOS_N, faults=chaos_faults(CHAOS_TIMES["f32"]) if tag == "chaos" else (),
-            compression_rank=0,
-            watch=chaos_watch(torch, state, timeline and dev == "cuda"))
+            compression_rank=0, watch=chaos_watch(torch, state, timeline))
         wall = time.perf_counter() - t0
         rec = chaos_record(fleet, reqs)
-        runs[tag, dev] = (reqs, fleet, rec)
-        launches = ""
-        if dev == "cuda":
-            got = {c.__name__: c.launches for c in counters}
-            zero = [k for k in FLEET_F32_PATH if k not in ("lowrank_encode", "lowrank_decode")
-                    and got[k] == 0]
-            if zero:
-                raise AssertionError(f"chaos f32 {tag}: path kernels not launched: {zero}")
-            launches = f"; launches {got}"
-        log(f"chaos f32 {tag} ({dev}): {wall:.1f} s, {ticks} ticks, modeled end "
+        runs[tag] = (reqs, fleet, rec)
+        got = {c.__name__: c.launches for c in counters}
+        zero = [k for k in FLEET_F32_PATH if k not in ("lowrank_encode", "lowrank_decode")
+                and got[k] == 0]
+        if zero:
+            raise AssertionError(f"chaos f32 {tag}: path kernels not launched: {zero}")
+        log(f"chaos f32 {tag} (cuda): {wall:.1f} s, {ticks} ticks, modeled end "
             f"{fleet.clock():.4f} s, faults {rec['faults']}, peer fault fallbacks "
-            f"{rec['peer_fault_fallbacks']}, {rec['counters']}{launches}")
+            f"{rec['peer_fault_fallbacks']}, {rec['counters']}; launches {got}")
         if tag == "chaos":
-            log(f"chaos f32 ({dev}) fire log (modeled s): "
+            log(f"chaos f32 (cuda) fire log (modeled s): "
                 f"{[(d['kind'], d['device'], d['t_s'], round(d['t_fired_s'], 6)) for d in rec['fired']]}"
                 f"; replans {[(ev['device'], ev['old_split'], ev['new_split']) for ev in rec['replans']]}"
                 f"; server-loss shards {rec['shards']}")
-    (creqs, cfleet, crec), (hreqs, _, hrec) = runs["chaos", "cuda"], runs["chaos", "cpu"]
-    (kreqs, kfleet, _) = runs["clean", "cuda"]
-    for what in ("fired", "placed", "replans", "faults", "peer_fault_fallbacks", "counters",
-                 "shards"):
-        if crec[what] != hrec[what]:
-            raise AssertionError(f"chaos f32: {what} on the card {crec[what]}, CPU {hrec[what]}")
-    bad = [i for i, (a, b) in enumerate(zip(crec["stamps"], hrec["stamps"]))
-           if any(x is None or y is None or abs(x - y) > 1e-9 for x, y in zip(a, b))]
-    if bad:
-        raise AssertionError(f"chaos f32: stamps of requests {bad} differ from the CPU's")
+    (creqs, cfleet, crec), (kreqs, kfleet, _) = runs["chaos"], runs["clean"]
     chaos_checks("chaos f32 (card)", cfleet, creqs)
-    chaos_checks("chaos f32 (CPU)", runs["chaos", "cpu"][1], hreqs)
-    last = {rid: devs[-1] for rid, devs in placements(cfleet).items()}
-    equal_or_tie(torch, lambda r: cfleet.lanes[last[creqs[r].request_id]], creqs,
-                 [list(r.generated) for r in creqs], [list(r.generated) for r in hreqs],
-                 "chaos f32, card vs CPU")
-    log(f"chaos f32: fire log ({len(crec['fired'])} events), placement log "
-        f"({len(crec['placed'])} placements), replans ({len(crec['replans'])}), fault counters, "
-        f"peer fault fallbacks, counters, server-loss shards and all {len(creqs)} requests' "
-        f"stamps equal the CPU's")
     chaos_vs_clean(torch, cfleet, creqs, kfleet, kreqs)
     window = [d["t_fired_s"] for d in crec["fired"] if d["kind"] in ("lane_crash", "lane_recover")]
     window = window[1] - window[0] + crec["faults"]["link_blackout_s"]
@@ -5917,6 +5938,387 @@ def ep_phase(torch, timer, counters=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training on a mesh (full-width switch-base over 4 ranks)
+# ---------------------------------------------------------------------------
+
+TM_MESH = (2, 2)  # elastic_topology(4, model_axis_size=2): ZeRO-3 over 2, experts over 2
+TM_RESUME = 2  # (b): elastic_topology(2, model_axis_size=2), a (1, 2) mesh
+TM_STEPS_A, TM_STEPS_C, TM_STEPS_D = 2, 5, 3
+TM_TIMEOUT_S = 420  # the process group's and each spawn's deadline
+# launches a step of full-depth switch-base on a rank (12 layers, 6 MoE,
+# each block recomputed once in the backward): the one-device step's; with
+# the dispatch codec the a2a body encodes and decodes the payload there and
+# back (2 + 2 a MoE layer's forward, recomputed once)
+TM_PER_STEP = dict(TRAIN_PER_STEP)
+TM_CODEC_PER_STEP = {**TRAIN_PER_STEP, "lowrank_encode": 24, "lowrank_decode": 24}
+
+
+def tm_configs():
+    """(f32 for (a)-(b), bf16 for (c), bf16 with the dispatch codec for
+    (d)): full-width, full-depth switch-base, AdamW, the a2a body on the
+    mesh.  (a)-(b) set the capacity factor to 8 (nothing drops) and the
+    load-balance weight to 0: on a mesh that term is the mean over the
+    ranks of each one's product of two token means (the reference's
+    ``pmean`` of the gate's aux), which no one-process run computes, while
+    every other term is a mean the shards add up to.  (c)-(d) keep the
+    config's (capacity 1.25, the router's weights)."""
+    import dataclasses
+
+    from repro_torch.configs import CompressionConfig, get_config
+
+    base = get_config(TRAIN)
+    f32 = base.replace(dtype="float32", moe=dataclasses.replace(
+        base.moe, capacity_factor=8.0, router_aux_weight=0.0))
+    codec = base.replace(compression=CompressionConfig(**DISPATCH_CODEC))
+    return f32, base, codec
+
+
+def tm_trainer(cfg, topo, device, ckpt, total, skip=0):
+    """A ``Trainer`` of ``cfg`` (seed 0, ``TRAIN_OPT``) on ``topo`` (None:
+    one process) over ``train_batches``' first batches (the first ``skip``
+    left out), checkpoints only at the end, into ``ckpt``."""
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    data = train_batches(cfg, total, 0)[skip:]
+    if ckpt is None:  # a state only: an empty directory of its own
+        import tempfile
+
+        ckpt = tempfile.mkdtemp(prefix="tm_state_")
+    return Trainer(cfg, iter(data), topo=topo, device=device, seed=0,
+                   opt_cfg=OptimizerConfig(name=cfg.optimizer, **TRAIN_OPT),
+                   trainer_cfg=TrainerConfig(total_steps=total, checkpoint_every=10**6,
+                                             checkpoint_dir=ckpt, keep_checkpoints=2,
+                                             async_checkpoint=False, log_every=1)).initialize()
+
+
+def tm_bf16_run(torch, cfg, topo, device, n, counters, profile_name=None):
+    """(c) / (d) on one rank: the state of a ``Trainer`` (its blocks), then
+    ``n`` bf16 steps of its step function, each timed on the host clock to
+    the synchronizing ``float(loss)`` (no checkpoint: the run measures the
+    step), then one more with the collectives' counters zeroed (rank 0
+    under the profiler when ``profile_name`` is given).  Returns what the
+    parent logs."""
+    import shutil
+    import statistics
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import steps
+
+    torch.cuda.reset_peak_memory_stats()
+    tr = tm_trainer(cfg, topo, device, None, n)
+    step_fn = steps.make_train_step(tr.model, tr.opt_cfg, tr.specs[0])
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in train_batches(cfg, n + 1, 0)]
+    losses, times, seen = [], [], {}
+
+    def run():
+        for b in batches[:n]:
+            t = time.perf_counter()
+            tr.params, tr.opt_state, m = step_fn(tr.params, tr.opt_state, b)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t)
+
+    _, launches = counted_run(counters, run)
+
+    def step():
+        _, _, m = step_fn(tr.params, tr.opt_state, batches[n])
+        seen.update(loss=float(m["loss"]), dropped=float(m["dropped_frac"]))
+
+    coll.reset_counts()
+    prof = None
+    if profile_name is not None and topo.rank == 0:
+        prof = profiled(torch, step, profile_name, GATE_KERNELS + ffn_kernels(
+            "expert FFN", "__nv_bfloat16") + CODEC_KERNELS)
+    else:
+        step()
+    counts = coll.counts()
+    res = dict(losses=losses, step_s=statistics.median(times[1:]),
+               launches={k: v / n for k, v in launches.items()}, counts=counts, profile=prof,
+               peak=torch.cuda.max_memory_allocated(), extra=seen)
+    shutil.rmtree(tr.tc.checkpoint_dir, ignore_errors=True)
+    del tr, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tm_rank(topo, device, ckpt):
+    """One rank of phase 18's (2, 2) mesh (every rank the same host code):
+    (a) f32 ``Trainer`` for ``TM_STEPS_A`` steps, checkpointed (whole
+    arrays) into ``ckpt``; (c) bf16, (d) bf16 with the dispatch codec."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    f32, bf16, codec = tm_configs()
+    counters = wrappers() + [flash_attention_bwd]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = tm_trainer(f32, topo, device, ckpt, TM_STEPS_A)
+    log_a = tr.run()["log"]
+    out = {"rank": topo.rank, "a_log": log_a, "a_seconds": time.perf_counter() - t0,
+           "a_peak": torch.cuda.max_memory_allocated()}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["c"] = tm_bf16_run(torch, bf16, topo, device, TM_STEPS_C, counters,
+                           "train_mesh_step_profile.txt")
+    out["c"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = tm_bf16_run(torch, codec, topo, device, TM_STEPS_D, counters)
+    out["d"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tm_resume_rank(topo, device, ckpt):
+    """(b) On ``elastic_topology(TM_RESUME, model_axis_size=2)``: the f32
+    ``Trainer`` resumes ``ckpt``'s step ``TM_STEPS_A`` and takes one more
+    step.  Returns (the mesh, the step it resumed at, the log)."""
+    from repro_torch.distributed.fault import elastic_topology
+
+    f32, _, _ = tm_configs()
+    t = elastic_topology(TM_RESUME, model_axis_size=2)
+    tr = tm_trainer(f32, t, device, ckpt, TM_STEPS_A + 1, skip=TM_STEPS_A)
+    resumed = tr.step
+    return t.mesh_shape, resumed, tr.run()["log"]
+
+
+def tm_kernels(torch, timer):
+    """The kernels of phase 18's path against their plain versions at its
+    shapes on a rank of (2, 2): flash attention forward and backward on the
+    rank's batch shard [2, 256, 12, 64], bf16 and f32; the gate on the a2a
+    body's token chunk (T = 256: 512 tokens a data rank over ep 2) at d 768,
+    8 experts in 4 groups; the expert FFN over the rank's 4 experts at
+    ``ep·C`` rows (320 at capacity 1.25, bf16; 2048 at capacity 8, f32); the
+    codec at 768 -> 384 on the payload's 256 and the received 320 rows."""
+    from repro_torch.core.compression import init_lowrank_1d
+    from repro_torch.core.gating import init_group_gate
+    from repro_torch.kernels.expert_mlp import ffn_plan, grouped_mlp, grouped_mlp_plain
+    from repro_torch.kernels.group_gate import group_gate, group_gate_plain
+
+    _, cfg, _ = tm_configs()
+    m = cfg.moe
+    E, K, d, f = m.num_experts, m.num_groups, cfg.d_model, m.d_ff_expert
+    E_loc = E // TM_MESH[1]
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for bf16 in (True, False):
+        bwd_case(torch, timer, gen, f"switch-base rank [2,256,12,64] causal "
+                 f"{'bf16' if bf16 else 'f32'}", 2, 256, 256, 12, 12, 64, True, None, bf16)
+    timer.read_later()
+    p = init_group_gate(gen, d, m)
+    T = TRAIN_B * TRAIN_S // (TM_MESH[0] * TM_MESH[1])
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(T, d, generator=gen, device="cuda").to(dt)
+        args = (x, p["w_local"], p["b_local"], p["w_global"], p["b_global"], None)
+        probs, pg = group_gate(*args)
+        rprobs, rpg = group_gate_plain(*args)
+        tag = f"switch-base T={T} x {str(dt)[6:]}"
+        check_close(f"group_gate probs {tag}", probs, rprobs, rtol=0, atol=1e-4)
+        check_close(f"group_gate p_group {tag}", pg, rpg, rtol=0, atol=1e-4)
+        nbytes = T * d * x.element_size() + d * (E + K) * 4 + (E + K) * 4 + T * (E + K) * 4
+        b_ms, b_by = bound(nbytes, 2 * T * d * (E + K), "f32")
+        ms, plain_ms = timer(functools.partial(group_gate, *args)), timer(
+            lambda: group_gate_plain(*args))
+        log(f"  group_gate {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} "
+            f"({b_by}) library_ms=null")
+    for dt, n in ((torch.bfloat16, 320), (torch.float32, 2048)):
+        wi, wo = (torch.randn(E_loc, a, b, generator=gen, device="cuda").div(a ** 0.5).to(dt)
+                  for a, b in ((d, f), (f, d)))
+        cut = torch.sort(torch.randint(0, n + 1, (E_loc - 1,), generator=gen,
+                                       device="cuda")).values
+        sizes = torch.diff(torch.cat([cut.new_zeros(1), cut, cut.new_full((1,), n)]))
+        xs = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        args = (xs, sizes.int(), wi, None, wo, cfg.act)
+        y, ref = grouped_mlp(*args), grouped_mlp_plain(*args)
+        rel = 2e-2 if dt == torch.bfloat16 else 1e-5
+        tag = f"switch-base rank n={n} over {E_loc} experts {str(dt)[6:]}"
+        check_close(f"expert_mlp {tag}", y, ref, rtol=0, atol=rel * ref.float().abs().max().item())
+        es = xs.element_size()
+        routed = int((sizes > 0).sum())
+        b_ms, b_by = bound(2 * n * d * es + routed * 2 * d * f * es + E_loc * 4, 2 * 2 * n * d * f,
+                           "bf16" if dt == torch.bfloat16 else "f32")
+        ms, plain_ms = timer(functools.partial(grouped_mlp, *args)), timer(
+            lambda: grouped_mlp_plain(*args))
+        log(f"  expert_mlp {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.6f} "
+            f"({b_by}) library_ms=null path={ffn_plan(n, d, f, dt)}")
+        del wi, wo
+    codec = init_lowrank_1d(torch.Generator().manual_seed(7), d, DISPATCH_CODEC["rank"],
+                            device="cuda")
+    codec_cases(torch, timer, gen, codec, (256, 320))
+
+
+def tm_a2a_bytes(cfg, counts):
+    """(payload bytes, expert-id bytes) of the all_to_all calls of one step
+    on a rank of ``TM_MESH``: the ids go once a MoE layer's forward (and
+    its recomputation), int32 [ep, C]; the rest is payload."""
+    from repro_torch.core.moe import _capacity
+
+    m = cfg.moe
+    ep = TM_MESH[1]
+    ts = TRAIN_B * TRAIN_S // (TM_MESH[0] * ep)
+    C = _capacity(ts * m.top_k, ep, m.capacity_factor)
+    moe_layers = sum(1 for s in cfg.layer_pattern if s.moe) * cfg.block_repeat
+    ids = 2 * moe_layers * ep * C * 4
+    total = counts["all_to_all"]["bytes"] + counts["all_to_all"]["bwd_bytes"]
+    return total - ids, ids
+
+
+def train_mesh_phase(torch, timer, counters=None):
+    """Phase 18: full-width, full-depth switch-base trained on a (2, 2) mesh
+    of 4 ranks sharing the card (gloo over CUDA tensors, the a2a body),
+    each rank spawned by ``launch.mesh.spawn_ranks``; the one-process runs
+    never beside the ranks.  Returns rank 0's launches in (c) and (d)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed.fault import elastic_shape
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+
+    t_phase = time.perf_counter()
+    tm_kernels(torch, timer)
+    f32, bf16, codec = tm_configs()
+    tmp = tempfile.mkdtemp(prefix="train_mesh_")
+    try:
+        # (a)'s reference: one process, the sorted body, 3 steps uninterrupted;
+        # its params after step 2 copied to the host on the way
+        t0 = time.perf_counter()
+        one = tm_trainer(f32, None, "cuda", os.path.join(tmp, "one"), TM_STEPS_A + 1)
+        inner, taken = steps.make_train_step(one.model, one.opt_cfg), {}
+
+        def snapshot(params, state, batch, *, accept=None):
+            params, state, m = inner(params, state, batch, accept=accept)
+            if int(state["step"]) == TM_STEPS_A:
+                taken.update(_tm_flat(params))
+            return params, state, m
+
+        one._step_fn = snapshot
+        one_log = one.run()["log"]
+        one_params = dict(taken)
+        del one, inner, taken
+        shutil.rmtree(os.path.join(tmp, "one"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"train mesh (a) one process (f32, sorted, {TM_STEPS_A + 1} steps): "
+            f"{time.perf_counter() - t0:.1f} s; losses "
+            + " ".join(f"{m['loss']:.6f}" for m in one_log))
+
+        world = TM_MESH[0] * TM_MESH[1]
+        log(f"train mesh ranks: mesh {TM_MESH} (tp: ZeRO-3 over data, experts over model), "
+            f"{backend_for(world, 'cuda')[0]} over CUDA tensors, {torch.cuda.device_count()} "
+            f"card(s)")
+        ckpt = os.path.join(tmp, "mesh")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(TM_MESH, tm_rank, ckpt, device="cuda", policy="tp",
+                            timeout_s=TM_TIMEOUT_S)
+        log(f"train mesh ranks took {time.perf_counter() - t0:.1f} s (spawn, (a), (c), (d))")
+        r0 = ranks[0]
+        for i, m in enumerate(r0["a_log"]):
+            want = one_log[i]
+            rl = abs(m["loss"] - want["loss"]) / abs(want["loss"])
+            rg = abs(m["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+            log(f"train mesh (a) step {i + 1}: loss {m['loss']:.6f} vs one process "
+                f"{want['loss']:.6f} (rel {rl:.2e}), grad norm {m['grad_norm']:.5f} vs "
+                f"{want['grad_norm']:.5f} (rel {rg:.2e})")
+            if not (rl <= 1e-5 and rg <= 1e-4) or any(
+                    r["a_log"][i]["loss"] != m["loss"] for r in ranks):
+                raise AssertionError(f"train mesh (a) step {i + 1}: the mesh disagrees with "
+                                     "the one-process run, or the ranks differ")
+        import numpy as np
+
+        with np.load(os.path.join(ckpt, f"step_{TM_STEPS_A:08d}", "arrays.npz")) as z:
+            got = {k: torch.from_numpy(z[f"0/{k}"]) for k in one_params}
+        params_after_steps_close(torch, "train mesh (a)", got, one_params,
+                                 TRAIN_OPT["lr"] * TM_STEPS_A)
+        log(f"train mesh (a): the (2, 2) checkpoint's params after step {TM_STEPS_A} equal the "
+            f"one process's ({len(one_params)} leaves); peak a rank "
+            + ", ".join(f"{r['a_peak'] / 2**30:.2f}" for r in ranks) + " GiB; "
+            f"{r0['a_seconds']:.1f} s on rank 0")
+        del got, one_params
+        gc.collect()
+
+        # (b): resumed in one process, then on (1, 2)
+        t0 = time.perf_counter()
+        res = tm_trainer(f32, None, "cuda", ckpt, TM_STEPS_A + 1, skip=TM_STEPS_A)
+        resumed_one = res.step
+        one_b = res.run()["log"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(ckpt, f"step_{TM_STEPS_A + 1:08d}"), ignore_errors=True)
+        log(f"train mesh (b) one-process resume: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        el = spawn_ranks(elastic_shape(TM_RESUME, 2), tm_resume_rank, ckpt, device="cuda",
+                         policy="tp", timeout_s=TM_TIMEOUT_S)
+        log(f"train mesh (b) elastic resume ranks took {time.perf_counter() - t0:.1f} s")
+        want = one_log[TM_STEPS_A]["loss"]
+        for tag, resumed, log_b in (("one process", resumed_one, one_b),
+                                    *((f"{mesh} rank {i}", r, lg)
+                                      for i, (mesh, r, lg) in enumerate(el))):
+            got = log_b[-1]["loss"]
+            rl = abs(got - want) / abs(want)
+            log(f"train mesh (b) resumed at step {resumed} ({tag}): step {TM_STEPS_A + 1} loss "
+                f"{got:.6f} vs the uninterrupted run's {want:.6f} (rel {rl:.2e})")
+            if resumed != TM_STEPS_A or rl > 1e-5:
+                raise AssertionError(f"train mesh (b) {tag}: the resumed step disagrees")
+        if any(mesh != (1, 2) for mesh, _, _ in el):
+            raise AssertionError(f"train mesh (b): elastic meshes {[e[0] for e in el]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    tokens = TRAIN_B * TRAIN_S
+    for tag, key, cfg, per_step in (("(c) bf16", "c", bf16, TM_PER_STEP),
+                                    ("(d) bf16 + codec rank 384", "d", codec, TM_CODEC_PER_STEP)):
+        rc = r0[key]
+        log(f"train mesh {tag}: losses " + " ".join(f"{x:.4f}" for x in rc["losses"])
+            + f"; step median {rc['step_s'] * 1e3:.1f} ms (rank 0, host clock after float(loss)),"
+            f" {tokens / rc['step_s']:.0f} tokens/s; {rc['seconds']:.1f} s; dropped_frac "
+            f"{rc['extra']['dropped']:.4f}")
+        log(f"train mesh {tag}: peak memory a rank "
+            + ", ".join(f"{r[key]['peak'] / 2**30:.2f}" for r in ranks)
+            + f" GiB (sum {sum(r[key]['peak'] for r in ranks) / 2**30:.2f})")
+        log(f"train mesh {tag}: collectives a step (rank 0; calls / bytes handed in, forward "
+            f"with the recomputation, and backward): {rc['counts']}")
+        got = {k: rc["launches"][k] for k in per_step}
+        log(f"train mesh {tag}: launches a step (rank 0) {got}")
+        if got != {k: float(v) for k, v in per_step.items()}:
+            raise AssertionError(f"train mesh {tag}: launches a step {got}, want {per_step}")
+        only_path(f"train mesh {tag}", {k: v for k, v in rc["launches"].items()}, per_step)
+        if not all(math.isfinite(x) for r in ranks for x in r[key]["losses"]):
+            raise AssertionError(f"train mesh {tag}: a loss is not finite")
+        if rc["profile"] is not None:
+            dev_ms, wall_ms, path = rc["profile"]
+            log(f"train mesh {tag}: profiled step (rank 0, the other ranks stepping beside it): "
+                f"device {dev_ms:.3f} ms of {wall_ms:.1f} ms wall ({dev_ms / wall_ms:.1%} busy);"
+                f" kernels in path {path}; chiprun_out/train_mesh_step_profile.txt")
+    pay_c, ids_c = tm_a2a_bytes(bf16, r0["c"]["counts"])
+    pay_d, ids_d = tm_a2a_bytes(codec, r0["d"]["counts"])
+    ratio = DISPATCH_CODEC["rank"] / bf16.d_model
+    log(f"train mesh (d): all_to_all payload a step {pay_d} B against (c)'s {pay_c} B "
+        f"(ratio {pay_d / pay_c:.4f}, want {ratio:.4f}); expert ids {ids_d} B and {ids_c} B; "
+        "recon_loss: none on the mesh, as in the reference's a2a and tp bodies (the eq. 8 "
+        "term is moe_sorted's)")
+    if pay_d * bf16.d_model != pay_c * DISPATCH_CODEC["rank"] or ids_d != ids_c:
+        raise AssertionError("train mesh (d): the codec's payload is not rank / d of (c)'s")
+    log(f"train mesh phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: round(r0["c"]["launches"].get(k, 0) * TM_STEPS_C
+                     + r0["d"]["launches"].get(k, 0) * TM_STEPS_D) for k in r0["c"]["launches"]}
+
+
+def _tm_flat(tree, prefix=""):
+    """{'/'-joined path: a host copy of the leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tm_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v.detach().to("cpu", copy=True)
+    return out
+
+
 def wrappers():
     """Every kernel wrapper of the port, each counting its launches."""
     from repro_torch.kernels.expert_mlp import (
@@ -5954,7 +6356,8 @@ def serve_phase(torch, timer, counters):
 ALONE = {"--serve": ("serve", lambda: serve_phase), "--vlm": ("vlm", lambda: vlm_phase),
          "--ssm": ("ssm", lambda: ssm_phase), "--danube": ("danube", lambda: danube_phase),
          "--encdec": ("encdec", lambda: encdec_phase), "--train": ("train", lambda: train_phase),
-         "--train2": ("train2", lambda: train2_phase), "--ep": ("ep", lambda: ep_phase)}
+         "--train2": ("train2", lambda: train2_phase), "--ep": ("ep", lambda: ep_phase),
+         "--train-mesh": ("train mesh", lambda: train_mesh_phase)}
 
 
 def alone(torch, flag: str) -> int:
@@ -6110,6 +6513,9 @@ def main() -> int:
     log("expert parallelism: qwen3-moe at full width over 4 ranks on the card (the a2a and "
         "tp bodies through Model and ServingEngine):")
     ep_launches = ep_phase(torch, timer)
+    log("training on a mesh: full-width switch-base over 4 ranks on the card (the sharded "
+        "train step and Trainer, the bodies' backward, the elastic resume):")
+    train_mesh_launches = train_mesh_phase(torch, timer)
     log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s (from the build on)")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
@@ -6196,6 +6602,10 @@ def main() -> int:
             # launches in phase 17's bf16 run on rank 0 of 4 (qwen3-moe,
             # the a2a body through the codec)
             "ep_launches": ep_launches.get(counter, 0),
+            # launches in phase 18's bf16 training runs on rank 0 of 4
+            # ((c) and (d): switch-base, the a2a body, with and without the
+            # dispatch codec), forward, recomputation and backward
+            "train_mesh_launches": train_mesh_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -8,7 +8,9 @@ layouts, same values.  Taking numpy keeps JAX out of this package.
 On an expert-parallel topology each rank holds its own experts: a MoE
 layer's ``wi``/``wg``/``wo`` (``[..., E, d, f]`` / ``[..., E, f, d]``, the
 expert axis third from the end, stacked or not) come across as this rank's
-slice ``[r·E/ep, (r+1)·E/ep)`` along the model axis, everything else whole.
+slice ``[r·E/ep, (r+1)·E/ep)`` along the model axis, everything else whole
+(serving's layout); for training on a mesh :func:`blocks_from_numpy` hands
+each rank its blocks of every leaf by the ``distributed.sharding`` specs.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE
+from repro_torch.distributed import sharding
 from repro_torch.distributed.topology import Topology
 
 EXPERT_LEAVES = ("wi", "wg", "wo")
@@ -38,5 +41,17 @@ def params_from_numpy(tree: Dict, device=DEFAULT_DEVICE, topo: Optional[Topology
 
     return {
         k: params_from_numpy(v, device, topo) if isinstance(v, dict) else leaf(k, v)
+        for k, v in tree.items()
+    }
+
+
+def blocks_from_numpy(tree: Dict, specs: Dict, topo: Topology, device=DEFAULT_DEVICE) -> Dict:
+    """Whole params or optimizer state (nested dicts of numpy arrays) ->
+    this rank's block of every leaf by ``specs`` (``sharding.train_specs``),
+    as tensors on ``device``."""
+    return {
+        k: blocks_from_numpy(v, specs[k], topo, device) if isinstance(v, dict)
+        else sharding.local_block(torch.from_numpy(np.array(v)), specs[k], topo)
+        .to(device, copy=True).contiguous()
         for k, v in tree.items()
     }

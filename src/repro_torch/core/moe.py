@@ -19,9 +19,21 @@ codec when the config has a dispatch codec), runs its experts on what it
 received and sends the rows back.  ``tp`` gates every token on every rank,
 runs the assignments that hit its own experts and sums the partial outputs
 over the model axis (through the codec: the codec is linear, so the sum
-commutes with decoding).  The ranks run SPMD on replicated activations: the
-collectives are ``distributed.collectives``, and the bodies' data-local
-outputs are gathered back to every rank.  All paths share the HL-GGN gate.
+commutes with decoding).  The ranks run SPMD, the collectives are
+``distributed.collectives``.  Serving hands every rank the whole batch and
+gathers the bodies' data-local outputs back to every rank; training hands
+each rank its own batch shard, which the bodies take as it is.  All paths
+share the HL-GGN gate.
+
+The bodies train: every collective has its backward, and where a rank
+consumes a value that its model group holds alike in a way of its own (the
+a2a body's own share of the tokens, gate and codec; the tp body's own
+assignments of the tokens and gate weights, its own partial output into
+the encode), the value passes ``collectives.fanout`` or ``split``, so the
+gradient of every replicated input (``x``, the gate, the codec) is whole on
+every rank of the model group: the caller sums it over the data axes only.
+The experts' gradients are this rank's slices', every token routed to them
+counted.
 """
 
 from __future__ import annotations
@@ -279,6 +291,16 @@ def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     return rows.new_zeros((n, rows.shape[1])).index_add_(0, seg, rows)
 
 
+def _fanout_params(params: Optional[Dict], group) -> Optional[Dict]:
+    """A flat dict of replicated params through ``collectives.fanout`` (the
+    entries that are tensors), for a rank that consumes them in its own
+    way."""
+    if params is None:
+        return None
+    keys = [k for k, v in params.items() if isinstance(v, torch.Tensor)]
+    return {**params, **dict(zip(keys, coll.fanout([params[k] for k in keys], group)))}
+
+
 def _moe_a2a_body(
     x: torch.Tensor,  # [t, d] data-local, model-replicated
     experts: Dict,  # {"wi": [E_loc, d, f], ("wg"), "wo"}: this rank's slices
@@ -302,7 +324,10 @@ def _moe_a2a_body(
     gathers the tokens over the model axis.  A dispatch codec encodes the
     payload before each exchange and decodes it after.  With ``aux`` the
     gate's losses and statistics and ``dropped_frac`` come back averaged
-    over every rank; without it (serving) the aux is empty."""
+    over every rank of the data and model axes; without it (serving) the
+    aux is empty.  This rank's tokens (``split``), gate and codec
+    (``fanout``) are its own consumption, so their gradients come back
+    whole on every rank of the model group."""
     if pre_sharded:
         raise NotImplementedError(
             "pre-sharded a2a tokens (sequence-parallel residuals) come with ROADMAP item 8c")
@@ -313,8 +338,9 @@ def _moe_a2a_body(
     t, d = x.shape
     k = m.top_k
     ts = t // ep
-    me = topo.model_index
-    xs = x[me * ts : (me + 1) * ts]
+    xs = coll.split(x, group)  # tokens [me·ts, (me+1)·ts)
+    gate_params = _fanout_params(gate_params, group)
+    codec = _fanout_params(codec, group)
     out = gating.gate(gate_params, xs, m, expert_mask, aux=aux)
     eid = out.topk_idx.reshape(-1)  # [ts*k]
     w = out.topk_weight.reshape(-1)
@@ -349,7 +375,8 @@ def _moe_a2a_body(
     y = coll.all_gather(y, group)  # [t, d]
     if not aux:
         return y, {}
-    stats = _pmean_all({**out.aux, "dropped_frac": 1.0 - keep.float().mean()}, topo)
+    stats = _pmean_all({**out.aux, "dropped_frac": 1.0 - keep.float().mean()},
+                       topo.data_model_group)
     return y, stats
 
 
@@ -369,7 +396,13 @@ def _moe_tp_body(
     keeps the first ``C`` assignments (in row order) that hit its own
     experts, runs them, combines by gate weight and sums the partial
     outputs over the model axis: in f32, or with a dispatch codec as
-    ``decode(psum(encode(y)))``.  ``aux`` as in :func:`_moe_a2a_body`."""
+    ``decode(psum(encode(y)))``.  ``aux`` as in :func:`_moe_a2a_body`.
+    The gate runs alike on every rank of the model group; the tokens and
+    gate weights its own assignments read, and the encoder its own partial
+    output goes through, pass ``fanout``, so every replicated input's
+    gradient comes back whole on every rank of the model group, the
+    gate's included.  The gate's statistics being alike over the model
+    axis, their mean over every rank is their mean over the data axes."""
     _moe_tp_body.calls += 1
     m = cfg.moe
     ep, group = topo.ep_size, topo.model_group
@@ -380,7 +413,7 @@ def _moe_tp_body(
 
     out = gating.gate(gate_params, x, m, expert_mask, aux=aux)  # replicated compute
     eid = out.topk_idx.reshape(-1)  # [t*k]
-    w = out.topk_weight.reshape(-1)
+    xr, w = coll.fanout([x, out.topk_weight.reshape(-1)], group)
     tok = torch.arange(t * k, device=x.device) // k
     mine = torch.div(eid, E_loc, rounding_mode="floor") == me
     slot = mine.int().cumsum(0) - 1  # rank among my local assignments
@@ -396,26 +429,32 @@ def _moe_tp_body(
     sel_w[idx] = torch.where(keep, w, 0.0).float()
     sel_tok, sel_eid, sel_w = sel_tok[:C], sel_eid[:C], sel_w[:C]
 
-    y_rows = _sorted_expert_ffn(x[sel_tok], sel_eid, E_loc, experts, cfg.act)  # [C, d]
+    y_rows = _sorted_expert_ffn(xr[sel_tok], sel_eid, E_loc, experts, cfg.act)  # [C, d]
     y = _segment_sum(y_rows * sel_w[:, None].to(y_rows.dtype), sel_tok, t)
     if codec is not None:
         # compressed all-reduce: the codec is linear, so summing in the
         # low-rank space commutes with decoding; the psum moves r/d the bytes
-        y = comp.decode_1d(codec, coll.psum(comp.encode_1d(codec, y), group)).to(x.dtype)
+        enc = {**codec, "enc": coll.fanout([codec["enc"]], group)[0]}
+        y = comp.decode_1d(codec, coll.psum(comp.encode_1d(enc, y), group)).to(x.dtype)
     else:
         y = coll.psum(y.float(), group).to(x.dtype)
     if not aux:
         return y, {}
-    stats = _pmean_all({**out.aux, "_kept": keep.sum() / (t * k)}, topo)
-    stats["dropped_frac"] = 1.0 - stats.pop("_kept") * ep
+    stats = _pmean_all(dict(out.aux), topo.data_group if topo.dp_size > 1 else None)
+    kept = _pmean_all({"_kept": keep.sum() / (t * k)}, topo.data_model_group)["_kept"]
+    stats["dropped_frac"] = 1.0 - kept * ep
     return y, stats
 
 
-def _pmean_all(values: Dict[str, torch.Tensor], topo: Topology) -> Dict[str, torch.Tensor]:
-    """Each value's mean over every rank (the reference's ``pmean`` over the
-    data and model axes), all in one f32 all-reduce."""
+def _pmean_all(values: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each value's mean over ``group``, all in one f32 all-reduce: the
+    reference's ``pmean`` over the data and model axes is
+    ``topo.data_model_group`` (a pipeline axis's replicas are not in it).
+    ``group=None``: a group of one, the values as they are in f32."""
     flat = [v.float().reshape(-1) for v in values.values()]
-    mean = coll.pmean(torch.cat(flat), topo.world_group)
+    if group is None:
+        return {k: f.reshape(v.shape) for (k, v), f in zip(values.items(), flat)}
+    mean = coll.pmean(torch.cat(flat), group)
     out, i = {}, 0
     for (key, v), f in zip(values.items(), flat):
         out[key] = mean[i : i + f.numel()].reshape(v.shape)
@@ -429,9 +468,11 @@ _moe_tp_body.calls = 0
 
 def _expert_parallel(params: Dict, x2: torch.Tensor, cfg, topo: Topology, impl: str,
                      expert_mask, cf: float, train: bool):
-    """The reference's ``shard_map`` branch on one rank: the tokens' data
-    shard in (all of them when ``dp`` does not divide the count: they stay
-    replicated), the body, and the data shards gathered back."""
+    """The reference's ``shard_map`` branch on one rank.  Serving: the
+    tokens' data shard in (all of them when ``dp`` does not divide the
+    count: they stay replicated), the body, and the data shards gathered
+    back.  Training: ``x2`` is already this rank's data shard, and the body
+    takes it as it is."""
     m = cfg.moe
     if params["wi"].shape[-3] * topo.ep_size != m.num_experts:
         raise ValueError(
@@ -439,7 +480,7 @@ def _expert_parallel(params: Dict, x2: torch.Tensor, cfg, topo: Topology, impl: 
             f"{m.num_experts // topo.ep_size} of {m.num_experts} experts")
     dp, ep = topo.dp_size, topo.ep_size
     T = x2.shape[0]
-    batch_shardable = T % dp == 0
+    batch_shardable = T % dp == 0 and not train
     t_loc = T // dp if batch_shardable else T
     if impl == "a2a" and t_loc % ep != 0:  # decode shapes that ep does not divide
         impl = "tp"
@@ -463,12 +504,15 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg, topo: Optional[Topology] = Non
     ``params["resident"]`` (the pooled end tier) the dispatch runs over the
     resident slabs (:func:`moe_resident`).  On an expert-parallel ``topo``
     (``use_shard_map_moe``) ``impl="auto"`` is ``a2a``, and ``a2a``/``tp``
-    run their bodies on this rank's expert slices: ``x`` is the whole
-    (replicated) batch and so is the output; a token count that ``dp`` does
-    not divide stays replicated over the data axes, and ``a2a`` falls back
-    to ``tp`` when ``ep`` does not divide the data-local count.  Training
-    takes ``capacity_factor``, serving ``eval_capacity_factor``, so
-    serving can drop assignments.
+    run their bodies on this rank's expert slices.  Serving
+    (``train=False``): ``x`` is the whole (replicated) batch and so is the
+    output, and a token count that ``dp`` does not divide stays replicated
+    over the data axes.  Training: ``x`` and the output are this rank's
+    batch shard (the training stack carries it), and the bodies'
+    gradients reach ``x``, the gate, the codec and this rank's experts.
+    ``a2a`` falls back to ``tp`` when ``ep`` does not divide the
+    data-local count.  Training takes ``capacity_factor``, serving
+    ``eval_capacity_factor``, so serving can drop assignments.
 
     ``train=False`` (serving) skips the router losses and routing
     statistics and returns the gate's ``topk_idx`` in their place on one

@@ -3,15 +3,19 @@
 loss, runaway grad norm, injected failures) so the trainer restores and
 continues, ``FailureInjector`` fails chosen steps deterministically (tests
 and drills), ``StragglerMitigator`` flags slow steps against the rolling
-median.  The reference's ``elastic_topology`` rebuilds a smaller mesh
-and is not ported: it comes with ROADMAP item 8b.
+median, and ``elastic_topology`` rebuilds a (possibly smaller) mesh from
+the devices that survive, keeping the model axis: experts keep their EP
+layout and data parallelism absorbs the loss.  A checkpoint restores onto
+any mesh (``checkpoint.checkpointer``), so training goes on there.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
+
+from repro_torch.distributed.topology import Topology
 
 
 @dataclass
@@ -56,6 +60,33 @@ class StepGuard:
             return False
         self.bad_count = 0
         return True
+
+
+def elastic_shape(n_available: int, model_axis_size: int) -> Tuple[int, int]:
+    """(dp, model) of the largest mesh of at most ``n_available`` devices
+    whose model axis is ``model_axis_size``; raises as the reference does
+    when fewer devices remain than the model axis needs."""
+    if n_available < model_axis_size:
+        raise RuntimeError(
+            f"cannot keep model axis: {n_available} devices < "
+            f"{model_axis_size}-way model parallelism")
+    return n_available // model_axis_size, model_axis_size
+
+
+def elastic_topology(n_available: int, *, model_axis_size: int,
+                     axis_names=("data", "model")) -> Topology:
+    """The reference's ``elastic_topology``: this rank's topology on the
+    largest (dp, model) mesh that keeps the model axis
+    (:func:`elastic_shape`), policy ``"tp"``.
+
+    The port runs SPMD, one process a rank, so the launcher starts
+    ``dp · model`` ranks (``launch.mesh.spawn_ranks(elastic_shape(...),
+    ...)``) and the surplus devices stay idle; the process group must hold
+    exactly that many ranks (``make_topology`` raises otherwise)."""
+    from repro_torch.launch.mesh import make_topology
+
+    return make_topology(elastic_shape(n_available, model_axis_size), tuple(axis_names),
+                         policy="tp")
 
 
 @dataclass

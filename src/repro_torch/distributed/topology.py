@@ -7,7 +7,8 @@ Model code never asks ``torch.distributed`` which rank it is; it receives a
 the mesh and which process groups span its axes.  In place of the
 reference's JAX ``Mesh`` it holds the mesh's shape and axis names, this
 rank's coordinates and the groups of the model axis, of the data axes and of
-the whole world (``launch.mesh.make_topology`` builds them).  The port runs
+the data and model axes together and of the whole world
+(``launch.mesh.make_topology`` builds them).  The port runs
 SPMD: one process a rank, every rank the same host code.  ``mesh_shape=None``
 (or ``ep_size == 1``) selects the single-device code paths.
 """
@@ -26,10 +27,10 @@ class Topology:
     data_axes: Tuple[str, ...] = ("data",)  # batch-sharding axes ("pod", "data")
     model_axis: Optional[str] = "model"  # TP / EP axis
     # Pipeline parallelism over pods and the heterogeneous flag: the
-    # reference declares both and its model code reads neither; the port
-    # refuses them until ROADMAP item 8b gives them a meaning.  The per-shard
-    # capability mask (HL-GGN eq. 2-4) reaches the MoE bodies as
-    # ``apply_moe``'s ``expert_mask``, as in the reference.
+    # reference declares both and its model code reads neither, so nothing
+    # shards along a pipeline axis (its ranks are replicas; ``pp_size`` is
+    # its size).  The per-shard capability mask (HL-GGN eq. 2-4) reaches the
+    # MoE bodies as ``apply_moe``'s ``expert_mask``, as in the reference.
     pipeline_axis: Optional[str] = None
     fsdp: bool = True
     # Sequence-parallel attention (the residual stream S-sharded over the
@@ -41,16 +42,14 @@ class Topology:
     world_group: Any = field(default=None, compare=False, repr=False)
     model_group: Any = field(default=None, compare=False, repr=False)
     data_group: Any = field(default=None, compare=False, repr=False)
+    # the data and model axes together: the world less a pipeline axis
+    data_model_group: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.seq_parallel_attn:
             raise NotImplementedError(
                 "seq_parallel_attn (sequence-parallel attention and the a2a body's "
                 "pre-sharded tokens) comes with ROADMAP item 8c")
-        if self.pipeline_axis is not None or self.heterogeneous:
-            raise NotImplementedError(
-                "Topology's pipeline_axis and heterogeneous come with ROADMAP item 8b; "
-                "pass a capability mask to apply_moe as expert_mask")
         if self.mesh_shape is not None:
             if len(self.mesh_shape) != len(self.axis_names):
                 raise ValueError(f"mesh {self.mesh_shape} vs axes {self.axis_names}")
@@ -81,7 +80,9 @@ class Topology:
 
     @property
     def pp_size(self) -> int:
-        return 1  # no pipeline axis until ROADMAP item 8b
+        if self.mesh_shape is None or self.pipeline_axis is None:
+            return 1
+        return self._size(self.pipeline_axis)
 
     @property
     def num_devices(self) -> int:

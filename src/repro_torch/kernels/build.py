@@ -113,6 +113,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where a tensor that wants a gradient (grad mode on) reaches a
+    kernel that has no backward: its output would carry no ``grad_fn``,
+    and the gradient would be dropped without a word."""
+    if any(t is not None and t.requires_grad for t in tensors):
+        import torch
+
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"{what}: the kernel has no backward, and an operand wants a gradient")
+
+
 def check_launch(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code (a refused launch never
     runs, and a later synchronise would not report it)."""

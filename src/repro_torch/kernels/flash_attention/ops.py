@@ -137,6 +137,7 @@ def flash_attention_fwd(
                                      q_offset=q_offset, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
+    build.refuse_grad("flash_attention_fwd (FlashAttentionFn has its backward)", q, k, v)
     B, Sq, H, hd = q.shape
     _, Skv, KV, hd_k = k.shape
     for name, t in dict(q=q, k=k, v=v).items():
@@ -293,6 +294,7 @@ def flash_attention_bwd(
                                          window=window, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    build.refuse_grad("flash_attention_bwd", dout, q, k, v, out)
     B, Sq, H, hd = q.shape
     _, Skv, KV, hd_k = k.shape
     for name, t in dict(dout=dout, q=q, k=k, v=v, out=out, lse=lse).items():

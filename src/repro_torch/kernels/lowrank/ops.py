@@ -25,7 +25,11 @@ the card, the same kernel's f32 form on f32 copies of its operands.  The
 error sums are deterministic: per-block partials summed in a fixed order.
 Training enters ``roundtrip_loss`` through :class:`RoundtripLossFn`, whose
 forward is that launch (or the composed kernels) and whose backward is
-plain products, as the reference differentiates its consumer.
+plain products, as the reference differentiates its consumer; and
+``lowrank_encode`` / ``lowrank_decode`` through :class:`ProjectFn` (the
+expert-parallel bodies' codec on the wire), likewise.  Every other
+wrapper here has no backward and raises on an operand that wants a
+gradient.
 
 The int8 boundary folds into the codec: ``lowrank_encode_quant`` is
 ``quantize_rows(lowrank_encode(x, enc), scale_dtype=float16)`` and
@@ -169,7 +173,39 @@ def _check(what: str, x: torch.Tensor, *ws: torch.Tensor) -> None:
 
 
 def _project(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The shared body of encode and decode; counts launches on ``fn``."""
+    """The shared body of encode and decode; through :class:`ProjectFn`
+    when a gradient is wanted (grad mode on and an operand that requires
+    one), so serving builds no graph."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return ProjectFn.apply(x, w, fn)
+    return _launch_project(fn, x, w)
+
+
+class ProjectFn(torch.autograd.Function):
+    """``x @ w`` (encode with ``w = E``, decode with ``w = D``) with an
+    explicit backward: the forward is the wrapper's launch (the plain
+    version on CPU tensors, the kernel on CUDA tensors), the backward the
+    product's adjoint as ``torch.matmul`` in the operands' type, dX = dY·Wᵀ
+    and dW = Xᵀ·dY.  In the reference these products are ``jnp`` code
+    outside any Pallas kernel, and autodiff gives the same two."""
+
+    @staticmethod
+    def forward(ctx, x, w, fn):
+        ctx.save_for_backward(x, w)
+        return _launch_project(fn, x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dy @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x.t() @ dy if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def _launch_project(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One encode or decode on CUDA operands (the plain version on CPU
+    ones); counts launches on ``fn``."""
     if x.device.type == "cpu":
         return lowrank_project_plain(x, w)
     what = fn.__name__
@@ -242,6 +278,7 @@ def lowrank_encode_quant(x: torch.Tensor, enc: torch.Tensor) -> Tuple[torch.Tens
     if x.device.type == "cpu":
         return lowrank_encode_quant_plain(x, enc)
     _check("lowrank_encode_quant", x, enc)
+    build.refuse_grad("lowrank_encode_quant", x, enc)
     nt, k = x.shape
     if enc.shape[0] != k:
         raise ValueError(f"lowrank_encode_quant: shapes {tuple(x.shape)} @ {tuple(enc.shape)}")
@@ -268,6 +305,7 @@ def lowrank_decode_quant(q: torch.Tensor, scale: torch.Tensor, dec: torch.Tensor
     if q.device.type == "cpu":
         return lowrank_decode_quant_plain(q, scale, dec)
     _check("lowrank_decode_quant", dec)
+    build.refuse_grad("lowrank_decode_quant", scale, dec)
     for name, t in (("q", q), ("scale", scale)):
         if t.device != dec.device or not t.is_contiguous():
             raise ValueError(f"lowrank_decode_quant: {name} must be contiguous on {dec.device}")
@@ -347,6 +385,7 @@ def lowrank_roundtrip_loss(
     if x.device.type == "cpu":
         return lowrank_roundtrip_loss_plain(x, enc, dec)
     _check("lowrank_roundtrip_loss", x, enc, dec)
+    build.refuse_grad("lowrank_roundtrip_loss (RoundtripLossFn has its backward)", x, enc, dec)
     x_hat, err = _roundtrip("lowrank_roundtrip_loss", x, enc, dec)
     lowrank_roundtrip_loss.launches += 1
     return x_hat, err[0], err[1]
@@ -362,6 +401,7 @@ def lowrank_roundtrip(
     if x.device.type == "cpu":
         return lowrank_roundtrip_plain(x, enc, dec)
     _check("lowrank_roundtrip", x, enc, dec)
+    build.refuse_grad("lowrank_roundtrip", x, enc, dec)
     x_hat, err = _roundtrip("lowrank_roundtrip", x.float(), enc.float(), dec.float())
     lowrank_roundtrip.launches += 1
     return x_hat.to(x.dtype), err[0]

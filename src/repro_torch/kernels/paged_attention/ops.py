@@ -204,6 +204,7 @@ def paged_attention(
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check("paged_attention", q, pool_k, pool_v, table, q_positions, lengths, window)
+    build.refuse_grad("paged_attention", q, pool_k, pool_v)
     if q.dtype not in _DTYPES or pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
         raise ValueError(
             f"paged_attention: dtypes q={q.dtype} k={pool_k.dtype} "
@@ -242,6 +243,7 @@ def paged_attention_quant(
         raise ValueError(f"paged_attention_quant: unsupported device {q.device}")
     _check("paged_attention_quant", q, pool_k, pool_v, table, q_positions, lengths,
            window, k_scale=k_scale, v_scale=v_scale)
+    build.refuse_grad("paged_attention_quant", q, k_scale, v_scale)
     if (q.dtype not in _DTYPES or pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8
             or k_scale.dtype != torch.float16 or v_scale.dtype != torch.float16):
         raise ValueError(

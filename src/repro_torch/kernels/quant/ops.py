@@ -97,6 +97,7 @@ def quantize_rows(x: torch.Tensor, *, scale_dtype: torch.dtype = torch.float32,
         return quantize_rows_plain(x, scale_dtype=scale_dtype, axis=axis)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows: unsupported device {x.device}")
+    build.refuse_grad("quantize_rows", x)
     if not x.is_contiguous():
         raise ValueError("quantize_rows: x is not contiguous")
     if x.dtype not in _XDTYPES or scale_dtype not in _SDTYPES:
@@ -139,6 +140,7 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, *,
         return dequantize_rows_plain(q, scale, dtype=dtype)
     if q.device.type != "cuda":
         raise ValueError(f"dequantize_rows: unsupported device {q.device}")
+    build.refuse_grad("dequantize_rows", scale)
     if scale.device != q.device or not (q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("dequantize_rows: q and scale must be contiguous on one device")
     if (q.dtype != torch.int8 or scale.dtype not in _SDTYPES or dtype not in _XDTYPES
@@ -182,6 +184,7 @@ def paged_write_quant(pool_k, pool_v, pool_ks, pool_vs, k, v, table, positions,
     no host sync).  In place; returns the four pools."""
     if k.device.type != "cuda":
         raise ValueError(f"paged_write_quant: unsupported device {k.device}")
+    build.refuse_grad("paged_write_quant", k, v)
     B, C, KV, hd = k.shape
     rows, ps, n = pool_k.shape[0], page_size, KV * hd
     tensors = dict(pool_k=pool_k, pool_v=pool_v, pool_ks=pool_ks, pool_vs=pool_vs, k=k, v=v,

@@ -23,7 +23,7 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -74,14 +74,16 @@ def _unravel(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
 
 
 def make_topology(shape: Sequence[int], axes: Sequence[str] = ("data", "model"), *,
-                  policy: str = "tp") -> Topology:
+                  policy: str = "tp", pipeline_axis: Optional[str] = None) -> Topology:
     """This rank's topology on a mesh of ``shape`` over ``axes`` (the
     process group must be initialised with ``prod(shape)`` ranks).
 
     ``"tp"``: the ``pod``/``data`` axes carry the batch, ``model`` is the
     TP / EP axis; ``"serve_tp"``: the same with weights resident (no FSDP);
     ``"dp"``: every axis a batch axis, params replicated; ``"fsdp"``: every
-    axis a batch axis (ZeRO-3, no TP)."""
+    axis a batch axis (ZeRO-3, no TP).  ``pipeline_axis`` names an axis
+    that is neither: the reference declares one and shards nothing along
+    it, so its ranks are replicas."""
     if policy in ("seqp", "serve_seqp"):
         raise NotImplementedError(_ITEM_8C)
     if policy not in POLICIES:
@@ -94,20 +96,27 @@ def make_topology(shape: Sequence[int], axes: Sequence[str] = ("data", "model"),
         raise ValueError(f"mesh {shape} needs {world} ranks, the group has "
                          f"{dist.get_world_size()}")
     rank = dist.get_rank()
+    if pipeline_axis is not None and pipeline_axis not in axes:
+        raise ValueError(f"pipeline axis {pipeline_axis!r} is not one of {axes}")
+    free = tuple(a for a in axes if a != pipeline_axis)
     if policy in ("dp", "fsdp"):
-        data_axes, model_axis = axes, None
+        data_axes, model_axis = free, None
     else:
-        data_axes, model_axis = tuple(a for a in axes if a in ("pod", "data")), "model"
+        data_axes, model_axis = tuple(a for a in free if a in ("pod", "data")), "model"
         if model_axis not in axes:
             raise ValueError(f"policy {policy!r} needs a 'model' axis, got {axes}")
     model_group = None
     if model_axis is not None:
         model_group = _axis_groups(shape, [axes.index(model_axis)], rank)
     data_group = _axis_groups(shape, [axes.index(a) for a in data_axes], rank)
+    dm = data_axes + ((model_axis,) if model_axis else ())
+    data_model_group = (dist.group.WORLD if len(dm) == len(axes)
+                        else _axis_groups(shape, [axes.index(a) for a in dm], rank))
     return Topology(
         mesh_shape=shape, axis_names=axes, data_axes=data_axes, model_axis=model_axis,
-        fsdp=policy in ("tp", "fsdp"), coords=_unravel(rank, shape),
-        world_group=dist.group.WORLD, model_group=model_group, data_group=data_group,
+        pipeline_axis=pipeline_axis, fsdp=policy in ("tp", "fsdp"),
+        coords=_unravel(rank, shape), world_group=dist.group.WORLD, model_group=model_group,
+        data_group=data_group, data_model_group=data_model_group,
     )
 
 

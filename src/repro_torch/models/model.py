@@ -80,18 +80,20 @@ class Model:
         layers (``transformer.apply_stack_full(train=True)``: router
         losses, ``aux_loss`` and the routing statistics).  ``train=True``
         recomputes each block in the backward (the reference's ``remat and
-        train``) and takes only the patterns the training form takes
-        (``transformer.check_trainable``); ``train=False`` runs the same
-        forward without recomputation, on any pattern."""
+        train``); ``train=False`` runs the same forward without
+        recomputation.  On a mesh the batch is this rank's shard and the
+        params the forms the train step computes on (non-expert leaves
+        whole, this rank's experts); the logits are this rank's batch shard
+        of its vocabulary slice when the mesh has a model axis
+        (``transformer.lm_logits``), as the vocabulary-sharded loss takes
+        them."""
         cfg = self.cfg
-        if train:
-            transformer.check_trainable(cfg, self.topo)
         x, angles = self._embed(params, batch)
         x, aux, _ = transformer.apply_stack_full(
             params, x, cfg, angles, causal=True, enc_out=self._encoder_out(params, batch),
             expert_mask=expert_mask, train=True, remat=train, topo=self.topo,
         )
-        return transformer.lm_logits(params, cfg, x), aux
+        return transformer.lm_logits(params, cfg, x, self.topo), aux
 
     def prefill(self, params, batch: Dict, *, max_len: int = 0,
                 expert_mask=None) -> Tuple[torch.Tensor, Dict]:

@@ -16,7 +16,8 @@ place of ``lax.scan``.  The paged KV pools are updated in place.
 
 ``topo`` (a :class:`~repro_torch.distributed.topology.Topology`) reaches
 every MoE layer: on an expert-parallel topology each rank runs the same
-layers on the same (replicated) activations and its MoE layers run the
+layers on the same activations (serving: the whole batch; training: its
+data shard, alike over the model axis) and its MoE layers run the
 ``a2a`` / ``tp`` bodies over the rank's expert slices.  The reference's
 ``_constrain_tokens`` pins the residual stream's sharding between blocks
 for GSPMD; SPMD torch has no layout to pin (every tensor here is this
@@ -33,6 +34,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import LayerSpec
 from repro_torch.core.compression import compute_codec
 from repro_torch.core.moe import apply_moe, init_moe
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.topology import Topology
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache, ssm
@@ -191,9 +193,10 @@ def apply_layer_full(
     final state and conv tails (``ssm``, ``conv_x``, ``conv_bc``); else it
     is empty.
 
-    The reference's other branches are not ported: the sequence-parallel
-    attention and the tensor-parallel SSM need a device mesh, which the
-    port (one device) does not have."""
+    The reference's other branches are not ported: its sequence-parallel
+    attention comes with ROADMAP item 8c, and on a mesh the port's SSM and
+    attention compute on their whole weights where the reference shards
+    the SSM's heads over the model axis (the same values)."""
     aux: Dict[str, torch.Tensor] = {}
     cache_entry: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -229,22 +232,6 @@ def _merge_aux(acc: Dict, aux: Dict) -> Dict:
     return acc
 
 
-def check_trainable(cfg, topo: Optional[Topology] = None) -> None:
-    """Raise ``NotImplementedError`` on what the training form does not
-    take: a device mesh, and with it an expert-parallel MoE implementation
-    (training on a mesh, the bodies' backward: ROADMAP item 8b).  Every
-    pattern trains on one device (attention, SSM, hybrid, cross-attention
-    with its encoder), and so does a dispatch codec, whose eq. 8 term joins
-    the aux loss; a pipeline codec is a serving boundary and never enters
-    the model."""
-    if topo is not None and topo.num_devices > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: training on a mesh {topo.mesh_shape} comes with ROADMAP item 8b")
-    if cfg.moe is not None and cfg.moe_impl not in ("auto", "sorted", "naive"):
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl={cfg.moe_impl!r} trains on a mesh (ROADMAP item 8b)")
-
-
 def _train_block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask, topo=None):
     """One block of the pattern in the training form: (x, the block's aux
     summed over its MoE layers)."""
@@ -269,17 +256,19 @@ def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *
     each leaf the layers' rings, cross caches or SSM states stacked over
     the block repeats.
 
-    ``train=True`` is the training form (:func:`check_trainable`): every
-    MoE layer computes its router losses and statistics (and a dispatch
-    codec's ``recon_loss``), and the aux comes back as one dict, summed
-    within a block and then over blocks as the reference sums it, so vector
-    statistics keep their ``[E]`` and ``[K]`` shapes; returns (x, aux,
-    None).  With ``remat`` (and grad mode on) each block runs under
-    ``torch.utils.checkpoint`` (non-reentrant), which drops its saved
-    activations and recomputes the block in the backward, as the
-    reference's ``jax.checkpoint``.  ``train=True`` on an expert-parallel
-    ``topo`` runs the forward (the router's aux averaged over the ranks);
-    its gradient comes with ROADMAP item 8b."""
+    ``train=True`` is the training form: every MoE layer computes its
+    router losses and statistics (and a dispatch codec's ``recon_loss``),
+    and the aux comes back as one dict, summed within a block and then
+    over blocks as the reference sums it, so vector statistics keep their
+    ``[E]`` and ``[K]`` shapes; returns (x, aux, None).  With ``remat``
+    (and grad mode on) each block runs under ``torch.utils.checkpoint``
+    (non-reentrant), which drops its saved activations and recomputes the
+    block in the backward, as the reference's ``jax.checkpoint``.  On a
+    mesh ``topo`` the training form runs on this rank's batch shard: the
+    layers compute on the weights they are handed (non-expert weights
+    whole, this rank's experts), the MoE bodies exchange the tokens, and
+    the router's aux is averaged over the ranks; every rank recomputes its
+    blocks alike, so the recomputed collectives meet."""
     if train:
         aux_sum: Dict[str, torch.Tensor] = {}
         for r in range(_n_blocks(params["blocks"])):
@@ -524,13 +513,34 @@ def embed_inputs(params: Dict, cfg, tokens: torch.Tensor,
     return x
 
 
-def lm_logits(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Dict, cfg, x: torch.Tensor, topo: Optional[Topology] = None
+              ) -> torch.Tensor:
+    """The final norm and the head: logits ``[..., V]``.  With a mesh
+    ``topo`` that has a model axis (training's vocabulary-sharded loss,
+    ``distributed.loss``) this rank's slice of the vocabulary ``[..., V/tp]``,
+    whatever the head's own layout: an ``lm_head`` handed whole is cut here
+    (``collectives.split``: its gradient comes back whole), one of ``V/tp``
+    columns is taken as this rank's, a tied embedding is cut by rows.  The
+    head's input is alike on the model axis and each rank's gradient of it
+    a share, so it passes ``collectives.fanout``."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    V, lo = cfg.padded_vocab_size, 0
+    if topo is not None and topo.mesh_shape is not None and topo.model_axis is not None:
+        tp, group = topo.tp_size, topo.model_group
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T  # [V | V/tp, d]
+        if tp > 1:
+            x = coll.fanout([x], group)[0]
+            if head.shape[0] == V:
+                head = coll.split(head, group)
+        lo = topo.model_index * (V // tp)
+        head = head.T
+    else:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
-    if cfg.padded_vocab_size != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = NEG_INF
+    pad = max(cfg.vocab_size - lo, 0)  # the padded columns of this slice
+    if pad < logits.shape[-1]:
+        logits[..., pad:] = NEG_INF
     return logits

@@ -1,11 +1,17 @@
-"""Fault-tolerant training loop on one device (port of the reference's
-``training/trainer.py``).
+"""Fault-tolerant training loop (port of the reference's
+``training/trainer.py``), on one device or on a mesh.
 
 Composes the train step (``launch.steps``), the data pipeline, the
 checkpointer (atomic, optionally asynchronous), ``StepGuard`` (a NaN or
-runaway step restores the last checkpoint) and the straggler watchdog.
-The reference's topology, sharding and elastic branches need a device
-mesh and come with ROADMAP item 8b.
+runaway step restores the last checkpoint), the straggler watchdog and
+the elastic restart: a checkpoint restores onto whatever mesh the trainer
+runs on (``distributed.fault.elastic_topology``), the model axis kept.
+
+On a mesh (``topo``) every rank runs this loop alike (SPMD): it reads the
+same global batches, holds its blocks of the params and the optimizer
+state (``distributed.sharding``), and takes the same guard and injector
+decisions, since the loss and grad norm it reads are the global values
+(a rank that decided otherwise would deadlock the next collective).
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ import torch
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.distributed.fault import FailureInjector, StepGuard, StragglerMitigator
+from repro_torch.distributed.topology import Topology, single_device_topology
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.model import Model
 from repro_torch.training import optimizer as opt_mod
@@ -42,7 +50,8 @@ class TrainerConfig:
 class Trainer:
     """Trains ``cfg`` on ``data_iter``'s numpy batches on ``device``.
     Params are drawn from a ``torch.Generator`` on ``device`` seeded with
-    ``seed``; :meth:`initialize` resumes from the latest checkpoint in
+    ``seed`` (on a mesh every rank draws them whole and keeps its blocks);
+    :meth:`initialize` resumes from the latest checkpoint in
     ``checkpoint_dir`` when there is one.  Each step's time is taken on
     the host clock after a synchronizing ``float(loss)``."""
 
@@ -58,15 +67,16 @@ class Trainer:
         seed: int = 0,
         device=DEFAULT_DEVICE,
     ):
-        if topo is not None and topo.num_devices > 1:
-            raise NotImplementedError("training on a device mesh comes with ROADMAP item 8b")
         self.cfg = cfg
+        self.topo: Topology = topo or single_device_topology()
+        self.mesh = self.topo.mesh_shape is not None
         self.device = torch.device(device)
         self.tc = trainer_cfg or TrainerConfig()
         self.opt_cfg = opt_cfg or opt_mod.OptimizerConfig(name=cfg.optimizer)
         self.data_iter = data_iter
-        self.model = Model(cfg, device=self.device)
-        self.ckpt = Checkpointer(self.tc.checkpoint_dir, keep=self.tc.keep_checkpoints)
+        self.model = Model(cfg, device=self.device, topo=self.topo)
+        self.ckpt = Checkpointer(self.tc.checkpoint_dir, keep=self.tc.keep_checkpoints,
+                                 topo=self.topo)
         self.guard = StepGuard()
         self.straggler = StragglerMitigator()
         self.injector = failure_injector
@@ -76,20 +86,38 @@ class Trainer:
         self.step = 0
         self.params = None
         self.opt_state = None
+        self.specs = None  # on a mesh: (param specs, optimizer-state specs)
 
     # -- state ----------------------------------------------------------------
 
     def _restore(self):
         """Load the latest checkpoint into the current state's structure."""
         self.step, (self.params, self.opt_state) = self.ckpt.restore(
-            (self.params, self.opt_state))
+            (self.params, self.opt_state), specs=self.specs)
 
     def initialize(self, resume: bool = True):
         self.params = self.model.init(self.generator)
-        self.opt_state = opt_mod.init_optimizer(self.cfg.optimizer, self.params)
+        if self.mesh:
+            self.specs = sharding.train_specs(self.params, self.cfg.optimizer, self.topo)
+            self.params = sharding.shard_tree(self.params, self.specs[0], self.topo)
+        self.opt_state = opt_mod.init_optimizer(self.cfg.optimizer, self.params,
+                                                self._shards())
         self.step = 0
         if resume and self.ckpt.latest_step() is not None:
             self._restore()
+        return self
+
+    def _shards(self):
+        """The optimizer's view of the params' blocks (None on one device)."""
+        return sharding.leaf_shards(self.params, self.specs[0], self.topo) if self.mesh else None
+
+    def load_state(self, params, opt_state):
+        """Take whole ``params`` and ``opt_state`` (trees of tensors, as one
+        device holds them), keeping this rank's blocks on a mesh."""
+        if self.mesh:
+            params = sharding.shard_tree(params, self.specs[0], self.topo)
+            opt_state = sharding.shard_tree(opt_state, self.specs[1], self.topo)
+        self.params, self.opt_state = params, opt_state
         return self
 
     # -- loop -----------------------------------------------------------------
@@ -97,7 +125,9 @@ class Trainer:
     def run(self) -> Dict[str, Any]:
         restores = 0
         if self._step_fn is None:
-            self._step_fn = steps_mod.make_train_step(self.model, self.opt_cfg)
+            self._step_fn = steps_mod.make_train_step(
+                self.model, self.opt_cfg, self.specs[0] if self.mesh else None)
+        specs = self.specs
         while self.step < self.tc.total_steps:
             batch = {k: torch.from_numpy(np.asarray(v)).to(self.device)
                      for k, v in next(self.data_iter).items()}
@@ -135,9 +165,9 @@ class Trainer:
             if self.step % self.tc.checkpoint_every == 0:
                 save = self.ckpt.async_save if self.tc.async_checkpoint else self.ckpt.save
                 save(self.step, (self.params, self.opt_state),
-                     {"loss": loss, "arch": self.cfg.name})
+                     {"loss": loss, "arch": self.cfg.name}, specs=specs)
         self.ckpt.wait()
-        self.ckpt.save(self.step, (self.params, self.opt_state), {"final": True})
+        self.ckpt.save(self.step, (self.params, self.opt_state), {"final": True}, specs=specs)
         return {
             "final_step": self.step,
             "restores": restores,

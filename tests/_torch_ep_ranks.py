@@ -62,8 +62,10 @@ def moe_cases(topo, device, data_path, cases):
     """Every case's ``apply_moe`` on this rank: the topology of the case's
     mesh (made on the world of ranks in the order of ``cases``, the same on
     every rank), the reference's params with this rank's expert slices,
-    the same ``x``.  Returns {case: (y, aux, bodies run)}; the train-mode
-    forward runs under ``no_grad``."""
+    the same ``x``: whole for serving; for training this rank's data shard
+    (the training stack carries it; whole when ``dp`` does not divide the
+    tokens), its output gathered over the data axes.  Returns {case: (y,
+    aux, bodies run)}; the train-mode forward runs under ``no_grad``."""
     data = dict(np.load(data_path))
     topos = {topo.mesh_shape: topo}
     out = {}
@@ -78,8 +80,14 @@ def moe_cases(topo, device, data_path, cases):
         mask = data.get(f"mask_{case['name']}")
         mask = None if mask is None else torch.from_numpy(mask).to(device)
         before = (moe._moe_a2a_body.calls, moe._moe_tp_body.calls)
+        shard = case["train"] and x.shape[0] % t.dp_size == 0 and t.dp_size > 1
+        if shard:
+            b = x.shape[0] // t.dp_size
+            x = x[t.data_index * b : (t.data_index + 1) * b]
         with torch.no_grad():
             y, aux = moe.apply_moe(params, x, cfg, t, expert_mask=mask, train=case["train"])
+            if shard:
+                y = coll.all_gather(y, t.data_group)
         bodies = (moe._moe_a2a_body.calls - before[0], moe._moe_tp_body.calls - before[1])
         out[case["name"]] = (y.cpu().numpy(), {k: v.cpu().numpy() for k, v in aux.items()},
                              bodies)

@@ -1930,3 +1930,102 @@ def test_ep_bodies_on_card_match_cpu(gen, tmp_path):
 def _np_tree(tree):
     return {k: _np_tree(v) if isinstance(v, dict) else v.detach().cpu().numpy()
             for k, v in tree.items()}
+
+
+# ------------------------------------- training on a mesh (ROADMAP item 8b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_codec_encode_decode_function_on_card(gen, dtype):
+    """``encode_1d`` / ``decode_1d`` asked for a gradient on the card go
+    through ``ProjectFn`` (the kernels forward, ``torch.matmul`` backward):
+    Z, X̂, dX, dE, dD against autograd of the plain products on the same
+    inputs, within 1e-5 (f32) or 2^-6 (bf16) of each one's largest |value|;
+    one encode and one decode launch."""
+    T, d, r = 96, 768, 384
+    x = torch.randn(T, d, generator=gen, device="cuda")
+    e = torch.linalg.qr(torch.randn(d, r, generator=gen, device="cuda"))[0].contiguous()
+    dec = e.T.contiguous()
+    cz = torch.randn(T, r, generator=gen, device="cuda")
+    cx = torch.randn(T, d, generator=gen, device="cuda")
+
+    def run(plain):
+        xs = x.to(dtype).requires_grad_(True)
+        p = {"enc": e.clone().requires_grad_(True), "dec": dec.clone().requires_grad_(True)}
+        if plain:
+            z = lowrank_project_plain(xs, p["enc"].to(dtype))
+            xh = lowrank_project_plain(z, p["dec"].to(dtype))
+        else:
+            z = comp.encode_1d(p, xs)
+            xh = comp.decode_1d(p, z)
+        ((z.float() * cz).sum() + (xh.float() * cx).sum()).backward()
+        return z, xh, xs.grad, p["enc"].grad, p["dec"].grad
+
+    before = (lowrank_encode.launches, lowrank_decode.launches)
+    got = run(False)
+    assert (lowrank_encode.launches - before[0], lowrank_decode.launches - before[1]) == (1, 1)
+    want = run(True)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -6
+    for what, a, b in zip(("z", "x_hat", "dx", "denc", "ddec"), got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= rel * scale, what
+
+
+def test_kernels_without_a_backward_refuse_a_gradient(gen):
+    """A CUDA tensor that wants a gradient never leaves a kernel wrapper
+    without one: the wrappers that have no backward raise (and run under
+    ``no_grad``)."""
+    x = torch.randn(8, 64, generator=gen, device="cuda", requires_grad=True)
+    e = torch.randn(64, 32, generator=gen, device="cuda")
+    dec = torch.randn(32, 64, generator=gen, device="cuda")
+    calls = [
+        lambda: quantize_rows(x),
+        lambda: lowrank_encode_quant(x, e),
+        lambda: lowrank_roundtrip(x, e, dec),
+        lambda: lowrank_roundtrip_loss(x, e, dec),
+        lambda: flash_attention_fwd(x.view(1, 8, 2, 32), x.detach().view(1, 8, 2, 32),
+                                    x.detach().view(1, 8, 2, 32)),
+    ]
+    q, pk, pv, table, q_pos, lengths = _attention_case(gen, torch.float32)
+    calls.append(lambda: paged_attention(q.requires_grad_(True), pk, pv, table, q_pos, lengths))
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+def test_train_mesh_on_card_matches_one_process(gen):
+    """Two f32 steps of smoke switch-base (2 blocks, a2a) on a (2, 2) mesh
+    of 4 gloo ranks sharing the card (the collectives' forwards and
+    backwards over CUDA tensors) against the one-process card run from the
+    same params and batch: every step's loss within 1e-5 relative, its
+    grad norm within 1e-4, nothing dropped (capacity factor 8), the params
+    after (every element within lr a step, all but 1% of a leaf's within
+    1e-5 + 1e-5 |p|).  The load-balance weight is 0 here: on a mesh that
+    term is the mean of each shard's product of means (the reference's),
+    which no one-process run computes; the reference parity of the whole
+    loss is held on the CPU (``test_torch_train_mesh.py``)."""
+    import dataclasses
+
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = smoke_config(get_config("switch-base")).replace(num_layers=4, dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0,
+                                              router_aux_weight=0.0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (8, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    one, p_one = ranks.one_process_steps(cfg, "cuda", batch, 2)
+    mesh = spawn_ranks((2, 2), ranks.mesh_steps, cfg.replace(moe_impl="a2a"), batch, 2,
+                       device="cuda", policy="tp", timeout_s=300)
+    for steps_r, p_r in mesh:
+        for (loss, gnorm, dropped), (loss1, gnorm1, _) in zip(steps_r, one):
+            assert abs(loss - loss1) <= 1e-5 * abs(loss1)
+            assert abs(gnorm - gnorm1) <= 1e-4 * abs(gnorm1)
+            assert dropped == 0.0
+        for k, w in p_one.items():
+            diff = np.abs(p_r[k] - w)
+            assert diff.max() <= 2 * ranks.OPT["lr"], k
+            assert (diff > 1e-5 + 1e-5 * np.abs(w)).mean() <= 0.01, k

@@ -187,7 +187,7 @@ def test_apply_moe_equals_the_reference_on_the_same_mesh(runs, name):
 def test_collectives_on_gloo_ranks(runs):
     """Tiled all_to_all / all_gather, psum (f32 inside, the input's type
     out) and pmean over 4 ranks, and the counters (calls and bytes handed
-    in)."""
+    in, none of them in a backward)."""
     _, port = runs
     n = 4
     for r in range(n):
@@ -200,10 +200,14 @@ def test_collectives_on_gloo_ranks(runs):
             ps, torch.from_numpy(np.sum(bf, axis=0)).to(torch.bfloat16).float().numpy())
         np.testing.assert_allclose(pm, np.mean(xs, axis=0), rtol=1e-6)
         assert ps_dtype == "torch.bfloat16" and where == "cpu"
-        assert counts == {"all_to_all": {"calls": 1, "bytes": 4 * 2 * n},
-                          "all_gather": {"calls": 1, "bytes": 4 * 2},
-                          "psum": {"calls": 1, "bytes": 2 * 2 * n},
-                          "pmean": {"calls": 1, "bytes": 4 * 2 * n}}
+        fwd = {k: {"calls": v["calls"], "bytes": v["bytes"]} for k, v in counts.items()}
+        assert fwd == {"all_to_all": {"calls": 1, "bytes": 4 * 2 * n},
+                       "all_gather": {"calls": 1, "bytes": 4 * 2},
+                       "psum": {"calls": 1, "bytes": 2 * 2 * n},
+                       "pmean": {"calls": 1, "bytes": 4 * 2 * n},
+                       "pmax": {"calls": 0, "bytes": 0},
+                       "reduce_scatter": {"calls": 0, "bytes": 0}}
+        assert all(v["bwd_calls"] == v["bwd_bytes"] == 0 for v in counts.values())
 
 
 def test_spawn_ranks_raises_when_a_rank_fails():
@@ -224,12 +228,15 @@ def test_topology_of_a_mesh():
     assert (dp_only.dp_size, dp_only.ep_size, dp_only.use_shard_map_moe) == (8, 1, False)
 
 
-def test_topology_refuses_what_waits_for_item_8b():
-    """The flags the reference declares and reads nowhere are refused, not
-    ignored."""
-    for kw in ({"pipeline_axis": "pod"}, {"heterogeneous": True}):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            Topology(mesh_shape=(1, 4), coords=(0, 0), **kw)
+def test_topology_takes_a_pipeline_axis_and_the_heterogeneous_flag():
+    """As the reference: both are declared and nothing reads them, so a
+    pipeline axis's ranks are replicas (``pp_size`` its size) and the
+    flag changes no size."""
+    t = Topology(mesh_shape=(2, 2, 4), axis_names=("pipe", "data", "model"),
+                 pipeline_axis="pipe", coords=(1, 1, 3), heterogeneous=True)
+    assert (t.pp_size, t.dp_size, t.ep_size, t.num_devices) == (2, 2, 4, 16)
+    assert (t.model_index, t.data_index, t.rank) == (3, 1, 15)
+    assert Topology(mesh_shape=(1, 4), coords=(0, 0), heterogeneous=True).pp_size == 1
 
 
 def test_what_waits_for_item_8c():

@@ -197,3 +197,59 @@ def test_compression_ratio(r):
             64, r, codec=codec)
     with pytest.raises(ValueError):
         tcomp.compression_ratio(64, r, codec="zip")
+
+
+def _graph_names(fn, seen=None):
+    """The node type names of an autograd graph from ``fn`` down."""
+    seen = set() if seen is None else seen
+    if fn is not None and fn not in seen:
+        seen.add(fn)
+        for nxt, _ in fn.next_functions:
+            _graph_names(nxt, seen)
+    return {type(f).__name__ for f in seen}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_encode_decode_gradients_equal_the_reference(dtype):
+    """``encode_1d`` then ``decode_1d`` trained through ``ProjectFn`` (the
+    Function that gives the card's encode and decode launches their
+    backward; on the CPU its forward is the plain version): dX, dE and dD
+    of a functional of Z and X̂ against ``jax.grad`` of the reference's
+    ``encode_1d`` / ``decode_1d`` with the same f32 codec; and the Function
+    against autograd of the plain products.  The gradient of E and D
+    crosses the cast to the activation type back to f32, as the
+    reference's."""
+    jdt, tdt = DTYPES[dtype]
+    B, S, d, r = 2, 12, 64, 16
+    jp = jcomp.init_lowrank_1d(jax.random.PRNGKey(5), d, r)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((B, S, d)).astype(np.float32)
+    cz = rng.standard_normal((B, S, r)).astype(np.float32)
+    cx = rng.standard_normal((B, S, d)).astype(np.float32)
+
+    def jloss(p, xx):
+        z = jcomp.encode_1d(p, xx)
+        return ((z.astype(jnp.float32) * cz).sum()
+                + (jcomp.decode_1d(p, z).astype(jnp.float32) * cx).sum())
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x).astype(jdt))
+    grads = {}
+    for how in ("function", "plain"):
+        tp = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
+              for k, v in jax.tree.map(np.asarray, jp).items()}
+        xt = _t(x, tdt).requires_grad_(True)
+        if how == "function":
+            z = tcomp.encode_1d(tp, xt)
+            xh = tcomp.decode_1d(tp, z)
+            assert "ProjectFnBackward" in _graph_names(z.grad_fn)
+        else:
+            z = (xt.float() @ tp["enc"].to(tdt).float()).to(tdt)
+            xh = (z.float() @ tp["dec"].to(tdt).float()).to(tdt)
+        ((z.float() * torch.from_numpy(cz)).sum() + (xh.float() * torch.from_numpy(cx)).sum()
+         ).backward()
+        grads[how] = (xt.grad, tp["enc"].grad, tp["dec"].grad)
+    for name, got, want in zip(("dx", "denc", "ddec"), grads["function"],
+                               (jg[1], jg[0]["enc"], jg[0]["dec"])):
+        _close(got.float(), np.asarray(jnp.asarray(want).astype(jnp.float32)), dtype)
+    for got, want in zip(grads["function"], grads["plain"]):
+        _close(got.float(), want.float().numpy(), dtype)

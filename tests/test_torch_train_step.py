@@ -6,8 +6,8 @@ around their kernels) against autograd of their plain versions and
 AdamW, Adafactor and ``grad_accum=2`` (``steps_equal_the_reference``, which
 the codec, SSM and encoder-decoder files share);
 ``Model.train_logits(train=False)``; the loss falling over 8 steps, on
-every pattern the reference's smoke test trains; and what the training
-form refuses (a mesh: ROADMAP item 8b).
+every pattern the reference's smoke test trains (training on a mesh:
+``test_torch_train_mesh.py``).
 Reference weights reach the port through the numpy bridge; reference
 calls are jitted.
 
@@ -360,46 +360,3 @@ def test_train_step_decreases_loss(name):
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses))
     assert losses[-1] < losses[0], f"{name}: loss did not decrease {losses}"
-
-
-# ------------------------------------------------------------------ refusals
-
-
-@pytest.mark.parametrize("name,item", [
-    ("switch-base a2a", "8b"),  # an expert-parallel MoE implementation
-])
-def test_what_the_training_form_refuses(name, item):
-    cfg = smoke_config(get_config(name.split()[0]))
-    if name.endswith("a2a"):
-        cfg = cfg.replace(moe_impl="a2a")
-    model = Model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        steps.make_loss_fn(model)(params, batch)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        model.train_logits(params, batch)
-
-
-def test_mesh_paths_refuse():
-    """Training on a topology with a mesh (the Trainer, the training form
-    of the stack) and the vocabulary-sharded loss wait for ROADMAP item
-    8b."""
-    from repro_torch.distributed.loss import sharded_cross_entropy
-    from repro_torch.distributed.topology import Topology
-    from repro_torch.models import transformer
-    from repro_torch.training.trainer import Trainer
-
-    meshed = Topology(mesh_shape=(1, 4), coords=(0, 1))
-    cfg = smoke_config(get_config("tinyllama-1.1b"))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        Trainer(cfg, iter(()), topo=meshed, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        transformer.check_trainable(cfg, meshed)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        sharded_cross_entropy(torch.zeros(1, 2, 8), torch.zeros(1, 2, dtype=torch.int32),
-                              meshed)
-    loss, metrics = sharded_cross_entropy(torch.zeros(1, 2, 8),
-                                          torch.zeros(1, 2, dtype=torch.int32))
-    assert float(metrics["tokens"]) == 2.0
