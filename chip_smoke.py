@@ -2391,18 +2391,18 @@ def replan_run(m, p, n, new, hi, at, **kw):
 
 
 def f32_card_vs_cpu(model, params, tag, **kw):
-    """A shortened replan run (4 requests, 8 tokens) in f32 on the card and
+    """A shortened replan run (2 requests, 8 tokens) in f32 on the card and
     on the CPU (plain versions, same weights): the tokens must be equal."""
     from repro_torch.models.model import Model, to_device
 
     t0 = time.perf_counter()
     cfg32 = model.cfg.replace(dtype="float32")
-    card, _ = replan_run(Model(cfg32, device="cuda"), params, 4, 8, 64, 3, **kw)
+    card, _ = replan_run(Model(cfg32, device="cuda"), params, 2, 8, 64, 3, **kw)
     t1 = time.perf_counter()
-    host, _ = replan_run(Model(cfg32, device="cpu"), to_device(params, "cpu"), 4, 8, 64, 3,
+    host, _ = replan_run(Model(cfg32, device="cpu"), to_device(params, "cpu"), 2, 8, 64, 3,
                          **kw)
     same = card == host
-    log(f"{tag} (f32, 4 requests, 8 tokens): card tokens equal the CPU's: {same} "
+    log(f"{tag} (f32, 2 requests, 8 tokens): card tokens equal the CPU's: {same} "
         f"(card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s)")
     if not same:
         raise AssertionError(f"{tag}: f32 card tokens differ from the CPU's")
@@ -3894,7 +3894,7 @@ def vlm_pipeline(torch, cfg, cparams, host32, counters, tag="vlm"):
 
 def vlm_stream_f32(torch, cfg, host32, tag):
     """f32 dense pools through ``spec_engine`` on the card and on the CPU at
-    ``VLM_CPU_LAYERS`` layers (8 requests, 16 tokens): counters equal,
+    ``VLM_CPU_LAYERS`` layers (4 requests, 16 tokens): counters equal,
     tokens equal or the first difference a near tie."""
     from repro_torch.models.model import Model, to_device
 
@@ -3903,11 +3903,11 @@ def vlm_stream_f32(torch, cfg, host32, tag):
     t0 = time.perf_counter()
     for dev, p in (("cuda", to_device(host32, "cuda")), ("cpu", host32)):
         eng = spec_engine(Model(cfg32, device=dev), p)
-        reqs = stream_requests(cfg.vocab_size, 8, 0, 16, hi=SPEC_HI)
+        reqs = stream_requests(cfg.vocab_size, 4, 0, 16, hi=SPEC_HI)
         runs[dev] = (eng, reqs, drive(eng, reqs))
     (ceng, creqs, card), (heng, _, host) = runs["cuda"], runs["cpu"]
     keys = ("n_stage_steps", "n_prefill_chunks")
-    log(f"{tag} stream f32 ({VLM_CPU_LAYERS} layers, 8 requests, 16 tokens, "
+    log(f"{tag} stream f32 ({VLM_CPU_LAYERS} layers, 4 requests, 16 tokens, "
         f"{time.perf_counter() - t0:.1f} s): counters card {[getattr(ceng, k) for k in keys]} "
         f"CPU {[getattr(heng, k) for k in keys]}, bytes up {ceng.link.bytes_up} / "
         f"{heng.link.bytes_up}")
@@ -4770,9 +4770,9 @@ def encdec_phase(torch, timer, counters):
 
 TRAIN = "switch-base"
 TRAIN_B, TRAIN_S = 4, 256  # the paper's setting: batch 4 x seq 256
-TRAIN_STEPS = 30
+TRAIN_STEPS = 20
 TRAIN_CKPT_EVERY = 10
-TRAIN_SMALL_LAYERS = 4  # (c) and (e): 2 blocks at full width, f32
+TRAIN_SMALL_LAYERS = 2  # (c) and (e): 1 block at full width, f32
 # lr 3e-4, the reference's default: at 1e-3 the reference's own train step
 # does not learn at full width (f32, 4 layers, these 30 batches on the CPU:
 # the mean loss of the last 5 steps 11.45 against the first 5's 11.22, with
@@ -5235,7 +5235,7 @@ def train_phase(torch, timer, counters):
 # and encoder-decoder training)
 # ---------------------------------------------------------------------------
 
-TRAIN2_STEPS = 10
+TRAIN2_STEPS = 3
 # (rows, d, rank, bf16): the fused plan at phase 16(c)'s codec shape and at
 # 8 rows, the composed plan (rank 1024 > 512) at qwen3-moe's width
 CODEC_FN_CASES = ((1024, 768, 384, True), (1024, 768, 384, False), (8, 768, 384, True),
@@ -5517,8 +5517,8 @@ def train2_phase(torch, timer, counters):
     log(f"(a) took {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     log("(b) one f32 train step, card vs CPU, at full width and reduced depth:")
-    small = (("codec model, 4 layers", dispatch_config().replace(num_layers=4, dtype="float32")),
-             ("mamba2-130m, 4 layers", get_config(SSM).replace(num_layers=4, dtype="float32")),
+    small = (("codec model, 2 layers", dispatch_config().replace(num_layers=2, dtype="float32")),
+             ("mamba2-130m, 2 layers", get_config(SSM).replace(num_layers=2, dtype="float32")),
              ("whisper-base, 2 + 2 layers", get_config(ENCDEC).replace(
                  num_layers=2, encoder_layers=2, dtype="float32")),
              ("jamba-1.5-large smoke, 8 layers", smoke_config(get_config(HYBRID)).replace(
@@ -5663,13 +5663,15 @@ def ep_plain_layer(torch, p, x, cfg, impl):
     return dec(z), ties
 
 
-def ep_rank(topo, device, plain_tokens):
+def ep_rank(topo, device, plain, only_seqp=False):
     """One rank of phase 17 (every rank the same host code): (a) the f32
     model served with 4 slots (a2a) and 2 slots (tp), tokens against the
-    one-process run's; (b) the MoE layer's a2a and tp bodies with the codec;
-    (c) the bf16 model with the codec, 8 requests through 4 slots, its
-    launches, step times, memory, collectives and a profiled decode step
-    (rank 0).  Returns what the parent checks and logs."""
+    one-process run's (``plain["tokens"]``); phase 19 (a) on the same
+    weights (:func:`seqp_serve_rank`); (b) the MoE layer's a2a and tp
+    bodies with the codec; (c) the bf16 model with the codec, 8 requests
+    through 4 slots, its launches, step times, memory, collectives and a
+    profiled decode step (rank 0).  ``only_seqp``: phase 19 (a) alone.
+    Returns what the parent checks and logs."""
     import gc
 
     import torch
@@ -5686,6 +5688,10 @@ def ep_rank(topo, device, plain_tokens):
     params = model.init(torch.Generator(device=device).manual_seed(EP_SEED),
                         expert_seed=EP_SEED)
     out["init_s"] = time.perf_counter() - t0
+    out["seqp"] = seqp_serve_rank(torch, device, params, plain)
+    if only_seqp:
+        return out
+    plain_tokens = plain["tokens"]
     for slots, body in ((4, "a2a"), (2, "tp")):
         before = (moe._moe_a2a_body.calls, moe._moe_tp_body.calls)
         t0 = time.perf_counter()
@@ -5824,30 +5830,48 @@ def ep_kernels(torch, timer):
     codec_cases(torch, timer, gen, codec, (8, 32, 64))
 
 
-def ep_phase(torch, timer, counters=None):
+def ep_phase(torch, timer, counters=None, only_seqp=False):
     """Phase 17: qwen3-moe-235b-a22b at full width (``EP_LAYERS`` layers)
     over ``EP_MESH`` ranks sharing the card (gloo over CUDA tensors), every
     rank spawned by ``launch.mesh.spawn_ranks``; the one-process runs first
-    (the card holds them or the ranks, never both).  Returns each wrapper's
+    (the card holds them or the ranks, never both).  Phase 19 (a) runs in
+    the same ranks (``only_seqp``: it alone).  Returns each wrapper's
     launches in (c), rank 0's."""
     import gc
+
+    import numpy as np
 
     from repro_torch.core.moe import _capacity
     from repro_torch.launch.mesh import backend_for, spawn_ranks
     from repro_torch.models.model import Model
 
     t_phase = time.perf_counter()
-    ep_kernels(torch, timer)
+    if not only_seqp:
+        ep_kernels(torch, timer)
     f32, layer_cfg, bf16 = ep_configs()
-    # (a)'s reference: one process, moe_impl "sorted", the same weights
+    # (a)'s reference: one process, moe_impl "sorted", the same weights;
+    # phase 19 (a)'s: the same model's prefill of SEQP_PROMPT
     t0 = time.perf_counter()
     model = Model(f32, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(EP_SEED), expert_seed=EP_SEED)
     plain_tokens = {slots: ep_serve(torch, model, params, slots, EP_LENS, EP_NEW)[0]
-                    for slots in (4, 2)}
+                    for slots in ((2,) if only_seqp else (4, 2))}
+    prompt = np.random.default_rng(19).integers(0, f32.vocab_size, SEQP_PROMPT).astype(np.int32)
+    with torch.no_grad():
+        logits = model.prefill(params, {"tokens": torch.from_numpy(prompt).cuda()})[0]
+    one = dict(tokens=plain_tokens, prompt=prompt, logits=logits.cpu().numpy())
     one_peak = torch.cuda.max_memory_allocated()
-    del model, params
-    log(f"ep (a) one-process sorted runs (f32, 4 and 2 slots): {time.perf_counter() - t0:.1f} s")
+    del model, params, logits
+    log(f"ep (a) one-process sorted runs (f32, {list(plain_tokens)} slots) and phase 19 (a)'s "
+        f"prefill: {time.perf_counter() - t0:.1f} s")
+    if only_seqp:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks(EP_MESH, ep_rank, one, True, device="cuda", policy="serve_tp",
+                            timeout_s=EP_TIMEOUT_S)
+        seqp_serve_checks(ranks, one)
+        log(f"ep phase (phase 19 (a) alone) took {time.perf_counter() - t_phase:.1f} s")
+        return {}
     # (b)'s plain composition, one process, all 128 experts
     p, x = ep_layer(torch, layer_cfg, None, "cuda")
     plain = {impl: ep_plain_layer(torch, p, x[:T], layer_cfg, impl)
@@ -5866,9 +5890,10 @@ def ep_phase(torch, timer, counters=None):
     t0 = time.perf_counter()
     # a rank that fails stops them all at once; one that hangs, within
     # EP_TIMEOUT_S (the ranks take ~45 s)
-    ranks = spawn_ranks(EP_MESH, ep_rank, plain_tokens, device="cuda", policy="serve_tp",
+    ranks = spawn_ranks(EP_MESH, ep_rank, one, device="cuda", policy="serve_tp",
                         timeout_s=EP_TIMEOUT_S)
-    log(f"ep ranks took {time.perf_counter() - t0:.1f} s (spawn, init, (a)-(c))")
+    log(f"ep ranks took {time.perf_counter() - t0:.1f} s (spawn, init, (a)-(c), phase 19 (a))")
+    seqp_serve_checks(ranks, one)
     r0 = ranks[0]
     for body in ("a2a", "tp"):
         a = r0[f"a_{body}"]
@@ -5944,7 +5969,7 @@ def ep_phase(torch, timer, counters=None):
 
 TM_MESH = (2, 2)  # elastic_topology(4, model_axis_size=2): ZeRO-3 over 2, experts over 2
 TM_RESUME = 2  # (b): elastic_topology(2, model_axis_size=2), a (1, 2) mesh
-TM_STEPS_A, TM_STEPS_C, TM_STEPS_D = 2, 5, 3
+TM_STEPS_A, TM_STEPS_C, TM_STEPS_D = 2, 3, 2
 TM_TIMEOUT_S = 420  # the process group's and each spawn's deadline
 # launches a step of full-depth switch-base on a rank (12 layers, 6 MoE,
 # each block recomputed once in the backward): the one-device step's; with
@@ -6024,7 +6049,7 @@ def tm_bf16_run(torch, cfg, topo, device, n, counters, profile_name=None):
 
     def step():
         _, _, m = step_fn(tr.params, tr.opt_state, batches[n])
-        seen.update(loss=float(m["loss"]), dropped=float(m["dropped_frac"]))
+        seen.update(loss=float(m["loss"]), dropped=float(m.get("dropped_frac", 0.0)))
 
     coll.reset_counts()
     prof = None
@@ -6044,22 +6069,29 @@ def tm_bf16_run(torch, cfg, topo, device, n, counters, profile_name=None):
     return res
 
 
-def tm_rank(topo, device, ckpt):
+def tm_rank(topo, device, ckpt, seqp_paths, only_seqp=False):
     """One rank of phase 18's (2, 2) mesh (every rank the same host code):
+    phase 19 (b) and (c) (:func:`seqp_train_rank`, :func:`ssm_tp_rank`);
     (a) f32 ``Trainer`` for ``TM_STEPS_A`` steps, checkpointed (whole
-    arrays) into ``ckpt``; (c) bf16, (d) bf16 with the dispatch codec."""
+    arrays) into ``ckpt``; (c) bf16, (d) bf16 with the dispatch codec.
+    ``only_seqp``: phase 19's parts alone."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
     f32, bf16, codec = tm_configs()
     counters = wrappers() + [flash_attention_bwd]
+    out = {"rank": topo.rank}
+    out["seqp"] = seqp_train_rank(torch, device, seqp_paths["one"], counters)
+    out["ssm"] = ssm_tp_rank(torch, topo, device, seqp_paths["mamba"], counters)
+    if only_seqp:
+        return out
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = tm_trainer(f32, topo, device, ckpt, TM_STEPS_A)
     log_a = tr.run()["log"]
-    out = {"rank": topo.rank, "a_log": log_a, "a_seconds": time.perf_counter() - t0,
-           "a_peak": torch.cuda.max_memory_allocated()}
+    out.update({"a_log": log_a, "a_seconds": time.perf_counter() - t0,
+                "a_peak": torch.cuda.max_memory_allocated()})
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -6166,11 +6198,13 @@ def tm_a2a_bytes(cfg, counts):
     return total - ids, ids
 
 
-def train_mesh_phase(torch, timer, counters=None):
+def train_mesh_phase(torch, timer, counters=None, only_seqp=False):
     """Phase 18: full-width, full-depth switch-base trained on a (2, 2) mesh
     of 4 ranks sharing the card (gloo over CUDA tensors, the a2a body),
     each rank spawned by ``launch.mesh.spawn_ranks``; the one-process runs
-    never beside the ranks.  Returns rank 0's launches in (c) and (d)."""
+    never beside the ranks.  Phase 19 (b) and (c) run in the same ranks
+    (``only_seqp``: they alone).  Returns rank 0's launches in (c) and
+    (d), and in phase 19 (b)'s bf16 run."""
     import shutil
     import tempfile
 
@@ -6179,12 +6213,15 @@ def train_mesh_phase(torch, timer, counters=None):
     from repro_torch.launch.mesh import backend_for, spawn_ranks
 
     t_phase = time.perf_counter()
-    tm_kernels(torch, timer)
+    if not only_seqp:
+        tm_kernels(torch, timer)
     f32, bf16, codec = tm_configs()
     tmp = tempfile.mkdtemp(prefix="train_mesh_")
+    seqp_paths = {"one": os.path.join(tmp, "one.npz"), "mamba": os.path.join(tmp, "mamba.npz")}
     try:
-        # (a)'s reference: one process, the sorted body, 3 steps uninterrupted;
-        # its params after step 2 copied to the host on the way
+        # (a)'s reference: one process, the sorted body, 3 steps uninterrupted
+        # (phase 19 (b) reads its first 2); its params after step 2 copied to
+        # the host on the way
         t0 = time.perf_counter()
         one = tm_trainer(f32, None, "cuda", os.path.join(tmp, "one"), TM_STEPS_A + 1)
         inner, taken = steps.make_train_step(one.model, one.opt_cfg), {}
@@ -6206,15 +6243,26 @@ def train_mesh_phase(torch, timer, counters=None):
             f"{time.perf_counter() - t0:.1f} s; losses "
             + " ".join(f"{m['loss']:.6f}" for m in one_log))
 
+        t0 = time.perf_counter()
+        import numpy as np
+
+        np.savez(seqp_paths["one"], **{k: v.numpy() for k, v in one_params.items()})
+        mamba_loss = seqp_mamba_reference(torch, seqp_paths["mamba"])
+        log(f"phase 19 (c) one process (mamba2-130m f32 loss and gradients): "
+            f"{time.perf_counter() - t0:.1f} s; loss {mamba_loss:.6f}")
         world = TM_MESH[0] * TM_MESH[1]
         log(f"train mesh ranks: mesh {TM_MESH} (tp: ZeRO-3 over data, experts over model), "
             f"{backend_for(world, 'cuda')[0]} over CUDA tensors, {torch.cuda.device_count()} "
             f"card(s)")
         ckpt = os.path.join(tmp, "mesh")
         t0 = time.perf_counter()
-        ranks = spawn_ranks(TM_MESH, tm_rank, ckpt, device="cuda", policy="tp",
-                            timeout_s=TM_TIMEOUT_S)
-        log(f"train mesh ranks took {time.perf_counter() - t0:.1f} s (spawn, (a), (c), (d))")
+        ranks = spawn_ranks(TM_MESH, tm_rank, ckpt, seqp_paths, only_seqp, device="cuda",
+                            policy="tp", timeout_s=TM_TIMEOUT_S)
+        log(f"train mesh ranks took {time.perf_counter() - t0:.1f} s (spawn, phase 19 (b) and "
+            f"(c){'' if only_seqp else ', (a), (c), (d)'})")
+        seqp_launches = seqp_train_checks(ranks, one_log, mamba_loss)
+        if only_seqp:
+            return {"seqp": seqp_launches}
         r0 = ranks[0]
         for i, m in enumerate(r0["a_log"]):
             want = one_log[i]
@@ -6305,7 +6353,8 @@ def train_mesh_phase(torch, timer, counters=None):
         raise AssertionError("train mesh (d): the codec's payload is not rank / d of (c)'s")
     log(f"train mesh phase took {time.perf_counter() - t_phase:.1f} s")
     return {k: round(r0["c"]["launches"].get(k, 0) * TM_STEPS_C
-                     + r0["d"]["launches"].get(k, 0) * TM_STEPS_D) for k in r0["c"]["launches"]}
+                     + r0["d"]["launches"].get(k, 0) * TM_STEPS_D)
+            for k in r0["c"]["launches"]} | {"seqp": seqp_launches}
 
 
 def _tm_flat(tree, prefix=""):
@@ -6317,6 +6366,422 @@ def _tm_flat(tree, prefix=""):
         else:
             out[f"{prefix}{k}"] = v.detach().to("cpu", copy=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: sequence parallelism and the head-sharded SSM, inside the ranks
+# of phases 17 and 18 (no rank start-up or weight load paid twice)
+# ---------------------------------------------------------------------------
+
+SEQP_SECONDS = {}  # phase 19's parts: seconds each, summed into its log line
+SEQP_PROMPT = (2, 128)  # (a): Model.prefill at S % 4 == 0: 32 queries a rank over 128 keys
+SEQP_REL = 1e-4  # (a): the prefill's logits against one process's, of max |logit| (f32)
+SEQP_STEPS = 2  # (b): bf16 steps under seqp on (2, 2)
+SEQP_SSM = "mamba2-130m"  # (c): full width and depth, 24 heads, 12 a rank under tp on (2, 2)
+SEQP_SSM_SEED = 0
+SEQP_SSM_HEAD_BLOCK = 4
+SEQP_SSM_STEPS = 2  # (c): bf16 steps
+SEQP_GRAD_REL = 1e-4  # (c): each gradient leaf against one process's, of its max |value|
+# the flash kernels at a rank's shapes under seqp: (name, B, S, ep, H, KV, hd)
+# -- phase 19 (b)'s switch-base train tile (2 rows a data rank, 256 / ep 2
+# queries a rank) and (a)'s qwen3-moe prefill (128 / ep 4 queries a rank)
+SEQP_FLASH_CASES = (
+    ("switch-base seqp (2,2)", 2, 256, 2, 12, 12, 64),
+    ("qwen3-moe serve_seqp (1,4)", 2, 128, 4, 64, 4, 128),
+)
+
+
+def seqp_serve_rank(torch, device, params, plain):
+    """Phase 19 (a) on one rank of phase 17's (1, 4) mesh, on (a)'s f32
+    weights (dropless at serving) under a ``serve_seqp`` topology:
+    ``ServingEngine`` with 2 slots (the prompts' chunks through the a2a
+    body on pre-sharded tokens, the 2-token decode through tp), tokens
+    against the one-process sorted run's; ``Model.prefill`` of
+    ``SEQP_PROMPT``: each layer's flash launch at this rank's offset, the
+    logits against the one-process prefill's."""
+    import numpy as np
+
+    from repro_torch.core import moe
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import make_topology
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+
+    f32 = ep_configs()[0]
+    model = Model(f32, device, make_topology(EP_MESH, policy="serve_seqp"))
+    out = {}
+    before = (moe._moe_a2a_body.calls, moe._moe_tp_body.calls)
+    t0 = time.perf_counter()
+    tokens = ep_serve(torch, model, params, 2, EP_LENS, EP_NEW)[0]
+    out["serve_s"] = time.perf_counter() - t0
+    out["bodies"] = (moe._moe_a2a_body.calls - before[0], moe._moe_tp_body.calls - before[1])
+    if tokens != plain["tokens"][2]:
+        raise AssertionError(f"phase 19 (a): serve_seqp tokens differ from the one-process "
+                             f"sorted run's: {tokens} vs {plain['tokens'][2]}")
+    offsets, inner = [], attention.flash_attention
+
+    def spy(q, k, v, **kw):
+        offsets.append((q.shape[1], k.shape[1], kw.get("q_offset", 0)))
+        return inner(q, k, v, **kw)
+
+    attention.flash_attention = spy
+    flash_attention_fwd.launches = 0
+    coll.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = model.prefill(params, {"tokens": torch.from_numpy(plain["prompt"]).to(
+                device)})[0]
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+    finally:
+        attention.flash_attention = inner
+    out.update(prefill_launches=flash_attention_fwd.launches, offsets=offsets,
+               prefill_collectives=coll.counts())
+    V = f32.vocab_size  # the padded columns hold -1e30 on both sides
+    got, want = logits.cpu().numpy()[:, :V], plain["logits"][:, :V]
+    out["prefill_err"] = float(np.abs(got - want).max() / np.abs(want).max())
+    return out
+
+
+def seqp_serve_checks(ranks, plain):
+    """Phase 19 (a)'s checks and log lines: every rank's tokens equal the
+    one-process run's (checked in the rank), both bodies ran, each layer's
+    flash launch ran at the rank's offset, the prefill's logits within
+    ``SEQP_REL``."""
+    B, S = SEQP_PROMPT
+    ep = EP_MESH[1]
+    for r in ranks:
+        q = r["seqp"]
+        want = [(S // ep, S, (r["rank"] % ep) * S // ep)] * EP_LAYERS
+        if q["offsets"] != want or q["prefill_launches"] != EP_LAYERS:
+            raise AssertionError(f"phase 19 (a) rank {r['rank']}: flash calls {q['offsets']}, "
+                                 f"launches {q['prefill_launches']}, want {want}")
+        if not q["prefill_err"] <= SEQP_REL or not all(q["bodies"]):
+            raise AssertionError(f"phase 19 (a) rank {r['rank']}: prefill logits off by "
+                                 f"{q['prefill_err']:.3e} of max, or a body never ran "
+                                 f"{q['bodies']}")
+    q = ranks[0]["seqp"]
+    SEQP_SECONDS["(a)"] = q["serve_s"] + q["prefill_s"]
+    log(f"phase 19 (a) serve_seqp f32, 2 slots: tokens of every rank equal the one-process "
+        f"sorted run's ({len(EP_LENS)} x {EP_NEW}); a2a/tp body calls {q['bodies']}; "
+        f"{q['serve_s']:.1f} s")
+    log(f"phase 19 (a) Model.prefill [{B}, {S}] under serve_seqp: flash launches a rank "
+        f"{q['prefill_launches']} at offsets "
+        + ", ".join(str(r["seqp"]["offsets"][0][2]) for r in ranks)
+        + f" ({S // ep} queries over {S} keys); logits within "
+        + ", ".join(f"{r['seqp']['prefill_err']:.2e}" for r in ranks)
+        + f" of max |logit| of one process's (limit {SEQP_REL:g}); {q['prefill_s']:.2f} s; "
+        f"collectives (rank 0) {q['prefill_collectives']}")
+
+
+def seqp_train_rank(torch, device, one_path, counters):
+    """Phase 19 (b) on one rank of phase 18's (2, 2) mesh under ``seqp``:
+    phase 18 (a)'s f32 run (a ``Trainer``'s state, its step function on its
+    batches) for ``TM_STEPS_A`` steps, its params gathered and held on rank
+    0 against the one process's (``one_path``), then ``SEQP_STEPS`` bf16
+    steps (:func:`tm_bf16_run`, rank 0 profiled)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_topology
+
+    f32, bf16, _ = tm_configs()
+    topo = make_topology(TM_MESH, policy="seqp")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = tm_trainer(f32, topo, device, None, TM_STEPS_A)
+    step_fn = steps.make_train_step(tr.model, tr.opt_cfg, tr.specs[0])
+    f32_log = []
+    for b in train_batches(f32, TM_STEPS_A, 0):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        tr.params, tr.opt_state, m = step_fn(tr.params, tr.opt_state, batch)
+        f32_log.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+    got = sharding.gather_tree(tr.params, tr.specs[0], topo)
+    n_leaves = 0
+    if topo.rank == 0:  # params_after_steps_close's rule, on the card
+        lr_steps = TRAIN_OPT["lr"] * TM_STEPS_A
+        with np.load(one_path) as z:
+            for path, a in _flat_tree(got).items():
+                b = torch.from_numpy(z[path]).to(device)
+                diff = (a.float() - b.float()).abs()
+                if not (diff.max().item() <= lr_steps and (
+                        diff > 1e-5 + 1e-5 * b.abs()).float().mean().item() <= 0.01):
+                    raise AssertionError(f"phase 19 (b): params {path} after the steps differ "
+                                         f"from the one process's (max {diff.max():.3e})")
+                n_leaves += 1
+    out = {"f32_log": f32_log, "f32_s": time.perf_counter() - t0, "leaves": n_leaves,
+           "f32_peak": torch.cuda.max_memory_allocated()}
+    shutil.rmtree(tr.tc.checkpoint_dir, ignore_errors=True)
+    del tr, step_fn, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["bf16"] = tm_bf16_run(torch, bf16, topo, device, SEQP_STEPS, counters,
+                              "train_seqp_step_profile.txt")
+    out["bf16"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def seqp_mamba_configs():
+    """(f32, bf16) full-width, full-depth mamba2-130m, AdamW, its SSD heads
+    in blocks of ``SEQP_SSM_HEAD_BLOCK`` (the config's 8 does not divide a
+    rank's 12 heads: the reference's ``ssd_chunked`` asserts there and the
+    port's raises; a block bounds memory, not the math)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(SEQP_SSM)
+    base = base.replace(ssm=dataclasses.replace(base.ssm, head_block=SEQP_SSM_HEAD_BLOCK))
+    return base.replace(dtype="float32"), base
+
+
+def _flat_tree(tree, prefix=""):
+    """{'/'-joined path: leaf} of a nested dict (the leaves as they are)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def seqp_mamba_reference(torch, path):
+    """Phase 19 (c)'s one-process side: mamba2-130m's f32 loss and every
+    gradient leaf on ``train_batches``' first batch, written to ``path``
+    (the loss under ``__loss``).  Returns the loss."""
+    import numpy as np
+
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+
+    f32, _ = seqp_mamba_configs()
+    model = Model(f32, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEQP_SSM_SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batches(f32, 1, 0)[0].items()}
+    loss, _, grads = steps.loss_and_grads(steps.make_loss_fn(model), params, batch)
+    np.savez(path, __loss=np.asarray(float(loss)),
+             **{k: v.numpy() for k, v in _tm_flat(grads).items()})
+    del model, params, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(loss)
+
+
+def ssm_tp_rank(torch, topo, device, ref_path, counters):
+    """Phase 19 (c) on one rank of phase 18's (2, 2) ``tp`` mesh: full-width
+    mamba2-130m's f32 loss and this rank's blocks of every gradient leaf
+    (the train step's ``grads``: ZeRO-3 blocks, the SSM head-sharded, 12 of
+    24 heads a rank) against the one process's; then ``SEQP_SSM_STEPS``
+    bf16 steps (:func:`tm_bf16_run`)."""
+    import numpy as np
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    f32, bf16 = seqp_mamba_configs()
+    model = Model(f32, device, topo)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = model.init(torch.Generator(device=device).manual_seed(SEQP_SSM_SEED))
+    pspecs, _ = sharding.train_specs(full, f32.optimizer, topo)
+    blocks = sharding.shard_tree(full, pspecs, topo)
+    del full
+    step = steps.make_train_step(model, OptimizerConfig(name=f32.optimizer, **TRAIN_OPT), pspecs)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in train_batches(f32, 1, 0)[0].items()}
+    coll.reset_counts()
+    metrics, grads = step.grads(blocks, batch)
+    out = {"counts": coll.counts(), "loss": float(metrics["loss"])}
+    specs = _flat_tree(pspecs)
+    errs = {}
+    with np.load(ref_path) as z:
+        out["loss_want"] = float(z["__loss"])
+        for path, g in _tm_flat(grads).items():
+            whole = torch.from_numpy(z[path])
+            want = sharding.local_block(whole, specs[path], topo)
+            errs[path] = float((g - want).abs().max() / whole.abs().max().clamp_min(1e-30))
+    out["worst"] = max(errs.items(), key=lambda kv: kv[1])
+    out["leaves"] = len(errs)
+    out["f32_s"] = time.perf_counter() - t0
+    out["f32_peak"] = torch.cuda.max_memory_allocated()
+    del blocks, grads, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["bf16"] = tm_bf16_run(torch, bf16, topo, device, SEQP_SSM_STEPS, counters)
+    out["bf16"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def seqp_train_checks(ranks, one_log, mamba_loss):
+    """Phase 19 (b) and (c)'s checks and log lines (rank 0 held (b)'s
+    params).  Returns rank 0's launches in (b)'s bf16 run."""
+    r0 = ranks[0]
+    for i, m in enumerate(r0["seqp"]["f32_log"]):
+        want = one_log[i]
+        rl = abs(m["loss"] - want["loss"]) / abs(want["loss"])
+        rg = abs(m["grad_norm"] - want["grad_norm"]) / abs(want["grad_norm"])
+        log(f"phase 19 (b) seqp f32 step {i + 1}: loss {m['loss']:.6f} vs one process "
+            f"{want['loss']:.6f} (rel {rl:.2e}), grad norm {m['grad_norm']:.5f} vs "
+            f"{want['grad_norm']:.5f} (rel {rg:.2e})")
+        if not (rl <= 1e-5 and rg <= 1e-4) or any(
+                r["seqp"]["f32_log"][i]["loss"] != m["loss"] for r in ranks):
+            raise AssertionError(f"phase 19 (b) step {i + 1}: the seqp mesh disagrees with the "
+                                 "one-process run, or the ranks differ")
+    log(f"phase 19 (b): the seqp params after step {TM_STEPS_A} (gathered on rank 0) equal "
+        f"the one process's ({r0['seqp']['leaves']} leaves); peak a rank "
+        + ", ".join(f"{r['seqp']['f32_peak'] / 2**30:.2f}" for r in ranks)
+        + f" GiB; {r0['seqp']['f32_s']:.1f} s on rank 0")
+    rc = r0["seqp"]["bf16"]
+    c = r0["ssm"]
+    SEQP_SECONDS["(b)"] = r0["seqp"]["f32_s"] + rc["seconds"]
+    SEQP_SECONDS["(c)"] = c["f32_s"] + c["bf16"]["seconds"]
+    tokens = TRAIN_B * TRAIN_S
+    log(f"phase 19 (b) seqp bf16: losses " + " ".join(f"{x:.4f}" for x in rc["losses"])
+        + f"; step median {rc['step_s'] * 1e3:.1f} ms (rank 0, host clock after float(loss)), "
+        f"{tokens / rc['step_s']:.0f} tokens/s; {rc['seconds']:.1f} s; dropped_frac "
+        f"{rc['extra']['dropped']:.4f}; peak a rank "
+        + ", ".join(f"{r['seqp']['bf16']['peak'] / 2**30:.2f}" for r in ranks) + " GiB")
+    log(f"phase 19 (b) seqp bf16: collectives a step (rank 0; calls / bytes handed in, forward "
+        f"with the recomputation, and backward): {rc['counts']}")
+    got = {k: rc["launches"][k] for k in TM_PER_STEP}
+    log(f"phase 19 (b) seqp bf16: launches a step (rank 0) {got}")
+    if got != {k: float(v) for k, v in TM_PER_STEP.items()}:
+        raise AssertionError(f"phase 19 (b): launches a step {got}, want {TM_PER_STEP}")
+    only_path("phase 19 (b)", rc["launches"], TM_PER_STEP)
+    kv = rc["counts"]["all_gather_rs"]
+    if not (kv["calls"] and kv["bwd_calls"]):
+        raise AssertionError(f"phase 19 (b): no K/V gather or reduce-scatter {kv}")
+    if not all(math.isfinite(x) for r in ranks for x in r["seqp"]["bf16"]["losses"]):
+        raise AssertionError("phase 19 (b): a bf16 loss is not finite")
+    if rc["profile"] is not None:
+        dev_ms, wall_ms, path = rc["profile"]
+        log(f"phase 19 (b) seqp bf16 profiled step (rank 0, the other ranks stepping beside it): "
+            f"device {dev_ms:.3f} ms of {wall_ms:.1f} ms wall ({dev_ms / wall_ms:.1%} busy); "
+            f"kernels in path {path}; chiprun_out/train_seqp_step_profile.txt")
+    for r in ranks:
+        c = r["ssm"]
+        rl = abs(c["loss"] - mamba_loss) / abs(mamba_loss)
+        if not (rl <= 1e-5 and c["worst"][1] <= SEQP_GRAD_REL):
+            raise AssertionError(f"phase 19 (c) rank {r['rank']}: loss rel {rl:.2e}, worst "
+                                 f"gradient leaf {c['worst']}")
+    c = r0["ssm"]
+    log(f"phase 19 (c) mamba2-130m f32 under tp (12 of 24 heads a rank): loss {c['loss']:.6f} vs "
+        f"one process {mamba_loss:.6f}; every rank's blocks of all {c['leaves']} gradient "
+        f"leaves within " + ", ".join(f"{r['ssm']['worst'][1]:.2e}" for r in ranks)
+        + f" of each leaf's max (limit {SEQP_GRAD_REL:g}; rank 0's worst {c['worst'][0]}); "
+        f"{c['f32_s']:.1f} s; collectives {c['counts']}")
+    b = c["bf16"]
+    log(f"phase 19 (c) mamba2-130m bf16 under tp: losses " + " ".join(
+        f"{x:.4f}" for x in b["losses"]) + f"; step median {b['step_s'] * 1e3:.1f} ms (rank 0, "
+        f"host clock), {tokens / b['step_s']:.0f} tokens/s; peak a rank "
+        + ", ".join(f"{r['ssm']['bf16']['peak'] / 2**30:.2f}" for r in ranks)
+        + f" GiB; collectives a step {b['counts']}; {b['seconds']:.1f} s")
+    if not all(math.isfinite(x) for x in b["losses"]):
+        raise AssertionError("phase 19 (c): a bf16 loss is not finite")
+    return {k: round(v * SEQP_STEPS) for k, v in rc["launches"].items()}
+
+
+def seqp_flash_case(torch, timer, gen, name, B, S, ep, H, KV, hd, bf16):
+    """The flash forward and backward kernels at sequence-parallel shapes:
+    each rank r's ``S/ep`` queries at ``q_offset = r·S/ep`` over all ``S``
+    keys, causal, against their plain versions (the forward as phase 2,
+    the backward as :func:`bwd_case`, each rank's offset); the last
+    rank's (the most visible pairs) time, plain time, bound and SDPA's
+    forward and backward with the offset's mask as the library.  Returns
+    the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention.ops import block_mask
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tag = f"{name} [{B},{S // ep} of {S}] {'bf16' if bf16 else 'f32'}"
+    Sq = S // ep
+    k, v = (torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dtype) for _ in "kv")
+    errs = []
+    for r in range(ep):
+        q, dout = (torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
+                   for _ in "qo")
+        kw = dict(causal=True, window=None, q_offset=r * Sq)
+        out, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        ref, lse_plain = flash_attention_plain(q, k, v, return_lse=True, **kw)
+        rtol, arel = (2 ** -16, 2 ** -14) if not bf16 else (2 ** -7, 2 ** -6)
+        errs.append(check_close(f"flash_attention {tag} offset {r * Sq}", out, ref, rtol=rtol,
+                                atol=arel * ref.float().abs().median().item(), quiet=True))
+        lse_err = ((lse - lse_plain).abs() / lse_plain.abs().clamp_min(1.0)).max().item()
+        got = flash_attention_bwd(dout, q, k, v, out, lse, **kw)
+        want = flash_attention_bwd_plain(dout, q, k, v, out, lse, **kw)
+        rel = 2e-2 if bf16 else 1e-4
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            if not (err <= rel * w.float().abs().max().item() and lse_err <= 1e-5):
+                raise AssertionError(f"flash_attention_bwd {tag} offset {r * Sq}: {what} "
+                                     f"max|diff| {err:.3e}, lse {lse_err:.1e}")
+            errs.append(err)
+    vis = block_mask(kw["q_offset"] + torch.arange(Sq, device="cuda"),
+                     torch.arange(S, device="cuda"), True, None)  # the last rank's
+    isz = 2 if bf16 else 4
+    kind = "bf16" if bf16 else "f32"
+    pairs = int(vis.sum())
+    f_ms, f_by = bound((2 * q.numel() + 2 * k.numel()) * isz, 4 * hd * B * H * pairs, kind)
+    b_ms, b_by = bound((4 * q.numel() + 4 * k.numel()) * isz + lse.numel() * 4,
+                       5 * 2 * hd * B * H * pairs, kind)
+    fwd = functools.partial(flash_attention_fwd, q, k, v, **kw)
+    bwd = functools.partial(flash_attention_bwd, dout, q, k, v, out, lse, **kw)
+    ms, bms = timer(fwd), timer(bwd)
+    plain_ms = timer(lambda: flash_attention_plain(q, k, v, **kw), iters=3, warmup=1)
+    plain_bms = timer(lambda: flash_attention_bwd_plain(dout, q, k, v, out, lse, **kw), iters=3,
+                      warmup=1)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+              for t in (k, v))
+    o_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis)
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis))
+    lib_bms = timer(lambda: torch.autograd.grad(o_t, (qt, kt, vt), dout.transpose(1, 2),
+                                                retain_graph=True))
+    log(f"  flash_attention {tag}: offsets 0..{(ep - 1) * Sq} max_abs_err {max(errs):.2e}; last "
+        f"rank fwd ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={f_ms:.5f} ({f_by}) "
+        f"library_ms(sdpa, offset mask)={lib_ms:.4f}; bwd ms={bms:.4f} plain_ms={plain_bms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by}) library_ms(sdpa bwd)={lib_bms:.4f}")
+    return dict(max_abs_err=max(errs), ms=ms, bwd_ms=bms)
+
+
+def seqp_kernels(torch, timer):
+    """Phase 19's kernels at its shapes (``SEQP_FLASH_CASES``, bf16 and f32:
+    the flash forward and backward at every rank's offset); the gate and
+    the expert FFN on pre-sharded tokens take phase 18's shapes (a rank's
+    256 rows of switch-base: the a2a chunk's) and phase 17's (qwen3-moe's
+    wide gate at 1-16 rows, the FFN at ``ep·C`` rows), held there."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    t0 = time.perf_counter()
+    for case in SEQP_FLASH_CASES:
+        for bf16 in (True, False):
+            seqp_flash_case(torch, timer, gen, *case, bf16)
+    SEQP_SECONDS["kernels"] = time.perf_counter() - t0
+    log(f"phase 19 kernel checks took {SEQP_SECONDS['kernels']:.1f} s")
+
+
+def seqp_phase(torch, timer, counters):
+    """Phase 19 alone (``--seqp``): its kernels, then (a) in phase 17's ranks
+    and (b)-(c) in phase 18's, each with its one-process references only."""
+    seqp_kernels(torch, timer)
+    ep_phase(torch, timer, only_seqp=True)
+    train_mesh_phase(torch, timer, only_seqp=True)
 
 
 def wrappers():
@@ -6357,7 +6822,8 @@ ALONE = {"--serve": ("serve", lambda: serve_phase), "--vlm": ("vlm", lambda: vlm
          "--ssm": ("ssm", lambda: ssm_phase), "--danube": ("danube", lambda: danube_phase),
          "--encdec": ("encdec", lambda: encdec_phase), "--train": ("train", lambda: train_phase),
          "--train2": ("train2", lambda: train2_phase), "--ep": ("ep", lambda: ep_phase),
-         "--train-mesh": ("train mesh", lambda: train_mesh_phase)}
+         "--train-mesh": ("train mesh", lambda: train_mesh_phase),
+         "--seqp": ("seqp", lambda: seqp_phase)}
 
 
 def alone(torch, flag: str) -> int:
@@ -6510,12 +6976,19 @@ def main() -> int:
     t0 = time.perf_counter()
     train2_launches = train2_phase(torch, timer, stream_counters)
     log(f"train2 phase took {time.perf_counter() - t0:.1f} s")
+    log("sequence parallelism (phase 19): the flash kernels at every rank's offset:")
+    seqp_kernels(torch, timer)
     log("expert parallelism: qwen3-moe at full width over 4 ranks on the card (the a2a and "
-        "tp bodies through Model and ServingEngine):")
+        "tp bodies through Model and ServingEngine), and phase 19 (a) in the same ranks:")
     ep_launches = ep_phase(torch, timer)
     log("training on a mesh: full-width switch-base over 4 ranks on the card (the sharded "
-        "train step and Trainer, the bodies' backward, the elastic resume):")
+        "train step and Trainer, the bodies' backward, the elastic resume), and phase 19's "
+        "(b) and (c) in the same ranks:")
     train_mesh_launches = train_mesh_phase(torch, timer)
+    seqp_launches = train_mesh_launches.pop("seqp")
+    log(f"phase 19 took {sum(SEQP_SECONDS.values()):.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in SEQP_SECONDS.items())
+        + "; (a)-(c) on rank 0 inside the ranks of phases 17 and 18)")
     log(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s (from the build on)")
     # each kernel reports the launches of the path it was ported for: the
     # serving run for the first three, the pipeline run for the codec and
@@ -6606,6 +7079,10 @@ def main() -> int:
             # ((c) and (d): switch-base, the a2a body, with and without the
             # dispatch codec), forward, recomputation and backward
             "train_mesh_launches": train_mesh_launches.get(counter, 0),
+            # launches in phase 19 (b)'s bf16 training run on rank 0 of 4
+            # (switch-base under seqp: sequence-parallel attention, the a2a
+            # body on pre-sharded tokens)
+            "seqp_launches": seqp_launches.get(counter, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -22,8 +22,12 @@ over the model axis (through the codec: the codec is linear, so the sum
 commutes with decoding).  The ranks run SPMD, the collectives are
 ``distributed.collectives``.  Serving hands every rank the whole batch and
 gathers the bodies' data-local outputs back to every rank; training hands
-each rank its own batch shard, which the bodies take as it is.  All paths
-share the HL-GGN gate.
+each rank its own batch shard, which the bodies take as it is.  Under
+sequence parallelism (``topo.seq_parallel_attn``) the a2a body takes
+pre-sharded tokens, each rank its own ``[B/dp, S/ep]`` tile, as the
+reference's does: the sequence-parallel stack hands it its slice of the
+sequence, any other caller the usual layout, cut here and gathered back.
+All paths share the HL-GGN gate.
 
 The bodies train: every collective has its backward, and where a rank
 consumes a value that its model group holds alike in a way of its own (the
@@ -327,18 +331,22 @@ def _moe_a2a_body(
     over every rank of the data and model axes; without it (serving) the
     aux is empty.  This rank's tokens (``split``), gate and codec
     (``fanout``) are its own consumption, so their gradients come back
-    whole on every rank of the model group."""
-    if pre_sharded:
-        raise NotImplementedError(
-            "pre-sharded a2a tokens (sequence-parallel residuals) come with ROADMAP item 8c")
+    whole on every rank of the model group.
+
+    ``pre_sharded``: ``x`` holds this rank's own tokens already (the
+    sequence-parallel residual stream): every row is this rank's, with no
+    ``split`` and no gather at the end."""
     _moe_a2a_body.calls += 1
     m = cfg.moe
     ep, group = topo.ep_size, topo.model_group
     E_loc = m.num_experts // ep
     t, d = x.shape
     k = m.top_k
-    ts = t // ep
-    xs = coll.split(x, group)  # tokens [me·ts, (me+1)·ts)
+    if pre_sharded:
+        ts, xs = t, x
+    else:
+        ts = t // ep
+        xs = coll.split(x, group)  # tokens [me·ts, (me+1)·ts)
     gate_params = _fanout_params(gate_params, group)
     codec = _fanout_params(codec, group)
     out = gating.gate(gate_params, xs, m, expert_mask, aux=aux)
@@ -372,7 +380,8 @@ def _moe_a2a_body(
         got = comp.decode_1d(codec, got).to(x.dtype)
     got = torch.where(keep[:, None], got * w[:, None].to(got.dtype), 0.0)
     y = _segment_sum(got, tok, ts).to(x.dtype)
-    y = coll.all_gather(y, group)  # [t, d]
+    if not pre_sharded:
+        y = coll.all_gather(y, group)  # [t, d]
     if not aux:
         return y, {}
     stats = _pmean_all({**out.aux, "dropped_frac": 1.0 - keep.float().mean()},
@@ -466,39 +475,83 @@ _moe_a2a_body.calls = 0
 _moe_tp_body.calls = 0
 
 
-def _expert_parallel(params: Dict, x2: torch.Tensor, cfg, topo: Topology, impl: str,
-                     expert_mask, cf: float, train: bool):
+def _expert_parallel(params: Dict, x: torch.Tensor, cfg, topo: Topology, impl: str,
+                     expert_mask, cf: float, train: bool, seq_sharded: bool = False):
     """The reference's ``shard_map`` branch on one rank.  Serving: the
     tokens' data shard in (all of them when ``dp`` does not divide the
     count: they stay replicated), the body, and the data shards gathered
-    back.  Training: ``x2`` is already this rank's data shard, and the body
-    takes it as it is."""
+    back.  Training: ``x`` is already this rank's data shard, and the body
+    takes it as it is.  Its token count ``T`` (the reference's, over the
+    whole mesh) decides the body as there: ``a2a`` falls back to ``tp``
+    when ``ep`` does not divide the data-local count, and under sequence
+    parallelism ``a2a`` takes pre-sharded tokens (:func:`_pre_sharded`)."""
     m = cfg.moe
     if params["wi"].shape[-3] * topo.ep_size != m.num_experts:
         raise ValueError(
             f"expert-parallel MoE: wi {tuple(params['wi'].shape)} is not this rank's "
             f"{m.num_experts // topo.ep_size} of {m.num_experts} experts")
     dp, ep = topo.dp_size, topo.ep_size
-    T = x2.shape[0]
-    batch_shardable = T % dp == 0 and not train
+    T = x.numel() // x.shape[-1] * (dp if train else 1) * (ep if seq_sharded else 1)
+    batch_shardable = T % dp == 0
     t_loc = T // dp if batch_shardable else T
     if impl == "a2a" and t_loc % ep != 0:  # decode shapes that ep does not divide
         impl = "tp"
-    sharded = batch_shardable and dp > 1
+    experts = {kk: params[kk] for kk in ("wi", "wg", "wo") if kk in params}
+    args = (experts, params["gate"], params.get("codec"), cfg, topo, expert_mask, cf)
+    if topo.seq_parallel_attn and batch_shardable and impl == "a2a":
+        return _pre_sharded(x, args, topo, train, seq_sharded)
+    if seq_sharded:  # the tp body takes every token: the slices gathered, then cut again
+        whole = coll.all_gather(x, topo.model_group, dim=1)
+        y, aux = _expert_parallel(params, whole, cfg, topo, impl, expert_mask, cf, train)
+        return coll.split(y, topo.model_group, dim=1), aux
+    x2 = x.reshape(-1, x.shape[-1])
+    sharded = batch_shardable and dp > 1 and not train
     if sharded:
         i = topo.data_index
         x2 = x2[i * t_loc : (i + 1) * t_loc]
-    experts = {kk: params[kk] for kk in ("wi", "wg", "wo") if kk in params}
     body = _moe_a2a_body if impl == "a2a" else _moe_tp_body
-    y, aux = body(x2, experts, params["gate"], params.get("codec"), cfg, topo, expert_mask,
-                  cf, aux=train)
+    y, aux = body(x2, *args, aux=train)
     if sharded:
         y = coll.all_gather(y, topo.data_group)
-    return y, aux
+    return y.reshape(x.shape), aux
+
+
+def _pre_sharded(x: torch.Tensor, args, topo: Topology, train: bool, seq_sharded: bool):
+    """The a2a body on pre-sharded tokens: this rank's tile of the
+    reference's layout, its rows flattened locally in the reference's
+    order (bucket ranks, and so drops, follow it).  ``[B, S, d]``: the tile
+    ``[B/dp, S/ep]`` of its ``body3d``, which refuses a B that ``dp`` or an
+    S that ``ep`` does not divide (a ``ValueError`` here too); ``[T, d]``:
+    the rows ``(data, model)``-major, ``T / (dp·ep)`` a rank.  With
+    ``seq_sharded`` ``x`` is this rank's slice of the sequence already and
+    so is the output; otherwise the tile is cut from the usual layout
+    (serving: the whole batch; training: this rank's data shard) and the
+    output gathered back into it."""
+    dp, ep, model = topo.dp_size, topo.ep_size, topo.model_group
+    data_cut = dp > 1 and not train  # serving holds every data shard
+    if x.dim() == 3:
+        B = x.shape[0] * (dp if train else 1)
+        S = x.shape[1] * (ep if seq_sharded else 1)
+        if B % dp or S % ep:
+            raise ValueError(
+                f"pre-sharded MoE tokens [{B}, {S}, {x.shape[2]}]: batch and sequence must "
+                f"divide evenly over the data ({dp}) and model ({ep}) axes (the reference's "
+                "shard_map refuses axis sizes that are not evenly divisible)")
+        tile = x if seq_sharded else coll.split(x, model, dim=1)
+        if data_cut:
+            tile = coll.split(tile, topo.data_group)
+        y, aux = _moe_a2a_body(tile.reshape(-1, tile.shape[-1]), *args, True, aux=train)
+        y = y.reshape(tile.shape)
+        if data_cut:
+            y = coll.all_gather(y, topo.data_group)
+        return (y if seq_sharded else coll.all_gather(y, model, dim=1)), aux
+    group = topo.data_model_group if data_cut else model
+    y, aux = _moe_a2a_body(coll.split(x, group), *args, True, aux=train)
+    return coll.all_gather(y, group), aux
 
 
 def apply_moe(params: Dict, x: torch.Tensor, cfg, topo: Optional[Topology] = None, *,
-              expert_mask=None, train: bool = True
+              expert_mask=None, train: bool = True, seq_sharded: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """MoE FFN over ``x [B, S, d]`` (or ``[T, d]``).  With
     ``params["resident"]`` (the pooled end tier) the dispatch runs over the
@@ -512,7 +565,11 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg, topo: Optional[Topology] = Non
     gradients reach ``x``, the gate, the codec and this rank's experts.
     ``a2a`` falls back to ``tp`` when ``ep`` does not divide the
     data-local count.  Training takes ``capacity_factor``, serving
-    ``eval_capacity_factor``, so serving can drop assignments.
+    ``eval_capacity_factor``, so serving can drop assignments.  Under
+    sequence parallelism the a2a body takes pre-sharded tokens
+    (:func:`_pre_sharded`); ``seq_sharded`` says that ``x [B, S/ep, d]`` is
+    this rank's slice of the sequence (the sequence-parallel stack's
+    residual stream), and the output is too.
 
     ``train=False`` (serving) skips the router losses and routing
     statistics and returns the gate's ``topk_idx`` in their place on one
@@ -533,7 +590,9 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg, topo: Optional[Topology] = Non
     if "resident" in params:
         y, aux = moe_resident(params, x2, cfg, expert_mask, aux=train)
     elif impl in ("a2a", "tp") and ep_mode:
-        y, aux = _expert_parallel(params, x2, cfg, topo, impl, expert_mask, cf, train)
+        y, aux = _expert_parallel(params, x, cfg, topo, impl, expert_mask, cf, train,
+                                  seq_sharded)
+        y = y.reshape(-1, shape[-1])
     elif impl == "sorted":
         y, aux = moe_sorted(params, x2, cfg, expert_mask, aux=train)
     elif impl == "naive":

@@ -12,6 +12,10 @@ it.  The backwards follow from that:
 - :func:`all_to_all`: the same exchange of the gradient;
 - :func:`all_gather` (shards in, a replicated value out): this rank's
   chunk of the gradient, no collective;
+- :func:`all_gather_rs` (shards in, a gathered value that the ranks
+  consume each in its own way, as sequence-parallel queries read the
+  gathered K/V): the gradients summed over the group, this rank's chunk
+  of the sum (a reduce-scatter);
 - :func:`psum` (partial sums in, a replicated value out): the identity;
 - :func:`pmean`: the gradient over the group's size (:func:`pmax` has
   none: the loss's shift);
@@ -41,7 +45,8 @@ from typing import Dict, List, Sequence
 import torch
 import torch.distributed as dist
 
-_NAMES = ("all_to_all", "all_gather", "psum", "pmean", "pmax", "reduce_scatter")
+_NAMES = ("all_to_all", "all_gather", "all_gather_rs", "psum", "pmean", "pmax",
+          "reduce_scatter")
 _COUNTS: Dict[str, Dict[str, int]] = {}
 
 
@@ -70,8 +75,8 @@ def _a2a(x: torch.Tensor, group, backward=False) -> torch.Tensor:
     return out
 
 
-def _gather(x: torch.Tensor, group, backward=False) -> torch.Tensor:
-    _tally("all_gather", x, backward)
+def _gather(x: torch.Tensor, group, backward=False, name="all_gather") -> torch.Tensor:
+    _tally(name, x, backward)
     x = x.contiguous()
     out = x.new_empty((_size(group) * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
@@ -116,6 +121,17 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return _chunk(dy, ctx.group).contiguous(), None
+
+
+class _AllGatherRS(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather(x, group, name="all_gather_rs")
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter(dy, ctx.group, "all_gather_rs", True).to(dy.dtype), None
 
 
 class _Psum(torch.autograd.Function):
@@ -188,13 +204,34 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return _a2a(x, group)
 
 
-def all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """Tiled ``all_gather`` along dim 0: ``[c, ...] -> [n·c, ...]`` in rank
-    order; the output is replicated, so the backward hands this rank its
-    own chunk of the gradient."""
+def _along(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn`` (a dim-0 collective) along ``dim`` of ``x``."""
+    if dim == 0:
+        return fn(x)
+    return fn(x.movedim(dim, 0)).movedim(0, dim).contiguous()
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Tiled ``all_gather`` along ``dim``: ``[c, ...] -> [n·c, ...]`` in
+    rank order; the output is replicated, so the backward hands this rank
+    its own chunk of the gradient."""
     if _wants_grad(x):
-        return _AllGather.apply(x, group)
-    return _gather(x, group)
+        return _along(lambda t: _AllGather.apply(t, group), x, dim)
+    return _along(lambda t: _gather(t, group), x, dim)
+
+
+def all_gather_rs(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Tiled ``all_gather`` along ``dim``, ``[c, ...] -> [n·c, ...]`` in rank
+    order, of a value that each rank goes on to consume in its own way (the
+    gathered K/V of sequence-parallel attention, read by each rank's own
+    queries), so that each rank's gradient of it is a share: the backward
+    sums the shares over the group and hands this rank its chunk of the sum
+    (a reduce-scatter; with :func:`all_gather`'s chunk-only backward the
+    other ranks' shares would be lost).  Counted as ``all_gather_rs``: the
+    forward's gathers and the backward's reduce-scatters."""
+    if _wants_grad(x):
+        return _along(lambda t: _AllGatherRS.apply(t, group), x, dim)
+    return _along(lambda t: _gather(t, group, name="all_gather_rs"), x, dim)
 
 
 def psum(x: torch.Tensor, group) -> torch.Tensor:
@@ -225,13 +262,13 @@ def pmax(x: torch.Tensor, group) -> torch.Tensor:
     return y
 
 
-def split(x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's chunk along dim 0 of a value replicated over the group
-    (``[n·c, ...] -> [c, ...]``); the backward gathers the chunks'
+def split(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of a value replicated over the group
+    (``[n·c, ...] -> [c, ...]``, a view); the backward gathers the chunks'
     gradients, so every rank holds the whole gradient of ``x``."""
     if _wants_grad(x):
-        return _Split.apply(x, group)
-    return _chunk(x, group)
+        return _Split.apply(x.movedim(dim, 0), group).movedim(0, dim)
+    return _chunk(x.movedim(dim, 0), group).movedim(0, dim)
 
 
 def fanout(xs: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
@@ -253,7 +290,11 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     ...]`` of it, in f32 (nccl's ``reduce_scatter_tensor``; on gloo an
     all-reduce then the chunk, gloo having no reduce-scatter for CUDA
     tensors in every release)."""
-    _tally("reduce_scatter", x)
+    return _reduce_scatter(x, group, "reduce_scatter")
+
+
+def _reduce_scatter(x: torch.Tensor, group, name: str, backward: bool = False) -> torch.Tensor:
+    _tally(name, x, backward)
     y = x.to(torch.float32).contiguous()
     if dist.get_backend(group) == "nccl":
         out = y.new_empty((y.shape[0] // _size(group),) + tuple(y.shape[1:]))

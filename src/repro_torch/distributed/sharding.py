@@ -95,8 +95,8 @@ def param_partition_spec(path: str, shape: Tuple[int, ...], topo: Topology) -> S
         return spec(tp, dp)
     if name == "lm_head":  # [d, V]
         return spec(dp, tp)
-    # under sequence-parallel attention non-expert weights would not carry
-    # the model axis (ROADMAP item 8c: the port refuses the flag)
+    # under sequence-parallel attention activations carry the model axis
+    # (S-sharded); non-expert weights do not
     wtp = None if topo.seq_parallel_attn else tp
     if name in ("wq", "wk", "wv") and in_attn:  # [R, d, H|KV, hd]
         return spec(None, dp, wtp, None) if nd == 4 else spec(dp, wtp, None)
@@ -252,15 +252,19 @@ def local_block(full: torch.Tensor, spec: Spec, topo: Topology) -> torch.Tensor:
 
 def _group(topo: Topology, entry):
     """The process group of the ranks that share every coordinate but
-    those of ``entry``'s axes: the model axis or all the data axes."""
+    those of ``entry``'s axes: the model axis, all the data axes, or the
+    data axes and then the model axis (a cache's sequence when its batch
+    does not split; the group's ranks in that row-major order)."""
     axes = _axes(entry)
     if topo.model_axis is not None and axes == (topo.model_axis,):
         return topo.model_group
     if axes == tuple(topo.data_axes):
         return topo.data_group
+    if topo.model_axis is not None and axes == tuple(topo.data_axes) + (topo.model_axis,):
+        return topo.data_model_group
     raise NotImplementedError(
-        f"a dim sharded over {axes}: the port has groups for the model axis and for all "
-        f"the data axes {tuple(topo.data_axes)} only")
+        f"a dim sharded over {axes}: the port has groups for the model axis, for all the "
+        f"data axes {tuple(topo.data_axes)} and for both together only")
 
 
 def gather_block(block: torch.Tensor, spec: Spec, topo: Topology,
@@ -339,26 +343,77 @@ def train_specs(full_params: Dict, optimizer: str, topo: Topology) -> Tuple[Dict
     return param_specs(full_params, topo), opt_state_specs(state, full_params, topo)
 
 
-def compute_spec(path: str, spec: Spec, topo: Topology) -> Spec:
+# an SSM layer's leaves indexed by head (their last dim, ``out_proj``'s the
+# one before): head-sharded when the model axis divides the heads
+SSM_HEAD_LEAVES = ("w_z", "w_x", "w_dt", "conv_x", "conv_x_b", "A_log", "D", "dt_bias",
+                   "norm_w", "out_proj")
+
+
+def compute_spec(path: str, spec: Spec, topo: Topology, ssm_heads: bool = False) -> Spec:
     """The layout a rank computes a leaf in: whole, but for the model axis's
-    entry of a MoE layer's experts (this rank's ``E / ep``) and of the
-    head (this rank's vocabulary slice) when the mesh has a model axis."""
+    entry of a MoE layer's experts (this rank's ``E / ep``), of the head
+    (this rank's vocabulary slice) and, with ``ssm_heads`` (the layer's
+    heads split over the model axis: ``models.ssm.apply_ssm``'s
+    head-sharded branch), of an SSM layer's head-indexed leaves, when the
+    mesh has a model axis."""
     if topo.model_axis is None or topo.tp_size == 1:
         return ()
     name, nd = path.split("/")[-1], len(spec)
     expert = "/moe/" in path and name in ("wi", "wg", "wo") and nd == 4
-    if expert or name == "lm_head":
+    heads = ssm_heads and "/ssm/" in path and name in SSM_HEAD_LEAVES
+    if expert or heads or name == "lm_head":
         return tuple(e if e == topo.model_axis else None for e in spec)
     return ()
 
 
-def compute_specs(specs: Dict, topo: Topology) -> Dict:
-    return _map_with_path(lambda path, spec: compute_spec(path, spec, topo), specs)
+def compute_specs(specs: Dict, topo: Topology, prefix: str = "") -> Dict:
+    """:func:`compute_spec` of every leaf; an SSM layer (a dict with
+    ``A_log``) computes on its head slices where its ``A_log`` [R, H] is
+    sharded over the model axis (the model axis divides the heads)."""
+    heads = "A_log" in specs and topo.model_axis is not None and topo.model_axis in {
+        a for e in specs["A_log"] for a in _axes(e)}
+    return {k: compute_specs(v, topo, f"{prefix}{k}/") if isinstance(v, dict)
+            else compute_spec(f"{prefix}{k}", v, topo, heads) for k, v in specs.items()}
+
+
+def resident_specs(params: Dict, topo: Topology) -> Dict:
+    """The specs of the layout a rank holds a model's params in where
+    weights are resident (``serve_*``; ``bridge.params_from_numpy`` and
+    ``Model.init`` hand it out; leaves need only ``.shape``, whole): a MoE
+    layer's experts over the model axis, an SSM layer's head-indexed leaves
+    over it where the model axis divides the heads, every other leaf
+    whole.  A mesh ``Checkpointer`` given them writes the one-device
+    format and restores the slices."""
+    from repro_torch.models.ssm import HEAD_LEAVES, heads_divide
+
+    tp = topo.model_axis
+
+    def walk(tree, path):
+        heads = "A_log" in tree and heads_divide(tree["A_log"].shape[-1], topo)
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, path + (k,))
+                continue
+            nd = len(v.shape)
+            spec = [None] * nd
+            if topo.use_shard_map_moe and path and path[-1] == "moe" and k in ("wi", "wg", "wo"):
+                spec[nd - 3] = tp
+            elif heads and k in HEAD_LEAVES:
+                spec[HEAD_LEAVES[k] % nd] = tp
+            out[k] = tuple(spec) if any(spec) else ()
+        return out
+
+    return walk(params, ())
 
 
 def reduce_grad(grad: torch.Tensor, spec: Spec, cspec: Spec, topo: Topology) -> torch.Tensor:
     """A leaf's gradient in its compute layout (``cspec``; whole on every
-    rank of the model group, a share of the data axes' sum) -> this rank's
+    rank of the model group, a share of the data axes' sum: where a rank
+    consumes a leaf that its model group holds alike in its own way, on its
+    own tokens, heads or sequence slice, the forward passed it through
+    ``collectives.fanout`` or ``split``, which sum the shares over the
+    model group in the backward) -> this rank's
     block of the summed gradient by ``spec``, in f32: reduce-scattered over
     the data axes along the dim they split (all-reduced when none does),
     then cut to this rank's block along the model axis where the compute
@@ -405,4 +460,5 @@ def spec_leaves(specs: Dict, like: Dict) -> list:
 __all__ = ["param_partition_spec", "param_specs", "opt_state_specs", "fit_batch_axes",
            "batch_specs", "local_block", "gather_block", "shard_tree",
            "gather_tree", "fleet_expert_shards", "shard_expert_stacks", "train_specs",
-           "compute_spec", "compute_specs", "reduce_grad", "leaf_shards", "spec_leaves"]
+           "compute_spec", "compute_specs", "resident_specs", "reduce_grad", "leaf_shards",
+           "spec_leaves"]

@@ -33,8 +33,12 @@ class Topology:
     # MoE bodies as ``apply_moe``'s ``expert_mask``, as in the reference.
     pipeline_axis: Optional[str] = None
     fsdp: bool = True
-    # Sequence-parallel attention (the residual stream S-sharded over the
-    # model axis) comes with ROADMAP item 8c.
+    # Sequence-parallel attention: the residual stream is S-sharded over the
+    # model axis; attention gathers only the (small, GQA) K/V heads and the
+    # MoE dispatch consumes pre-sharded tokens.  The reference calls it valid
+    # for attention-pure stacks (an SSM layer's scan crosses the shard
+    # boundary); as there, a hybrid stack runs under it all the same, its SSM
+    # layers on the whole sequence.
     seq_parallel_attn: bool = False
     heterogeneous: bool = False
     coords: Tuple[int, ...] = ()  # this rank's index along each axis
@@ -46,10 +50,6 @@ class Topology:
     data_model_group: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
-        if self.seq_parallel_attn:
-            raise NotImplementedError(
-                "seq_parallel_attn (sequence-parallel attention and the a2a body's "
-                "pre-sharded tokens) comes with ROADMAP item 8c")
         if self.mesh_shape is not None:
             if len(self.mesh_shape) != len(self.axis_names):
                 raise ValueError(f"mesh {self.mesh_shape} vs axes {self.axis_names}")

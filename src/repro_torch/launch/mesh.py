@@ -32,9 +32,7 @@ import torch.multiprocessing as mp
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.distributed.topology import Topology
 
-POLICIES = ("tp", "serve_tp", "dp", "fsdp")
-_ITEM_8C = ("the sequence-parallel policies ('seqp', 'serve_seqp') come with "
-            "ROADMAP item 8c")
+POLICIES = ("tp", "serve_tp", "dp", "fsdp", "seqp", "serve_seqp")
 
 
 def _axis_groups(shape: Tuple[int, ...], keep: Sequence[int], rank: int):
@@ -73,21 +71,42 @@ def _unravel(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
     return tuple(reversed(out))
 
 
-def make_topology(shape: Sequence[int], axes: Sequence[str] = ("data", "model"), *,
-                  policy: str = "tp", pipeline_axis: Optional[str] = None) -> Topology:
-    """This rank's topology on a mesh of ``shape`` over ``axes`` (the
-    process group must be initialised with ``prod(shape)`` ranks).
+def policy_layout(policy: str, axes: Sequence[str] = ("data", "model"),
+                  pipeline_axis: Optional[str] = None) -> dict:
+    """The :class:`Topology` fields a mesh policy sets over ``axes``:
+    ``data_axes``, ``model_axis``, ``fsdp`` and ``seq_parallel_attn`` (the
+    reference's ``make_topology``).
 
     ``"tp"``: the ``pod``/``data`` axes carry the batch, ``model`` is the
     TP / EP axis; ``"serve_tp"``: the same with weights resident (no FSDP);
     ``"dp"``: every axis a batch axis, params replicated; ``"fsdp"``: every
-    axis a batch axis (ZeRO-3, no TP).  ``pipeline_axis`` names an axis
-    that is neither: the reference declares one and shards nothing along
-    it, so its ranks are replicas."""
-    if policy in ("seqp", "serve_seqp"):
-        raise NotImplementedError(_ITEM_8C)
+    axis a batch axis (ZeRO-3, no TP); ``"seqp"``: the model axis holds the
+    experts and shards the residual stream's sequence, non-expert weights
+    replicated over it (FSDP over the data axes); ``"serve_seqp"``: the same
+    with weights resident.  ``pipeline_axis`` names an axis that is
+    neither."""
     if policy not in POLICIES:
         raise ValueError(f"unknown mesh policy {policy!r} (one of {POLICIES})")
+    axes = tuple(axes)
+    if pipeline_axis is not None and pipeline_axis not in axes:
+        raise ValueError(f"pipeline axis {pipeline_axis!r} is not one of {axes}")
+    free = tuple(a for a in axes if a != pipeline_axis)
+    if policy in ("dp", "fsdp"):
+        return dict(data_axes=free, model_axis=None, fsdp=policy == "fsdp",
+                    seq_parallel_attn=False)
+    if "model" not in axes:
+        raise ValueError(f"policy {policy!r} needs a 'model' axis, got {axes}")
+    return dict(data_axes=tuple(a for a in free if a in ("pod", "data")), model_axis="model",
+                fsdp=policy in ("tp", "seqp"), seq_parallel_attn=policy.endswith("seqp"))
+
+
+def make_topology(shape: Sequence[int], axes: Sequence[str] = ("data", "model"), *,
+                  policy: str = "tp", pipeline_axis: Optional[str] = None) -> Topology:
+    """This rank's topology on a mesh of ``shape`` over ``axes`` under
+    ``policy`` (:func:`policy_layout`; the process group must be
+    initialised with ``prod(shape)`` ranks).  A pipeline axis's ranks are
+    replicas: the reference declares one and shards nothing along it."""
+    layout = policy_layout(policy, axes, pipeline_axis)
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh {shape} vs axes {axes}")
@@ -96,15 +115,7 @@ def make_topology(shape: Sequence[int], axes: Sequence[str] = ("data", "model"),
         raise ValueError(f"mesh {shape} needs {world} ranks, the group has "
                          f"{dist.get_world_size()}")
     rank = dist.get_rank()
-    if pipeline_axis is not None and pipeline_axis not in axes:
-        raise ValueError(f"pipeline axis {pipeline_axis!r} is not one of {axes}")
-    free = tuple(a for a in axes if a != pipeline_axis)
-    if policy in ("dp", "fsdp"):
-        data_axes, model_axis = free, None
-    else:
-        data_axes, model_axis = tuple(a for a in free if a in ("pod", "data")), "model"
-        if model_axis not in axes:
-            raise ValueError(f"policy {policy!r} needs a 'model' axis, got {axes}")
+    data_axes, model_axis = layout["data_axes"], layout["model_axis"]
     model_group = None
     if model_axis is not None:
         model_group = _axis_groups(shape, [axes.index(model_axis)], rank)
@@ -113,8 +124,7 @@ def make_topology(shape: Sequence[int], axes: Sequence[str] = ("data", "model"),
     data_model_group = (dist.group.WORLD if len(dm) == len(axes)
                         else _axis_groups(shape, [axes.index(a) for a in dm], rank))
     return Topology(
-        mesh_shape=shape, axis_names=axes, data_axes=data_axes, model_axis=model_axis,
-        pipeline_axis=pipeline_axis, fsdp=policy in ("tp", "fsdp"),
+        mesh_shape=shape, axis_names=axes, pipeline_axis=pipeline_axis, **layout,
         coords=_unravel(rank, shape), world_group=dist.group.WORLD, model_group=model_group,
         data_group=data_group, data_model_group=data_model_group,
     )

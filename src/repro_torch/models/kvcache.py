@@ -41,7 +41,7 @@ from repro_torch.kernels.quant import (
     quantize_rows,
     quantize_rows_plain,
 )
-from repro_torch.models.ssm import ssm_dims
+from repro_torch.models.ssm import resident_heads, ssm_dims
 
 KV_SCALE_DTYPE = torch.float16  # per-token scale: an int8 page stays <= 0.55x of bf16
 KV_SCALE_FLOOR = SCALE_FLOOR  # all-zero tokens: a finite divide, codes 0
@@ -54,14 +54,16 @@ def attn_cache_len(cfg, max_len: int) -> int:
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
-               device=DEFAULT_DEVICE) -> Dict:
+               device=DEFAULT_DEVICE, topo=None) -> Dict:
     """An empty dense decode cache (zeros), each leaf stacked over the block
     repeats: per attention position ``k``/``v`` rings ``[R, batch, W, KV,
     hd]``, and with cross-attention the cross caches ``xk``/``xv`` ``[R,
     batch, encoder_seq_len, KV, hd]``; per SSM position the conv tails
     ``conv_x [R, batch, d_conv-1, d_in]`` and ``conv_bc [R, batch,
     d_conv-1, 2*G*N]`` in ``dtype`` and the state ``ssm [R, batch, H, P,
-    N]`` in f32; and ``lengths`` [batch]."""
+    N]`` in f32; and ``lengths`` [batch].  Where a rank of ``topo`` holds
+    only its heads of the SSM weights (``ssm.resident_heads``) its state and
+    ``conv_x`` hold only those heads' too."""
     R, KV, hd = cfg.block_repeat, cfg.num_kv_heads, cfg.head_dim
     blocks: Dict[str, Dict] = {}
     for i, spec in enumerate(cfg.layer_pattern):
@@ -76,6 +78,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
             continue
         s = cfg.ssm
         d_in, H, _ = ssm_dims(cfg)
+        if resident_heads(cfg, topo):
+            d_in, H = d_in // topo.ep_size, H // topo.ep_size
         gn = s.n_groups * s.d_state
         blocks[f"pos{i}"] = {
             "conv_x": torch.zeros((R, batch, s.d_conv - 1, d_in), dtype=dtype, device=device),

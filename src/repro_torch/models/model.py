@@ -16,7 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import init_expert_slices
 from repro_torch.distributed.topology import Topology, single_device_topology
 from repro_torch.models import attention as attn
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 
 
 @dataclass(frozen=True)
@@ -38,9 +38,11 @@ class Model:
         rank's experts (``Topology.expert_slice``): every rank of an
         expert-parallel mesh draws the same non-expert params from
         ``generator`` and its own experts alone, and a one-device model
-        drawn with the same seeds holds the same weights."""
+        drawn with the same seeds holds the same weights.  Where weights are
+        resident on a mesh (``serve_*``) an SSM layer keeps only this rank's
+        head slices (``ssm.resident_slices``), as the bridge hands them out."""
         if expert_seed is None:
-            return to_device(transformer.init_params(self.cfg, generator), self.device)
+            return self._resident(transformer.init_params(self.cfg, generator))
         params = transformer.init_params(self.cfg, generator, draw_experts=False)
         R, n_pos = self.cfg.block_repeat, len(self.cfg.layer_pattern)
         for i, spec in enumerate(self.cfg.layer_pattern):
@@ -48,6 +50,13 @@ class Model:
                 layers = [r * n_pos + i for r in range(R)]
                 params["blocks"][f"pos{i}"]["moe"].update(init_expert_slices(
                     self.cfg, expert_seed, layers, self.topo, generator.device))
+        return self._resident(params)
+
+    def _resident(self, params: Dict) -> Dict:
+        for layer in params["blocks"].values():
+            if "ssm" in layer:
+                layer["ssm"] = {k: v.contiguous()
+                                for k, v in ssm.resident_slices(layer["ssm"], self.topo).items()}
         return to_device(params, self.device)
 
     def _angles(self, positions: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Mamba-2 (SSD, state-space duality) layer, port of the reference's
-``models/ssm.py`` (its single-device branch).
+``models/ssm.py``: its single-device form and its head-sharded tensor
+parallelism on a mesh.
 
 The SSD *chunked* form turns the selective-scan recurrence into dense
 products within chunks of ``chunk_size`` tokens plus a short recurrence
@@ -15,6 +16,16 @@ Entry points:
   * ``ssd_decode_step``  single-token recurrent update (serving)
   * ``ssd_reference``    token-by-token recurrent oracle, for tests
   * ``apply_ssm`` / ``apply_ssm_decode``  the full layer
+
+On a mesh whose model axis divides the heads (:func:`heads_divide`) the full
+layer runs head-sharded, as the reference's ``shard_map`` branch: each rank
+takes its heads' slices of the head-indexed leaves (``HEAD_LEAVES``) and
+the whole of ``w_bc`` / ``conv_bc`` / ``conv_bc_b`` (shared by the heads),
+runs the recurrence on its heads alone, sums the gated norm's squares and
+the output projection's partial sums (in f32) over the model axis.  Where
+weights are resident (``serve_*``, :func:`resident_heads`) a rank holds only
+its head slices, and its SSM state and ``conv_x`` tail too, and the decode
+step runs head-sharded the same way.
 """
 
 from __future__ import annotations
@@ -24,7 +35,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.models.layers import rms_norm, truncated_normal_init
+
+# the leaves indexed by head, and the dim of each that the heads index
+# (their channels d_in = H·P, or H itself), counted from the end so that
+# stacked [R, ...] and per-layer leaves alike take it
+HEAD_LEAVES = {"w_z": -1, "w_x": -1, "w_dt": -1, "conv_x": -1, "conv_x_b": -1, "A_log": -1,
+               "D": -1, "dt_bias": -1, "norm_w": -1, "out_proj": -2}
 
 # ---------------------------------------------------------------------------
 # Core SSD math
@@ -239,10 +257,15 @@ def _softplus_dt(dt: torch.Tensor, params: Dict) -> torch.Tensor:
     return F.softplus(dt.to(torch.float32) + params["dt_bias"].to(torch.float32))
 
 
-def _ssm_core(params: Dict, x: torch.Tensor, cfg, *, initial_state, initial_conv):
+def _ssm_core(params: Dict, x: torch.Tensor, cfg, *, initial_state, initial_conv,
+              heads_topo=None):
     """The full-sequence body.  Returns (out [B, S, d], (final_state,
     (conv_x tail, conv_bc tail))): the tails are the last ``d_conv - 1``
-    pre-conv inputs (fewer when S is shorter)."""
+    pre-conv inputs (fewer when S is shorter).  The head-indexed params may
+    be this rank's slices of ``heads_topo``'s model axis, over which the
+    gated norm's sum of squares (over the whole d_in) and the output
+    projection's partial sums are then summed (the reference's
+    ``norm_psum_axis``)."""
     s = cfg.ssm
     B_, S, _ = x.shape
     P_ = s.head_dim
@@ -275,22 +298,100 @@ def _ssm_core(params: Dict, x: torch.Tensor, cfg, *, initial_state, initial_conv
     # gated RMSNorm over d_in: a sum of squares over its width
     gf = g.to(torch.float32)
     ss = gf.square().sum(dim=-1, keepdim=True)
-    gn_ = gf * torch.rsqrt(ss / d_in + cfg.norm_eps)
+    n_tot = d_in
+    if heads_topo is not None:
+        # every rank's heads read the one sum: its gradient sums back too
+        group = heads_topo.model_group
+        ss = coll.fanout([coll.psum(ss, group)], group)[0]
+        n_tot = d_in * heads_topo.ep_size
+    gn_ = gf * torch.rsqrt(ss / n_tot + cfg.norm_eps)
     gn_ = gn_ * (1.0 + params["norm_w"].to(torch.float32))
     out = gn_.to(x.dtype) @ params["out_proj"].to(x.dtype)
+    if heads_topo is not None:
+        out = coll.psum(out.to(torch.float32), heads_topo.model_group).to(x.dtype)
     return out, (final_state, (xs_tail, bc_tail))
+
+
+def heads_divide(H: int, topo) -> bool:
+    """``topo`` has a model axis of more than one rank that divides ``H``
+    heads."""
+    if topo is None or topo.mesh_shape is None or topo.model_axis is None:
+        return False
+    return topo.ep_size > 1 and H % topo.ep_size == 0
+
+
+def resident_heads(cfg, topo) -> bool:
+    """A rank holds only its head slices of the SSM leaves (and its state
+    and ``conv_x`` tail): weights resident (no FSDP) on a mesh where the
+    layer runs head-sharded."""
+    return heads_divide(ssm_dims(cfg)[1], topo) and not topo.fsdp
+
+
+def resident_slices(layer: Dict, topo) -> Dict:
+    """An SSM layer's params (whole, stacked or not) as a rank holds them
+    on ``topo``: its head slices of the head-indexed leaves where weights
+    are resident and the model axis divides the heads (the heads counted
+    from ``A_log``), else as they are.  Views, no collective."""
+    H = layer["A_log"].shape[-1]
+    if not (heads_divide(H, topo) and not topo.fsdp) or layer["w_dt"].shape[-1] != H:
+        return layer
+    out = dict(layer)
+    for k, dim in HEAD_LEAVES.items():
+        v = layer[k]
+        c = v.shape[dim] // topo.ep_size  # this rank's channels (or heads)
+        out[k] = v.narrow(dim % v.dim(), topo.model_index * c, c)
+    return out
+
+
+def _heads(params: Dict, topo, fn) -> Dict:
+    """``fn(leaf, group, dim=...)`` (a split or a gather over the model
+    axis) on each head-indexed leaf along its heads' dim."""
+    return {k: fn(v, topo.model_group, dim=HEAD_LEAVES[k]) if k in HEAD_LEAVES else v
+            for k, v in params.items()}
+
+
+def _local(params: Dict, cfg) -> bool:
+    return params["w_dt"].shape[-1] != ssm_dims(cfg)[1]
 
 
 def apply_ssm(params: Dict, x: torch.Tensor, cfg, *,
               initial_state: Optional[torch.Tensor] = None, initial_conv=None,
-              return_state: bool = False):
+              return_state: bool = False, topo=None, train: bool = False):
     """Full-sequence Mamba-2 layer x [B, S, d] -> [B, S, d]; with
     ``return_state`` also (final_state [B, H, P, N] f32, (conv_x tail,
-    conv_bc tail)).  The reference's head-sharded tensor-parallel branch
-    comes with ROADMAP item 8c."""
-    out, state = _ssm_core(params, x, cfg, initial_state=initial_state,
-                           initial_conv=initial_conv)
-    return (out, state) if return_state else out
+    conv_bc tail)).
+
+    On a mesh ``topo`` it runs head-sharded under the reference's condition
+    (:func:`heads_divide`, a batch the data axes divide: always in training
+    (``train``), where ``x`` is this rank's batch shard; serving hands the
+    whole batch; no initial state or conv).  ``params`` may be whole (this
+    rank's heads are cut from them) or this rank's head slices (the train
+    step's compute layout, resident serving weights); the state comes back
+    in the params' layout.  Each rank consumes ``x`` and the shared leaves
+    on its own heads, so they pass ``collectives.fanout``."""
+    H = ssm_dims(cfg)[1]
+    local = _local(params, cfg)
+    use_tp = (heads_divide(H, topo) and (train or x.shape[0] % topo.dp_size == 0)
+              and initial_state is None and initial_conv is None)
+    if not use_tp:
+        whole = _heads(params, topo, coll.all_gather) if local else params
+        out, (fs, (cx, cbc)) = _ssm_core(whole, x, cfg, initial_state=initial_state,
+                                         initial_conv=initial_conv)
+        if local and return_state:  # the state in the params' layout
+            fs, cx = (coll.split(t, topo.model_group, dim=dim) for t, dim in ((fs, 1), (cx, -1)))
+        return (out, (fs, (cx, cbc))) if return_state else out
+    group = topo.model_group
+    p = params if local else _heads(params, topo, coll.split)  # gradients come back whole
+    shared = ("w_bc", "conv_bc", "conv_bc_b")
+    x, *rep = coll.fanout([x] + [p[k] for k in shared], group)
+    p = {**p, **dict(zip(shared, rep))}
+    out, (fs, (cx, cbc)) = _ssm_core(p, x, cfg, initial_state=None, initial_conv=None,
+                                     heads_topo=topo)
+    if not return_state:
+        return out
+    if not local:
+        fs, cx = (coll.all_gather(t, group, dim=dim) for t, dim in ((fs, 1), (cx, -1)))
+    return out, (fs, (cx, cbc))
 
 
 def apply_ssm_decode(
@@ -299,11 +400,17 @@ def apply_ssm_decode(
     cfg,
     ssm_state: torch.Tensor,  # [B, H, P, N] f32
     conv_state,  # (conv_x [B, W-1, d_in], conv_bc [B, W-1, 2gn])
+    topo=None,
 ):
     """One token through the layer: (out [B, 1, d], (new ssm state,
-    (new conv_x, new conv_bc)))."""
+    (new conv_x, new conv_bc))).  With this rank's head slices of the
+    params (:func:`resident_heads`) the state and ``conv_x`` are its heads'
+    too, and the gated norm's sum of squares and the output's partial sums
+    are summed over the model axis of ``topo``."""
     s = cfg.ssm
-    d_in, H, _ = ssm_dims(cfg)
+    local = _local(params, cfg)
+    H = params["w_dt"].shape[-1]
+    d_in = H * s.head_dim
     gn = s.n_groups * s.d_state
     B_ = x.shape[0]
     x0 = x[:, 0]
@@ -323,6 +430,14 @@ def apply_ssm_decode(
     y = y.to(torch.float32) + params["D"].to(torch.float32)[None, :, None] * xh.to(
         torch.float32)
     y = y.reshape(B_, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    out = (y @ params["out_proj"].to(x.dtype))[:, None]
-    return out, (new_state, (new_cx, new_cbc))
+    if not local:
+        y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
+        out = (y @ params["out_proj"].to(x.dtype))[:, None]
+        return out, (new_state, (new_cx, new_cbc))
+    group = topo.model_group
+    gf = (y * F.silu(z)).float()
+    ss = coll.psum(gf.square().sum(dim=-1, keepdim=True), group)
+    gf = gf * torch.rsqrt(ss / (d_in * topo.ep_size) + cfg.norm_eps)
+    y = (gf * (1.0 + params["norm_w"].float())).to(x.dtype)
+    out = coll.psum((y @ params["out_proj"].to(x.dtype)).float(), group).to(x.dtype)
+    return out[:, None], (new_state, (new_cx, new_cbc))

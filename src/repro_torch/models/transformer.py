@@ -15,13 +15,22 @@ over the ``block_repeat`` axis, and a Python loop over blocks takes the
 place of ``lax.scan``.  The paged KV pools are updated in place.
 
 ``topo`` (a :class:`~repro_torch.distributed.topology.Topology`) reaches
-every MoE layer: on an expert-parallel topology each rank runs the same
-layers on the same activations (serving: the whole batch; training: its
-data shard, alike over the model axis) and its MoE layers run the
-``a2a`` / ``tp`` bodies over the rank's expert slices.  The reference's
-``_constrain_tokens`` pins the residual stream's sharding between blocks
-for GSPMD; SPMD torch has no layout to pin (every tensor here is this
-rank's own), so it has no counterpart.
+every MoE and SSM layer: on an expert-parallel topology each rank runs the
+same layers on the same activations (serving: the whole batch; training:
+its data shard, alike over the model axis), its MoE layers run the
+``a2a`` / ``tp`` bodies over the rank's expert slices, and its SSM layers
+run head-sharded (``ssm.apply_ssm``).  Under sequence-parallel attention
+(``topo.seq_parallel_attn``, the ``seqp`` policies) a block's attention
+layers and what follows them run on this rank's slice of the sequence,
+``S / ep`` tokens: where the reference's ``_constrain_tokens`` pins the
+residual stream S-sharded at a layer's entry, the port cuts it
+(``collectives.split``), and where it pins it whole at the block's end
+(or an SSM or cross-attention layer needs the whole sequence), gathers it
+back.  In between, attention gathers only the K/V heads
+(:func:`_self_attention_seqp`) and the MoE dispatch takes the slice as its
+pre-sharded tokens.  The replicated weights such a layer consumes on its
+own slice pass ``collectives.fanout``, so their gradients are summed over
+the model group where they are consumed.
 """
 
 from __future__ import annotations
@@ -130,7 +139,7 @@ def block_params(tree: Dict, r: int) -> Dict:
 
 
 def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None,
-         train: bool = False, topo: Optional[Topology] = None):
+         train: bool = False, topo: Optional[Topology] = None, seq_sharded: bool = False):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.moe:
         mp = p["moe"]
@@ -138,7 +147,8 @@ def _ffn(p: Dict, x: torch.Tensor, spec, cfg, expert_mask, expert_resident=None,
             # pooled end tier: the stripped moe params get this layer's
             # resident tables and the shared slab store (core.expertpool)
             mp = {**mp, "resident": expert_resident}
-        y, aux = apply_moe(mp, h, cfg, topo, expert_mask=expert_mask, train=train)
+        y, aux = apply_moe(mp, h, cfg, topo, expert_mask=expert_mask, train=train,
+                           seq_sharded=seq_sharded)
         return x + y, aux
     return x + apply_mlp(p["ffn"], h, cfg.act), {}
 
@@ -150,6 +160,71 @@ def _self_attention_full(p: Dict, h: torch.Tensor, cfg, angles, causal: bool):
         q, k, v, causal=causal, window=cfg.sliding_window if causal else None
     )
     return attn.output_proj(p, o), (k, v)
+
+
+def _self_attention_seqp(p: Dict, h: torch.Tensor, cfg, topo: Topology, angles, causal: bool,
+                         whole_kv: bool = False):
+    """Sequence-parallel self attention (the reference's
+    ``_self_attention_seqp``): ``h`` [B, S/ep, d] is this rank's slice of the
+    sequence, ``angles`` its slice's; q, k and v are projected on it, only
+    the K/V heads are gathered over the model axis (``all_gather_rs``: each
+    rank's queries read them in their own way, so the backward sums the
+    ranks' shares), and the flash call runs this rank's queries at
+    positions ``model_index · S/ep + i`` against every key.  Returns
+    (output [B, S/ep, d], (k, v)): this rank's K/V slice, as the reference
+    returns it for the cache, or with ``whole_kv`` the gathered K/V."""
+    group = topo.model_group
+    q, k, v = attn.project_qkv(p, h, cfg, angles)
+    kv = coll.all_gather_rs(torch.stack([k, v]), group, dim=2)
+    kf, vf = kv[0], kv[1]
+    o = attn.flash_attention(q, kf, vf, causal=causal,
+                             window=cfg.sliding_window if causal else None,
+                             q_offset=topo.model_index * h.shape[1])
+    return attn.output_proj(p, o), ((kf, vf) if whole_kv else (k, v))
+
+
+def seqp_stack(cfg, topo: Optional[Topology], x_shape, train: bool = False) -> bool:
+    """The reference's ``use_seqp`` for a stack's attention layers (a
+    cross-attention layer never): sequence-parallel attention on a mesh of
+    more than one model rank, a batch the data axes divide (``x_shape`` is
+    this rank's batch shard in training, the whole batch in serving) and a
+    sequence the model axis divides."""
+    if topo is None or topo.mesh_shape is None or not topo.seq_parallel_attn:
+        return False
+    if topo.model_axis is None or topo.ep_size == 1:
+        return False
+    B = x_shape[0] * (topo.dp_size if train else 1)
+    return B % topo.dp_size == 0 and x_shape[1] % topo.ep_size == 0
+
+
+def _seq_weights(p: Dict, topo: Topology) -> Dict:
+    """A layer's params with every replicated leaf that the layer consumes
+    on this rank's slice of the sequence (all but a MoE layer's gate and
+    codec, whose bodies fan them out themselves, and its expert slices)
+    through ``collectives.fanout``: their gradients are the ranks' shares,
+    summed over the model group in the backward."""
+    if not torch.is_grad_enabled():
+        return p
+    paths, leaves = [], []
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                if not (path == ("moe",) and k in ("gate", "codec")):
+                    walk(v, path + (k,))
+            elif not (path == ("moe",) and k in ("wi", "wg", "wo")):
+                paths.append(path + (k,))
+                leaves.append(v)
+
+    walk(p, ())
+    out = {k: dict(v) if isinstance(v, dict) else v for k, v in p.items()}
+    for path, leaf in zip(paths, coll.fanout(leaves, topo.model_group)):
+        node = out
+        for k in path[:-1]:
+            node[k] = dict(node[k])
+            node = node[k]
+        node[path[-1]] = leaf
+    return out
 
 
 def _cross_attention_full(p: Dict, h: torch.Tensor, enc_out: torch.Tensor, cfg):
@@ -182,6 +257,7 @@ def apply_layer_full(
     max_len: int = 0,
     train: bool = False,
     topo: Optional[Topology] = None,
+    seq_sharded: bool = False,
 ):
     """Full-sequence layer.  ``train=False`` (serving) skips a MoE layer's
     router losses and statistics (its aux holds the gate's ``topk_idx``);
@@ -193,15 +269,24 @@ def apply_layer_full(
     final state and conv tails (``ssm``, ``conv_x``, ``conv_bc``); else it
     is empty.
 
-    The reference's other branches are not ported: its sequence-parallel
-    attention comes with ROADMAP item 8c, and on a mesh the port's SSM and
-    attention compute on their whole weights where the reference shards
-    the SSM's heads over the model axis (the same values)."""
+    ``seq_sharded``: ``x`` and ``angles`` are this rank's slice of the
+    sequence (:func:`seqp_stack`; the caller cuts and gathers), the layer
+    an attention layer without cross-attention: its attention runs
+    :func:`_self_attention_seqp` (with ``collect_cache`` every rank writes
+    the whole ring, the gathered K/V) and its MoE dispatch takes the
+    slice's tokens as pre-sharded.  On a mesh an SSM layer runs
+    head-sharded where the reference's does (``ssm.apply_ssm``)."""
     aux: Dict[str, torch.Tensor] = {}
     cache_entry: Dict[str, torch.Tensor] = {}
+    if seq_sharded:
+        p = _seq_weights(p, topo)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
-        o, (k, v) = _self_attention_full(p["attn"], h, cfg, angles, causal)
+        if seq_sharded:
+            o, (k, v) = _self_attention_seqp(p["attn"], h, cfg, topo, angles, causal,
+                                             whole_kv=collect_cache)
+        else:
+            o, (k, v) = _self_attention_full(p["attn"], h, cfg, angles, causal)
         x = x + o
         if collect_cache:
             shape = (x.shape[0], kvcache.attn_cache_len(cfg, max_len), cfg.num_kv_heads,
@@ -216,12 +301,15 @@ def apply_layer_full(
             if collect_cache:
                 cache_entry["xk"], cache_entry["xv"] = xk, xv
     else:
-        o, (final_state, (cx, cbc)) = ssm.apply_ssm(p["ssm"], h, cfg, return_state=True)
+        o = ssm.apply_ssm(p["ssm"], h, cfg, return_state=collect_cache, topo=topo,
+                          train=train)
         if collect_cache:
+            o, (final_state, (cx, cbc)) = o
             cache_entry.update(ssm=final_state, conv_x=cx, conv_bc=cbc)
         x = x + o
     if _has_ffn(spec, cfg):
-        x, aux = _ffn(p, x, spec, cfg, expert_mask, train=train, topo=topo)
+        x, aux = _ffn(p, x, spec, cfg, expert_mask, train=train, topo=topo,
+                      seq_sharded=seq_sharded)
     return x, aux, cache_entry
 
 
@@ -232,14 +320,42 @@ def _merge_aux(acc: Dict, aux: Dict) -> Dict:
     return acc
 
 
-def _train_block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask, topo=None):
+def _block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask, topo, train: bool,
+           seqp: bool, collect_cache: bool = False, max_len: int = 0):
+    """One block of the pattern: (x, each layer's aux, each layer's cache
+    entry).  With ``seqp`` (:func:`seqp_stack`) the sequence is cut to this
+    rank's slice at the entry of each attention layer without
+    cross-attention, gathered back before any other layer and at the
+    block's end."""
+    sharded, angles_loc = False, None
+    auxes, entries = [], []
+    for i, spec in enumerate(cfg.layer_pattern):
+        want = seqp and spec.kind == "attn" and not spec.cross_attn
+        if want and not sharded:  # this rank's slice of the sequence (dim 1)
+            x = coll.split(x, topo.model_group, dim=1)
+            if angles_loc is None:
+                angles_loc = coll.split(angles, topo.model_group, dim=1)
+        elif sharded and not want:
+            x = coll.all_gather(x, topo.model_group, dim=1)
+        sharded = want
+        x, aux, ce = apply_layer_full(
+            bp[f"pos{i}"], x, spec, cfg, angles_loc if sharded else angles, causal=causal,
+            enc_out=enc_out, expert_mask=expert_mask, collect_cache=collect_cache,
+            max_len=max_len, train=train, topo=topo, seq_sharded=sharded)
+        auxes.append(aux)
+        entries.append(ce)
+    if sharded:
+        x = coll.all_gather(x, topo.model_group, dim=1)
+    return x, auxes, entries
+
+
+def _train_block(x, bp: Dict, cfg, angles, causal, enc_out, expert_mask, topo=None,
+                 seqp: bool = False):
     """One block of the pattern in the training form: (x, the block's aux
     summed over its MoE layers)."""
+    x, auxes, _ = _block(x, bp, cfg, angles, causal, enc_out, expert_mask, topo, True, seqp)
     aux_acc: Dict[str, torch.Tensor] = {}
-    for i, spec in enumerate(cfg.layer_pattern):
-        x, aux, _ = apply_layer_full(bp[f"pos{i}"], x, spec, cfg, angles, causal=causal,
-                                     enc_out=enc_out, expert_mask=expert_mask, train=True,
-                                     topo=topo)
+    for aux in auxes:
         aux_acc = _merge_aux(aux_acc, aux)
     return x, aux_acc
 
@@ -268,7 +384,11 @@ def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *
     layers compute on the weights they are handed (non-expert weights
     whole, this rank's experts), the MoE bodies exchange the tokens, and
     the router's aux is averaged over the ranks; every rank recomputes its
-    blocks alike, so the recomputed collectives meet."""
+    blocks alike, so the recomputed collectives meet.  Under
+    sequence-parallel attention (:func:`seqp_stack`) each block runs its
+    attention layers on this rank's slice of the sequence and returns it
+    whole (:func:`_block`)."""
+    seqp = seqp_stack(cfg, topo, x.shape, train)
     if train:
         aux_sum: Dict[str, torch.Tensor] = {}
         for r in range(_n_blocks(params["blocks"])):
@@ -276,21 +396,19 @@ def apply_stack_full(params: Dict, x: torch.Tensor, cfg, angles: torch.Tensor, *
             if remat and torch.is_grad_enabled():
                 x, aux = torch.utils.checkpoint.checkpoint(
                     _train_block, x, bp, cfg, angles, causal, enc_out, expert_mask, topo,
-                    use_reentrant=False, preserve_rng_state=False)
+                    seqp, use_reentrant=False, preserve_rng_state=False)
             else:
-                x, aux = _train_block(x, bp, cfg, angles, causal, enc_out, expert_mask, topo)
+                x, aux = _train_block(x, bp, cfg, angles, causal, enc_out, expert_mask, topo,
+                                      seqp)
             aux_sum = _merge_aux(aux_sum, aux)
         return x, aux_sum, None
     layer_aux: List[Dict[str, torch.Tensor]] = []
     caches: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     for r in range(_n_blocks(params["blocks"])):
         bp = block_params(params["blocks"], r)
-        for i, spec in enumerate(cfg.layer_pattern):
-            x, aux, ce = apply_layer_full(
-                bp[f"pos{i}"], x, spec, cfg, angles, causal=causal, enc_out=enc_out,
-                expert_mask=expert_mask, collect_cache=collect_cache, max_len=max_len,
-                topo=topo,
-            )
+        x, auxes, entries = _block(x, bp, cfg, angles, causal, enc_out, expert_mask, topo,
+                                   False, seqp, collect_cache, max_len)
+        for i, (aux, ce) in enumerate(zip(auxes, entries)):
             if aux:
                 layer_aux.append(aux)
             for n, leaf in ce.items():
@@ -355,7 +473,7 @@ def apply_layer_decode(
     if spec.kind != "attn":
         o, (new_ssm, (new_cx, new_cbc)) = ssm.apply_ssm_decode(
             p["ssm"], h, cfg, cache_entry["ssm"],
-            (cache_entry["conv_x"], cache_entry["conv_bc"]),
+            (cache_entry["conv_x"], cache_entry["conv_bc"]), topo=topo,
         )
         for name, new in (("ssm", new_ssm), ("conv_x", new_cx), ("conv_bc", new_cbc)):
             cache_entry[name].copy_(new)

@@ -79,7 +79,7 @@ class ServingEngine(SlotEngineBase):
         self.paged = kvcache.pattern_is_pageable(cfg)
         if not self.paged:
             self.cache = kvcache.init_cache(cfg, max_batch, max_len, cfg.torch_dtype,
-                                            self.device)
+                                            self.device, model.topo)
             return
         self.page_size = page_size
         self.pages_per_slot, ring = kvcache.page_geometry(

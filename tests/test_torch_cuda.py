@@ -2029,3 +2029,84 @@ def test_train_mesh_on_card_matches_one_process(gen):
             diff = np.abs(p_r[k] - w)
             assert diff.max() <= 2 * ranks.OPT["lr"], k
             assert (diff > 1e-5 + 1e-5 * np.abs(w)).mean() <= 0.01, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,ep,H,KV,hd", [
+    (2, 256, 2, 12, 12, 64),  # switch-base under seqp on (2, 2): a rank's rows
+    (2, 128, 4, 64, 4, 128),  # qwen3-moe under serve_seqp on (1, 4): G = 16
+])
+def test_flash_attention_at_sequence_parallel_offsets(gen, dtype, B, S, ep, H, KV, hd):
+    """Sequence-parallel attention's shapes: each rank r's ``S/ep`` queries
+    at ``q_offset = r·S/ep`` over all ``S`` keys, causal; the forward
+    kernel against its plain version (tolerances of
+    ``test_flash_attention_kernel``'s: f32 2^-16 of each element and 2^-14
+    of the median |output|, bf16 2^-7 and 2^-6) and the backward kernel's
+    dQ, dK, dV against the plain backward's (f32 1e-4, bf16 2e-2 of each
+    gradient's largest |value|), at every rank's offset."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_plain
+
+    Sq = S // ep
+    f32 = dtype == torch.float32
+    for r in range(ep):
+        kw = dict(causal=True, window=None, q_offset=r * Sq)
+        q, k, v, dout, out, lse = _bwd_case(gen, dtype, B, Sq, S, H, KV, hd, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        rtol, arel = (2 ** -16, 2 ** -14) if f32 else (2 ** -7, 2 ** -6)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=arel * ref.float().abs().median().item())
+        got = flash_attention_bwd(dout, q, k, v, out, lse, **kw)
+        want = flash_attention_bwd_plain(dout, q, k, v, out, lse, **kw)
+        rel = 1e-4 if f32 else 2e-2
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= rel * w.float().abs().max().item(), (r, name, err)
+
+
+def test_gather_rs_backward_on_gloo_over_cuda_tensors(gen):
+    """The sequence-parallel K/V gather (``collectives.all_gather_rs``) on 4
+    gloo ranks sharing the card: its backward sums every rank's share of
+    the gradient and hands each its chunk; ``all_gather``'s keeps its own."""
+    import _torch_seqp_ranks as ranks
+    from repro_torch.launch.mesh import spawn_ranks
+
+    n = 4
+    total = sum(q + 1 for q in range(n)) * np.arange(1, 2 * n + 1, dtype=np.float32)
+    out = spawn_ranks((2, 2), ranks.gather_rs_module, device="cuda", policy="seqp",
+                      timeout_s=120)
+    for r, (rs, plain) in enumerate(out):
+        np.testing.assert_array_equal(rs, total[2 * r : 2 * r + 2])
+        np.testing.assert_array_equal(
+            plain, (r + 1) * np.arange(1, 2 * n + 1, dtype=np.float32)[2 * r : 2 * r + 2])
+
+
+def test_seqp_train_mesh_on_card_matches_one_process(gen):
+    """``test_train_mesh_on_card_matches_one_process`` under ``seqp``: two
+    f32 steps of smoke switch-base on (2, 2), sequence-parallel attention
+    (the flash kernels at each rank's offset, the K/V gathers) and the a2a
+    body on pre-sharded tokens, against the one-process card run: losses
+    within 1e-5 relative, grad norms within 1e-4, nothing dropped, the
+    params after within lr a step (all but 1% within 1e-5 + 1e-5 |p|)."""
+    import dataclasses
+
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cfg = smoke_config(get_config("switch-base")).replace(num_layers=4, dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0,
+                                              router_aux_weight=0.0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (8, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    one, p_one = ranks.one_process_steps(cfg, "cuda", batch, 2)
+    mesh = spawn_ranks((2, 2), ranks.mesh_steps, cfg.replace(moe_impl="a2a"), batch, 2,
+                       device="cuda", policy="seqp", timeout_s=300)
+    for steps_r, p_r in mesh:
+        for (loss, gnorm, dropped), (loss1, gnorm1, _) in zip(steps_r, one):
+            assert abs(loss - loss1) <= 1e-5 * abs(loss1)
+            assert abs(gnorm - gnorm1) <= 1e-4 * abs(gnorm1)
+            assert dropped == 0.0
+        for k, w in p_one.items():
+            diff = np.abs(p_r[k] - w)
+            assert diff.max() <= 2 * ranks.OPT["lr"], k
+            assert (diff > 1e-5 + 1e-5 * np.abs(w)).mean() <= 0.01, k

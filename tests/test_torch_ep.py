@@ -203,6 +203,7 @@ def test_collectives_on_gloo_ranks(runs):
         fwd = {k: {"calls": v["calls"], "bytes": v["bytes"]} for k, v in counts.items()}
         assert fwd == {"all_to_all": {"calls": 1, "bytes": 4 * 2 * n},
                        "all_gather": {"calls": 1, "bytes": 4 * 2},
+                       "all_gather_rs": {"calls": 0, "bytes": 0},
                        "psum": {"calls": 1, "bytes": 2 * 2 * n},
                        "pmean": {"calls": 1, "bytes": 4 * 2 * n},
                        "pmax": {"calls": 0, "bytes": 0},
@@ -240,18 +241,40 @@ def test_topology_takes_a_pipeline_axis_and_the_heterogeneous_flag():
 
 
 def test_what_waits_for_item_8c():
-    """Sequence parallelism: the topology flag, the seqp policies and the
-    a2a body's pre-sharded tokens."""
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        Topology(mesh_shape=(1, 4), coords=(0, 0), seq_parallel_attn=True)
+    """Sequence parallelism (ROADMAP item 8c): the flag builds a topology,
+    and every policy sets the reference's fields (its
+    ``make_topology``): ``seqp`` puts the experts and the sequence on the
+    model axis with FSDP over the data axes, ``serve_seqp`` the same with
+    weights resident, and under either a non-expert weight drops the model
+    axis from its spec while the experts keep it."""
+    t = Topology(mesh_shape=(1, 4), coords=(0, 2), seq_parallel_attn=True)
+    assert (t.seq_parallel_attn, t.dp_size, t.ep_size, t.model_index) == (True, 1, 4, 2)
+    want = {"tp": (("data",), "model", True, False),
+            "serve_tp": (("data",), "model", False, False),
+            "seqp": (("data",), "model", True, True),
+            "serve_seqp": (("data",), "model", False, True),
+            "dp": (("data", "model"), None, False, False),
+            "fsdp": (("data", "model"), None, True, False)}
+    assert set(want) == set(tmesh.POLICIES)
+    for policy, fields in want.items():
+        got = tmesh.policy_layout(policy)
+        assert (got["data_axes"], got["model_axis"], got["fsdp"],
+                got["seq_parallel_attn"]) == fields, policy
+    pod = tmesh.policy_layout("seqp", ("pod", "data", "model"))
+    assert pod["data_axes"] == ("pod", "data") and pod["seq_parallel_attn"]
+    with pytest.raises(ValueError, match="model"):
+        tmesh.policy_layout("serve_seqp", ("data",))
+    with pytest.raises(ValueError, match="unknown"):
+        tmesh.policy_layout("sp")
+    from repro_torch.distributed.sharding import param_partition_spec
+
     for policy in ("seqp", "serve_seqp"):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            tmesh.make_topology((1, 4), policy=policy)
-    cfg = smoke_config(get_config(ranks.NAME))
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        tmoe._moe_a2a_body(torch.zeros(4, cfg.d_model), {}, {}, None, cfg,
-                           Topology(mesh_shape=(1, 4), coords=(0, 0)), None, 1.0,
-                           pre_sharded=True)
+        topo = Topology(mesh_shape=(2, 4), coords=(0, 0), **tmesh.policy_layout(policy))
+        dp = "data" if policy == "seqp" else None
+        assert param_partition_spec("blocks/pos0/attn/wq", (2, 128, 8, 32), topo) == (
+            None, dp, None, None)
+        assert param_partition_spec("blocks/pos0/moe/wi", (2, 8, 128, 64), topo) == (
+            None, "model", dp, None)
 
 
 def test_backend_rule():
